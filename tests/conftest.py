@@ -26,3 +26,5 @@ def pytest_configure(config):
         "markers",
         "slow: long-running chaos sweeps excluded from the tier-1 run "
         "(-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
