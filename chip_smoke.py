@@ -7,7 +7,7 @@ Phases, each of which raises on failure (nothing is caught to keep the
 exit code at 0):
 
 1. ``env``      the card's name, the device count and power limit;
-2. ``build``    builds the four CUDA kernels from ``flink_tpu_torch/kernels/csrc``;
+2. ``build``    builds the six CUDA kernels from ``flink_tpu_torch/kernels/csrc``;
 3. ``kernels``  holds every kernel against its plain PyTorch version at
                 the shapes the main path gives it, and times kernel,
                 plain version and, where one exists, one PyTorch call
@@ -16,12 +16,23 @@ exit code at 0):
                 2^23 events in one 1 s window, HLL precision 12, 1.25M
                 slots (5.12 GB of registers on the card), checked
                 against an independent numpy HLL on 4,096 keys;
-5. ``job``      two jobs through ``StreamExecutionEnvironment``: HLL
-                unique visitors (2^21 events, 1M keys, tumbling 1 s) and
-                a word count (SumAggregate, 50k words, tumbling 5 s),
-                checked against numpy references;
-6. the launch counts of phases 4-5 (engine and jobs apart): every
-   kernel must have run there.
+5. ``job``      three jobs through ``StreamExecutionEnvironment``: HLL
+                unique visitors (2^21 events, 1M keys, tumbling 1 s), a
+                word count (SumAggregate, 50k words, tumbling 5 s), both
+                checked against numpy references, and HLL with allowed
+                lateness on ``set_state_backend("gpu")`` (WindowOperator
+                on the GPU keyed-state backend), checked against the
+                same job on the heap backend;
+6. ``keyed``    WindowOperator on the GPU keyed-state backend at config
+                #2 through the test harness: 1M keys, 2^22 events in one
+                1 s window, HLL p = 12 (2^20 slots, 4.29 GB of
+                registers), a snapshot and restore mid-stream, one
+                batched fire, checked against numpy HLL on 4,096 keys;
+7. ``sessions`` session windows with HLL and Sum on the GPU backend
+                capped below the live session count (spill to host RAM
+                and promotion), checked against the heap backend;
+8. the launch counts of phases 4-7, each path counted on its own: every
+   kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
 contract, then the card's name and power limit as nvidia-smi prints
@@ -32,6 +43,7 @@ script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -201,6 +213,12 @@ def kernel_phase(dev, hbm: float):
                                  bound_ms=b, bound_by=by, max_abs_err=update_err)
     detail.append({"kernel": "hll_update", "rows": N, "slots": C,
                    "distinct_words": int(words), "library": "scatter_reduce_ amax"})
+    # the keyed backend's flush: 16384 rows of raw hash lanes
+    nf = 16384
+    fwords = np.unique((slots_np[:nf].astype(np.int64) * m + reg_np[:nf]) // 4).size
+    detail.append({"kernel": "hll_update", "form": "raw", "rows": nf, "ms": cuda_ms(
+        lambda: K.hll_update(regs, slots[:nf], hi[:nf], lo[:nf], nf)),
+        "bound_ms": bound(12 * nf + 8 * fwords, 3 * nf, hbm)[0]})
 
     # hll_estimate: dense over 1.25M slots, gathered over 2^18 slots,
     # on the registers hll_update left (the main path's fire input)
@@ -277,8 +295,111 @@ def kernel_phase(dev, hbm: float):
                            "dtype": str(dt), **row})
             if op == "add" and dt == torch.float32:   # the word count's form
                 entries["scatter_combine"] = row
+    del cslots
+    # Sum / Avg result: a tensor gather (no kernel of the port), 2^18
+    # fired slots of a 1.25M-slot state, as the keyed backend's fire reads
+    from flink_tpu_torch.ops.device_agg import AvgAggregate, SumAggregate
+    fired = torch.from_numpy(rng.integers(0, C, 1 << 18).astype(np.int32)).to(dev)
+    for agg_ in (SumAggregate(np.float32), AvgAggregate()):
+        st = agg_.init_state(C, device=dev)
+        detail.append({"kernel": "result gather", "aggregate": type(agg_).__name__,
+                       "rows": 1 << 18, "ms": cuda_ms(lambda: agg_.result(st, fired)),
+                       "bound_ms": bound((1 << 18) * (4 + 4 * len(st) + 4), 0, hbm)[0]})
+    del st
+    merge_set_entries(dev, hbm, rng, entries, detail)
     emit({"kernel_variants": detail})
     return entries
+
+
+def merge_set_entries(dev, hbm, rng, entries, detail):
+    """merge_rows in both modes (u8 max, f32 add, i32 add; repeated dst
+    in the atomic mode) and set_rows, each against its plain version."""
+    import torch
+    from flink_tpu_torch import kernels as K
+
+    def pairs(c, k, repeat):
+        perm = rng.permutation(c).astype(np.int32)
+        if repeat:                  # k sources folded into k // 4 targets
+            dst = np.repeat(perm[: max(1, k // 4)], 4)[:k]
+            src = perm[k // 4 + 1: k // 4 + 1 + k]
+        else:
+            dst, src = perm[:k], perm[k: 2 * k]
+        return (torch.from_numpy(dst).to(dev), torch.from_numpy(src).to(dev))
+
+    def library_merge(comp, dst, src, op):
+        d = dst.to(torch.int64)
+        rows = comp[src.to(torch.int64)]
+        if op == "add":
+            comp.index_add_(0, d, rows)
+        else:
+            comp.index_reduce_(0, d, rows, "amax")
+
+    # shapes: the session phase's register file and sum column, and the
+    # batched merge's shape (2^14 pairs over a 2^20-row file)
+    cases = [("u8 max", (1 << 20, 4096), torch.uint8, "max", 1 << 14),
+             ("u8 max session", (4096, 4096), torch.uint8, "max", 2),
+             ("f32 add", (1 << 20,), torch.float32, "add", 1 << 16),
+             ("i32 add", (1 << 20,), torch.int32, "add", 1 << 16)]
+    for label, shape, dt, op, k in cases:
+        hi = 30 if dt == torch.uint8 else 1000
+        base = torch.randint(0, hi, shape, dtype=dt, device=dev)
+        row_bytes = base[0].numel() * base.element_size()
+        for unique in (False, True):
+            dst, src = pairs(shape[0], k, repeat=not unique)
+            got, want = base.clone(), base.clone()
+            K.merge_rows(got, dst, src, op, unique_dst=unique)
+            K.merge_rows_plain(want, dst, src, op, unique_dst=unique)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"merge_rows {label} unique={unique} bit-equal")
+            err = max_abs_err(got, want)
+            ms = cuda_ms(lambda: K.merge_rows(got, dst, src, op, unique_dst=unique))
+            plain = cuda_ms(lambda: K.merge_rows_plain(want, dst, src, op,
+                                                       unique_dst=unique), 3)
+            lib = cuda_ms(lambda: library_merge(want, dst, src, op))
+            # each src row read, each distinct dst row read and written
+            targets = int(torch.unique(dst).numel())
+            b, by = bound(k * (row_bytes + 8) + 2 * targets * row_bytes, 0, hbm)
+            row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                       bound_by=by, max_abs_err=err)
+            detail.append({"kernel": "merge_rows", "case": label, "rows": k,
+                           "unique_dst": unique, "library": "gather + "
+                           + ("index_add_" if op == "add" else "index_reduce_ amax"),
+                           **row})
+            if label == "u8 max session" and not unique:  # the main path's form
+                entries["merge_rows"] = row
+        del base, got, want
+    torch.cuda.empty_cache()
+
+    # set_rows: a restore's key-group block (8192 rows of 4096 B) into a
+    # 2^20-row file, and the promotion's single row, from the host
+    c, n, m = 1 << 20, 8192, 4096
+    regs = torch.zeros((c, m), dtype=torch.uint8, device=dev)
+    slots = torch.from_numpy(rng.choice(c, n, replace=False).astype(np.int32)).to(dev)
+    rows_host = torch.from_numpy(rng.integers(0, 40, (n, m)).astype(np.uint8))
+    rows = rows_host.to(dev)
+    want = regs.clone()
+    K.set_rows(regs, slots, rows_host)          # through pinned staging
+    K.set_rows_plain(want, slots, rows)
+    torch.cuda.synchronize()
+    check(torch.equal(regs, want), "set_rows bit-equal (rows from the host)")
+    err = max_abs_err(regs, want)
+    ms = cuda_ms(lambda: K.set_rows(regs, slots, rows))
+    plain = cuda_ms(lambda: K.set_rows_plain(want, slots, rows))
+    s64 = slots.to(torch.int64)
+    lib = cuda_ms(lambda: want.index_copy_(0, s64, rows))
+    b, by = bound(n * (2 * m + 4), 0, hbm)
+    entries["set_rows"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b, bound_by=by, max_abs_err=err)
+    host_ms = cuda_ms(lambda: K.set_rows(regs, slots, rows_host), 5)
+    one = slots[:1]
+    one_ms = cuda_ms(lambda: K.set_rows(regs, one, rows_host[:1]), 5)
+    detail.append({"kernel": "set_rows", "rows": n, "row_bytes": m,
+                   "from_host_ms": host_ms, "one_row_from_host_ms": one_ms,
+                   "library": "index_copy_"})
+    del regs, want, rows, rows_host
+    torch.cuda.empty_cache()
+
 
 
 # ---------------------------------------------------------------------
@@ -405,9 +526,253 @@ def job_phase(dev):
     check(len(got) == len(pairs) and all(got[int(q)] == c for q, c in
                                         zip(pairs, counts)),
           "word count job exact")
-    emit({"job": {"hll": hll, "wordcount": {
-        "events": n, "pairs": int(len(pairs)), "seconds": secs,
-        "events_per_s": n / secs}}})
+    wordcount = {"events": n, "pairs": int(len(pairs)), "seconds": secs,
+                 "events_per_s": n / secs}
+    emit({"job": {"hll": hll, "wordcount": wordcount,
+                  "keyed_backend": keyed_job(dev, rng)}})
+
+
+def _run_keyed_job(agg, events, dev, backend):
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.sources import (
+        BoundedOutOfOrdernessTimestampExtractor, CollectSink)
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    agg.extract_value = lambda e: e[1]
+    out = []
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_state_backend(backend)
+    (env.from_collection(events)
+        .assign_timestamps_and_watermarks(
+            BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+        .key_by(lambda e: e[0])
+        .window(TumblingEventTimeWindows.of(1000))
+        .allowed_lateness(500)
+        .aggregate(agg, window_function=lambda k, w, vals: [(k, w.start, vals[0])])
+        .add_sink(CollectSink(out)))
+    t0 = time.perf_counter()
+    env.execute("chip-smoke-keyed")
+    return out, time.perf_counter() - t0
+
+
+def keyed_job(dev, rng):
+    """HLL p = 12 with allowed lateness through set_state_backend("gpu")
+    (WindowOperator on the GPU backend; late records within the
+    lateness refire their window), against the same job on the heap
+    backend."""
+    import torch
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    n, n_keys = 1 << 13, 500
+    ts = np.sort(rng.integers(0, 8000, n))
+    late = rng.choice(n, 100, replace=False)
+    ts[late] = np.maximum(ts[late] - rng.integers(0, 1500, 100), 0)
+    events = list(zip(rng.integers(0, n_keys, n).tolist(),
+                      rng.integers(0, 1 << 40, n).tolist(), ts.tolist()))
+    got, secs = _run_keyed_job(HyperLogLogAggregate(12), events, dev, "gpu")
+    torch.cuda.synchronize()
+    want, heap_secs = _run_keyed_job(HyperLogLogAggregate(12), events, "cpu", "heap")
+    check([r[:2] for r in got] == [r[:2] for r in want]
+          and len(got) > len({r[:2] for r in got}),
+          "keyed-backend job: the heap backend's windows, late refires included")
+    np.testing.assert_allclose([r[2] for r in got], [r[2] for r in want],
+                               rtol=1e-5, atol=hll_atol(4096))
+    check(True, "keyed-backend job: estimates within rtol 1e-5 (+ log slack) of heap")
+    return {"events": n, "results": len(got), "seconds": secs,
+            "events_per_s": n / secs, "heap_seconds": heap_secs}
+
+
+# ---------------------------------------------------------------------
+# phase 6: the keyed-state backend at config #2
+# ---------------------------------------------------------------------
+
+def _uv_operator(p):
+    """WindowOperator(tumbling 1 s, HLL p) over (user_id, visitor)
+    rows: the value column is the batch's second column."""
+    from flink_tpu_torch.core.state import AggregatingStateDescriptor
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.window_operator import WindowOperator
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+
+    class VisitorHll(HyperLogLogAggregate):
+        def extract_value(self, value):
+            return value[1]
+
+        def extract_column(self, values):
+            return values[1]
+
+    return WindowOperator(TumblingEventTimeWindows.of(1000),
+                          AggregatingStateDescriptor("uv", VisitorHll(p)),
+                          window_function=lambda k, w, vals: [(k, vals[0])])
+
+
+def _time_calls(obj, name, into) -> None:
+    """Wrap obj.name so that its wall time adds up in into[name]."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+    setattr(obj, name, timed)
+
+
+def keyed_phase(dev, n_events=1 << 22, n_keys=1_000_000, chunk=1 << 20):
+    """OneInputStreamOperatorTestHarness(WindowOperator(tumbling 1 s,
+    HLL p = 12), state_backend="gpu") fed RecordBatches of (key,
+    visitor) rows: 1M keys, 2^22 events in one window, a snapshot and a
+    restore into a fresh harness after half the events, one watermark
+    firing the window through on_watermark_batch."""
+    import torch
+    from flink_tpu_torch.core.keygroups import stable_hash64
+    from flink_tpu_torch.streaming.elements import RecordBatch
+    from flink_tpu_torch.streaming.harness import OneInputStreamOperatorTestHarness
+
+    p = 12
+    rng = np.random.default_rng(17)
+    keys = rng.integers(0, n_keys, n_events)
+    visitors = rng.integers(0, 2**62, n_events)
+    ts = np.sort(rng.integers(0, 1000, n_events))
+
+    split = {}       # host seconds by call, across both harnesses
+
+    def harness():
+        h = OneInputStreamOperatorTestHarness(
+            _uv_operator(p), key_selector=0, state_backend="gpu", device=dev)
+        h.open()
+        for obj, names in ((h.keyed_backend, ("add_batch", "get_batch", "clear_batch")),
+                           (h.operator.timer_service, ("register_event_time_timers_bulk",
+                                                       "pop_due_event_time_timers")),
+                           (h.operator.window_state, ("_flush",))):
+            for fn_name in names:
+                _time_calls(obj, fn_name, split)
+        return h
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    h = harness()
+    times = {"ingest_s": 0.0}
+    for i in range(0, n_events, chunk):
+        if i == n_events // 2:          # the round trip, mid-stream
+            t0 = time.perf_counter()
+            snap = h.snapshot()
+            t1 = time.perf_counter()
+            snap_bytes = snap["keyed"].total_bytes
+            del h
+            gc.collect()        # the operator and its timer service form a cycle
+            torch.cuda.empty_cache()
+            h = harness()
+            h.initialize_state(snap)
+            torch.cuda.synchronize()
+            times["snapshot_s"], times["restore_s"] = t1 - t0, time.perf_counter() - t1
+            del snap
+        sl = slice(i, i + chunk)
+        t0 = time.perf_counter()
+        h.process_batch(RecordBatch({"f0": keys[sl], "f1": visitors[sl]}, ts=ts[sl]))
+        torch.cuda.synchronize()
+        times["ingest_s"] += time.perf_counter() - t0
+    state = h.operator.window_state
+    capacity = state.capacity
+    t0 = time.perf_counter()
+    h.process_watermark(999)
+    torch.cuda.synchronize()
+    times["fire_s"] = time.perf_counter() - t0
+    out = h.extract_output_values()
+    distinct = np.unique(keys)
+    check(len(out) == len(distinct), "keyed phase fired every live key once")
+    check(capacity * (1 << p) >= 4e9, "keyed phase holds >= 4 GB of registers")
+    res = dict(out)
+    sample = np.sort(rng.choice(distinct, 4096, replace=False))
+    sel = np.isin(keys, sample)
+    vh = np.fromiter((stable_hash64(int(v)) for v in visitors[sel]), np.uint64,
+                     int(sel.sum()))
+    want = hll_reference(np.searchsorted(sample, keys[sel]), vh, len(sample), p)
+    got = np.array([res[int(k)] for k in sample])
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    check(True, "keyed phase sample of 4096 keys within rtol 1e-5 of numpy HLL")
+    check(len(state.slot_index) == 0, "keyed phase freed every slot after the fire")
+    out = {"keyed": {
+        "events": n_events, "keys": n_keys, "live_keys": int(len(distinct)),
+        "precision": p, "capacity": capacity,
+        "register_bytes": capacity * (1 << p),
+        "events_per_s": n_events / times["ingest_s"], **times,
+        "snapshot_bytes": snap_bytes, "host_split_s": split,
+        "memory_allocated_at_start": at_start,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "max_rel_err_vs_numpy": float(np.max(np.abs(got - want) / want))}}
+    del h, state
+    torch.cuda.empty_cache()
+    emit(out)
+
+
+# ---------------------------------------------------------------------
+# phase 7: session merges and the host-RAM spill tier
+# ---------------------------------------------------------------------
+
+def hll_atol(m: int) -> float:
+    """One float32 ulp of log(m) for each of the linear-counting logs."""
+    return float(2 * m * np.spacing(np.float32(np.log(m))))
+
+
+def _session_run(agg, events, backend, dev, **kw):
+    from flink_tpu_torch.core.state import AggregatingStateDescriptor
+    from flink_tpu_torch.streaming.harness import OneInputStreamOperatorTestHarness
+    from flink_tpu_torch.streaming.window_operator import WindowOperator
+    from flink_tpu_torch.streaming.windowing import EventTimeSessionWindows
+    agg.extract_value = lambda e: e[1]
+    op = WindowOperator(EventTimeSessionWindows.with_gap(300),
+                        AggregatingStateDescriptor("session", agg),
+                        window_function=lambda k, w, vals: [(k, w.start, w.end, vals[0])])
+    h = OneInputStreamOperatorTestHarness(op, key_selector=lambda e: e[0],
+                                          state_backend=backend, device=dev, **kw)
+    h.open()
+    t0 = time.perf_counter()
+    for i, e in enumerate(events):
+        h.process_element(e, e[2])
+        if i % 2000 == 1999:
+            h.process_watermark(e[2] - 1500)
+    h.process_watermark(2**62)
+    return h.extract_output_values(), op.window_state, time.perf_counter() - t0
+
+
+def session_phase(dev, n=20_000, n_keys=2_000):
+    """EventTimeSessionWindows (gap 300 ms) with HLL p = 12 and with
+    Sum, on the gpu backend capped at 1024 device slots (below the live
+    session count, so cold sessions spill to host RAM and come back),
+    against the same job on the heap backend."""
+    import torch
+    from flink_tpu_torch.ops.device_agg import SumAggregate
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+
+    rng = np.random.default_rng(23)
+    span = 10 * n_keys
+    ts = np.sort(rng.integers(0, span, n))
+    ts[1::9] -= rng.integers(0, 1200, len(ts[1::9]))    # out of order
+    events = list(zip(rng.integers(0, n_keys, n).tolist(),
+                      rng.integers(0, 1000, n).tolist(), np.maximum(ts, 0).tolist()))
+    cap = dict(max_device_slots=1024, initial_capacity=256, microbatch=256)
+    out = {}
+    for name, make in (("hll", lambda: HyperLogLogAggregate(12)),
+                       ("sum", lambda: SumAggregate(np.float64))):
+        got, st, secs = _session_run(make(), events, "gpu", dev, **cap)
+        torch.cuda.synchronize()
+        want, _, heap_secs = _session_run(make(), events, "heap", "cpu")
+        check(st.evictions > 0 and st.promotions > 0,
+              f"session {name}: sessions spilled to host RAM and came back")
+        check([r[:3] for r in got] == [r[:3] for r in want] and len(got) > n_keys,
+              f"session {name}: the same sessions as the heap backend")
+        vals = np.array([r[3] for r in got]), np.array([r[3] for r in want])
+        if name == "sum":
+            check(np.array_equal(*vals), "session sum: exact against heap")
+        else:
+            np.testing.assert_allclose(*vals, rtol=1e-5, atol=hll_atol(4096))
+            check(True, "session hll: within rtol 1e-5 (+ log slack) of heap")
+        out[name] = {"sessions": len(got), "seconds": secs, "heap_seconds": heap_secs,
+                     "evictions": st.evictions, "promotions": st.promotions,
+                     "capacity": st.capacity}
+    emit({"sessions": {"events": n, "keys": n_keys, **out}})
 
 
 # ---------------------------------------------------------------------
@@ -421,7 +786,21 @@ SOURCES = {
                         "flink_tpu/ops/device_agg.py:271"),
     "clear_rows": ("flink_tpu_torch/kernels/csrc/clear_rows.cu",
                    "flink_tpu/streaming/vectorized.py:413"),
+    "merge_rows": ("flink_tpu_torch/kernels/csrc/merge_rows.cu",
+                   "flink_tpu/state/tpu_backend.py:137"),
+    "set_rows": ("flink_tpu_torch/kernels/csrc/set_rows.cu",
+                 "flink_tpu/state/tpu_backend.py:133"),
 }
+
+#: main-path runs, each with the kernels it must launch
+PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")),
+         ("jobs", "job_phase", ("hll_update", "hll_estimate", "scatter_combine",
+                                "clear_rows")),
+         ("keyed", "keyed_phase", ("hll_update", "hll_estimate", "clear_rows",
+                                   "set_rows")),
+         ("sessions", "session_phase", ("hll_update", "hll_estimate",
+                                        "scatter_combine", "clear_rows",
+                                        "merge_rows", "set_rows")))
 
 
 def main() -> int:
@@ -446,14 +825,15 @@ def main() -> int:
     emit({"build": {"seconds": K.build_all()}})
 
     entries = kernel_phase(dev, hbm)
-    K.reset_launch_counts()                 # the main path starts here
-    engine_phase(dev)
-    engine_launches = dict(K.LAUNCHES)      # one window at config #2
-    job_phase(dev)
-    launches = dict(K.LAUNCHES)
-    emit({"launches": {"engine_one_window": engine_launches,
-                       "jobs_six_windows": {k: launches[k] - engine_launches[k]
-                                            for k in launches}}})
+    per_path = {}
+    for path, phase, needs in PATHS:
+        K.reset_launch_counts()             # each main-path run starts here
+        globals()[phase](dev)
+        per_path[path] = dict(K.LAUNCHES)
+        for kname in needs:
+            check(per_path[path][kname] > 0, f"{kname} launched on the {path} path")
+    emit({"launches": per_path})
+    launches = {k: sum(p[k] for p in per_path.values()) for k in K.KERNELS}
     for kname in K.KERNELS:
         check(launches[kname] > 0, f"{kname} launched on the main path")
     rows = [{"name": kname, "route": "cuda", "source": SOURCES[kname][0],

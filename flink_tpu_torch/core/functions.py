@@ -55,6 +55,18 @@ class RichFunction(Function):
         return self._runtime_context
 
 
+class ReduceFunction(Function, Generic[IN], abc.ABC):
+    @abc.abstractmethod
+    def reduce(self, value1: IN, value2: IN) -> IN:
+        ...
+
+
+class FoldFunction(Function, Generic[IN, OUT], abc.ABC):
+    @abc.abstractmethod
+    def fold(self, accumulator: OUT, value: IN) -> OUT:
+        ...
+
+
 class AggregateFunction(Function, Generic[IN, ACC, OUT], abc.ABC):
     """Incremental aggregation contract: create_accumulator / add /
     get_result / merge.  Implementations whose accumulator is a
@@ -83,6 +95,22 @@ class KeySelector(Function, Generic[IN, KEY], abc.ABC):
     @abc.abstractmethod
     def get_key(self, value: IN) -> KEY:
         ...
+
+
+class _LambdaReduce(ReduceFunction):
+    def __init__(self, fn):
+        self._fn = fn
+
+    def reduce(self, value1, value2):
+        return self._fn(value1, value2)
+
+
+def as_reduce_function(fn) -> ReduceFunction:
+    if isinstance(fn, ReduceFunction):
+        return fn
+    if callable(fn):
+        return _LambdaReduce(fn)
+    raise TypeError(f"not a reduce function: {fn!r}")
 
 
 def as_key_selector(fn) -> KeySelector:

@@ -1,11 +1,13 @@
-"""Stable key hashing (port of ``flink_tpu/core/keygroups.py:24-112``).
+"""Stable key hashing and key groups (port of
+``flink_tpu/core/keygroups.py:24-240``).
 
 The port keeps its own bit-identical copy of the hashes the reference
 uses for keys and values: a key's 64-bit hash decides its slot in the
-window engine and an HLL value's hash decides its register and rank,
-so both packages must agree bit for bit (held by
-``tests/test_torch_hashing.py``).  Key-group assignment and rescaling
-come with the keyed-state slice.
+window engine and its key group, and an HLL value's hash decides its
+register and rank, so both packages must agree bit for bit (held by
+``tests/test_torch_hashing.py`` and ``tests/test_torch_state_backend.py``).
+A key group is ``murmur_hash(low 32 bits of stable_hash64(key)) %
+max_parallelism``; a subtask owns a contiguous ``KeyGroupRange``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ import math
 from typing import Any
 
 import numpy as np
+
+DEFAULT_LOWER_BOUND_MAX_PARALLELISM = 128
+UPPER_BOUND_MAX_PARALLELISM = 1 << 15
 
 
 def murmur_hash(code: int) -> int:
@@ -90,3 +95,74 @@ def stable_hashes_np(keys) -> np.ndarray:
     except OverflowError:
         return np.fromiter((stable_hash64(k) for k in keys), np.uint64, n)
     return splitmix64_np(arr)
+
+
+def assign_to_key_group(key: Any, max_parallelism: int) -> int:
+    """key → key group: ``murmurHash(hash) % maxParallelism``."""
+    return murmur_hash(stable_hash64(key) & 0xFFFFFFFF) % max_parallelism
+
+
+def assign_key_groups_np(hashes64: np.ndarray, max_parallelism: int) -> np.ndarray:
+    """Vectorized key-group assignment from precomputed 64-bit hashes."""
+    h = (hashes64 & np.uint64(0xFFFFFFFF)).astype(np.uint64)
+    h ^= h >> np.uint64(16)
+    with np.errstate(over="ignore"):
+        h = (h * np.uint64(0x85EBCA6B)) & np.uint64(0xFFFFFFFF)
+        h ^= h >> np.uint64(13)
+        h = (h * np.uint64(0xC2B2AE35)) & np.uint64(0xFFFFFFFF)
+    h ^= h >> np.uint64(16)
+    return (h % np.uint64(max_parallelism)).astype(np.int32)
+
+
+def compute_key_group_range_for_operator_index(
+        max_parallelism: int, parallelism: int,
+        operator_index: int) -> "KeyGroupRange":
+    """operator subtask → its contiguous range of key groups."""
+    start = (operator_index * max_parallelism + parallelism - 1) // parallelism
+    end = ((operator_index + 1) * max_parallelism - 1) // parallelism
+    return KeyGroupRange(start, end)
+
+
+def compute_default_max_parallelism(parallelism: int) -> int:
+    """1.5 x parallelism rounded up to a power of two, clamped to
+    [128, 32768]."""
+    return min(max(round_up_to_power_of_two(parallelism + parallelism // 2),
+                   DEFAULT_LOWER_BOUND_MAX_PARALLELISM),
+               UPPER_BOUND_MAX_PARALLELISM)
+
+
+def round_up_to_power_of_two(x: int) -> int:
+    if x <= 1:
+        return 1
+    return 1 << (x - 1).bit_length()
+
+
+class KeyGroupRange:
+    """Inclusive range [start, end] of key groups (empty when start >
+    end)."""
+
+    __slots__ = ("start_key_group", "end_key_group")
+
+    def __init__(self, start: int, end: int):
+        if start > end:
+            start, end = 0, -1
+        self.start_key_group = start
+        self.end_key_group = end
+
+    @property
+    def number_of_key_groups(self) -> int:
+        return max(0, self.end_key_group - self.start_key_group + 1)
+
+    def contains(self, key_group: int) -> bool:
+        return self.start_key_group <= key_group <= self.end_key_group
+
+    def __eq__(self, other):
+        return (isinstance(other, KeyGroupRange)
+                and self.start_key_group == other.start_key_group
+                and self.end_key_group == other.end_key_group)
+
+    def __hash__(self):
+        return hash((self.start_key_group, self.end_key_group))
+
+    def __repr__(self):
+        return f"KeyGroupRange[{self.start_key_group}, {self.end_key_group}]"

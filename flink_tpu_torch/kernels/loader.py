@@ -31,7 +31,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows")
+KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
+           "merge_rows", "set_rows")
 
 #: kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -66,6 +67,12 @@ _SIGNATURES = {
     "clear_rows": {
         "ft_clear_rows": (_P, _P, _LL, _LL, _LL, _LL, _LL, _I, _ULL, _ULL,
                           _P),
+    },
+    "merge_rows": {
+        "ft_merge_rows": (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P),
+    },
+    "set_rows": {
+        "ft_set_rows": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
     },
 }
 

@@ -6,9 +6,11 @@ in device memory, ``state[name][slot, ...]``, one ``torch.Tensor`` per
 component.  ``update`` scatters a whole micro-batch in place (the JAX
 package donates its buffers, ``donate_argnums=0``; here the kernels
 write into the tensors); ``result`` / ``result_dense`` finalize slots;
-``clear_slots`` / ``clear_range`` refill them.  Every device program is
-a kernel of ``flink_tpu_torch.kernels``, whose wrappers run the plain
-PyTorch version for CPU tensors.
+``clear_slots`` / ``clear_range`` refill them; ``merge_slots`` (a dst
+may repeat) and ``merge_rows`` (unique dst) fold rows into rows for
+session-window merges, each component by its ``combiners`` entry.
+Every device program is a kernel of ``flink_tpu_torch.kernels``, whose
+wrappers run the plain PyTorch version for CPU tensors.
 
 dtype canonicalisation: the JAX package runs with x64 off, so a
 ``StateSpec`` of ``float64`` / ``int64`` (e.g. ``SumAggregate(np.float64)``)
@@ -33,7 +35,7 @@ import torch
 from flink_tpu_torch.core.functions import AggregateFunction
 from flink_tpu_torch.core.keygroups import stable_hash64
 from flink_tpu_torch.device import DeviceLike, resolve_device
-from flink_tpu_torch.kernels import clear_rows, scatter_combine
+from flink_tpu_torch.kernels import clear_rows, merge_rows, scatter_combine
 
 State = Dict[str, torch.Tensor]
 
@@ -171,6 +173,30 @@ class DeviceAggregateFunction(AggregateFunction):
     def clear_slots(self, state: State, slots: torch.Tensor) -> State:
         for name, spec in self.state_specs().items():
             clear_rows(state[name], _fill_value(spec), slots=slots)
+        return state
+
+    def merge_slots(self, state: State, dst: torch.Tensor,
+                    src: torch.Tensor) -> State:
+        """In place: ``state[dst] ⊕= state[src]`` per component (its
+        ``combiners`` op), a dst may repeat — the session-window
+        namespace merge.  No src may also be a dst (see
+        ``kernels.merge_rows``)."""
+        return self._merge(state, dst, src, unique_dst=False)
+
+    def merge_rows(self, state: State, dst: torch.Tensor,
+                   src: torch.Tensor) -> State:
+        """``merge_slots`` for pairs whose dst are unique: plain loads
+        and stores instead of atomics (the reference's vmapped pair
+        merge, ``device_agg.py:139-165``)."""
+        return self._merge(state, dst, src, unique_dst=True)
+
+    def _merge(self, state: State, dst, src, unique_dst: bool) -> State:
+        for name in self.state_specs():
+            op = self.combiners.get(name)
+            if op is None:
+                raise NotImplementedError(
+                    f"{type(self).__name__} does not support merging")
+            merge_rows(state[name], dst, src, op, unique_dst=unique_dst)
         return state
 
     def clear_range(self, state: State, start: int, count: int) -> State:

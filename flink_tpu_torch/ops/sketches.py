@@ -1,9 +1,11 @@
 """Mergeable sketch aggregates (port of ``flink_tpu/ops/sketches.py:36-116``).
 
-Slice 1 carries ``HyperLogLogAggregate``; Count-Min and quantile
+The port carries ``HyperLogLogAggregate``; Count-Min and quantile
 sketches are later slices.  HLL registers are ``uint8 [slots, m]`` in
-device memory; a batch update is one ``hll_update`` kernel launch and a
-fire one ``hll_estimate`` launch.  Rank and register come from exact
+device memory; a batch update is one ``hll_update`` kernel launch, a
+fire one ``hll_estimate`` launch, and a merge (``merge_slots`` /
+``merge_rows``, the register-wise max of ``combiners``) one
+``merge_rows`` launch.  Rank and register come from exact
 integer bit operations, so registers are bit-equal to the reference.
 """
 

@@ -6,14 +6,20 @@ on one loop, records and watermarks flow by direct calls through each
 chain and across vertex edges, every input keeps the per-channel
 watermark valve (an operator sees a watermark only when the minimum
 over its input channels advances), and end of input sends a final
-``MAX_TIMESTAMP`` watermark so every window fires.  Checkpoints,
-failover, metrics and the cluster executors are later slices.
+``MAX_TIMESTAMP`` watermark so every window fires.  Every keyed
+operator gets its own keyed-state backend from ``load_state_backend``
+on the environment's ``state.backend`` and device; side outputs travel
+on their own edges.  Checkpoints, failover, metrics, processing time
+and the cluster executors are later slices.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
+from flink_tpu_torch.core.keygroups import compute_key_group_range_for_operator_index
+from flink_tpu_torch.device import DeviceLike
+from flink_tpu_torch.state.loader import load_state_backend
 from flink_tpu_torch.streaming.elements import (MAX_WATERMARK, MIN_TIMESTAMP,
                                                 Watermark)
 from flink_tpu_torch.streaming.graph import JobGraph, JobVertex
@@ -28,12 +34,14 @@ class JobExecutionResult:
 
 
 class _ChainedOutput(Output):
-    """Direct call into the next operator of the chain."""
+    """Direct call into the next operator of the chain; side outputs
+    leave through the chain's router."""
 
-    __slots__ = ("op",)
+    __slots__ = ("op", "router")
 
-    def __init__(self, op: StreamOperator):
+    def __init__(self, op: StreamOperator, router: "_RouterOutput"):
         self.op = op
+        self.router = router
 
     def collect(self, record):
         self.op.set_key_context(record)
@@ -42,6 +50,9 @@ class _ChainedOutput(Output):
     def emit_watermark(self, watermark):
         self.op.process_watermark(watermark)
 
+    def collect_side(self, tag, record):
+        self.router.collect_side(tag, record)
+
 
 class _RouterOutput(Output):
     """Chain-tail output: each out-edge's partitioner picks the
@@ -49,24 +60,32 @@ class _RouterOutput(Output):
     go to every channel."""
 
     def __init__(self):
-        #: (partitioner, [(subtask, input_index, channel_id)])
-        self.routes: List[Tuple[Any, List[Tuple["SubtaskInstance", int, int]]]] = []
+        #: (partitioner, [(subtask, input_index, channel_id)], side tag)
+        self.routes: List[Tuple[Any, List[Tuple["SubtaskInstance", int, int]],
+                                Any]] = []
 
-    def add_route(self, partitioner, targets) -> None:
-        self.routes.append((partitioner, targets))
+    def add_route(self, partitioner, targets, side_tag=None) -> None:
+        self.routes.append((partitioner, targets, side_tag))
+
+    def _send(self, record, tag) -> None:
+        for partitioner, targets, side_tag in self.routes:
+            if side_tag == tag:
+                sub, inp, _ = targets[partitioner.select_channel(record, len(targets))]
+                sub.process_record(inp, record)
 
     def collect(self, record):
-        for partitioner, targets in self.routes:
-            sub, inp, _ = targets[partitioner.select_channel(record, len(targets))]
-            sub.process_record(inp, record)
+        self._send(record, None)
+
+    def collect_side(self, tag, record):
+        self._send(record, tag)
 
     def emit_watermark(self, watermark):
-        for _, targets in self.routes:
+        for _, targets, _ in self.routes:
             for sub, inp, ch in targets:
                 sub.process_channel_watermark(inp, ch, watermark)
 
     def broadcast_end_of_stream(self):
-        for _, targets in self.routes:
+        for _, targets, _ in self.routes:
             for sub, _, _ in targets:
                 sub.on_end_of_stream()
 
@@ -75,16 +94,23 @@ class SubtaskInstance:
     """One parallel instance of a JobVertex: the chain's operators,
     wired head to tail, with the router behind the tail."""
 
-    def __init__(self, vertex: JobVertex, subtask_index: int = 0,
+    def __init__(self, vertex: JobVertex, state_backend=None,
+                 device: DeviceLike = None, subtask_index: int = 0,
                  num_subtasks: int = 1):
         self.vertex = vertex
         self.operators: List[StreamOperator] = [
             node.operator_factory() for node in vertex.chain]
         self.router = _RouterOutput()
         for i, (node, op) in enumerate(zip(vertex.chain, self.operators)):
-            out = (_ChainedOutput(self.operators[i + 1])
+            out = (_ChainedOutput(self.operators[i + 1], self.router)
                    if i + 1 < len(self.operators) else self.router)
-            op.setup(out, key_selector=node.key_selector,
+            keyed = None
+            if node.key_selector is not None:
+                keyed = load_state_backend(
+                    state_backend, compute_key_group_range_for_operator_index(
+                        node.max_parallelism, num_subtasks, subtask_index),
+                    node.max_parallelism, device=device)
+            op.setup(out, keyed_backend=keyed, key_selector=node.key_selector,
                      operator_id=node.uid, subtask_index=subtask_index,
                      num_subtasks=num_subtasks,
                      max_parallelism=node.max_parallelism)
@@ -192,10 +218,16 @@ def gather_accumulators(all_tasks, into: Dict[str, Any]) -> None:
 
 
 class LocalExecutor:
-    """Runs a JobGraph in this process, every vertex at parallelism 1."""
+    """Runs a JobGraph in this process, every vertex at parallelism 1.
+    ``state_backend`` (a name or a Configuration) and ``device`` build
+    the keyed operators' backends."""
 
     #: records a source emits per loop step before the next source runs
     SOURCE_BUDGET = 1024
+
+    def __init__(self, state_backend=None, device: DeviceLike = None):
+        self.state_backend = state_backend
+        self.device = device
 
     def build_subtasks(self, job_graph: JobGraph) -> Dict[int, SubtaskInstance]:
         subtasks = {}
@@ -204,13 +236,14 @@ class LocalExecutor:
                 raise NotImplementedError(
                     f"vertex {v.name!r} runs at parallelism {v.parallelism}; "
                     "the port's executor runs parallelism 1 (parallel "
-                    "subtasks arrive with the keyed-state slice)")
-            subtasks[v.id] = SubtaskInstance(v)
+                    "subtasks arrive with the mesh slice)")
+            subtasks[v.id] = SubtaskInstance(v, self.state_backend,
+                                             self.device)
         for e in job_graph.edges:
             dst = subtasks[e.target_vertex_id]
             ch = dst.new_channel(e.type_number)
             subtasks[e.source_vertex_id].router.add_route(
-                e.partitioner, [(dst, e.type_number, ch)])
+                e.partitioner, [(dst, e.type_number, ch)], e.side_output_tag)
         return subtasks
 
     def execute(self, job_graph: JobGraph) -> JobExecutionResult:

@@ -25,7 +25,10 @@ from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
 from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord, Watermark
 from flink_tpu_torch.streaming.operators import StreamOperator, TimestampedCollector
 from flink_tpu_torch.streaming.vectorized import VectorizedTumblingWindows
-from flink_tpu_torch.streaming.windowing import TimeWindow, TumblingEventTimeWindows
+from flink_tpu_torch.streaming.windowing import (EventTimeSessionWindows,
+                                                 SlidingEventTimeWindows,
+                                                 TimeWindow,
+                                                 TumblingEventTimeWindows)
 
 
 def assigner_supported(assigner) -> bool:
@@ -33,18 +36,23 @@ def assigner_supported(assigner) -> bool:
     return isinstance(assigner, TumblingEventTimeWindows) and assigner.offset == 0
 
 
-def is_device_eligible(assigner, aggregate_function, trigger, evictor,
-                       allowed_lateness, late_tag, window_function) -> bool:
-    """The graph-builder gate for the device path."""
-    if not isinstance(aggregate_function, DeviceAggregateFunction):
-        return False
-    if trigger is not None or evictor is not None:
-        return False
+def batch_window_eligible(assigner, allowed_lateness, late_tag,
+                          window_function) -> bool:
+    """The reference's gate, at graph construction, for its vectorized
+    window tiers: the device engines for a DeviceAggregateFunction, the
+    generic tier for any other aggregate (tumbling, sliding with size %
+    slide == 0, session; default trigger, lateness 0, no late-data
+    tag).  The port's device engine covers what ``assigner_supported``
+    accepts."""
     if allowed_lateness != 0 or late_tag is not None:
         return False
     if window_function is not None and not callable(window_function):
         return False
-    return assigner_supported(assigner)
+    if isinstance(assigner, SlidingEventTimeWindows):
+        return assigner.size % assigner.slide == 0 and assigner.offset == 0
+    if isinstance(assigner, TumblingEventTimeWindows):
+        return assigner.offset == 0
+    return isinstance(assigner, EventTimeSessionWindows)
 
 
 class DeviceWindowOperator(StreamOperator):

@@ -2,8 +2,11 @@
 
 Records and watermarks flow through operator pipelines.  Timestamps are
 int milliseconds (event time); ``MAX_WATERMARK`` flushes all event-time
-state at end of input.  Columnar batches, stream status, latency
-markers and checkpoint barriers arrive with later slices.
+state at end of input.  ``RecordBatch`` carries the subset of the
+reference's columnar batch that ``WindowOperator.process_batch`` and
+the test harness use; routing batches through the job graph, stream
+status, latency markers and checkpoint barriers arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -42,6 +45,61 @@ class StreamRecord(StreamElement):
     def __hash__(self):
         return hash((self.value if not isinstance(self.value, (list, dict)) else id(self.value),
                      self.timestamp))
+
+
+class RecordBatch(StreamElement):
+    """A batch of rows as named numpy columns and event timestamps.
+
+    A single column named ``"v"`` means scalar rows (the row value is
+    the cell); any other column set means tuple rows in column order
+    (``"f0".."fk"``).  ``ts`` is an optional int64 timestamp column;
+    ``ts_mask`` (optional bool, True = the row has a timestamp) keeps
+    None timestamps, so boxing gives the exact per-record stream.
+    """
+
+    __slots__ = ("cols", "ts", "ts_mask")
+
+    def __init__(self, cols, ts=None, ts_mask=None):
+        #: {name: np.ndarray}, all of one length
+        self.cols = cols
+        self.ts = ts
+        self.ts_mask = ts_mask
+
+    def __len__(self) -> int:
+        return len(next(iter(self.cols.values()))) if self.cols else 0
+
+    @property
+    def is_scalar(self) -> bool:
+        return len(self.cols) == 1 and "v" in self.cols
+
+    def row_values(self) -> list:
+        """Row values as operators see them: the cell for scalar
+        batches, a tuple over the columns otherwise."""
+        arrays = list(self.cols.values())
+        if self.is_scalar:
+            return arrays[0].tolist()
+        return list(zip(*[a.tolist() for a in arrays]))
+
+    def value_arrays(self):
+        """One ndarray for scalar batches, a tuple of ndarrays otherwise."""
+        arrays = tuple(self.cols.values())
+        return arrays[0] if self.is_scalar else arrays
+
+    def to_records(self) -> list:
+        """Box into per-row StreamRecords, as the row-at-a-time path
+        would have carried the same rows."""
+        values = self.row_values()
+        if self.ts is None:
+            return [StreamRecord(v) for v in values]
+        stamps = self.ts.tolist()
+        if self.ts_mask is None:
+            return [StreamRecord(v, t) for v, t in zip(values, stamps)]
+        return [StreamRecord(v, t if ok else None)
+                for v, t, ok in zip(values, stamps, self.ts_mask.tolist())]
+
+    def __repr__(self):
+        return (f"RecordBatch({list(self.cols)} x {len(self)}"
+                f"{' +ts' if self.ts is not None else ''})")
 
 
 class Watermark(StreamElement):

@@ -38,12 +38,15 @@ class StreamNode:
 
 class StreamEdge:
     def __init__(self, source_id: int, target_id: int,
-                 partitioner: StreamPartitioner, type_number: int = 0):
+                 partitioner: StreamPartitioner, type_number: int = 0,
+                 side_output_tag=None):
         self.source_id = source_id
         self.target_id = target_id
         self.partitioner = partitioner
         #: which logical input of the target (0 = first/only)
         self.type_number = type_number
+        #: set: the edge carries this side output, not the main stream
+        self.side_output_tag = side_output_tag
 
     def __repr__(self):
         return (f"StreamEdge({self.source_id}->{self.target_id} "
@@ -106,11 +109,12 @@ class JobVertex:
 class JobEdge:
     def __init__(self, source_vertex_id: int, target_vertex_id: int,
                  partitioner: StreamPartitioner, type_number: int = 0,
-                 source_node_id: int = -1):
+                 source_node_id: int = -1, side_output_tag=None):
         self.source_vertex_id = source_vertex_id
         self.target_vertex_id = target_vertex_id
         self.partitioner = partitioner
         self.type_number = type_number
+        self.side_output_tag = side_output_tag
         #: which node inside the source chain emits this edge
         self.source_node_id = source_node_id
 
@@ -145,11 +149,12 @@ class JobGraph:
 
 
 def is_chainable(edge: StreamEdge, graph: StreamGraph) -> bool:
-    """Forward partitioner, same parallelism, single input, chaining
-    allowed on both ends."""
+    """Forward partitioner, main stream, same parallelism, single
+    input, chaining allowed on both ends."""
     up = graph.nodes[edge.source_id]
     down = graph.nodes[edge.target_id]
     return (isinstance(edge.partitioner, ForwardPartitioner)
+            and edge.side_output_tag is None
             and up.parallelism == down.parallelism
             and len(graph.in_edges(down.id)) == 1
             and down.chaining_strategy == "always"
@@ -196,5 +201,6 @@ def create_job_graph(stream_graph: StreamGraph) -> JobGraph:
         if id(e) not in chained:
             jg.edges.append(JobEdge(
                 node_to_vertex[e.source_id], node_to_vertex[e.target_id],
-                e.partitioner, e.type_number, source_node_id=e.source_id))
+                e.partitioner, e.type_number, source_node_id=e.source_id,
+                side_output_tag=e.side_output_tag))
     return jg

@@ -1,17 +1,19 @@
-"""Windows and assigners (port of ``flink_tpu/streaming/windowing.py:18-112,
-450-500``).
+"""Windows, assigners and triggers (port of
+``flink_tpu/streaming/windowing.py:18-238, 450-613``).
 
-A ``TimeWindow`` covers [start, end); max_timestamp = end - 1; tumbling
-starts align to ``timestamp - (timestamp - offset) % size``.  Slice 1
-carries tumbling event-time windows; sliding and session windows,
-triggers and evictors are later slices (the device engine fires on the
-default event-time trigger's schedule).
+A ``TimeWindow`` covers [start, end); max_timestamp = end - 1; its
+namespace in keyed state is the tuple (start, end).  Tumbling and
+sliding starts align to ``timestamp - (timestamp - offset) % slide``;
+a session window is [timestamp, timestamp + gap) and merges with every
+window it intersects.  The port carries event-time assigners and the
+default ``EventTimeTrigger``; processing-time assigners, the other
+triggers and evictors are later slices.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Iterable
+from typing import Iterable, Tuple
 
 
 class Time:
@@ -69,6 +71,19 @@ class TimeWindow(Window):
     def max_timestamp(self) -> int:
         return self.end - 1
 
+    def intersects(self, other: "TimeWindow") -> bool:
+        return self.start <= other.end and self.end >= other.start
+
+    def cover(self, other: "TimeWindow") -> "TimeWindow":
+        return TimeWindow(min(self.start, other.start), max(self.end, other.end))
+
+    def to_namespace(self) -> Tuple[int, int]:
+        return (self.start, self.end)
+
+    @staticmethod
+    def from_namespace(ns: Tuple[int, int]) -> "TimeWindow":
+        return TimeWindow(ns[0], ns[1])
+
     @staticmethod
     def get_window_start_with_offset(timestamp: int, offset: int, window_size: int) -> int:
         return timestamp - (timestamp - offset + window_size) % window_size
@@ -87,10 +102,108 @@ class TimeWindow(Window):
         return f"TimeWindow[{self.start}, {self.end})"
 
 
+# ---------------------------------------------------------------------
+# Triggers
+# ---------------------------------------------------------------------
+
+class TriggerResult:
+    CONTINUE = 0
+    FIRE = 1
+    PURGE = 2
+    FIRE_AND_PURGE = 3
+
+    @staticmethod
+    def is_fire(r: int) -> bool:
+        return r in (TriggerResult.FIRE, TriggerResult.FIRE_AND_PURGE)
+
+    @staticmethod
+    def is_purge(r: int) -> bool:
+        return r in (TriggerResult.PURGE, TriggerResult.FIRE_AND_PURGE)
+
+
+class TriggerContext(abc.ABC):
+    """What a trigger may do: timers and partitioned trigger state."""
+
+    @abc.abstractmethod
+    def register_event_time_timer(self, time: int) -> None: ...
+
+    @abc.abstractmethod
+    def register_processing_time_timer(self, time: int) -> None: ...
+
+    @abc.abstractmethod
+    def delete_event_time_timer(self, time: int) -> None: ...
+
+    @abc.abstractmethod
+    def delete_processing_time_timer(self, time: int) -> None: ...
+
+    @abc.abstractmethod
+    def get_current_watermark(self) -> int: ...
+
+    @abc.abstractmethod
+    def get_current_processing_time(self) -> int: ...
+
+    @abc.abstractmethod
+    def get_partitioned_state(self, descriptor): ...
+
+
+class Trigger(abc.ABC):
+    def on_element(self, element, timestamp: int, window, ctx: TriggerContext) -> int:
+        return TriggerResult.CONTINUE
+
+    def on_event_time(self, time: int, window, ctx: TriggerContext) -> int:
+        return TriggerResult.CONTINUE
+
+    def on_processing_time(self, time: int, window, ctx: TriggerContext) -> int:
+        return TriggerResult.CONTINUE
+
+    def can_merge(self) -> bool:
+        return False
+
+    def on_merge(self, window, ctx) -> None:
+        raise NotImplementedError(f"{type(self).__name__} cannot merge")
+
+    def clear(self, window, ctx: TriggerContext) -> None:  # noqa: B027
+        pass
+
+
+class EventTimeTrigger(Trigger):
+    """FIRE when the watermark passes window.max_timestamp()."""
+
+    def on_element(self, element, timestamp, window, ctx):
+        if window.max_timestamp() <= ctx.get_current_watermark():
+            return TriggerResult.FIRE  # late, within allowed lateness
+        ctx.register_event_time_timer(window.max_timestamp())
+        return TriggerResult.CONTINUE
+
+    def on_event_time(self, time, window, ctx):
+        return (TriggerResult.FIRE if time == window.max_timestamp()
+                else TriggerResult.CONTINUE)
+
+    def can_merge(self):
+        return True
+
+    def on_merge(self, window, ctx):
+        if window.max_timestamp() > ctx.get_current_watermark():
+            ctx.register_event_time_timer(window.max_timestamp())
+
+    def clear(self, window, ctx):
+        ctx.delete_event_time_timer(window.max_timestamp())
+
+    def __repr__(self):
+        return "EventTimeTrigger()"
+
+
+# ---------------------------------------------------------------------
+# Window assigners
+# ---------------------------------------------------------------------
+
 class WindowAssigner(abc.ABC):
     @abc.abstractmethod
     def assign_windows(self, element, timestamp: int, ctx) -> Iterable[Window]:
         ...
+
+    def get_default_trigger(self) -> Trigger:
+        return EventTimeTrigger()
 
     @abc.abstractmethod
     def is_event_time(self) -> bool:
@@ -98,6 +211,9 @@ class WindowAssigner(abc.ABC):
 
     def is_merging(self) -> bool:
         return False
+
+    def window_type(self):
+        return TimeWindow
 
 
 class TumblingEventTimeWindows(WindowAssigner):
@@ -126,3 +242,59 @@ class TumblingEventTimeWindows(WindowAssigner):
 
     def __repr__(self):
         return f"TumblingEventTimeWindows({self.size})"
+
+
+class SlidingEventTimeWindows(WindowAssigner):
+    """Windows of ``size`` every ``slide``; a record lands in each."""
+
+    def __init__(self, size, slide, offset=0):
+        self.size = _ms(size)
+        self.slide = _ms(slide)
+        self.offset = _ms(offset)
+
+    @staticmethod
+    def of(size, slide, offset=0) -> "SlidingEventTimeWindows":
+        return SlidingEventTimeWindows(size, slide, offset)
+
+    def assign_windows(self, element, timestamp, ctx):
+        if timestamp is None:
+            raise ValueError("record has no timestamp for event-time windowing")
+        windows = []
+        start = TimeWindow.get_window_start_with_offset(
+            timestamp, self.offset, self.slide)
+        while start > timestamp - self.size:
+            windows.append(TimeWindow(start, start + self.size))
+            start -= self.slide
+        return windows
+
+    def is_event_time(self):
+        return True
+
+    def __repr__(self):
+        return f"SlidingEventTimeWindows({self.size}/{self.slide})"
+
+
+class EventTimeSessionWindows(WindowAssigner):
+    """[timestamp, timestamp + gap) per record, merged with every
+    window it intersects."""
+
+    def __init__(self, gap):
+        self.gap = _ms(gap)
+
+    @staticmethod
+    def with_gap(gap) -> "EventTimeSessionWindows":
+        return EventTimeSessionWindows(gap)
+
+    def assign_windows(self, element, timestamp, ctx):
+        if timestamp is None:
+            raise ValueError("record has no timestamp for event-time windowing")
+        return [TimeWindow(timestamp, timestamp + self.gap)]
+
+    def is_event_time(self):
+        return True
+
+    def is_merging(self):
+        return True
+
+    def __repr__(self):
+        return f"EventTimeSessionWindows({self.gap})"

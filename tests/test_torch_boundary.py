@@ -35,7 +35,21 @@ for agg in (HyperLogLogAggregate(8), SumAggregate(np.float64)):
         .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
         .aggregate(agg).add_sink(CollectSink(out)))
     env.execute()
-print(json.dumps({"results": len(out),
+# the keyed-state path: WindowOperator on the gpu backend (allowed
+# lateness takes the job off the device window engine)
+keyed = []
+agg = HyperLogLogAggregate(8)
+agg.extract_value = lambda e: e[1]
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.set_state_backend("gpu")
+(env.from_collection([(i % 7, i, 10 * i) for i in range(500)])
+    .assign_timestamps_and_watermarks(
+        BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+    .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
+    .allowed_lateness(500).aggregate(agg).add_sink(CollectSink(keyed)))
+env.execute()
+import flink_tpu_torch.state, flink_tpu_torch.streaming.harness
+print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "modules": sorted(m for m in sys.modules
                                     if m == "jax" or m.startswith("jax.")
                                     or m == "flink_tpu"
@@ -50,6 +64,7 @@ def test_job_loads_neither_jax_nor_flink_tpu():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["results"] == 2 * 7 * 5
+    assert report["keyed_results"] == 7 * 5
     assert report["modules"] == []
 
 

@@ -114,3 +114,54 @@ def test_ineligible_aggregate_names_slice_2():
         twin.TumblingEventTimeWindows.of(10))
     with pytest.raises(NotImplementedError, match="slice 2"):
         ws.aggregate(object())
+
+
+def _keyed_job(ds, src, win, ops, agg, events, backend, lateness, **env_kw):
+    """The job on a keyed-state backend: allowed lateness takes it off
+    the device window engine onto WindowOperator in both packages; the
+    records too late even for the lateness go to a side output."""
+    agg.extract_value = lambda e: e[1]
+    out, late = [], []
+    env = ds.StreamExecutionEnvironment.get_execution_environment(**env_kw)
+    env.set_state_backend(backend)
+    tag = ops.OutputTag("late")
+    windowed = (env.from_collection(events)
+                .assign_timestamps_and_watermarks(
+                    src.BoundedOutOfOrdernessTimestampExtractor(50, lambda e: e[2]))
+                .key_by(lambda e: e[0])
+                .window(win.TumblingEventTimeWindows.of(1000))
+                .allowed_lateness(lateness)
+                .side_output_late_data(tag)
+                .aggregate(agg, window_function=lambda k, w, vals: [
+                    (int(k), w.start, float(vals[0]))]))
+    windowed.add_sink(src.CollectSink(out))
+    windowed.get_side_output(tag).add_sink(src.CollectSink(late))
+    env.execute("keyed-backend")
+    return out, late
+
+
+@pytest.mark.parametrize("agg", ["sum", "hll"])
+def test_gpu_backend_job_matches_tpu_backend_job(agg):
+    from flink_tpu.streaming import operators as jops
+    from flink_tpu_torch.streaming import operators as tops
+    events = _events(13, 6_000, 200, 300, 6_000)
+    rng = np.random.default_rng(14)
+    for i in rng.choice(len(events), 60, replace=False):
+        k, v, t = events[i]            # within the lateness or beyond it
+        events[i] = (k, v, max(0, t - int(rng.integers(300, 1500))))
+    make = {"sum": (lambda: TorchSum(np.float64), lambda: JaxSum(np.float64)),
+            "hll": (lambda: TorchHll(8), lambda: JaxHll(8))}[agg]
+    got, got_late = _keyed_job(tds, tsrc, twin, tops, make[0](), events, "gpu",
+                               700, device="cpu")
+    want, want_late = _keyed_job(jds, jsrc, jwin, jops, make[1](), events,
+                                 "tpu", 700)
+    heap, _ = _keyed_job(tds, tsrc, twin, tops, make[0](), events, "heap", 700,
+                         device="cpu")
+    # late refires emit one (key, window) more than once, in order
+    assert len(got) > len({(k, s) for k, s, _ in got}) > 600
+    assert got_late == want_late and len(got_late) > 0
+    if agg == "sum":
+        assert got == want == heap
+    else:
+        assert [r[:2] for r in got] == [r[:2] for r in want] == [r[:2] for r in heap]
+        assert_hll_close([r[2] for r in got], [r[2] for r in want], 1 << 8)

@@ -121,3 +121,49 @@ def test_kernel_refuses_a_wrong_dtype(cuda):
     lanes = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         K.hll_update(regs, slots, lanes, lanes, 2)
+
+
+@pytest.mark.parametrize("unique", [False, True])
+@pytest.mark.parametrize("shape,dtype,op", [
+    ((3000, 1024), torch.uint8, "max"), ((3000, 1024), torch.uint8, "min"),
+    ((3000,), torch.float32, "add"), ((3000,), torch.float32, "min"),
+    ((3000,), torch.float32, "max"), ((3000,), torch.int32, "add"),
+    ((3000,), torch.int32, "max"), ((3000, 3), torch.int32, "add")])
+def test_merge_rows_matches_plain(cuda, shape, dtype, op, unique):
+    rng = np.random.default_rng(5)
+    hi = 30 if dtype == torch.uint8 else 1000
+    base = torch.from_numpy(rng.integers(0, hi, shape)).to(dtype)
+    perm = rng.permutation(shape[0]).astype(np.int32)
+    if unique:
+        dst, src = perm[:800], perm[800:1600]
+    else:                                   # each dst repeats up to 9 times
+        dst = rng.choice(perm[:200], 1500).astype(np.int32)
+        src = perm[200:1700]
+    dst, src = torch.from_numpy(dst), torch.from_numpy(src)
+    ref = base.clone()
+    K.merge_rows_plain(ref, dst, src, op, unique_dst=unique)
+    got = base.to(cuda)
+    before = K.LAUNCHES["merge_rows"]
+    K.merge_rows(got, dst.to(cuda), src.to(cuda), op, unique_dst=unique)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_rows"] == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("shape,dtype", [((2000, 4096), torch.uint8),
+                                         ((2000,), torch.float32),
+                                         ((2000, 3), torch.int32),
+                                         ((2000, 5), torch.uint8)])
+@pytest.mark.parametrize("rows_on", ["host", "device"])
+def test_set_rows_matches_plain(cuda, shape, dtype, rows_on):
+    rng = np.random.default_rng(6)
+    base = torch.from_numpy(rng.integers(0, 100, shape)).to(dtype)
+    slots = torch.from_numpy(np.concatenate([
+        rng.choice(shape[0], 300, replace=False), [-1, shape[0]]]).astype(np.int32))
+    rows = torch.from_numpy(rng.integers(100, 200, (302, *shape[1:]))).to(dtype)
+    ref = base.clone()
+    K.set_rows_plain(ref, slots, rows)
+    got = base.to(cuda)
+    K.set_rows(got, slots.to(cuda), rows if rows_on == "host" else rows.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
