@@ -7,7 +7,8 @@ Phases, each of which raises on failure (nothing is caught to keep the
 exit code at 0):
 
 1. ``env``      the card's name, the device count and power limit;
-2. ``build``    builds the six CUDA kernels from ``flink_tpu_torch/kernels/csrc``;
+2. ``build``    builds the ten CUDA kernels from ``flink_tpu_torch/kernels/csrc``
+                (one nvcc per source, started together);
 3. ``kernels``  holds every kernel against its plain PyTorch version at
                 the shapes the main path gives it, and times kernel,
                 plain version and, where one exists, one PyTorch call
@@ -16,13 +17,14 @@ exit code at 0):
                 2^23 events in one 1 s window, HLL precision 12, 1.25M
                 slots (5.12 GB of registers on the card), checked
                 against an independent numpy HLL on 4,096 keys;
-5. ``job``      three jobs through ``StreamExecutionEnvironment``: HLL
+5. ``job``      five jobs through ``StreamExecutionEnvironment``: HLL
                 unique visitors (2^21 events, 1M keys, tumbling 1 s), a
                 word count (SumAggregate, 50k words, tumbling 5 s), both
-                checked against numpy references, and HLL with allowed
+                checked against numpy references; HLL with allowed
                 lateness on ``set_state_backend("gpu")`` (WindowOperator
-                on the GPU keyed-state backend), checked against the
-                same job on the heap backend;
+                on the GPU keyed-state backend), a sliding-quantile and
+                a session Count-Min job on the device operator, each
+                checked against the same job on the heap backend;
 6. ``keyed``    WindowOperator on the GPU keyed-state backend at config
                 #2 through the test harness: 1M keys, 2^22 events in one
                 1 s window, HLL p = 12 (2^20 slots, 4.29 GB of
@@ -31,8 +33,22 @@ exit code at 0):
 7. ``sessions`` session windows with HLL and Sum on the GPU backend
                 capped below the live session count (spill to host RAM
                 and promotion), checked against the heap backend;
-8. the launch counts of phases 4-7, each path counted on its own: every
-   kernel the path runs must have launched there.
+8. ``sliding``  BASELINE config #3: VectorizedSlidingWindows, 10 s / 1 s,
+                p50/p99 quantile sketch (B = 210), a 10M-key space,
+                2^22 events over 10 s with a watermark per 2^19 chunk
+                (>= 3 GB of sketch state), checked against numpy on
+                4,096 sampled (key, pane) histograms and (key, window)
+                results;
+9. ``session_cm`` BASELINE config #4: VectorizedSessionWindows, gap 1 s,
+                Count-Min 4 x 2048, 100k keys, 2^21 events over 30 s;
+                every session total exact and sampled tables bit-equal
+                against numpy;
+10. ``heavy_hitters`` WindowedHeavyHitters(1 s, phi 0.01), 100k keys, a
+                skewed item mix, 2^21 events over 4 s: no false
+                negatives, no estimate below the truth, every point
+                query equal to the plain version's;
+11. the launch counts of phases 4-10, each path counted on its own:
+   every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
 contract, then the card's name and power limit as nvidia-smi prints
@@ -307,6 +323,7 @@ def kernel_phase(dev, hbm: float):
                        "bound_ms": bound((1 << 18) * (4 + 4 * len(st) + 4), 0, hbm)[0]})
     del st
     merge_set_entries(dev, hbm, rng, entries, detail)
+    sketch_kernel_entries(dev, hbm, rng, entries, detail)
     emit({"kernel_variants": detail})
     return entries
 
@@ -400,6 +417,219 @@ def merge_set_entries(dev, hbm, rng, entries, detail):
     del regs, want, rows, rows_host
     torch.cuda.empty_cache()
 
+
+
+# ---------------------------------------------------------------------
+# phase 3, sketches: the Count-Min and quantile kernels
+# ---------------------------------------------------------------------
+
+#: BASELINE config #3's sketch geometry (bench.py bench_sliding_quantile)
+Q3 = dict(quantiles=(0.5, 0.99), relative_accuracy=0.05, min_value=1e-3,
+          max_value=1e6)
+
+
+def lanes_np(vh: np.ndarray):
+    """uint64 hashes → (hi, lo) as int32 views of the 32-bit lanes."""
+    return ((vh >> np.uint64(32)).astype(np.uint32).view(np.int32),
+            (vh & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32))
+
+
+def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
+    """countmin_update, countmin_query, quantile_update and
+    quantile_result at the main paths' shapes, each against its plain
+    version on the card, with merge_rows at the sketch row widths
+    (``shift`` > 0 divides every count by 2^shift, for a rehearsal on
+    the CPU)."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.hashing import countmin_rows
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # countmin_update: 2^19 records into [2^14, 4, 2048] int32 (512 MiB)
+    S, D, W, N = 1 << (14 - shift), 4, 2048, 1 << (19 - shift)
+    slots = t(rng.integers(0, S, N).astype(np.int32))
+    vals = t(rng.integers(1, 4, N).astype(np.float32))
+    vh = splitmix64_np(rng.integers(0, 2**63, N, dtype=np.int64))
+    hi, lo = (t(a) for a in lanes_np(vh))
+    table = torch.zeros((S, D, W), dtype=torch.int32, device=dev)
+    total = torch.zeros(S, dtype=torch.int32, device=dev)
+    rt, rtot = table.clone(), total.clone()
+    K.countmin_update(table, total, slots, vals, hi, lo, N)
+    K.countmin_update_plain(rt, rtot, slots, vals, hi, lo, N)
+    torch.cuda.synchronize()
+    check(torch.equal(table, rt) and torch.equal(total, rtot),
+          "countmin_update tables and totals bit-equal")
+    err = max(max_abs_err(table, rt), max_abs_err(total, rtot))
+    s64 = slots.to(torch.int64)
+    r = torch.arange(D, device=dev)[:, None]
+    flat = ((s64[None, :] * D + r) * W
+            + countmin_rows(hi, lo, D, W).to(torch.int64)).reshape(-1)
+    cells = int(torch.unique(flat).numel())
+    targets = int(torch.unique(s64).numel())
+    w_rep = vals.to(torch.int32).expand(D, -1).reshape(-1)
+    w32 = vals.to(torch.int32)
+
+    def cm_library():
+        table.view(-1).index_put_((flat,), w_rep, accumulate=True)
+        total.index_put_((s64,), w32, accumulate=True)
+
+    ms = cuda_ms(lambda: K.countmin_update(table, total, slots, vals, hi, lo, N))
+    plain = cuda_ms(lambda: K.countmin_update_plain(rt, rtot, slots, vals, hi,
+                                                    lo, N), 5)
+    lib = cuda_ms(cm_library)
+    b, by = bound(16 * N + 8 * cells + 8 * targets, 3 * D * N, hbm)
+    entries["countmin_update"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                      bound_ms=b, bound_by=by, max_abs_err=err)
+    detail.append({"kernel": "countmin_update", "rows": N, "slots": S,
+                   "depth": D, "width": W, "distinct_cells": cells,
+                   "library": "index_put_ accumulate (indices precomputed)"})
+
+    # countmin_query: 2^20 queries, half of them items the table holds
+    Q = 1 << (20 - shift)
+    qslots = t(np.concatenate([slots.cpu().numpy(), rng.integers(0, S, Q - N)
+                               .astype(np.int32)]))
+    qvh = np.concatenate([vh, splitmix64_np(rng.integers(0, 2**63, Q - N,
+                                                         dtype=np.int64))])
+    qhi, qlo = (t(a) for a in lanes_np(qvh))
+    got = K.countmin_query(table, qslots, qhi, qlo)
+    want = K.countmin_query_plain(table, qslots, qhi, qlo)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "countmin_query estimates bit-equal")
+    qs64 = qslots.to(torch.int64)
+    qcols = countmin_rows(qhi, qlo, D, W).to(torch.int64)
+    qcells = int(torch.unique(((qs64[None, :] * D + r) * W + qcols)
+                              .reshape(-1)).numel())
+    ms = cuda_ms(lambda: K.countmin_query(table, qslots, qhi, qlo))
+    plain = cuda_ms(lambda: K.countmin_query_plain(table, qslots, qhi, qlo))
+    lib = cuda_ms(lambda: table[qs64[None, :].expand(D, -1), r, qcols].amin(0))
+    b, by = bound(16 * Q + 4 * qcells, 3 * D * Q, hbm)
+    entries["countmin_query"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                     bound_ms=b, bound_by=by,
+                                     max_abs_err=max_abs_err(got, want))
+    detail.append({"kernel": "countmin_query", "queries": Q,
+                   "distinct_cells": qcells,
+                   "library": "advanced indexing + amin (columns precomputed)"})
+
+    # merge_rows, int32 add at the session Count-Min row (32 KiB): 2^12
+    # sources folded four to a target, against the plain version
+    perm = rng.permutation(S).astype(np.int32)
+    m = 1024 >> shift
+    dst, src = t(np.repeat(perm[:m], 4)), t(perm[m:5 * m])
+    rt.copy_(table)
+    K.merge_rows(table, dst, src, "add")
+    K.merge_rows_plain(rt, dst, src, "add")
+    torch.cuda.synchronize()
+    check(torch.equal(table, rt), "merge_rows i32 add at 32 KiB rows bit-equal")
+    err = max_abs_err(table, rt)
+    row = D * W * 4
+    detail.append({"kernel": "merge_rows", "case": "i32 add 32 KiB rows "
+                   "(session Count-Min merge)", "rows": 4 * m, "unique_dst": False,
+                   "ms": cuda_ms(lambda: K.merge_rows(table, dst, src, "add")),
+                   "plain_ms": cuda_ms(lambda: K.merge_rows_plain(
+                       rt, dst, src, "add"), 3),
+                   "bound_ms": bound(4 * m * (row + 8) + 2 * m * row, 0, hbm)[0],
+                   "max_abs_err": err})
+    del table, total, rt, rtot, flat, w_rep, qcols
+    torch.cuda.empty_cache()
+
+    # quantile_update: 2^19 lognormal values into [2^22, B] int32 (3.5 GB)
+    agg = QuantileSketchAggregate(**Q3)
+    B, C = agg.buckets, 1 << (22 - shift)
+    hslots = t(rng.integers(0, C, N).astype(np.int32))
+    v = t(rng.lognormal(3.0, 1.0, N).astype(np.float32))
+    hist = torch.zeros((C, B), dtype=torch.int32, device=dev)
+    ref = torch.zeros_like(hist)
+    args = (agg.min_value, agg.log_gamma, agg.offset)
+    K.quantile_update(hist, hslots, v, N, *args)
+    K.quantile_update_plain(ref, hslots, v, N, *args)
+    torch.cuda.synchronize()
+    check(torch.equal(hist, ref), "quantile_update histograms bit-equal")
+    err = max_abs_err(hist, ref)
+    from flink_tpu_torch.kernels.quantile_update import bucket_of
+    hflat = hslots.to(torch.int64) * B + bucket_of(v, *args, B)
+    hcells = int(torch.unique(hflat).numel())
+    # bucket edges for the library's bucketize: edge j = gamma^(j + offset)
+    edges = t(np.exp((np.arange(B - 1) + agg.offset) * agg.log_gamma)
+              .astype(np.float32))
+    ones = torch.ones(N, dtype=torch.int32, device=dev)
+    mn = torch.tensor(np.float32(agg.min_value), device=dev)
+
+    def q_library():
+        bk = torch.bucketize(v, edges, right=True).clamp(1, B - 1)
+        bk = torch.where(v <= mn, 0, bk)
+        hist.view(-1).index_put_((hslots.to(torch.int64) * B + bk,), ones,
+                                 accumulate=True)
+
+    ms = cuda_ms(lambda: K.quantile_update(hist, hslots, v, N, *args))
+    plain = cuda_ms(lambda: K.quantile_update_plain(ref, hslots, v, N, *args), 5)
+    lib = cuda_ms(q_library)
+    b, by = bound(8 * N + 8 * hcells, 30 * N, hbm)
+    entries["quantile_update"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                      bound_ms=b, bound_by=by, max_abs_err=err)
+    detail.append({"kernel": "quantile_update", "rows": N, "slots": C,
+                   "buckets": B, "distinct_cells": hcells,
+                   "library": "bucketize + index_put_ accumulate"})
+
+    # quantile_result: dense over 2^20 rows (a row slice), gathered over
+    # 2^18 rows, Q = 2, on the histograms quantile_update left
+    qs, bv = agg._tables(dev)
+    R, G = 1 << (20 - shift), 1 << (18 - shift)
+    dense = hist[:R]
+    gslots = t(rng.integers(0, C, G).astype(np.int32))
+    got_d, want_d = K.quantile_result(dense, qs, bv), K.quantile_result_plain(dense, qs, bv)
+    got_g = K.quantile_result(hist, qs, bv, slots=gslots)
+    want_g = K.quantile_result_plain(hist, qs, bv, slots=gslots)
+    torch.cuda.synchronize()
+    check(torch.equal(got_d, want_d) and torch.equal(got_g, want_g),
+          "quantile_result values bit-equal (dense and gathered)")
+    err = max(max_abs_err(got_d, want_d), max_abs_err(got_g, want_g))
+
+    def q_result_library():
+        cum = torch.cumsum(dense.to(torch.float32), dim=-1)
+        target = torch.clamp_min(qs[None, :] * cum[:, -1:], 1.0)
+        idx = torch.searchsorted(cum, target)
+        return bv[torch.where(idx >= B, 0, idx)]
+
+    check(torch.equal(q_result_library(), got_d),
+          "cumsum + searchsorted agrees with quantile_result")
+    ms = cuda_ms(lambda: K.quantile_result(dense, qs, bv))
+    plain = cuda_ms(lambda: K.quantile_result_plain(dense, qs, bv), 3)
+    lib = cuda_ms(q_result_library, 5)
+    b, by = bound(R * B * 4 + R * 8, 2 * R * B, hbm)
+    entries["quantile_result"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                      bound_ms=b, bound_by=by, max_abs_err=err)
+    detail.append({"kernel": "quantile_result", "dense_rows": R,
+                   "gathered_rows": G, "buckets": B, "quantiles": 2,
+                   "gathered_ms": cuda_ms(lambda: K.quantile_result(
+                       hist, qs, bv, slots=gslots)),
+                   "gathered_bound_ms": bound(G * (4 + B * 4 + 8), 0, hbm)[0],
+                   "library": "cumsum + searchsorted"})
+
+    # merge_rows, int32 add at the sliding union row (B * 4 bytes): 2^18
+    # pane rows into as many fresh union rows, unique dst
+    k = 1 << (18 - shift)
+    perm = torch.randperm(C, device=dev, dtype=torch.int64)[:2 * k].to(torch.int32)
+    dst, src = perm[:k].contiguous(), perm[k:].contiguous()
+    ref.copy_(hist)
+    K.merge_rows(hist, dst, src, "add", unique_dst=True)
+    K.merge_rows_plain(ref, dst, src, "add", unique_dst=True)
+    torch.cuda.synchronize()
+    check(torch.equal(hist, ref), "merge_rows i32 add at sliding rows bit-equal")
+    err = max_abs_err(hist, ref)
+    row = B * 4
+    detail.append({"kernel": "merge_rows", "case": f"i32 add {row} B rows "
+                   "(sliding union merge)", "rows": k, "unique_dst": True,
+                   "ms": cuda_ms(lambda: K.merge_rows(hist, dst, src, "add",
+                                                      unique_dst=True)),
+                   "plain_ms": cuda_ms(lambda: K.merge_rows_plain(
+                       ref, dst, src, "add", unique_dst=True), 3),
+                   "bound_ms": bound(k * (row + 8) + 2 * k * row, 0, hbm)[0],
+                   "max_abs_err": err})
+    del hist, ref, dense, hflat
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------
@@ -529,7 +759,7 @@ def job_phase(dev):
     wordcount = {"events": n, "pairs": int(len(pairs)), "seconds": secs,
                  "events_per_s": n / secs}
     emit({"job": {"hll": hll, "wordcount": wordcount,
-                  "keyed_backend": keyed_job(dev, rng)}})
+                  "keyed_backend": keyed_job(dev, rng), **sketch_jobs(dev, rng)}})
 
 
 def _run_keyed_job(agg, events, dev, backend):
@@ -578,6 +808,85 @@ def keyed_job(dev, rng):
     check(True, "keyed-backend job: estimates within rtol 1e-5 (+ log slack) of heap")
     return {"events": n, "results": len(got), "seconds": secs,
             "events_per_s": n / secs, "heap_seconds": heap_secs}
+
+
+def _run_window_job(agg, events, assigner, dev, heap=False):
+    """from_collection → key_by → window(assigner) → aggregate on the
+    device window operator, or with ``heap`` on WindowOperator over the
+    heap backend (``disable_device_operator``, on the CPU)."""
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.sources import (
+        BoundedOutOfOrdernessTimestampExtractor, CollectSink)
+    agg.extract_value = lambda e: e[1]
+    out = []
+    env = StreamExecutionEnvironment.get_execution_environment(
+        device="cpu" if heap else dev)
+    if heap:
+        env.set_state_backend("heap")
+    windowed = (env.from_collection(events)
+                .assign_timestamps_and_watermarks(
+                    BoundedOutOfOrdernessTimestampExtractor(50, lambda e: e[2]))
+                .key_by(lambda e: e[0]).window(assigner))
+    if heap:
+        windowed = windowed.disable_device_operator()
+    (windowed.aggregate(agg, window_function=lambda k, w, vals: [
+        (k, w.start, w.end, np.asarray(vals[0], np.float64).tolist())])
+        .add_sink(CollectSink(out)))
+    t0 = time.perf_counter()
+    env.execute("chip-smoke-window")
+    return sorted(out), time.perf_counter() - t0
+
+
+def sketch_jobs(dev, rng, n=1 << 14):
+    """A sliding-quantile job (3 s / 1 s, 2,000 keys) and a session
+    Count-Min job (gap 300 ms, 1,000 keys) on the device window
+    operator, each against the same job on the heap backend.  Count-Min
+    totals are exact; a quantile may differ only for a (key, window)
+    holding a value at a bucket boundary (the heap backend takes the
+    CPU's float32 log), and then by one bucket."""
+    import torch
+    from flink_tpu_torch.ops.sketches import (CountMinSketchAggregate,
+                                              QuantileSketchAggregate)
+    from flink_tpu_torch.streaming.windowing import (EventTimeSessionWindows,
+                                                     SlidingEventTimeWindows)
+    out = {}
+    ts = np.sort(rng.integers(0, 10_000, n))
+    ts[n // 2: n // 2 + 20] -= 2500                 # late stragglers
+    ts = np.maximum(ts, 0)
+    qv = rng.lognormal(3.0, 1.0, n).astype(np.float32)
+    cases = (
+        ("sliding_quantile", lambda: QuantileSketchAggregate(**Q3),
+         SlidingEventTimeWindows.of(3000, 1000), rng.integers(0, 2000, n), qv.tolist()),
+        ("session_countmin", lambda: CountMinSketchAggregate(),
+         EventTimeSessionWindows.with_gap(300), rng.integers(0, 1000, n),
+         rng.integers(1, 50, n).tolist()))
+    for name, make, assigner, keys, vals in cases:
+        events = list(zip(keys.tolist(), vals, ts.tolist()))
+        got, secs = _run_window_job(make(), events, assigner, dev)
+        torch.cuda.synchronize()
+        want, heap_secs = _run_window_job(make(), events, assigner, dev, heap=True)
+        check([r[:3] for r in got] == [r[:3] for r in want] and len(got) > 1000,
+              f"{name} job: the heap backend's windows")
+        g = np.array([r[3] for r in got])
+        w = np.array([r[3] for r in want])
+        unequal = 0
+        if name == "session_countmin":
+            check(np.array_equal(g, w), f"{name} job: totals exact against heap")
+        else:
+            agg = make()
+            _, near, _ = quantile_buckets_np(qv, agg)
+            near_pairs = {(int(k), int(t_)) for k, t_, z in zip(keys, ts, near) if z}
+            differ = np.nonzero((g != w).any(axis=1))[0]
+            for i in differ.tolist():
+                k, s, e = got[i][:3]
+                check(any(kk == k and s <= tt < e for kk, tt in near_pairs)
+                      and np.allclose(g[i], w[i], rtol=agg.gamma - 1),
+                      f"{name} job: key {k} window {s} equals heap")
+            unequal = len(differ)
+        out[name] = {"events": n, "results": len(got), "seconds": secs,
+                     "events_per_s": n / secs, "heap_seconds": heap_secs,
+                     "boundary_unequal": unequal}
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -776,6 +1085,338 @@ def session_phase(dev, n=20_000, n_keys=2_000):
 
 
 # ---------------------------------------------------------------------
+# phase 8: sliding windows at BASELINE config #3
+# ---------------------------------------------------------------------
+
+def quantile_buckets_np(v: np.ndarray, agg):
+    """Independent numpy bucketing in float64: (bucket, near) where near
+    flags values whose log(v) / log(gamma) lies within 4 float32 ulps of
+    an integer (a float32 log one ulp off may put them one bucket
+    over)."""
+    v32 = np.asarray(v, np.float32)
+    x = np.log(np.maximum(v32.astype(np.float64), agg.min_value)) / agg.log_gamma
+    b = np.clip(1 + np.floor(x).astype(np.int64) - agg.offset, 1, agg.buckets - 1)
+    low = v32 <= np.float32(agg.min_value)
+    b = np.where(low, 0, b)
+    near = (np.abs(x - np.round(x))
+            <= 4 * np.abs(np.spacing(np.float32(x)).astype(np.float64))) & ~low
+    # the bucket on the other side of the integer a near value sits at
+    alt = np.clip(np.where(x - np.round(x) >= 0, b - 1, b + 1), 1, agg.buckets - 1)
+    return b, near, alt
+
+
+def quantiles_of(hist: np.ndarray, agg, values: np.ndarray) -> np.ndarray:
+    """The sketch's answers for one histogram, from an exact integer
+    scan (the reference's rule: first bucket with cum >= max(q*total, 1),
+    bucket 0 when none)."""
+    cum = np.cumsum(hist)
+    out = []
+    for q in agg.quantiles:
+        target = max(np.float32(q) * np.float32(cum[-1]), np.float32(1.0))
+        hit = np.nonzero(cum >= target)[0]
+        out.append(values[hit[0] if len(hit) else 0])
+    return np.array(out, np.float32)
+
+
+def sliding_phase(dev, n_events=1 << 22, n_keys=10_000_000, chunk=1 << 19,
+                  n_sample=4096):
+    """VectorizedSlidingWindows(QuantileSketchAggregate p50/p99, 10 s /
+    1 s) over a 10M-key space: 2^22 time-sorted events over 10 s of
+    event time, a watermark after each chunk, then the fire of every
+    remaining window.  Live pane histograms and fired results of
+    sampled (key, pane) and (key, window) pairs against numpy."""
+    import torch
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    from flink_tpu_torch.streaming.vectorized import VectorizedSlidingWindows
+
+    size, slide, span = 10_000, 1_000, 10_000
+    rng = np.random.default_rng(31)
+    keys = rng.integers(0, n_keys, n_events).astype(np.uint64)
+    ts = np.sort(rng.integers(0, span, n_events).astype(np.int64))
+    vals = rng.lognormal(3.0, 1.0, n_events).astype(np.float32)
+    kh = splitmix64_np(keys)
+    agg = QuantileSketchAggregate(**Q3)
+    bvals = agg.bucket_values()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = VectorizedSlidingWindows(agg, size, slide, initial_capacity=1 << 20,
+                                   microbatch=chunk, device=dev)
+    eng.emit_arrays = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, n_events, chunk):
+        sl = slice(i, i + chunk)
+        eng.process_batch(keys[sl], ts[sl], vals[sl], key_hashes=kh[sl])
+        eng.flush()
+        eng.advance_watermark(int(ts[sl][-1]) - 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pane_slots = sum(len(sh.all_slots()) for sh in eng.windows.values())
+
+    # live panes: sampled (key, pane) histograms against numpy
+    b_np, near, alt = quantile_buckets_np(vals, agg)
+    pane = 5 * slide
+    shard = eng.windows[pane]
+    sample = rng.choice(shard.all_keys(), n_sample, replace=False)
+    sample.sort()
+
+    def no_alloc(n):
+        raise AssertionError("a sampled key is missing from its pane")
+    slots, _ = shard.index.lookup_or_insert(splitmix64_np(sample), no_alloc)
+    rows = eng.state["hist"][torch.from_numpy(slots).to(dev)].cpu().numpy()
+    sel = np.isin(keys, sample) & (ts >= pane) & (ts < pane + slide)
+    g = np.searchsorted(sample, keys[sel])
+    want = np.zeros_like(rows)
+    np.add.at(want, (g[~near[sel]], b_np[sel][~near[sel]]), 1)
+    n_near = np.bincount(g[near[sel]], minlength=n_sample)
+    diff = rows - want
+    exact_rows = n_near == 0
+    check(np.array_equal(rows[exact_rows], want[exact_rows])
+          and (diff[~exact_rows] >= 0).all()
+          and np.array_equal(diff.sum(axis=1), n_near),
+          "sliding: sampled pane histograms equal numpy apart from boundary values")
+
+    t2 = time.perf_counter()
+    eng.advance_watermark(2 * span - 1)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    fired_keys = np.concatenate([k for k, _, _, _ in eng.fired])
+    fired_res = np.concatenate([r for _, r, _, _ in eng.fired])
+    fired_start = np.concatenate([np.full(len(k), s) for k, _, s, _ in eng.fired])
+    n_windows = len(eng.fired)
+    check(np.isfinite(fired_res).all() and fired_res.shape == (len(fired_keys), 2),
+          "sliding: results finite, [pairs, 2]")
+    # every (key, window) pair with an event fired once
+    expect = sum(np.unique(keys[(ts >= W) & (ts < W + size)]).size
+                 for W in np.unique(fired_start))
+    check(len(fired_keys) == expect and n_windows == 19,
+          "sliding: every (key, window) pair fired once, 19 windows")
+
+    # fired results of sampled (key, window) pairs against numpy
+    pick = rng.choice(len(fired_keys), n_sample, replace=False)
+    order = np.lexsort((ts, keys))
+    sk, st = keys[order], ts[order]
+    explained = 0
+    for p in pick.tolist():
+        k, W = fired_keys[p], int(fired_start[p])
+        lo_, hi_ = np.searchsorted(sk, k, "left"), np.searchsorted(sk, k, "right")
+        idx = order[lo_:hi_][(st[lo_:hi_] >= W) & (st[lo_:hi_] < W + size)]
+        hist = np.bincount(b_np[idx], minlength=agg.buckets)
+        want_q = quantiles_of(hist, agg, bvals)
+        if np.array_equal(fired_res[p], want_q):
+            continue
+        # a boundary value on its other bucket explains the difference
+        ok = False
+        for j in idx[near[idx]].tolist():
+            h2 = hist.copy()
+            h2[b_np[j]] -= 1
+            h2[alt[j]] += 1
+            ok = ok or np.array_equal(fired_res[p], quantiles_of(h2, agg, bvals))
+        check(ok, f"sliding: result of key {k} window {W} equals numpy")
+        explained += 1
+    out = {"sliding": {
+        "events": n_events, "key_space": n_keys, "window_ms": size,
+        "slide_ms": slide, "buckets": agg.buckets, "quantiles": list(agg.quantiles),
+        "live_pane_slots_before_final_fire": int(pane_slots),
+        "capacity": eng.capacity, "state_bytes": eng.capacity * agg.buckets * 4,
+        "fired_pairs": int(len(fired_keys)), "windows": n_windows,
+        "events_per_s": n_events / (t1 - t0 + t3 - t2),
+        "ingest_with_chunk_fires_s": t1 - t0, "final_fire_s": t3 - t2,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "sampled_pairs": n_sample, "boundary_explained": explained,
+        "pane_rows_with_boundary_values": int((~exact_rows).sum()),
+        "reduced": "depth only: an unbounded stream cut to 2^22 events over "
+                   "10 s of event time; key space, window geometry and "
+                   "sketch widths unchanged"}}
+    check(out["sliding"]["max_memory_allocated"] >= 3e9,
+          "sliding: >= 3 GB of device memory at peak")
+    del eng
+    torch.cuda.empty_cache()
+    emit(out)
+
+
+# ---------------------------------------------------------------------
+# phase 9: session windows with Count-Min, and heavy hitters (config #4)
+# ---------------------------------------------------------------------
+
+def countmin_np(vh: np.ndarray, depth: int, width: int) -> np.ndarray:
+    """An independent numpy Count-Min table of unit-weight items."""
+    hi = (vh >> np.uint64(32)).astype(np.uint64)
+    lo = (vh & np.uint64(0xFFFFFFFF)).astype(np.uint64)
+    table = np.zeros((depth, width), np.int32)
+    for r in range(depth):
+        col = ((lo + np.uint64(r) * hi) & np.uint64(0xFFFFFFFF)) % np.uint64(width)
+        np.add.at(table[r], col.astype(np.int64), 1)
+    return table
+
+
+def session_cm_phase(dev, n_events=1 << 21, n_keys=100_000, span=30_000,
+                     chunk=1 << 19, n_sample=4096):
+    """VectorizedSessionWindows(CountMinSketchAggregate(), gap 1 s) at
+    its default widths (d = 4, w = 2048): 100k keys, uniform user ids,
+    2^21 time-sorted events over 30 s, a watermark after each chunk.
+    Session totals exact against numpy sessions; sampled sessions'
+    tables bit-equal to a numpy Count-Min."""
+    import torch
+    from flink_tpu_torch.ops.sketches import CountMinSketchAggregate
+    from flink_tpu_torch.streaming.vectorized_sessions import VectorizedSessionWindows
+
+    gap = 1000
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, n_keys, n_events).astype(np.uint64)
+    ts = np.sort(rng.integers(0, span, n_events).astype(np.int64))
+    users = rng.integers(0, 2**63, n_events).astype(np.uint64)
+    kh, vh = splitmix64_np(keys), splitmix64_np(users)
+    ones = np.ones(n_events, np.float32)
+    agg = CountMinSketchAggregate()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = VectorizedSessionWindows(agg, gap, initial_capacity=1 << 17, device=dev)
+    captured = []                         # (emitted index, table row)
+    result = agg.result
+
+    def capturing_result(state, slots):
+        out = result(state, slots)
+        pos = np.arange(0, len(slots), max(1, len(slots) // 1024))
+        rows = state["table"][slots[torch.from_numpy(pos).to(dev)].to(torch.int64)]
+        captured.extend(zip((len(eng.emitted) + pos).tolist(), rows.cpu().numpy()))
+        return out
+    agg.result = capturing_result
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wms = []
+    for i in range(0, n_events, chunk):
+        sl = slice(i, i + chunk)
+        eng.process_batch(keys[sl], ts[sl], ones[sl], key_hashes=kh[sl],
+                          value_hashes=vh[sl])
+        wms.append(int(ts[sl][-1]) - 1)
+        eng.advance_watermark(wms[-1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.advance_watermark(2 * span)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(eng.num_late_dropped == 0, "sessions: no record late")
+
+    # numpy sessions: a break where the key changes, the gap is exceeded,
+    # or the watermark in force when the record arrived had already
+    # closed the previous record's session
+    order = np.lexsort((ts, keys))
+    sk, st = keys[order], ts[order]
+    wm_before = np.concatenate([[-(2**62)], wms])[order // chunk]
+    brk = np.ones(n_events, bool)
+    brk[1:] = ((sk[1:] != sk[:-1]) | (st[1:] - st[:-1] > gap)
+               | (st[:-1] + gap - 1 <= wm_before[1:]))
+    first = np.nonzero(brk)[0]
+    last = np.append(first[1:] - 1, n_events - 1)
+    want = np.stack([sk[first].astype(np.int64), st[first], st[last] + gap,
+                     last - first + 1], axis=1)
+    got = np.array([(int(k), s, e, int(r)) for k, r, s, e in eng.emitted], np.int64)
+    want = want[np.lexsort(want.T[::-1])]
+    got = got[np.lexsort(got.T[::-1])]
+    check(np.array_equal(got, want), "sessions: every session and its total "
+          "exact against numpy")
+    # sampled sessions' tables against a numpy Count-Min
+    start_of = {(int(k), int(s)): (a, b) for k, s, a, b in
+                zip(sk[first], st[first], first, last)}
+    sample = captured[:: max(1, len(captured) // n_sample)]
+    for e, row in sample:
+        k, _, s, _ = eng.emitted[e]
+        a, b = start_of[(int(k), int(s))]
+        check(np.array_equal(row, countmin_np(vh[order[a:b + 1]], agg.depth,
+                                              agg.width)),
+              f"sessions: table of key {k} session {s} equals numpy Count-Min")
+    out = {"session_cm": {
+        "events": n_events, "keys": n_keys, "gap_ms": gap, "depth": agg.depth,
+        "width": agg.width, "sessions": int(len(got)),
+        "capacity": eng.capacity,
+        "table_bytes": eng.capacity * agg.depth * agg.width * 4,
+        "events_per_s": n_events / (t2 - t0), "ingest_with_chunk_fires_s": t1 - t0,
+        "final_fire_s": t2 - t1, "sampled_tables": len(sample),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "reduced": "depth only: an unbounded stream cut to 2^21 events over "
+                   "30 s; keys, gap and sketch widths unchanged"}}
+    del eng
+    torch.cuda.empty_cache()
+    emit(out)
+
+
+def heavy_hitter_phase(dev, n_events=1 << 21, n_keys=100_000, span=4_000,
+                       chunk=1 << 19, phi=0.01):
+    """WindowedHeavyHitters(1000 ms, phi = 0.01) over 100k keys, 60% of
+    records from 8 heavy items and the rest from 10^5 tail items: no
+    false negatives against exact counts, no estimate below the truth,
+    every point query equal to the plain countmin_query."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.streaming.heavy_hitters import WindowedHeavyHitters
+
+    rng = np.random.default_rng(13)
+    keys = rng.integers(0, n_keys, n_events)
+    items = np.where(rng.random(n_events) < 0.6, rng.integers(0, 8, n_events),
+                     rng.integers(8, 8 + 100_000, n_events))
+    ts = np.sort(rng.integers(0, span, n_events).astype(np.int64))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hh = WindowedHeavyHitters(1000, phi=phi, initial_capacity=1 << 17,
+                              microbatch=chunk, device=dev)
+    queries = {"calls": 0, "rows": 0, "unequal": 0}
+    point_query = hh.agg.point_query
+
+    def checked_point_query(state, slots, qh_hi, qh_lo):
+        out = point_query(state, slots, qh_hi, qh_lo)
+        plain = K.countmin_query_plain(state["table"], slots, qh_hi, qh_lo)
+        queries["calls"] += 1
+        queries["rows"] += len(slots)
+        queries["unequal"] += int((out != plain).sum())
+        return out
+    hh.agg.point_query = checked_point_query
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, n_events, chunk):
+        sl = slice(i, i + chunk)
+        hh.process_items(keys[sl], ts[sl], items[sl])
+        hh.advance_watermark(int(ts[sl][-1]) - 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hh.advance_watermark(2 * span)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(queries["calls"] == 4 and queries["unequal"] == 0,
+          "heavy hitters: every point query equals the plain countmin_query")
+    # exact counts per (key, window, item) and per (key, window)
+    n_items = 8 + 100_000
+    kw = keys * 4 + ts // 1000
+    cell, counts = np.unique(kw * n_items + items, return_counts=True)
+    totals = np.bincount(kw, minlength=4 * n_keys)
+    heavy = cell[counts >= phi * totals[cell // n_items]]
+    emitted = np.array([(int(k) * 4 + s // 1000) * n_items + int(i)
+                        for k, hitters, s, _ in hh.hh_emitted for i, _ in hitters],
+                       np.int64)
+    ests = np.array([est for _, hitters, _, _ in hh.hh_emitted for _, est in hitters])
+    check(np.isin(heavy, emitted).all(), "heavy hitters: no false negatives")
+    check(np.isin(emitted, cell).all(), "heavy hitters: only items seen")
+    truth = counts[np.searchsorted(cell, emitted)]
+    check((ests >= truth).all(), "heavy hitters: no estimate below the exact count")
+    out = {"heavy_hitters": {
+        "events": n_events, "keys": n_keys, "phi": phi, "windows": 4,
+        "candidates_queried": queries["rows"], "hitters": int(len(emitted)),
+        "true_heavy": int(len(heavy)),
+        "overestimated": int((ests > truth).sum()), "capacity": hh.capacity,
+        "events_per_s": n_events / (t2 - t0), "ingest_with_chunk_fires_s": t1 - t0,
+        "final_fire_s": t2 - t1,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "reduced": "depth only: an unbounded stream cut to 2^21 events over "
+                   "4 s; keys, item mix and sketch widths unchanged"}}
+    del hh
+    torch.cuda.empty_cache()
+    emit(out)
+
+
+# ---------------------------------------------------------------------
 
 SOURCES = {
     "hll_update": ("flink_tpu_torch/kernels/csrc/hll_update.cu",
@@ -790,17 +1431,32 @@ SOURCES = {
                    "flink_tpu/state/tpu_backend.py:137"),
     "set_rows": ("flink_tpu_torch/kernels/csrc/set_rows.cu",
                  "flink_tpu/state/tpu_backend.py:133"),
+    "countmin_update": ("flink_tpu_torch/kernels/csrc/countmin_update.cu",
+                        "flink_tpu/ops/sketches.py:141"),
+    "countmin_query": ("flink_tpu_torch/kernels/csrc/countmin_query.cu",
+                       "flink_tpu/ops/sketches.py:155"),
+    "quantile_update": ("flink_tpu_torch/kernels/csrc/quantile_update.cu",
+                        "flink_tpu/ops/sketches.py:197"),
+    "quantile_result": ("flink_tpu_torch/kernels/csrc/quantile_result.cu",
+                        "flink_tpu/ops/sketches.py:212"),
 }
 
 #: main-path runs, each with the kernels it must launch
 PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")),
          ("jobs", "job_phase", ("hll_update", "hll_estimate", "scatter_combine",
-                                "clear_rows")),
+                                "clear_rows", "merge_rows", "quantile_update",
+                                "quantile_result", "countmin_update")),
          ("keyed", "keyed_phase", ("hll_update", "hll_estimate", "clear_rows",
                                    "set_rows")),
          ("sessions", "session_phase", ("hll_update", "hll_estimate",
                                         "scatter_combine", "clear_rows",
-                                        "merge_rows", "set_rows")))
+                                        "merge_rows", "set_rows")),
+         ("sliding", "sliding_phase", ("quantile_update", "quantile_result",
+                                       "merge_rows", "clear_rows")),
+         ("session_cm", "session_cm_phase", ("countmin_update", "merge_rows",
+                                             "clear_rows")),
+         ("heavy_hitters", "heavy_hitter_phase", ("countmin_update",
+                                                  "countmin_query", "clear_rows")))
 
 
 def main() -> int:

@@ -10,6 +10,12 @@ PyTorch versions.
                    windows), repeated or unique dst
 ``set_rows``       write host/device rows into listed slots (restore,
                    host-tier promotion)
+``countmin_update``  Count-Min scatter-add of weights into d hashed
+                   columns and the slot total
+``countmin_query``   Count-Min point queries (min over the d rows)
+``quantile_update``  log-bucket histogram add (quantile sketch)
+``quantile_result``  per-slot quantiles by a scan of the histogram,
+                   dense range or gathered
 =================  ==================================================
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
@@ -18,19 +24,31 @@ tensors it runs the plain version.  Nothing builds at import (see
 """
 
 from flink_tpu_torch.kernels.clear_rows import clear_rows, clear_rows_plain
+from flink_tpu_torch.kernels.countmin_query import (countmin_query,
+                                                    countmin_query_plain)
+from flink_tpu_torch.kernels.countmin_update import (countmin_update,
+                                                     countmin_update_plain)
 from flink_tpu_torch.kernels.hll_estimate import (hll_estimate,
                                                   hll_estimate_plain)
 from flink_tpu_torch.kernels.hll_update import hll_update, hll_update_plain
 from flink_tpu_torch.kernels.loader import (KERNELS, LAUNCHES, build_all,
                                             reset_launch_counts)
 from flink_tpu_torch.kernels.merge_rows import merge_rows, merge_rows_plain
+from flink_tpu_torch.kernels.quantile_result import (quantile_result,
+                                                     quantile_result_plain)
+from flink_tpu_torch.kernels.quantile_update import (quantile_update,
+                                                     quantile_update_plain)
 from flink_tpu_torch.kernels.scatter_combine import (scatter_combine,
                                                      scatter_combine_plain)
 from flink_tpu_torch.kernels.set_rows import set_rows, set_rows_plain
 
 __all__ = [
     "KERNELS", "LAUNCHES", "build_all", "reset_launch_counts",
-    "clear_rows", "clear_rows_plain", "hll_estimate", "hll_estimate_plain",
+    "clear_rows", "clear_rows_plain", "countmin_query", "countmin_query_plain",
+    "countmin_update", "countmin_update_plain", "hll_estimate",
+    "hll_estimate_plain",
     "hll_update", "hll_update_plain", "merge_rows", "merge_rows_plain",
-    "scatter_combine", "scatter_combine_plain", "set_rows", "set_rows_plain",
+    "quantile_result", "quantile_result_plain", "quantile_update",
+    "quantile_update_plain", "scatter_combine", "scatter_combine_plain",
+    "set_rows", "set_rows_plain",
 ]

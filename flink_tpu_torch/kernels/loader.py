@@ -32,7 +32,8 @@ from typing import Dict, Iterable, Optional
 import torch
 
 KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
-           "merge_rows", "set_rows")
+           "merge_rows", "set_rows", "countmin_update", "countmin_query",
+           "quantile_update", "quantile_result")
 
 #: kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -73,6 +74,18 @@ _SIGNATURES = {
     },
     "set_rows": {
         "ft_set_rows": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
+    },
+    "countmin_update": {
+        "ft_countmin_update": (_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _P),
+    },
+    "countmin_query": {
+        "ft_countmin_query": (_P, _P, _P, _P, _LL, _I, _LL, _LL, _P, _P),
+    },
+    "quantile_update": {
+        "ft_quantile_update": (_P, _P, _P, _LL, _LL, _LL, _F, _F, _LL, _P),
+    },
+    "quantile_result": {
+        "ft_quantile_result": (_P, _P, _LL, _LL, _LL, _P, _I, _P, _P, _P),
     },
 }
 

@@ -6,7 +6,8 @@ arithmetic on those lanes.  PyTorch on the CPU has no ``>>``, ``%`` or
 ``+`` for ``uint32``, so these functions compute in ``int64`` with
 explicit ``& 0xFFFFFFFF`` masks; lanes may arrive as ``uint32``, as an
 ``int32`` view of the same bits, or as ``int64``.  The CUDA kernels do
-the same arithmetic on native ``uint32`` (``__clz``).
+the same arithmetic on native ``uint32`` (``__clz``, and wrapping
+multiplies for the Count-Min columns).
 """
 
 from __future__ import annotations
@@ -70,3 +71,14 @@ def hll_register_and_rank(h_hi: torch.Tensor, h_lo: torch.Tensor,
     reg = (_u32(h_lo) & ((1 << precision) - 1)).to(torch.int32)
     rank = (clz32(h_hi) + 1).to(torch.int32)
     return reg, rank
+
+
+def countmin_rows(h_hi: torch.Tensor, h_lo: torch.Tensor, depth: int,
+                  width: int) -> torch.Tensor:
+    """Kirsch-Mitzenmacher double hashing: row r's column is
+    ``(lo + r * hi) mod width`` in uint32 arithmetic, where ``r * hi``
+    and the add wrap mod 2^32 before the mod (width need not be a power
+    of two).  Returns int32 ``[depth, N]``."""
+    r = torch.arange(depth, dtype=torch.int64, device=h_hi.device)[:, None]
+    h = (_u32(h_lo)[None, :] + r * _u32(h_hi)[None, :]) & _M32
+    return (h % width).to(torch.int32)

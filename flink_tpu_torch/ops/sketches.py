@@ -1,21 +1,35 @@
-"""Mergeable sketch aggregates (port of ``flink_tpu/ops/sketches.py:36-116``).
+"""Mergeable sketch aggregates (port of ``flink_tpu/ops/sketches.py``).
 
-The port carries ``HyperLogLogAggregate``; Count-Min and quantile
-sketches are later slices.  HLL registers are ``uint8 [slots, m]`` in
-device memory; a batch update is one ``hll_update`` kernel launch, a
-fire one ``hll_estimate`` launch, and a merge (``merge_slots`` /
-``merge_rows``, the register-wise max of ``combiners``) one
-``merge_rows`` launch.  Rank and register come from exact
-integer bit operations, so registers are bit-equal to the reference.
+- ``HyperLogLogAggregate``: registers ``uint8 [slots, m]``; a batch
+  update is one ``hll_update`` launch, a fire one ``hll_estimate``.
+- ``CountMinSketchAggregate``: ``int32 [slots, d, w]`` counters and an
+  ``int32 [slots]`` total; a batch update is one ``countmin_update``
+  launch, a point query one ``countmin_query``; ``result`` is the
+  total, a gather.
+- ``QuantileSketchAggregate``: ``int32 [slots, B]`` log-bucket
+  histograms; one ``quantile_update`` per batch, one
+  ``quantile_result`` per fire tile.
+
+A merge (``merge_slots`` / ``merge_rows``, each component by its
+``combiners`` op: register-wise max, counter-wise add) is one
+``merge_rows`` launch per component.  Registers, counters and
+histograms come from exact integer arithmetic (the quantile bucket
+from float32 steps as the reference takes them), so they are
+bit-equal to the reference's apart from float32 ``log`` rounding at
+bucket boundaries.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from flink_tpu_torch.kernels import hll_estimate, hll_update
+from flink_tpu_torch.kernels import (countmin_query, countmin_update,
+                                     hll_estimate, hll_update,
+                                     quantile_result, quantile_update)
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction, StateSpec
 
 
@@ -71,3 +85,105 @@ class HyperLogLogAggregate(DeviceAggregateFunction):
         # gather-free fire for contiguous slot ranges: one dense pass
         # over the [S, m] rows at memory bandwidth
         return hll_estimate(state["regs"], self.alpha)
+
+
+class CountMinSketchAggregate(DeviceAggregateFunction):
+    """Count-Min sketch: approximate per-item frequencies.
+
+    ``result`` is the per-slot total weight (exact L1 mass, a side
+    counter); per-item estimates come from :meth:`point_query` (the
+    heavy-hitter operator's read, ``streaming/heavy_hitters.py``).
+    Guarantee: est <= true + eps * L1 with probability 1 - delta,
+    eps = e / width, delta = e^-depth.  The value is both the weight
+    (``int32`` toward zero) and, hashed, the item."""
+
+    needs_value = True
+    needs_value_hash = True
+    combiners = {"table": "add", "total": "add"}
+
+    def __init__(self, depth: int = 4, width: int = 2048):
+        self.depth = depth
+        self.width = width
+
+    def state_specs(self) -> Dict[str, StateSpec]:
+        return {"table": StateSpec((self.depth, self.width),
+                                   np.dtype(np.int32), 0),
+                "total": StateSpec((), np.dtype(np.int32), 0)}
+
+    def update(self, state, slots, values, vh_hi, vh_lo, n):
+        countmin_update(state["table"], state["total"], slots, values,
+                        vh_hi, vh_lo, n)
+        return state
+
+    def result(self, state, slots):
+        return state["total"][slots.to(torch.int64)]
+
+    def result_dense(self, state):
+        return state["total"]
+
+    def point_query(self, state, slots, qh_hi, qh_lo) -> torch.Tensor:
+        """int32 estimate of item (qh_hi[i], qh_lo[i]) in slot slots[i]."""
+        return countmin_query(state["table"], slots, qh_hi, qh_lo)
+
+
+class QuantileSketchAggregate(DeviceAggregateFunction):
+    """DDSketch-style log-bucketed quantile sketch (the t-digest role).
+
+    A value v > min_value lands in bucket 1 + floor(log(v) / log(gamma))
+    - offset, clamped to [1, buckets - 1]; v <= min_value in bucket 0.
+    Quantile answers carry relative error <= (gamma - 1) / 2 within
+    [min_value, max_value].  ``result`` is float32 ``[S, Q]``."""
+
+    needs_value = True
+    combiners = {"hist": "add"}
+
+    def __init__(self, quantiles: Sequence[float] = (0.5, 0.99),
+                 relative_accuracy: float = 0.01, min_value: float = 1e-9,
+                 max_value: float = 1e9):
+        self.quantiles = tuple(quantiles)
+        self.gamma = (1 + relative_accuracy) / (1 - relative_accuracy)
+        self.log_gamma = math.log(self.gamma)
+        self.min_value = min_value
+        self.offset = math.floor(math.log(min_value) / self.log_gamma)
+        self.buckets = 2 + int(math.ceil(
+            (math.log(max_value) - math.log(min_value)) / self.log_gamma))
+        self._device_tables: Dict[torch.device,
+                                  Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def state_specs(self) -> Dict[str, StateSpec]:
+        return {"hist": StateSpec((self.buckets,), np.dtype(np.int32), 0)}
+
+    def bucket_values(self) -> np.ndarray:
+        """float32 value of each bucket, the canonical DDSketch estimate
+        exp((b + offset) * log gamma) * 2 / (1 + gamma) in the
+        reference's float32 steps; bucket 0 is 0."""
+        b = np.arange(self.buckets, dtype=np.float32)
+        with np.errstate(over="ignore"):
+            val = (np.exp((b + np.float32(self.offset))
+                          * np.float32(self.log_gamma))
+                   * np.float32(2.0 / (1.0 + self.gamma)))
+        val[0] = 0.0
+        return val
+
+    def _tables(self, device: torch.device):
+        """(quantiles, bucket values) as float32 tensors on ``device``,
+        made once per device."""
+        tables = self._device_tables.get(device)
+        if tables is None:
+            tables = (torch.tensor(np.float32(self.quantiles), device=device),
+                      torch.from_numpy(self.bucket_values()).to(device))
+            self._device_tables[device] = tables
+        return tables
+
+    def update(self, state, slots, values, vh_hi, vh_lo, n):
+        quantile_update(state["hist"], slots, values, n, self.min_value,
+                        self.log_gamma, self.offset)
+        return state
+
+    def result(self, state, slots):
+        hist = state["hist"]
+        return quantile_result(hist, *self._tables(hist.device), slots=slots)
+
+    def result_dense(self, state):
+        hist = state["hist"]
+        return quantile_result(hist, *self._tables(hist.device))

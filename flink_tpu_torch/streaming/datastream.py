@@ -18,12 +18,12 @@ The environment runs on the card unless it is created with
 ``Configuration``).  ``WindowedStream.aggregate`` routes as the
 reference does: a device-eligible aggregate (a DeviceAggregateFunction,
 default trigger, lateness 0, no late-data tag) runs on
-``DeviceWindowOperator``, anything else on ``WindowOperator`` over the
-keyed backend.  The reference's two other routes are not ported and
-raise ``NotImplementedError``: its device engines for sliding and
-session windows, and ``GenericWindowOperator`` for other aggregates
-over the same window shapes; ``disable_device_operator()`` sends
-either to ``WindowOperator``.
+``DeviceWindowOperator`` (tumbling, sliding and session engines),
+anything else on ``WindowOperator`` over the keyed backend.  The
+reference's other route is not ported and raises
+``NotImplementedError``: ``GenericWindowOperator``, for aggregates
+that are not device aggregates over the same window shapes;
+``disable_device_operator()`` sends them to ``WindowOperator``.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from flink_tpu_torch.core.state import AggregatingStateDescriptor
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
 from flink_tpu_torch.streaming.device_window_operator import (
-    DeviceWindowOperator, assigner_supported, batch_window_eligible)
+    DeviceWindowOperator, batch_window_eligible)
 from flink_tpu_torch.streaming.graph import (StreamEdge, StreamGraph,
                                              StreamNode, create_job_graph)
 from flink_tpu_torch.streaming.operators import StreamSink
@@ -245,12 +245,6 @@ class WindowedStream:
         batch = self._device_enabled and batch_window_eligible(
             assigner, lateness, late_tag, window_function)
         if batch and isinstance(aggregate_function, DeviceAggregateFunction):
-            if not assigner_supported(assigner):
-                raise NotImplementedError(
-                    f"the device window engine for {assigner!r} is not "
-                    "ported (the port's engine covers tumbling windows); "
-                    ".disable_device_operator() runs this aggregate on "
-                    "WindowOperator")
             device = keyed.env.device
 
             def factory():

@@ -7,11 +7,13 @@ watermark that crosses a window-end boundary) flushes one vectorized
 results leave through the standard output with the scalar operator's
 timestamp contract (window.max_timestamp).
 
-Engine choice in slice 1 is the device-resident scatter tier
-(``VectorizedTumblingWindows``) for every key type.  The JAX package
-sends integer keys to its log-structured tier and string-keyed float
-sums to a fused C++ tier; those, and the mesh engines, are later
-slices of the port.
+Engine choice (``engine_for_assigner``) is the device-resident scatter
+tier for every key type: ``VectorizedTumblingWindows``,
+``VectorizedSlidingWindows`` (size a multiple of the slide, offset 0)
+or ``VectorizedSessionWindows``.  The JAX package sends integer keys
+(and interned string keys) to its log-structured tier and
+string-keyed float sums to a fused C++ tier; those, and the mesh
+engines, are later slices of the port.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
 from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord, Watermark
 from flink_tpu_torch.streaming.operators import StreamOperator, TimestampedCollector
-from flink_tpu_torch.streaming.vectorized import VectorizedTumblingWindows
+from flink_tpu_torch.streaming.vectorized import (VectorizedSlidingWindows,
+                                                  VectorizedTumblingWindows)
+from flink_tpu_torch.streaming.vectorized_sessions import \
+    VectorizedSessionWindows
 from flink_tpu_torch.streaming.windowing import (EventTimeSessionWindows,
                                                  SlidingEventTimeWindows,
                                                  TimeWindow,
@@ -32,8 +37,32 @@ from flink_tpu_torch.streaming.windowing import (EventTimeSessionWindows,
 
 
 def assigner_supported(assigner) -> bool:
-    """The assigners the port's device engine covers."""
-    return isinstance(assigner, TumblingEventTimeWindows) and assigner.offset == 0
+    """The assigners the device engines cover: tumbling and sliding
+    (size a multiple of the slide) at offset 0, and sessions."""
+    if isinstance(assigner, TumblingEventTimeWindows):
+        return assigner.offset == 0
+    if isinstance(assigner, SlidingEventTimeWindows):
+        return assigner.offset == 0 and assigner.size % assigner.slide == 0
+    return isinstance(assigner, EventTimeSessionWindows)
+
+
+def engine_for_assigner(assigner, agg: DeviceAggregateFunction,
+                        initial_capacity: int = 1 << 14,
+                        device: DeviceLike = None):
+    """Assigner → device engine, or None when no engine applies."""
+    if not assigner_supported(assigner):
+        return None
+    if isinstance(assigner, TumblingEventTimeWindows):
+        return VectorizedTumblingWindows(agg, assigner.size,
+                                         initial_capacity=initial_capacity,
+                                         device=device)
+    if isinstance(assigner, SlidingEventTimeWindows):
+        return VectorizedSlidingWindows(agg, assigner.size, assigner.slide,
+                                        initial_capacity=initial_capacity,
+                                        device=device)
+    return VectorizedSessionWindows(agg, assigner.gap,
+                                    initial_capacity=initial_capacity,
+                                    device=device)
 
 
 def batch_window_eligible(assigner, allowed_lateness, late_tag,
@@ -42,17 +71,13 @@ def batch_window_eligible(assigner, allowed_lateness, late_tag,
     window tiers: the device engines for a DeviceAggregateFunction, the
     generic tier for any other aggregate (tumbling, sliding with size %
     slide == 0, session; default trigger, lateness 0, no late-data
-    tag).  The port's device engine covers what ``assigner_supported``
-    accepts."""
+    tag): the assigners the port's device engines cover
+    (``assigner_supported``)."""
     if allowed_lateness != 0 or late_tag is not None:
         return False
     if window_function is not None and not callable(window_function):
         return False
-    if isinstance(assigner, SlidingEventTimeWindows):
-        return assigner.size % assigner.slide == 0 and assigner.offset == 0
-    if isinstance(assigner, TumblingEventTimeWindows):
-        return assigner.offset == 0
-    return isinstance(assigner, EventTimeSessionWindows)
+    return assigner_supported(assigner)
 
 
 class DeviceWindowOperator(StreamOperator):
@@ -100,9 +125,8 @@ class DeviceWindowOperator(StreamOperator):
     def _ensure_engine(self):
         if self.engine is not None:
             return
-        self.engine = VectorizedTumblingWindows(
-            self.agg, self.assigner.size,
-            initial_capacity=self.initial_capacity, device=self.device)
+        self.engine = engine_for_assigner(self.assigner, self.agg,
+                                          self.initial_capacity, self.device)
         # fast-forward a lazily created engine to the operator's
         # watermark: records behind it count as late
         if self.current_watermark > -(2 ** 63):
@@ -131,12 +155,13 @@ class DeviceWindowOperator(StreamOperator):
 
     def process_watermark(self, watermark: Watermark):
         # fires happen only when the watermark crosses a window-end
-        # boundary (multiples of the size); between boundaries the
-        # watermark forwards without touching the engine, so a
-        # per-element watermark costs no device work
+        # boundary (multiples of the size or slide; sessions may fire at
+        # any time); between boundaries the watermark forwards without
+        # touching the engine, so a per-element watermark costs no
+        # device work
         wm = watermark.timestamp
-        grid = self.assigner.size
-        if wm != MAX_TIMESTAMP:
+        grid = self._fire_grid()
+        if grid is not None and wm != MAX_TIMESTAMP:
             fireable = ((wm + 1) // grid) * grid if wm >= 0 else None
             if fireable is not None and fireable == self._last_fireable:
                 self.current_watermark = wm
@@ -151,6 +176,15 @@ class DeviceWindowOperator(StreamOperator):
             self.num_late_records_dropped = self.engine.num_late_dropped
         self.current_watermark = wm
         self.output.emit_watermark(watermark)
+
+    def _fire_grid(self):
+        """Window-end alignment grid of the assigner, or None when fires
+        can happen at any time (sessions)."""
+        if isinstance(self.assigner, SlidingEventTimeWindows):
+            return self.assigner.slide
+        if isinstance(self.assigner, TumblingEventTimeWindows):
+            return self.assigner.size
+        return None
 
     def _emit_from(self, start_idx: int):
         emitted = self.engine.emitted

@@ -1,5 +1,5 @@
-"""Vectorized tumbling-window engine with device-resident state (port of
-``flink_tpu/streaming/vectorized.py:44-736, 905-1007``, tumbling tier).
+"""Vectorized tumbling and sliding window engines with device-resident
+state (port of ``flink_tpu/streaming/vectorized.py:44-736, 786-1007``).
 
 Whole record batches go through:
 
@@ -16,11 +16,16 @@ same (key, window) pairs fire with the same results.  Slot numbers may
 differ from the JAX engine's (it uses the native C++ index where that
 is built), so results compare per (key, window), never per slot.
 
+The sliding engine (``VectorizedSlidingWindows``) aggregates each
+record once into its slide-sized pane and composes a window at fire
+time by merging its panes into fresh union slots on the device
+(``agg.merge_rows``, one ``merge_rows`` launch per pane and component).
+
 Differences from the JAX engine, each because PyTorch runs eagerly and
-updates in place: no power-of-two padding of micro-batches or fire
-tiles (there is no compile cache to keep warm; rows at or beyond ``n``
-still contribute nothing); the full-arena re-init after a full fire
-refills the existing register file in place (``clear_rows`` over
+updates in place: no power-of-two padding of micro-batches, merges or
+fire tiles (there is no compile cache to keep warm; rows at or beyond
+``n`` still contribute nothing); the full-arena re-init after a full
+fire refills the existing register file in place (``clear_rows`` over
 [0, C)) where JAX drops and reallocates it.
 """
 
@@ -265,6 +270,10 @@ class _WindowShard:
         self.key_list: List[np.ndarray] = []
         self.slot_list: List[np.ndarray] = []
         self.hash_list: List[np.ndarray] = []
+
+    @property
+    def n_keys(self) -> int:
+        return sum(len(a) for a in self.key_list)
 
     def all_keys(self) -> np.ndarray:
         if not self.key_list:
@@ -551,8 +560,8 @@ class VectorizedTumblingWindows:
             "num_late_dropped": self.num_late_dropped,
             "windows": {int(s): _snapshot_shard(sh)
                         for s, sh in self.windows.items()},
-            "fired_horizon": None,
-            "scratch": None,
+            "fired_horizon": getattr(self, "_fired_horizon", None),
+            "scratch": getattr(self, "_scratch_slot_id", None),
         }
 
     def restore(self, snap: dict) -> None:
@@ -563,11 +572,175 @@ class VectorizedTumblingWindows:
         self.num_late_dropped = snap["num_late_dropped"]
         self.windows = {int(s): _restore_shard(sh)
                         for s, sh in snap["windows"].items()}
+        if snap.get("fired_horizon") is not None:
+            self._fired_horizon = snap["fired_horizon"]
+        if snap.get("scratch") is not None:
+            self._scratch_slot_id = snap["scratch"]
         self._p_slots.clear()
         self._p_values.clear()
         self._p_hi.clear()
         self._p_lo.clear()
         self._p_count = 0
+
+
+def device_slots(slots, capacity: int, device: torch.device) -> torch.Tensor:
+    """Host slot numbers → an int32 tensor on ``device``, after checking
+    on the host that each lies in [0, capacity): a kernel writes
+    wherever it is told, where XLA's scatter drops an out-of-range
+    index silently."""
+    arr = np.asarray(slots, np.int64)
+    if len(arr) and (arr.min() < 0 or arr.max() >= capacity):
+        bad = arr[(arr < 0) | (arr >= capacity)]
+        raise IndexError(f"slot {int(bad[0])} outside the state's "
+                         f"{capacity} rows")
+    return to_device(arr.astype(np.int32), device)
+
+
+class _ScratchMergeMixin:
+    """Device-side slot merging shared by the sliding and session
+    engines: ``state[dst] ⊕= state[src]`` in one call per component.
+    The JAX engines pad each merge to a power of two with a sacrificial
+    scratch slot; the port passes the exact lists, but still allocates
+    the scratch slot from the arena where the JAX engine does (the
+    first merge), so arena numbering and snapshots match and restore
+    in either package.  Requires self.agg / self.arena / self.state /
+    self.capacity / self.device."""
+
+    _scratch_slot_id: Optional[int] = None
+    #: True: every merge's dst are unique (``agg.merge_rows``, plain
+    #: loads and stores); False: a dst may repeat (``agg.merge_slots``)
+    unique_dst_merges = False
+
+    def _scratch(self) -> int:
+        if self._scratch_slot_id is None:
+            self._scratch_slot_id = int(self.arena.alloc(1)[0])
+        return self._scratch_slot_id
+
+    def _ensure_state_capacity(self) -> None:
+        """Grow the device arrays if the arena outran them (fire-time
+        union allocations bypass the ingest path's growth check)."""
+        if self.arena.high_water > self.capacity:
+            new_cap = max(self.capacity * 2,
+                          1 << (self.arena.high_water - 1).bit_length())
+            self.state = self.agg.grow_state(self.state, new_cap)
+            self.capacity = new_cap
+
+    def _merge_tiled(self, dst, src) -> None:
+        if len(dst) == 0:
+            return
+        self._ensure_state_capacity()
+        self._scratch()
+        d = device_slots(dst, self.capacity, self.device)
+        s = device_slots(src, self.capacity, self.device)
+        merge = (self.agg.merge_rows if self.unique_dst_merges
+                 else self.agg.merge_slots)
+        self.state = merge(self.state, d, s)
+
+
+class VectorizedSlidingWindows(_ScratchMergeMixin, VectorizedTumblingWindows):
+    """Batched keyBy().window(SlidingEventTimeWindows).aggregate(agg),
+    pane-composed (BASELINE config #3: 10 s / 1 s quantiles at 10M
+    keys).  Each record is aggregated once into its slide-sized pane; a
+    window's result is composed at fire time by merging its size/slide
+    panes into fresh union slots (``agg.merge_rows``: a pane holds each
+    key once, so the union slots of one merge are unique, and they are
+    fresh, so none is also a source).  Ingest costs what a tumbling
+    window at slide granularity costs; the overlap factor is paid at
+    fire time, as device merges.  Semantics: WindowOperator +
+    SlidingEventTimeWindows with lateness 0."""
+
+    unique_dst_merges = True
+
+    def __init__(self, aggregate: DeviceAggregateFunction,
+                 window_size_ms: int, slide_ms: int,
+                 initial_capacity: int = 1 << 16,
+                 microbatch: int = 1 << 17,
+                 emit: Optional[Callable[[Any, Any, int, int], None]] = None,
+                 device: DeviceLike = None):
+        if window_size_ms % slide_ms != 0:
+            raise ValueError("window size must be a multiple of the slide "
+                             "(pane composition)")
+        super().__init__(aggregate, slide_ms, initial_capacity, microbatch,
+                         emit, device)
+        self.window_size = window_size_ms
+        self.slide = slide_ms
+        self.n_panes = window_size_ms // slide_ms
+        self.lateness_horizon = window_size_ms
+        self._fired_horizon = -(2**63)  # the watermark fires last ran at
+
+    def advance_watermark(self, watermark: int) -> int:
+        """Fire every sliding window with end-1 in (previous watermark,
+        watermark]; prune the panes no window needs any more."""
+        prev = self._fired_horizon
+        self._fired_horizon = watermark
+        self.watermark = watermark
+        self.flush()
+        fired = 0
+        if not self.windows:
+            return 0
+        # candidate window starts W on the slide grid with
+        #   W + size - 1 <= wm      (due now)
+        #   W + size - 1 > prev     (not fired on an earlier call)
+        #   W >= min_pane - size + slide  (contains at least one pane)
+        min_pane = min(self.windows)
+        max_pane = max(self.windows)
+        hi = min(watermark - self.window_size + 1, max_pane)
+        start_from = max(min_pane - self.window_size + self.slide,
+                         prev - self.window_size + 2)
+        first = -(-start_from // self.slide) * self.slide  # ceil to grid
+        if first > hi:
+            self._prune_panes(watermark)
+            return 0
+        for W in range(first, hi + 1, self.slide):
+            panes = [self.windows[p]
+                     for p in range(W, W + self.window_size, self.slide)
+                     if p in self.windows and self.windows[p].slot_list]
+            if not panes:
+                continue
+            end = W + self.window_size
+            if len(panes) == 1:
+                # single-pane window: fire straight from the pane slots
+                shard = panes[0]
+                slots = shard.all_slots()
+                self._emit_fire(shard.all_keys(), slots, W, end)
+                fired += len(slots)
+                continue
+            # union the panes' keys into fresh fire slots, merging on
+            # the device pane by pane
+            union_index = make_slot_index(sum(p.n_keys for p in panes))
+            union_key_list: List[np.ndarray] = []
+            union_slot_list: List[np.ndarray] = []
+            for shard in panes:
+                pslots = shard.all_slots()
+                uslots, first_idx = union_index.lookup_or_insert(
+                    shard.all_hashes(), self.arena.alloc)
+                if len(first_idx):
+                    union_key_list.append(shard.all_keys()[first_idx])
+                    union_slot_list.append(uslots[first_idx])
+                self._merge_tiled(uslots, pslots)
+            union_slots = (np.concatenate(union_slot_list)
+                           if union_slot_list else np.empty(0, np.int64))
+            union_keys = (np.concatenate(union_key_list)
+                          if union_key_list else np.empty(0, object))
+            union_slots = self._emit_fire(union_keys, union_slots, W, end)
+            fired += len(union_slots)
+            self._clear_tiled(union_slots)
+            self.arena.release(union_slots)
+        self._prune_panes(watermark)
+        return fired
+
+    def _prune_panes(self, watermark: int) -> None:
+        """Pane [P, P+slide) is dead once its last containing window
+        [P, P+size) fired, i.e. watermark >= P+size-1."""
+        for P in sorted(self.windows):
+            if P + self.window_size - 1 > watermark:
+                break
+            shard = self.windows.pop(P)
+            slots = shard.all_slots()
+            if len(slots):
+                slots = np.sort(slots)
+                self._clear_tiled(slots)
+                self.arena.release(slots)
 
 
 def _snapshot_arena(arena: _SlotArena) -> dict:

@@ -1,6 +1,7 @@
 """The port's boundary: flink_tpu_torch (and chip_smoke.py) never load
-jax or any module of flink_tpu, and its entry points never fall back to
-the CPU on their own.  This test process has jax loaded already (the
+jax or any module of flink_tpu (a subprocess job runs tumbling,
+keyed-backend, sliding and session windows), and its entry points
+never fall back to the CPU on their own.  This test process has jax loaded already (the
 test configuration imports it), so the import check runs a job in a
 fresh interpreter."""
 
@@ -48,8 +49,29 @@ env.set_state_backend("gpu")
     .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
     .allowed_lateness(500).aggregate(agg).add_sink(CollectSink(keyed)))
 env.execute()
+# the sliding and session device engines, with the two sketches
+from flink_tpu_torch.ops.sketches import (CountMinSketchAggregate,
+                                          QuantileSketchAggregate)
+from flink_tpu_torch.streaming.windowing import (EventTimeSessionWindows,
+                                                 SlidingEventTimeWindows)
+windowed = {}
+for name, agg, assigner in (
+        ("sliding", QuantileSketchAggregate(), SlidingEventTimeWindows.of(2000, 1000)),
+        ("session", CountMinSketchAggregate(4, 64), EventTimeSessionWindows.with_gap(300))):
+    windowed[name] = []
+    agg.extract_value = lambda e: e[1]
+    env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+    (env.from_collection([(i % 7, 1 + i % 5, 10 * i) for i in range(500)])
+        .assign_timestamps_and_watermarks(
+            BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+        .key_by(lambda e: e[0]).window(assigner)
+        .aggregate(agg).add_sink(CollectSink(windowed[name])))
+    env.execute()
+import flink_tpu_torch.streaming.heavy_hitters
 import flink_tpu_torch.state, flink_tpu_torch.streaming.harness
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
+                  "sliding_results": len(windowed["sliding"]),
+                  "session_results": len(windowed["session"]),
                   "modules": sorted(m for m in sys.modules
                                     if m == "jax" or m.startswith("jax.")
                                     or m == "flink_tpu"
@@ -65,6 +87,9 @@ def test_job_loads_neither_jax_nor_flink_tpu():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["results"] == 2 * 7 * 5
     assert report["keyed_results"] == 7 * 5
+    # 5 s of events in 2 s windows sliding by 1 s; one session a key
+    assert report["sliding_results"] == 7 * 6
+    assert report["session_results"] == 7
     assert report["modules"] == []
 
 

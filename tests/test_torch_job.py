@@ -1,6 +1,6 @@
 """The same job on both packages, through each one's
 StreamExecutionEnvironment: from_collection → timestamps → key_by →
-tumbling window → aggregate → CollectSink.
+tumbling, sliding or session window → aggregate → CollectSink.
 
 For integer keys the JAX package runs the HLL job on its log-structured
 tier, whose estimates differ from the scatter tier's by up to ~5e-4
@@ -14,13 +14,17 @@ import numpy as np
 import pytest
 
 from flink_tpu.ops.device_agg import SumAggregate as JaxSum
+from flink_tpu.ops.sketches import CountMinSketchAggregate as JaxCountMin
 from flink_tpu.ops.sketches import HyperLogLogAggregate as JaxHll
+from flink_tpu.ops.sketches import QuantileSketchAggregate as JaxQuantile
 from flink_tpu.streaming import datastream as jds
 from flink_tpu.streaming import sources as jsrc
 from flink_tpu.streaming import windowing as jwin
 from flink_tpu.streaming.vectorized import VectorizedTumblingWindows as JaxEngine
 from flink_tpu_torch.ops.device_agg import SumAggregate as TorchSum
+from flink_tpu_torch.ops.sketches import CountMinSketchAggregate as TorchCountMin
 from flink_tpu_torch.ops.sketches import HyperLogLogAggregate as TorchHll
+from flink_tpu_torch.ops.sketches import QuantileSketchAggregate as TorchQuantile
 from flink_tpu_torch.streaming import datastream as tds
 from flink_tpu_torch.streaming import sources as tsrc
 from flink_tpu_torch.streaming import windowing as twin
@@ -165,3 +169,83 @@ def test_gpu_backend_job_matches_tpu_backend_job(agg):
     else:
         assert [r[:2] for r in got] == [r[:2] for r in want] == [r[:2] for r in heap]
         assert_hll_close([r[2] for r in got], [r[2] for r in want], 1 << 8)
+
+
+# ---------------------------------------------------------------------
+# sliding quantiles and session Count-Min through the DataStream API
+# ---------------------------------------------------------------------
+
+Q3 = dict(quantiles=(0.5, 0.99), relative_accuracy=0.05, min_value=1e-3,
+          max_value=1e6)
+
+
+def _window_job(ds, src, win, agg, events, assigner, heap=False, **env_kw):
+    agg.extract_value = lambda e: e[1]
+    out = []
+    env = ds.StreamExecutionEnvironment.get_execution_environment(**env_kw)
+    if heap:
+        env.set_state_backend("heap")
+    windowed = (env.from_collection(events)
+                .assign_timestamps_and_watermarks(
+                    src.BoundedOutOfOrdernessTimestampExtractor(50, lambda e: e[2]))
+                .key_by(lambda e: e[0])
+                .window(assigner))
+    if heap:
+        windowed = windowed.disable_device_operator()
+    (windowed.aggregate(agg, window_function=lambda k, w, vals: [
+        (str(k), w.start, w.end, np.asarray(vals[0], np.float64).tolist())])
+        .add_sink(src.CollectSink(out)))
+    env.execute("window-job")
+    return sorted(out)
+
+
+def _sketch_events(seed, kind, n=5000):
+    """String keys (the JAX package interns them for its log tier);
+    quantile values drawn away from bucket boundaries (see
+    tests/test_torch_sketches.py), Count-Min items small integers
+    (each is also its weight)."""
+    rng = np.random.default_rng(seed)
+    keys = [f"k{k}" for k in rng.integers(0, 200, n)]
+    t = np.sort(rng.integers(0, 10_000, n))
+    t[n // 2: n // 2 + 20] -= 2500                # late stragglers
+    if kind == "quantile":
+        lg = TorchQuantile(**Q3).log_gamma
+        v = rng.lognormal(3.0, 1.0, 2 * n).astype(np.float32)
+        x = np.log(v.astype(np.float64)) / lg
+        v = v[np.abs(x - np.round(x)) > 4 * np.abs(np.spacing(np.float32(x)))][:n]
+        vals = v.tolist()
+    else:
+        vals = rng.integers(1, 50, n).tolist()
+    return list(zip(keys, vals, np.maximum(t, 0).tolist()))
+
+
+def _sketch_job_cases(kind):
+    if kind == "quantile":
+        return (lambda: TorchQuantile(**Q3), lambda: JaxQuantile(**Q3),
+                lambda w: w.SlidingEventTimeWindows.of(3000, 1000))
+    return (lambda: TorchCountMin(4, 64), lambda: JaxCountMin(4, 64),
+            lambda w: w.EventTimeSessionWindows.with_gap(300))
+
+
+@pytest.mark.parametrize("kind", ["quantile", "countmin"])
+def test_sketch_window_job_matches_reference(kind):
+    """The port's device operator against the JAX package's job (which
+    runs its log tier here) and against the port's own job on
+    WindowOperator over the heap backend."""
+    make_t, make_j, assigner = _sketch_job_cases(kind)
+    events = _sketch_events(21, kind)
+    got = _window_job(tds, tsrc, twin, make_t(), events, assigner(twin),
+                      device="cpu")
+    want = _window_job(jds, jsrc, jwin, make_j(), events, assigner(jwin))
+    heap = _window_job(tds, tsrc, twin, make_t(), events, assigner(twin),
+                       heap=True, device="cpu")
+    assert len(got) > 1000
+    assert [r[:3] for r in got] == [r[:3] for r in want] == [r[:3] for r in heap]
+    g, w, h = (np.array([r[3] for r in x]) for x in (got, want, heap))
+    if kind == "countmin":
+        np.testing.assert_array_equal(g, w)
+    else:
+        # the log tier's fire computes bucket values in float64: the
+        # same buckets, values a few float32 ulps apart
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(g, h)

@@ -4,10 +4,12 @@ fixture decides, never the import).  On a machine with a card:
 
     python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
 
-Registers, integer results and fills must be bit-equal; HLL estimates
-agree within rtol 1e-5 (the kernel's reduction order differs from the
-plain version's); float32 sums use integer-valued data, which float
-atomics add exactly in any order.
+Registers, integer results, fills, Count-Min tables and queries,
+quantile histograms and quantile results must be bit-equal (the
+quantile plain version runs on the card, so both take the card's
+float32 log); HLL estimates agree within rtol 1e-5 (the kernel's
+reduction order differs from the plain version's); float32 sums use
+integer-valued data, which float atomics add exactly in any order.
 """
 
 import numpy as np
@@ -167,3 +169,85 @@ def test_set_rows_matches_plain(cuda, shape, dtype, rows_on):
     K.set_rows(got, slots.to(cuda), rows if rows_on == "host" else rows.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)
+
+
+def _cm_inputs(rng, c, n_rows):
+    slots = rng.integers(-2, c + 2, n_rows).astype(np.int32)    # a few OOB
+    vals = rng.choice(np.float32([1, 1, 2, 3, 2.7, -1.5, 0.4, 1e10, np.nan]),
+                      n_rows).astype(np.float32)
+    hi, lo = _lanes(rng, n_rows)
+    return (torch.from_numpy(slots), torch.from_numpy(vals),
+            torch.from_numpy(hi.view(np.int32)), torch.from_numpy(lo.view(np.int32)))
+
+
+@pytest.mark.parametrize("depth,width", [(4, 2048), (5, 1000)])
+def test_countmin_update_and_query_match_plain(cuda, depth, width):
+    rng = np.random.default_rng(7)
+    c, n_rows = 300, 60_000
+    slots, vals, hi, lo = _cm_inputs(rng, c, n_rows)
+    n = n_rows - 777                                          # masked tail
+    table = torch.from_numpy(rng.integers(0, 5, (c, depth, width)).astype(np.int32))
+    total = torch.from_numpy(rng.integers(0, 5, c).astype(np.int32))
+    rt, rtot = table.clone(), total.clone()
+    K.countmin_update_plain(rt, rtot, slots, vals, hi, lo, n)
+    gt, gtot = table.to(cuda), total.to(cuda)
+    before = K.LAUNCHES["countmin_update"]
+    K.countmin_update(gt, gtot, slots.to(cuda), vals.to(cuda), hi.to(cuda),
+                      lo.to(cuda), n)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["countmin_update"] == before + 1
+    assert torch.equal(gt.cpu(), rt) and torch.equal(gtot.cpu(), rtot)
+    qs = slots[:20_000].clone()
+    got = K.countmin_query(gt, qs.to(cuda), hi[:20_000].to(cuda), lo[:20_000].to(cuda))
+    assert torch.equal(got.cpu(), K.countmin_query_plain(rt, qs, hi[:20_000], lo[:20_000]))
+
+
+@pytest.mark.parametrize("geometry", [(0.05, 1e-3, 1e6), (0.01, 1e-9, 1e9)])
+def test_quantile_update_matches_plain(cuda, geometry):
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    acc, mn, mx = geometry
+    agg = QuantileSketchAggregate(relative_accuracy=acc, min_value=mn, max_value=mx)
+    rng = np.random.default_rng(8)
+    c, n_rows = 500, 200_000
+    vals = rng.lognormal(3.0, 2.0, n_rows).astype(np.float32)
+    k = rng.integers(-300, 300, 2000)
+    vals[:2000] = np.float32(np.exp(k * agg.log_gamma))     # on bucket edges
+    vals[2000:2010] = np.float32([0, -1, mn, mn / 2, 1e30, np.inf, -np.inf,
+                                  np.nan, 1.0, mx])
+    slots = torch.from_numpy(rng.integers(-1, c + 1, n_rows).astype(np.int32))
+    v = torch.from_numpy(vals)
+    n = n_rows - 321
+    # the plain version on the card: its float32 logs are the card's
+    ref_d = torch.zeros((c, agg.buckets), dtype=torch.int32, device=cuda)
+    K.quantile_update_plain(ref_d, slots.to(cuda), v.to(cuda), n, mn,
+                            agg.log_gamma, agg.offset)
+    got = torch.zeros((c, agg.buckets), dtype=torch.int32, device=cuda)
+    K.quantile_update(got, slots.to(cuda), v.to(cuda), n, mn, agg.log_gamma,
+                      agg.offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref_d)
+
+
+@pytest.mark.parametrize("geometry", [(0.05, 1e-3, 1e6), (0.01, 1e-9, 1e9)])
+def test_quantile_result_matches_plain(cuda, geometry):
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    acc, mn, mx = geometry
+    agg = QuantileSketchAggregate(quantiles=(0.0, 0.5, 0.9, 0.99, 1.0),
+                                  relative_accuracy=acc, min_value=mn, max_value=mx)
+    rng = np.random.default_rng(9)
+    c = 3000
+    hist = rng.integers(0, 6, (c, agg.buckets)).astype(np.int32)
+    hist *= (rng.random((c, agg.buckets)) < 0.03).astype(np.int32)
+    hist[:5] = 0                                              # empty slots
+    hist[5, :] = 0
+    hist[5, -1] = 1
+    h = torch.from_numpy(hist)
+    qs, bv = agg._tables(torch.device("cpu"))
+    gq, gbv = agg._tables(cuda)
+    slots = torch.from_numpy(rng.integers(-1, c + 1, 5000).astype(np.int32))
+    g = h.to(cuda)
+    for lo, hi, sl in ((0, c, None), (100, 1100, None), (0, c, slots)):
+        ref = K.quantile_result_plain(h[lo:hi], qs, bv, sl)
+        got = K.quantile_result(g[lo:hi], gq, gbv, None if sl is None else sl.to(cuda))
+        assert torch.equal(got.cpu(), ref)
+    assert (K.quantile_result(g, gq, gbv)[:5] == 0).all()

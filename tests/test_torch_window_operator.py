@@ -230,3 +230,81 @@ def test_late_data_side_output(ingest):
         side[pkg] = (out, [(r.value, r.timestamp) for r in h.get_side_output("late")])
         assert h.operator.num_late_records_dropped == 0
     assert side["torch"] == side["jax"] and side["torch"][1]
+
+
+# ---------------------------------------------------------------------
+# Count-Min on the GPU backend: state rows of two dimensions ([d, w]
+# tables beside a scalar total) through flush, fire, session merges,
+# spill to host RAM and promotion, and a snapshot and restore
+# ---------------------------------------------------------------------
+
+def _cm_events(n=4000, n_keys=300, seed=29):
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.integers(0, 10 * n_keys, n))
+    t[1::9] -= rng.integers(0, 1200, len(t[1::9]))          # out of order
+    return list(zip(rng.integers(0, n_keys, n).tolist(),
+                    rng.integers(1, 30, n).tolist(), np.maximum(t, 0).tolist()))
+
+
+def _cm_session(pkg, backend, events, restore_at=None, finish=True, **kw):
+    """(value, timestamp) outputs of a session-window Count-Min job and
+    the last harness; with ``restore_at`` the run snapshots there and
+    finishes in a fresh harness of the same kind; ``finish`` fires every
+    session at the end."""
+    from flink_tpu.ops.sketches import CountMinSketchAggregate as JaxCM
+    from flink_tpu_torch.ops.sketches import CountMinSketchAggregate as TorchCM
+    p = PKG[pkg]
+    if pkg == "torch" and backend == "gpu":
+        kw = dict(kw, device="cpu")
+
+    def harness():
+        agg = (TorchCM if pkg == "torch" else JaxCM)(4, 64)
+        agg.extract_value = lambda v: v[1]
+        op = p["wo"].WindowOperator(p["w"].EventTimeSessionWindows.with_gap(300),
+                                    p["desc"]("cm", agg), window_function=_window_fn)
+        h = p["h"].OneInputStreamOperatorTestHarness(
+            op, key_selector=lambda x: x[0], state_backend=backend, **kw)
+        h.open()
+        return h
+
+    h, out = harness(), []
+    for i, (k, v, t) in enumerate(events):
+        h.process_element((k, v), t)
+        if i % 500 == 499:
+            h.process_watermark(t - 1500)
+        if i == restore_at:
+            out.extend((r.value, r.timestamp) for r in h.get_output())
+            snap = h.snapshot()
+            h = harness()
+            h.initialize_state(snap)
+    if finish:
+        h.process_watermark(2**62)
+    out.extend((r.value, r.timestamp) for r in h.get_output())
+    return sorted(out), h
+
+
+def test_countmin_rows_through_the_gpu_backend():
+    events = _cm_events()
+    cap = dict(max_device_slots=32, initial_capacity=8, microbatch=32)
+    got, h = _cm_session("torch", "gpu", events, restore_at=2100, **cap)
+    heap, _ = _cm_session("torch", "heap", events, restore_at=2100)
+    want, _ = _cm_session("jax", "tpu", events, restore_at=2100)
+    assert len(got) > 300 and got == heap == want
+    # the capped backend spilled sessions to host RAM and brought them
+    # back, before the restore and after it
+    st = h.operator.window_state
+    assert st.evictions > 0 and st.promotions > 0
+    # mid-stream rows bit-equal to the JAX backend's, spilled rows too
+    rows = {}
+    for pkg, backend, kw in (("torch", "gpu", cap), ("jax", "tpu", {})):
+        _, h = _cm_session(pkg, backend, events[:1500], finish=False, **kw)
+        st = h.operator.window_state
+        rows[pkg] = {(k, tuple(ns)): (np.asarray(a), int(np.asarray(b).reshape(-1)[0]))
+                     for keys, nss, comps in st.snapshot_columns().values()
+                     for k, ns, a, b in zip(keys, nss, comps["table"], comps["total"])}
+        if pkg == "torch":
+            assert len(st.host_tier) > 0
+    assert rows["torch"].keys() == rows["jax"].keys() and rows["torch"]
+    for e, (table, total) in rows["jax"].items():
+        np.testing.assert_array_equal(rows["torch"][e][0], table)
+        assert rows["torch"][e][1] == total == table[0].sum()
