@@ -7,23 +7,33 @@ Phases, each of which raises on failure (nothing is caught to keep the
 exit code at 0):
 
 1. ``env``      the card's name, the device count and power limit;
-2. ``build``    builds the ten CUDA kernels from ``flink_tpu_torch/kernels/csrc``
-                (one nvcc per source, started together);
+2. ``build``    builds the twelve CUDA kernels from
+                ``flink_tpu_torch/kernels/csrc`` (one nvcc per source,
+                started together) and, beside them, the port's C++ host
+                runtime (``flink_tpu_torch/native``, g++);
 3. ``kernels``  holds every kernel against its plain PyTorch version at
                 the shapes the main path gives it, and times kernel,
                 plain version and, where one exists, one PyTorch call
                 computing the same function (CUDA events);
-4. ``engine``   the window engine at BASELINE config #2: a 1M-key space,
+                ``hll_log_finish`` on the compacted cells of 2^23
+                config #2 events, ``table_insert`` with 2^20 records
+                into 1.5M positions (empty, half full, all hits,
+                regional), compared as key -> slot maps;
+4. ``engine``   the scatter-tier window engine at BASELINE config #2
+                (slots from the C++ NativeSlotIndex): a 1M-key space,
                 2^23 events in one 1 s window, HLL precision 12, 1.25M
                 slots (5.12 GB of registers on the card), checked
                 against an independent numpy HLL on 4,096 keys;
-5. ``job``      five jobs through ``StreamExecutionEnvironment``: HLL
-                unique visitors (2^21 events, 1M keys, tumbling 1 s), a
-                word count (SumAggregate, 50k words, tumbling 5 s), both
-                checked against numpy references; HLL with allowed
+5. ``job``      eight jobs through ``StreamExecutionEnvironment``: HLL
+                unique visitors (2^21 events, 1M keys, tumbling 1 s, on
+                the log tier), a word count (SumAggregate, 50k string
+                words, tumbling 5 s, on the fused string-sum engine),
+                both checked against numpy references; HLL with allowed
                 lateness on ``set_state_backend("gpu")`` (WindowOperator
                 on the GPU keyed-state backend), a sliding-quantile and
-                a session Count-Min job on the device operator, each
+                a session Count-Min job on the device operator (the log
+                tier), and on its scatter tier an integer-keyed tumbling
+                Avg and the same two sketch jobs on composite keys, each
                 checked against the same job on the heap backend;
 6. ``keyed``    WindowOperator on the GPU keyed-state backend at config
                 #2 through the test harness: 1M keys, 2^22 events in one
@@ -47,7 +57,16 @@ exit code at 0):
                 skewed item mix, 2^21 events over 4 s: no false
                 negatives, no estimate below the truth, every point
                 query equal to the plain version's;
-11. the launch counts of phases 4-10, each path counted on its own:
+11. ``log_tier`` BASELINE config #2 through LogStructuredTumblingWindows
+                on the card, fired with the device finish
+                (``hll_log_finish``) and with the host finish: equal per
+                key, each within the HLL tolerance of numpy HLL on 4,096
+                keys; the link probe's reading and its "auto" pick;
+12. ``device_windows`` config #2 through DeviceTumblingWindows (the key
+                index on the card, 1.5M positions, 6.1 GB of registers):
+                no overflow, every estimate bit-equal to the scatter
+                engine's on the same events;
+13. the launch counts of phases 4-12, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -63,6 +82,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -324,6 +344,8 @@ def kernel_phase(dev, hbm: float):
     del st
     merge_set_entries(dev, hbm, rng, entries, detail)
     sketch_kernel_entries(dev, hbm, rng, entries, detail)
+    log_finish_entry(dev, hbm, rng, entries, detail)
+    table_insert_entry(dev, hbm, rng, entries, detail)
     emit({"kernel_variants": detail})
     return entries
 
@@ -693,6 +715,352 @@ def engine_phase(dev):
 
 
 # ---------------------------------------------------------------------
+# the log tier's finish and the device hash table (kernels phase)
+# ---------------------------------------------------------------------
+
+def config2_events(rng, n_events=1 << 23, n_keys=1_000_000):
+    """BASELINE config #2's events: keys uniform over a 1M-key space,
+    one 1 s window, 64-bit user ids (value hashes by splitmix64)."""
+    keys = rng.integers(0, n_keys, n_events).astype(np.uint64)
+    ts = np.sort(rng.integers(0, 1000, n_events).astype(np.int64))
+    users = rng.integers(0, 2**63, n_events).astype(np.uint64)
+    return keys, ts, splitmix64_np(users)
+
+
+def within_one_ulp(got, want) -> bool:
+    import torch
+    ulp = (torch.nextafter(want, torch.full_like(want, float("inf"))) - want).abs()
+    return bool(((got - want).abs() <= ulp).all())
+
+
+def log_finish_entry(dev, hbm, rng, entries, detail):
+    """hll_log_finish at config #2: the compacted cells of a real
+    hll_log_compact of 2^23 events over a 1M-key space, p = 12."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch import native as nat
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    p = 12
+    m, agg = 1 << p, HyperLogLogAggregate(p)
+    keys, _, vh = config2_events(rng)
+    regs, ranks = nat.hll_make_cells(vh, p)
+    _, _, crk, ends = nat.hll_log_compact(keys, regs, ranks, p)
+    n_cells, n_keys = len(crk), len(ends)
+    r = torch.from_numpy(crk).to(dev)
+    e = torch.from_numpy(ends).to(dev)
+    sums = torch.empty(n_keys, dtype=torch.float64, device=dev)
+    want_sums = torch.empty_like(sums)
+    est = K.hll_log_finish(r, e, m, agg.alpha, inv_sum=sums)
+    want_est = K.hll_log_finish_plain(r, e, m, agg.alpha, inv_sum=want_sums)
+    check(torch.equal(K.hll_log_finish(r, e, m, agg.alpha), est),
+          "hll_log_finish estimates the same without the sums")
+    torch.cuda.synchronize()
+    check(torch.equal(sums, want_sums), "hll_log_finish sums bit-equal to plain")
+    check(within_one_ulp(est, want_est), "hll_log_finish estimates within 1 ulp of plain")
+    _, host = nat.hll_log_fire(keys, regs, ranks, p)
+    host_t = torch.from_numpy(host).to(dev)
+    check(within_one_ulp(est, host_t), "hll_log_finish within 1 ulp of the C++ host fire")
+    ms = cuda_ms(lambda: K.hll_log_finish(r, e, m, agg.alpha))
+    plain = cuda_ms(lambda: K.hll_log_finish_plain(r, e, m, agg.alpha), 5)
+    # one torch pipeline for the same function: exp2, index_add_, elementwise
+    lengths = torch.diff(e.to(torch.int64), prepend=e.new_zeros(1, dtype=torch.int64))
+    key_of = torch.repeat_interleave(torch.arange(n_keys, device=dev), lengths)
+    mf, am2 = float(m), agg.alpha * m * m
+
+    def library():
+        s = torch.zeros(n_keys, dtype=torch.float64, device=dev).index_add_(
+            0, key_of, torch.exp2(-r.to(torch.float64)))
+        zeros = mf - lengths.to(torch.float64)
+        raw = am2 / (zeros + s)
+        lin = mf * (np.log(mf) - torch.log(zeros.clamp(min=1.0)))
+        return torch.where((raw <= 2.5 * mf) & (zeros > 0), lin, raw)
+
+    lib = cuda_ms(library)
+    # the timed call, as the fire makes it, writes the estimates only
+    b, by = bound(n_cells + 4 * n_keys + 8 * n_keys, n_cells + 8 * n_keys, hbm)
+    entries["hll_log_finish"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+        max_abs_err=float((est - want_est).abs().max()))
+    detail.append({"kernel": "hll_log_finish", "cells": n_cells, "keys": n_keys,
+                   "equal_to_host_fire": int((est == host_t).sum()),
+                   "library": "exp2 + index_add_ + elementwise"})
+
+
+def key_map_check(what, table, plain, hi, lo, slots, ref, n, max_probes,
+                  region=None, region_size=0):
+    """The kernel's table against the plain version's as key -> slot
+    maps (``device_table.key_map_faults``): every row resolved, its slot
+    holds its key on its probe chain within max_probes, duplicates share
+    it, padding is -1, and both tables hold the same key set.  Returns
+    (faults found, probes the batch took: the work its bound counts)."""
+    from flink_tpu_torch.ops.device_table import key_map_faults
+    live = np.arange(len(slots)) < n
+    check((ref[live] >= 0).all(), f"{what}: the plain version resolved every record")
+    faults, probes = key_map_faults(table, hi, lo, slots, max_probes, live,
+                                    region, region_size, reference=plain)
+    faults["unresolved"] = int((slots[live] < 0).sum())
+    check(not any(faults.values()), f"{what}: key -> slot map {faults}")
+    return sum(faults.values()), probes
+
+
+def table_insert_entry(dev, hbm, rng, entries, detail):
+    """table_insert: 2^20 records (keys of config #2's 1M-key space) into
+    a 1.5M-position table, empty, half full, and an all-hits batch; one
+    regional call.  Held against the plain version (which replays the
+    JAX claim rounds) as key -> slot maps."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.device_table import make_table
+    C, N, P = 1_500_000, 1 << 20, 128
+    n = N - 1000                                     # a padded tail
+
+    def lanes(keys):
+        hi = (keys >> np.uint64(32)).astype(np.uint32)
+        lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        return hi, lo, torch.from_numpy(hi.view(np.int32)).to(dev), \
+            torch.from_numpy(lo.view(np.int32)).to(dev)
+
+    def snapshot(t):
+        return [a.clone() for a in t]
+
+    def restore(t, saved):
+        return lambda: [a.copy_(b) for a, b in zip(t, saved)]
+
+    batch_a = rng.integers(0, 1_000_000, N).astype(np.uint64)
+    batch_a[:64] = 0                                  # key (0, 0), repeated
+    batch_b = rng.integers(0, 1_000_000, N).astype(np.uint64)
+    prefill = rng.permutation(1_000_000)[:C // 2].astype(np.uint64)
+    rows = []
+    for state, keys, pre in (("empty", batch_a, None),
+                             ("half_full", batch_b, prefill),
+                             ("all_hits", batch_a, batch_a)):
+        card, plain = make_table(C, dev), make_table(C, dev)
+        if pre is not None:
+            _, _, ph, pl = lanes(pre)
+            for t in (card, plain):
+                K.table_insert_plain(*t, ph, pl, len(pre), P)
+        hi, lo, h_d, l_d = lanes(keys)
+        saved = snapshot(card)
+        ov = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = K.table_insert(*card, h_d, l_d, n, P, overflow=ov)
+        ref = K.table_insert_plain(*plain, h_d, l_d, n, P)
+        torch.cuda.synchronize()
+        check(int(ov) == 0, f"table_insert {state}: no overflow")
+        faults, probes = key_map_check(f"table_insert {state}", card, plain, hi,
+                                       lo, got.cpu().numpy(), ref.cpu().numpy(), n, P)
+        new_keys = int(card.occupied.sum() - saved[2].sum())
+        ms = cuda_ms(lambda: K.table_insert(*card, h_d, l_d, n, P),
+                     setup=None if state == "all_hits" else restore(card, saved))
+        plain_ms = cuda_ms(lambda: K.table_insert_plain(*plain, h_d, l_d, n, P), 3,
+                           setup=None if state == "all_hits" else restore(plain, saved))
+        b, by = bound(12 * n + 9 * probes + 9 * new_keys, probes, hbm)
+        rows.append(dict(state=state, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                         bound_by=by, probes=probes, faults=faults, new_keys=new_keys,
+                         load_after=float(card.occupied.sum()) / C))
+    # one regional call: 4 regions of 375,000 positions
+    R = 4
+    region = rng.integers(0, R, N).astype(np.int32)
+    reg_d = torch.from_numpy(region).to(dev)
+    card, plain = make_table(C, dev), make_table(C, dev)
+    hi, lo, h_d, l_d = lanes(batch_a)
+    got = K.table_insert(*card, h_d, l_d, n, P, region=reg_d, region_size=C // R)
+    ref = K.table_insert_plain(*plain, h_d, l_d, n, P, region=reg_d,
+                               region_size=C // R)
+    faults, probes = key_map_check("table_insert regional", card, plain, hi, lo,
+                                   got.cpu().numpy(), ref.cpu().numpy(), n, P,
+                                   region, C // R)
+    saved = [torch.zeros_like(a) for a in card]
+    rows.append(dict(state="regional", probes=probes, faults=faults, ms=cuda_ms(
+        lambda: K.table_insert(*card, h_d, l_d, n, P, region=reg_d,
+                               region_size=C // R), setup=restore(card, saved))))
+    head = next(r for r in rows if r["state"] == "half_full")
+    # the error figure: key -> slot faults found, summed over the four
+    # states (a slot is an index, so there is no numeric difference)
+    entries["table_insert"] = dict(ms=head["ms"], plain_ms=head["plain_ms"],
+                                   library_ms=None, bound_ms=head["bound_ms"],
+                                   bound_by=head["bound_by"],
+                                   max_abs_err=float(sum(r["faults"] for r in rows)))
+    detail.append({"kernel": "table_insert", "records": N, "positions": C,
+                   "max_probes": P, "states": rows})
+
+
+# ---------------------------------------------------------------------
+# the log tier and the device-indexed engine at config #2
+# ---------------------------------------------------------------------
+
+def log_tier_phase(dev, n_events=1 << 23, n_keys=1_000_000, chunk=1 << 20,
+                   n_sample=4096):
+    """BASELINE config #2 through LogStructuredTumblingWindows on the
+    card: HLL p = 12, one 1 s window, batches of 2^20, fired once with
+    the device finish (hll_log_finish) and once with the host finish."""
+    import resource
+
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch import native as nat
+    from flink_tpu_torch.ops import link_probe
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.log_windows import LogStructuredTumblingWindows
+    p = 12
+    m = 1 << p
+    keys, ts, vh = config2_events(np.random.default_rng(7), n_events, n_keys)
+    out = {"events": n_events, "keys": n_keys, "precision": p,
+           "link": link_probe.measure(dev),
+           "auto_picks": link_probe.recommended_finish_tier(dev)}
+    fired = {}
+    for tier in ("device", "host"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = LogStructuredTumblingWindows(HyperLogLogAggregate(p), 1000,
+                                           finish_tier=tier, device=dev)
+        eng.emit_arrays = True
+        t0 = time.perf_counter()
+        for i in range(0, n_events, chunk):
+            sl = slice(i, i + chunk)
+            eng.process_batch(keys[sl], ts[sl], None, value_hashes=vh[sl])
+        log_keys, (log_regs, log_ranks) = eng.windows[0].concat()
+        t1 = time.perf_counter()
+        eng.advance_watermark(999)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fk = np.concatenate([k for k, _, _, _ in eng.fired])
+        fr = np.concatenate([r for _, r, _, _ in eng.fired])
+        fired[tier] = (fk, fr)
+        row = {"ingest_s": t1 - t0, "fire_s": t2 - t1,
+               "events_per_s": n_events / (t2 - t0), "fired": int(len(fk)),
+               "log_bytes": int(log_keys.nbytes + log_regs.nbytes + log_ranks.nbytes),
+               "host_maxrss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+        if tier == "device":
+            # the fire's four steps, repeated on the same log and timed
+            # one by one: C++ sort and compaction, H2D, kernel, D2H
+            saved = dict(K.LAUNCHES)
+            c0 = time.perf_counter()
+            _, _, crk, ends = nat.hll_log_compact(log_keys, log_regs, log_ranks, p)
+            c1 = time.perf_counter()
+            r_d = torch.from_numpy(crk).to(dev)
+            e_d = torch.from_numpy(ends).to(dev)
+            torch.cuda.synchronize()
+            c2 = time.perf_counter()
+            agg = HyperLogLogAggregate(p)
+            kms = cuda_ms(lambda: K.hll_log_finish(r_d, e_d, m, agg.alpha), 3)
+            est = K.hll_log_finish(r_d, e_d, m, agg.alpha)
+            torch.cuda.synchronize()
+            c3 = time.perf_counter()
+            est.cpu().numpy()
+            c4 = time.perf_counter()
+            K.LAUNCHES.update(saved)               # timing launches do not count
+            row["fire_split_s"] = {"compact": c1 - c0, "h2d": c2 - c1,
+                                   "kernel": kms / 1e3, "d2h": c4 - c3}
+            row["compacted_cells"] = int(len(crk))
+        out[tier] = row
+        del eng
+    (dk, dr), (hk, hr) = fired["device"], fired["host"]
+    check(np.array_equal(dk, hk), "log tier: device and host finish fire the same keys")
+    slack = np.maximum(1e-12 * np.abs(hr), 2 * m * np.spacing(np.log(float(m))))
+    check(bool((np.abs(dr - hr) <= slack).all()),
+          "log tier: device finish equals host finish (rel 1e-12, or an ulp of log)")
+    out["finish_bit_equal_keys"] = int((dr == hr).sum())
+    rng = np.random.default_rng(8)
+    sample = np.sort(rng.choice(dk, n_sample, replace=False))
+    sel = np.isin(keys, sample)
+    want = hll_reference(np.searchsorted(sample, keys[sel]), vh[sel], len(sample), p)
+    for tier, (fk, fr) in fired.items():
+        got = fr[np.searchsorted(fk, sample)]
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=hll_atol(m))
+        check(True, f"log tier ({tier} finish): {n_sample} keys within rtol 1e-5 "
+              "(+ log slack) of numpy HLL")
+    out["distinct_keys"] = int(len(dk))
+    emit({"log_tier": out})
+
+
+def device_windows_phase(dev, n_events=1 << 23, n_keys=1_000_000,
+                         capacity=1_500_000, chunk=1 << 20):
+    """BASELINE config #2 through DeviceTumblingWindows (the key index
+    on the card): HLL p = 12, 1.5M table positions (6.1 GB of
+    registers).  No overflow, and each key's estimate bit-equal to the
+    scatter engine's on the same events."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming import device_windows as dw
+    from flink_tpu_torch.streaming.vectorized import VectorizedTumblingWindows
+    p = 12
+    keys, ts, vh = config2_events(np.random.default_rng(7), n_events, n_keys)
+    k_hi, k_lo = dw.lanes_from_int_keys(keys)
+    v_hi = (vh >> np.uint64(32)).astype(np.uint32)
+    v_lo = (vh & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    agg = HyperLogLogAggregate(p)
+    eng = dw.DeviceTumblingWindows(agg, 1000, capacity=capacity, device=dev)
+    # CUDA events around each launch split the ingest's device time
+    marks = {"table_insert": [], "hll_update": []}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **kw)
+            e1.record()
+            marks[name].append((e0, e1))
+            return r
+        return call
+
+    insert = dw.table_insert
+    dw.table_insert = timed("table_insert", insert)
+    agg.update = timed("hll_update", agg.update)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, n_events, chunk):
+            sl = slice(i, i + chunk)
+            eng.process_batch(k_hi[sl], k_lo[sl], ts[sl], vh_hi=v_hi[sl],
+                              vh_lo=v_lo[sl])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        dw.table_insert = insert
+    eng.advance_watermark(999)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    split = {name: sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+             for name, pairs in marks.items()}
+    check(eng.overflowed == 0, "device_windows: overflowed == 0")
+    (fk, fr, _, _), = eng.fired
+    out = {"events": n_events, "keys": n_keys, "precision": p,
+           "capacity": capacity, "register_bytes": capacity * (1 << p),
+           "fired": int(len(fk)), "overflowed": eng.overflowed,
+           "ingest_s": t1 - t0, "ingest_device_s": split, "fire_s": t2 - t1,
+           "events_per_s": n_events / (t2 - t0),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    del eng
+    torch.cuda.empty_cache()
+    # the scatter engine on the same events: a comparison, not the path
+    saved = dict(K.LAUNCHES)
+    vec = VectorizedTumblingWindows(HyperLogLogAggregate(p), 1000,
+                                    initial_capacity=n_keys + n_keys // 4,
+                                    microbatch=chunk, device=dev)
+    vec.emit_arrays = True
+    kh = splitmix64_np(keys)
+    for i in range(0, n_events, chunk):
+        sl = slice(i, i + chunk)
+        vec.process_batch(keys[sl], ts[sl], None, key_hashes=kh[sl],
+                          value_hashes=vh[sl])
+    vec.flush()
+    vec.advance_watermark(999)
+    vk = np.concatenate([k for k, _, _, _ in vec.fired]).astype(np.uint64)
+    vr = np.concatenate([r for _, r, _, _ in vec.fired])
+    K.LAUNCHES.update(saved)
+    del vec
+    torch.cuda.empty_cache()
+    o1, o2 = np.argsort(fk), np.argsort(vk)
+    check(np.array_equal(fk[o1], vk[o2]), "device_windows: the scatter engine's keys")
+    check(np.array_equal(fr[o1], vr[o2]),
+          "device_windows: estimates bit-equal to the scatter engine's")
+    emit({"device_windows": out})
+
+
+# ---------------------------------------------------------------------
 # phase 5: two jobs through the DataStream API
 # ---------------------------------------------------------------------
 
@@ -740,26 +1108,31 @@ def job_phase(dev):
     want = hll_reference(np.searchsorted(sample, pairs[sel]),
                          splitmix64_np(users[sel]), len(sample), p)
     got = np.array([res[int(q)] for q in sample])
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-    check(True, "HLL job sample of 4096 pairs within rtol 1e-5 of numpy HLL")
+    # the job runs the log tier (float64 estimates): the float32
+    # reference's linear-counting logs take the HLL log slack
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=hll_atol(1 << p))
+    check(True, "HLL job sample of 4096 pairs within rtol 1e-5 (+ log slack) "
+          "of numpy HLL")
     hll = {"events": n, "pairs": int(len(upairs)), "seconds": secs,
            "events_per_s": n / secs}
 
-    # word count: SumAggregate over 50k word ids, tumbling 5 s
+    # word count: SumAggregate over 50k words (strings: the fused intern
+    # + sum engine), tumbling 5 s
     n, n_words = 1 << 20, 50_000
     words = rng.integers(0, n_words, n)
     ts = np.sort(rng.integers(0, 10_000, n))
-    events = list(zip(words.tolist(), [1.0] * n, ts.tolist()))
+    events = list(zip([f"w{w}" for w in words.tolist()], [1.0] * n, ts.tolist()))
     out, secs = _run_job(SumAggregate(np.float64), events, 5000, dev)
     pairs, counts = np.unique(words * 2 + ts // 5000, return_counts=True)
-    got = dict(((k * 2 + s // 5000), v) for k, s, v in out)
+    got = dict(((int(k[1:]) * 2 + s // 5000), v) for k, s, v in out)
     check(len(got) == len(pairs) and all(got[int(q)] == c for q, c in
                                         zip(pairs, counts)),
-          "word count job exact")
+          "word count job (string keys) exact")
     wordcount = {"events": n, "pairs": int(len(pairs)), "seconds": secs,
                  "events_per_s": n / secs}
     emit({"job": {"hll": hll, "wordcount": wordcount,
-                  "keyed_backend": keyed_job(dev, rng), **sketch_jobs(dev, rng)}})
+                  "keyed_backend": keyed_job(dev, rng), **sketch_jobs(dev, rng),
+                  **scatter_jobs(dev, rng)}})
 
 
 def _run_keyed_job(agg, events, dev, backend):
@@ -810,6 +1183,13 @@ def keyed_job(dev, rng):
             "events_per_s": n / secs, "heap_seconds": heap_secs}
 
 
+def _key_id(k):
+    """A key as both backends can compare it: the device operator emits
+    a composite key as a numpy row of strings, the heap backend as the
+    tuple itself."""
+    return tuple(str(x) for x in k) if isinstance(k, (tuple, np.ndarray)) else k
+
+
 def _run_window_job(agg, events, assigner, dev, heap=False):
     """from_collection → key_by → window(assigner) → aggregate on the
     device window operator, or with ``heap`` on WindowOperator over the
@@ -830,20 +1210,24 @@ def _run_window_job(agg, events, assigner, dev, heap=False):
     if heap:
         windowed = windowed.disable_device_operator()
     (windowed.aggregate(agg, window_function=lambda k, w, vals: [
-        (k, w.start, w.end, np.asarray(vals[0], np.float64).tolist())])
+        (_key_id(k), w.start, w.end, np.asarray(vals[0], np.float64).tolist())])
         .add_sink(CollectSink(out)))
     t0 = time.perf_counter()
     env.execute("chip-smoke-window")
     return sorted(out), time.perf_counter() - t0
 
 
-def sketch_jobs(dev, rng, n=1 << 14):
+def sketch_jobs(dev, rng, n=1 << 14, key_of=int, tag=""):
     """A sliding-quantile job (3 s / 1 s, 2,000 keys) and a session
     Count-Min job (gap 300 ms, 1,000 keys) on the device window
-    operator, each against the same job on the heap backend.  Count-Min
-    totals are exact; a quantile may differ only for a (key, window)
-    holding a value at a bucket boundary (the heap backend takes the
-    CPU's float32 log), and then by one bucket."""
+    operator, each against the same job on the heap backend: integer
+    keys take the log tier, keys made composite by ``key_of`` the
+    scatter tier (results named with ``tag``).  Count-Min totals are
+    exact; quantile values agree
+    within rtol 1e-6 (the log tier computes bucket values in float64,
+    the heap backend's sketch in float32), except for a (key, window)
+    holding a value at a bucket boundary (the two take different float32
+    logs), and then by one bucket."""
     import torch
     from flink_tpu_torch.ops.sketches import (CountMinSketchAggregate,
                                               QuantileSketchAggregate)
@@ -861,7 +1245,8 @@ def sketch_jobs(dev, rng, n=1 << 14):
          EventTimeSessionWindows.with_gap(300), rng.integers(0, 1000, n),
          rng.integers(1, 50, n).tolist()))
     for name, make, assigner, keys, vals in cases:
-        events = list(zip(keys.tolist(), vals, ts.tolist()))
+        name += tag
+        events = list(zip([key_of(k) for k in keys.tolist()], vals, ts.tolist()))
         got, secs = _run_window_job(make(), events, assigner, dev)
         torch.cuda.synchronize()
         want, heap_secs = _run_window_job(make(), events, assigner, dev, heap=True)
@@ -870,13 +1255,14 @@ def sketch_jobs(dev, rng, n=1 << 14):
         g = np.array([r[3] for r in got])
         w = np.array([r[3] for r in want])
         unequal = 0
-        if name == "session_countmin":
+        if name.startswith("session_countmin"):
             check(np.array_equal(g, w), f"{name} job: totals exact against heap")
         else:
             agg = make()
             _, near, _ = quantile_buckets_np(qv, agg)
-            near_pairs = {(int(k), int(t_)) for k, t_, z in zip(keys, ts, near) if z}
-            differ = np.nonzero((g != w).any(axis=1))[0]
+            near_pairs = {(_key_id(key_of(int(k))), int(t_))
+                          for k, t_, z in zip(keys, ts, near) if z}
+            differ = np.nonzero(~np.isclose(g, w, rtol=1e-6, atol=0).all(axis=1))[0]
             for i in differ.tolist():
                 k, s, e = got[i][:3]
                 check(any(kk == k and s <= tt < e for kk, tt in near_pairs)
@@ -886,6 +1272,34 @@ def sketch_jobs(dev, rng, n=1 << 14):
         out[name] = {"events": n, "results": len(got), "seconds": secs,
                      "events_per_s": n / secs, "heap_seconds": heap_secs,
                      "boundary_unequal": unequal}
+    return out
+
+
+def scatter_jobs(dev, rng, n=1 << 13):
+    """The device window operator's scatter tier, against the heap
+    backend: an integer-keyed tumbling Avg (it has no cell
+    decomposition, so the operator leaves the log tier for
+    VectorizedTumblingWindows and scatter_combine), and the sliding
+    quantile and session Count-Min jobs on composite (int, str) keys
+    (VectorizedSlidingWindows, VectorizedSessionWindows)."""
+    import torch
+    from flink_tpu_torch.ops.device_agg import AvgAggregate
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    ts = np.sort(rng.integers(0, 5000, n))
+    events = list(zip(rng.integers(0, 2000, n).tolist(),
+                      rng.integers(0, 100, n).astype(float).tolist(), ts.tolist()))
+    assigner = TumblingEventTimeWindows.of(1000)
+    got, secs = _run_window_job(AvgAggregate(), events, assigner, dev)
+    torch.cuda.synchronize()
+    want, heap_secs = _run_window_job(AvgAggregate(), events, assigner, dev, heap=True)
+    check([r[:3] for r in got] == [r[:3] for r in want] and len(got) > 1000,
+          "tumbling_avg job: the heap backend's windows")
+    # integer values: float32 sums are exact, the mean is one rounding
+    np.testing.assert_allclose([r[3] for r in got], [r[3] for r in want], rtol=1e-6)
+    check(True, "tumbling_avg job: means within rtol 1e-6 of heap")
+    out = {"tumbling_avg": {"events": n, "results": len(got), "seconds": secs,
+                            "events_per_s": n / secs, "heap_seconds": heap_secs}}
+    out.update(sketch_jobs(dev, rng, n, key_of=lambda k: (k, "x"), tag="_composite"))
     return out
 
 
@@ -1439,6 +1853,10 @@ SOURCES = {
                         "flink_tpu/ops/sketches.py:197"),
     "quantile_result": ("flink_tpu_torch/kernels/csrc/quantile_result.cu",
                         "flink_tpu/ops/sketches.py:212"),
+    "hll_log_finish": ("flink_tpu_torch/kernels/csrc/hll_log_finish.cu",
+                       "flink_tpu/streaming/log_windows.py:244"),
+    "table_insert": ("flink_tpu_torch/kernels/csrc/table_insert.cu",
+                     "flink_tpu/ops/device_table.py:65"),
 }
 
 #: main-path runs, each with the kernels it must launch
@@ -1456,7 +1874,10 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
          ("session_cm", "session_cm_phase", ("countmin_update", "merge_rows",
                                              "clear_rows")),
          ("heavy_hitters", "heavy_hitter_phase", ("countmin_update",
-                                                  "countmin_query", "clear_rows")))
+                                                  "countmin_query", "clear_rows")),
+         ("log_tier", "log_tier_phase", ("hll_log_finish",)),
+         ("device_windows", "device_windows_phase", ("table_insert", "hll_update",
+                                                     "hll_estimate", "clear_rows")))
 
 
 def main() -> int:
@@ -1478,7 +1899,22 @@ def main() -> int:
     emit({"env": {"device": name, "count": torch.cuda.device_count(),
                   "nvidia_smi": smi, "torch": torch.__version__,
                   "cuda": torch.version.cuda, "hbm_bytes_per_s": hbm}})
-    emit({"build": {"seconds": K.build_all()}})
+    # the host runtime's g++ runs beside the kernels' nvcc processes
+    from flink_tpu_torch import native
+    host_build = {}
+
+    def build_host():
+        t0 = time.perf_counter()
+        native.lib()
+        host_build["seconds"] = time.perf_counter() - t0
+
+    compile_thread = threading.Thread(target=build_host)
+    compile_thread.start()
+    kernel_s = K.build_all()
+    compile_thread.join()
+    check("seconds" in host_build, "the host runtime built")
+    emit({"build": {"seconds": kernel_s,
+                    "host_runtime_seconds": host_build["seconds"]}})
 
     entries = kernel_phase(dev, hbm)
     per_path = {}

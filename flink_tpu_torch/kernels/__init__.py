@@ -16,6 +16,10 @@ PyTorch versions.
 ``quantile_update``  log-bucket histogram add (quantile sketch)
 ``quantile_result``  per-slot quantiles by a scan of the histogram,
                    dense range or gathered
+``hll_log_finish``   the log tier's HLL finish: per-key estimates from
+                   compacted (key-run) cells, float64
+``table_insert``   insert-or-lookup of (hi, lo) key lanes in the
+                   device hash table (plain or regional probing)
 =================  ==================================================
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
@@ -30,6 +34,8 @@ from flink_tpu_torch.kernels.countmin_update import (countmin_update,
                                                      countmin_update_plain)
 from flink_tpu_torch.kernels.hll_estimate import (hll_estimate,
                                                   hll_estimate_plain)
+from flink_tpu_torch.kernels.hll_log_finish import (hll_log_finish,
+                                                    hll_log_finish_plain)
 from flink_tpu_torch.kernels.hll_update import hll_update, hll_update_plain
 from flink_tpu_torch.kernels.loader import (KERNELS, LAUNCHES, build_all,
                                             reset_launch_counts)
@@ -41,14 +47,16 @@ from flink_tpu_torch.kernels.quantile_update import (quantile_update,
 from flink_tpu_torch.kernels.scatter_combine import (scatter_combine,
                                                      scatter_combine_plain)
 from flink_tpu_torch.kernels.set_rows import set_rows, set_rows_plain
+from flink_tpu_torch.kernels.table_insert import (table_insert,
+                                                  table_insert_plain)
 
 __all__ = [
     "KERNELS", "LAUNCHES", "build_all", "reset_launch_counts",
     "clear_rows", "clear_rows_plain", "countmin_query", "countmin_query_plain",
     "countmin_update", "countmin_update_plain", "hll_estimate",
-    "hll_estimate_plain",
+    "hll_estimate_plain", "hll_log_finish", "hll_log_finish_plain",
     "hll_update", "hll_update_plain", "merge_rows", "merge_rows_plain",
     "quantile_result", "quantile_result_plain", "quantile_update",
     "quantile_update_plain", "scatter_combine", "scatter_combine_plain",
-    "set_rows", "set_rows_plain",
+    "set_rows", "set_rows_plain", "table_insert", "table_insert_plain",
 ]

@@ -33,7 +33,8 @@ import torch
 
 KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
            "merge_rows", "set_rows", "countmin_update", "countmin_query",
-           "quantile_update", "quantile_result")
+           "quantile_update", "quantile_result", "hll_log_finish",
+           "table_insert")
 
 #: kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -51,6 +52,7 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ULL = ctypes.c_ulonglong
+_D = ctypes.c_double
 
 #: C signatures of the exported functions (every one returns the
 #: cudaError_t of its launch as an int)
@@ -86,6 +88,13 @@ _SIGNATURES = {
     },
     "quantile_result": {
         "ft_quantile_result": (_P, _P, _LL, _LL, _LL, _P, _I, _P, _P, _P),
+    },
+    "hll_log_finish": {
+        "ft_hll_log_finish": (_P, _P, _LL, _LL, _D, _P, _P, _P, _P),
+    },
+    "table_insert": {
+        "ft_table_insert": (_P, _P, _P, _LL, _P, _P, _P, _P, _LL, _LL, _LL,
+                            _I, _P, _P, _P),
     },
 }
 

@@ -1,5 +1,6 @@
-"""DeviceWindowOperator: the device window engine inside the job graph
-(port of ``flink_tpu/streaming/device_window_operator.py:46-54, 148-417``).
+"""DeviceWindowOperator: the device window engines inside the job graph
+(port of ``flink_tpu/streaming/device_window_operator.py:46-93,
+148-417``, one device, without the mesh tiers).
 
 Records buffer on the host; every ``flush_batch`` records (and every
 watermark that crosses a window-end boundary) flushes one vectorized
@@ -7,13 +8,30 @@ watermark that crosses a window-end boundary) flushes one vectorized
 results leave through the standard output with the scalar operator's
 timestamp contract (window.max_timestamp).
 
-Engine choice (``engine_for_assigner``) is the device-resident scatter
-tier for every key type: ``VectorizedTumblingWindows``,
-``VectorizedSlidingWindows`` (size a multiple of the slide, offset 0)
-or ``VectorizedSessionWindows``.  The JAX package sends integer keys
-(and interned string keys) to its log-structured tier and
-string-keyed float sums to a fused C++ tier; those, and the mesh
-engines, are later slices of the port.
+The engine is chosen at the first flush, by key type, as the JAX
+package chooses it (``_ensure_engine``):
+
+- 1-D string keys with a float Sum over tumbling windows (offset 0) go
+  to ``StringSumTumblingWindows`` (interning and summing in one C++
+  pass);
+- other 1-D string keys are interned to dense uint64 ids
+  (``NativeStringInterner``) and take the integer route; emission maps
+  the ids back to the strings;
+- 1-D integer keys go to the log-structured tier
+  (``log_engine_for_assigner``) when the aggregate has a cell
+  decomposition and the assigner fits (``log_windows.py``).  Integer
+  tuple keys (a 2-D key array) stay off it: the log tier takes one
+  integer column.  (The JAX package sends them there, and merges keys
+  that share their first column);
+- everything else (object and composite keys, Count, Min, Max, Avg,
+  Count-Min outside sessions, HLL above precision 16, and every
+  aggregate but Count-Min on sessions) goes to the device-resident
+  scatter tier (``engine_for_assigner``).
+
+Only the reference's semantic refusals (``TypeError`` for an aggregate
+without a cell decomposition, ``ValueError`` for its parameters) send a
+job from the log tier to the scatter tier; a failed build of the host
+runtime raises.
 """
 
 from __future__ import annotations
@@ -23,7 +41,9 @@ from typing import Any, List
 import numpy as np
 
 from flink_tpu_torch.device import DeviceLike, resolve_device
-from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
+from flink_tpu_torch.native import NativeStringInterner
+from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction, SumAggregate
+from flink_tpu_torch.streaming import log_windows as lw
 from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord, Watermark
 from flink_tpu_torch.streaming.operators import StreamOperator, TimestampedCollector
 from flink_tpu_torch.streaming.vectorized import (VectorizedSlidingWindows,
@@ -46,10 +66,54 @@ def assigner_supported(assigner) -> bool:
     return isinstance(assigner, EventTimeSessionWindows)
 
 
+def _string_sum_fits(assigner, agg: DeviceAggregateFunction) -> bool:
+    """A float Sum over tumbling windows at offset 0: the fused C++
+    intern + sum engine's shape (it sums in double, so integer value
+    dtypes stay on the exact tiers)."""
+    return (isinstance(agg, SumAggregate)
+            and np.issubdtype(agg.value_dtype, np.floating)
+            and isinstance(assigner, TumblingEventTimeWindows)
+            and assigner.offset == 0)
+
+
+def string_sum_engine_for_assigner(assigner, agg: DeviceAggregateFunction,
+                                   device: DeviceLike = None):
+    """The fused intern + sum engine for string-keyed tumbling float
+    sums, or None when the shape does not fit."""
+    if _string_sum_fits(assigner, agg):
+        return lw.StringSumTumblingWindows(agg, assigner.size, device=device)
+    return None
+
+
+def log_engine_for_assigner(assigner, agg: DeviceAggregateFunction,
+                            device: DeviceLike = None):
+    """The log-structured combiner tier for this assigner and aggregate,
+    or None when the cell decomposition or the assigner's parameters do
+    not fit (integer keys; HLL <= p16, Sum and quantile cells on
+    tumbling and sliding windows, Count-Min on sessions)."""
+    try:
+        if isinstance(assigner, TumblingEventTimeWindows) \
+                and assigner.offset == 0:
+            return lw.LogStructuredTumblingWindows(agg, assigner.size,
+                                                   device=device)
+        if (isinstance(assigner, SlidingEventTimeWindows)
+                and assigner.offset == 0
+                and assigner.size % assigner.slide == 0):
+            return lw.LogStructuredSlidingWindows(agg, assigner.size,
+                                                  assigner.slide,
+                                                  device=device)
+        if isinstance(assigner, EventTimeSessionWindows):
+            return lw.LogStructuredSessionWindows(agg, assigner.gap,
+                                                  device=device)
+    except (TypeError, ValueError):
+        pass  # no cell decomposition, or parameters the tier refuses
+    return None
+
+
 def engine_for_assigner(assigner, agg: DeviceAggregateFunction,
                         initial_capacity: int = 1 << 14,
                         device: DeviceLike = None):
-    """Assigner → device engine, or None when no engine applies."""
+    """Assigner → scatter-tier engine, or None when no engine applies."""
     if not assigner_supported(assigner):
         return None
     if isinstance(assigner, TumblingEventTimeWindows):
@@ -101,6 +165,11 @@ class DeviceWindowOperator(StreamOperator):
         self._values: List[Any] = []
         self._last_fireable = None
         self.num_late_records_dropped = 0
+        # 1-D string keys become dense uint64 ids in one C++ pass per
+        # batch, so they ride the integer-keyed tiers; emission maps the
+        # ids back through _id_to_key
+        self._interner = None
+        self._id_to_key: List[Any] = []
 
     # ---- lifecycle --------------------------------------------------
     def open(self):
@@ -122,11 +191,29 @@ class DeviceWindowOperator(StreamOperator):
         if len(self._keys) >= self.flush_batch:
             self._flush_buffer()
 
-    def _ensure_engine(self):
+    def _wants_fused_string_sum(self) -> bool:
+        if self.engine is not None:
+            # locked at the first flush: later batches keep feeding the
+            # fused engine raw strings
+            return isinstance(self.engine, lw.StringSumTumblingWindows)
+        return _string_sum_fits(self.assigner, self.agg)
+
+    def _ensure_engine(self, keys_arr: np.ndarray):
+        """Tier choice at the first flush (see the module docstring)."""
         if self.engine is not None:
             return
-        self.engine = engine_for_assigner(self.assigner, self.agg,
-                                          self.initial_capacity, self.device)
+        if keys_arr.dtype.kind in "US" and keys_arr.ndim == 1 \
+                and self._wants_fused_string_sum():
+            self.engine = string_sum_engine_for_assigner(
+                self.assigner, self.agg, self.device)
+        if self.engine is None and keys_arr.ndim == 1 \
+                and np.issubdtype(keys_arr.dtype, np.integer):
+            self.engine = log_engine_for_assigner(self.assigner, self.agg,
+                                                  self.device)
+        if self.engine is None:
+            self.engine = engine_for_assigner(self.assigner, self.agg,
+                                              self.initial_capacity,
+                                              self.device)
         # fast-forward a lazily created engine to the operator's
         # watermark: records behind it count as late
         if self.current_watermark > -(2 ** 63):
@@ -146,12 +233,33 @@ class DeviceWindowOperator(StreamOperator):
             values = self._values
         vals = np.asarray(values) if (agg.needs_value
                                       or agg.needs_value_hash) else None
-        self._ensure_engine()
-        self.engine.process_batch(np.asarray(self._keys),
-                                  np.asarray(self._ts, np.int64), vals)
+        keys_arr = self._maybe_intern(np.asarray(self._keys))
+        self._ensure_engine(keys_arr)
+        self.engine.process_batch(keys_arr, np.asarray(self._ts, np.int64),
+                                  vals)
         self._keys.clear()
         self._ts.clear()
         self._values.clear()
+
+    def _maybe_intern(self, keys_arr: np.ndarray) -> np.ndarray:
+        """Dictionary-encode 1-D string keys to dense uint64 ids (the
+        first batch decides; later batches coerce to the locked
+        representation).  The fused string-sum engine takes the raw
+        strings itself."""
+        if self._interner is None:
+            # 1-D only: composite keys coerce to 2-D string arrays whose
+            # rows must stay tuples on emission
+            if keys_arr.dtype.kind not in "US" or keys_arr.ndim != 1:
+                return keys_arr
+            if self._wants_fused_string_sum():
+                return keys_arr
+            self._interner = NativeStringInterner()
+        elif keys_arr.dtype.kind not in "US":
+            keys_arr = keys_arr.astype(np.str_)
+        ids, first_idx = self._interner.intern(keys_arr)
+        if len(first_idx):
+            self._id_to_key.extend(keys_arr[first_idx].tolist())
+        return ids
 
     def process_watermark(self, watermark: Watermark):
         # fires happen only when the watermark crosses a window-end
@@ -189,11 +297,14 @@ class DeviceWindowOperator(StreamOperator):
     def _emit_from(self, start_idx: int):
         emitted = self.engine.emitted
         fn = self.window_function
+        id_to_key = self._id_to_key if self._interner is not None else None
         for key, result, w_start, w_end in emitted[start_idx:]:
             self.collector.set_absolute_timestamp(w_end - 1)
             if fn is None:
                 self.collector.collect(result)
             else:
+                if id_to_key is not None:
+                    key = id_to_key[int(key)]
                 out = fn(key, TimeWindow(w_start, w_end), [result])
                 if out is not None:
                     for v in out:

@@ -5,16 +5,16 @@ Whole record batches go through:
 
   host:   vectorized key hashing (numpy), window assignment
           (ts - ts % size), slot resolution through an open-addressing
-          table (``VectorizedSlotIndex``);
+          table (``make_slot_index``: the C++ ``NativeSlotIndex``);
   device: one ``agg.update`` per micro-batch (one kernel launch per
           state component) into the arena's accumulators, one
           ``result`` per fire tile, one clear per fired window.
 
 Semantics match the reference engine for tumbling event-time windows
 with allowed lateness 0: the same records are dropped as late, the
-same (key, window) pairs fire with the same results.  Slot numbers may
-differ from the JAX engine's (it uses the native C++ index where that
-is built), so results compare per (key, window), never per slot.
+same (key, window) pairs fire with the same results.  Both packages
+resolve slots through the same C++ index, but results still compare
+per (key, window), never per slot.
 
 The sliding engine (``VectorizedSlidingWindows``) aggregates each
 record once into its slide-sized pane and composes a window at fire
@@ -38,6 +38,7 @@ import torch
 
 from flink_tpu_torch.core.keygroups import splitmix64_np, stable_hash64
 from flink_tpu_torch.device import DeviceLike, resolve_device
+from flink_tpu_torch.native import NativeSlotIndex
 from flink_tpu_torch.ops.device_agg import (DeviceAggregateFunction,
                                             device_dtype, state_from_numpy,
                                             state_to_numpy)
@@ -196,11 +197,12 @@ class VectorizedSlotIndex:
                               np.asarray(slots, np.int64))
 
 
-def make_slot_index(capacity: int = 1 << 12) -> VectorizedSlotIndex:
-    """The port's slot index is always the numpy table (the JAX package
-    picks its native C++ index where that is built; the C++ host
-    runtime is a later slice of the port)."""
-    return VectorizedSlotIndex(capacity)
+def make_slot_index(capacity: int = 1 << 12) -> NativeSlotIndex:
+    """The engines' slot index: the C++ open-addressing table of the
+    port's host runtime (``native.NativeSlotIndex``), as the JAX package
+    picks its native index.  ``VectorizedSlotIndex`` is its numpy twin
+    with the same contract, kept for the tests."""
+    return NativeSlotIndex(capacity)
 
 
 class _SlotArena:

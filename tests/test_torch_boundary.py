@@ -1,9 +1,11 @@
 """The port's boundary: flink_tpu_torch (and chip_smoke.py) never load
-jax or any module of flink_tpu (a subprocess job runs tumbling,
-keyed-backend, sliding and session windows), and its entry points
-never fall back to the CPU on their own.  This test process has jax loaded already (the
-test configuration imports it), so the import check runs a job in a
-fresh interpreter."""
+jax, any module of flink_tpu or the JAX package's native library (a
+subprocess job runs the log tier, the keyed backend, the sliding and
+session log engines, the fused string sum and a DeviceTumblingWindows
+batch, then reads its own sys.modules and /proc/self/maps), and its
+entry points never fall back to the CPU on their own.  This test
+process has jax loaded already (the test configuration imports it), so
+the import check runs a job in a fresh interpreter."""
 
 import ast
 import json
@@ -67,11 +69,35 @@ for name, agg, assigner in (
         .key_by(lambda e: e[0]).window(assigner)
         .aggregate(agg).add_sink(CollectSink(windowed[name])))
     env.execute()
+# string keys: the fused intern + sum engine
+words = []
+agg = SumAggregate(np.float64)
+agg.extract_value = lambda e: e[1]
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+(env.from_collection([(f"w{i % 7}", 1.0, 10 * i) for i in range(500)])
+    .assign_timestamps_and_watermarks(
+        BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+    .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
+    .aggregate(agg).add_sink(CollectSink(words)))
+env.execute()
+# the device-indexed engine
+from flink_tpu_torch.streaming.device_windows import (DeviceTumblingWindows,
+                                                      lanes_from_int_keys)
+dw = DeviceTumblingWindows(SumAggregate(np.float32), 1000, capacity=64,
+                           device="cpu")
+dw.process_batch(*lanes_from_int_keys(np.arange(40) % 9), np.arange(40),
+                 values=np.ones(40, np.float32))
+dw.advance_watermark(999)
 import flink_tpu_torch.streaming.heavy_hitters
 import flink_tpu_torch.state, flink_tpu_torch.streaming.harness
+maps = open("/proc/self/maps").read()
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "sliding_results": len(windowed["sliding"]),
                   "session_results": len(windowed["session"]),
+                  "word_results": len(words),
+                  "device_windows_keys": len(dw.fired[0][0]),
+                  "port_runtime_loaded": "flink_tpu_torch/native/_build/" in maps,
+                  "reference_runtime_loaded": "libhost_runtime" in maps,
                   "modules": sorted(m for m in sys.modules
                                     if m == "jax" or m.startswith("jax.")
                                     or m == "flink_tpu"
@@ -90,6 +116,13 @@ def test_job_loads_neither_jax_nor_flink_tpu():
     # 5 s of events in 2 s windows sliding by 1 s; one session a key
     assert report["sliding_results"] == 7 * 6
     assert report["session_results"] == 7
+    assert report["word_results"] == 7 * 5
+    assert report["device_windows_keys"] == 9
+    # the log tier ran on the port's own host runtime, never the
+    # reference's library; no flink_tpu module (flink_tpu.native
+    # included) was imported
+    assert report["port_runtime_loaded"]
+    assert not report["reference_runtime_loaded"]
     assert report["modules"] == []
 
 
@@ -104,20 +137,41 @@ def _imports(path: Path):
 def test_sources_import_neither_jax_nor_flink_tpu():
     files = sorted((ROOT / "flink_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert ROOT / "flink_tpu_torch" / "native" / "__init__.py" in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]
     assert bad == []
+    # nothing in the port names the JAX package's native library; the
+    # port's loader builds its own copy of the C++ beside itself
+    native = ROOT / "flink_tpu_torch" / "native"
+    assert (native / "host_runtime.cpp").is_file()
+    for f in files + [native / "host_runtime.cpp"]:
+        assert "libhost_runtime" not in f.read_text(), f
+
+
+def test_gitignore_lists_the_host_runtime_build():
+    lines = (ROOT / ".gitignore").read_text().split()
+    assert "flink_tpu_torch/native/_build/" in lines
+    assert "flink_tpu_torch/kernels/_build/" in lines
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
     from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
     from flink_tpu_torch.streaming.vectorized import VectorizedTumblingWindows
+    from flink_tpu_torch.ops.device_table import make_table
+    from flink_tpu_torch.streaming.device_windows import DeviceTumblingWindows
+    from flink_tpu_torch.streaming.log_windows import (
+        LogStructuredTumblingWindows, StringSumTumblingWindows)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     agg = HyperLogLogAggregate(8)
     for call in (StreamExecutionEnvironment.get_execution_environment,
                  lambda: VectorizedTumblingWindows(agg, 1000, initial_capacity=8),
-                 lambda: agg.init_state(8)):
+                 lambda: agg.init_state(8),
+                 lambda: LogStructuredTumblingWindows(agg, 1000),
+                 lambda: StringSumTumblingWindows(agg, 1000),
+                 lambda: DeviceTumblingWindows(agg, 1000, capacity=8),
+                 lambda: make_table(8)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     # asked for explicitly, the CPU runs the plain versions
@@ -135,7 +189,8 @@ def test_kernels_need_nothing_at_import(monkeypatch):
 
 
 _C_TYPES = {"void*": "c_void_p", "long long": "c_longlong", "int": "c_int",
-            "float": "c_float", "unsigned long long": "c_ulonglong"}
+            "float": "c_float", "double": "c_double",
+            "unsigned long long": "c_ulonglong"}
 
 
 def test_ctypes_signatures_match_the_cuda_sources():

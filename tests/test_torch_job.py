@@ -2,13 +2,14 @@
 StreamExecutionEnvironment: from_collection → timestamps → key_by →
 tumbling, sliding or session window → aggregate → CollectSink.
 
-For integer keys the JAX package runs the HLL job on its log-structured
-tier, whose estimates differ from the scatter tier's by up to ~5e-4
-relative (measured on 200k events, 5,000 keys, 3 windows, p = 12), so
-the job-level comparison holds rtol 1e-3; the port's sink is also held
-at rtol 1e-5 against the JAX scatter engine fed the same events.  The
-Sum job on integer data is exact.  (The linear-counting log slack
-both comparisons add is explained in tests/torch_port_util.py.)"""
+Both packages pick the same engine tier for a job (the log-structured
+tier for integer keys and HLL / Sum / quantile cells, Count-Min
+sessions; see tests/test_torch_tiers.py), and on the CPU the log
+tier's fire is the same C++ in both (finish_tier "auto" picks the host
+finish), so the job outputs are compared exactly.  The keyed-backend
+jobs run WindowOperator in both packages; their HLL estimates go
+through the float32 register path and compare with the linear-counting
+log slack of tests/torch_port_util.py."""
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from flink_tpu.ops.sketches import QuantileSketchAggregate as JaxQuantile
 from flink_tpu.streaming import datastream as jds
 from flink_tpu.streaming import sources as jsrc
 from flink_tpu.streaming import windowing as jwin
-from flink_tpu.streaming.vectorized import VectorizedTumblingWindows as JaxEngine
+from flink_tpu.streaming.log_windows import LogStructuredTumblingWindows as JaxLog
 from flink_tpu_torch.ops.device_agg import SumAggregate as TorchSum
 from flink_tpu_torch.ops.sketches import CountMinSketchAggregate as TorchCountMin
 from flink_tpu_torch.ops.sketches import HyperLogLogAggregate as TorchHll
@@ -67,23 +68,21 @@ def test_hll_job_matches_reference(p):
     events = _events(11, 20_000, 300, 5_000, 6_000)
     got = _by_pair(_job(tds, tsrc, twin, TorchHll(p), events, 1000, device="cpu"))
     want = _by_pair(_job(jds, jsrc, jwin, JaxHll(p), events, 1000))
-    assert got.keys() == want.keys() and len(got) > 1000
-    k = sorted(want)
-    assert_hll_close([got[x] for x in k], [want[x] for x in k], 1 << p, rtol=1e-3)
-    # against the JAX scatter engine on the events the job keeps: a
-    # record is late when its window ended at or before the watermark
-    # in force on its arrival (max earlier timestamp - 50 - 1)
+    assert len(got) > 1000
+    # both run the log tier's C++ host fire: bit-equal
+    assert got == want
+    # against the JAX log engine fed the events the job keeps: a record
+    # is late when its window ended at or before the watermark in force
+    # on its arrival (max earlier timestamp - 50 - 1)
     arr = np.array(events, np.int64)
     prev_max = np.maximum.accumulate(np.concatenate([[-2**62], arr[:-1, 2]]))
     kept = arr[arr[:, 2] - arr[:, 2] % 1000 + 999 > prev_max - 51]
     assert 0 < len(arr) - len(kept) <= 20
-    eng = JaxEngine(JaxHll(p), 1000)
+    eng = JaxLog(JaxHll(p), 1000, finish_tier="host")
     eng.process_batch(kept[:, 0], kept[:, 2], kept[:, 1])
-    eng.flush()
     eng.advance_watermark(2**62)
-    ref = {(int(kk), s): r for kk, r, s, _ in eng.emitted}
-    assert ref.keys() == got.keys()
-    assert_hll_close([got[x] for x in k], [ref[x] for x in k], 1 << p)
+    ref = {(int(kk), s): float(r) for kk, r, s, _ in eng.emitted}
+    assert ref == got
 
 
 def test_sum_job_exact():
@@ -229,9 +228,9 @@ def _sketch_job_cases(kind):
 
 @pytest.mark.parametrize("kind", ["quantile", "countmin"])
 def test_sketch_window_job_matches_reference(kind):
-    """The port's device operator against the JAX package's job (which
-    runs its log tier here) and against the port's own job on
-    WindowOperator over the heap backend."""
+    """The port's device operator against the JAX package's job (both
+    run the log tier) and against the port's own job on WindowOperator
+    over the heap backend."""
     make_t, make_j, assigner = _sketch_job_cases(kind)
     events = _sketch_events(21, kind)
     got = _window_job(tds, tsrc, twin, make_t(), events, assigner(twin),
@@ -242,10 +241,11 @@ def test_sketch_window_job_matches_reference(kind):
     assert len(got) > 1000
     assert [r[:3] for r in got] == [r[:3] for r in want] == [r[:3] for r in heap]
     g, w, h = (np.array([r[3] for r in x]) for x in (got, want, heap))
+    np.testing.assert_array_equal(g, w)
     if kind == "countmin":
-        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, h)
     else:
-        # the log tier's fire computes bucket values in float64: the
-        # same buckets, values a few float32 ulps apart
-        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
-    np.testing.assert_array_equal(g, h)
+        # the log tier's fire computes bucket values in float64, the
+        # heap backend's sketch in float32: the same buckets, values a
+        # few float32 ulps apart
+        np.testing.assert_allclose(g, h, rtol=1e-6, atol=0)

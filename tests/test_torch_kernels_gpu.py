@@ -251,3 +251,87 @@ def test_quantile_result_matches_plain(cuda, geometry):
         got = K.quantile_result(g[lo:hi], gq, gbv, None if sl is None else sl.to(cuda))
         assert torch.equal(got.cpu(), ref)
     assert (K.quantile_result(g, gq, gbv)[:5] == 0).all()
+
+
+@pytest.mark.parametrize("p", [4, 12, 16])
+def test_hll_log_finish_matches_plain_and_host_fire(cuda, p):
+    """Sums bit-equal (exact dyadic float64), estimates bit-equal to the
+    plain version and to the C++ host fire."""
+    import flink_tpu_torch.native as nat
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    rng = np.random.default_rng(p)
+    m = 1 << p
+    n = 200_000
+    keys = rng.integers(0, 3000, n).astype(np.uint64)
+    keys[: 4 * m] = 7                      # one key with every register
+    keys[-1] = 2**63 + 5                   # a key with one cell
+    vh = rng.integers(0, 2**63, n).astype(np.uint64)
+    vh[:40] &= np.uint64(0xFFFFFFFF)       # rank 33
+    regs, ranks = nat.hll_make_cells(vh, p)
+    _, _, crk, ends = nat.hll_log_compact(keys, regs, ranks, p)
+    agg = HyperLogLogAggregate(p)
+    r, e = torch.from_numpy(crk), torch.from_numpy(ends)
+    want_sum = torch.empty(len(ends), dtype=torch.float64)
+    want_est = K.hll_log_finish_plain(r, e, m, agg.alpha, inv_sum=want_sum)
+    got_sum = torch.empty(len(ends), dtype=torch.float64, device=cuda)
+    before = K.LAUNCHES["hll_log_finish"]
+    got_est = K.hll_log_finish(r.to(cuda), e.to(cuda), m, agg.alpha, inv_sum=got_sum)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["hll_log_finish"] == before + 1
+    assert torch.equal(got_sum.cpu(), want_sum)
+    assert torch.equal(got_est.cpu(), want_est)
+    assert torch.equal(K.hll_log_finish(r.to(cuda), e.to(cuda), m, agg.alpha).cpu(),
+                       want_est)
+    _, host = nat.hll_log_fire(keys, regs, ranks, p)
+    np.testing.assert_array_equal(got_est.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("case", ["empty", "half_full_and_hits", "full", "regions"])
+def test_table_insert_matches_plain_as_key_map(cuda, case):
+    from flink_tpu_torch.ops.device_table import key_map_faults, make_table
+    rng = np.random.default_rng(21)
+    cap, max_probes = 50_000, 64
+    region = None
+    region_size = 0
+    n_keys = {"empty": 30_000, "half_full_and_hits": 25_000, "full": 80_000,
+              "regions": 6_000}[case]
+    keys = rng.integers(0, n_keys, 60_000).astype(np.uint64)
+    keys[:100] = 0                                  # key (0, 0), duplicated
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    mask = rng.random(len(keys)) < 0.95
+    n = len(keys) - 500
+    live = mask & (np.arange(len(keys)) < n)
+    if case == "regions":
+        region_size = cap // 5
+        cap = region_size * 5
+        region = rng.integers(0, 5, len(keys)).astype(np.int32)
+    plain = make_table(cap, device="cpu")
+    card = make_table(cap, device=cuda)
+    args = lambda t: (torch.from_numpy(hi.view(np.int32)).to(t),   # noqa: E731
+                      torch.from_numpy(lo.view(np.int32)).to(t))
+    rounds = 2 if case == "half_full_and_hits" else 1
+    for _ in range(rounds):   # the second round is all hits
+        ref = K.table_insert_plain(plain.key_hi, plain.key_lo, plain.occupied,
+                                   *args("cpu"), n, max_probes,
+                                   mask=torch.from_numpy(mask),
+                                   region=None if region is None else torch.from_numpy(region),
+                                   region_size=region_size).numpy()
+        ov = torch.zeros(1, dtype=torch.int64, device=cuda)
+        got = K.table_insert(card.key_hi, card.key_lo, card.occupied, *args(cuda),
+                             n, max_probes, mask=torch.from_numpy(mask).to(cuda),
+                             region=None if region is None
+                             else torch.from_numpy(region).to(cuda),
+                             region_size=region_size, overflow=ov)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        faults, _ = key_map_faults(card, hi, lo, got, max_probes, live, region,
+                                   region_size,
+                                   reference=None if case == "full" else plain)
+        assert not any(faults.values()), faults
+        assert int(ov) == int((live & (got < 0)).sum())
+        assert int(card.occupied.sum()) <= cap
+        if case == "full":
+            assert int(ov) > 0 and (ref[live] < 0).any()
+        else:
+            assert int(ov) == 0 and (ref[live] >= 0).all()
