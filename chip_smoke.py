@@ -7,7 +7,7 @@ Phases, each of which raises on failure (nothing is caught to keep the
 exit code at 0):
 
 1. ``env``      the card's name, the device count and power limit;
-2. ``build``    builds the twelve CUDA kernels from
+2. ``build``    builds the thirteen CUDA kernels from
                 ``flink_tpu_torch/kernels/csrc`` (one nvcc per source,
                 started together) and, beside them, the port's C++ host
                 runtime (``flink_tpu_torch/native``, g++);
@@ -19,6 +19,9 @@ exit code at 0):
                 config #2 events, ``table_insert`` with 2^20 records
                 into 1.5M positions (empty, half full, all hits,
                 regional), compared as key -> slot maps;
+                ``chain_route`` on 2^20 rows of config #2 events (route
+                mode to 4 and 128 channels, plain, window mode over
+                negative timestamps), bit-equal to its plain version;
 4. ``engine``   the scatter-tier window engine at BASELINE config #2
                 (slots from the C++ NativeSlotIndex): a 1M-key space,
                 2^23 events in one 1 s window, HLL precision 12, 1.25M
@@ -66,7 +69,17 @@ exit code at 0):
                 index on the card, 1.5M positions, 6.1 GB of registers):
                 no overflow, every estimate bit-equal to the scatter
                 engine's on the same events;
-13. the launch counts of phases 4-12, each path counted on its own:
+13. ``chain``  the fused chain program: 2^23 config #2 events (1M
+                keys) through map -> filter -> a 4-channel key-group
+                exchange in batches of 2^20, fused and per operator,
+                per-channel batches bit-equal; window mode into
+                WindowOperator on the GPU backend (2^20 events, 100k
+                keys) equal to the unfused run; the job
+                VectorizedCollectionSource -> map -> filter -> key_by(0)
+                -> time_window(1 s) -> HLL 12 with the window at
+                parallelism 4, fused and unfused, equal, with the
+                (key, window) set exact;
+14. the launch counts of phases 4-13, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -346,6 +359,7 @@ def kernel_phase(dev, hbm: float):
     sketch_kernel_entries(dev, hbm, rng, entries, detail)
     log_finish_entry(dev, hbm, rng, entries, detail)
     table_insert_entry(dev, hbm, rng, entries, detail)
+    chain_route_entry(dev, hbm, rng, entries, detail)
     emit({"kernel_variants": detail})
     return entries
 
@@ -1831,6 +1845,370 @@ def heavy_hitter_phase(dev, n_events=1 << 21, n_keys=100_000, span=4_000,
 
 
 # ---------------------------------------------------------------------
+# chain_route (kernels phase) and the chain phase
+# ---------------------------------------------------------------------
+
+_CHAIN_MAP = lambda t: (t[0], t[1] * 3)              # noqa: E731
+_CHAIN_FILTER = lambda t: t[1] % 7 != 0               # noqa: E731
+
+
+def chain_route_entry(dev, hbm, rng, entries, detail, n=1 << 20):
+    """chain_route on 2^20 rows of config #2 events (int64 key, value
+    and ts; 1M keys), the keep mask of the filter t[1] % 7 != 0: route
+    mode at 4 and 128 channels, plain mode, and window mode (1 s panes)
+    on timestamps shifted to hold negative ones.  Each against the plain
+    version bit for bit (moved columns, bounds, count, panes)."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.hashing import operator_indexes, splitmix64
+    keys, ts, vh = config2_events(rng, n_events=n)
+    key = torch.from_numpy(keys.astype(np.int64)).to(dev)
+    val = torch.from_numpy(vh.view(np.int64)).to(dev)
+    t = torch.from_numpy(ts).to(dev)
+    t_neg = t - 500
+    keep = torch.from_numpy(vh.view(np.int64) % 7 != 0).to(dev)
+    kept = int(keep.sum())
+    modes = (("route4", dict(key=key, num_channels=4, max_parallelism=128), t),
+             ("route128", dict(key=key, num_channels=128, max_parallelism=128), t),
+             ("plain", {}, t),
+             ("window", dict(ts=t_neg, pane_offset=0, slide=1000), t_neg))
+    for mode, kw, tcol in modes:
+        cols = [key, val, tcol]
+        got = K.chain_route(cols, keep, **kw)
+        want = K.chain_route_plain(cols, keep, **kw)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) if len(g) else 0.0
+                  for g, w in zip(got[0], want[0]))
+        check(np.array_equal(got[2], want[2]) and int(got[2][-1]) == kept,
+              f"chain_route {mode}: bounds and count equal to plain")
+        check(all(torch.equal(g, w) for g, w in zip(got[0], want[0])),
+              f"chain_route {mode}: moved columns bit-equal to plain")
+        if mode == "window":
+            check(torch.equal(got[1], want[1]), "chain_route window: pane starts bit-equal")
+            check(bool((got[1] < 0).any()), "chain_route window: negative panes in the sample")
+        ms = cuda_ms(lambda: K.chain_route(cols, keep, **kw))
+        plain = cuda_ms(lambda: K.chain_route_plain(cols, keep, **kw), 5)
+        # the nearest PyTorch call sequence: a stable sort of the row
+        # classes (computed beforehand) and one index per column
+        if "key" in kw:
+            idx = operator_indexes(splitmix64(key), 128, kw["num_channels"])
+            cls = torch.where(keep, idx, kw["num_channels"])
+        else:
+            cls = (~keep).to(torch.int64)
+
+        def library():
+            order = torch.sort(cls, stable=True).indices[:kept]
+            return [c[order] for c in cols]
+
+        lib = cuda_ms(library)
+        nbytes = n * (8 * len(cols) + 1) + kept * 8 * (len(cols) + (mode == "window"))
+        b, by = bound(nbytes, 0, hbm)
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                   bound_by=by, max_abs_err=err)
+        detail.append({"kernel": "chain_route", "mode": mode, "rows": n,
+                       "kept": kept, "library": "torch.sort(stable) + indexing",
+                       **row})
+        if mode == "route4":    # the job's route: four window subtasks
+            entries["chain_route"] = row
+
+
+def _chain_ops(out):
+    """StreamMap -> StreamFilter of the chain phase, wired to out."""
+    from flink_tpu_torch.core.functions import as_filter_function, as_map_function
+    from flink_tpu_torch.streaming.operators import StreamFilter, StreamMap
+
+    class _Next:
+        def __init__(self, op):
+            self.op = op
+
+        def collect_batch(self, batch):
+            self.op.process_batch(batch)
+
+        def collect(self, record):
+            self.op.process_element(record)
+
+    m = StreamMap(as_map_function(_CHAIN_MAP))
+    f = StreamFilter(as_filter_function(_CHAIN_FILTER))
+    m.setup(_Next(f), operator_id="map")
+    f.setup(out, operator_id="filter")
+    return m, f
+
+
+class _Channel:
+    def __init__(self):
+        self.got = []
+
+    def push(self, element):
+        self.got.append(element)
+
+
+class _KeyRouter:
+    """A chain tail with one key-group route to nch channels."""
+
+    def __init__(self, nch):
+        from flink_tpu_torch.core.functions import as_key_selector
+        from flink_tpu_torch.streaming.partitioners import KeyGroupStreamPartitioner
+        self.part = KeyGroupStreamPartitioner(as_key_selector(0), 128)
+        self.channels = [_Channel() for _ in range(nch)]
+        self.routes = [(self.part, self.channels, None)]
+
+    def collect_batch(self, batch):
+        for idx, sub in self.part.split_batch(batch, len(self.channels)):
+            self.channels[idx].push(sub)
+
+
+def _same_channels(a, b) -> bool:
+    for ca, cb in zip(a.channels, b.channels):
+        if len(ca.got) != len(cb.got):
+            return False
+        for x, y in zip(ca.got, cb.got):
+            if list(x.cols) != list(y.cols) or not np.array_equal(x.ts, y.ts):
+                return False
+            if not all(x.cols[k].dtype == y.cols[k].dtype
+                       and np.array_equal(x.cols[k], y.cols[k]) for k in y.cols):
+                return False
+    return True
+
+
+def chain_phase(dev, n_events=1 << 23, n_keys=1_000_000, batch=1 << 20,
+                n_window=1 << 20, window_keys=100_000, job_events=1 << 20,
+                job_keys=100_000):
+    """The fused chain program (route, window and the job) against the
+    per-operator path: (b) config #2's events through map -> filter ->
+    a 4-channel key-group exchange, fused and per operator; (c) window
+    mode into WindowOperator on the GPU backend; (d) the job
+    source -> map -> filter -> key_by(0) -> time_window(1 s) ->
+    aggregate(HLL 12) with the window at parallelism 4."""
+    import torch
+    from flink_tpu_torch.streaming import chain_fusion as cf
+    from flink_tpu_torch.streaming.elements import RecordBatch
+
+    rng = np.random.default_rng(23)
+    out = {}
+    # (b) the fused prefix at config #2's width
+    keys, ts, vh = config2_events(rng, n_events, n_keys)
+    # visitor ids below 2^61: t[1] * 3 stays in int64, so the map's
+    # column kernel passes its probe (an overflow would box it)
+    f0, f1 = keys.astype(np.int64), (vh >> np.uint64(3)).astype(np.int64)
+    batches = [RecordBatch({"f0": f0[i:i + batch], "f1": f1[i:i + batch]},
+                           ts[i:i + batch]) for i in range(0, n_events, batch)]
+    per_op = _KeyRouter(4)
+    m, _ = _chain_ops(per_op)
+    t0 = time.perf_counter()
+    for b in batches:
+        m.process_batch(b)
+    per_op_s = time.perf_counter() - t0
+    fused = _KeyRouter(4)
+    m2, f2 = _chain_ops(fused)
+    prog = cf.compile_chain([m2, f2], router=fused, device=dev)
+    check(prog is not None and prog.route_field == 0, "chain: route mode compiled")
+    cf.FUSION_STATS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        check(prog.wants(b), "chain: the program wants every batch")
+        prog.run(b)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(prog.active and cf.FUSION_STATS.probes == 1,
+          f"chain: fused without demotion ({prog.demoted_reason})")
+    check(_same_channels(fused, per_op),
+          "chain: fused per-channel batches bit-equal to the per-operator path")
+    # steady state (the signature is verified), then the split
+    for ch in fused.channels:
+        ch.got.clear()
+    t0 = time.perf_counter()
+    for b in batches:
+        prog.run(b)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    check(_same_channels(fused, per_op), "chain: second pass bit-equal too")
+
+    def third_pass():
+        for b in batches:
+            prog.run(b)
+    split = _device_split(third_pass)
+    out["prefix"] = {
+        "events": n_events, "keys": n_keys, "batch": batch, "channels": 4,
+        "kept": int(sum(len(x) for ch in per_op.channels for x in ch.got)),
+        "per_operator_events_per_s": n_events / per_op_s,
+        "fused_events_per_s_first_pass": n_events / first_s,
+        "fused_events_per_s": n_events / steady_s,
+        "fused_split": split}
+    del batches, per_op, fused, prog
+    gc.collect()
+
+    # (c) window mode: WindowOperator on the GPU backend
+    out["window"] = _chain_window(dev, rng, n_window, window_keys)
+    # (d) the job
+    out["job"] = _chain_job(dev, rng, job_events, job_keys)
+    torch.cuda.empty_cache()
+    emit({"chain": out})
+
+
+def _device_split(fn) -> dict:
+    """Runs fn once under torch.profiler and splits the card's time by
+    what it ran: host-to-device and device-to-host copies, the
+    chain_route kernels (chain_count / chain_scan / chain_scatter) and
+    the rest (the UDF stages' torch kernels, fills, memsets).  Also the
+    host wall time of the run and the card's idle share in it; all
+    None when the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ms = {"h2d": 0.0, "udf": 0.0, "kernel": 0.0, "d2h": 0.0}
+    n_events = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n_events += 1
+        dur = e.time_range.elapsed_us() / 1e3
+        if "HtoD" in e.name:
+            ms["h2d"] += dur
+        elif "DtoH" in e.name:
+            ms["d2h"] += dur
+        elif "chain_" in e.name:
+            ms["kernel"] += dur
+        else:
+            ms["udf"] += dur
+    busy = sum(ms.values())
+    if not n_events:
+        return {"device_events": 0, "device_ms": None, "wall_ms": wall_ms,
+                "idle_share": None}
+    return {"device_events": n_events, "device_ms": ms, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms}
+
+
+def _chain_window(dev, rng, n, n_keys, chunk=1 << 18):
+    import torch
+    from flink_tpu_torch.streaming import chain_fusion as cf
+    from flink_tpu_torch.streaming.elements import RecordBatch
+    from flink_tpu_torch.streaming.harness import OneInputStreamOperatorTestHarness
+    keys = rng.integers(0, n_keys, n)
+    vals = rng.integers(0, 2**61, n)       # t[1] * 3 stays in int64
+    ts = np.sort(rng.integers(0, 4000, n))
+
+    def run(fused):
+        h = OneInputStreamOperatorTestHarness(
+            _uv_operator(12), key_selector=0, state_backend="gpu", device=dev)
+        h.open()
+        wop = h.operator
+        m, f = _chain_ops(_NextOp(wop))
+        prog = cf.compile_chain([m, f, wop], device=dev) if fused else None
+        if fused:
+            check(prog is not None and prog.window_op is wop,
+                  "chain window: window mode compiled")
+        cf.FUSION_STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, n, chunk):
+            sl = slice(i, i + chunk)
+            b = RecordBatch({"f0": keys[sl], "f1": vals[sl]}, ts[sl])
+            if fused:
+                check(prog.wants(b), "chain window: the program wants every batch")
+                prog.run(b)
+            else:
+                m.process_batch(b)
+            h.process_watermark(int(ts[sl][-1]) - 1)
+        h.process_watermark(2**62)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if fused:
+            check(prog.active and cf.FUSION_STATS.fused_batches == -(-n // chunk),
+                  f"chain window: every batch fused ({prog.demoted_reason})")
+            check(wop.fused_rows > 0, "chain window: the operator took fused panes")
+        return sorted(h.extract_output_values()), secs
+
+    unfused, unfused_s = run(False)
+    fused, fused_s = run(True)
+    check(len(fused) > 0 and fused == unfused,
+          "chain window: fused results equal to the unfused run")
+    return {"events": n, "keys": n_keys, "results": len(fused),
+            "unfused_events_per_s": n / unfused_s, "fused_events_per_s": n / fused_s}
+
+
+class _NextOp:
+    def __init__(self, op):
+        self.op = op
+
+    def collect_batch(self, batch):
+        self.op.process_batch(batch)
+
+    def collect(self, record):
+        self.op.set_key_context(record)
+        self.op.process_element(record)
+
+
+def _chain_job(dev, rng, n, n_keys):
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming import chain_fusion as cf
+    from flink_tpu_torch.streaming.columnar import VectorizedCollectionSource
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.elements import RecordBatch
+    from flink_tpu_torch.streaming.sources import CollectSink
+    from flink_tpu_torch.streaming.windowing import Time
+    keys = rng.integers(0, n_keys, n)
+    vals = rng.integers(0, 1 << 40, n)
+    ts = np.sort(rng.integers(0, 4000, n))
+    data = RecordBatch({"f0": keys, "f1": vals}, ts)
+
+    def run(fused):
+        agg = HyperLogLogAggregate(12)
+        agg.extract_value = lambda e: e[1]
+        sink = []
+        env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+        (env.add_source(VectorizedCollectionSource.from_batch(data, chunk=1 << 16))
+            .map(_CHAIN_MAP).filter(_CHAIN_FILTER)
+            .key_by(0).time_window(Time.milliseconds_of(1000))
+            .aggregate(agg, window_function=lambda k, w, v: [(int(k), w.start, float(v[0]))])
+            .set_parallelism(4)
+            .add_sink(CollectSink(sink)))
+        saved = cf.FUSION_ENABLED
+        cf.FUSION_ENABLED = fused
+        cf.FUSION_STATS.reset()
+        before = dict(K.LAUNCHES)
+        try:
+            t0 = time.perf_counter()
+            env.execute("chain-job")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            cf.FUSION_ENABLED = saved
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        return (sorted(sink), secs, cf.FUSION_STATS.fused_batches,
+                cf.FUSION_STATS.demotions, launched)
+
+    unfused, unfused_s, _, _, _ = run(False)
+    fused, fused_s, fused_batches, demotions, launched = run(True)
+    check(fused_batches > 0 and demotions == 0,
+          f"chain job: {fused_batches} batches fused, {demotions} demotions")
+    # the job's own launches: the fused prefix and the window's log-tier
+    # finish on the card
+    check(launched["chain_route"] > 0 and launched["hll_log_finish"] > 0,
+          f"chain job: chain_route and hll_log_finish launched ({launched})")
+    check(fused == unfused, "chain job: sorted results equal fused and unfused")
+    v3 = vals * 3
+    kept = v3 % 7 != 0
+    pairs = np.unique(keys[kept] * 4 + ts[kept] // 1000)
+    check(np.array_equal(np.array(sorted(k * 4 + s // 1000 for k, s, _ in fused)),
+                         pairs), "chain job: (key, window) set exact")
+    check(all(np.isfinite(e) and e >= 1 for _, _, e in fused),
+          "chain job: estimates finite")
+    return {"events": n, "keys": n_keys, "parallelism": 4, "results": len(fused),
+            "fused_batches": fused_batches, "launches": launched,
+            "unfused_events_per_s": n / unfused_s,
+            "fused_events_per_s": n / fused_s}
+
+
+# ---------------------------------------------------------------------
 
 SOURCES = {
     "hll_update": ("flink_tpu_torch/kernels/csrc/hll_update.cu",
@@ -1857,6 +2235,8 @@ SOURCES = {
                        "flink_tpu/streaming/log_windows.py:244"),
     "table_insert": ("flink_tpu_torch/kernels/csrc/table_insert.cu",
                      "flink_tpu/ops/device_table.py:65"),
+    "chain_route": ("flink_tpu_torch/kernels/csrc/chain_route.cu",
+                    "flink_tpu/streaming/chain_fusion.py:716"),
 }
 
 #: main-path runs, each with the kernels it must launch
@@ -1877,7 +2257,9 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                                   "countmin_query", "clear_rows")),
          ("log_tier", "log_tier_phase", ("hll_log_finish",)),
          ("device_windows", "device_windows_phase", ("table_insert", "hll_update",
-                                                     "hll_estimate", "clear_rows")))
+                                                     "hll_estimate", "clear_rows")),
+         ("chain", "chain_phase", ("chain_route", "hll_update", "hll_estimate",
+                                   "clear_rows", "hll_log_finish")))
 
 
 def main() -> int:

@@ -1,4 +1,4 @@
-"""User-function SPI (subset of ``flink_tpu/core/functions.py:25-230``).
+"""User-function SPI (subset of ``flink_tpu/core/functions.py:25-340``).
 
 Plain callables are accepted wherever a single-method function is
 expected; the classes exist for the rich lifecycle (open/close) and
@@ -9,7 +9,7 @@ window engine vectorizes.
 from __future__ import annotations
 
 import abc
-from typing import Any, Generic, Optional, TypeVar
+from typing import Any, Generic, Iterable, Optional, TypeVar
 
 IN = TypeVar("IN")
 OUT = TypeVar("OUT")
@@ -55,6 +55,26 @@ class RichFunction(Function):
         return self._runtime_context
 
 
+class MapFunction(Function, Generic[IN, OUT], abc.ABC):
+    @abc.abstractmethod
+    def map(self, value: IN) -> OUT:
+        ...
+
+
+class FlatMapFunction(Function, Generic[IN, OUT], abc.ABC):
+    """Returns an iterable of outputs per input."""
+
+    @abc.abstractmethod
+    def flat_map(self, value: IN) -> Iterable[OUT]:
+        ...
+
+
+class FilterFunction(Function, Generic[IN], abc.ABC):
+    @abc.abstractmethod
+    def filter(self, value: IN) -> bool:
+        ...
+
+
 class ReduceFunction(Function, Generic[IN], abc.ABC):
     @abc.abstractmethod
     def reduce(self, value1: IN, value2: IN) -> IN:
@@ -95,6 +115,58 @@ class KeySelector(Function, Generic[IN, KEY], abc.ABC):
     @abc.abstractmethod
     def get_key(self, value: IN) -> KEY:
         ...
+
+
+def as_map_function(fn) -> MapFunction:
+    if isinstance(fn, MapFunction):
+        return fn
+    if callable(fn):
+        return _LambdaMap(fn)
+    raise TypeError(f"not a map function: {fn!r}")
+
+
+def as_flat_map_function(fn) -> FlatMapFunction:
+    if isinstance(fn, FlatMapFunction):
+        return fn
+    if callable(fn):
+        return _LambdaFlatMap(fn)
+    raise TypeError(f"not a flat-map function: {fn!r}")
+
+
+def as_filter_function(fn) -> FilterFunction:
+    if isinstance(fn, FilterFunction):
+        return fn
+    if callable(fn):
+        return _LambdaFilter(fn)
+    raise TypeError(f"not a filter function: {fn!r}")
+
+
+# The lambda adapters keep the callable as ``_fn``: the column kernels
+# apply it to whole columns (a filter's ``bool()`` would reject a mask).
+
+class _LambdaMap(MapFunction):
+    def __init__(self, fn):
+        self._fn = fn
+
+    def map(self, value):
+        return self._fn(value)
+
+
+class _LambdaFlatMap(FlatMapFunction):
+    def __init__(self, fn):
+        self._fn = fn
+
+    def flat_map(self, value):
+        out = self._fn(value)
+        return out if out is not None else ()
+
+
+class _LambdaFilter(FilterFunction):
+    def __init__(self, fn):
+        self._fn = fn
+
+    def filter(self, value):
+        return bool(self._fn(value))
 
 
 class _LambdaReduce(ReduceFunction):

@@ -114,6 +114,22 @@ def assign_key_groups_np(hashes64: np.ndarray, max_parallelism: int) -> np.ndarr
     return (h % np.uint64(max_parallelism)).astype(np.int32)
 
 
+def assign_operator_indexes_np(hashes64: np.ndarray, max_parallelism: int,
+                               parallelism: int) -> np.ndarray:
+    """hash -> key group -> operator subtask index, vectorized: the
+    range arithmetic of ``compute_operator_index_for_key_group``."""
+    kg = assign_key_groups_np(hashes64, max_parallelism)
+    return (kg.astype(np.int64) * parallelism
+            // max_parallelism).astype(np.int32)
+
+
+def compute_operator_index_for_key_group(max_parallelism: int,
+                                         parallelism: int,
+                                         key_group: int) -> int:
+    """key group -> operator subtask index (range partition)."""
+    return key_group * parallelism // max_parallelism
+
+
 def compute_key_group_range_for_operator_index(
         max_parallelism: int, parallelism: int,
         operator_index: int) -> "KeyGroupRange":

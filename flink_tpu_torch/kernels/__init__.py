@@ -20,6 +20,8 @@ PyTorch versions.
                    compacted (key-run) cells, float64
 ``table_insert``   insert-or-lookup of (hi, lo) key lanes in the
                    device hash table (plain or regional probing)
+``chain_route``    stable partition of a fused chain's rows by channel
+                   (or keep flag), moving their columns and pane starts
 =================  ==================================================
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
@@ -27,6 +29,7 @@ tensors it runs the plain version.  Nothing builds at import (see
 ``loader``).
 """
 
+from flink_tpu_torch.kernels.chain_route import chain_route, chain_route_plain
 from flink_tpu_torch.kernels.clear_rows import clear_rows, clear_rows_plain
 from flink_tpu_torch.kernels.countmin_query import (countmin_query,
                                                     countmin_query_plain)
@@ -52,6 +55,7 @@ from flink_tpu_torch.kernels.table_insert import (table_insert,
 
 __all__ = [
     "KERNELS", "LAUNCHES", "build_all", "reset_launch_counts",
+    "chain_route", "chain_route_plain",
     "clear_rows", "clear_rows_plain", "countmin_query", "countmin_query_plain",
     "countmin_update", "countmin_update_plain", "hll_estimate",
     "hll_estimate_plain", "hll_log_finish", "hll_log_finish_plain",

@@ -34,7 +34,7 @@ import torch
 KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
            "merge_rows", "set_rows", "countmin_update", "countmin_query",
            "quantile_update", "quantile_result", "hll_log_finish",
-           "table_insert")
+           "table_insert", "chain_route")
 
 #: kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -95,6 +95,10 @@ _SIGNATURES = {
     "table_insert": {
         "ft_table_insert": (_P, _P, _P, _LL, _P, _P, _P, _P, _LL, _LL, _LL,
                             _I, _P, _P, _P),
+    },
+    "chain_route": {
+        "ft_chain_route": (_P, _P, _LL, _I, _LL, _P, _P, _P, _I, _P, _LL, _LL,
+                           _P, _P, _P, _P, _P),
     },
 }
 

@@ -82,3 +82,31 @@ def countmin_rows(h_hi: torch.Tensor, h_lo: torch.Tensor, depth: int,
     r = torch.arange(depth, dtype=torch.int64, device=h_hi.device)[:, None]
     h = (_u32(h_lo)[None, :] + r * _u32(h_hi)[None, :]) & _M32
     return (h % width).to(torch.int32)
+
+
+def _signed64(c: int) -> int:
+    """A uint64 constant as the int64 of the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _shr64(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 of int64 keys as int64 bits (tensor twin of
+    ``core.keygroups.splitmix64_np``): int64 adds and multiplies wrap
+    mod 2^64 as uint64 ones do, and every right shift is masked."""
+    z = x.to(torch.int64) + _signed64(0x9E3779B97F4A7C15)
+    z = (z ^ _shr64(z, 30)) * _signed64(0xBF58476D1CE4E5B9)
+    z = (z ^ _shr64(z, 27)) * _signed64(0x94D049BB133111EB)
+    return z ^ _shr64(z, 31)
+
+
+def operator_indexes(hashes: torch.Tensor, max_parallelism: int,
+                     parallelism: int) -> torch.Tensor:
+    """64-bit hash bits -> key group -> subtask index, int64 (tensor twin
+    of ``core.keygroups.assign_operator_indexes_np``)."""
+    kg = fmix32(hashes & _M32) % max_parallelism
+    return kg * parallelism // max_parallelism

@@ -1,20 +1,32 @@
-"""Local executor for one chain at parallelism 1 (port of
-``flink_tpu/runtime/local.py:110-200, 466-760, 1226-1400``).
+"""Local executor: every vertex of a job at its parallelism, in this
+process (port of ``flink_tpu/runtime/local.py:110-300, 466-760,
+900-960, 1947-2003``).
 
-Source → timestamps → keyed window → sink: sources step cooperatively
-on one loop, records and watermarks flow by direct calls through each
-chain and across vertex edges, every input keeps the per-channel
-watermark valve (an operator sees a watermark only when the minimum
-over its input channels advances), and end of input sends a final
-``MAX_TIMESTAMP`` watermark so every window fires.  Every keyed
-operator gets its own keyed-state backend from ``load_state_backend``
-on the environment's ``state.backend`` and device; side outputs travel
-on their own edges.  Checkpoints, failover, metrics, processing time
-and the cluster executors are later slices.
+Each JobVertex runs as N subtasks.  A keyed operator of subtask i owns
+the key-group range ``compute_key_group_range_for_operator_index(
+max_parallelism, N, i)`` and its own keyed-state backend from
+``load_state_backend`` on the environment's ``state.backend`` and
+device.  An edge wires every upstream subtask to every downstream one
+(a pointwise partitioner to a contiguous group) through input channels;
+each channel keeps its watermark, and an operator sees a watermark only
+when the minimum over its input channels advances.
+
+Records and RecordBatches flow by direct calls, cooperative and on one
+thread: sources step in turn on one loop, a chain hands batches whole
+from operator to operator, and the chain-tail router splits a batch by
+key group (``split_batch``) into one sub-batch per channel.  A subtask
+compiles its fused chain program (``chain_fusion.try_fuse_subtask``)
+at the end of ``open()``, when its routes are wired; the chain head and
+every chained output hand a batch to the program anchored on their
+operator when it wants the batch.  End of input sends a final
+``MAX_TIMESTAMP`` watermark so every window fires.  Checkpoints,
+failover, metrics, processing time, threaded input channels and the
+cluster executors are later slices.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Tuple
 
 from flink_tpu_torch.core.keygroups import compute_key_group_range_for_operator_index
@@ -33,6 +45,28 @@ class JobExecutionResult:
         self.accumulators: Dict[str, Any] = {}
 
 
+class _InputChannel:
+    """One input channel of a subtask: an upstream router pushes records,
+    batches and watermarks into it, and the subtask takes each at once."""
+
+    __slots__ = ("subtask", "input_index", "channel_id")
+
+    def __init__(self, subtask: "SubtaskInstance", input_index: int,
+                 channel_id: int):
+        self.subtask = subtask
+        self.input_index = input_index
+        self.channel_id = channel_id
+
+    def push(self, element) -> None:
+        if element.is_record:
+            self.subtask.process_record(self.input_index, element)
+        elif element.is_watermark:
+            self.subtask.process_channel_watermark(
+                self.input_index, self.channel_id, element)
+        else:
+            self.subtask.process_batch_element(self.input_index, element)
+
+
 class _ChainedOutput(Output):
     """Direct call into the next operator of the chain; side outputs
     leave through the chain's router."""
@@ -47,6 +81,17 @@ class _ChainedOutput(Output):
         self.op.set_key_context(record)
         self.op.process_element(record)
 
+    def collect_batch(self, batch):
+        # a fused chain program anchored on the next operator takes the
+        # whole run; otherwise the operator's kernel (or its boxing
+        # fallback) decides
+        op = self.op
+        fused = op._fused_chain
+        if fused is not None and fused.wants(batch):
+            fused.run(batch)
+            return
+        op.process_batch(batch)
+
     def emit_watermark(self, watermark):
         self.op.process_watermark(watermark)
 
@@ -56,38 +101,66 @@ class _ChainedOutput(Output):
 
 class _RouterOutput(Output):
     """Chain-tail output: each out-edge's partitioner picks the
-    downstream channel of every record; watermarks and end of stream
-    go to every channel."""
+    channels of every record, a batch is split per channel whole
+    (``split_batch``), and watermarks and end of stream go to every
+    channel."""
 
     def __init__(self):
-        #: (partitioner, [(subtask, input_index, channel_id)], side tag)
-        self.routes: List[Tuple[Any, List[Tuple["SubtaskInstance", int, int]],
-                                Any]] = []
+        #: (partitioner, [_InputChannel], side tag)
+        self.routes: List[Tuple[Any, List[_InputChannel], Any]] = []
 
-    def add_route(self, partitioner, targets, side_tag=None) -> None:
-        self.routes.append((partitioner, targets, side_tag))
-
-    def _send(self, record, tag) -> None:
-        for partitioner, targets, side_tag in self.routes:
-            if side_tag == tag:
-                sub, inp, _ = targets[partitioner.select_channel(record, len(targets))]
-                sub.process_record(inp, record)
+    def add_route(self, partitioner, channels, side_tag=None) -> None:
+        partitioner.setup(len(channels))
+        self.routes.append((partitioner, channels, side_tag))
 
     def collect(self, record):
-        self._send(record, None)
+        for partitioner, channels, side_tag in self.routes:
+            if side_tag is not None:
+                continue
+            if len(channels) == 1:
+                channels[0].push(record)
+                continue
+            for idx in partitioner.select_channels(record.value, len(channels)):
+                channels[idx].push(record)
+
+    def collect_batch(self, batch):
+        if len(batch) == 0:
+            return
+        boxed = None
+        for partitioner, channels, side_tag in self.routes:
+            if side_tag is not None:
+                continue
+            if len(channels) == 1:
+                channels[0].push(batch)
+                continue
+            split = partitioner.split_batch(batch, len(channels))
+            if split is not None:
+                for idx, sub in split:
+                    channels[idx].push(sub)
+                continue
+            if boxed is None:
+                boxed = batch.to_records()
+            for record in boxed:
+                for idx in partitioner.select_channels(record.value,
+                                                       len(channels)):
+                    channels[idx].push(record)
 
     def collect_side(self, tag, record):
-        self._send(record, tag)
+        for partitioner, channels, side_tag in self.routes:
+            if side_tag is not None and side_tag.tag_id == tag.tag_id:
+                for idx in partitioner.select_channels(record.value,
+                                                       len(channels)):
+                    channels[idx].push(record)
 
     def emit_watermark(self, watermark):
-        for _, targets, _ in self.routes:
-            for sub, inp, ch in targets:
-                sub.process_channel_watermark(inp, ch, watermark)
+        for _, channels, _ in self.routes:
+            for ch in channels:
+                ch.push(watermark)
 
     def broadcast_end_of_stream(self):
-        for _, targets, _ in self.routes:
-            for sub, _, _ in targets:
-                sub.on_end_of_stream()
+        for _, channels, _ in self.routes:
+            for ch in channels:
+                ch.subtask.on_end_of_stream()
 
 
 class SubtaskInstance:
@@ -98,6 +171,9 @@ class SubtaskInstance:
                  device: DeviceLike = None, subtask_index: int = 0,
                  num_subtasks: int = 1):
         self.vertex = vertex
+        self.subtask_index = subtask_index
+        #: where device state and a fused chain program run
+        self.device = device
         self.operators: List[StreamOperator] = [
             node.operator_factory() for node in vertex.chain]
         self.router = _RouterOutput()
@@ -129,16 +205,20 @@ class SubtaskInstance:
     def is_source(self) -> bool:
         return isinstance(self.head, StreamSource)
 
-    def new_channel(self, input_index: int) -> int:
-        ch = self._channel_count
+    def new_channel(self, input_index: int) -> _InputChannel:
+        ch = _InputChannel(self, input_index, self._channel_count)
         self._channel_count += 1
-        self._watermarks.setdefault(input_index, {})[ch] = MIN_TIMESTAMP
+        self._watermarks.setdefault(input_index, {})[ch.channel_id] = MIN_TIMESTAMP
         return ch
 
     # ---- lifecycle --------------------------------------------------
     def open(self):
         for op in self.operators:
             op.open()
+        # routes are wired before open(), so the compiler sees the
+        # final channel fan-out
+        from flink_tpu_torch.streaming.chain_fusion import try_fuse_subtask
+        try_fuse_subtask(self)
 
     def finish(self):
         for op in self.operators:
@@ -179,6 +259,16 @@ class SubtaskInstance:
         head.set_key_context(record)
         head.process_element(record)
 
+    def process_batch_element(self, input_index: int, batch):
+        """A RecordBatch through the head: its fused chain program when
+        it wants the batch, else the operator's ``process_batch``."""
+        head = self.head
+        fused = head._fused_chain
+        if fused is not None and fused.wants(batch):
+            fused.run(batch)
+        else:
+            head.process_batch(batch)
+
     def process_channel_watermark(self, input_index: int, channel_id: int,
                                   watermark: Watermark):
         """Per-channel min-combine of watermarks."""
@@ -200,6 +290,15 @@ class SubtaskInstance:
             self.router.broadcast_end_of_stream()
 
 
+def pointwise_targets(up_index: int, n_up: int, n_down: int) -> List[int]:
+    """The downstream subtasks a pointwise edge wires upstream subtask
+    ``up_index`` to: a contiguous group."""
+    if n_down >= n_up:
+        return list(range(up_index * n_down // n_up,
+                          (up_index + 1) * n_down // n_up))
+    return [up_index * n_down // n_up]
+
+
 def gather_accumulators(all_tasks, into: Dict[str, Any]) -> None:
     """User-function accumulators into the job result; lists
     concatenate, numbers add (one contribution per function instance)."""
@@ -218,7 +317,7 @@ def gather_accumulators(all_tasks, into: Dict[str, Any]) -> None:
 
 
 class LocalExecutor:
-    """Runs a JobGraph in this process, every vertex at parallelism 1.
+    """Runs a JobGraph in this process, each vertex at its parallelism.
     ``state_backend`` (a name or a Configuration) and ``device`` build
     the keyed operators' backends."""
 
@@ -229,26 +328,31 @@ class LocalExecutor:
         self.state_backend = state_backend
         self.device = device
 
-    def build_subtasks(self, job_graph: JobGraph) -> Dict[int, SubtaskInstance]:
+    def build_subtasks(self, job_graph: JobGraph
+                       ) -> Dict[int, List[SubtaskInstance]]:
+        """Every vertex's subtasks, and every edge's channels: all to
+        all, or pointwise groups for a pointwise partitioner."""
         subtasks = {}
         for v in job_graph.topological_vertices():
-            if v.parallelism != 1:
-                raise NotImplementedError(
-                    f"vertex {v.name!r} runs at parallelism {v.parallelism}; "
-                    "the port's executor runs parallelism 1 (parallel "
-                    "subtasks arrive with the mesh slice)")
-            subtasks[v.id] = SubtaskInstance(v, self.state_backend,
-                                             self.device)
+            subtasks[v.id] = [SubtaskInstance(v, self.state_backend,
+                                              self.device, i, v.parallelism)
+                              for i in range(v.parallelism)]
         for e in job_graph.edges:
-            dst = subtasks[e.target_vertex_id]
-            ch = dst.new_channel(e.type_number)
-            subtasks[e.source_vertex_id].router.add_route(
-                e.partitioner, [(dst, e.type_number, ch)], e.side_output_tag)
+            ups = subtasks[e.source_vertex_id]
+            downs = subtasks[e.target_vertex_id]
+            for i, up in enumerate(ups):
+                targets = ([downs[t] for t in
+                            pointwise_targets(i, len(ups), len(downs))]
+                           if e.partitioner.is_pointwise else downs)
+                channels = [d.new_channel(e.type_number) for d in targets]
+                up.router.add_route(copy.copy(e.partitioner), channels,
+                                    e.side_output_tag)
         return subtasks
 
     def execute(self, job_graph: JobGraph) -> JobExecutionResult:
         result = JobExecutionResult(job_graph.job_name)
-        subtasks = list(self.build_subtasks(job_graph).values())
+        subtasks = [st for group in self.build_subtasks(job_graph).values()
+                    for st in group]
         opened: List[SubtaskInstance] = []
         try:
             for st in reversed(subtasks):   # consumers before producers

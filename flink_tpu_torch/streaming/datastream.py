@@ -32,7 +32,10 @@ import copy
 from typing import Any, Iterable, Optional
 
 from flink_tpu_torch.core.config import Configuration
-from flink_tpu_torch.core.functions import AggregateFunction, as_key_selector
+from flink_tpu_torch.core.functions import (AggregateFunction,
+                                            as_filter_function,
+                                            as_flat_map_function,
+                                            as_key_selector, as_map_function)
 from flink_tpu_torch.core.state import AggregatingStateDescriptor
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
@@ -40,9 +43,11 @@ from flink_tpu_torch.streaming.device_window_operator import (
     DeviceWindowOperator, batch_window_eligible)
 from flink_tpu_torch.streaming.graph import (StreamEdge, StreamGraph,
                                              StreamNode, create_job_graph)
-from flink_tpu_torch.streaming.operators import StreamSink
+from flink_tpu_torch.streaming.operators import (StreamFilter, StreamFlatMap,
+                                                StreamMap, StreamSink)
 from flink_tpu_torch.streaming.partitioners import (ForwardPartitioner,
                                                     KeyGroupStreamPartitioner,
+                                                    RebalancePartitioner,
                                                     StreamPartitioner)
 from flink_tpu_torch.streaming.sources import (CollectSink,
                                                FromCollectionSource, PrintSink,
@@ -141,17 +146,44 @@ class DataStream:
         #: set: edges out of this stream carry this side output
         self._side_tag = side_tag
 
+    def _edge_partitioner(self, target_parallelism: int) -> StreamPartitioner:
+        """The next edge's partitioner: the stream's own (keyBy), else
+        forward between equal parallelism and round robin otherwise."""
+        if self._partitioner is not None:
+            return self._partitioner
+        if self.node.parallelism == target_parallelism:
+            return ForwardPartitioner()
+        return RebalancePartitioner()
+
     def _add_op(self, name: str, operator_factory, key_selector=None,
                 chaining: str = "always") -> "DataStream":
+        p = self.env.parallelism
         node = self.env.graph.add_node(StreamNode(
             self.env.graph.new_node_id(), name, operator_factory,
-            parallelism=self.env.parallelism,
-            max_parallelism=self.env.max_parallelism,
+            parallelism=p, max_parallelism=self.env.max_parallelism,
             key_selector=key_selector, chaining_strategy=chaining))
         self.env.graph.add_edge(StreamEdge(
-            self.node.id, node.id, self._partitioner or ForwardPartitioner(),
+            self.node.id, node.id, self._edge_partitioner(p),
             side_output_tag=self._side_tag))
         return DataStream(self.env, node)
+
+    def map(self, fn, name: str = "map") -> "DataStream":
+        f = as_map_function(fn)
+        return self._add_op(name, _op_factory(StreamMap, lambda: f))
+
+    def flat_map(self, fn, name: str = "flat_map") -> "DataStream":
+        f = as_flat_map_function(fn)
+        return self._add_op(name, _op_factory(StreamFlatMap, lambda: f))
+
+    def filter(self, fn, name: str = "filter") -> "DataStream":
+        f = as_filter_function(fn)
+        return self._add_op(name, _op_factory(StreamFilter, lambda: f))
+
+    def set_parallelism(self, parallelism: int) -> "DataStream":
+        """This operator's parallelism; a node of another parallelism
+        than its neighbours gets a vertex of its own."""
+        self.node.parallelism = parallelism
+        return self
 
     def get_side_output(self, tag) -> "DataStream":
         """The side output ``tag`` of this stream's operator."""

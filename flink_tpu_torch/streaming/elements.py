@@ -2,11 +2,10 @@
 
 Records and watermarks flow through operator pipelines.  Timestamps are
 int milliseconds (event time); ``MAX_WATERMARK`` flushes all event-time
-state at end of input.  ``RecordBatch`` carries the subset of the
-reference's columnar batch that ``WindowOperator.process_batch`` and
-the test harness use; routing batches through the job graph, stream
-status, latency markers and checkpoint barriers arrive with later
-slices.
+state at end of input.  ``RecordBatch`` is a stream element of its
+own: sources emit batches, column kernels and the fused chain program
+consume them, and the router splits them by key group.  Stream status,
+latency markers and checkpoint barriers arrive with later slices.
 """
 
 from __future__ import annotations
@@ -55,15 +54,23 @@ class RecordBatch(StreamElement):
     (``"f0".."fk"``).  ``ts`` is an optional int64 timestamp column;
     ``ts_mask`` (optional bool, True = the row has a timestamp) keeps
     None timestamps, so boxing gives the exact per-record stream.
+    Columns stay numpy on the host between operators.  A batch is
+    immutable once emitted: operators build new batches.
     """
 
-    __slots__ = ("cols", "ts", "ts_mask")
+    __slots__ = ("cols", "ts", "ts_mask", "routing")
 
-    def __init__(self, cols, ts=None, ts_mask=None):
+    def __init__(self, cols, ts=None, ts_mask=None, routing=None):
         #: {name: np.ndarray}, all of one length
         self.cols = cols
         self.ts = ts
         self.ts_mask = ts_mask
+        #: optional uint64 per-row routing hashes (splitmix64 of the
+        #: key column, what KeyGroupStreamPartitioner would compute);
+        #: ``take`` drops them, since a gather breaks the pairing.  No
+        #: operator of the port sets them yet (the reference's fused
+        #: ``attach`` mode does; it is not ported)
+        self.routing = routing
 
     def __len__(self) -> int:
         return len(next(iter(self.cols.values()))) if self.cols else 0
@@ -71,6 +78,10 @@ class RecordBatch(StreamElement):
     @property
     def is_scalar(self) -> bool:
         return len(self.cols) == 1 and "v" in self.cols
+
+    def rows(self):
+        """Row tuples over all columns (scalar batches give 1-tuples)."""
+        return zip(*[a.tolist() for a in self.cols.values()])
 
     def row_values(self) -> list:
         """Row values as operators see them: the cell for scalar
@@ -84,6 +95,23 @@ class RecordBatch(StreamElement):
         """One ndarray for scalar batches, a tuple of ndarrays otherwise."""
         arrays = tuple(self.cols.values())
         return arrays[0] if self.is_scalar else arrays
+
+    def timestamps(self) -> list:
+        """Per-row timestamps, None where the row has none."""
+        if self.ts is None:
+            return [None] * len(self)
+        stamps = self.ts.tolist()
+        if self.ts_mask is None:
+            return stamps
+        return [t if ok else None
+                for t, ok in zip(stamps, self.ts_mask.tolist())]
+
+    def take(self, index) -> "RecordBatch":
+        """The rows selected by a bool mask, an index array or a slice."""
+        return RecordBatch(
+            {k: v[index] for k, v in self.cols.items()},
+            self.ts[index] if self.ts is not None else None,
+            self.ts_mask[index] if self.ts_mask is not None else None)
 
     def to_records(self) -> list:
         """Box into per-row StreamRecords, as the row-at-a-time path

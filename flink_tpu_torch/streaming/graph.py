@@ -1,10 +1,12 @@
 """StreamGraph → JobGraph translation with operator chaining (port of
-``flink_tpu/streaming/graph.py:24-200``, as far as one chain needs).
+``flink_tpu/streaming/graph.py:24-285``, without the chain reports).
 
 A StreamNode carries an operator factory (a zero-arg callable returning
 a fresh operator), so each subtask gets its own instance.  Chains grow
 greedily from the sources across forward edges between nodes of equal
-parallelism whose downstream node has one input and allows chaining.
+parallelism whose downstream node has one input and allows chaining, so
+a node set to another parallelism than its neighbours heads a vertex
+of its own.
 """
 
 from __future__ import annotations

@@ -1,24 +1,41 @@
 """Operator lifecycle and the operators the port runs (port of
-``flink_tpu/streaming/operators.py:68-370, 389-460, 729-752``).
+``flink_tpu/streaming/operators.py:68-370, 389-460, 477-752``).
 
 setup → open → process* → finish → close.  ``setup`` takes the
 operator's keyed backend and processing-time service and builds its
 ``InternalTimerService``; ``process_watermark`` advances the timers,
 ``set_key_context`` sets the backend's current key, and
 ``snapshot_state`` / ``restore_state`` carry keyed state and timers.
-Operator state, metrics and the column-kernel mixins are later
-slices; the device window operator is its own keyed state.
+
+``StreamMap`` and ``StreamFilter`` run a UDF that the liftability
+analyzer proves LIFTABLE on whole numpy columns of a RecordBatch; the
+first batch is probed against the scalar UDF on its edge rows, and any
+exception, wrong shape or probe mismatch locks the operator onto the
+boxed per-record path.  Operator state, metrics and the type-flow
+prover's static skip (``_static_kernel``) are later slices; the device
+window operator is its own keyed state.
 """
 
 from __future__ import annotations
 
 import abc
+import copy
+import logging
 from typing import List, Optional
 
+import numpy as np
+
 from flink_tpu_torch.core.functions import KeySelector, RichFunction, RuntimeContext
-from flink_tpu_torch.streaming.elements import MIN_TIMESTAMP, StreamRecord, Watermark
+from flink_tpu_torch.streaming.elements import (MIN_TIMESTAMP, RecordBatch,
+                                                StreamRecord, Watermark)
 from flink_tpu_torch.streaming.timers import (InternalTimerService,
                                               ProcessingTimeService)
+
+log = logging.getLogger(__name__)
+
+
+#: (operator class name, reason prefix) pairs already warned about
+_FALLBACK_WARNED = set()
 
 
 class OutputTag:
@@ -47,6 +64,13 @@ class Output(abc.ABC):
 
     @abc.abstractmethod
     def emit_watermark(self, watermark: Watermark) -> None: ...
+
+    def collect_batch(self, batch) -> None:
+        """Emit a whole RecordBatch.  Default: box into records;
+        outputs that carry batches (chained operators, the router)
+        override this."""
+        for record in batch.to_records():
+            self.collect(record)
 
     def collect_side(self, tag: OutputTag, record: StreamRecord) -> None:
         """Dropped unless a side output is wired."""
@@ -92,6 +116,13 @@ class TimestampedCollector:
 class StreamOperator(abc.ABC):
     """Operator lifecycle: setup → open → process* → finish → close."""
 
+    #: the FusedChainProgram anchored at this operator, or None (a class
+    #: attribute: the task layer's check is one attribute load)
+    _fused_chain = None
+    #: the FusedChainProgram this operator is a member of; cleared on
+    #: demotion
+    _fused_member = None
+
     def __init__(self):
         self.output: Optional[Output] = None
         self.keyed_backend = None
@@ -103,6 +134,17 @@ class StreamOperator(abc.ABC):
         self.subtask_index: int = 0
         self.num_subtasks: int = 1
         self.max_parallelism: int = 128
+        # columnar accounting over rows delivered as batches
+        self.columnar_rows: int = 0
+        self.boxed_rows: int = 0
+        self.boxed_fallbacks: int = 0
+        self.columnar_fallback_reason: Optional[str] = None
+        #: who chose the column path: "probe" or "fused"
+        self.columnar_decided_by: Optional[str] = None
+        self.kernel_probes: int = 0
+        #: rows handled inside a fused chain program (counted into
+        #: columnar_rows too)
+        self.fused_rows: int = 0
 
     def setup(self, output: Output, keyed_backend=None,
               processing_time_service: Optional[ProcessingTimeService] = None,
@@ -135,9 +177,26 @@ class StreamOperator(abc.ABC):
     @abc.abstractmethod
     def process_element(self, record: StreamRecord) -> None: ...
 
+    def _note_columnar(self, n: int) -> None:
+        self.columnar_rows += n
+
+    def _note_fused(self, n: int) -> None:
+        """Rows a fused chain program handled for this operator."""
+        self.fused_rows += n
+        self.columnar_rows += n
+        self.columnar_decided_by = "fused"
+
+    def _note_boxed(self, n: int, reason: str) -> None:
+        self.boxed_rows += n
+        self.boxed_fallbacks += 1
+        if self.columnar_fallback_reason is None:
+            self.columnar_fallback_reason = reason
+
     def process_batch(self, batch) -> None:
-        """Consume a RecordBatch: box it into records and run the
-        per-record path (operators with a column path override)."""
+        """Consume a RecordBatch: box it into records once, here, and
+        run the per-record path (operators with a column path
+        override)."""
+        self._note_boxed(len(batch), f"no batch kernel on {type(self).__name__}")
         for record in batch.to_records():
             self.set_key_context(record)
             self.process_element(record)
@@ -186,9 +245,18 @@ class StreamOperator(abc.ABC):
 class AbstractUdfStreamOperator(StreamOperator):
     """Hosts a user function, forwarding open/close."""
 
+    #: at parallelism > 1 each subtask gets its own copy of the function
+    #: (sinks opt out: a CollectSink's list is read after the job)
+    COPY_UDF_PER_SUBTASK = True
+
     def __init__(self, user_function):
         super().__init__()
         self.user_function = user_function
+
+    def setup(self, *args, **kwargs):
+        super().setup(*args, **kwargs)
+        if self.COPY_UDF_PER_SUBTASK and self.num_subtasks > 1:
+            self.user_function = copy.deepcopy(self.user_function)
 
     def open(self):
         if isinstance(self.user_function, RichFunction):
@@ -209,8 +277,218 @@ class AbstractUdfStreamOperator(StreamOperator):
             self.user_function.close()
 
 
+# ---------------------------------------------------------------------
+# column kernels of the stateless UDF operators
+# ---------------------------------------------------------------------
+
+def _np_scalar(x):
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def _batch_row_value(batch, i):
+    arrays = tuple(batch.cols.values())
+    if batch.is_scalar:
+        return _np_scalar(arrays[0][i])
+    return tuple(_np_scalar(a[i]) for a in arrays)
+
+
+def _kernel_row_value(out, i):
+    """Row i of a kernel result (an ndarray or a tuple of them)."""
+    if type(out) is tuple:
+        return tuple(_np_scalar(a[i]) for a in out)
+    return _np_scalar(out[i])
+
+
+def _same_scalar(a, b) -> bool:
+    if type(a) is tuple or type(b) is tuple:
+        return (type(a) is tuple and type(b) is tuple and len(a) == len(b)
+                and all(_same_scalar(x, y) for x, y in zip(a, b)))
+    if type(a) is not type(b):
+        return False
+    try:
+        if a == b:
+            return True
+        return a != a and b != b  # NaN equals NaN for the probe
+    except Exception:  # noqa: BLE001
+        return False
+
+
+def _normalize_kernel_output(out, n):
+    """Kernel result -> ndarray (scalar rows) or tuple of ndarrays
+    (tuple rows), constant fields broadcast; None = not columnar."""
+    if isinstance(out, np.ndarray):
+        return out if out.shape == (n,) else None
+    if type(out) is tuple and out:
+        cols = []
+        for item in out:
+            if isinstance(item, np.ndarray):
+                if item.shape != (n,):
+                    return None
+                cols.append(item)
+            elif isinstance(item, (int, float, str, np.generic)):
+                cols.append(np.full(n, item))
+            else:
+                return None
+        return tuple(cols)
+    return None
+
+
+def _kernel_output_batch(batch, arrays):
+    """Normalized kernel output as a batch with the input's timestamps
+    (machine-style names: ``v``, or ``f0..fk``)."""
+    if type(arrays) is tuple:
+        cols = {f"f{i}": a for i, a in enumerate(arrays)}
+    else:
+        cols = {"v": arrays}
+    return RecordBatch(cols, batch.ts, batch.ts_mask)
+
+
+def _kernel_fn(user_function, attr: str):
+    """What the column path calls: the wrapped lambda when there is one
+    (the adapters coerce their method's return), else the method."""
+    fn = getattr(user_function, "_fn", None)
+    if callable(fn):
+        return fn
+    return getattr(user_function, attr, user_function)
+
+
+def _udf_liftable(user_function, attr: str):
+    """(liftable, reason): only a LIFTABLE verdict rides columns."""
+    fn = _kernel_fn(user_function, attr)
+    try:
+        from flink_tpu_torch.analysis.liftability import LIFTABLE, analyze_udf
+        rep = analyze_udf(fn)
+        if rep.verdict == LIFTABLE:
+            return True, ""
+        return False, (f"{attr} UDF not liftable ({rep.verdict}: "
+                       + "; ".join(rep.reasons[:2]) + ")")
+    except Exception as e:  # noqa: BLE001
+        return False, f"liftability analysis failed: {e!r}"
+
+
+class _ColumnKernelMixin:
+    """Decide / probe / fall back, shared by StreamMap and StreamFilter.
+    ``_batch_kernel`` is None (undecided), True (riding columns, probe
+    passed) or False (locked onto the boxed path)."""
+
+    _batch_kernel = None
+    _KERNEL_ATTR = ""
+
+    def _decide_kernel(self) -> bool:
+        ok, reason = _udf_liftable(self.user_function, self._KERNEL_ATTR)
+        if not ok:
+            self._batch_kernel = False
+            self.columnar_fallback_reason = reason
+        return ok
+
+    def _kernel_fallback(self, batch, reason: str):
+        self._batch_kernel = False
+        self.columnar_fallback_reason = reason
+        self.columnar_decided_by = None
+        key = (type(self).__name__, reason.split(":")[0])
+        if key not in _FALLBACK_WARNED:
+            _FALLBACK_WARNED.add(key)
+            log.warning("%s '%s' falls back to the boxed path: %s",
+                        type(self).__name__, self.operator_id, reason)
+        StreamOperator.process_batch(self, batch)
+
+    def process_batch(self, batch):
+        n = len(batch)
+        if n == 0:
+            return
+        decided = self._batch_kernel
+        if decided is False or (decided is None and not self._decide_kernel()):
+            StreamOperator.process_batch(self, batch)
+            return
+        fn = _kernel_fn(self.user_function, self._KERNEL_ATTR)
+        try:
+            out = fn(batch.value_arrays())
+        except Exception as e:  # noqa: BLE001
+            self._kernel_fallback(batch, f"kernel raised {e!r}")
+            return
+        if decided is None:
+            # first surviving batch: the vectorized result against the
+            # scalar UDF on the edge rows (LIFTABLE UDFs are pure, so
+            # replaying rows is safe)
+            self.kernel_probes += 1
+            err = self._probe(batch, fn, out, n)
+            if err is not None:
+                self._kernel_fallback(batch, err)
+                return
+            self._batch_kernel = True
+            self.columnar_decided_by = "probe"
+        self._emit_kernel_result(batch, out, n)
+
+
+class StreamMap(_ColumnKernelMixin, AbstractUdfStreamOperator):
+    _KERNEL_ATTR = "map"
+
+    def process_element(self, record):
+        self.output.collect(StreamRecord(self.user_function.map(record.value),
+                                         record.timestamp))
+
+    def _probe(self, batch, fn, out, n):
+        arrays = _normalize_kernel_output(out, n)
+        if arrays is None:
+            return "kernel output is not a column shape"
+        for i in (0, n - 1):
+            if not _same_scalar(fn(_batch_row_value(batch, i)),
+                                _kernel_row_value(arrays, i)):
+                return "probe mismatch (vectorized != scalar result)"
+        return None
+
+    def _emit_kernel_result(self, batch, out, n):
+        arrays = _normalize_kernel_output(out, n)
+        if arrays is None:
+            self._kernel_fallback(batch, "kernel output is not a column shape")
+            return
+        self._note_columnar(n)
+        self.output.collect_batch(_kernel_output_batch(batch, arrays))
+
+
+class StreamFlatMap(AbstractUdfStreamOperator):
+    """Per record: a flat map has no column kernel."""
+
+    def process_element(self, record):
+        out = self.user_function.flat_map(record.value)
+        if out is not None:
+            for value in out:
+                self.output.collect(StreamRecord(value, record.timestamp))
+
+
+class StreamFilter(_ColumnKernelMixin, AbstractUdfStreamOperator):
+    _KERNEL_ATTR = "filter"
+
+    def process_element(self, record):
+        if self.user_function.filter(record.value):
+            self.output.collect(record)
+
+    def _probe(self, batch, fn, out, n):
+        if not (isinstance(out, np.ndarray) and out.shape == (n,)
+                and out.dtype == np.bool_):
+            return "filter kernel did not produce a bool mask"
+        for i in (0, n - 1):
+            if bool(fn(_batch_row_value(batch, i))) != bool(out[i]):
+                return "probe mismatch (vectorized != scalar result)"
+        return None
+
+    def _emit_kernel_result(self, batch, out, n):
+        if not (isinstance(out, np.ndarray) and out.shape == (n,)
+                and out.dtype == np.bool_):
+            self._kernel_fallback(batch,
+                                  "filter kernel did not produce a bool mask")
+            return
+        self._note_columnar(n)
+        if out.all():
+            self.output.collect_batch(batch)
+        elif out.any():
+            self.output.collect_batch(batch.take(out))
+
+
 class StreamSink(AbstractUdfStreamOperator):
     """Operator hosting a SinkFunction."""
+
+    COPY_UDF_PER_SUBTASK = False
 
     def process_element(self, record):
         self.user_function.invoke(record.value,

@@ -28,6 +28,15 @@ class SourceContext(abc.ABC):
     @abc.abstractmethod
     def emit_watermark(self, watermark: Watermark) -> None: ...
 
+    def collect_batch(self, batch) -> None:
+        """Emit a whole RecordBatch; contexts that cannot forward
+        batches box per row, keeping each row's timestamp."""
+        for v, t in zip(batch.row_values(), batch.timestamps()):
+            if t is None:
+                self.collect(v)
+            else:
+                self.collect_with_timestamp(v, t)
+
 
 class SourceFunction(abc.ABC):
     """run() emits via the context until exhausted or cancel()ed."""
@@ -60,6 +69,9 @@ class ManualWatermarkContext(SourceContext):
 
     def collect_with_timestamp(self, value, timestamp):
         self._output.collect(StreamRecord(value, timestamp))
+
+    def collect_batch(self, batch):
+        self._output.collect_batch(batch)
 
     def emit_watermark(self, watermark):
         self._output.emit_watermark(watermark)

@@ -9,7 +9,8 @@ and a session merge a ``merge_rows`` launch.  ``process_batch`` ingests
 a RecordBatch column-wise for tumbling and sliding event-time windows
 with the default trigger, and a watermark fires every due window of
 that shape through one timer sweep and one ``get_batch``
-(``on_watermark_batch``).  Merging assigners and per-row ingest take
+(``on_watermark_batch``); ``process_batch_fused`` takes pane starts
+that a fused chain program computed on the card.  Merging assigners and per-row ingest take
 ``process_element`` and the per-timer ``on_event_time``.
 
 The session mapping (window -> state window) is stored in keyed value
@@ -291,9 +292,6 @@ class WindowOperator(AbstractUdfStreamOperator):
         self._internal_fn = _InternalWindowFunction(window_function,
                                                     single_value_contents)
         self.num_late_records_dropped = 0
-        #: rows ingested column-wise / boxed into records by process_batch
-        self.columnar_rows = 0
-        self.boxed_rows = 0
 
     # ---- lifecycle --------------------------------------------------
     def open(self):
@@ -379,16 +377,42 @@ class WindowOperator(AbstractUdfStreamOperator):
         n = len(batch)
         if n == 0:
             return
-        if (self._batch_demote_reason is not None or batch.ts is None
-                or (batch.ts_mask is not None and not batch.ts_mask.all())
-                or self.key_selector is None):
-            self.boxed_rows += n
-            super().process_batch(batch)
+        reason = self._batch_demote_reason
+        if reason is None and (
+                batch.ts is None
+                or (batch.ts_mask is not None and not batch.ts_mask.all())):
+            reason = "rows without event timestamps"
+        if reason is None and self.key_selector is None:
+            reason = "no key selector bound"
+        if reason is not None:
+            self._note_boxed(n, reason)
+            for record in batch.to_records():
+                self.set_key_context(record)
+                self.process_element(record)
             return
         self._process_batch_vectorized(batch, n)
-        self.columnar_rows += n
+        self._note_columnar(n)
 
-    def _process_batch_vectorized(self, batch, n: int) -> None:
+    def process_batch_fused(self, batch, last_start=None) -> None:
+        """Ingest a batch whose pane starts a fused chain program
+        computed on the card: ``process_batch`` without the pane
+        arithmetic.  Every guard of ``process_batch`` stays armed; when
+        one trips, the column is dropped and the ordinary path runs."""
+        n = len(batch)
+        if n == 0:
+            return
+        if (last_start is None
+                or self._batch_demote_reason is not None
+                or batch.ts is None
+                or (batch.ts_mask is not None and not batch.ts_mask.all())
+                or self.key_selector is None):
+            self.process_batch(batch)
+            return
+        self._process_batch_vectorized(batch, n, last_start=last_start)
+        self._note_fused(n)
+
+    def _process_batch_vectorized(self, batch, n: int,
+                                  last_start=None) -> None:
         ts = np.asarray(batch.ts, np.int64)
         values = batch.row_values()
         keys = self._batch_keys(batch, values)
@@ -407,7 +431,10 @@ class WindowOperator(AbstractUdfStreamOperator):
             c = agg.extract_column(batch.value_arrays())
             if isinstance(c, np.ndarray) and c.ndim == 1 and len(c) == n:
                 vcol = c
-        last_start = ts - ((ts - assigner.offset) % slide)
+        if last_start is None:
+            last_start = ts - ((ts - assigner.offset) % slide)
+        else:
+            last_start = np.asarray(last_start, np.int64)
         npanes = -(-size // slide)  # 1 for tumbling
         assigned = np.zeros(n, bool)
         immediate = np.zeros(n, bool)

@@ -1,8 +1,9 @@
 """The port's boundary: flink_tpu_torch (and chip_smoke.py) never load
 jax, any module of flink_tpu or the JAX package's native library (a
 subprocess job runs the log tier, the keyed backend, the sliding and
-session log engines, the fused string sum and a DeviceTumblingWindows
-batch, then reads its own sys.modules and /proc/self/maps), and its
+session log engines, the fused string sum, a DeviceTumblingWindows
+batch and a fused map/filter chain ahead of a window at parallelism 4,
+then reads its own sys.modules and /proc/self/maps), and its
 entry points never fall back to the CPU on their own.  This test
 process has jax loaded already (the test configuration imports it), so
 the import check runs a job in a fresh interpreter."""
@@ -90,12 +91,30 @@ dw.process_batch(*lanes_from_int_keys(np.arange(40) % 9), np.arange(40),
 dw.advance_watermark(999)
 import flink_tpu_torch.streaming.heavy_hitters
 import flink_tpu_torch.state, flink_tpu_torch.streaming.harness
+# a fused chain ahead of a window at parallelism 4 (route mode)
+from flink_tpu_torch.streaming import chain_fusion
+from flink_tpu_torch.streaming.columnar import VectorizedCollectionSource
+from flink_tpu_torch.streaming.windowing import Time
+chain_fusion.MIN_FUSED_ROWS = 256
+fused = []
+agg = HyperLogLogAggregate(8)
+agg.extract_value = lambda e: e[1]
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+(env.add_source(VectorizedCollectionSource(
+        [((i % 7, i), 10 * i) for i in range(2048)], timestamped=True, chunk=512))
+    .map(lambda t: (t[0], t[1] * 3)).filter(lambda t: t[1] % 5 != 0)
+    .key_by(0).time_window(Time.milliseconds_of(1000))
+    .aggregate(agg).set_parallelism(4).add_sink(CollectSink(fused)))
+env.execute()
 maps = open("/proc/self/maps").read()
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "sliding_results": len(windowed["sliding"]),
                   "session_results": len(windowed["session"]),
                   "word_results": len(words),
                   "device_windows_keys": len(dw.fired[0][0]),
+                  "fused_results": len(fused),
+                  "fused_batches": chain_fusion.FUSION_STATS.fused_batches,
+                  "demotions": chain_fusion.FUSION_STATS.demotions,
                   "port_runtime_loaded": "flink_tpu_torch/native/_build/" in maps,
                   "reference_runtime_loaded": "libhost_runtime" in maps,
                   "modules": sorted(m for m in sys.modules
@@ -118,6 +137,9 @@ def test_job_loads_neither_jax_nor_flink_tpu():
     assert report["session_results"] == 7
     assert report["word_results"] == 7 * 5
     assert report["device_windows_keys"] == 9
+    # 20.48 s of events in 1 s windows, 7 keys; four batches fused
+    assert report["fused_results"] == 7 * 21
+    assert report["fused_batches"] == 4 and report["demotions"] == 0
     # the log tier ran on the port's own host runtime, never the
     # reference's library; no flink_tpu module (flink_tpu.native
     # included) was imported
@@ -138,6 +160,9 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     files = sorted((ROOT / "flink_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert ROOT / "flink_tpu_torch" / "native" / "__init__.py" in files
+    for module in ("analysis/liftability.py", "streaming/columnar.py",
+                   "streaming/chain_fusion.py", "kernels/chain_route.py"):
+        assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]
     assert bad == []

@@ -335,3 +335,106 @@ def test_table_insert_matches_plain_as_key_map(cuda, case):
             assert int(ov) > 0 and (ref[live] < 0).any()
         else:
             assert int(ov) == 0 and (ref[live] >= 0).all()
+
+
+@pytest.mark.parametrize("mode", ["plain", "route4", "route128", "window",
+                                  "window_wide"])
+def test_chain_route_matches_plain(cuda, mode):
+    """Order, bounds, count, every moved column and the pane starts bit
+    for bit; negative timestamps and a nonzero pane offset in window
+    mode; a ragged last tile; 21 columns, more than one launch of the
+    scatter moves ("window_wide")."""
+    rng = np.random.default_rng(13)
+    n = (1 << 18) + 77
+    key = rng.integers(-2**62, 2**62, n)
+    keep = rng.random(n) > 1 / 7
+    ts = rng.integers(-10**6, 10**6, n)
+    cols = [key, rng.random(n), rng.random(n).astype(np.float32),
+            rng.integers(-2**15, 2**15, n).astype(np.int16),
+            rng.integers(0, 256, n).astype(np.uint8), rng.random(n) > 0.5, ts]
+    if mode == "window_wide":
+        cols, mode = cols * 3, "window"
+    nch = {"route4": 4, "route128": 128}.get(mode, 0)
+    kw = dict(num_channels=nch, max_parallelism=128 if nch else 0,
+              pane_offset=37 if mode == "window" else 0,
+              slide=1000 if mode == "window" else 0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))   # noqa: E731
+    want = K.chain_route_plain([t(c).to(cuda) for c in cols], t(keep).to(cuda),
+                               t(key).to(cuda) if nch else None,
+                               ts=t(ts).to(cuda) if mode == "window" else None, **kw)
+    before = K.LAUNCHES["chain_route"]
+    got = K.chain_route([t(c).to(cuda) for c in cols], t(keep).to(cuda),
+                        t(key).to(cuda) if nch else None,
+                        ts=t(ts).to(cuda) if mode == "window" else None, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["chain_route"] == before + 1
+    assert np.array_equal(got[2], want[2])
+    assert got[2][-1] == keep.sum()
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+    if mode == "window":
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+    else:
+        assert got[1] is None
+
+
+def test_fused_chain_on_the_card_matches_per_operator(cuda):
+    from flink_tpu_torch.core.functions import _FieldKeySelector
+    from flink_tpu_torch.core.functions import as_filter_function, as_map_function
+    from flink_tpu_torch.streaming import chain_fusion as cf
+    from flink_tpu_torch.streaming.elements import RecordBatch
+    from flink_tpu_torch.streaming.operators import StreamFilter, StreamMap
+    from flink_tpu_torch.streaming.partitioners import KeyGroupStreamPartitioner
+
+    class _Ch:
+        def __init__(self):
+            self.got = []
+
+        def push(self, element):
+            self.got.append(element)
+
+    class _Router:
+        def __init__(self):
+            self.part = KeyGroupStreamPartitioner(_FieldKeySelector(0), 128)
+            self.channels = [_Ch() for _ in range(4)]
+            self.routes = [(self.part, self.channels, None)]
+
+        def collect_batch(self, batch):
+            for idx, sub in self.part.split_batch(batch, 4):
+                self.channels[idx].push(sub)
+
+    class _Next:
+        def __init__(self, op):
+            self.op = op
+
+        def collect_batch(self, batch):
+            self.op.process_batch(batch)
+
+    def chain(router):
+        m = StreamMap(as_map_function(lambda t: (t[0], t[1] * 3, t[2] / 2)))
+        f = StreamFilter(as_filter_function(lambda t: t[1] % 7 != 0))
+        m.setup(_Next(f))
+        f.setup(router)
+        return m, f
+
+    rng = np.random.default_rng(17)
+    n = 1 << 16
+    cols = {"f0": rng.integers(0, 10**6, n), "f1": rng.integers(0, 10**6, n),
+            "f2": rng.integers(-10**6, 10**6, n)}
+    ts = rng.integers(0, 10**4, n)
+    ref, fused = _Router(), _Router()
+    chain(ref)[0].process_batch(RecordBatch(dict(cols), ts.copy()))
+    m, f = chain(fused)
+    prog = cf.compile_chain([m, f], router=fused, device=cuda)
+    before = K.LAUNCHES["chain_route"]
+    prog.run(RecordBatch(dict(cols), ts.copy()))
+    assert prog.active, prog.demoted_reason
+    assert K.LAUNCHES["chain_route"] == before + 1
+    for a, b in zip(fused.channels, ref.channels):
+        assert len(a.got) == len(b.got) == 1
+        (ga,), (gb,) = a.got, b.got
+        assert list(ga.cols) == list(gb.cols)
+        for k in gb.cols:
+            assert ga.cols[k].dtype == gb.cols[k].dtype
+            assert np.array_equal(ga.cols[k], gb.cols[k])
+        assert np.array_equal(ga.ts, gb.ts)
