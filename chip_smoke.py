@@ -7,7 +7,7 @@ Phases, each of which raises on failure (nothing is caught to keep the
 exit code at 0):
 
 1. ``env``      the card's name, the device count and power limit;
-2. ``build``    builds the thirteen CUDA kernels from
+2. ``build``    builds the seventeen CUDA kernels from
                 ``flink_tpu_torch/kernels/csrc`` (one nvcc per source,
                 started together) and, beside them, the port's C++ host
                 runtime (``flink_tpu_torch/native``, g++);
@@ -22,6 +22,10 @@ exit code at 0):
                 ``chain_route`` on 2^20 rows of config #2 events (route
                 mode to 4 and 128 channels, plain, window mode over
                 negative timestamps), bit-equal to its plain version;
+                ``gather_segment_sum`` on a Graph500 scale-22 graph's
+                edges, ``edge_popcount`` on a scale-18 bitset (8.6 GB),
+                ``gram_accumulate`` on MovieLens-20M-shaped ratings,
+                ``knn_topk`` on MNIST-shaped products;
 4. ``engine``   the scatter-tier window engine at BASELINE config #2
                 (slots from the C++ NativeSlotIndex): a 1M-key space,
                 2^23 events in one 1 s window, HLL precision 12, 1.25M
@@ -79,7 +83,19 @@ exit code at 0):
                 -> time_window(1 s) -> HLL 12 with the window at
                 parallelism 4, fused and unfused, equal, with the
                 (key, window) set exact;
-14. the launch counts of phases 4-13, each path counted on its own:
+14. ``graph``  the graph library on a Graph500 Kronecker graph (scale
+                22: 4.19M vertices, 67.1M edges): PageRank, HITS,
+                connected components, SSSP from the vertex of highest
+                degree, a Pregel max-flood; triangles and clustering at
+                scale 18; checked against scipy and numpy (components,
+                Dijkstra, float64 power iterations, a fixed point, 4,096
+                sampled edges' common neighbours);
+15. ``ml``     ALS at MovieLens-20M's shape (20M ratings, f = 10, 10
+                sweeps), KNN at MNIST's (60,000 x 784, 10,000 queries,
+                k = 3), SVM at covtype's (581,012 x 54) and linear
+                regression at YearPredictionMSD's (463,715 x 90), each
+                checked against numpy float64;
+16. the launch counts of phases 4-15, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -108,6 +124,7 @@ ROOT = Path(__file__).resolve().parent
 # non-tensor-core int32/fp32 operations: 67 TFLOP/s fp32 (SXM).
 _HBM = (("PCIe", 2.0e12), ("NVL", 3.9e12), ("H200", 4.8e12), ("", 3.35e12))
 _OPS_PER_S = 67e12
+EPS32 = float(np.finfo(np.float32).eps)
 
 CHECKS = []
 
@@ -158,6 +175,48 @@ def max_abs_err(a, b) -> float:
     rows = max(1, (1 << 26) // max(1, a[0].numel()))
     return max(float((a[i:i + rows].double() - b[i:i + rows].double())
                      .abs().max()) for i in range(0, a.shape[0], rows))
+
+
+def _kernel_clock(module, names, marks):
+    """Wrap module.<name> for each name so that CUDA events bracket each
+    call; marks[name] collects the event pairs.  Returns the restorer."""
+    import torch
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **kw)
+            e1.record()
+            marks.setdefault(name, []).append((e0, e1))
+            return r
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    return lambda: [setattr(module, n, f) for n, f in saved.items()]
+
+
+def _recording(module, name, seen):
+    """Wrap module.<name> so that seen(args, result) runs after each
+    call: a check reads the path's own kernel inputs and outputs and
+    launches nothing itself.  Returns the restorer."""
+    fn = getattr(module, name)
+
+    def call(*a, **kw):
+        r = fn(*a, **kw)
+        seen(a, r)
+        return r
+
+    setattr(module, name, call)
+    return lambda: setattr(module, name, fn)
+
+
+def _device_seconds(marks):
+    return {name: sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+            for name, pairs in marks.items()}
 
 
 def bound(nbytes: float, ops: float, hbm: float):
@@ -360,6 +419,8 @@ def kernel_phase(dev, hbm: float):
     log_finish_entry(dev, hbm, rng, entries, detail)
     table_insert_entry(dev, hbm, rng, entries, detail)
     chain_route_entry(dev, hbm, rng, entries, detail)
+    graph_kernel_entries(dev, hbm, entries, detail)
+    ml_kernel_entries(dev, hbm, entries, detail)
     emit({"kernel_variants": detail})
     return entries
 
@@ -1007,22 +1068,9 @@ def device_windows_phase(dev, n_events=1 << 23, n_keys=1_000_000,
     agg = HyperLogLogAggregate(p)
     eng = dw.DeviceTumblingWindows(agg, 1000, capacity=capacity, device=dev)
     # CUDA events around each launch split the ingest's device time
-    marks = {"table_insert": [], "hll_update": []}
-
-    def timed(name, fn):
-        def call(*a, **kw):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            r = fn(*a, **kw)
-            e1.record()
-            marks[name].append((e0, e1))
-            return r
-        return call
-
-    insert = dw.table_insert
-    dw.table_insert = timed("table_insert", insert)
-    agg.update = timed("hll_update", agg.update)
+    marks = {}
+    restore = _kernel_clock(dw, ("table_insert",), marks)
+    _kernel_clock(agg, ("update",), marks)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1033,12 +1081,12 @@ def device_windows_phase(dev, n_events=1 << 23, n_keys=1_000_000,
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     finally:
-        dw.table_insert = insert
+        restore()
     eng.advance_watermark(999)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    split = {name: sum(a.elapsed_time(b) for a, b in pairs) / 1e3
-             for name, pairs in marks.items()}
+    split = _device_seconds(marks)
+    split["hll_update"] = split.pop("update")
     check(eng.overflowed == 0, "device_windows: overflowed == 0")
     (fk, fr, _, _), = eng.fired
     out = {"events": n_events, "keys": n_keys, "precision": p,
@@ -2209,6 +2257,653 @@ def _chain_job(dev, rng, n, n_keys):
 
 
 # ---------------------------------------------------------------------
+# the graph and ML paths: data at public datasets' shapes, from a seed
+# ---------------------------------------------------------------------
+
+def kronecker_edges(dev, scale, seed, edge_factor=16):
+    """Graph500's Kronecker generator (initiator A, B, C = 0.57, 0.19,
+    0.19; LDBC Graphalytics' graph500-* datasets): edge_factor * 2^scale
+    directed edges over 2^scale vertices with permuted labels, drawn on
+    the card from a seed, and edge weights uniform in [0, 1) as float32
+    (Graph500's SSSP kernel).  Self-loops and repeated edges stay, as the
+    generator makes them.  Returns numpy (src, dst int32; weight f32)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n, m = 1 << scale, edge_factor << scale
+    a, b, c = 0.57, 0.19, 0.19
+    ab, c_norm, a_norm = a + b, c / (1.0 - (a + b)), a / (a + b)
+    src = torch.zeros(m, dtype=torch.int64, device=dev)
+    dst = torch.zeros(m, dtype=torch.int64, device=dev)
+    for bit in range(scale):
+        ii = torch.rand(m, generator=gen, device=dev) > ab
+        jj = torch.rand(m, generator=gen, device=dev) > torch.where(
+            ii, torch.tensor(c_norm, device=dev), torch.tensor(a_norm, device=dev))
+        src |= ii.to(torch.int64) << bit
+        dst |= jj.to(torch.int64) << bit
+    perm = torch.randperm(n, generator=gen, device=dev)
+    order = torch.randperm(m, generator=gen, device=dev)
+    src, dst = perm[src][order], perm[dst][order]
+    w = torch.rand(m, generator=gen, device=dev)
+    out = (src.to(torch.int32).cpu().numpy(), dst.to(torch.int32).cpu().numpy(),
+           w.cpu().numpy())
+    del src, dst, w, perm, order
+    torch.cuda.empty_cache()
+    return out
+
+
+# independent references: numpy and scipy only, run in worker processes
+# beside the card's work
+
+def _timed(fn, *args):
+    """(seconds, fn(*args)), timed in the worker process."""
+    t0 = time.perf_counter()
+    res = fn(*args)
+    return time.perf_counter() - t0, res
+
+
+def _csr(rows, cols, vals, n):
+    from scipy.sparse import csr_matrix
+    return csr_matrix((vals, (rows, cols)), shape=(n, n))
+
+
+def ref_pagerank64(src, dst, n, steps, d=0.85):
+    """Float64 power iteration of the reference's PageRank step, and the
+    L1 bound of one float32 step's summation: 2 eps sum_v deg_in(v)
+    summed_v (two orders of deg_in(v) terms) + 8 eps for the elementwise
+    ops."""
+    out_deg = np.bincount(src, minlength=n).astype(np.float64)
+    M = _csr(dst, src, 1.0 / np.maximum(out_deg, 1.0)[src], n)
+    sinks = out_deg == 0
+    r = np.full(n, 1.0 / n)
+    for _ in range(steps):
+        summed = M @ r
+        r = (1.0 - d) / n + d * (summed + r[sinks].sum() / n)
+    deg_in = np.bincount(dst, minlength=n)
+    step_l1 = 2 * EPS32 * float((deg_in * summed).sum()) + 8 * EPS32
+    return r, step_l1
+
+
+def ref_hits64(src, dst, n, steps):
+    """Float64 HITS with the reference's step, and the L1 bound of one
+    float32 step for authorities and hubs (as for PageRank, on each of
+    the two sums; no contraction assumed)."""
+    A = _csr(dst, src, np.ones(len(src)), n)
+    At = A.T.tocsr()
+    hubs, auths = np.ones(n), np.ones(n)
+    for _ in range(steps):
+        auths = A @ hubs
+        auths /= max(np.linalg.norm(auths), 1e-12)
+        hubs = At @ auths
+        hubs /= max(np.linalg.norm(hubs), 1e-12)
+    deg_in, deg_out = np.bincount(dst, minlength=n), np.bincount(src, minlength=n)
+    l1 = lambda deg, x: 2 * EPS32 * float((deg * x).sum()) + 8 * EPS32 * float(x.sum())  # noqa: E731
+    return hubs, auths, l1(deg_out, hubs), l1(deg_in, auths)
+
+
+def ref_components(src, dst, n):
+    """Min-id component labels by scipy's connected_components."""
+    from scipy.sparse.csgraph import connected_components
+    _, lab = connected_components(_csr(src, dst, np.ones(len(src), np.float32), n),
+                                  directed=False)
+    first = np.full(lab.max() + 1, n, np.int64)
+    np.minimum.at(first, lab, np.arange(n))
+    return first[lab]
+
+
+def ref_dijkstra(src, dst, w, n, source):
+    """Shortest distances from source by scipy's Dijkstra; repeated
+    edges stay (the shortest counts), zero weights are edges."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    order = np.argsort(src, kind="stable")
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+    g = csr_matrix((w[order].astype(np.float64), dst[order], indptr), shape=(n, n))
+    return dijkstra(g, directed=True, indices=source)
+
+
+def ref_max_flood(src, dst, vals):
+    """Each vertex's largest value over itself and every vertex that
+    reaches it: np.maximum.at over the edges to a fixed point."""
+    cur = vals.astype(np.int64)
+    while True:
+        new = cur.copy()
+        np.maximum.at(new, dst, cur[src])
+        if np.array_equal(new, cur):
+            return cur
+        cur = new
+
+
+def graph_kernel_entries(dev, hbm, entries, detail, scale=22, tri_scale=18):
+    """gather_segment_sum on the scale-22 graph's edges (PageRank's
+    contributions) and edge_popcount on the scale-18 graph's bitset and
+    canonical pairs, each against its plain version."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.graph import library as tlib
+    src_np, dst_np, _ = kronecker_edges(dev, scale, seed=61)
+    n, e = 1 << scale, len(src_np)
+    src, dst = (torch.from_numpy(a).to(dev) for a in (src_np, dst_np))
+    deg = torch.clamp(torch.bincount(src, minlength=n), min=1).to(torch.float32)
+    x = torch.full((n,), 1.0 / n, device=dev) / deg
+    got = K.gather_segment_sum(x, src, dst, n)
+    want = K.gather_segment_sum_plain(x, src, dst, n)
+    mag = K.gather_segment_sum_plain(x.abs(), src, dst, n).double()
+    deg_in = torch.bincount(dst, minlength=n).double()
+    err = (got.double() - want.double()).abs()
+    check(bool((err <= 2 * deg_in * EPS32 * mag).all()),
+          "gather_segment_sum within 2 deg_in eps sum|x| of plain")
+    ms = cuda_ms(lambda: K.gather_segment_sum(x, src, dst, n))
+    plain = cuda_ms(lambda: K.gather_segment_sum_plain(x, src, dst, n), 5)
+    xs = x[src]
+    out = torch.zeros(n, device=dev)
+    lib = cuda_ms(lambda: out.index_add_(0, dst, xs))
+    b, by = bound(16 * e, e, hbm)
+    entries["gather_segment_sum"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                         bound_ms=b, bound_by=by,
+                                         max_abs_err=float(err.max()))
+    detail.append({"kernel": "gather_segment_sum", "vertices": n, "edges": e,
+                   "library": "index_add_ of x[src]"})
+    del src, dst, deg, x, got, want, mag, deg_in, err, xs, out
+    torch.cuda.empty_cache()
+
+    src_np, dst_np, _ = kronecker_edges(dev, tri_scale, seed=62)
+    n = 1 << tri_scale
+    pairs = tlib._NeighborPairs(_graph(src_np, dst_np, np.ones(len(src_np), np.float32), n)).pairs
+    u, v = (torch.from_numpy(np.ascontiguousarray(pairs[:, i], np.int32)).to(dev)
+            for i in (0, 1))
+    adj = tlib.adjacency_bitset(n, u, v)
+    words, p = adj.shape[1], len(u)
+    got = K.edge_popcount(adj, u, v)
+    want = K.edge_popcount_plain(adj, u, v)
+    check(torch.equal(got, want), "edge_popcount bit-equal to plain")
+    ms = cuda_ms(lambda: K.edge_popcount(adj, u, v), 5)
+    plain = cuda_ms(lambda: K.edge_popcount_plain(adj, u, v), 1)
+    b, by = bound(4 * n * words + 12 * p, 2 * p * words, hbm)
+    entries["edge_popcount"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                    bound_ms=b, bound_by=by,
+                                    max_abs_err=float((got - want).abs().max()))
+    detail.append({"kernel": "edge_popcount", "vertices": n, "pairs": p,
+                   "words": words, "bitset_bytes": 4 * n * words,
+                   "per_pair_bound_ms": bound(8 * words * p + 12 * p, 0, hbm)[0],
+                   "library": None})
+    del adj, u, v, got, want
+    torch.cuda.empty_cache()
+
+
+def _graph(src, dst, w, n, values=None):
+    """A port Graph straight from its columns (vertex i has id i)."""
+    from flink_tpu_torch.graph import Graph
+    return Graph(range(n), np.zeros(n, np.float32) if values is None else values,
+                 src, dst, w)
+
+
+def graph_phase(dev, scale=22, tri_scale=18, n_sample=4096):
+    """The graph library on a Graph500 Kronecker graph (scale 22: 4.19M
+    vertices, 67.1M directed edges, weights uniform in [0, 1)):
+    PageRank (0.85, default iterations), HITS, ConnectedComponents,
+    SingleSourceShortestPaths from the vertex of highest degree and a
+    PregelIteration max-flood; TriangleCount and ClusteringCoefficient
+    at scale 18 (their dense bitset is n^2 / 8 bytes: 8.6 GB there,
+    2 TB at scale 22).  Checked against numpy and scipy, computed in
+    worker processes beside the card's work."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from flink_tpu_torch import graph as tg
+    from flink_tpu_torch.graph import iterations as titer
+    from flink_tpu_torch.graph import library as tlib
+    t_gen = time.perf_counter()
+    src, dst, w = kronecker_edges(dev, scale, seed=21)
+    n, e = 1 << scale, len(src)
+    g = _graph(src, dst, w, n)
+    deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
+    source = int(np.argmax(deg))
+    flood_vals = np.random.default_rng(22).integers(0, 1 << 30, n).astype(np.int32)
+    out = {"vertices": n, "edges": e, "setup_s": time.perf_counter() - t_gen,
+           "sssp_source_degree": int(deg[source]),
+           "cut": f"triangles and clustering at scale {tri_scale} "
+                  f"(bitset {(1 << tri_scale) ** 2 // 8} bytes), not {scale}"}
+    marks = {}
+    restore = [_kernel_clock(tlib, ("gather_segment_sum", "edge_popcount"), marks),
+               _kernel_clock(titer, ("scatter_combine",), marks)]
+    ctx = multiprocessing.get_context("spawn")
+    try:
+        with ProcessPoolExecutor(5, mp_context=ctx) as pool:
+            # the power iterations start with the defaults' step counts,
+            # which float32 runs at this scale reach (a tolerance of 1e-9
+            # is below their rounding); resubmitted if a run stops sooner
+            steps = {"pagerank": 100, "hits": 50}
+            refs = {"pagerank": pool.submit(_timed, ref_pagerank64, src, dst, n,
+                                            steps["pagerank"]),
+                    "hits": pool.submit(_timed, ref_hits64, src, dst, n, steps["hits"]),
+                    "components": pool.submit(_timed, ref_components, src, dst, n),
+                    "sssp": pool.submit(_timed, ref_dijkstra, src, dst, w, n, source),
+                    "flood": pool.submit(_timed, ref_max_flood, src, dst, flood_vals)}
+            runs = {}
+
+            def run(name, fn, kernel):
+                """Run fn; count the calls of ``kernel`` it made (a
+                superstep each for the iterations)."""
+                before = len(marks.get(kernel, ()))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn()
+                runs[name] = {"s": time.perf_counter() - t0,
+                              "calls": len(marks.get(kernel, ())) - before}
+                return res
+
+            pr = run("pagerank", lambda: g.run(tg.PageRank(0.85, device=dev)),
+                     "gather_segment_sum")
+            if runs["pagerank"]["calls"] != steps["pagerank"]:
+                refs["pagerank"] = pool.submit(_timed, ref_pagerank64, src, dst, n,
+                                               runs["pagerank"]["calls"])
+            hubs, auths = run("hits", lambda: g.run(tg.HITS(device=dev)),
+                              "gather_segment_sum")
+            hits_steps = runs["hits"]["calls"] // 2
+            if hits_steps != steps["hits"]:
+                refs["hits"] = pool.submit(_timed, ref_hits64, src, dst, n, hits_steps)
+            cc = run("components", lambda: g.run(tg.ConnectedComponents(device=dev)),
+                     "scatter_combine")
+            sssp = run("sssp", lambda: g.run(tg.SingleSourceShortestPaths(
+                source, max_iterations=1000, device=dev)), "scatter_combine")
+            flood = run("pregel_max_flood", lambda: _graph(src, dst, w, n, flood_vals).run(
+                tg.PregelIteration(lambda s, ev: s, "max",
+                                   lambda v, c, step: torch.maximum(v, c), device=dev)),
+                "scatter_combine")
+            tri = _triangle_part(dev, tri_scale, n_sample, run, out)
+            t_wait = time.perf_counter()
+            timed = {k: f.result() for k, f in refs.items()}
+            out["reference_wait_s"] = time.perf_counter() - t_wait
+    finally:
+        for r in restore:
+            r()
+    out["reference_s"] = {k: t for k, (t, _) in timed.items()}
+    ref = {k: r for k, (_, r) in timed.items()}
+    out["runs"] = runs
+    out["kernel_device_s"] = _device_seconds(marks)
+    vec = lambda d: np.fromiter(d.values(), np.float64, count=n)  # noqa: E731
+    r64, step_l1 = ref["pagerank"]
+    l1 = float(np.abs(vec(pr) - r64).sum())
+    check(l1 <= step_l1 / (1.0 - 0.85),
+          "pagerank: L1 to the float64 run within one step's bound / (1 - d)")
+    h64, a64, h_l1, a_l1 = ref["hits"]
+    dh, da = float(np.abs(vec(hubs) - h64).sum()), float(np.abs(vec(auths) - a64).sum())
+    check(dh <= hits_steps * h_l1 and da <= hits_steps * a_l1,
+          "hits: L1 to the float64 run within steps x one step's bound")
+    check(np.array_equal(np.fromiter(cc.values(), np.int64, count=n), ref["components"]),
+          "components: min-id labels equal scipy's")
+    d32, d64 = vec(sssp), ref["sssp"]
+    reach = np.isfinite(d64)
+    hops = runs["sssp"]["calls"]
+    check(np.array_equal(np.isfinite(d32), reach), "sssp: the same vertices reached")
+    sssp_err = float(np.abs(d32[reach] - d64[reach]).max())
+    check(bool(np.all(np.abs(d32[reach] - d64[reach]) <= hops * EPS32 * d64[reach])),
+          "sssp: within supersteps x eps x distance of Dijkstra")
+    check(np.array_equal(np.asarray(flood.vertex_values, np.int64), ref["flood"]),
+          "pregel max-flood equals numpy's fixed point")
+    out["checks"] = {"pagerank_l1": l1, "pagerank_l1_bound": step_l1 / 0.15,
+                     "hits_l1": [dh, da],
+                     "hits_l1_bound": [hits_steps * h_l1, hits_steps * a_l1],
+                     "components": int(len(np.unique(ref["components"]))),
+                     "reached": int(reach.sum()), "sssp_max_abs_err": sssp_err,
+                     "triangles": tri}
+    # edges visited per second: a superstep visits every edge once (the
+    # undirected graph's two directions for the components)
+    out["edges_per_s"] = {k: e * (1 + (k == "components")) * runs[k]["calls"] / runs[k]["s"]
+                          for k in ("pagerank", "hits", "components", "sssp",
+                                    "pregel_max_flood")}
+    emit({"graph": out})
+
+
+def _triangle_part(dev, scale, n_sample, run, out):
+    """TriangleCount and ClusteringCoefficient on a scale-18 Kronecker
+    graph; the per-edge common-neighbour counts both runs computed are
+    equal, and 4,096 sampled canonical edges' counts equal a
+    sorted-adjacency intersection in numpy."""
+    from flink_tpu_torch import graph as tg
+    from flink_tpu_torch.graph import library as tlib
+    src, dst, w = kronecker_edges(dev, scale, seed=23)
+    g = _graph(src, dst, w, 1 << scale)
+    commons = []
+    restore = _recording(tlib, "edge_popcount",
+                         lambda a, r: commons.append(r.cpu().numpy()))
+    try:
+        count = run("triangles", lambda: g.run(tg.TriangleCount(device=dev)),
+                    "edge_popcount")
+        local, avg, global_cc = run("clustering", lambda: g.run(
+            tg.ClusteringCoefficient(device=dev)), "edge_popcount")
+    finally:
+        restore()
+    check(len(commons) == 2 and np.array_equal(commons[0], commons[1]),
+          "triangles and clustering: the same per-edge counts")
+    common = commons[0]
+    np_ = tlib._NeighborPairs(g)
+    pairs = np_.pairs
+    nbrs_of = lambda x: np.sort(np_.adj_flat[np_.indptr[x]:np_.indptr[x + 1]])  # noqa: E731
+    sample = np.random.default_rng(24).choice(len(pairs), n_sample, replace=False)
+    want = [np.intersect1d(nbrs_of(a), nbrs_of(b), assume_unique=True).size
+            for a, b in pairs[sample]]
+    check(np.array_equal(common[sample], want),
+          f"triangles: {n_sample} sampled edges' common neighbours exact")
+    check(count == int(common.sum()) // 3, "triangles: count = sum / 3")
+    wedges = (np_.deg * (np_.deg - 1.0) / 2.0).sum()
+    check(abs(global_cc - 3.0 * (common.sum() / 3.0) / wedges) <= 1e-12,
+          "clustering: global coefficient from the counts")
+    check(np.isfinite(avg) and 0.0 <= avg <= 1.0, "clustering: average in [0, 1]")
+    return {"scale": scale, "pairs": int(len(pairs)), "triangles": int(count),
+            "average_clustering": float(avg), "global_clustering": float(global_cc)}
+
+
+def movielens_shape(rng, n_ratings=20_000_263, n_users=138_493, n_items=26_744):
+    """Ratings at MovieLens-20M's shape: 138,493 users who each rate at
+    least 20 times (as in ML-20M), 26,744 items each rated at least once,
+    the rest by a Zipf-like popularity, stars 0.5 to 5 in half steps.
+    Returns (user int32, item int32, stars float32)."""
+    u = np.concatenate([np.repeat(np.arange(n_users), 20),
+                        rng.integers(0, n_users, n_ratings - 20 * n_users)])
+    pop = 1.0 / (np.arange(n_items) + 10.0)
+    i = rng.choice(n_items, n_ratings, p=pop / pop.sum())
+    i[:n_items] = np.arange(n_items)
+    r = rng.integers(1, 11, n_ratings) / 2.0
+    return u.astype(np.int32), i.astype(np.int32), r.astype(np.float32)
+
+
+def mnist_shape(rng, n):
+    """n rows of 784 integer pixels in [0, 255], about 19% nonzero (as in
+    MNIST)."""
+    vals = rng.integers(1, 256, (n, 784)).astype(np.float32)
+    return np.where(rng.random((n, 784)) < 0.19, vals, np.float32(0.0))
+
+
+def ref_svm64(X, y, iterations, step, lam):
+    """The reference's Pegasos loop in numpy float64."""
+    X, y = X.astype(np.float64), y.astype(np.float64)
+    n, d = X.shape
+    w, b = np.zeros(d), 0.0
+    for i in range(iterations):
+        active_y = ((y * (X @ w + b)) < 1.0) * y
+        eta = step / (lam * (i + 1.0))
+        w = w - eta * (lam * w - X.T @ active_y / n)
+        b = b + eta * active_y.mean()
+    return w, b
+
+
+def ref_mlr64(X, y, iterations, step):
+    """The reference's standardized gradient descent in numpy float64."""
+    X, y = X.astype(np.float64), y.astype(np.float64)
+    n = X.shape[0]
+    mu, sigma = X.mean(0), np.maximum(X.std(0), 1e-8)
+    Xs, yc = (X - mu) / sigma, y - y.mean()
+    w, b = np.zeros(X.shape[1]), 0.0
+    for i in range(iterations):
+        err = Xs @ w + b - yc
+        eta = step / np.sqrt(i + 1.0)
+        w, b = w - eta * (Xs.T @ err / n), b - eta * err.mean()
+    w_orig = w / sigma
+    return w_orig, b + y.mean() - mu @ w_orig
+
+
+def ml_kernel_entries(dev, hbm, entries, detail, shrink=1):
+    """gram_accumulate on both sides of ML-20M-shaped ratings (f = 10):
+    the user side (138,493 rows of about 144 ratings) and the item side
+    (26,744 rows with a Zipf tail, the heaviest about 250k ratings), and
+    knn_topk on MNIST-shaped data (60,000 x 784, 10,000 queries, k = 3),
+    each against its plain version."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.kernels.gram_accumulate import rating_csr
+    from flink_tpu_torch.kernels.knn_topk import squared_distances
+    rng = np.random.default_rng(31)
+    u, i, r = movielens_shape(rng, 20_000_263 // shrink, 138_493 // shrink,
+                              26_744 // shrink)
+    n_users, n_items, f = int(u.max()) + 1, int(i.max()) + 1, 10
+    vals_all = torch.from_numpy(r).to(dev)
+
+    def side(name, row_ids, col_ids, n_rows, fixed):
+        """One half-step's Gram sums against the plain version: a sum of
+        t float32 terms in another order is within 2 t eps sum|terms|."""
+        indptr, cols, vals = rating_csr(torch.from_numpy(row_ids).to(dev),
+                                        torch.from_numpy(col_ids).to(dev), vals_all, n_rows)
+        g, b = K.gram_accumulate(fixed, indptr, cols, vals)
+        gw, bw = K.gram_accumulate_plain(fixed, indptr, cols, vals)
+        gm, bm = K.gram_accumulate_plain(fixed.abs(), indptr, cols, vals.abs())
+        terms = (indptr[1:] - indptr[:-1]).double()
+        err = max(float((g - gw).abs().max()), float((b - bw).abs().max()))
+        check(bool(((g.double() - gw.double()).abs() <= 2 * terms[:, None, None] * EPS32
+                    * gm.double()).all()) and
+              bool(((b.double() - bw.double()).abs() <= 2 * terms[:, None] * EPS32
+                    * bm.double()).all()),
+              f"gram_accumulate ({name} side) within 2 t eps sum|terms| of plain")
+        del g, b, bw, gm, bm
+        nnz = len(cols)
+        b_, by = bound(nnz * (8 + 4 * f) + n_rows * (f * f + f) * 4 + 8 * (n_rows + 1),
+                       2 * nnz * f * (f + 1), hbm)
+        res = dict(ms=cuda_ms(lambda: K.gram_accumulate(fixed, indptr, cols, vals)),
+                   plain_ms=cuda_ms(lambda: K.gram_accumulate_plain(
+                       fixed, indptr, cols, vals), 3),
+                   bound_ms=b_, bound_by=by, max_abs_err=err)
+        info = {"kernel": "gram_accumulate", "side": name, "rows": n_rows,
+                "ratings": nnz, "max_row_ratings": int(terms.max()), "factors": f}
+        return res, info, (indptr, cols, gw)
+
+    # the user side, from item-shaped factors, with the library call
+    V = torch.from_numpy(rng.normal(0, 0.1, (n_items, f)).astype(np.float32)).to(dev)
+    res, info, (indptr, cols, gw) = side("users", u, i, n_users, V)
+    rows_sorted = torch.repeat_interleave(torch.arange(n_users, device=dev),
+                                          indptr[1:] - indptr[:-1])
+    vc = V.index_select(0, cols)
+    outer = vc[:, :, None] * vc[:, None, :]               # [nnz, f, f], 8 GB
+    lib = cuda_ms(lambda: gw.index_add_(0, rows_sorted, outer), 3)
+    entries["gram_accumulate"] = dict(res, library_ms=lib)
+    detail.append(dict(info, library="index_add_ of the materialized "
+                       "[nnz, f, f] outer products (G only)"))
+    del gw, vc, outer, rows_sorted, indptr, cols
+    torch.cuda.empty_cache()
+    # the item side, from user-shaped factors drawn from a seed of their
+    # own (the KNN data below stays as it was)
+    U = torch.from_numpy(np.random.default_rng(32).normal(0, 0.1, (n_users, f))
+                         .astype(np.float32)).to(dev)
+    res, info, _ = side("items", i, u, n_items, U)
+    detail.append(dict(info, **res))
+    del U, V, vals_all, _
+    torch.cuda.empty_cache()
+
+    X = torch.from_numpy(mnist_shape(rng, 60_000 // shrink)).to(dev)
+    Q = torch.from_numpy(mnist_shape(rng, 10_000 // shrink)).to(dev)
+    k = 3
+    qx = torch.matmul(Q, X.t())
+    qn, xn = (Q * Q).sum(1), (X * X).sum(1)
+    got = K.knn_topk(qx, qn, xn, k)
+    want = K.knn_topk_plain(qx, qn, xn, k)
+    check(torch.equal(got, want), "knn_topk bit-equal to plain (stable sort)")
+    ms = cuda_ms(lambda: K.knn_topk(qx, qn, xn, k))
+    plain = cuda_ms(lambda: K.knn_topk_plain(qx, qn, xn, k), 3)
+    d2 = squared_distances(qx, qn, xn)
+    lib = cuda_ms(lambda: torch.topk(d2, k, largest=False))
+    gemm = cuda_ms(lambda: torch.matmul(Q, X.t()), 5)
+    m, n = qx.shape
+    b_, by = bound(4 * m * n + 4 * (m + n) + 4 * m * k, 3 * m * n, hbm)
+    entries["knn_topk"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_,
+                               bound_by=by, max_abs_err=float((got - want).abs().max()))
+    detail.append({"kernel": "knn_topk", "queries": m, "points": n, "k": k,
+                   "library": "torch.topk of d2", "gemm_ms": gemm,
+                   "gemm_bound_ms": bound(0, 2 * m * n * 784, hbm)[0]})
+    del X, Q, qx, qn, xn, got, want, d2
+    torch.cuda.empty_cache()
+
+
+def ml_phase(dev, shrink=1, n_sample_rows=4096, n_sample_queries=1024):
+    """The ML library at public datasets' shapes, on synthetic data from a
+    seed: ALS at MovieLens-20M's (f = 10, lambda = 0.1, 10 iterations),
+    KNN at MNIST's (60,000 x 784, 10,000 queries, k = 3), SVM at
+    covtype-binary's (581,012 x 54, 300 iterations) and
+    MultipleLinearRegression at YearPredictionMSD's training shape
+    (463,715 x 90, 200 iterations).  Checked against numpy float64 (the
+    loops in worker processes beside the card's work).  ``shrink`` divides
+    every row count (a rehearsal off the card)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from flink_tpu_torch import ml as tm
+    from flink_tpu_torch.ml import classification as tcls
+    from flink_tpu_torch.ml import recommendation as trec
+    rng = np.random.default_rng(41)
+    # covtype-binary: 10 continuous features and 44 binary ones
+    nc, nm = 581_012 // shrink, 463_715 // shrink
+    n_users, n_items = 138_493 // shrink, 26_744 // shrink
+    Xc = np.concatenate([rng.normal(0, 1, (nc, 10)),
+                         rng.random((nc, 44)) < 0.1], 1).astype(np.float32)
+    yc = np.where(Xc @ rng.normal(size=54) + rng.normal(0, 0.5, nc) > 0, 1.0, -1.0)
+    # YearPredictionMSD: 90 timbre features of mixed scales, a year target
+    Xm = (rng.normal(0, 1, (nm, 90)) * rng.uniform(1, 50, 90)).astype(np.float32)
+    ym = (Xm @ rng.normal(0, 0.01, 90) + 1998.0 + rng.normal(0, 5, nm)).astype(np.float32)
+    out, runs, marks = {}, {}, {}
+
+    def run(name, fn, kernel=None):
+        """Run fn; count the calls of ``kernel`` it made."""
+        before = len(marks.get(kernel, ()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        runs[name] = {"s": time.perf_counter() - t0}
+        if kernel is not None:
+            runs[name]["calls"] = len(marks.get(kernel, ())) - before
+        return res
+
+    restore = [_kernel_clock(trec, ("gram_accumulate",), marks),
+               _kernel_clock(tcls, ("knn_topk",), marks)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(2, mp_context=ctx) as pool:
+        svm_ref = pool.submit(ref_svm64, Xc, yc, 300, 0.5, 0.01)
+        mlr_ref = pool.submit(ref_mlr64, Xm, ym, 200, 0.1)
+        # ALS at MovieLens-20M's shape
+        t0 = time.perf_counter()
+        u, i, r = movielens_shape(rng, 20_000_263 // shrink, n_users, n_items)
+        ratings = list(zip(u.tolist(), i.tolist(), r.tolist()))
+        out["als_setup_s"] = time.perf_counter() - t0
+        fixed = []              # the other side's factors of each half-step
+        undo = _recording(trec, "gram_accumulate", lambda a, _: fixed.append(a[0]))
+        als = run("als", lambda: tm.ALS(10, 0.1, 10, seed=0, device=dev).fit(ratings),
+                  "gram_accumulate")
+        undo()
+        fixed = [t.cpu().numpy() for t in fixed[-2:]]
+        del ratings
+        check(runs["als"]["calls"] == 20, "als: gram_accumulate twice a sweep")
+        check(np.isfinite(als.user_factors).all() and np.isfinite(als.item_factors).all()
+              and als.user_factors.shape == (n_users, 10)
+              and als.item_factors.shape == (n_items, 10), "als: factors finite, shaped")
+        # the last sweep: users from the sweep before's items, then items
+        # from these users
+        check(np.array_equal(fixed[-1], als.user_factors),
+              "als: the last half-step solved the items from the fitted users")
+        out["als"] = {"users": _als_check(als, fixed[-2], als.user_factors, u, i, r,
+                                          n_sample_rows, []),
+                      "items": _als_check(als, als.user_factors, als.item_factors,
+                                          i, u, r, n_sample_rows,
+                                          [int(np.bincount(i).argmax())])}
+        del fixed
+        # KNN at MNIST's shape
+        X, Q = mnist_shape(rng, 60_000 // shrink), mnist_shape(rng, 10_000 // shrink)
+        knn = tm.KNN(k=3, device=dev).fit(X)
+        idx = run("knn", lambda: knn.kneighbors(Q), "knn_topk")
+        out["knn"] = _knn_check(X, Q, idx, 3, rng, n_sample_queries)
+        # SVM and regression
+        svm = run("svm", lambda: tm.SVM(300, 0.5, 0.01, device=dev).fit(Xc, yc))
+        mlr = run("regression", lambda: tm.MultipleLinearRegression(
+            200, 0.1, device=dev).fit(Xm, ym))
+        t_wait = time.perf_counter()
+        w64, b64 = svm_ref.result()
+        mw64, mb64 = mlr_ref.result()
+        out["reference_wait_s"] = time.perf_counter() - t_wait
+    for r in restore:
+        r()
+    out["kernel_device_s"] = _device_seconds(marks)
+    svm_rel = float(np.linalg.norm(svm.weights - w64) / np.linalg.norm(w64))
+    agree = float((np.sign(Xc @ svm.weights + svm.intercept)
+                   == np.sign(Xc @ w64 + b64)).mean())
+    # float32 rounding (~1e-6 relative), and points whose margin lies
+    # within that of 1 may switch the hinge on or off: each such switch
+    # moves the weights by about 1 / n relative
+    svm_tol = 1e-4 + 1.0 / len(Xc)
+    check(svm_rel <= svm_tol and agree >= 0.999,
+          f"svm: weights within {svm_tol:.3g} relative of the float64 loop, "
+          "99.9% same sign")
+    mlr_rel = float(np.linalg.norm((mlr.weights - mw64) * Xm.std(0))
+                    / np.linalg.norm(mw64 * Xm.std(0)))
+    pred_rel = float(np.abs(mlr.predict(Xm) - (Xm @ mw64 + mb64)).max()
+                     / np.abs(ym).max())
+    check(mlr_rel <= 1e-4 and pred_rel <= 1e-5,
+          "regression: within 1e-4 (weights) and 1e-5 (predictions) of float64")
+    out["svm"] = {"rows": len(Xc), "features": 54, "weights_rel_err": svm_rel,
+                  "sign_agreement": agree}
+    out["regression"] = {"rows": len(Xm), "features": 90, "weights_rel_err": mlr_rel,
+                         "prediction_rel_err": pred_rel}
+    out["runs"] = runs
+    emit({"ml": out})
+
+
+def _als_check(als, fixed, solved, rows, cols, r, n_sample, must):
+    """The path's own last half-step on one side, from the factors it was
+    given, against numpy float64 on sampled rows (and the rows in
+    ``must``): the Gram sums of t float32 terms are within t eps
+    sum|terms| of exact, and a solve moves by cond(A) times the relative
+    change of A and b, plus f eps cond for the solver."""
+    n_rows = len(solved)
+    order = np.argsort(rows, kind="stable")
+    starts = np.searchsorted(rows[order], np.arange(n_rows + 1))
+    F64, f, lam = fixed.astype(np.float64), als.num_factors, als.lambda_
+    sample = np.random.default_rng(42).choice(n_rows, n_sample, replace=False)
+    errs, bounds = [], []
+    for e in np.unique(np.concatenate([sample, must]).astype(np.int64)):
+        sel = order[starts[e]:starts[e + 1]]
+        vc, rr = F64[cols[sel]], r[sel].astype(np.float64)
+        A, b = vc.T @ vc + lam * np.eye(f), vc.T @ rr
+        t = len(sel)
+        rel = (t * EPS32 * np.linalg.norm(np.abs(vc).T @ np.abs(vc)) / np.linalg.norm(A)
+               + t * EPS32 * np.linalg.norm(np.abs(vc).T @ np.abs(rr)) / np.linalg.norm(b)
+               + f * EPS32)
+        x = np.linalg.solve(A, b)
+        errs.append(np.abs(solved[e] - x).max())
+        bounds.append(2 * np.linalg.cond(A) * rel * np.linalg.norm(x)
+                      + 4 * EPS32 * np.abs(x).max())
+    check(bool(np.all(np.array(errs) <= np.array(bounds))),
+          f"als: {len(errs)} sampled rows of {n_rows} within their float32 bounds")
+    return {"rows": n_rows, "ratings": len(rows), "sampled_rows": len(errs),
+            "most_ratings": int((starts[1:] - starts[:-1]).max()),
+            "max_abs_err": float(max(errs)), "min_bound": float(min(bounds))}
+
+
+def _knn_check(X, Q, idx, k, rng, n_sample):
+    """Sampled queries against float64 brute force, where the gap between
+    the k-th and (k+1)-th distances exceeds twice the float32 error of a
+    distance, (d + 3) eps (|q|^2 + |x|^2 + 2 sum|q x|) <= 2 (d + 3) eps
+    (|q|^2 + |x|^2)."""
+    d = X.shape[1]
+    X64 = X.astype(np.float64)
+    xn = (X64 * X64).sum(1)
+    ok = same = 0
+    sample = rng.choice(len(Q), n_sample, replace=False)
+    for block in np.array_split(sample, max(1, n_sample // 256)):
+        q64 = Q[block].astype(np.float64)
+        qn = (q64 * q64).sum(1)
+        d2 = (qn[:, None] + xn[None, :]) - 2.0 * (q64 @ X64.T)
+        for row, q in enumerate(block):
+            part = np.argsort(d2[row], kind="stable")[:k + 1]
+            err = 2 * (d + 3) * EPS32 * (qn[row] + xn[part].max())
+            if d2[row, part[k]] - d2[row, part[k - 1]] > 2 * err:
+                ok += 1
+                same += set(idx[q].tolist()) == set(part[:k].tolist())
+    check(same == ok >= n_sample // 2, f"knn: {same} of the {ok} separable sampled "
+          f"queries (of {n_sample}) equal float64 brute force")
+    return {"queries": len(Q), "points": len(X), "k": k, "sampled": n_sample,
+            "separable": ok}
+
+
+# ---------------------------------------------------------------------
 
 SOURCES = {
     "hll_update": ("flink_tpu_torch/kernels/csrc/hll_update.cu",
@@ -2237,6 +2932,14 @@ SOURCES = {
                      "flink_tpu/ops/device_table.py:65"),
     "chain_route": ("flink_tpu_torch/kernels/csrc/chain_route.cu",
                     "flink_tpu/streaming/chain_fusion.py:716"),
+    "gather_segment_sum": ("flink_tpu_torch/kernels/csrc/gather_segment_sum.cu",
+                           "flink_tpu/graph/library.py:40"),
+    "edge_popcount": ("flink_tpu_torch/kernels/csrc/edge_popcount.cu",
+                      "flink_tpu/graph/library.py:398"),
+    "gram_accumulate": ("flink_tpu_torch/kernels/csrc/gram_accumulate.cu",
+                        "flink_tpu/ml/recommendation.py:52"),
+    "knn_topk": ("flink_tpu_torch/kernels/csrc/knn_topk.cu",
+                 "flink_tpu/ml/classification.py:96"),
 }
 
 #: main-path runs, each with the kernels it must launch
@@ -2259,7 +2962,10 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
          ("device_windows", "device_windows_phase", ("table_insert", "hll_update",
                                                      "hll_estimate", "clear_rows")),
          ("chain", "chain_phase", ("chain_route", "hll_update", "hll_estimate",
-                                   "clear_rows", "hll_log_finish")))
+                                   "clear_rows", "hll_log_finish")),
+         ("graph", "graph_phase", ("gather_segment_sum", "scatter_combine",
+                                   "edge_popcount")),
+         ("ml", "ml_phase", ("gram_accumulate", "knn_topk")))
 
 
 def main() -> int:
@@ -2298,15 +3004,19 @@ def main() -> int:
     emit({"build": {"seconds": kernel_s,
                     "host_runtime_seconds": host_build["seconds"]}})
 
+    t_kernels = time.perf_counter()
     entries = kernel_phase(dev, hbm)
-    per_path = {}
+    per_path, seconds = {}, {"kernels": time.perf_counter() - t_kernels}
     for path, phase, needs in PATHS:
+        t0 = time.perf_counter()
         K.reset_launch_counts()             # each main-path run starts here
         globals()[phase](dev)
         per_path[path] = dict(K.LAUNCHES)
+        seconds[path] = time.perf_counter() - t0
         for kname in needs:
             check(per_path[path][kname] > 0, f"{kname} launched on the {path} path")
     emit({"launches": per_path})
+    emit({"seconds": seconds})
     launches = {k: sum(p[k] for p in per_path.values()) for k in K.KERNELS}
     for kname in K.KERNELS:
         check(launches[kname] > 0, f"{kname} launched on the main path")

@@ -22,6 +22,14 @@ PyTorch versions.
                    device hash table (plain or regional probing)
 ``chain_route``    stable partition of a fused chain's rows by channel
                    (or keep flag), moving their columns and pane starts
+``gather_segment_sum``  ``out[dst] += x[src]`` over a graph's edges
+                   (PageRank, HITS)
+``edge_popcount``  common neighbours per vertex pair from a packed
+                   adjacency bitset (triangles, clustering)
+``gram_accumulate``  per-row Gram matrices and right-hand sides of an
+                   ALS half-step from ratings grouped by row
+``knn_topk``       k smallest squared distances per query row from a
+                   GEMM output, lower index first on ties
 =================  ==================================================
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
@@ -35,11 +43,18 @@ from flink_tpu_torch.kernels.countmin_query import (countmin_query,
                                                     countmin_query_plain)
 from flink_tpu_torch.kernels.countmin_update import (countmin_update,
                                                      countmin_update_plain)
+from flink_tpu_torch.kernels.edge_popcount import (edge_popcount,
+                                                   edge_popcount_plain)
+from flink_tpu_torch.kernels.gather_segment_sum import (
+    gather_segment_sum, gather_segment_sum_plain)
+from flink_tpu_torch.kernels.gram_accumulate import (gram_accumulate,
+                                                     gram_accumulate_plain)
 from flink_tpu_torch.kernels.hll_estimate import (hll_estimate,
                                                   hll_estimate_plain)
 from flink_tpu_torch.kernels.hll_log_finish import (hll_log_finish,
                                                     hll_log_finish_plain)
 from flink_tpu_torch.kernels.hll_update import hll_update, hll_update_plain
+from flink_tpu_torch.kernels.knn_topk import knn_topk, knn_topk_plain
 from flink_tpu_torch.kernels.loader import (KERNELS, LAUNCHES, build_all,
                                             reset_launch_counts)
 from flink_tpu_torch.kernels.merge_rows import merge_rows, merge_rows_plain
@@ -57,9 +72,12 @@ __all__ = [
     "KERNELS", "LAUNCHES", "build_all", "reset_launch_counts",
     "chain_route", "chain_route_plain",
     "clear_rows", "clear_rows_plain", "countmin_query", "countmin_query_plain",
-    "countmin_update", "countmin_update_plain", "hll_estimate",
+    "countmin_update", "countmin_update_plain", "edge_popcount",
+    "edge_popcount_plain", "gather_segment_sum", "gather_segment_sum_plain",
+    "gram_accumulate", "gram_accumulate_plain", "hll_estimate",
     "hll_estimate_plain", "hll_log_finish", "hll_log_finish_plain",
-    "hll_update", "hll_update_plain", "merge_rows", "merge_rows_plain",
+    "hll_update", "hll_update_plain", "knn_topk", "knn_topk_plain",
+    "merge_rows", "merge_rows_plain",
     "quantile_result", "quantile_result_plain", "quantile_update",
     "quantile_update_plain", "scatter_combine", "scatter_combine_plain",
     "set_rows", "set_rows_plain", "table_insert", "table_insert_plain",

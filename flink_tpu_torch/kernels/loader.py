@@ -34,7 +34,8 @@ import torch
 KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
            "merge_rows", "set_rows", "countmin_update", "countmin_query",
            "quantile_update", "quantile_result", "hll_log_finish",
-           "table_insert", "chain_route")
+           "table_insert", "chain_route", "gather_segment_sum",
+           "edge_popcount", "gram_accumulate", "knn_topk")
 
 #: kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -99,6 +100,18 @@ _SIGNATURES = {
     "chain_route": {
         "ft_chain_route": (_P, _P, _LL, _I, _LL, _P, _P, _P, _I, _P, _LL, _LL,
                            _P, _P, _P, _P, _P),
+    },
+    "gather_segment_sum": {
+        "ft_gather_segment_sum": (_P, _P, _P, _P, _LL, _P),
+    },
+    "edge_popcount": {
+        "ft_edge_popcount": (_P, _LL, _P, _P, _LL, _P, _P),
+    },
+    "gram_accumulate": {
+        "ft_gram_accumulate": (_P, _P, _P, _P, _LL, _I, _P, _P, _P),
+    },
+    "knn_topk": {
+        "ft_knn_topk": (_P, _P, _P, _LL, _LL, _I, _P, _P),
     },
 }
 

@@ -137,8 +137,8 @@ class _InternalWindowFunction:
 # ---------------------------------------------------------------------
 
 def _window(w) -> TimeWindow:
-    """A mapping entry: the port's namespace tuple, or a window object
-    with start and end (a JAX-package session snapshot stores those)."""
+    """A mapping entry: a namespace tuple, or a window object with start
+    and end (of either package: session snapshots store those)."""
     return TimeWindow.from_namespace(w) if isinstance(w, tuple) else TimeWindow(w.start, w.end)
 
 
@@ -156,9 +156,10 @@ class MergingWindowSet:
                               for w, s in m.items()} if m else {}
 
     def persist(self) -> None:
+        # window objects, as the JAX package stores them: its operator
+        # calls intersects / cover on a restored mapping's keys
         if self.mapping:
-            self._mapping_state.update({w.to_namespace(): s.to_namespace()
-                                        for w, s in self.mapping.items()})
+            self._mapping_state.update(dict(self.mapping))
         else:
             self._mapping_state.clear()
 

@@ -89,8 +89,16 @@ class TimeWindow(Window):
         return timestamp - (timestamp - offset + window_size) % window_size
 
     def __eq__(self, other):
-        return (isinstance(other, TimeWindow) and self.start == other.start
-                and self.end == other.end)
+        # a TimeWindow of either package: a session snapshot crosses the
+        # two packages holding the writer's own window class, and the
+        # reader finds a stored window of the other class by this test
+        # (a dict lookup asks the stored key).  One way only: the JAX
+        # package's TimeWindow equals its own class alone, so a port
+        # window held in its mappings is found, but `jax == port` is
+        # False where `port == jax` is True.
+        if type(other).__name__ != "TimeWindow":
+            return NotImplemented
+        return self.start == other.start and self.end == other.end
 
     def __hash__(self):
         return hash((self.start, self.end))

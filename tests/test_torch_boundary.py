@@ -2,9 +2,10 @@
 jax, any module of flink_tpu or the JAX package's native library (a
 subprocess job runs the log tier, the keyed backend, the sliding and
 session log engines, the fused string sum, a DeviceTumblingWindows
-batch and a fused map/filter chain ahead of a window at parallelism 4,
-then reads its own sys.modules and /proc/self/maps), and its
-entry points never fall back to the CPU on their own.  This test
+batch, a fused map/filter chain ahead of a window at parallelism 4,
+graph algorithms and an ML fit, then reads its own sys.modules and
+/proc/self/maps), and its entry points never fall back to the CPU on
+their own.  This test
 process has jax loaded already (the test configuration imports it), so
 the import check runs a job in a fresh interpreter."""
 
@@ -106,8 +107,20 @@ env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
     .key_by(0).time_window(Time.milliseconds_of(1000))
     .aggregate(agg).set_parallelism(4).add_sink(CollectSink(fused)))
 env.execute()
+# the graph and ML libraries: PageRank, components and triangles, an
+# ALS fit and a KNN query
+from flink_tpu_torch import graph as tg, ml as tm
+g = tg.Graph.from_collection(None, [(i, (i * 7 + 1) % 50) for i in range(200)])
+ranks = g.run(tg.PageRank(device="cpu"))
+comps = g.run(tg.ConnectedComponents(device="cpu"))
+triangles = g.run(tg.TriangleCount(device="cpu"))
+als = tm.ALS(num_factors=3, iterations=2, device="cpu").fit(
+    [(u, (u * 3) % 11, 1.0 + u % 5) for u in range(60)])
+nearest = tm.KNN(k=2, device="cpu").fit(np.eye(6)).kneighbors(np.eye(6))
 maps = open("/proc/self/maps").read()
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
+                  "graph_ranks": len(ranks), "graph_components": len(set(comps.values())),
+                  "als_users": len(als.user_factors), "knn_rows": len(nearest),
                   "sliding_results": len(windowed["sliding"]),
                   "session_results": len(windowed["session"]),
                   "word_results": len(words),
@@ -140,6 +153,8 @@ def test_job_loads_neither_jax_nor_flink_tpu():
     # 20.48 s of events in 1 s windows, 7 keys; four batches fused
     assert report["fused_results"] == 7 * 21
     assert report["fused_batches"] == 4 and report["demotions"] == 0
+    assert report["graph_ranks"] == 200 and report["graph_components"] >= 1
+    assert report["als_users"] == 60 and report["knn_rows"] == 6
     # the log tier ran on the port's own host runtime, never the
     # reference's library; no flink_tpu module (flink_tpu.native
     # included) was imported
@@ -161,7 +176,9 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     assert len(files) > 15
     assert ROOT / "flink_tpu_torch" / "native" / "__init__.py" in files
     for module in ("analysis/liftability.py", "streaming/columnar.py",
-                   "streaming/chain_fusion.py", "kernels/chain_route.py"):
+                   "streaming/chain_fusion.py", "kernels/chain_route.py",
+                   "graph/library.py", "ml/recommendation.py",
+                   "kernels/knn_topk.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]

@@ -9,7 +9,9 @@ quantile histograms and quantile results must be bit-equal (the
 quantile plain version runs on the card, so both take the card's
 float32 log); HLL estimates agree within rtol 1e-5 (the kernel's
 reduction order differs from the plain version's); float32 sums use
-integer-valued data, which float atomics add exactly in any order.
+integer-valued data, which float atomics add exactly in any order, or
+are held within the bound of a sum taken in another order.  Popcounts
+and KNN indices (ties included) are bit-equal.
 """
 
 import numpy as np
@@ -438,3 +440,103 @@ def test_fused_chain_on_the_card_matches_per_operator(cuda):
             assert ga.cols[k].dtype == gb.cols[k].dtype
             assert np.array_equal(ga.cols[k], gb.cols[k])
         assert np.array_equal(ga.ts, gb.ts)
+
+
+# ---------------------------------------------------------------------
+# the graph and ML kernels
+# ---------------------------------------------------------------------
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _sum_reorder_bound(terms, abs_sum):
+    """Two float32 sums of the same ``terms`` numbers in any orders
+    differ by at most 2 * terms * eps * (sum of their magnitudes)."""
+    return 2.0 * terms * EPS32 * abs_sum
+
+
+@pytest.mark.parametrize("n,e", [(100_000, 1 << 20), (7, 5000)])
+def test_gather_segment_sum_matches_plain(cuda, n, e):
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rng.integers(0, n, e).astype(np.int32)).to(cuda)
+    dst = torch.from_numpy(rng.integers(0, n, e).astype(np.int32)).to(cuda)
+    before = K.LAUNCHES["gather_segment_sum"]
+    got = K.gather_segment_sum(x, src, dst, n)
+    assert K.LAUNCHES["gather_segment_sum"] == before + 1
+    want = K.gather_segment_sum_plain(x, src, dst, n)
+    deg = torch.bincount(dst.long(), minlength=n).double()
+    mag = K.gather_segment_sum_plain(x.abs(), src, dst, n).double()
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= _sum_reorder_bound(deg, mag)).all())
+    # integer-valued x below 2^24 sums exactly in any order
+    xi = torch.from_numpy(rng.integers(-100, 100, n).astype(np.float32)).to(cuda)
+    assert torch.equal(K.gather_segment_sum(xi, src, dst, n),
+                       K.gather_segment_sum_plain(xi, src, dst, n))
+
+
+@pytest.mark.parametrize("n", [4096, 5000])       # uint4 rows and word rows
+def test_edge_popcount_matches_plain(cuda, n):
+    rng = np.random.default_rng(22)
+    words = (n + 31) // 32
+    adj = torch.from_numpy(rng.integers(-2**31, 2**31, (n, words)).astype(np.int32)).to(cuda)
+    u = torch.from_numpy(rng.integers(0, n, 50_000).astype(np.int32)).to(cuda)
+    v = torch.from_numpy(rng.integers(0, n, 50_000).astype(np.int32)).to(cuda)
+    before = K.LAUNCHES["edge_popcount"]
+    got = K.edge_popcount(adj, u, v)
+    assert K.LAUNCHES["edge_popcount"] == before + 1
+    assert torch.equal(got, K.edge_popcount_plain(adj, u, v))
+
+
+@pytest.mark.parametrize("f", [1, 10, 64])
+def test_gram_accumulate_matches_plain(cuda, f):
+    from flink_tpu_torch.kernels.gram_accumulate import rating_csr
+    rng = np.random.default_rng(23)
+    n_rows, n_cols, nnz = 3000, 2000, 200_000
+    rows = rng.integers(0, n_rows, nnz).astype(np.int32)
+    rows[:5000] = 7                                    # one long row
+    cols = rng.integers(0, n_cols, nnz).astype(np.int32)
+    vals = rng.integers(1, 11, nnz).astype(np.float32) / 2
+    fixed = torch.from_numpy(rng.standard_normal((n_cols, f)).astype(np.float32)).to(cuda)
+    indptr, c, v = rating_csr(*(torch.from_numpy(a).to(cuda) for a in (rows, cols, vals)),
+                              n_rows)
+    before = K.LAUNCHES["gram_accumulate"]
+    g, b = K.gram_accumulate(fixed, indptr, c, v)
+    assert K.LAUNCHES["gram_accumulate"] == before + 1
+    gw, bw = K.gram_accumulate_plain(fixed, indptr, c, v)
+    gm, bm = K.gram_accumulate_plain(fixed.abs(), indptr, c, v.abs())
+    terms = (indptr[1:] - indptr[:-1]).double()
+    assert bool(((g.double() - gw.double()).abs()
+                 <= _sum_reorder_bound(terms[:, None, None], gm.double())).all())
+    assert bool(((b.double() - bw.double()).abs()
+                 <= _sum_reorder_bound(terms[:, None], bm.double())).all())
+    assert torch.equal(g, g.transpose(1, 2))           # symmetric bit for bit
+
+
+def test_gram_accumulate_refuses_too_many_factors(cuda):
+    from flink_tpu_torch.kernels.gram_accumulate import MAX_FACTORS
+    fixed = torch.zeros((4, MAX_FACTORS + 1), device=cuda)
+    indptr = torch.zeros(2, dtype=torch.int64, device=cuda)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="factors"):
+        K.gram_accumulate(fixed, indptr, empty, empty.float())
+
+
+@pytest.mark.parametrize("k", [1, 3, 17, 64])
+@pytest.mark.parametrize("data", ["integer", "normal"])
+def test_knn_topk_matches_plain(cuda, k, data):
+    rng = np.random.default_rng(24)
+    m, n, d = 300, 20_000, 16
+    if data == "integer":                # exact distances, real ties
+        Q = rng.integers(-2, 3, (m, d)).astype(np.float32)
+        X = rng.integers(-2, 3, (n, d)).astype(np.float32)
+    else:
+        Q = rng.standard_normal((m, d)).astype(np.float32)
+        X = rng.standard_normal((n, d)).astype(np.float32)
+    Q, X = torch.from_numpy(Q).to(cuda), torch.from_numpy(X).to(cuda)
+    qx = torch.matmul(Q, X.t())
+    qn, xn = (Q * Q).sum(1), (X * X).sum(1)
+    before = K.LAUNCHES["knn_topk"]
+    got = K.knn_topk(qx, qn, xn, k)
+    assert K.LAUNCHES["knn_topk"] == before + 1
+    assert torch.equal(got, K.knn_topk_plain(qx, qn, xn, k))

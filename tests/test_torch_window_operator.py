@@ -222,6 +222,47 @@ def test_jax_snapshot_restores_into_the_port(kind):
     assert got and got == want
 
 
+@pytest.mark.parametrize("kind", ["session"])
+def test_port_snapshot_restores_into_jax(kind, monkeypatch):
+    """A port session snapshot holds the port's own window objects in
+    the merge mapping; the JAX operator restores it and merges restored
+    sessions with new ones (counted here) to the JAX run's output."""
+    merges = []
+    add_window = jwo.MergingWindowSet.add_window
+
+    def counting_add_window(self, new_window, merge_callback):
+        restored = [w for w in self.mapping if isinstance(w, tw.TimeWindow)]
+        result = add_window(self, new_window, merge_callback)
+        merges.extend(w for w in restored if w not in self.mapping)
+        return result
+
+    monkeypatch.setattr(jwo.MergingWindowSet, "add_window", counting_add_window)
+    got, _ = _run("torch", "gpu", kind, 700, "row", restore_into=("jax", "tpu"))
+    assert merges, "no restored session merged after the restore"
+    monkeypatch.setattr(jwo.MergingWindowSet, "add_window", add_window)
+    want, _ = _run("jax", "tpu", kind, 700, "row", restore_into=("jax", "tpu"))
+    assert got and got == want
+
+
+def test_time_window_equality_across_packages_is_one_way():
+    """A port TimeWindow equals a JAX TimeWindow of the same bounds (the
+    reference's dict lookups find the port windows a snapshot stored),
+    not the other way round: the reference's ``__eq__`` checks its own
+    class.  Objects of another class with ``start`` and ``end`` are not
+    windows to the port."""
+    port, jax_w = tw.TimeWindow(0, 300), jw.TimeWindow(0, 300)
+    assert port == jax_w and hash(port) == hash(jax_w)
+    assert not jax_w.__eq__(port)
+    assert port != jw.TimeWindow(0, 301)
+    assert {jax_w: 1}.get(tw.TimeWindow(0, 300)) is None
+    assert {port: 1}.get(jw.TimeWindow(0, 300)) == 1
+
+    class Span:
+        start, end = 0, 300
+
+    assert port != Span() and port.__eq__(Span()) is NotImplemented
+
+
 @pytest.mark.parametrize("ingest", ["row", "batch"])
 def test_late_data_side_output(ingest):
     side = {}
