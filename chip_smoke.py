@@ -7,7 +7,7 @@ Phases, each of which raises on failure (nothing is caught to keep the
 exit code at 0):
 
 1. ``env``      the card's name, the device count and power limit;
-2. ``build``    builds the seventeen CUDA kernels from
+2. ``build``    builds the eighteen CUDA kernels from
                 ``flink_tpu_torch/kernels/csrc`` (one nvcc per source,
                 started together) and, beside them, the port's C++ host
                 runtime (``flink_tpu_torch/native``, g++);
@@ -22,6 +22,10 @@ exit code at 0):
                 ``chain_route`` on 2^20 rows of config #2 events (route
                 mode to 4 and 128 channels, plain, window mode over
                 negative timestamps), bit-equal to its plain version;
+                ``shard_pack`` on the mesh path's two layouts (8
+                sources of 2^17 rows: the scatter tier's lanes with
+                hashed targets, the mesh log's 6-lane rows with a cap),
+                bit-equal to its plain version;
                 ``gather_segment_sum`` on a Graph500 scale-22 graph's
                 edges, ``edge_popcount`` on a scale-18 bitset (8.6 GB),
                 ``gram_accumulate`` on MovieLens-20M-shaped ratings,
@@ -95,7 +99,23 @@ exit code at 0):
                 k = 3), SVM at covtype's (581,012 x 54) and linear
                 regression at YearPredictionMSD's (463,715 x 90), each
                 checked against numpy float64;
-16. the launch counts of phases 4-15, each path counted on its own:
+16. ``mesh``   8 virtual shards of the card (``Mesh([cuda:0] * 8)``):
+                (a) config #2 on MeshTumblingWindows (2 ring regions of
+                2^18 slots a shard: 17.2 GB of registers), registers of
+                sampled keys and every estimate equal to
+                VectorizedTumblingWindows'; (b) the same events on
+                MeshLogTumblingWindows, equal to the single log engine;
+                (c) config #3 on MeshSlidingWindows (1M-key space, ring
+                16 of 2^18 slots: 28.2 GB), every (key, window) result
+                equal to VectorizedSlidingWindows'; (d) HLL jobs with
+                ``env.set_mesh``: integer keys (2^21 events, the mesh
+                log tier) and composite keys (2^19, the sharded scatter
+                tier), each equal to the job without a mesh; (e) the
+                chain's map -> filter -> 4-channel route (2^22 events)
+                with ``devices()`` widened to 8: 40 composite classes,
+                bit-equal to the single-device program and the
+                per-operator path;
+17. the launch counts of phases 4-16, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -419,6 +439,7 @@ def kernel_phase(dev, hbm: float):
     log_finish_entry(dev, hbm, rng, entries, detail)
     table_insert_entry(dev, hbm, rng, entries, detail)
     chain_route_entry(dev, hbm, rng, entries, detail)
+    shard_pack_entry(dev, hbm, rng, entries, detail)
     graph_kernel_entries(dev, hbm, entries, detail)
     ml_kernel_entries(dev, hbm, entries, detail)
     emit({"kernel_variants": detail})
@@ -2257,6 +2278,464 @@ def _chain_job(dev, rng, n, n_keys):
 
 
 # ---------------------------------------------------------------------
+# the mesh path: the sharded engines and the chain's mesh leg on 8
+# virtual shards of one card
+# ---------------------------------------------------------------------
+
+def shard_pack_entry(dev, hbm, rng, entries, detail, shift=0):
+    """shard_pack on both layouts of the mesh path, bit-equal to its
+    plain version: K11a (the scatter tier's step: S = 8 sources of
+    M = 2^17 rows, h_hi / h_lo / vh_hi / vh_lo / f32 value lanes and the
+    bool mask lane, targets from the key hash, cap = M) and K11c (the
+    mesh log's step: m = 2^17 rows a source, K = 6 uint32 lanes, given
+    targets, cap = 4 m / S).  The PyTorch yardstick: a stable torch.sort
+    of the rows' classes (computed beforehand) and one indexed write per
+    lane."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.kernels.shard_pack import target_shards
+    S, m = 8, (1 << 17) >> shift
+    n = S * m
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)   # noqa: E731
+    kh = splitmix64_np(rng.integers(0, 1_000_000, n).astype(np.uint64))
+    vh = splitmix64_np(rng.integers(0, 2**63, n).astype(np.uint64))
+    mask = np.ones(n, bool)
+    mask[rng.random(n) < 0.01] = False
+    lanes = [t((kh >> np.uint64(32)).astype(np.uint32).view(np.int32)),
+             t((kh & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)),
+             t(rng.random(n).astype(np.float32)),
+             t((vh >> np.uint64(32)).astype(np.uint32).view(np.int32)),
+             t((vh & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)),
+             t(mask)]
+    tgt_np = rng.integers(0, S, n).astype(np.int32)
+    tgt_np[~mask] = S
+    rows = t(rng.integers(0, 2**31, (n, 6)).astype(np.int32))
+    cases = (("K11a", lanes, m, dict(hash_lo=lanes[1], max_parallelism=128,
+                                     mask=lanes[5])),
+             ("K11c", rows, 4 * m // S, dict(target=t(tgt_np))))
+    for name, data, cap, kw in cases:
+        got = K.shard_pack(data, S, cap, **kw)
+        want = K.shard_pack_plain(data, S, cap, **kw)
+        torch.cuda.synchronize()
+        outs = list(zip(got[0], want[0])) if isinstance(data, list) \
+            else [(got[0], want[0])]
+        check(torch.equal(got[1], want[1])
+              and all(g.dtype == w.dtype and torch.equal(g, w) for g, w in outs),
+              f"shard_pack {name}: buckets and counts bit-equal to plain")
+        err = max(max_abs_err(g.reshape(-1, 1), w.reshape(-1, 1))
+                  for g, w in outs)
+        ms = cuda_ms(lambda: K.shard_pack(data, S, cap, **kw))
+        plain = cuda_ms(lambda: K.shard_pack_plain(data, S, cap, **kw), 3)
+        # the yardstick: classes and destinations computed beforehand
+        if "target" in kw:
+            tg = kw["target"].to(torch.int64)
+        else:
+            tg = torch.where(kw["mask"], target_shards(kw["hash_lo"], 128, S), S)
+        src = torch.arange(n, device=dev) // m
+        cls = src * (S + 1) + tg
+        order0 = torch.sort(cls, stable=True).indices
+        starts = torch.searchsorted(cls[order0], torch.arange(
+            S * (S + 1), device=dev))
+        rank = torch.arange(n, device=dev) - starts[cls[order0]]
+        t_s, s_s = tg[order0], src[order0]
+        ok = (t_s < S) & (rank < cap)
+        q = ((s_s * S + t_s) * cap + rank)[ok]
+        srcs = data if isinstance(data, list) else [data]
+        dsts = [torch.zeros((S * S * cap, *x.shape[1:]), dtype=x.dtype, device=dev)
+                for x in srcs]
+
+        def library():
+            order = torch.sort(cls, stable=True).indices[ok]
+            for x, d in zip(srcs, dsts):
+                d[q] = x[order]
+        lib = cuda_ms(library)
+        in_bytes = sum(x.numel() * x.element_size() for x in srcs)
+        out_bytes = sum(S * S * cap * (x.numel() // n) * x.element_size()
+                        for x in srcs)
+        in_bytes += 4 * n if "target" in kw else 0
+        b, by = bound(in_bytes + out_bytes + 4 * S * S, 0, hbm)
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                   bound_by=by, max_abs_err=float(err))
+        detail.append({"kernel": "shard_pack", "layout": name, "sources": S,
+                       "rows_per_source": m, "cap": cap,
+                       "library": "torch.sort(stable) + indexed writes", **row})
+        if name == "K11a":     # the scatter tier's step at config #2
+            entries["shard_pack"] = row
+
+
+def _launch_free(fn, *args, **kw):
+    """Runs a comparison (a reference engine or job): its launches do not
+    count toward the path's."""
+    from flink_tpu_torch import kernels as K
+    saved = dict(K.LAUNCHES)
+    try:
+        return fn(*args, **kw)
+    finally:
+        K.LAUNCHES.update(saved)
+
+
+def _feed(eng, keys, ts, chunk, key_hashes=None, value_hashes=None):
+    """process_batch in chunks of rows."""
+    for i in range(0, len(keys), chunk):
+        sl = slice(i, i + chunk)
+        eng.process_batch(keys[sl], ts[sl], None,
+                          key_hashes=None if key_hashes is None else key_hashes[sl],
+                          value_hashes=None if value_hashes is None
+                          else value_hashes[sl])
+
+
+def _fired_arrays(eng):
+    keys = np.concatenate([np.asarray(k) for k, _, _, _ in eng.fired])
+    res = np.concatenate([r for _, r, _, _ in eng.fired])
+    start = np.concatenate([np.full(len(k), s) for k, _, s, _ in eng.fired])
+    order = np.lexsort((keys, start))
+    return keys[order], res[order], start[order]
+
+
+def _mesh_scatter(dev, mesh, rng, n_events, n_keys, region, step, chunk,
+                  n_sample):
+    """(a) config #2 through MeshTumblingWindows: HLL 12, one 1 s window,
+    8 shards x 2 ring regions x region slots; each sampled key's
+    registers and every key's estimate equal VectorizedTumblingWindows'
+    on the same events."""
+    import torch
+    from flink_tpu_torch.core.keygroups import assign_operator_indexes_np
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.parallel import MeshTumblingWindows
+    from flink_tpu_torch.streaming.vectorized import VectorizedTumblingWindows
+    keys, ts, vh = config2_events(rng, n_events, n_keys)
+    kh = splitmix64_np(keys)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = MeshTumblingWindows(HyperLogLogAggregate(12), 1000, mesh,
+                              capacity_per_window_shard=region, ring=2,
+                              step_batch=step)
+    eng.emit_arrays = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _feed(eng, keys, ts, chunk, key_hashes=kh, value_hashes=vh)
+    eng.flush()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sample = np.sort(rng.choice(np.unique(keys), n_sample, replace=False))
+    s_kh = splitmix64_np(sample)
+    shard_of = assign_operator_indexes_np(s_kh, 128, 8)
+    mesh_regs = np.zeros((n_sample, 4096), np.uint8)
+    for j in range(8):
+        tb, sel = eng.table[j], np.nonzero(shard_of == j)[0]
+        occ = tb.occupied[:region].cpu().numpy().astype(bool)
+        pos = np.nonzero(occ)[0]
+        h = ((tb.key_hi[:region].cpu().numpy().view(np.uint32)[pos].astype(np.uint64)
+              << np.uint64(32))
+             | tb.key_lo[:region].cpu().numpy().view(np.uint32)[pos])
+        o = np.argsort(h)
+        at = np.searchsorted(h[o], s_kh[sel])
+        check(np.array_equal(h[o][np.minimum(at, len(h) - 1)], s_kh[sel]),
+              "mesh scatter: every sampled key in its owner shard's table")
+        mesh_regs[sel] = eng.state[j]["regs"][torch.from_numpy(
+            pos[o][at]).to(dev)].cpu().numpy()
+    state_bytes = 8 * eng.ring * region * 4096
+    t2 = time.perf_counter()
+    eng.advance_watermark(999)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    fk, fr, _ = _fired_arrays(eng)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def single():
+        vec = VectorizedTumblingWindows(HyperLogLogAggregate(12), 1000,
+                                        initial_capacity=n_keys + n_keys // 4,
+                                        microbatch=chunk, device=dev)
+        vec.emit_arrays = True
+        _feed(vec, keys, ts, chunk, key_hashes=kh, value_hashes=vh)
+        vec.flush()
+        w = vec.windows[0]
+        by_hash = np.argsort(w.all_hashes())
+        slots = w.all_slots()[by_hash][np.searchsorted(
+            w.all_hashes()[by_hash], s_kh)]
+        regs = vec.state["regs"][torch.from_numpy(slots).to(dev)].cpu().numpy()
+        vec.advance_watermark(999)
+        out = _fired_arrays(vec)
+        del vec
+        gc.collect()
+        torch.cuda.empty_cache()
+        return regs, out
+    vec_regs, (vk, vr, _) = _launch_free(single)
+    check(np.array_equal(mesh_regs, vec_regs),
+          f"mesh scatter: {n_sample} sampled keys' registers equal the "
+          "single-device engine's")
+    check(np.array_equal(fk.astype(np.uint64), vk.astype(np.uint64))
+          and np.array_equal(fr, vr),
+          "mesh scatter: every key's estimate bit-equal to the single-device "
+          "engine's")
+    check(state_bytes >= 17.1e9 or n_events < (1 << 23),
+          "mesh scatter: 17.2 GB of registers on the card")
+    return {"events": n_events, "keys": n_keys, "shards": 8,
+            "region_slots": region, "ring": 2, "register_bytes": state_bytes,
+            "fired": int(len(fk)), "ingest_s": t1 - t0, "fire_s": t3 - t2,
+            "events_per_s": n_events / (t1 - t0 + t3 - t2),
+            "max_memory_allocated": peak}
+
+
+def _mesh_log(dev, mesh, rng, n_events, n_keys, step, chunk):
+    """(b) the same config #2 events through MeshLogTumblingWindows
+    (host finish) against LogStructuredTumblingWindows."""
+    import torch
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.parallel import MeshLogTumblingWindows
+    from flink_tpu_torch.streaming.log_windows import LogStructuredTumblingWindows
+    keys, ts, vh = config2_events(rng, n_events, n_keys)
+    eng = MeshLogTumblingWindows(HyperLogLogAggregate(12), 1000, mesh,
+                                 step_batch=step, finish_tier="host")
+    eng.emit_arrays = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _feed(eng, keys, ts, chunk, value_hashes=vh)
+    eng.flush()
+    t1 = time.perf_counter()
+    eng.advance_watermark(999)
+    t2 = time.perf_counter()
+    got = _fired_arrays(eng)
+
+    def single():
+        ref = LogStructuredTumblingWindows(HyperLogLogAggregate(12), 1000,
+                                           finish_tier="host", device=dev)
+        ref.emit_arrays = True
+        _feed(ref, keys, ts, chunk, value_hashes=vh)
+        ref.advance_watermark(999)
+        return _fired_arrays(ref)
+    want = _launch_free(single)
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "mesh log: every key's estimate equal to the single log engine's")
+    return {"events": n_events, "keys": n_keys, "step_batch": step,
+            "bucket_cap": eng.bucket_cap, "packed_steps": eng.num_packed_steps,
+            "hostpack_steps": eng.num_hostpack_steps,
+            "num_overflow_routed": eng.num_overflow_routed,
+            "fired": int(len(got[0])), "ingest_s": t1 - t0, "fire_s": t2 - t1,
+            "events_per_s": n_events / (t2 - t0)}
+
+
+def _mesh_sliding(dev, mesh, rng, n_events, n_keys, region, step, chunk):
+    """(c) config #3 (10 s / 1 s quantiles, B = 210) through
+    MeshSlidingWindows (ring 16) against VectorizedSlidingWindows on the
+    same events and watermarks: every (key, window) result equal."""
+    import torch
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    from flink_tpu_torch.parallel import MeshSlidingWindows
+    from flink_tpu_torch.streaming.vectorized import VectorizedSlidingWindows
+    size, slide, span = 10_000, 1_000, 10_000
+    keys = rng.integers(0, n_keys, n_events).astype(np.uint64)
+    ts = np.sort(rng.integers(0, span, n_events).astype(np.int64))
+    vals = rng.lognormal(3.0, 1.0, n_events).astype(np.float32)
+    kh = splitmix64_np(keys)
+
+    def drive(eng):
+        eng.emit_arrays = True
+        for i in range(0, n_events, chunk):
+            sl = slice(i, i + chunk)
+            eng.process_batch(keys[sl], ts[sl], vals[sl], key_hashes=kh[sl])
+            eng.flush()
+            eng.advance_watermark(int(ts[sl][-1]) - 1)
+        eng.advance_watermark(2 * span - 1)
+        torch.cuda.synchronize()
+        return _fired_arrays(eng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    agg = QuantileSketchAggregate(**Q3)
+    eng = MeshSlidingWindows(agg, size, slide, mesh,
+                             capacity_per_window_shard=region, extra_ring=4,
+                             step_batch=step)
+    state_bytes = 8 * eng.ring * region * agg.buckets * 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = drive(eng)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def single():
+        vec = VectorizedSlidingWindows(QuantileSketchAggregate(**Q3), size, slide,
+                                       initial_capacity=1 << 20,
+                                       microbatch=chunk, device=dev)
+        out = drive(vec)
+        del vec
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    want = _launch_free(single)
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "mesh sliding: every (key, window) result equal to the single-device "
+          "engine's")
+    check(np.isfinite(got[1]).all() and len(np.unique(got[2])) == 19,
+          "mesh sliding: finite results over 19 windows")
+    check(state_bytes >= 28.1e9 or n_events < (1 << 22),
+          "mesh sliding: 28.2 GB of sketch state on the card")
+    return {"events": n_events, "key_space": n_keys, "window_ms": size,
+            "slide_ms": slide, "region_slots": region, "ring": 16,
+            "state_bytes": state_bytes, "fired_pairs": int(len(got[0])),
+            "seconds": secs, "events_per_s": n_events / secs,
+            "max_memory_allocated": peak,
+            "reduced": "key space 10M -> 1M (a 10 s window's ~985k keys fit "
+                       "a 2^18 region per shard at under half load; 10M would "
+                       "need 2^20 regions: 113 GB); depth: 2^22 events"}
+
+
+def _mesh_jobs(dev, mesh, rng, n, n_keys, n_composite):
+    """(d) DataStream jobs with env.set_mesh(mesh): HLL 12, tumbling 1 s,
+    integer keys (the mesh log tier, n events) and composite keys (the
+    sharded scatter tier, the first n_composite events: each composite
+    key is hashed row by row on the host, in both runs), each equal to
+    the same job without a mesh."""
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.device_window_operator import DeviceWindowOperator
+    from flink_tpu_torch.streaming.sources import (
+        BoundedOutOfOrdernessTimestampExtractor, CollectSink)
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    keys = rng.integers(0, n_keys, n)
+    users = rng.integers(0, 2**62, n)
+    ts = np.sort(rng.integers(0, 4000, n))
+    events = list(zip(keys.tolist(), users.tolist(), ts.tolist()))
+    engines = []
+    ensure = DeviceWindowOperator._ensure_engine
+
+    def noting(op, keys_arr):
+        ensure(op, keys_arr)
+        engines.append(type(op.engine).__name__)
+
+    def run(with_mesh, key_of, events):
+        agg = HyperLogLogAggregate(12)
+        agg.extract_value = lambda e: e[1]
+        sink = []
+        env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+        if with_mesh:
+            env.set_mesh(mesh)
+        (env.from_collection(events)
+            .assign_timestamps_and_watermarks(
+                BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+            .key_by(key_of).window(TumblingEventTimeWindows.of(1000))
+            .aggregate(agg, window_function=lambda k, w, v: [
+                (str(k), w.start, float(v[0]))])
+            .add_sink(CollectSink(sink)))
+        t0 = time.perf_counter()
+        env.execute("mesh-job")
+        return sorted(sink), time.perf_counter() - t0
+    out = {}
+    DeviceWindowOperator._ensure_engine = noting
+    try:
+        for name, key_of, evs in (
+                ("int_keys", lambda e: e[0], events),
+                ("composite_keys", lambda e: (f"k{e[0] % 7}", e[0]),
+                 events[:n_composite])):
+            engines.clear()
+            got, secs = run(True, key_of, evs)
+            tier = sorted(set(engines))
+            want, plain_s = _launch_free(run, False, key_of, evs)
+            check(got == want and len(got) > 0,
+                  f"mesh job ({name}): results equal the job without a mesh")
+            out[name] = {"tier": tier, "events": len(evs), "results": len(got),
+                         "events_per_s": len(evs) / secs,
+                         "meshless_events_per_s": len(evs) / plain_s}
+    finally:
+        DeviceWindowOperator._ensure_engine = ensure
+    check(out["int_keys"]["tier"] == ["MeshLogTumblingWindows"]
+          and out["composite_keys"]["tier"] == ["MeshTumblingWindows"],
+          "mesh jobs: integer keys on the mesh log tier, composite keys on "
+          "the sharded scatter tier")
+    out["keys"] = n_keys
+    return out
+
+
+def _mesh_chain(dev, rng, n_events, n_keys, batch):
+    """(e) the chain phase's map -> filter -> 4-channel key-group route
+    with devices() widened to 8 virtual shards: the program's
+    chain_route launches take composite classes (8 x 5); the channels'
+    batches are bit-equal to the single-device program's and the
+    per-operator path's."""
+    import importlib
+
+    import torch
+    from flink_tpu_torch.parallel.mesh import virtual_devices
+    from flink_tpu_torch.streaming import chain_fusion as cf
+    from flink_tpu_torch.streaming.elements import RecordBatch
+    keys, ts, vh = config2_events(rng, n_events, n_keys)
+    f0, f1 = keys.astype(np.int64), (vh >> np.uint64(3)).astype(np.int64)
+    batches = [RecordBatch({"f0": f0[i:i + batch], "f1": f1[i:i + batch]},
+                           ts[i:i + batch]) for i in range(0, n_events, batch)]
+
+    def reference():
+        per_op = _KeyRouter(4)
+        m, _ = _chain_ops(per_op)
+        for b in batches:
+            m.process_batch(b)
+        single = _KeyRouter(4)
+        m1, f1_ = _chain_ops(single)
+        prog1 = cf.compile_chain([m1, f1_], router=single, device=dev)
+        for b in batches:
+            prog1.run(b)
+        return per_op, single
+    per_op, single = _launch_free(reference)
+    cr = importlib.import_module("flink_tpu_torch.kernels.chain_route")
+    classes = []
+    restore = _recording(cr, "chain_route", lambda a, r: classes.append(len(r[2])))
+    try:
+        with virtual_devices(8, dev):
+            fused = _KeyRouter(4)
+            m2, f2 = _chain_ops(fused)
+            prog = cf.compile_chain([m2, f2], router=fused, device=dev)
+        check(prog.mesh_shards == 8, "mesh chain: the program shards over 8")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            prog.run(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+    check(prog.active and set(classes) == {40},
+          f"mesh chain: every launch on 40 composite classes ({set(classes)}, "
+          f"{prog.demoted_reason})")
+    check(_same_channels(fused, per_op) and _same_channels(fused, single),
+          "mesh chain: channels bit-equal to the single-device program and the "
+          "per-operator path")
+    return {"events": n_events, "batch": batch, "shards": 8, "classes": 40,
+            "fused_events_per_s": n_events / secs}
+
+
+def mesh_phase(dev, n_events=1 << 23, n_keys=1_000_000, region=1 << 18,
+               step=1 << 20, chunk=1 << 20, n_sample=256,
+               sliding_events=1 << 22, sliding_region=1 << 18,
+               sliding_chunk=1 << 19, job_events=1 << 21, job_keys=8000,
+               composite_events=1 << 19, chain_events=1 << 22,
+               chain_batch=1 << 20):
+    """The mesh path on 8 virtual shards of the card: (a) config #2 on
+    the sharded scatter tier, (b) on the mesh log tier, (c) config #3 on
+    the sharded sliding engine, (d) DataStream jobs with set_mesh, (e)
+    the fused chain's mesh leg.  Each against its single-device twin."""
+    from flink_tpu_torch.parallel import Mesh
+    mesh = Mesh([dev] * 8)
+    rng = np.random.default_rng(41)
+    out = {"scatter": _mesh_scatter(dev, mesh, rng, n_events, n_keys, region,
+                                    step, chunk, n_sample),
+           "log": _mesh_log(dev, mesh, rng, n_events, n_keys, step, chunk),
+           "sliding": _mesh_sliding(dev, mesh, rng, sliding_events, n_keys,
+                                    sliding_region, step, sliding_chunk),
+           "jobs": _mesh_jobs(dev, mesh, rng, job_events, job_keys,
+                              composite_events),
+           "chain": _mesh_chain(dev, rng, chain_events, n_keys, chain_batch),
+           "exchange": "Mesh.all_to_all on one card: a device transpose; no "
+                       "NCCL collective is measured"}
+    emit({"mesh": out})
+
+
+# ---------------------------------------------------------------------
 # the graph and ML paths: data at public datasets' shapes, from a seed
 # ---------------------------------------------------------------------
 
@@ -2940,6 +3419,8 @@ SOURCES = {
                         "flink_tpu/ml/recommendation.py:52"),
     "knn_topk": ("flink_tpu_torch/kernels/csrc/knn_topk.cu",
                  "flink_tpu/ml/classification.py:96"),
+    "shard_pack": ("flink_tpu_torch/kernels/csrc/shard_pack.cu",
+                   "flink_tpu/parallel/mesh_agg.py:57"),
 }
 
 #: main-path runs, each with the kernels it must launch
@@ -2965,7 +3446,11 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                    "clear_rows", "hll_log_finish")),
          ("graph", "graph_phase", ("gather_segment_sum", "scatter_combine",
                                    "edge_popcount")),
-         ("ml", "ml_phase", ("gram_accumulate", "knn_topk")))
+         ("ml", "ml_phase", ("gram_accumulate", "knn_topk")),
+         ("mesh", "mesh_phase", ("shard_pack", "table_insert", "hll_update",
+                                 "hll_estimate", "clear_rows", "merge_rows",
+                                 "quantile_update", "quantile_result",
+                                 "chain_route")))
 
 
 def main() -> int:

@@ -21,7 +21,10 @@ PyTorch versions.
 ``table_insert``   insert-or-lookup of (hi, lo) key lanes in the
                    device hash table (plain or regional probing)
 ``chain_route``    stable partition of a fused chain's rows by channel
-                   (or keep flag), moving their columns and pane starts
+                   (or keep flag), moving their columns and pane starts;
+                   with row shards, each shard's block on its own
+``shard_pack``     the keyBy exchange's pack: each source shard's rows
+                   into per-target buckets, stable, capped, with counts
 ``gather_segment_sum``  ``out[dst] += x[src]`` over a graph's edges
                    (PageRank, HITS)
 ``edge_popcount``  common neighbours per vertex pair from a packed
@@ -65,6 +68,7 @@ from flink_tpu_torch.kernels.quantile_update import (quantile_update,
 from flink_tpu_torch.kernels.scatter_combine import (scatter_combine,
                                                      scatter_combine_plain)
 from flink_tpu_torch.kernels.set_rows import set_rows, set_rows_plain
+from flink_tpu_torch.kernels.shard_pack import shard_pack, shard_pack_plain
 from flink_tpu_torch.kernels.table_insert import (table_insert,
                                                   table_insert_plain)
 
@@ -80,5 +84,6 @@ __all__ = [
     "merge_rows", "merge_rows_plain",
     "quantile_result", "quantile_result_plain", "quantile_update",
     "quantile_update_plain", "scatter_combine", "scatter_combine_plain",
-    "set_rows", "set_rows_plain", "table_insert", "table_insert_plain",
+    "set_rows", "set_rows_plain", "shard_pack", "shard_pack_plain",
+    "table_insert", "table_insert_plain",
 ]

@@ -19,6 +19,15 @@ channel bounds and ``starts[-1]`` the count of kept rows.  Reading
 ``starts`` synchronizes with the card.  ``chain_route_plain`` is the
 same function in plain PyTorch (an argsort and indexing), on any device.
 
+Row shards (``shard_rows`` > 0, the reference's mesh leg
+``chain_fusion.py:832-849``): row i belongs to shard ``i // shard_rows``
+of ``n_shards`` and its class becomes ``shard * nclass + class``, so one
+launch partitions each shard's block on its own.  The buffers then come
+back whole (n rows), ``starts`` has ``n_shards * nclass`` entries, and
+shard s's kept rows of class c lie at ``starts[s * nclass + c] ..
+starts[s * nclass + c + 1]``; the places of dropped rows hold nothing
+defined.
+
 The reference pads each batch to a power-of-two bucket to bound XLA
 recompiles; nothing here compiles per shape, so nothing pads.
 """
@@ -34,7 +43,8 @@ import torch
 from flink_tpu_torch.kernels import loader
 from flink_tpu_torch.ops.hashing import operator_indexes, splitmix64
 
-#: classes the kernel's shared-memory counters hold (channels + 1)
+#: classes the kernel's shared-memory counters hold (channels + 1, times
+#: the shards with row shards)
 MAX_CLASSES = 2048
 #: rows a warp walks in the kernel (the scan covers nclass * tiles)
 TILE_ROWS = 512
@@ -51,23 +61,40 @@ def _num_classes(key, num_channels: int, max_parallelism: int) -> int:
     return num_channels + 1
 
 
+def _shards(n: int, shard_rows: int, n_shards: int) -> int:
+    """The shard count of a call (1 without row shards)."""
+    if shard_rows < 0:
+        raise ValueError("shard_rows must be >= 0")
+    if not shard_rows:
+        return 1
+    if n_shards < 1 or n > shard_rows * n_shards:
+        raise ValueError(f"{n} rows do not fit {n_shards} shards of "
+                         f"{shard_rows} rows")
+    return n_shards
+
+
 def chain_route(cols: Sequence[torch.Tensor], keep: torch.Tensor,
                 key: Optional[torch.Tensor] = None, num_channels: int = 0,
                 max_parallelism: int = 0, ts: Optional[torch.Tensor] = None,
-                pane_offset: int = 0, slide: int = 0) -> Result:
+                pane_offset: int = 0, slide: int = 0, shard_rows: int = 0,
+                n_shards: int = 0) -> Result:
     """Partition ``cols`` (1-D, n rows each, 1/2/4/8-byte types) by the
     class of each row; ``keep`` bool [n]; ``key`` int64 [n] selects
-    route mode; ``slide`` > 0 asks for pane starts of ``ts`` (int64)."""
+    route mode; ``slide`` > 0 asks for pane starts of ``ts`` (int64);
+    ``shard_rows`` > 0 partitions ``n_shards`` row blocks each on its
+    own (see the module docstring)."""
     if keep.device.type == "cpu":
         return chain_route_plain(cols, keep, key, num_channels,
-                                 max_parallelism, ts, pane_offset, slide)
+                                 max_parallelism, ts, pane_offset, slide,
+                                 shard_rows, n_shards)
     dev = keep.device
     nclass = _num_classes(key, num_channels, max_parallelism)
-    if nclass > MAX_CLASSES:
-        raise ValueError(f"{nclass - 1} channels: the kernel takes at most "
-                         f"{MAX_CLASSES - 1}")
     loader.check(keep, "keep", (torch.bool,), dev, ndim=1)
     n = keep.numel()
+    shards = _shards(n, shard_rows, n_shards)
+    if nclass * shards > MAX_CLASSES:
+        raise ValueError(f"{shards} shards of {nclass - 1} channels: the "
+                         f"kernel takes at most {MAX_CLASSES} classes")
     for j, c in enumerate(cols):
         loader.check(c, f"column {j}", (c.dtype,), dev, ndim=1)
         if c.numel() != n or c.element_size() not in (1, 2, 4, 8):
@@ -89,24 +116,26 @@ def chain_route(cols: Sequence[torch.Tensor], keep: torch.Tensor,
     outs = [torch.empty_like(c) for c in cols]
     pane = torch.empty(n, dtype=torch.int64, device=dev) if slide else None
     if n == 0:
-        starts = np.zeros(nclass, np.int64)
+        starts = np.zeros(nclass * shards, np.int64)
         return outs, pane, starts
     tiles = -(-n // TILE_ROWS)
-    counts = torch.empty(nclass * tiles, dtype=torch.int32, device=dev)
+    counts = torch.empty(nclass * shards * tiles, dtype=torch.int32, device=dev)
     offsets = torch.empty_like(counts)
-    starts_d = torch.empty(nclass, dtype=torch.int64, device=dev)
+    starts_d = torch.empty(nclass * shards, dtype=torch.int64, device=dev)
     k = len(cols)
     src = (ctypes.c_longlong * max(k, 1))(*[c.data_ptr() for c in cols])
     dst = (ctypes.c_longlong * max(k, 1))(*[o.data_ptr() for o in outs])
     widths = (ctypes.c_int * max(k, 1))(*[c.element_size() for c in cols])
     loader.launch("chain_route", "ft_chain_route", loader.ptr(key),
-                  keep.data_ptr(), n, nclass, max_parallelism,
-                  ctypes.addressof(src), ctypes.addressof(dst),
+                  keep.data_ptr(), n, nclass, max_parallelism, shard_rows,
+                  shards, ctypes.addressof(src), ctypes.addressof(dst),
                   ctypes.addressof(widths), k,
                   loader.ptr(ts) if slide else None, pane_offset, slide,
                   loader.ptr(pane), counts.data_ptr(), offsets.data_ptr(),
                   starts_d.data_ptr())
     starts = starts_d.cpu().numpy()
+    if shard_rows:
+        return outs, pane, starts
     count = int(starts[-1])
     return ([o[:count] for o in outs],
             pane[:count] if pane is not None else None, starts)
@@ -116,18 +145,30 @@ def chain_route_plain(cols: Sequence[torch.Tensor], keep: torch.Tensor,
                       key: Optional[torch.Tensor] = None, num_channels: int = 0,
                       max_parallelism: int = 0,
                       ts: Optional[torch.Tensor] = None, pane_offset: int = 0,
-                      slide: int = 0) -> Result:
+                      slide: int = 0, shard_rows: int = 0,
+                      n_shards: int = 0) -> Result:
     nclass = _num_classes(key, num_channels, max_parallelism)
+    n = keep.numel()
+    shards = _shards(n, shard_rows, n_shards)
     drop = nclass - 1
     if key is None:
         cls = (~keep).to(torch.int64)
     else:
         idx = operator_indexes(splitmix64(key), max_parallelism, num_channels)
         cls = torch.where(keep, idx, drop)
+    if shard_rows:
+        rows = torch.arange(n, dtype=torch.int64, device=keep.device)
+        cls = cls + rows // shard_rows * nclass
     order = torch.argsort(cls, stable=True)
-    classes = torch.arange(nclass, dtype=torch.int64, device=keep.device)
+    classes = torch.arange(nclass * shards, dtype=torch.int64,
+                           device=keep.device)
     starts = torch.searchsorted(cls[order], classes).cpu().numpy()
-    kord = order[:int(starts[-1])]
+    if shard_rows:
+        # whole buffers: every row at its place (the kernel leaves the
+        # dropped rows' places unwritten)
+        kord = order
+    else:
+        kord = order[:int(starts[-1])]
     pane = None
     if slide:
         t = ts[kord]

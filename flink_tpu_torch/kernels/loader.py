@@ -1,15 +1,17 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and builds with nvcc
-into its own shared library, loaded through ``ctypes``:
+into its own shared library, loaded through ``ctypes`` (device code
+two kernels share lives in a ``csrc/*.cuh`` header):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The build runs at first use (or all at once through ``build_all``,
 one nvcc process per source, started together), into ``_build/``
-beside this file, keyed by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads what is there.
+beside this file, keyed by a hash of the source, the headers and the
+flags, so a changed source rebuilds and an unchanged one loads what is
+there.
 Nothing here runs at import: this module imports on machines with no
 CUDA toolkit, where only the plain PyTorch versions run.
 
@@ -35,7 +37,7 @@ KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
            "merge_rows", "set_rows", "countmin_update", "countmin_query",
            "quantile_update", "quantile_result", "hll_log_finish",
            "table_insert", "chain_route", "gather_segment_sum",
-           "edge_popcount", "gram_accumulate", "knn_topk")
+           "edge_popcount", "gram_accumulate", "knn_topk", "shard_pack")
 
 #: kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -98,8 +100,8 @@ _SIGNATURES = {
                             _I, _P, _P, _P),
     },
     "chain_route": {
-        "ft_chain_route": (_P, _P, _LL, _I, _LL, _P, _P, _P, _I, _P, _LL, _LL,
-                           _P, _P, _P, _P, _P),
+        "ft_chain_route": (_P, _P, _LL, _I, _LL, _LL, _I, _P, _P, _P, _I, _P,
+                           _LL, _LL, _P, _P, _P, _P, _P),
     },
     "gather_segment_sum": {
         "ft_gather_segment_sum": (_P, _P, _P, _P, _LL, _P),
@@ -112,6 +114,10 @@ _SIGNATURES = {
     },
     "knn_topk": {
         "ft_knn_topk": (_P, _P, _P, _LL, _LL, _I, _P, _P),
+    },
+    "shard_pack": {
+        "ft_shard_pack": (_P, _P, _LL, _P, _LL, _I, _I, _LL, _P, _P, _P, _P, _P,
+                          _I, _P, _P, _P, _P, _P),
     },
 }
 
@@ -141,7 +147,7 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (_CSRC / "common.cuh", _CSRC / f"{name}.cu"):
+    for src in (*sorted(_CSRC.glob("*.cuh")), _CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"

@@ -44,10 +44,21 @@ them, so ``int / int`` and ``int32 * 1.5`` give numpy's float64 and
 more UDFs fuse; a dtype torch lacks an operation for (``%`` on
 uint16/uint32) still demotes.
 
-Not ported: the mesh leg (``shard_body``, ``MESH_MIN_ROWS_PER_SHARD``:
-the mesh engines), transfer telemetry, the type-flow prover's static
-skip, ``attach`` mode (the reference's ``_execute`` never produces it)
-and the consumers of ``fusion_report``.
+Mesh leg (``chain_fusion.py:832-849``): with two or more devices in
+``parallel.mesh.devices()`` (the cards, or virtual shards) and a bucket
+(the batch's rows rounded up to a power of two, as the reference pads)
+of at least ``mesh_shards * MESH_MIN_ROWS_PER_SHARD`` rows, the program
+runs sharded over the rows axis: shard s holds rows ``[s * m, (s + 1)
+* m)`` (m = bucket / shards), and one ``chain_route`` launch with the
+composite class ``shard * nclass + class`` partitions every shard's
+block on its own.  The host gathers the shards' kept rows in shard
+order (channel-major for a route), which is the single-device program's
+global stable order, bit for bit.  A route whose ``shards * (channels +
+1)`` classes exceed the kernel's limit takes the single-device program.
+
+Not ported: transfer telemetry, the type-flow prover's static skip,
+``attach`` mode (the reference's ``_execute`` never produces it) and the
+consumers of ``fusion_report``.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ import torch
 
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.kernels.chain_route import MAX_CLASSES
+from flink_tpu_torch.parallel import mesh as _mesh
 
 log = logging.getLogger(__name__)
 
@@ -69,6 +81,9 @@ FUSION_ENABLED = True
 #: batches below this row count take the per-operator path: a program
 #: dispatch costs more than a few small numpy passes
 MIN_FUSED_ROWS = 512
+
+#: per-shard row floor before the mesh leg runs instead of one block
+MESH_MIN_ROWS_PER_SHARD = 2048
 
 
 class _FusionStats:
@@ -96,6 +111,20 @@ class _Demoted(Exception):
 
 def _stage_err(msg: str) -> Exception:
     return TypeError(f"chain fusion: {msg}")
+
+
+def _gather_shards(host, pane, starts, shards: int, nclass: int):
+    """A row-sharded result in the single-device layout: each shard's
+    kept rows gathered in shard order (class-major, shard-minor for a
+    route: shards are position ranges, so that is the global stable
+    order), and ``starts`` of the classes over all shards."""
+    st = np.asarray(starts, np.int64).reshape(shards, nclass)
+    sel = np.concatenate([np.arange(st[i, c], st[i, c + 1])
+                          for c in range(nclass - 1) for i in range(shards)])
+    per_class = (st[:, 1:] - st[:, :-1]).sum(axis=0)
+    glob = np.concatenate(([0], np.cumsum(per_class)))
+    return ([a[sel] for a in host], None if pane is None else pane[sel],
+            glob)
 
 
 # ---------------------------------------------------------------------
@@ -310,6 +339,10 @@ class FusedChainProgram:
         if self.route_part is not None:
             self._r_maxpar = int(self.route_part.max_parallelism)
             self._r_nch = len(self.route_channels)
+        # the mesh leg: the largest power-of-two prefix of the devices
+        devs = _mesh.devices()
+        self.mesh_shards = (1 << (len(devs).bit_length() - 1)
+                            if len(devs) >= 2 else 1)
 
     # ---- dispatch predicate -----------------------------------------
     def wants(self, batch) -> bool:
@@ -387,6 +420,12 @@ class FusedChainProgram:
             return None if a is None else \
                 torch.as_tensor(np.ascontiguousarray(a)).to(dev)
 
+        nclass = self._r_nch + 1 if mode == "route" else 2
+        bucket = max(MIN_FUSED_ROWS, 1 << (n - 1).bit_length())
+        shards = self.mesh_shards
+        use_mesh = (shards > 1
+                    and bucket >= shards * MESH_MIN_ROWS_PER_SHARD
+                    and shards * nclass <= MAX_CLASSES)
         d_cols = tuple(c.to(dev) for c in host_cols)
         d_ts, d_tsm = to_dev(ts), to_dev(tsm)
         try:
@@ -405,10 +444,15 @@ class FusedChainProgram:
             max_parallelism=self._r_maxpar if mode == "route" else 0,
             ts=d_ts if mode == "window" else None,
             pane_offset=self._w_offset if mode == "window" else 0,
-            slide=self._w_slide if mode == "window" else 0)
+            slide=self._w_slide if mode == "window" else 0,
+            shard_rows=bucket // shards if use_mesh else 0,
+            n_shards=shards if use_mesh else 0)
         host = [o.cpu().numpy() for o in outs]
         pane = pane.cpu().numpy() if pane is not None else None
         stage_rows = stage_rows.cpu().numpy()
+        if use_mesh:
+            host, pane, starts = _gather_shards(host, pane, starts, shards,
+                                                nclass)
         count = int(starts[-1])
         n_out = len(out_cols)
         out_np = tuple(host[:n_out])
@@ -417,7 +461,7 @@ class FusedChainProgram:
         out_tsm = rest.pop(0) if tsm is not None else None
         bounds = starts if mode == "route" else None
 
-        sig = (mode, scalar, tuple(a.dtype.str for a in col_arrays),
+        sig = (mode, scalar, use_mesh, tuple(a.dtype.str for a in col_arrays),
                ts is None, tsm is None)
         if sig not in self._verified_sigs:
             self._verify(batch, n, mode, out_np, out_ts, out_tsm, count,

@@ -19,7 +19,12 @@ The environment runs on the card unless it is created with
 reference does: a device-eligible aggregate (a DeviceAggregateFunction,
 default trigger, lateness 0, no late-data tag) runs on
 ``DeviceWindowOperator`` (tumbling, sliding and session engines),
-anything else on ``WindowOperator`` over the keyed backend.  The
+anything else on ``WindowOperator`` over the keyed backend.  With
+``env.set_mesh(mesh)`` a tumbling device aggregate runs sharded over the
+mesh (``flink_tpu_torch.parallel``): the operator is added at
+parallelism 1, since the mesh is the parallelism, or, with a mesh
+factory, at the environment's parallelism, each subtask building its
+own mesh.  Other assigners run without the mesh, as in the reference.  The
 reference's other route is not ported and raises
 ``NotImplementedError``: ``GenericWindowOperator``, for aggregates
 that are not device aggregates over the same window shapes;
@@ -40,7 +45,7 @@ from flink_tpu_torch.core.state import AggregatingStateDescriptor
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
 from flink_tpu_torch.streaming.device_window_operator import (
-    DeviceWindowOperator, batch_window_eligible)
+    DeviceWindowOperator, batch_window_eligible, is_mesh_factory)
 from flink_tpu_torch.streaming.graph import (StreamEdge, StreamGraph,
                                              StreamNode, create_job_graph)
 from flink_tpu_torch.streaming.operators import (StreamFilter, StreamFlatMap,
@@ -73,6 +78,9 @@ class StreamExecutionEnvironment:
         self.graph = StreamGraph()
         self.parallelism = 1
         self.max_parallelism = 128
+        #: device window aggregation sharded over this mesh (set_mesh)
+        self.mesh = None
+        self.mesh_axis = "kg"
         self._last_executor = None
 
     @staticmethod
@@ -85,6 +93,15 @@ class StreamExecutionEnvironment:
         """The keyed-state backend of keyed operators: ``heap``, or
         ``gpu`` (or the reference's ``tpu``/``rocksdb``/``device``/``hbm``)."""
         self.config.set("state.backend", backend)
+        return self
+
+    def set_mesh(self, mesh, axis: str = "kg") -> "StreamExecutionEnvironment":
+        """Shard device window aggregation over ``mesh[axis]``
+        (``flink_tpu_torch.parallel.Mesh``): the keyBy exchange becomes a
+        pack into per-shard buckets and an all_to_all.  ``mesh`` may be a
+        callable that builds a Mesh in each subtask."""
+        self.mesh = mesh
+        self.mesh_axis = axis
         return self
 
     def set_parallelism(self, parallelism: int) -> "StreamExecutionEnvironment":
@@ -156,8 +173,9 @@ class DataStream:
         return RebalancePartitioner()
 
     def _add_op(self, name: str, operator_factory, key_selector=None,
-                chaining: str = "always") -> "DataStream":
-        p = self.env.parallelism
+                chaining: str = "always",
+                parallelism: Optional[int] = None) -> "DataStream":
+        p = self.env.parallelism if parallelism is None else parallelism
         node = self.env.graph.add_node(StreamNode(
             self.env.graph.new_node_id(), name, operator_factory,
             parallelism=p, max_parallelism=self.env.max_parallelism,
@@ -278,10 +296,20 @@ class WindowedStream:
             assigner, lateness, late_tag, window_function)
         if batch and isinstance(aggregate_function, DeviceAggregateFunction):
             device = keyed.env.device
+            mesh, mesh_axis = keyed.env.mesh, keyed.env.mesh_axis
+            if not isinstance(assigner, TumblingEventTimeWindows):
+                mesh = None  # only tumbling windows shard over the mesh
 
             def factory():
                 return DeviceWindowOperator(assigner, aggregate_function,
-                                            window_function, device=device)
+                                            window_function, device=device,
+                                            mesh=mesh, mesh_axis=mesh_axis)
+            if mesh is not None and not is_mesh_factory(mesh):
+                # the mesh is the parallelism: one subtask drives every
+                # shard; the keyed edge still routes (to that subtask)
+                return keyed._add_op(name, factory,
+                                     key_selector=keyed.key_selector,
+                                     chaining="head", parallelism=1)
         elif batch:
             raise NotImplementedError(
                 "GenericWindowOperator, the reference's vectorized tier for "

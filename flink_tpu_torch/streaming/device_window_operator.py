@@ -1,6 +1,5 @@
 """DeviceWindowOperator: the device window engines inside the job graph
-(port of ``flink_tpu/streaming/device_window_operator.py:46-93,
-148-417``, one device, without the mesh tiers).
+(port of ``flink_tpu/streaming/device_window_operator.py:46-417``).
 
 Records buffer on the host; every ``flush_batch`` records (and every
 watermark that crosses a window-end boundary) flushes one vectorized
@@ -27,6 +26,13 @@ package chooses it (``_ensure_engine``):
   Count-Min outside sessions, HLL above precision 16, and every
   aggregate but Count-Min on sessions) goes to the device-resident
   scatter tier (``engine_for_assigner``).
+
+With a mesh (``mesh=``, or ``env.set_mesh``) the sharded twins take
+over, as in the reference: 1-D integer keys (interned strings included)
+go to the mesh log tier (``parallel/mesh_log.py``) where its cell
+decomposition fits, everything else to the sharded scatter engines
+(``MeshTumblingWindows`` / ``MeshSlidingWindows``; sessions stay on the
+single-device engine).  The fused string sum is off on a mesh.
 
 Only the reference's semantic refusals (``TypeError`` for an aggregate
 without a cell decomposition, ``ValueError`` for its parameters) send a
@@ -112,10 +118,26 @@ def log_engine_for_assigner(assigner, agg: DeviceAggregateFunction,
 
 def engine_for_assigner(assigner, agg: DeviceAggregateFunction,
                         initial_capacity: int = 1 << 14,
-                        device: DeviceLike = None):
-    """Assigner → scatter-tier engine, or None when no engine applies."""
+                        device: DeviceLike = None, mesh=None,
+                        mesh_axis: str = "kg", max_parallelism: int = 128):
+    """Assigner → scatter-tier engine, or None when no engine applies.
+    With a mesh, tumbling and sliding windows run on the sharded engines
+    (``parallel/mesh_windows.py``); sessions stay on one device."""
     if not assigner_supported(assigner):
         return None
+    if mesh is not None and not isinstance(assigner, EventTimeSessionWindows):
+        from flink_tpu_torch.parallel.mesh_windows import (MeshSlidingWindows,
+                                                           MeshTumblingWindows)
+        per_shard = max(1 << 8, initial_capacity // mesh.shape[mesh_axis])
+        if isinstance(assigner, TumblingEventTimeWindows):
+            return MeshTumblingWindows(
+                agg, assigner.size, mesh, axis=mesh_axis,
+                max_parallelism=max_parallelism,
+                capacity_per_window_shard=per_shard)
+        return MeshSlidingWindows(
+            agg, assigner.size, assigner.slide, mesh, axis=mesh_axis,
+            max_parallelism=max_parallelism,
+            capacity_per_window_shard=per_shard)
     if isinstance(assigner, TumblingEventTimeWindows):
         return VectorizedTumblingWindows(agg, assigner.size,
                                          initial_capacity=initial_capacity,
@@ -127,6 +149,18 @@ def engine_for_assigner(assigner, agg: DeviceAggregateFunction,
     return VectorizedSessionWindows(agg, assigner.gap,
                                     initial_capacity=initial_capacity,
                                     device=device)
+
+
+def is_mesh_factory(mesh) -> bool:
+    """True for a callable that builds a mesh (one per subtask) rather
+    than a Mesh: factories have no ``shape``."""
+    return callable(mesh) and not hasattr(mesh, "shape")
+
+
+def resolve_mesh(mesh):
+    """Mesh | mesh factory | None -> Mesh | None (a factory resolves in
+    the subtask that runs it)."""
+    return mesh() if is_mesh_factory(mesh) else mesh
 
 
 def batch_window_eligible(assigner, allowed_lateness, late_tag,
@@ -151,7 +185,8 @@ class DeviceWindowOperator(StreamOperator):
 
     def __init__(self, assigner, aggregate_function: DeviceAggregateFunction,
                  window_function=None, flush_batch: int = 8192,
-                 initial_capacity: int = 1 << 14, device: DeviceLike = None):
+                 initial_capacity: int = 1 << 14, device: DeviceLike = None,
+                 mesh=None, mesh_axis: str = "kg"):
         super().__init__()
         self.assigner = assigner
         self.agg = aggregate_function
@@ -159,6 +194,9 @@ class DeviceWindowOperator(StreamOperator):
         self.flush_batch = flush_batch
         self.initial_capacity = initial_capacity
         self.device = resolve_device(device)
+        #: a Mesh, a mesh factory (resolved at the first flush) or None
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.engine = None
         self._keys: List[Any] = []
         self._ts: List[int] = []
@@ -196,14 +234,27 @@ class DeviceWindowOperator(StreamOperator):
             # locked at the first flush: later batches keep feeding the
             # fused engine raw strings
             return isinstance(self.engine, lw.StringSumTumblingWindows)
-        return _string_sum_fits(self.assigner, self.agg)
+        return self.mesh is None and _string_sum_fits(self.assigner, self.agg)
 
     def _ensure_engine(self, keys_arr: np.ndarray):
         """Tier choice at the first flush (see the module docstring)."""
         if self.engine is not None:
             return
-        if keys_arr.dtype.kind in "US" and keys_arr.ndim == 1 \
-                and self._wants_fused_string_sum():
+        self.mesh = resolve_mesh(self.mesh)
+        if self.mesh is not None:
+            if keys_arr.ndim == 1 and np.issubdtype(keys_arr.dtype, np.integer):
+                from flink_tpu_torch.parallel.mesh_log import \
+                    mesh_log_engine_for_assigner
+                self.engine = mesh_log_engine_for_assigner(
+                    self.assigner, self.agg, self.mesh, axis=self.mesh_axis,
+                    max_parallelism=self.max_parallelism)
+            if self.engine is None:
+                self.engine = engine_for_assigner(
+                    self.assigner, self.agg, self.initial_capacity,
+                    self.device, mesh=self.mesh, mesh_axis=self.mesh_axis,
+                    max_parallelism=self.max_parallelism)
+        if self.engine is None and keys_arr.dtype.kind in "US" \
+                and keys_arr.ndim == 1 and self._wants_fused_string_sum():
             self.engine = string_sum_engine_for_assigner(
                 self.assigner, self.agg, self.device)
         if self.engine is None and keys_arr.ndim == 1 \

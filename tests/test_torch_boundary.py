@@ -3,7 +3,8 @@ jax, any module of flink_tpu or the JAX package's native library (a
 subprocess job runs the log tier, the keyed backend, the sliding and
 session log engines, the fused string sum, a DeviceTumblingWindows
 batch, a fused map/filter chain ahead of a window at parallelism 4,
-graph algorithms and an ML fit, then reads its own sys.modules and
+graph algorithms, an ML fit and a job on an 8-shard mesh (the mesh log
+tier), then reads its own sys.modules and
 /proc/self/maps), and its entry points never fall back to the CPU on
 their own.  This test
 process has jax loaded already (the test configuration imports it), so
@@ -117,6 +118,26 @@ triangles = g.run(tg.TriangleCount(device="cpu"))
 als = tm.ALS(num_factors=3, iterations=2, device="cpu").fit(
     [(u, (u * 3) % 11, 1.0 + u % 5) for u in range(60)])
 nearest = tm.KNN(k=2, device="cpu").fit(np.eye(6)).kneighbors(np.eye(6))
+# a mesh job: integer keys on the mesh log tier over 8 shards
+from flink_tpu_torch.parallel import Mesh
+from flink_tpu_torch.parallel.mesh_log import MeshLogTumblingWindows
+from flink_tpu_torch.streaming.device_window_operator import DeviceWindowOperator
+meshed, mesh_engines = [], []
+_ensure = DeviceWindowOperator._ensure_engine
+def _note_engine(op, keys):
+    _ensure(op, keys)
+    mesh_engines.append(type(op.engine).__name__)
+DeviceWindowOperator._ensure_engine = _note_engine
+agg = HyperLogLogAggregate(8)
+agg.extract_value = lambda e: e[1]
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.set_mesh(Mesh(["cpu"] * 8))
+(env.from_collection([(i % 7, i, 10 * i) for i in range(500)])
+    .assign_timestamps_and_watermarks(
+        BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+    .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
+    .aggregate(agg).add_sink(CollectSink(meshed)))
+env.execute()
 maps = open("/proc/self/maps").read()
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "graph_ranks": len(ranks), "graph_components": len(set(comps.values())),
@@ -126,6 +147,8 @@ print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "word_results": len(words),
                   "device_windows_keys": len(dw.fired[0][0]),
                   "fused_results": len(fused),
+                  "mesh_results": len(meshed),
+                  "mesh_engines": sorted(set(mesh_engines)),
                   "fused_batches": chain_fusion.FUSION_STATS.fused_batches,
                   "demotions": chain_fusion.FUSION_STATS.demotions,
                   "port_runtime_loaded": "flink_tpu_torch/native/_build/" in maps,
@@ -153,6 +176,8 @@ def test_job_loads_neither_jax_nor_flink_tpu():
     # 20.48 s of events in 1 s windows, 7 keys; four batches fused
     assert report["fused_results"] == 7 * 21
     assert report["fused_batches"] == 4 and report["demotions"] == 0
+    assert report["mesh_results"] == 7 * 5
+    assert report["mesh_engines"] == ["MeshLogTumblingWindows"]
     assert report["graph_ranks"] == 200 and report["graph_components"] >= 1
     assert report["als_users"] == 60 and report["knn_rows"] == 6
     # the log tier ran on the port's own host runtime, never the
@@ -178,7 +203,8 @@ def test_sources_import_neither_jax_nor_flink_tpu():
     for module in ("analysis/liftability.py", "streaming/columnar.py",
                    "streaming/chain_fusion.py", "kernels/chain_route.py",
                    "graph/library.py", "ml/recommendation.py",
-                   "kernels/knn_topk.py"):
+                   "kernels/knn_topk.py", "kernels/shard_pack.py",
+                   "parallel/mesh.py", "parallel/mesh_log.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]
@@ -202,6 +228,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
     from flink_tpu_torch.streaming.vectorized import VectorizedTumblingWindows
     from flink_tpu_torch.ops.device_table import make_table
+    from flink_tpu_torch.parallel import Mesh
     from flink_tpu_torch.streaming.device_windows import DeviceTumblingWindows
     from flink_tpu_torch.streaming.log_windows import (
         LogStructuredTumblingWindows, StringSumTumblingWindows)
@@ -213,7 +240,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: LogStructuredTumblingWindows(agg, 1000),
                  lambda: StringSumTumblingWindows(agg, 1000),
                  lambda: DeviceTumblingWindows(agg, 1000, capacity=8),
-                 lambda: make_table(8)):
+                 lambda: make_table(8), lambda: Mesh([None] * 2)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     # asked for explicitly, the CPU runs the plain versions

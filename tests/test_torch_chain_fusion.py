@@ -637,3 +637,213 @@ def test_chain_route_plain_is_a_stable_argsort(mode):
         assert np.array_equal(pane.numpy(), kt - ((kt - 37) % 250))
     else:
         assert pane is None
+
+
+# ---------------------------------------------------------------------
+# the mesh leg: the program over row shards (chain_fusion.py:832-849)
+
+
+@pytest.fixture
+def mesh_leg(monkeypatch):
+    """8 virtual shards and the per-shard row floor cut to 64 (as the
+    reference's mesh cases cut it); records each chain_route call's
+    row-shard arguments and class starts."""
+    import importlib
+
+    from flink_tpu_torch.parallel.mesh import virtual_devices
+    monkeypatch.setattr(cf, "MESH_MIN_ROWS_PER_SHARD", 64)
+    cr = importlib.import_module("flink_tpu_torch.kernels.chain_route")
+    real = cr.chain_route
+    calls = []
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((len(a[1]), kw.get("shard_rows", 0),
+                      kw.get("n_shards", 0), out[2]))
+        return out
+    monkeypatch.setattr(cr, "chain_route", spy)
+    with virtual_devices(8, "cpu"):
+        yield calls
+
+
+def _shard_view(call, nclass):
+    """(per-shard counts, per-shard bounds) of a recorded call."""
+    from torch_port_util import shard_bounds
+    n, shard_rows, n_shards, starts = call
+    assert shard_rows and n_shards == 8
+    return shard_bounds(starts, n_shards, nclass)
+
+
+def _reference_mesh_program(jprog, cols, ts, tsm, mode):
+    """The reference's sharded program, run as its ``_execute`` would
+    (padded to its bucket, 8 row shards): per-shard counts [S] and, in
+    route mode, per-shard bounds [S, nch + 1]."""
+    n = len(cols[0])
+    bucket = max(jcf.MIN_FUSED_ROWS, 1 << (n - 1).bit_length())
+    valid = np.zeros(bucket, bool)
+    valid[:n] = True
+
+    def pad(a, fill=0):
+        if a is None:
+            return None
+        out = np.full(bucket, fill, a.dtype)
+        out[:n] = a
+        return out
+
+    assert jprog.mesh_shards == 8
+    with jax.enable_x64(True):
+        fn = jcf.FusedChainProgram._device_fn(jprog, mode, False, True)
+        outs = fn(tuple(pad(a) for a in cols), pad(ts), pad(tsm, False), valid)
+        host = jax.tree_util.tree_map(np.asarray, outs)
+    _c, _t, _m, _rows, counts, bounds, _h, _p = host
+    return (np.asarray(counts).ravel(),
+            None if bounds is None else np.asarray(bounds, np.int64))
+
+
+@pytest.mark.parametrize("nch", [4, 128])
+def test_mesh_leg_route_matches_split_batch_and_reference(mesh_leg, nch):
+    rng = np.random.default_rng(17)
+    n = 4096
+    cols = {"f0": rng.integers(0, 100, n).astype(np.int64),
+            "f1": rng.integers(-50, 50, n).astype(np.int64)}
+    ts = rng.integers(0, 10_000, n).astype(np.int64)
+    part = lambda: KeyGroupStreamPartitioner(_FieldKeySelector(0), 128)  # noqa: E731
+    per_op = _Router(part(), nch)
+    _port_chain(per_op)[0].process_batch(RecordBatch(dict(cols), ts.copy()))
+    router = _Router(part(), nch)
+    m, f = _port_chain(router)
+    prog = cf.compile_chain([m, f], router=router, device="cpu")
+    assert prog.route_field == 0 and prog.mesh_shards == 8
+    prog.run(RecordBatch(dict(cols), ts.copy()))
+    assert prog.active, prog.demoted_reason
+    for c in range(nch):
+        _assert_batches_equal(router.channels[c].got, per_op.channels[c].got)
+    counts, bounds = _shard_view(mesh_leg[-1], nch + 1)
+
+    jrouter = _Router(JKeyGroup(JField(0), 128), nch)
+    jm, jf = _ref_chain(jrouter)
+    jprog = jcf.compile_chain([jm, jf], router=jrouter)
+    r_counts, r_bounds = _reference_mesh_program(
+        jprog, tuple(cols.values()), ts, None, "route")
+    assert np.array_equal(counts, r_counts)
+    assert np.array_equal(bounds, r_bounds)
+
+
+def test_mesh_leg_plain_matches_single_device_and_reference(mesh_leg):
+    """5,000 rows: a bucket of 8,192, shards of 1,024 rows, the last
+    three short or empty; validity masks travel with the rows."""
+    rng = np.random.default_rng(11)
+    n = 5000
+    cols = {"f0": rng.integers(0, 100, n).astype(np.int64),
+            "f1": rng.integers(-50, 50, n).astype(np.int64)}
+    ts = rng.integers(0, 10_000, n).astype(np.int64)
+    tsm = rng.random(n) > 0.1
+    batch = lambda: RecordBatch(dict(cols), ts.copy(), tsm.copy())  # noqa: E731
+    per_op = _CapOut()
+    _port_chain(per_op)[0].process_batch(batch())
+    fused = _CapOut()
+    m, f = _port_chain(fused)
+    prog = cf.compile_chain([m, f], device="cpu")
+    prog.run(batch())
+    assert prog.active, prog.demoted_reason
+    _assert_batches_equal(fused.batches, per_op.batches)
+    counts, _ = _shard_view(mesh_leg[-1], 2)
+    assert mesh_leg[-1][1] == 1024
+
+    single = _CapOut()
+    cf.MESH_MIN_ROWS_PER_SHARD = 1 << 20      # the single-device program
+    m2, f2 = _port_chain(single)
+    prog2 = cf.compile_chain([m2, f2], device="cpu")
+    prog2.run(batch())
+    assert mesh_leg[-1][1] == 0
+    _assert_batches_equal(fused.batches, single.batches)
+
+    jm, jf = _ref_chain(_CapOut())
+    jprog = jcf.compile_chain([jm, jf])
+    r_counts, r_bounds = _reference_mesh_program(
+        jprog, tuple(cols.values()), ts, tsm, "plain")
+    assert r_bounds is None and np.array_equal(counts, r_counts)
+
+
+@pytest.mark.parametrize("kind", ["tumbling", "sliding"])
+def test_mesh_leg_window_mode(mesh_leg, kind):
+    ref_out, _, _ = _window_run(kind, fused=False)
+    got_out, inputs, prog = _window_run(kind, fused=True)
+    assert got_out == ref_out and prog.mesh_shards == 8
+    sharded = [c for c in mesh_leg if c[1]]
+    assert len(sharded) == len(inputs)
+    from flink_tpu.streaming.window_operator import WindowOperator as JWindowOp
+    from flink_tpu.streaming.windowing import (
+        SlidingEventTimeWindows as JSliding, TumblingEventTimeWindows as JTumbling)
+    from flink_tpu.core.state import AggregatingStateDescriptor as JDesc
+    from flink_tpu.ops.device_agg import SumAggregate as JSum
+    assigner = (JTumbling.of(100, 30) if kind == "tumbling"
+                else JSliding.of(200, 100, 30))
+    jwop = JWindowOp(assigner, JDesc("w-sum", JSum(np.float64)))
+    jm, jf = _ref_chain(_ChainOut(jwop), map_fn=lambda t: (t[0], t[1] * 3.0))
+    jprog = jcf.FusedChainProgram(
+        operators=[jm, jf, jwop], start=0, kernel_ops=[jm, jf],
+        stages=[jcf._kernel_stage(jm)[:2], jcf._kernel_stage(jf)[:2]],
+        window_op=jwop, router=None, route_field=None, route_channels=None,
+        route_part=None, tail_op=jwop)
+    for (cols, ts), call in zip(inputs, sharded):
+        counts, _ = _shard_view(call, 2)
+        r_counts, _ = _reference_mesh_program(
+            jprog, tuple(cols.values()), ts, None, "window")
+        assert np.array_equal(counts, r_counts)
+
+
+def test_mesh_leg_beyond_the_class_limit_runs_one_block(mesh_leg):
+    """8 shards x 301 classes exceed the kernel's 2048: the route takes
+    the single-device program."""
+    rng = np.random.default_rng(3)
+    n = 4096
+    cols = {"f0": rng.integers(0, 1000, n).astype(np.int64),
+            "f1": rng.integers(-50, 50, n).astype(np.int64)}
+    part = lambda: KeyGroupStreamPartitioner(_FieldKeySelector(0), 512)  # noqa: E731
+    per_op = _Router(part(), 300)
+    _port_chain(per_op)[0].process_batch(RecordBatch(dict(cols)))
+    router = _Router(part(), 300)
+    m, f = _port_chain(router)
+    prog = cf.compile_chain([m, f], router=router, device="cpu")
+    prog.run(RecordBatch(dict(cols)))
+    assert prog.active and mesh_leg[-1][1] == 0
+    for a, b in zip(router.channels, per_op.channels):
+        _assert_batches_equal(a.got, b.got)
+
+
+@pytest.mark.parametrize("mode", ["plain", "route4", "window"])
+def test_chain_route_plain_row_shards_are_per_shard_argsorts(mode):
+    """With row shards the plain version partitions each block on its
+    own: shard s's kept rows of class c at starts[s * nclass + c]."""
+    from torch_port_util import shard_bounds
+    rng = np.random.default_rng(22)
+    n, S, m = 3000, 8, 384
+    key = rng.integers(-2**62, 2**62, n)
+    keep = rng.random(n) > 0.3
+    ts = rng.integers(-5000, 5000, n)
+    nch = 4 if mode == "route4" else 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))   # noqa: E731
+    outs, pane, starts = chain_route_plain(
+        [t(key), t(ts)], t(keep), t(key) if nch else None, num_channels=nch,
+        max_parallelism=128 if nch else 0,
+        ts=t(ts) if mode == "window" else None, pane_offset=37,
+        slide=250 if mode == "window" else 0, shard_rows=m, n_shards=S)
+    nclass = nch + 1 if nch else 2
+    assert len(starts) == S * nclass
+    counts, bounds = shard_bounds(starts, S, nclass)
+    for s in range(S):
+        sl = slice(s * m, min((s + 1) * m, n))
+        k, kp = key[sl], keep[sl]
+        cls = (np.where(kp, assign_operator_indexes_np(
+            splitmix64_np(k), 128, nch), nch) if nch else np.where(kp, 0, 1))
+        order = np.argsort(cls, kind="stable")
+        assert np.array_equal(bounds[s], np.searchsorted(cls[order],
+                                                         np.arange(nclass)))
+        lo = int(starts[s * nclass])
+        cnt = int(counts[s])
+        assert cnt == kp.sum()
+        assert np.array_equal(outs[0].numpy()[lo:lo + cnt], k[order[:cnt]])
+        if mode == "window":
+            kt = ts[sl][order[:cnt]]
+            assert np.array_equal(pane.numpy()[lo:lo + cnt], kt - ((kt - 37) % 250))

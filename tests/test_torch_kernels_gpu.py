@@ -5,9 +5,9 @@ fixture decides, never the import).  On a machine with a card:
     python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
 
 Registers, integer results, fills, Count-Min tables and queries,
-quantile histograms and quantile results must be bit-equal (the
-quantile plain version runs on the card, so both take the card's
-float32 log); HLL estimates agree within rtol 1e-5 (the kernel's
+quantile histograms, quantile results and shard_pack's buckets must be
+bit-equal (the quantile plain version runs on the card, so both take
+the card's float32 log); HLL estimates agree within rtol 1e-5 (the kernel's
 reduction order differs from the plain version's); float32 sums use
 integer-valued data, which float atomics add exactly in any order, or
 are held within the bound of a sum taken in another order.  Popcounts
@@ -378,6 +378,83 @@ def test_chain_route_matches_plain(cuda, mode):
         assert torch.equal(got[1].cpu(), want[1].cpu())
     else:
         assert got[1] is None
+
+
+@pytest.mark.parametrize("mode", ["plain", "route4", "window"])
+def test_chain_route_row_shards_match_plain(cuda, mode):
+    """The mesh leg's composite classes (8 shards of 2^15 rows, the last
+    one short): class starts bit-equal, and every shard's kept rows and
+    pane starts at their places bit for bit."""
+    from torch_port_util import shard_bounds
+    rng = np.random.default_rng(31)
+    S, m = 8, 1 << 15
+    n = S * m - 1001
+    key = rng.integers(-2**62, 2**62, n)
+    keep = rng.random(n) > 1 / 7
+    ts = rng.integers(-10**6, 10**6, n)
+    cols = [key, rng.random(n).astype(np.float32),
+            rng.integers(0, 256, n).astype(np.uint8), ts]
+    nch = 4 if mode == "route4" else 0
+    nclass = nch + 1 if nch else 2
+    kw = dict(num_channels=nch, max_parallelism=128 if nch else 0,
+              pane_offset=37 if mode == "window" else 0,
+              slide=1000 if mode == "window" else 0, shard_rows=m, n_shards=S)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)   # noqa: E731
+    args = lambda: ([t(c) for c in cols], t(keep), t(key) if nch else None)  # noqa: E731
+    want = K.chain_route_plain(*args(), ts=t(ts) if mode == "window" else None, **kw)
+    got = K.chain_route(*args(), ts=t(ts) if mode == "window" else None, **kw)
+    torch.cuda.synchronize()
+    assert np.array_equal(got[2], want[2]) and len(got[2]) == S * nclass
+    counts, _ = shard_bounds(got[2], S, nclass)
+    kept = np.concatenate([np.arange(got[2][s * nclass],
+                                     got[2][s * nclass] + counts[s])
+                           for s in range(S)])
+    idx = torch.from_numpy(kept).to(cuda)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g[idx].cpu(), w[idx].cpu())
+    if mode == "window":
+        assert torch.equal(got[1][idx].cpu(), want[1][idx].cpu())
+
+
+@pytest.mark.parametrize("layout", ["lanes_hashed", "lanes_target", "rows",
+                                    "rows_over_cap"])
+def test_shard_pack_matches_plain(cuda, layout):
+    """Buckets (padding rows zero), counts and the packed mask lane bit
+    for bit: the mesh engines' layout (lanes of 1, 4 and 8 bytes, targets
+    from the key hash with a mask) and the mesh log's (K = 6 lanes of a
+    row, given targets, a cap some buckets overflow)."""
+    rng = np.random.default_rng(32)
+    S, m = 8, 1 << 14
+    n = S * m
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)   # noqa: E731
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    mask = rng.random(n) > 0.2
+    tgt = rng.integers(0, S + 1, n).astype(np.int32)
+    if layout.startswith("lanes"):
+        lanes = [t(lo.view(np.int32)), t(rng.random(n).astype(np.float32)),
+                 t(rng.integers(-2**62, 2**62, n)), t(mask)]
+        kw = (dict(hash_lo=t(lo.view(np.int32)), max_parallelism=128,
+                   mask=t(mask)) if layout == "lanes_hashed"
+              else dict(target=t(tgt)))
+        cap = m
+    else:
+        lanes = t(rng.integers(0, 2**31, (n, 6)).astype(np.int32))
+        if layout == "rows_over_cap":
+            tgt[rng.random(n) < 0.6] = 2
+        kw = dict(target=t(tgt))
+        cap = 4 * m // S
+    want = K.shard_pack_plain(lanes, S, cap, **kw)
+    before = K.LAUNCHES["shard_pack"]
+    got = K.shard_pack(lanes, S, cap, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["shard_pack"] == before + 1
+    assert torch.equal(got[1], want[1])
+    if layout == "rows_over_cap":
+        assert int(want[1].max()) == cap
+    pairs = zip(got[0], want[0]) if isinstance(got[0], list) else [(got[0], want[0])]
+    for g, w in pairs:
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
 
 
 def test_fused_chain_on_the_card_matches_per_operator(cuda):

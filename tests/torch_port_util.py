@@ -1,6 +1,8 @@
-"""Shared tolerance for HLL estimates of the port against the JAX package.
+"""Shared helpers of the port's tests: the tolerance for HLL estimates of
+the port against the JAX package, and the per-shard view of a
+row-sharded ``chain_route`` call.
 
-Both compute the linear-counting estimate m * (log m - log z) in
+HLL: both packages compute the linear-counting estimate m * (log m - log z) in
 float32, z the zero count, 1 <= z <= m.  The port takes correctly
 rounded float32 logs.  XLA's float32 log is at most one ulp from the
 correctly rounded value, for the zero counts and for the constant
@@ -24,3 +26,13 @@ def assert_hll_close(got, want, m: int, rtol: float = 1e-5) -> None:
     np.testing.assert_allclose(np.asarray(got, np.float64),
                                np.asarray(want, np.float64),
                                rtol=rtol, atol=hll_atol(m))
+
+
+def shard_bounds(starts, n_shards: int, nclass: int):
+    """Per-shard kept counts [n_shards] and class bounds [n_shards,
+    nclass] (positions inside the shard's block: the reference's
+    per-shard ``searchsorted``) from a row-sharded ``chain_route``'s
+    class starts."""
+    st = np.asarray(starts, np.int64).reshape(n_shards, nclass)
+    bounds = st - st[:, :1]
+    return bounds[:, -1], bounds
