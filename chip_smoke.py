@@ -14,20 +14,27 @@ exit code at 0):
 3. ``kernels``  holds every kernel against its plain PyTorch version at
                 the shapes the main path gives it, and times kernel,
                 plain version and, where one exists, one PyTorch call
-                computing the same function (CUDA events);
+                computing the same function (CUDA events around a run of
+                back-to-back calls, / the count; one call per event pair
+                where a call needs an untimed setup or reads the host;
+                each ``kernel_variants`` entry names its ``timer``);
                 ``hll_log_finish`` on the compacted cells of 2^23
                 config #2 events, ``table_insert`` with 2^20 records
                 into 1.5M positions (empty, half full, all hits,
                 regional), compared as key -> slot maps;
                 ``chain_route`` on 2^20 rows of config #2 events (route
                 mode to 4 and 128 channels, plain, window mode over
-                negative timestamps), bit-equal to its plain version;
+                negative timestamps, and the mesh leg's 8 row shards with
+                40 composite classes), bit-equal to its plain version;
                 ``shard_pack`` on the mesh path's two layouts (8
                 sources of 2^17 rows: the scatter tier's lanes with
                 hashed targets, the mesh log's 6-lane rows with a cap),
                 bit-equal to its plain version;
-                ``gather_segment_sum`` on a Graph500 scale-22 graph's
-                edges, ``edge_popcount`` on a scale-18 bitset (8.6 GB),
+                ``gather_segment_sum`` on the plan of a Graph500
+                scale-22 graph's edges (the plan's build timed on its
+                own; two launches bit-identical; beside a CSR SpMV and
+                ``index_add_``), ``edge_popcount`` on a scale-18 bitset
+                (8.6 GB),
                 ``gram_accumulate`` on MovieLens-20M-shaped ratings,
                 ``knn_topk`` on MNIST-shaped products;
 4. ``engine``   the scatter-tier window engine at BASELINE config #2
@@ -88,7 +95,10 @@ exit code at 0):
                 parallelism 4, fused and unfused, equal, with the
                 (key, window) set exact;
 14. ``graph``  the graph library on a Graph500 Kronecker graph (scale
-                22: 4.19M vertices, 67.1M edges): PageRank, HITS,
+                22: 4.19M vertices, 67.1M edges): PageRank, HITS (each
+                with its plans' build seconds; PageRank's first superstep
+                launched again, bit-identical, and within the reorder
+                bound of the plain version),
                 connected components, SSSP from the vertex of highest
                 degree, a Pregel max-flood; triangles and clustering at
                 scale 18; checked against scipy and numpy (components,
@@ -170,10 +180,32 @@ def nvidia_smi() -> str:
 # timing and bounds
 # ---------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int = 10, setup=None) -> float:
-    """Median device time of fn over reps (after one warm-up), each
-    run bracketed by CUDA events; setup runs untimed before each."""
+#: how a detail entry's times were taken (its "timer" key)
+RUN = "run: one warm-up call, then reps calls back to back between one pair of CUDA events, / reps"
+SINGLE = "single: each call between its own pair of CUDA events (untimed setup before it), median"
+CHAIN_TIMER = ("kernel and plain: " + SINGLE + " (each call reads the class starts "
+               "on the host); library: " + RUN)
+
+
+def cuda_ms(fn, reps: int = 10, setup=None, single: bool = False) -> float:
+    """Device ms of one call of fn.  Without setup, one warm-up call, then
+    reps calls back to back between one pair of CUDA events, divided by
+    reps, so a call's host work (the wrapper's checks, ctypes, stream
+    lookup) overlaps the card's work instead of sitting in the window.
+    With setup (run untimed before each call), or single for a call that
+    reads the host (chain_route's class starts), each call between its
+    own pair of events: the median of reps."""
     import torch
+    if setup is None and not single:
+        fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / reps
     times = []
     for i in range(reps + 1):
         if setup is not None:
@@ -340,7 +372,8 @@ def kernel_phase(dev, hbm: float):
     entries["hll_update"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                  bound_ms=b, bound_by=by, max_abs_err=update_err)
     detail.append({"kernel": "hll_update", "rows": N, "slots": C,
-                   "distinct_words": int(words), "library": "scatter_reduce_ amax"})
+                   "distinct_words": int(words), "library": "scatter_reduce_ amax",
+                   "timer": SINGLE})
     # the keyed backend's flush: 16384 rows of raw hash lanes
     nf = 16384
     fwords = np.unique((slots_np[:nf].astype(np.int64) * m + reg_np[:nf]) // 4).size
@@ -442,6 +475,8 @@ def kernel_phase(dev, hbm: float):
     shard_pack_entry(dev, hbm, rng, entries, detail)
     graph_kernel_entries(dev, hbm, entries, detail)
     ml_kernel_entries(dev, hbm, entries, detail)
+    for d in detail:
+        d.setdefault("timer", RUN)
     emit({"kernel_variants": detail})
     return entries
 
@@ -952,7 +987,8 @@ def table_insert_entry(dev, hbm, rng, entries, detail):
         b, by = bound(12 * n + 9 * probes + 9 * new_keys, probes, hbm)
         rows.append(dict(state=state, ms=ms, plain_ms=plain_ms, bound_ms=b,
                          bound_by=by, probes=probes, faults=faults, new_keys=new_keys,
-                         load_after=float(card.occupied.sum()) / C))
+                         load_after=float(card.occupied.sum()) / C,
+                         timer=RUN if state == "all_hits" else SINGLE))
     # one regional call: 4 regions of 375,000 positions
     R = 4
     region = rng.integers(0, R, N).astype(np.int32)
@@ -968,7 +1004,8 @@ def table_insert_entry(dev, hbm, rng, entries, detail):
     saved = [torch.zeros_like(a) for a in card]
     rows.append(dict(state="regional", probes=probes, faults=faults, ms=cuda_ms(
         lambda: K.table_insert(*card, h_d, l_d, n, P, region=reg_d,
-                               region_size=C // R), setup=restore(card, saved))))
+                               region_size=C // R), setup=restore(card, saved)),
+        timer=SINGLE))
     head = next(r for r in rows if r["state"] == "half_full")
     # the error figure: key -> slot faults found, summed over the four
     # states (a slot is an index, so there is no numeric difference)
@@ -977,7 +1014,7 @@ def table_insert_entry(dev, hbm, rng, entries, detail):
                                    bound_by=head["bound_by"],
                                    max_abs_err=float(sum(r["faults"] for r in rows)))
     detail.append({"kernel": "table_insert", "records": N, "positions": C,
-                   "max_probes": P, "states": rows})
+                   "max_probes": P, "states": rows, "timer": "per state"})
 
 
 # ---------------------------------------------------------------------
@@ -1955,8 +1992,9 @@ def chain_route_entry(dev, hbm, rng, entries, detail, n=1 << 20):
         if mode == "window":
             check(torch.equal(got[1], want[1]), "chain_route window: pane starts bit-equal")
             check(bool((got[1] < 0).any()), "chain_route window: negative panes in the sample")
-        ms = cuda_ms(lambda: K.chain_route(cols, keep, **kw))
-        plain = cuda_ms(lambda: K.chain_route_plain(cols, keep, **kw), 5)
+        ms = cuda_ms(lambda: K.chain_route(cols, keep, **kw), single=True)
+        plain = cuda_ms(lambda: K.chain_route_plain(cols, keep, **kw), 5,
+                        single=True)
         # the nearest PyTorch call sequence: a stable sort of the row
         # classes (computed beforehand) and one index per column
         if "key" in kw:
@@ -1976,9 +2014,45 @@ def chain_route_entry(dev, hbm, rng, entries, detail, n=1 << 20):
                    bound_by=by, max_abs_err=err)
         detail.append({"kernel": "chain_route", "mode": mode, "rows": n,
                        "kept": kept, "library": "torch.sort(stable) + indexing",
-                       **row})
+                       "timer": CHAIN_TIMER, **row})
         if mode == "route4":    # the job's route: four window subtasks
             entries["chain_route"] = row
+    # the mesh leg's launch (mesh path (e)): the 4-channel route on 8 row
+    # shards of 2^17 rows, 40 composite classes; the kept rows of each
+    # shard bit-equal to plain (the dropped rows' places are undefined)
+    S, nclass = 8, 5
+    kw = dict(key=key, num_channels=4, max_parallelism=128, shard_rows=n // S,
+              n_shards=S)
+    cols = [key, val, t]
+    got = K.chain_route(cols, keep, **kw)
+    want = K.chain_route_plain(cols, keep, **kw)
+    torch.cuda.synchronize()
+    st = got[2]
+    check(np.array_equal(st, want[2]) and len(st) == S * nclass
+          and int(sum(st[s * nclass + 4] - st[s * nclass] for s in range(S))) == kept,
+          "chain_route mesh40: class starts equal to plain")
+    idx = torch.from_numpy(np.concatenate([np.arange(st[s * nclass], st[s * nclass + 4])
+                                           for s in range(S)])).to(dev)
+    check(all(torch.equal(g[idx], w[idx]) for g, w in zip(got[0], want[0])),
+          "chain_route mesh40: every shard's kept rows bit-equal to plain")
+    ms = cuda_ms(lambda: K.chain_route(cols, keep, **kw), single=True)
+    plain = cuda_ms(lambda: K.chain_route_plain(cols, keep, **kw), 5, single=True)
+    cls = torch.where(keep, operator_indexes(splitmix64(key), 128, 4), 4) \
+        + torch.arange(n, device=dev) // (n // S) * nclass
+
+    def library():
+        order = torch.sort(cls, stable=True).indices
+        return [c[order] for c in cols]
+
+    lib = cuda_ms(library)
+    b, by = bound(n * (8 * len(cols) + 1) + kept * 8 * len(cols), 0, hbm)
+    detail.append({"kernel": "chain_route", "mode": "mesh40", "rows": n,
+                   "shards": S, "classes": S * nclass, "kept": kept,
+                   "library": "torch.sort(stable) + indexing", "timer": CHAIN_TIMER,
+                   "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b,
+                   "bound_by": by,
+                   "max_abs_err": max(float((g[idx] - w[idx]).abs().max())
+                                      for g, w in zip(got[0], want[0]))})
 
 
 def _chain_ops(out):
@@ -2856,35 +2930,61 @@ def ref_max_flood(src, dst, vals):
 
 def graph_kernel_entries(dev, hbm, entries, detail, scale=22, tri_scale=18):
     """gather_segment_sum on the scale-22 graph's edges (PageRank's
-    contributions) and edge_popcount on the scale-18 graph's bitset and
-    canonical pairs, each against its plain version."""
+    contributions, through the plan by target) and edge_popcount on the
+    scale-18 graph's bitset and canonical pairs, each against its plain
+    version; gather_segment_sum also against a second launch (bit for
+    bit) and beside two PyTorch yardsticks: a CSR sparse tensor of the
+    plan times x (cuSPARSE), and index_add_ of x[src] gathered
+    beforehand."""
     import torch
     from flink_tpu_torch import kernels as K
     from flink_tpu_torch.graph import library as tlib
     src_np, dst_np, _ = kronecker_edges(dev, scale, seed=61)
     n, e = 1 << scale, len(src_np)
     src, dst = (torch.from_numpy(a).to(dev) for a in (src_np, dst_np))
+    plan_ms = cuda_ms(lambda: K.segment_plan(src, dst, n), 3, single=True)
+    plan = K.segment_plan(src, dst, n)
     deg = torch.clamp(torch.bincount(src, minlength=n), min=1).to(torch.float32)
     x = torch.full((n,), 1.0 / n, device=dev) / deg
-    got = K.gather_segment_sum(x, src, dst, n)
-    want = K.gather_segment_sum_plain(x, src, dst, n)
-    mag = K.gather_segment_sum_plain(x.abs(), src, dst, n).double()
+    got = K.gather_segment_sum(x, plan)
+    again = K.gather_segment_sum(x, plan)
+    want = K.gather_segment_sum_plain(x, plan)
+    mag = K.gather_segment_sum_plain(x.abs(), plan).double()
     deg_in = torch.bincount(dst, minlength=n).double()
     err = (got.double() - want.double()).abs()
     check(bool((err <= 2 * deg_in * EPS32 * mag).all()),
           "gather_segment_sum within 2 deg_in eps sum|x| of plain")
-    ms = cuda_ms(lambda: K.gather_segment_sum(x, src, dst, n))
-    plain = cuda_ms(lambda: K.gather_segment_sum_plain(x, src, dst, n), 5)
+    check(torch.equal(got, again), "gather_segment_sum: two launches bit-identical")
+    ms = cuda_ms(lambda: K.gather_segment_sum(x, plan))
+    plain = cuda_ms(lambda: K.gather_segment_sum_plain(x, plan), 5)
+    csr = torch.sparse_csr_tensor(plan.indptr, plan.cols,
+                                  torch.ones(e, device=dev), (n, n))
+    try:
+        csr @ x
+        spmv = lambda: csr @ x                              # noqa: E731
+        spmv_form = "sparse_csr_tensor(indptr, cols, ones) @ x"
+    except RuntimeError:
+        spmv = lambda: (csr @ x[:, None])[:, 0]             # noqa: E731
+        spmv_form = "sparse_csr_tensor(indptr, cols, ones) @ x[:, None]"
+    check(bool(((spmv() - want).abs().double() <= 2 * deg_in * EPS32 * mag).all()),
+          "the CSR SpMV yardstick within the reorder bound of plain")
+    lib = cuda_ms(spmv)
     xs = x[src]
     out = torch.zeros(n, device=dev)
-    lib = cuda_ms(lambda: out.index_add_(0, dst, xs))
-    b, by = bound(16 * e, e, hbm)
+    index_add_ms = cuda_ms(lambda: out.index_add_(0, dst, xs))
+    # each input byte once: cols, indptr, x; out written once; an add an edge
+    b, by = bound(4 * e + 4 * (n + 1) + 4 * n + 4 * n, e, hbm)
     entries["gather_segment_sum"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                          bound_ms=b, bound_by=by,
                                          max_abs_err=float(err.max()))
     detail.append({"kernel": "gather_segment_sum", "vertices": n, "edges": e,
-                   "library": "index_add_ of x[src]"})
-    del src, dst, deg, x, got, want, mag, deg_in, err, xs, out
+                   "tiles": len(plan.coords) - 1, "ms": ms, "plan_ms": plan_ms,
+                   "library": spmv_form, "library_ms": lib,
+                   "index_add_ms": index_add_ms,
+                   "index_add": "index_add_ of x[src] gathered beforehand",
+                   "old_bound_ms": bound(16 * e, e, hbm)[0],
+                   "timer": "plan: " + SINGLE + "; the rest: " + RUN})
+    del src, dst, deg, x, got, again, want, mag, deg_in, err, xs, out, csr, plan
     torch.cuda.empty_cache()
 
     src_np, dst_np, _ = kronecker_edges(dev, tri_scale, seed=62)
@@ -2946,8 +3046,15 @@ def graph_phase(dev, scale=22, tri_scale=18, n_sample=4096):
            "cut": f"triangles and clustering at scale {tri_scale} "
                   f"(bitset {(1 << tri_scale) ** 2 // 8} bytes), not {scale}"}
     marks = {}
-    restore = [_kernel_clock(tlib, ("gather_segment_sum", "edge_popcount"), marks),
-               _kernel_clock(titer, ("scatter_combine",), marks)]
+    first_step = []      # PageRank's first superstep: (x, plan, result)
+
+    def note_step(args, result):
+        if not first_step:
+            first_step.append((args[0].clone(), args[1], result.clone()))
+    restore = [_kernel_clock(tlib, ("gather_segment_sum", "edge_popcount",
+                                    "segment_plan"), marks),
+               _kernel_clock(titer, ("scatter_combine",), marks),
+               _recording(tlib, "gather_segment_sum", note_step)]
     ctx = multiprocessing.get_context("spawn")
     try:
         with ProcessPoolExecutor(5, mp_context=ctx) as pool:
@@ -2967,11 +3074,17 @@ def graph_phase(dev, scale=22, tri_scale=18, n_sample=4096):
                 """Run fn; count the calls of ``kernel`` it made (a
                 superstep each for the iterations)."""
                 before = len(marks.get(kernel, ()))
+                plans = len(marks.get("segment_plan", ()))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = fn()
                 runs[name] = {"s": time.perf_counter() - t0,
                               "calls": len(marks.get(kernel, ())) - before}
+                built = marks.get("segment_plan", [])[plans:]
+                if built:    # the plans' build, inside "s"
+                    torch.cuda.synchronize()
+                    runs[name]["plans"] = len(built)
+                    runs[name]["plan_s"] = sum(a.elapsed_time(b) for a, b in built) / 1e3
                 return res
 
             pr = run("pagerank", lambda: g.run(tg.PageRank(0.85, device=dev)),
@@ -2997,12 +3110,27 @@ def graph_phase(dev, scale=22, tri_scale=18, n_sample=4096):
             timed = {k: f.result() for k, f in refs.items()}
             out["reference_wait_s"] = time.perf_counter() - t_wait
     finally:
-        for r in restore:
+        for r in reversed(restore):
             r()
     out["reference_s"] = {k: t for k, (t, _) in timed.items()}
     ref = {k: r for k, (_, r) in timed.items()}
     out["runs"] = runs
-    out["kernel_device_s"] = _device_seconds(marks)
+    out["kernel_device_s"] = _device_seconds(
+        {k: v for k, v in marks.items() if k != "segment_plan"})
+    x1, plan1, step1 = first_step[0]
+
+    def relaunch():
+        from flink_tpu_torch import kernels as K
+        return K.gather_segment_sum(x1, plan1), K.gather_segment_sum_plain(x1, plan1), \
+            K.gather_segment_sum_plain(x1.abs(), plan1)
+    again, plain1, mag1 = _launch_free(relaunch)
+    deg_in = (plan1.indptr[1:] - plan1.indptr[:-1]).double()
+    check(torch.equal(again, step1),
+          "graph: PageRank's first superstep bit-identical on a second launch")
+    check(bool(((step1.double() - plain1.double()).abs()
+                <= 2 * deg_in * EPS32 * mag1.double()).all()),
+          "graph: PageRank's first superstep within the reorder bound of plain")
+    del x1, plan1, step1, again, plain1, mag1, deg_in
     vec = lambda d: np.fromiter(d.values(), np.float64, count=n)  # noqa: E731
     r64, step_l1 = ref["pagerank"]
     l1 = float(np.abs(vec(pr) - r64).sum())

@@ -21,14 +21,16 @@ import torch
 
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.graph.iterations import GatherSumApplyIteration, to_device
-from flink_tpu_torch.kernels import edge_popcount, gather_segment_sum
+from flink_tpu_torch.kernels import (edge_popcount, gather_segment_sum,
+                                     segment_plan)
 
 
 class PageRank:
     """(ref: library/PageRank.java, beta damping, uniform teleport)
     One superstep = ``rank / out_degree`` gathered along the edges and
-    summed per target (``gather_segment_sum``); dangling mass spreads
-    uniformly; stops when the L1 change is below ``tolerance``."""
+    summed per target (``gather_segment_sum`` on a plan of the edges by
+    target, built once per run); dangling mass spreads uniformly; stops
+    when the L1 change is below ``tolerance``."""
 
     def __init__(self, damping: float = 0.85, max_iterations: int = 100,
                  tolerance: float = 1e-9, device: DeviceLike = None):
@@ -47,10 +49,11 @@ class PageRank:
         dst = to_device(graph.edge_dst, dev)
         deg = to_device(np.maximum(out_deg, 1.0), dev)
         sinks = to_device((out_deg == 0).astype(np.float32), dev)
+        plan = segment_plan(src, dst, n)
         d = self.damping
         ranks = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
         for _ in range(self.max_iterations):
-            summed = gather_segment_sum(ranks / deg, src, dst, n)
+            summed = gather_segment_sum(ranks / deg, plan)
             dangling = torch.sum(ranks * sinks)
             new = (1.0 - d) / n + d * (summed + dangling / n)
             delta = torch.sum(torch.abs(new - ranks))
@@ -239,7 +242,8 @@ class HITS:
     """(ref: library/HITSAlgorithm.java) Hubs and authorities by power
     iteration with L2 normalisation: two ``gather_segment_sum`` launches
     a superstep (authorities from hubs along the edges, hubs from the new
-    authorities against them)."""
+    authorities against them), on two plans built once per run (edges
+    by target and by source)."""
 
     def __init__(self, max_iterations: int = 50, tolerance: float = 1e-7,
                  device: DeviceLike = None):
@@ -254,13 +258,14 @@ class HITS:
         dev = resolve_device(self.device)
         src = to_device(graph.edge_src, dev)
         dst = to_device(graph.edge_dst, dev)
+        by_dst, by_src = segment_plan(src, dst, n), segment_plan(dst, src, n)
         hubs = torch.ones(n, dtype=torch.float32, device=dev)
         auths = torch.ones(n, dtype=torch.float32, device=dev)
         for _ in range(self.max_iterations):
-            new_auths = gather_segment_sum(hubs, src, dst, n)
+            new_auths = gather_segment_sum(hubs, by_dst)
             new_auths = new_auths / torch.clamp(
                 torch.linalg.vector_norm(new_auths), min=1e-12)
-            new_hubs = gather_segment_sum(new_auths, dst, src, n)
+            new_hubs = gather_segment_sum(new_auths, by_src)
             new_hubs = new_hubs / torch.clamp(
                 torch.linalg.vector_norm(new_hubs), min=1e-12)
             delta = (torch.sum(torch.abs(new_hubs - hubs))

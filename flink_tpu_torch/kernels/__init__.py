@@ -25,7 +25,8 @@ PyTorch versions.
                    with row shards, each shard's block on its own
 ``shard_pack``     the keyBy exchange's pack: each source shard's rows
                    into per-target buckets, stable, capped, with counts
-``gather_segment_sum``  ``out[dst] += x[src]`` over a graph's edges
+``gather_segment_sum``  ``out[i] = sum of x[src]`` over the edges into
+                   i, on a ``segment_plan`` of the edges built once
                    (PageRank, HITS)
 ``edge_popcount``  common neighbours per vertex pair from a packed
                    adjacency bitset (triangles, clustering)
@@ -49,7 +50,7 @@ from flink_tpu_torch.kernels.countmin_update import (countmin_update,
 from flink_tpu_torch.kernels.edge_popcount import (edge_popcount,
                                                    edge_popcount_plain)
 from flink_tpu_torch.kernels.gather_segment_sum import (
-    gather_segment_sum, gather_segment_sum_plain)
+    SegmentPlan, gather_segment_sum, gather_segment_sum_plain, segment_plan)
 from flink_tpu_torch.kernels.gram_accumulate import (gram_accumulate,
                                                      gram_accumulate_plain)
 from flink_tpu_torch.kernels.hll_estimate import (hll_estimate,
@@ -78,6 +79,7 @@ __all__ = [
     "clear_rows", "clear_rows_plain", "countmin_query", "countmin_query_plain",
     "countmin_update", "countmin_update_plain", "edge_popcount",
     "edge_popcount_plain", "gather_segment_sum", "gather_segment_sum_plain",
+    "SegmentPlan", "segment_plan",
     "gram_accumulate", "gram_accumulate_plain", "hll_estimate",
     "hll_estimate_plain", "hll_log_finish", "hll_log_finish_plain",
     "hll_update", "hll_update_plain", "knn_topk", "knn_topk_plain",

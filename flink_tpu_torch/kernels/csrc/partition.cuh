@@ -1,4 +1,5 @@
-// The stable class partition shared by chain_route and shard_pack (sm_90a).
+// The stable class partition of chain_route (sm_90a); shard_pack takes
+// only fmix32 from here and has a tiled partition of its own.
 //
 // n rows, each of one class in [0, nclass): a partition that keeps row
 // order inside every class (np.argsort(class, kind="stable")), in three
@@ -21,9 +22,9 @@
 //
 // A class is whatever the caller's functor returns: chain_route's fused
 // chain classes (channel, keep flag, and with row shards shard * nclass +
-// class), shard_pack's (source * (S + 1) + target).  Both keep their own
-// kernel names and call these device functions; the dynamic shared memory
-// of the count and scatter kernels holds PT_WARPS * nclass ints.
+// class).  The caller keeps its own kernel names and calls these device
+// functions; the dynamic shared memory of the count and scatter kernels
+// holds PT_WARPS * nclass ints.
 #pragma once
 
 #include "common.cuh"

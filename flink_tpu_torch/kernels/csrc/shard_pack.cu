@@ -13,204 +13,508 @@
 //   hashed : fmix32(hash_lo[i]) % maxpar * S / maxpar, the key group's
 //            shard (KeyGroupRangeAssignment's range arithmetic);
 //   and mask[i] == 0 sends row i to S.
-// Rows are partitioned stably by the class s * (S + 1) + t (s = i / m):
-// source blocks are contiguous row ranges, so this one partition is every
-// source's stable partition by target, and the row's rank in its class is
-// its rank among its source's rows for that target (the stable argsort,
-// searchsorted rank of the reference).  A row of target t < S and rank
-// r < cap lands in bucket (s, t) at row r of the output
-//   out[(s * S + t) * cap + r]   (lane by lane: each lane its own array,
-//                                 or K 32-bit lanes of one row-major array)
-// every other output row is written with zeros, and counts[s * S + t] =
-// min(rows of (s, t), cap).  The count, scan and warp-ranked scatter are
-// partition.cuh's, shared with chain_route.
+// Within each source, rows are partitioned stably by target (the
+// reference's stable argsort and searchsorted rank).  A row of source s,
+// target t < S and rank r < cap lands in bucket (s, t) at row r of the
+// output, out[(s * S + t) * cap + r] (each lane its own array; a row of
+// the [n, K] layout is one lane of 4 K bytes); every other output row is
+// zero, and counts[s * S + t] = min(rows of (s, t), cap).
 //
-// Launches: pack_count, pack_scan, pack_counts (the bucket counts from the
-// class starts), pack_fill (zeros into every output row past its bucket's
-// count), pack_scatter (the rows).  Bound on this card: bytes: read n rows
-// of lanes and targets once, write nsrc * S * cap rows of lanes and the
-// counts once.  Simple, not fast: as chain_route, a warp walks its tile in
-// 16 dependent steps, the target is computed twice, the scan runs in one
-// block, and a row's lanes are stored one lane at a time.
+// Bound on this card: bytes.  Read the lanes and the targets once, write
+// nsrc * S * cap rows of every lane once.  With cap = m most of the output
+// is zeros (7/8 of it at S = 8), so the zero fill is most of the bytes.
+//
+// Design.  A tile is SP_TILE rows of ONE source (tiles never cross a
+// source block, also when m is not a multiple of SP_TILE), so a tile's
+// classes are just the S + 1 targets.  Three launches:
+//   1. sp_classify: a block per tile computes each row's target once,
+//      stores it as uint16 and counts the tile's rows per target
+//      (__match_any_sync groups, one shared-memory add per group);
+//      counts are laid out [source, target][tile];
+//   2. sp_scan: a warp per (source, target) column scans its tiles'
+//      counts (shuffles, 32 tiles a step): each tile's rank base in its
+//      buckets, and the bucket counts clipped at cap;
+//   3. sp_scatter_fill, two kinds of block in one grid:
+//      - a tile block ranks its rows stably (warp w takes rows
+//        [w * 512, w * 512 + 512) of the tile in 16 steps of 32; ranks
+//        from __match_any_sync within a step, per-warp counters across
+//        steps, a prefix over warps and targets across the block), keeps
+//        the tile's permutation in shared memory in bucket order, and
+//        then, lane by lane, consecutive threads write consecutive rows
+//        of a bucket run (runs are ~SP_TILE / (S + 1) rows long).  A lane
+//        of at most 8 bytes is first staged into shared memory by
+//        coalesced loads; a wider row (the [n, K] layout) is moved in
+//        16, 8 or 4-byte words, consecutive threads on consecutive words;
+//      - a fill block zeroes one chunk of SP_FILL_BYTES of one bucket of
+//        one lane, only past the bucket's count, in 16-byte stores.
+//   Every output byte is written once.
 #include "partition.cuh"
 
-#define PK_MAX_LANES 16
+#define SP_THREADS 256
+#define SP_WARPS (SP_THREADS / 32)
+#define SP_ROWS 16                          // rows a thread ranks
+#define SP_TILE (SP_THREADS * SP_ROWS)      // rows of a tile (4096)
+#define SP_WARP_ROWS (SP_TILE / SP_WARPS)   // contiguous rows of a warp
+#define SP_FILL_BYTES (SP_THREADS * 16 * 8) // zero bytes a fill block owns
+#define SP_MAX_LANES 16
 
-struct LaneTable {
-  const unsigned char* src[PK_MAX_LANES];
-  unsigned char* dst[PK_MAX_LANES];
-  int width[PK_MAX_LANES];
-  long long src_stride[PK_MAX_LANES];  // elements between rows
-  long long dst_stride[PK_MAX_LANES];
-  int n;
-};
-
-struct PackClass {
+struct SpTargets {
   const int* tgt;
   const unsigned int* hash_lo;
   const unsigned char* mask;
   int nshards;
   unsigned int maxpar;
-  long long m;
 
   __device__ __forceinline__ int operator()(long long i) const {
     const int S = nshards;
-    int t;
-    if (mask != nullptr && !mask[i]) {
-      t = S;
-    } else if (tgt != nullptr) {
-      t = tgt[i];
-      if (t < 0 || t > S) t = S;
-    } else {
-      const unsigned int kg = fmix32(hash_lo[i]) % maxpar;
-      t = static_cast<int>(static_cast<long long>(kg) * S / maxpar);
+    if (mask != nullptr && !mask[i]) return S;
+    if (tgt != nullptr) {
+      const int t = tgt[i];
+      return (t < 0 || t > S) ? S : t;
     }
-    return static_cast<int>(i / m) * (S + 1) + t;
+    const unsigned int kg = fmix32(hash_lo[i]) % maxpar;
+    return static_cast<int>(static_cast<long long>(kg) * S / maxpar);
   }
 };
 
-struct PackEmit {
-  LaneTable lanes;
-  const long long* starts;
-  int nshards;
+struct SpLanes {
+  const unsigned char* src[SP_MAX_LANES];
+  unsigned char* dst[SP_MAX_LANES];
+  int width[SP_MAX_LANES];       // bytes of a row of the lane
+  int word[SP_MAX_LANES];        // bytes moved per access (16, 8, 4, 2, 1)
+  long long fill_start[SP_MAX_LANES + 1];  // first fill block of each lane
+  long long fill_chunks[SP_MAX_LANES];     // fill blocks per bucket
+  int n;
+  int stage_bytes;               // shared bytes per row for staged lanes
+};
+
+struct SpGeometry {
+  long long m;        // rows per source
   long long cap;
-
-  __device__ __forceinline__ void operator()(long long i, int cls,
-                                             long long d) const {
-    const int S = nshards;
-    const int s = cls / (S + 1);
-    const int t = cls - s * (S + 1);
-    if (t >= S) return;  // padding: not sent
-    const long long rank = d - starts[cls];
-    if (rank >= cap) return;  // beyond the bucket's cap
-    const long long q = (static_cast<long long>(s) * S + t) * cap + rank;
-    for (int k = 0; k < lanes.n; ++k)
-      move_bytes(lanes.src[k], lanes.dst[k], lanes.width[k],
-                 i * lanes.src_stride[k], q * lanes.dst_stride[k]);
-  }
+  int nshards;
+  int tps;            // tiles per source
+  long long tiles;
 };
 
-__device__ __forceinline__ void zero_bytes(unsigned char* dst, int width,
-                                           long long d) {
-  switch (width) {
-    case 1: dst[d] = 0; break;
-    case 2: reinterpret_cast<uint16_t*>(dst)[d] = 0; break;
-    case 4: reinterpret_cast<uint32_t*>(dst)[d] = 0u; break;
-    default: reinterpret_cast<unsigned long long*>(dst)[d] = 0ULL; break;
+// The rows [row0, row0 + nrows) of tile `tile`.
+__device__ __forceinline__ void sp_tile_rows(const SpGeometry& g, long long tile,
+                                             int* s, int* j, long long* row0,
+                                             int* nrows) {
+  *s = static_cast<int>(tile / g.tps);
+  *j = static_cast<int>(tile - static_cast<long long>(*s) * g.tps);
+  const long long first = static_cast<long long>(*j) * SP_TILE;
+  *row0 = static_cast<long long>(*s) * g.m + first;
+  const long long left = g.m - first;
+  *nrows = static_cast<int>(left < SP_TILE ? left : SP_TILE);
+}
+
+// Exclusive prefix of v over the block's threads, in thread order.
+// scratch: SP_WARPS ints of shared memory.
+__device__ __forceinline__ int sp_block_exclusive(int v, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < SP_WARPS ? scratch[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xFFFFFFFFu, wi, off);
+      if (lane >= off) wi += u;
+    }
+    if (lane < SP_WARPS) scratch[lane] = wi - w;
+  }
+  __syncthreads();
+  return scratch[warp] + incl - v;
+}
+
+// 1. Targets (stored as uint16) and the tile's count per target.
+__global__ void sp_classify(SpTargets target_of, SpGeometry g,
+                            unsigned short* __restrict__ tcls,
+                            int* __restrict__ counts) {
+  extern __shared__ int s_hist[];  // SP_WARPS * (S + 1)
+  const int S = g.nshards;
+  const int C = S + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int s, j, nrows;
+  long long row0;
+  sp_tile_rows(g, blockIdx.x, &s, &j, &row0, &nrows);
+  for (int c = threadIdx.x; c < SP_WARPS * C; c += SP_THREADS) s_hist[c] = 0;
+  __syncthreads();
+  int* mine = s_hist + warp * C;
+  const unsigned int lower = (1u << lane) - 1u;
+  for (int k = 0; k < SP_ROWS; ++k) {
+    const int r = k * SP_THREADS + threadIdx.x;
+    const bool valid = r < nrows;
+    const int t = valid ? target_of(row0 + r) : -1;
+    if (valid) tcls[row0 + r] = static_cast<unsigned short>(t);
+    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, t);
+    if (valid && (peers & lower) == 0) mine[t] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < S; c += SP_THREADS) {
+    int sum = 0;
+    for (int w = 0; w < SP_WARPS; ++w) sum += s_hist[w * C + c];
+    counts[(static_cast<long long>(s) * S + c) * g.tps + j] = sum;
   }
 }
 
-__global__ void pack_count(PackClass class_of, long long n, int nclass,
-                           long long tiles, int* __restrict__ counts) {
-  extern __shared__ int s_count[];
-  pt_count(class_of, n, nclass, tiles, counts, s_count);
+// 2. Per (source, target) column of tps tile counts: the exclusive prefix
+// (rank base of each tile's rows in the bucket) and the bucket's count.
+__global__ void sp_scan(const int* __restrict__ counts, long long columns,
+                        int tps, long long cap, int* __restrict__ offs,
+                        int* __restrict__ out_counts) {
+  const int lane = threadIdx.x & 31;
+  const long long col =
+      static_cast<long long>(blockIdx.x) * SP_WARPS + (threadIdx.x >> 5);
+  if (col >= columns) return;  // uniform across the warp
+  const int* in = counts + col * tps;
+  int* out = offs + col * tps;
+  long long carry = 0;
+  for (int j0 = 0; j0 < tps; j0 += 32) {
+    const int j = j0 + lane;
+    const int v = j < tps ? in[j] : 0;
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (j < tps) out[j] = static_cast<int>(carry + incl - v);
+    carry += __shfl_sync(0xFFFFFFFFu, incl, 31);
+  }
+  if (lane == 0) out_counts[col] = static_cast<int>(carry < cap ? carry : cap);
 }
 
-__global__ void pack_scan(const int* __restrict__ counts, long long total,
-                          long long tiles, int* __restrict__ offsets,
-                          long long* __restrict__ starts) {
-  __shared__ long long warp_sums[PT_SCAN_THREADS / 32];
-  pt_scan(counts, total, tiles, offsets, starts, warp_sums);
+// A lane of rows of at most 8 bytes: stage the tile's rows in shared
+// memory (coalesced), then write each bucket run with consecutive threads
+// on consecutive rows.
+template <typename T>
+__device__ __forceinline__ void sp_move_staged(
+    const unsigned char* src_b, unsigned char* dst_b, unsigned char* stage_b,
+    long long row0, int nrows, const unsigned int* sorted, const int* lim,
+    const long long* dbase) {
+  const T* src = reinterpret_cast<const T*>(src_b) + row0;
+  T* dst = reinterpret_cast<T*>(dst_b);
+  T* stage = reinterpret_cast<T*>(stage_b);
+  T v[SP_ROWS];
+#pragma unroll
+  for (int k = 0; k < SP_ROWS; ++k) {
+    const int r = k * SP_THREADS + threadIdx.x;
+    if (r < nrows) v[k] = src[r];
+  }
+#pragma unroll
+  for (int k = 0; k < SP_ROWS; ++k) {
+    const int r = k * SP_THREADS + threadIdx.x;
+    if (r < nrows) stage[r] = v[k];
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < nrows; p += SP_THREADS) {
+    const unsigned int e = sorted[p];
+    const int c = static_cast<int>(e >> 16);
+    if (p < lim[c]) dst[dbase[c] + p] = stage[e & 0xFFFFu];
+  }
+  __syncthreads();  // the stage is reused by the next lane
 }
 
-// counts[s * S + t] = min(starts[c + 1] - starts[c], cap), c the class of
-// (s, t); t < S, so c + 1 is at most source s's padding class.
-__global__ void pack_counts(const long long* __restrict__ starts, int nsrc,
-                            int S, long long cap, int* __restrict__ counts) {
-  FT_GRID_STRIDE(b, static_cast<long long>(nsrc) * S) {
-    const long long s = b / S;
-    const long long c = s * (S + 1) + (b - s * S);
-    const long long cnt = starts[c + 1] - starts[c];
-    counts[b] = static_cast<int>(cnt < cap ? cnt : cap);
+// A wide row (words of U per row): consecutive threads on consecutive
+// words of a bucket run; each row is read from its tile window (L1/L2).
+template <typename U>
+__device__ __forceinline__ void sp_move_words(
+    const unsigned char* src_b, unsigned char* dst_b, int words,
+    long long row0, int nrows, const unsigned int* sorted, const int* lim,
+    const long long* dbase) {
+  const U* src = reinterpret_cast<const U*>(src_b) + row0 * words;
+  U* dst = reinterpret_cast<U*>(dst_b);
+  const int total = nrows * words;
+  for (int x = threadIdx.x; x < total; x += SP_THREADS) {
+    const int p = x / words;
+    const int u = x - p * words;
+    const unsigned int e = sorted[p];
+    const int c = static_cast<int>(e >> 16);
+    if (p < lim[c])
+      dst[(dbase[c] + p) * words + u] =
+          src[static_cast<long long>(e & 0xFFFFu) * words + u];
   }
 }
 
-__global__ void pack_fill(LaneTable lanes, const int* __restrict__ counts,
-                          long long total, long long cap) {
-  FT_GRID_STRIDE(q, total) {
-    const long long b = q / cap;
-    if (q - b * cap < counts[b]) continue;  // a packed row lands here
-    for (int k = 0; k < lanes.n; ++k)
-      zero_bytes(lanes.dst[k], lanes.width[k], q * lanes.dst_stride[k]);
+__device__ void sp_scatter_tile(const SpLanes& lanes, const SpGeometry& g,
+                                long long tile,
+                                const unsigned short* __restrict__ tcls,
+                                const int* __restrict__ offs,
+                                unsigned char* smem) {
+  const int S = g.nshards;
+  const int C = S + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int s, j, nrows;
+  long long row0;
+  sp_tile_rows(g, tile, &s, &j, &row0, &nrows);
+  // shared memory: stage | dbase[C] | sorted[SP_TILE] | seen[W][C] |
+  // tstart[C] | lim[C] | scratch[W]
+  unsigned char* stage = smem;
+  long long* dbase =
+      reinterpret_cast<long long*>(smem + static_cast<size_t>(lanes.stage_bytes) * SP_TILE);
+  unsigned int* sorted = reinterpret_cast<unsigned int*>(dbase + C);
+  int* seen = reinterpret_cast<int*>(sorted + SP_TILE);
+  int* tstart = seen + SP_WARPS * C;
+  int* lim = tstart + C;
+  int* scratch = lim + C;
+  for (int c = threadIdx.x; c < SP_WARPS * C; c += SP_THREADS) seen[c] = 0;
+  __syncthreads();
+
+  // rank each row among its warp's rows of its target, in row order
+  int* mine = seen + warp * C;
+  const unsigned int lower = (1u << lane) - 1u;
+  int cls[SP_ROWS], rank[SP_ROWS];
+#pragma unroll
+  for (int k = 0; k < SP_ROWS; ++k) {
+    const int r = warp * SP_WARP_ROWS + k * 32 + lane;
+    cls[k] = r < nrows ? static_cast<int>(tcls[row0 + r]) : -1;
+  }
+#pragma unroll
+  for (int k = 0; k < SP_ROWS; ++k) {
+    const int c = cls[k];
+    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, c);
+    rank[k] = c >= 0 ? mine[c] + __popc(peers & lower) : 0;
+    __syncwarp();
+    if (c >= 0 && (peers & lower) == 0) mine[c] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // per target: each warp's base within the tile's run, the tile's count
+  for (int c = threadIdx.x; c < C; c += SP_THREADS) {
+    int run = 0;
+    for (int w = 0; w < SP_WARPS; ++w) {
+      const int v = seen[w * C + c];
+      seen[w * C + c] = run;
+      run += v;
+    }
+    lim[c] = run;
+  }
+  __syncthreads();
+  // the runs in target order: tstart = exclusive prefix of the counts
+  const int per = (C + SP_THREADS - 1) / SP_THREADS;
+  const int lo = threadIdx.x * per < C ? threadIdx.x * per : C;
+  const int hi = lo + per < C ? lo + per : C;
+  int local = 0;
+  for (int c = lo; c < hi; ++c) local += lim[c];
+  int run = sp_block_exclusive(local, scratch);
+  for (int c = lo; c < hi; ++c) {
+    tstart[c] = run;
+    run += lim[c];
+  }
+  __syncthreads();
+  // where each run goes: sorted position p of target c is bucket row
+  // dbase[c] + p, written while p < lim[c] (the rows below cap)
+  for (int c = threadIdx.x; c < C; c += SP_THREADS) {
+    const int cnt = lim[c];
+    const int st = tstart[c];
+    if (c < S) {
+      const long long bucket = static_cast<long long>(s) * S + c;
+      const long long base = offs[bucket * g.tps + j];
+      long long keep = g.cap - base;
+      keep = keep < 0 ? 0 : (keep > cnt ? cnt : keep);
+      lim[c] = st + static_cast<int>(keep);
+      dbase[c] = bucket * g.cap + base - st;
+    } else {
+      lim[c] = st;  // padding: never written
+      dbase[c] = 0;
+    }
+  }
+  // the tile's permutation, in bucket order
+#pragma unroll
+  for (int k = 0; k < SP_ROWS; ++k) {
+    const int c = cls[k];
+    if (c >= 0) {
+      const int r = warp * SP_WARP_ROWS + k * 32 + lane;
+      sorted[tstart[c] + seen[warp * C + c] + rank[k]] =
+          (static_cast<unsigned int>(c) << 16) | static_cast<unsigned int>(r);
+    }
+  }
+  __syncthreads();
+
+  for (int L = 0; L < lanes.n; ++L) {
+    const unsigned char* src = lanes.src[L];
+    unsigned char* dst = lanes.dst[L];
+    const int w = lanes.width[L];
+    if (w <= 8) {
+      switch (w) {
+        case 1: sp_move_staged<unsigned char>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
+        case 2: sp_move_staged<unsigned short>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
+        case 4: sp_move_staged<unsigned int>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
+        default: sp_move_staged<unsigned long long>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
+      }
+    } else {
+      const int u = lanes.word[L];
+      switch (u) {
+        case 16: sp_move_words<uint4>(src, dst, w / 16, row0, nrows, sorted, lim, dbase); break;
+        case 8: sp_move_words<uint2>(src, dst, w / 8, row0, nrows, sorted, lim, dbase); break;
+        default: sp_move_words<unsigned int>(src, dst, w / 4, row0, nrows, sorted, lim, dbase); break;
+      }
+    }
   }
 }
 
-__global__ void pack_scatter(PackClass class_of, PackEmit emit, long long n,
-                             int nclass, long long tiles,
-                             const int* __restrict__ offsets) {
-  extern __shared__ int s_seen[];
-  pt_scatter(class_of, emit, n, nclass, tiles, offsets, s_seen);
+// Zero the bytes [lo, hi) of dst: single bytes up to 16-byte alignment,
+// 16-byte stores, single bytes after.
+__device__ __forceinline__ void sp_zero_bytes(unsigned char* dst, long long lo,
+                                              long long hi) {
+  const unsigned long long base = reinterpret_cast<unsigned long long>(dst);
+  long long a = static_cast<long long>(((base + lo + 15) & ~15ULL) - base);
+  long long b = static_cast<long long>(((base + hi) & ~15ULL) - base);
+  if (a > hi) a = hi;
+  if (b < a) b = a;
+  for (long long q = lo + threadIdx.x; q < a; q += SP_THREADS) dst[q] = 0;
+  uint4* v = reinterpret_cast<uint4*>(dst + a);
+  const long long nv = (b - a) >> 4;
+  for (long long q = threadIdx.x; q < nv; q += SP_THREADS)
+    v[q] = make_uint4(0u, 0u, 0u, 0u);
+  for (long long q = b + threadIdx.x; q < hi; q += SP_THREADS) dst[q] = 0;
+}
+
+__device__ void sp_fill_chunk(const SpLanes& lanes, const SpGeometry& g,
+                              long long f, const int* __restrict__ out_counts) {
+  int L = 0;
+  while (L + 1 < lanes.n && f >= lanes.fill_start[L + 1]) ++L;
+  const long long local = f - lanes.fill_start[L];
+  const long long chunks = lanes.fill_chunks[L];
+  const long long bucket = local / chunks;
+  const long long chunk = local - bucket * chunks;
+  const long long w = lanes.width[L];
+  const long long b0 = bucket * g.cap * w;
+  const long long b1 = b0 + g.cap * w;
+  long long lo = b0 + chunk * SP_FILL_BYTES;
+  long long hi = lo + SP_FILL_BYTES < b1 ? lo + SP_FILL_BYTES : b1;
+  const long long z = b0 + static_cast<long long>(out_counts[bucket]) * w;
+  if (lo < z) lo = z;
+  if (lo >= hi) return;
+  sp_zero_bytes(lanes.dst[L], lo, hi);
+}
+
+// 3. Tile blocks [0, tiles), then fill blocks.
+__global__ void __launch_bounds__(SP_THREADS)
+sp_scatter_fill(SpLanes lanes, SpGeometry g,
+                const unsigned short* __restrict__ tcls,
+                const int* __restrict__ offs,
+                const int* __restrict__ out_counts) {
+  extern __shared__ __align__(16) unsigned char sp_smem[];
+  const long long b = blockIdx.x;
+  if (b < g.tiles)
+    sp_scatter_tile(lanes, g, b, tcls, offs, sp_smem);
+  else
+    sp_fill_chunk(lanes, g, b - g.tiles, out_counts);
+}
+
+static size_t sp_scatter_smem(int C, int stage_bytes) {
+  return static_cast<size_t>(stage_bytes) * SP_TILE + sizeof(long long) * C +
+         sizeof(unsigned int) * SP_TILE + sizeof(int) * (SP_WARPS * C + 2 * C) +
+         sizeof(int) * SP_WARPS;
 }
 
 // Packs n rows (nsrc blocks of n / nsrc) into nsrc * S buckets of cap rows.
 // tgt or hash_lo gives the targets (tgt wins; max_parallelism with
-// hash_lo); mask may be null.  src_ptrs, dst_ptrs, widths, src_strides and
-// dst_strides are HOST arrays of nlanes entries (copied into the kernels'
-// parameters; strides in elements).  out_counts: nsrc * S ints.  Scratch:
-// counts and offsets hold nsrc * (S + 1) * tiles ints, starts
-// nsrc * (S + 1) long longs (tiles = ceil(n / 512)).
+// hash_lo); mask may be null.  src_ptrs, dst_ptrs and widths are HOST
+// arrays of nlanes entries (long long, long long, int; copied into the
+// kernels' parameters): a lane's rows are `width` bytes, 1, 2, 4 or 8, or
+// a multiple of 4 (a row of 32-bit lanes).  out_counts: nsrc * S ints.
+// Scratch: tcls n uint16; counts and offs nsrc * S * ceil(m / 4096) ints
+// each.
 extern "C" int ft_shard_pack(const void* tgt, const void* hash_lo,
                              long long max_parallelism, const void* mask,
                              long long n, int nsrc, int nshards, long long cap,
                              const void* src_ptrs, const void* dst_ptrs,
-                             const void* widths, const void* src_strides,
-                             const void* dst_strides, int nlanes,
-                             void* out_counts, void* counts, void* offsets,
-                             void* starts, void* stream) {
-  if (n <= 0 || nsrc < 1 || n % nsrc != 0 || nshards < 1 || cap < 1 ||
-      nlanes < 0 || nlanes > PK_MAX_LANES ||
+                             const void* widths, int nlanes, void* out_counts,
+                             void* tcls, void* counts, void* offs,
+                             void* stream) {
+  if (n <= 0 || nsrc < 1 || n % nsrc != 0 || nshards < 1 ||
+      nshards + 1 > 65535 || cap < 1 || nlanes < 1 || nlanes > SP_MAX_LANES ||
+      n / nsrc > 0x7FFFFFFFLL ||
       (tgt == nullptr && (hash_lo == nullptr || max_parallelism < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nclass = nsrc * (nshards + 1);
-  const long long tiles = pt_tiles(n);
-  const unsigned int blocks = pt_blocks(tiles);
-  const size_t shmem = pt_shmem(nclass);
-  PackClass class_of;
-  class_of.tgt = static_cast<const int*>(tgt);
-  class_of.hash_lo = static_cast<const unsigned int*>(hash_lo);
-  class_of.mask = static_cast<const unsigned char*>(mask);
-  class_of.nshards = nshards;
-  class_of.maxpar = static_cast<unsigned int>(max_parallelism > 0 ? max_parallelism : 1);
-  class_of.m = n / nsrc;
-  PackEmit emit;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  SpGeometry g;
+  g.m = n / nsrc;
+  g.cap = cap;
+  g.nshards = nshards;
+  g.tps = static_cast<int>((g.m + SP_TILE - 1) / SP_TILE);
+  g.tiles = static_cast<long long>(nsrc) * g.tps;
+  SpTargets target_of;
+  target_of.tgt = static_cast<const int*>(tgt);
+  target_of.hash_lo = static_cast<const unsigned int*>(hash_lo);
+  target_of.mask = static_cast<const unsigned char*>(mask);
+  target_of.nshards = nshards;
+  target_of.maxpar = static_cast<unsigned int>(max_parallelism > 0 ? max_parallelism : 1);
   const long long* sp = static_cast<const long long*>(src_ptrs);
   const long long* dp = static_cast<const long long*>(dst_ptrs);
   const int* wp = static_cast<const int*>(widths);
-  const long long* ss = static_cast<const long long*>(src_strides);
-  const long long* ds = static_cast<const long long*>(dst_strides);
-  emit.lanes.n = nlanes;
-  for (int k = 0; k < PK_MAX_LANES; ++k) {
-    const bool used = k < nlanes;
-    emit.lanes.src[k] = used ? reinterpret_cast<const unsigned char*>(sp[k]) : nullptr;
-    emit.lanes.dst[k] = used ? reinterpret_cast<unsigned char*>(dp[k]) : nullptr;
-    emit.lanes.width[k] = used ? wp[k] : 0;
-    emit.lanes.src_stride[k] = used ? ss[k] : 0;
-    emit.lanes.dst_stride[k] = used ? ds[k] : 0;
-  }
-  emit.starts = static_cast<const long long*>(starts);
-  emit.nshards = nshards;
-  emit.cap = cap;
-  pack_count<<<blocks, PT_THREADS, shmem, s>>>(class_of, n, nclass, tiles,
-                                               static_cast<int*>(counts));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pack_scan<<<1, PT_SCAN_THREADS, 0, s>>>(
-      static_cast<const int*>(counts), static_cast<long long>(nclass) * tiles,
-      tiles, static_cast<int*>(offsets), static_cast<long long*>(starts));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long buckets = static_cast<long long>(nsrc) * nshards;
-  pack_counts<<<grid_for(buckets, 256), 256, 0, s>>>(
-      static_cast<const long long*>(starts), nsrc, nshards, cap,
-      static_cast<int*>(out_counts));
+  SpLanes lanes;
+  lanes.n = nlanes;
+  lanes.stage_bytes = 0;
+  lanes.fill_start[0] = 0;
+  for (int k = 0; k < SP_MAX_LANES; ++k) {
+    const bool used = k < nlanes;
+    const int w = used ? wp[k] : 0;
+    if (used && !(w == 1 || w == 2 || w == 4 || w == 8 || w % 4 == 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    lanes.src[k] = used ? reinterpret_cast<const unsigned char*>(sp[k]) : nullptr;
+    lanes.dst[k] = used ? reinterpret_cast<unsigned char*>(dp[k]) : nullptr;
+    lanes.width[k] = w;
+    int word = w;
+    if (used && w > 8) {
+      const unsigned long long both =
+          static_cast<unsigned long long>(sp[k]) | static_cast<unsigned long long>(dp[k]);
+      word = (w % 16 == 0 && both % 16 == 0) ? 16
+             : (w % 8 == 0 && both % 8 == 0) ? 8 : 4;
+    } else if (used && w > lanes.stage_bytes) {
+      lanes.stage_bytes = w;
+    }
+    lanes.word[k] = word;
+    const long long chunks =
+        used ? (cap * w + SP_FILL_BYTES - 1) / SP_FILL_BYTES : 0;
+    lanes.fill_chunks[k] = chunks;
+    lanes.fill_start[k + 1] = lanes.fill_start[k] + buckets * chunks;
+  }
+  const long long fill_blocks = lanes.fill_start[SP_MAX_LANES];
+  if (g.tiles + fill_blocks > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int C = nshards + 1;
+
+  const size_t hist = sizeof(int) * SP_WARPS * C;
+  cudaError_t err = cudaFuncSetAttribute(
+      sp_classify, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(hist));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sp_classify<<<static_cast<unsigned int>(g.tiles), SP_THREADS, hist, st>>>(
+      target_of, g, static_cast<unsigned short*>(tcls),
+      static_cast<int*>(counts));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_fill<<<grid_for(buckets * cap, 256), 256, 0, s>>>(
-      emit.lanes, static_cast<const int*>(out_counts), buckets * cap, cap);
+  sp_scan<<<static_cast<unsigned int>((buckets + SP_WARPS - 1) / SP_WARPS),
+            SP_THREADS, 0, st>>>(static_cast<const int*>(counts), buckets,
+                                 g.tps, cap, static_cast<int*>(offs),
+                                 static_cast<int*>(out_counts));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_scatter<<<blocks, PT_THREADS, shmem, s>>>(
-      class_of, emit, n, nclass, tiles, static_cast<const int*>(offsets));
+  const size_t smem = sp_scatter_smem(C, lanes.stage_bytes);
+  err = cudaFuncSetAttribute(sp_scatter_fill,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sp_scatter_fill<<<static_cast<unsigned int>(g.tiles + fill_blocks),
+                    SP_THREADS, smem, st>>>(
+      lanes, g, static_cast<const unsigned short*>(tcls),
+      static_cast<const int*>(offs), static_cast<const int*>(out_counts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -104,7 +104,8 @@ _SIGNATURES = {
                            _LL, _LL, _P, _P, _P, _P, _P),
     },
     "gather_segment_sum": {
-        "ft_gather_segment_sum": (_P, _P, _P, _P, _LL, _P),
+        "ft_gather_segment_sum": (_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P,
+                                  _P, _P),
     },
     "edge_popcount": {
         "ft_edge_popcount": (_P, _LL, _P, _P, _LL, _P, _P),
@@ -116,8 +117,8 @@ _SIGNATURES = {
         "ft_knn_topk": (_P, _P, _P, _LL, _LL, _I, _P, _P),
     },
     "shard_pack": {
-        "ft_shard_pack": (_P, _P, _LL, _P, _LL, _I, _I, _LL, _P, _P, _P, _P, _P,
-                          _I, _P, _P, _P, _P, _P),
+        "ft_shard_pack": (_P, _P, _LL, _P, _LL, _I, _I, _LL, _P, _P, _P, _I,
+                          _P, _P, _P, _P, _P),
     },
 }
 

@@ -23,7 +23,8 @@ Two layouts of the lanes:
   ``cap = m`` and a packed bool mask lane is the reference's bucket
   mask);
 - one 2-D tensor ``[n, K]`` of 32-bit lanes, packed into
-  ``[sources, n_shards, cap, K]`` (K11c).
+  ``[sources, n_shards, cap, K]`` (K11c); the kernel moves a row as one
+  lane of 4 K bytes.
 
 Returns ``(packed, counts)``, counts int32 ``[sources, n_shards]``, the
 rows of each bucket clipped at ``cap``.  ``shard_pack_plain`` is the
@@ -45,6 +46,9 @@ from flink_tpu_torch.ops.hashing import fmix32
 
 #: lanes one launch moves
 MAX_LANES = 16
+#: rows of one source a block of the kernel ranks (SP_TILE in
+#: csrc/shard_pack.cu); the scratch holds a count per tile and target
+TILE_ROWS = 4096
 _LANE32 = (torch.int32, torch.uint32, torch.float32)
 
 Lanes = Union[Sequence[torch.Tensor], torch.Tensor]
@@ -94,11 +98,9 @@ def shard_pack(lanes: Lanes, n_shards: int, cap: int,
     rows, n, src, k = _geometry(lanes, n_shards, cap, sources)
     if rows:
         loader.check(lanes, "lanes", _LANE32, dev, ndim=2)
-        srcs = [lanes[:, j] for j in range(k)]
         out = torch.empty((src, n_shards, cap, k), dtype=lanes.dtype,
                           device=dev)
-        dsts = [out[..., j] for j in range(k)]
-        widths, sstr, dstr = [4] * k, [k] * k, [k] * k
+        srcs, dsts, widths = [lanes], [out], [4 * k]    # a row is one lane
     else:
         srcs = list(lanes)
         for j, c in enumerate(srcs):
@@ -110,7 +112,7 @@ def shard_pack(lanes: Lanes, n_shards: int, cap: int,
         dsts = [torch.empty((src, n_shards, cap), dtype=c.dtype, device=dev)
                 for c in srcs]
         out = dsts
-        widths, sstr, dstr = [c.element_size() for c in srcs], [1] * k, [1] * k
+        widths = [c.element_size() for c in srcs]
     if target is not None:
         loader.check(target, "target", (torch.int32,), dev, ndim=1)
         if target.numel() != n:
@@ -132,24 +134,21 @@ def shard_pack(lanes: Lanes, n_shards: int, cap: int,
             d.zero_()
         counts.zero_()
         return out, counts
-    nclass = src * (n_shards + 1)
-    tiles = -(-n // 512)
-    scratch = torch.empty(2 * nclass * tiles, dtype=torch.int32, device=dev)
-    starts = torch.empty(nclass, dtype=torch.int64, device=dev)
-    arr = lambda ctype, xs: (ctype * k)(*xs)            # noqa: E731
+    table = src * n_shards * -(-(n // src) // TILE_ROWS)
+    scratch = torch.empty(2 * table, dtype=torch.int32, device=dev)
+    tcls = torch.empty(n, dtype=torch.int16, device=dev)
+    nl = len(srcs)
+    arr = lambda ctype, xs: (ctype * nl)(*xs)           # noqa: E731
     sp = arr(ctypes.c_longlong, [c.data_ptr() for c in srcs])
     dp = arr(ctypes.c_longlong, [d.data_ptr() for d in dsts])
     wp = arr(ctypes.c_int, widths)
-    ssp = arr(ctypes.c_longlong, sstr)
-    dsp = arr(ctypes.c_longlong, dstr)
     loader.launch("shard_pack", "ft_shard_pack", loader.ptr(target),
                   None if target is not None else hash_lo.data_ptr(),
                   max_parallelism, loader.ptr(mask), n, src, n_shards, cap,
                   ctypes.addressof(sp), ctypes.addressof(dp),
-                  ctypes.addressof(wp), ctypes.addressof(ssp),
-                  ctypes.addressof(dsp), k, counts.data_ptr(),
-                  scratch.data_ptr(), scratch[nclass * tiles:].data_ptr(),
-                  starts.data_ptr())
+                  ctypes.addressof(wp), nl, counts.data_ptr(),
+                  tcls.data_ptr(), scratch.data_ptr(),
+                  scratch[table:].data_ptr())
     return out, counts
 
 

@@ -482,8 +482,32 @@ def test_pagerank_step_segment_sum_matches_jax():
     x = ranks / deg
     want = np.asarray(jax.ops.segment_sum(jnp.asarray(x)[jnp.asarray(src)],
                                           jnp.asarray(dst), num_segments=n))
-    got = K.gather_segment_sum(torch.from_numpy(x), torch.from_numpy(src),
-                               torch.from_numpy(dst), n).numpy()
+    plan = K.segment_plan(torch.from_numpy(src), torch.from_numpy(dst), n)
+    got = K.gather_segment_sum(torch.from_numpy(x), plan).numpy()
+    mag = np.zeros(n)
+    np.add.at(mag, dst, np.abs(x[src]).astype(np.float64))
+    assert np.all(np.abs(got.astype(np.float64) - want)
+                  <= reorder_bound(np.bincount(dst, minlength=n), mag))
+
+
+@pytest.mark.parametrize("side", ["authorities", "hubs"])
+def test_hits_step_segment_sums_match_jax(side):
+    """HITS's two segment sums through their plans: authorities
+    ``segment_sum(hubs[src], dst)`` on the plan by dst, hubs
+    ``segment_sum(auths[dst], src)`` on the plan by src; within
+    reorder_bound(terms, sum of |terms|) per vertex."""
+    import jax
+    rng = np.random.default_rng(5)
+    n, e = 1500, 30_000
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = np.minimum(rng.zipf(1.5, e) - 1, n - 1).astype(np.int32)
+    if side == "hubs":
+        src, dst = dst, src
+    x = rng.random(n).astype(np.float32)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(x)[jnp.asarray(src)],
+                                          jnp.asarray(dst), num_segments=n))
+    plan = K.segment_plan(torch.from_numpy(src), torch.from_numpy(dst), n)
+    got = K.gather_segment_sum(torch.from_numpy(x), plan).numpy()
     mag = np.zeros(n)
     np.add.at(mag, dst, np.abs(x[src]).astype(np.float64))
     assert np.all(np.abs(got.astype(np.float64) - want)

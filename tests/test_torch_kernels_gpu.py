@@ -457,6 +457,60 @@ def test_shard_pack_matches_plain(cuda, layout):
         assert torch.equal(g.cpu(), w.cpu())
 
 
+@pytest.mark.parametrize("case", ["m_not_a_tile_multiple", "one_shard",
+                                  "one_source", "all_in_one_bucket_over_cap",
+                                  "mask_all_false", "widths_1_2_4_8",
+                                  "rows_k1", "rows_k3", "rows_k16"])
+def test_shard_pack_edge_cases(cuda, case):
+    """The tiled kernel's edges, each bit-equal to the plain version:
+    a source block that ends inside a tile (m not a multiple of 4096),
+    S = 1, one source, every row in one bucket past its cap, a mask that
+    sends nothing, lanes of 1, 2, 4 and 8 bytes, and rows of 1, 3 and 16
+    32-bit lanes (moved as 4, 12 and 64-byte rows)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    S, m, sources = 8, 4096 * 3 + 123, None
+    if case == "one_shard":
+        S, m = 1, 20_000
+    elif case == "one_source":
+        sources, m = 1, 50_000
+    n = m * (S if sources is None else sources)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)   # noqa: E731
+    tgt = rng.integers(0, S + 1, n).astype(np.int32)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    kw = dict(target=t(tgt))
+    cap = m
+    if case.startswith("rows"):
+        k = int(case[len("rows_k"):])
+        lanes = t(rng.integers(-2**31, 2**31, (n, k)).astype(np.int32))
+        cap = m // 3
+    else:
+        lanes = [t(rng.integers(-128, 128, n).astype(np.int8)),
+                 t(rng.integers(-2**15, 2**15, n).astype(np.int16)),
+                 t(rng.random(n).astype(np.float32)),
+                 t(rng.integers(-2**62, 2**62, n)),
+                 t(rng.random(n) < 0.5)]
+        if case == "all_in_one_bucket_over_cap":
+            kw = dict(target=t(np.full(n, 3, np.int32)))
+            cap = m // 5
+        elif case == "mask_all_false":
+            kw = dict(hash_lo=t(lo.view(np.int32)), max_parallelism=128,
+                      mask=t(np.zeros(n, bool)))
+    want = K.shard_pack_plain(lanes, S, cap, sources=sources, **kw)
+    before = K.LAUNCHES["shard_pack"]
+    got = K.shard_pack(lanes, S, cap, sources=sources, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["shard_pack"] == before + 1
+    assert torch.equal(got[1], want[1])
+    if case == "all_in_one_bucket_over_cap":
+        assert int(want[1][:, 3].min()) == cap and int(want[1].sum()) == cap * S
+    if case == "mask_all_false":
+        assert int(want[1].sum()) == 0
+    pairs = zip(got[0], want[0]) if isinstance(got[0], list) else [(got[0], want[0])]
+    for g, w in pairs:
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
 def test_fused_chain_on_the_card_matches_per_operator(cuda):
     from flink_tpu_torch.core.functions import _FieldKeySelector
     from flink_tpu_torch.core.functions import as_filter_function, as_map_function
@@ -532,24 +586,72 @@ def _sum_reorder_bound(terms, abs_sum):
     return 2.0 * terms * EPS32 * abs_sum
 
 
-@pytest.mark.parametrize("n,e", [(100_000, 1 << 20), (7, 5000)])
-def test_gather_segment_sum_matches_plain(cuda, n, e):
+def _kronecker(rng, scale, edge_factor=16):
+    """Graph500's Kronecker edges (A, B, C = 0.57, 0.19, 0.19), labels
+    permuted: a power-law in-degree with many empty rows."""
+    m = edge_factor << scale
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        ii = rng.random(m) > 0.76
+        jj = rng.random(m) > np.where(ii, 0.19 / 0.24, 0.57 / 0.76)
+        src |= ii.astype(np.int64) << bit
+        dst |= jj.astype(np.int64) << bit
+    perm = rng.permutation(1 << scale)
+    return perm[src], perm[dst]
+
+
+def _segment_case(cuda, case, rng):
+    """(x on the card, its plan, src, dst, n) of one test graph."""
+    if case == "kronecker_hub":
+        scale = 16
+        src, dst = _kronecker(rng, scale)
+        n = 1 << scale
+        hub = np.full(120_000, 12_345)        # a row of >= 10^5 edges
+        src = np.concatenate([src, rng.integers(0, n, len(hub))])
+        dst = np.concatenate([dst, hub])
+    elif case == "uniform":
+        n, e = 100_000, 1 << 20
+        src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    else:                                     # tiny: one tile
+        n, e = 7, 5000
+        src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(cuda)  # noqa: E731
+    plan = K.segment_plan(t(src), t(dst), n)
+    return plan, t(src), t(dst), n
+
+
+@pytest.mark.parametrize("case", ["kronecker_hub", "uniform", "tiny"])
+def test_gather_segment_sum_matches_plain(cuda, case):
+    """Within the reorder bound of the plain version (index_add_ with
+    atomics); integer-valued x (sums below 2^24) exactly; two launches
+    bit-identical."""
     rng = np.random.default_rng(21)
-    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
-    src = torch.from_numpy(rng.integers(0, n, e).astype(np.int32)).to(cuda)
-    dst = torch.from_numpy(rng.integers(0, n, e).astype(np.int32)).to(cuda)
-    before = K.LAUNCHES["gather_segment_sum"]
-    got = K.gather_segment_sum(x, src, dst, n)
-    assert K.LAUNCHES["gather_segment_sum"] == before + 1
-    want = K.gather_segment_sum_plain(x, src, dst, n)
+    plan, src, dst, n = _segment_case(cuda, case, rng)
     deg = torch.bincount(dst.long(), minlength=n).double()
-    mag = K.gather_segment_sum_plain(x.abs(), src, dst, n).double()
+    if case == "kronecker_hub":
+        assert int(deg.max()) >= 100_000
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    before = K.LAUNCHES["gather_segment_sum"]
+    got = K.gather_segment_sum(x, plan)
+    assert K.LAUNCHES["gather_segment_sum"] == before + 1
+    again = K.gather_segment_sum(x, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = K.gather_segment_sum_plain(x, plan)
+    mag = K.gather_segment_sum_plain(x.abs(), plan).double()
     err = (got.double() - want.double()).abs()
     assert bool((err <= _sum_reorder_bound(deg, mag)).all())
-    # integer-valued x below 2^24 sums exactly in any order
-    xi = torch.from_numpy(rng.integers(-100, 100, n).astype(np.float32)).to(cuda)
-    assert torch.equal(K.gather_segment_sum(xi, src, dst, n),
-                       K.gather_segment_sum_plain(xi, src, dst, n))
+    # integer-valued x: every partial sum stays below 2^24, so exact
+    xi = torch.from_numpy(rng.integers(-50, 50, n).astype(np.float32)).to(cuda)
+    assert torch.equal(K.gather_segment_sum(xi, plan),
+                       K.gather_segment_sum_plain(xi, plan))
+
+
+def test_gather_segment_sum_refuses_a_plan_elsewhere(cuda):
+    plan, _, _, n = _segment_case(cuda, "tiny", np.random.default_rng(1))
+    with pytest.raises(ValueError, match="plan"):
+        K.gather_segment_sum(torch.zeros(n), plan)
 
 
 @pytest.mark.parametrize("n", [4096, 5000])       # uint4 rows and word rows
