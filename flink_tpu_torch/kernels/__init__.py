@@ -41,7 +41,8 @@ tensors it runs the plain version.  Nothing builds at import (see
 ``loader``).
 """
 
-from flink_tpu_torch.kernels.chain_route import chain_route, chain_route_plain
+from flink_tpu_torch.kernels.chain_route import (chain_route, chain_route_launch,
+                                                 chain_route_plain)
 from flink_tpu_torch.kernels.clear_rows import clear_rows, clear_rows_plain
 from flink_tpu_torch.kernels.countmin_query import (countmin_query,
                                                     countmin_query_plain)
@@ -75,7 +76,7 @@ from flink_tpu_torch.kernels.table_insert import (table_insert,
 
 __all__ = [
     "KERNELS", "LAUNCHES", "build_all", "reset_launch_counts",
-    "chain_route", "chain_route_plain",
+    "chain_route", "chain_route_launch", "chain_route_plain",
     "clear_rows", "clear_rows_plain", "countmin_query", "countmin_query_plain",
     "countmin_update", "countmin_update_plain", "edge_popcount",
     "edge_popcount_plain", "gather_segment_sum", "gather_segment_sum_plain",

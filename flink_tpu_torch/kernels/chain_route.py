@@ -16,8 +16,11 @@ Returns the moved columns and pane (``count`` rows each: views of
 buffers of n rows) and ``starts`` on the host, int64 [nclass]: the
 first position of each class, so ``starts[:nch + 1]`` are a route's
 channel bounds and ``starts[-1]`` the count of kept rows.  Reading
-``starts`` synchronizes with the card.  ``chain_route_plain`` is the
-same function in plain PyTorch (an argsort and indexing), on any device.
+``starts`` synchronizes with the card.  ``chain_route_launch`` is the
+launch alone: whole buffers and ``starts`` on the card, no host read
+(its scratch is allocated once per size and stream).
+``chain_route_plain`` is the same function in plain PyTorch (an argsort
+and indexing), on any device.
 
 Row shards (``shard_rows`` > 0, the reference's mesh leg
 ``chain_fusion.py:832-849``): row i belongs to shard ``i // shard_rows``
@@ -35,7 +38,7 @@ recompiles; nothing here compiles per shape, so nothing pads.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,10 +49,13 @@ from flink_tpu_torch.ops.hashing import operator_indexes, splitmix64
 #: classes the kernel's shared-memory counters hold (channels + 1, times
 #: the shards with row shards)
 MAX_CLASSES = 2048
-#: rows a warp walks in the kernel (the scan covers nclass * tiles)
-TILE_ROWS = 512
+#: rows of a tile of the kernels' partition (PT_TILE in
+#: csrc/partition.cuh, shared with shard_pack); the scratch holds a count
+#: per tile and class
+TILE_ROWS = 4096
 
 Result = Tuple[List[torch.Tensor], Optional[torch.Tensor], np.ndarray]
+DeviceResult = Tuple[List[torch.Tensor], Optional[torch.Tensor], torch.Tensor]
 
 
 def _num_classes(key, num_channels: int, max_parallelism: int) -> int:
@@ -73,21 +79,18 @@ def _shards(n: int, shard_rows: int, n_shards: int) -> int:
     return n_shards
 
 
-def chain_route(cols: Sequence[torch.Tensor], keep: torch.Tensor,
-                key: Optional[torch.Tensor] = None, num_channels: int = 0,
-                max_parallelism: int = 0, ts: Optional[torch.Tensor] = None,
-                pane_offset: int = 0, slide: int = 0, shard_rows: int = 0,
-                n_shards: int = 0) -> Result:
-    """Partition ``cols`` (1-D, n rows each, 1/2/4/8-byte types) by the
-    class of each row; ``keep`` bool [n]; ``key`` int64 [n] selects
-    route mode; ``slide`` > 0 asks for pane starts of ``ts`` (int64);
-    ``shard_rows`` > 0 partitions ``n_shards`` row blocks each on its
-    own (see the module docstring)."""
-    if keep.device.type == "cpu":
-        return chain_route_plain(cols, keep, key, num_channels,
-                                 max_parallelism, ts, pane_offset, slide,
-                                 shard_rows, n_shards)
+def chain_route_launch(cols: Sequence[torch.Tensor], keep: torch.Tensor,
+                       key: Optional[torch.Tensor] = None,
+                       num_channels: int = 0, max_parallelism: int = 0,
+                       ts: Optional[torch.Tensor] = None, pane_offset: int = 0,
+                       slide: int = 0, shard_rows: int = 0,
+                       n_shards: int = 0) -> DeviceResult:
+    """The kernel alone, on CUDA tensors: the moved columns and pane as
+    whole buffers of n rows, and ``starts`` as an int64 CUDA tensor
+    (nothing is read on the host).  Arguments as ``chain_route``."""
     dev = keep.device
+    if dev.type != "cuda":
+        raise ValueError(f"chain_route_launch needs CUDA tensors, got {dev}")
     nclass = _num_classes(key, num_channels, max_parallelism)
     loader.check(keep, "keep", (torch.bool,), dev, ndim=1)
     n = keep.numel()
@@ -113,32 +116,72 @@ def chain_route(cols: Sequence[torch.Tensor], keep: torch.Tensor,
         loader.check(ts, "ts", (torch.int64,), dev, ndim=1)
         if ts.numel() != n:
             raise ValueError(f"ts has {ts.numel()} rows, expected {n}")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows: the kernel takes fewer than 2^31")
     outs = [torch.empty_like(c) for c in cols]
     pane = torch.empty(n, dtype=torch.int64, device=dev) if slide else None
+    starts = torch.empty(nclass * shards, dtype=torch.int64, device=dev)
     if n == 0:
-        starts = np.zeros(nclass * shards, np.int64)
+        starts.zero_()
         return outs, pane, starts
-    tiles = -(-n // TILE_ROWS)
-    counts = torch.empty(nclass * shards * tiles, dtype=torch.int32, device=dev)
-    offsets = torch.empty_like(counts)
-    starts_d = torch.empty(nclass * shards, dtype=torch.int64, device=dev)
+    tiles = shards * -(-(shard_rows or n) // TILE_ROWS)
+    ints = nclass * shards * (2 * tiles + 1)     # counts, offs, totals
+    scratch = _scratch(dev, 4 * ints + 2 * n)
     k = len(cols)
     src = (ctypes.c_longlong * max(k, 1))(*[c.data_ptr() for c in cols])
     dst = (ctypes.c_longlong * max(k, 1))(*[o.data_ptr() for o in outs])
     widths = (ctypes.c_int * max(k, 1))(*[c.element_size() for c in cols])
+    base = scratch.data_ptr()
+    table = 4 * nclass * shards * tiles
     loader.launch("chain_route", "ft_chain_route", loader.ptr(key),
                   keep.data_ptr(), n, nclass, max_parallelism, shard_rows,
                   shards, ctypes.addressof(src), ctypes.addressof(dst),
                   ctypes.addressof(widths), k,
                   loader.ptr(ts) if slide else None, pane_offset, slide,
-                  loader.ptr(pane), counts.data_ptr(), offsets.data_ptr(),
-                  starts_d.data_ptr())
+                  loader.ptr(pane), base + 4 * ints, base, base + table,
+                  base + 2 * table, starts.data_ptr())
+    return outs, pane, starts
+
+
+def chain_route(cols: Sequence[torch.Tensor], keep: torch.Tensor,
+                key: Optional[torch.Tensor] = None, num_channels: int = 0,
+                max_parallelism: int = 0, ts: Optional[torch.Tensor] = None,
+                pane_offset: int = 0, slide: int = 0, shard_rows: int = 0,
+                n_shards: int = 0) -> Result:
+    """Partition ``cols`` (1-D, n rows each, 1/2/4/8-byte types) by the
+    class of each row; ``keep`` bool [n]; ``key`` int64 [n] selects
+    route mode; ``slide`` > 0 asks for pane starts of ``ts`` (int64);
+    ``shard_rows`` > 0 partitions ``n_shards`` row blocks each on its
+    own (see the module docstring)."""
+    if keep.device.type == "cpu":
+        return chain_route_plain(cols, keep, key, num_channels,
+                                 max_parallelism, ts, pane_offset, slide,
+                                 shard_rows, n_shards)
+    outs, pane, starts_d = chain_route_launch(
+        cols, keep, key, num_channels, max_parallelism, ts, pane_offset,
+        slide, shard_rows, n_shards)
     starts = starts_d.cpu().numpy()
     if shard_rows:
         return outs, pane, starts
     count = int(starts[-1])
     return ([o[:count] for o in outs],
             pane[:count] if pane is not None else None, starts)
+
+
+#: (device, stream) -> the launches' scratch bytes, grown as needed
+_SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _scratch(dev: torch.device, nbytes: int) -> torch.Tensor:
+    """Scratch of at least ``nbytes`` for launches on the current stream
+    of ``dev``, allocated once per size: launches on one stream run in
+    order, so they can share it."""
+    at = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _SCRATCH.get(at)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        _SCRATCH[at] = buf
+    return buf
 
 
 def chain_route_plain(cols: Sequence[torch.Tensor], keep: torch.Tensor,

@@ -24,19 +24,26 @@
 // np.argsort(class, kind="stable") followed by a gather; starts[c] is the
 // first position of class c (np.searchsorted of the sorted classes).
 // Rows of a shard's last class are dropped rows: counted, never moved.
-// The count, scan and stable warp-ranked scatter are partition.cuh's
-// (shared with shard_pack); the kernels here keep the chain_ names.  The
-// column table holds CR_MAX_COLS columns; more columns take further
-// chain_scatter launches of CR_MAX_COLS columns each, which rank the rows
-// again the same way.
 //
 // Bound on this card: bytes.  Each input row is read (key 8 bytes, keep 1,
-// the columns) and each kept row written (the columns, pane 8), about 16 us
-// at 3.35 TB/s for 2^20 rows of three int64 columns.  The design is
-// simple, not fast: a warp walks its tile in 16 dependent steps, the key
-// is read and hashed twice (count and scatter, instead of a class array),
-// and the scan runs in one block.  Stores of a step land in up to nclass
-// runs, each contiguous.
+// the columns) and each kept row written (the columns, pane 8), about 14 us
+// at 3.35 TB/s for 2^20 rows of three int64 columns.
+//
+// Design: partition.cuh's tiled partition, with a row shard as its block
+// of rows (one block of n rows without shards).  Three launches:
+//   1. chain_classify: a block per 4096-row tile hashes each row's key
+//      once, stores the class (of its shard) as uint16 and counts the
+//      tile's rows per class;
+//   2. chain_scan: a warp per (shard, class) column scans its tiles;
+//   3. chain_scatter: a block per tile ranks its rows stably in shared
+//      memory, takes one exclusive prefix of its shard's class totals (at
+//      most 2048) for the class starts (tile 0 of each shard writes them to
+//      `starts`), and writes each class run with consecutive threads on
+//      consecutive rows, column by column, then the panes.
+// A launch of the scatter moves up to CR_MAX_COLS columns; more columns
+// take further scatter launches, which rank the tile again from the
+// stored classes (no second hash).  At 2048 classes the scatter's shared
+// memory is ~144 KB (set with cudaFuncSetAttribute).
 #include "partition.cuh"
 
 #define CR_MAX_COLS 16
@@ -48,79 +55,112 @@ struct ColTable {
   int n;
 };
 
-// The class of row i: nclass - 1 for a dropped row; in route mode the
-// downstream channel of its key, else 0; with row shards, offset by the
-// shard's classes.
+// The class of a row in its shard: nclass - 1 for a dropped row; in route
+// mode the downstream channel of its key, else 0.
 struct ChainClass {
   const long long* key;
   const unsigned char* keep;
   int nclass;
   unsigned long long maxpar;
-  long long shard_rows;
 
-  __device__ __forceinline__ int operator()(long long i) const {
+  struct Row {
+    unsigned long long key;
+    bool kept;
+  };
+
+  __device__ __forceinline__ Row load(long long i) const {
+    Row r;
+    r.kept = keep[i] != 0;
+    r.key = key != nullptr ? static_cast<unsigned long long>(key[i]) : 0ULL;
+    return r;
+  }
+
+  __device__ __forceinline__ int classify(const Row& r) const {
     const int drop = nclass - 1;
-    int c;
-    if (!keep[i]) {
-      c = drop;
-    } else if (key == nullptr) {
-      c = 0;
-    } else {
-      const unsigned int h = fmix32(static_cast<unsigned int>(
-          splitmix64(static_cast<unsigned long long>(key[i])) & 0xFFFFFFFFULL));
-      const unsigned long long kg = h % maxpar;
-      c = static_cast<int>(kg * static_cast<unsigned long long>(drop) / maxpar);
-    }
-    if (shard_rows > 0) c += static_cast<int>(i / shard_rows) * nclass;
-    return c;
+    if (!r.kept) return drop;
+    if (key == nullptr) return 0;
+    const unsigned int h =
+        fmix32(static_cast<unsigned int>(splitmix64(r.key) & 0xFFFFFFFFULL));
+    return pt_key_group_index(h, maxpar, static_cast<unsigned int>(drop));
   }
 };
 
-struct ChainEmit {
-  ColTable cols;
-  const long long* ts;
-  long long pane_offset;
+// numpy's floor modulo with int64 wrap-around: slide > 0
+struct PaneStart {
+  long long offset;
   long long slide;
-  long long* pane;
-  int nclass;
 
-  __device__ __forceinline__ void operator()(long long i, int cls,
-                                             long long d) const {
-    if (cls % nclass == nclass - 1) return;  // a dropped row
-    for (int j = 0; j < cols.n; ++j)
-      move_bytes(cols.src[j], cols.dst[j], cols.width[j], i, d);
-    if (pane != nullptr) {
-      // numpy's floor modulo with int64 wrap-around: slide > 0
-      const long long t = ts[i];
-      const long long diff = static_cast<long long>(
-          static_cast<unsigned long long>(t) -
-          static_cast<unsigned long long>(pane_offset));
-      long long r = diff % slide;
-      if (r < 0) r += slide;
-      pane[d] = static_cast<long long>(static_cast<unsigned long long>(t) -
-                                       static_cast<unsigned long long>(r));
-    }
+  __device__ __forceinline__ long long operator()(long long t) const {
+    const long long diff = static_cast<long long>(
+        static_cast<unsigned long long>(t) - static_cast<unsigned long long>(offset));
+    long long r = diff % slide;
+    if (r < 0) r += slide;
+    return static_cast<long long>(static_cast<unsigned long long>(t) -
+                                  static_cast<unsigned long long>(r));
   }
 };
 
-__global__ void chain_count(ChainClass class_of, long long n, int total_classes,
-                            long long tiles, int* __restrict__ counts) {
-  extern __shared__ int s_count[];
-  pt_count(class_of, n, total_classes, tiles, counts, s_count);
+__global__ void __launch_bounds__(PT_THREADS)
+chain_classify(ChainClass class_of, PtGeometry g, unsigned short* __restrict__ cls,
+               int* __restrict__ counts) {
+  extern __shared__ int cr_hist[];  // C ints
+  pt_classify(class_of, g, cls, counts, g.nclass, cr_hist);
 }
 
-__global__ void chain_scan(const int* __restrict__ counts, long long total,
-                           long long tiles, int* __restrict__ offsets,
-                           long long* __restrict__ starts) {
-  __shared__ long long warp_sums[PT_SCAN_THREADS / 32];
-  pt_scan(counts, total, tiles, offsets, starts, warp_sums);
+__global__ void __launch_bounds__(PT_THREADS)
+chain_scan(const int* __restrict__ counts, long long columns, int tps,
+           int* __restrict__ offs, int* __restrict__ totals) {
+  const long long col =
+      static_cast<long long>(blockIdx.x) * PT_WARPS + (threadIdx.x >> 5);
+  if (col >= columns) return;  // uniform across the warp
+  const long long total = pt_scan_column(counts + col * tps, offs + col * tps, tps);
+  if ((threadIdx.x & 31) == 0) totals[col] = static_cast<int>(total);
 }
 
-__global__ void chain_scatter(ChainClass class_of, ChainEmit emit, long long n,
-                              int total_classes, long long tiles,
-                              const int* __restrict__ offsets) {
-  extern __shared__ int s_seen[];
-  pt_scatter(class_of, emit, n, total_classes, tiles, offsets, s_seen);
+__global__ void __launch_bounds__(PT_THREADS)
+chain_scatter(ColTable cols, const long long* __restrict__ ts, PaneStart pane_of,
+              long long* __restrict__ pane, PtGeometry g,
+              const unsigned short* __restrict__ cls, const int* __restrict__ offs,
+              const int* __restrict__ totals, long long* __restrict__ starts,
+              int stage_bytes) {
+  extern __shared__ __align__(16) unsigned char cr_smem[];
+  const int C = g.nclass;
+  const PtShared sh = pt_carve(cr_smem, C, stage_bytes);
+  int part, j, nrows;
+  long long row0;
+  pt_tile_rows(g, blockIdx.x, &part, &j, &row0, &nrows);
+  pt_rank_tile(C, cls, row0, nrows, sh);
+  // the shard's class starts: its first row plus the exclusive prefix of
+  // its class totals
+  const long long base = static_cast<long long>(part) * g.m < g.n
+                             ? static_cast<long long>(part) * g.m : g.n;
+  const int* tot = totals + static_cast<long long>(part) * C;
+  pt_exclusive_over(
+      C, [&](int c) { return tot[c]; },
+      [&](int c, int v) { sh.dbase[c] = base + v; }, sh.scratch);
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += PT_THREADS) {
+    const long long col = static_cast<long long>(part) * C + c;
+    if (starts != nullptr && j == 0) starts[col] = sh.dbase[c];
+    // sorted position p of class c goes to dbase[c] + p, while p < lim[c];
+    // the dropped class is never written
+    sh.dbase[c] += offs[col * g.tps + j] - sh.tstart[c];
+    sh.lim[c] = c == C - 1 ? sh.tstart[c] : sh.tstart[c] + sh.lim[c];
+  }
+  __syncthreads();
+  if (nrows == 0) return;  // uniform across the block
+  for (int k = 0; k < cols.n; ++k)
+    pt_move_width(cols.src[k], cols.dst[k], cols.width[k], row0, nrows, sh);
+  if (pane != nullptr)
+    pt_move_staged<long long>(reinterpret_cast<const unsigned char*>(ts),
+                              reinterpret_cast<unsigned char*>(pane), row0, nrows,
+                              sh, pane_of);
+}
+
+static cudaError_t cr_smem_attr(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 // Launches the three kernels on `stream` (chain_scatter once for each
@@ -129,27 +169,34 @@ __global__ void chain_scatter(ChainClass class_of, ChainEmit emit, long long n,
 // ones may be short or empty) and nshards * nclass classes, else one.
 // src_ptrs, dst_ptrs and widths are HOST arrays of ncols entries (copied
 // into the kernel's parameters); key, ts and pane may be null.  Scratch:
-// counts and offsets hold (classes) * tiles ints, starts (classes) long
-// longs (tiles = ceil(n / 512)).
+// cls n uint16; counts and offs (classes) * tiles ints, totals (classes)
+// ints (tiles = ceil(shard_rows or n / 4096) per shard); starts (classes)
+// long longs, written on the device.
 extern "C" int ft_chain_route(const void* key, const void* keep, long long n,
                               int nclass, long long max_parallelism,
                               long long shard_rows, int nshards,
                               const void* src_ptrs, const void* dst_ptrs,
                               const void* widths, int ncols, const void* ts,
                               long long pane_offset, long long slide,
-                              void* pane, void* counts, void* offsets,
-                              void* starts, void* stream) {
-  if (n <= 0 || ncols < 0 || nclass < 2 || nshards < 1 || shard_rows < 0 ||
-      (shard_rows > 0 && (n + shard_rows - 1) / shard_rows > nshards))
+                              void* pane, void* cls, void* counts, void* offs,
+                              void* totals, void* starts, void* stream) {
+  if (n <= 0 || n > 0x7FFFFFFFLL || ncols < 0 || nclass < 2 || nshards < 1 ||
+      shard_rows < 0 || nclass > PT_MAX_CLASSES ||
+      (shard_rows > 0 && (n + shard_rows - 1) / shard_rows > nshards) ||
+      (pane != nullptr && (ts == nullptr || slide <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int total_classes = shard_rows > 0 ? nclass * nshards : nclass;
   const long long* sp = static_cast<const long long*>(src_ptrs);
   const long long* dp = static_cast<const long long*>(dst_ptrs);
   const int* wp = static_cast<const int*>(widths);
+  for (int k = 0; k < ncols; ++k)
+    if (wp[k] != 1 && wp[k] != 2 && wp[k] != 4 && wp[k] != 8)
+      return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long tiles = pt_tiles(n);
-  const unsigned int blocks = pt_blocks(tiles);
-  const size_t shmem = pt_shmem(total_classes);
+  const int parts = shard_rows > 0 ? nshards : 1;
+  const PtGeometry g = pt_geometry(n, shard_rows > 0 ? shard_rows : n, parts, nclass);
+  if (g.tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int tiles = static_cast<unsigned int>(g.tiles);
+  const long long columns = static_cast<long long>(parts) * nclass;
   ChainClass class_of;
   class_of.key = static_cast<const long long*>(key);
   class_of.keep = static_cast<const unsigned char*>(keep);
@@ -157,37 +204,45 @@ extern "C" int ft_chain_route(const void* key, const void* keep, long long n,
   class_of.maxpar = max_parallelism > 0
                         ? static_cast<unsigned long long>(max_parallelism)
                         : 1ULL;
-  class_of.shard_rows = shard_rows;
-  chain_count<<<blocks, PT_THREADS, shmem, s>>>(class_of, n, total_classes,
-                                                tiles, static_cast<int*>(counts));
-  cudaError_t err = cudaGetLastError();
+  unsigned short* c16 = static_cast<unsigned short*>(cls);
+
+  const size_t hist = sizeof(int) * nclass;
+  cudaError_t err = cr_smem_attr(reinterpret_cast<const void*>(chain_classify), hist);
   if (err != cudaSuccess) return static_cast<int>(err);
-  chain_scan<<<1, PT_SCAN_THREADS, 0, s>>>(
-      static_cast<const int*>(counts),
-      static_cast<long long>(total_classes) * tiles, tiles,
-      static_cast<int*>(offsets), static_cast<long long*>(starts));
+  chain_classify<<<tiles, PT_THREADS, hist, s>>>(class_of, g, c16,
+                                                 static_cast<int*>(counts));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the first launch also writes the panes (and runs with no columns)
+  chain_scan<<<static_cast<unsigned int>((columns + PT_WARPS - 1) / PT_WARPS),
+               PT_THREADS, 0, s>>>(static_cast<const int*>(counts), columns, g.tps,
+                                   static_cast<int*>(offs), static_cast<int*>(totals));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  PaneStart pane_of;
+  pane_of.offset = pane_offset;
+  pane_of.slide = slide > 0 ? slide : 1;
+  // the first launch also writes the starts and the panes (and runs with
+  // no columns)
   for (int j0 = 0; j0 == 0 || j0 < ncols; j0 += CR_MAX_COLS) {
-    ChainEmit emit;
-    emit.cols.n = ncols - j0 < CR_MAX_COLS ? ncols - j0 : CR_MAX_COLS;
-    for (int j = 0; j < CR_MAX_COLS; ++j) {
-      const bool used = j < emit.cols.n;
-      emit.cols.src[j] =
-          used ? reinterpret_cast<const unsigned char*>(sp[j0 + j]) : nullptr;
-      emit.cols.dst[j] =
-          used ? reinterpret_cast<unsigned char*>(dp[j0 + j]) : nullptr;
-      emit.cols.width[j] = used ? wp[j0 + j] : 0;
+    ColTable t;
+    t.n = ncols - j0 < CR_MAX_COLS ? ncols - j0 : CR_MAX_COLS;
+    int stage = 0;
+    for (int k = 0; k < CR_MAX_COLS; ++k) {
+      const bool used = k < t.n;
+      t.src[k] = used ? reinterpret_cast<const unsigned char*>(sp[j0 + k]) : nullptr;
+      t.dst[k] = used ? reinterpret_cast<unsigned char*>(dp[j0 + k]) : nullptr;
+      t.width[k] = used ? wp[j0 + k] : 0;
+      if (t.width[k] > stage) stage = t.width[k];
     }
-    emit.ts = static_cast<const long long*>(ts);
-    emit.pane_offset = pane_offset;
-    emit.slide = slide;
-    emit.pane = j0 == 0 ? static_cast<long long*>(pane) : nullptr;
-    emit.nclass = nclass;
-    chain_scatter<<<blocks, PT_THREADS, shmem, s>>>(
-        class_of, emit, n, total_classes, tiles,
-        static_cast<const int*>(offsets));
+    long long* pn = j0 == 0 ? static_cast<long long*>(pane) : nullptr;
+    if (pn != nullptr) stage = 8;
+    const size_t smem = pt_scatter_smem(nclass, stage);
+    err = cr_smem_attr(reinterpret_cast<const void*>(chain_scatter), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    chain_scatter<<<tiles, PT_THREADS, smem, s>>>(
+        t, static_cast<const long long*>(ts), pane_of, pn, g, c16,
+        static_cast<const int*>(offs), static_cast<const int*>(totals),
+        j0 == 0 ? static_cast<long long*>(starts) : nullptr, stage);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

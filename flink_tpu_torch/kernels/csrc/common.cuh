@@ -18,6 +18,22 @@ static inline unsigned int grid_for(long long n, int threads) {
   return static_cast<unsigned int>(blocks);
 }
 
+// The current device's SM count (132 on an H100 SXM), read once per
+// device.
+static inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms <= 0)
+      sms = 132;
+    cached[dev] = sms;
+  }
+  return cached[dev];
+}
+
 #define FT_GRID_STRIDE(i, n)                                              \
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +    \
                      threadIdx.x;                                         \

@@ -29,14 +29,17 @@
 // __vmaxu4/__vminu4/__vadd4 for uint8 bytes, integer or float
 // arithmetic for int32/float32.  Unique dst: load both words, combine,
 // store.  Repeated dst: atomicAdd/atomicMin/atomicMax for int32,
-// atomicAdd for float32 add, and an atomicCAS loop on the 32-bit lane
-// for uint8 and float32 min/max (Hopper has no byte atomics); a lane
-// the combine leaves unchanged costs one load and no atomic.  Integer
+// atomicAdd for float32 add, float_order.cuh's min/max for float32 (a
+// load, then one atomic if the src lane beats it), and an atomicCAS loop on the 32-bit lane for uint8 min/max
+// (Hopper has no byte atomics; a lane the combine leaves unchanged costs
+// one load and no atomic).  float32 min/max follow the reference's order
+// (NaN wins, -0 < +0) in both modes.  Integer
 // adds wrap, as XLA's do.  Float adds with a repeated dst run in an
 // order that changes from run to run.  Addressing is 64-bit
 // ((int64)slot * row_words): at 2^20 slots x 4096 B the file is past
 // 2^31 bytes.  Pairs with a slot outside [0, C) are skipped.
 #include "common.cuh"
+#include "float_order.cuh"
 
 enum { OP_ADD = 0, OP_MIN = 1, OP_MAX = 2 };
 enum { DT_U8 = 0, DT_I32 = 1, DT_F32 = 2 };
@@ -54,10 +57,9 @@ __device__ __forceinline__ unsigned int combine(unsigned int a,
     if (OP == OP_MIN) return static_cast<unsigned int>(x < y ? x : y);
     return a + b;
   } else {
-    const float x = __uint_as_float(a), y = __uint_as_float(b);
-    if (OP == OP_MAX) return __float_as_uint(fmaxf(x, y));
-    if (OP == OP_MIN) return __float_as_uint(fminf(x, y));
-    return __float_as_uint(x + y);
+    if (OP == OP_MAX) return fo_pick<false>(a, b);
+    if (OP == OP_MIN) return fo_pick<true>(a, b);
+    return __float_as_uint(__uint_as_float(a) + __uint_as_float(b));
   }
 }
 
@@ -73,8 +75,9 @@ __device__ __forceinline__ void combine_atomic(unsigned int* p,
     else atomicMax(q, x);
     return;
   }
-  if (DT == DT_F32 && OP == OP_ADD) {
-    atomicAdd(reinterpret_cast<float*>(p), __uint_as_float(v));
+  if (DT == DT_F32) {
+    if (OP == OP_ADD) atomicAdd(reinterpret_cast<float*>(p), __uint_as_float(v));
+    else fo_atomic<OP == OP_MIN>(p, v, __ldcg(p));
     return;
   }
   unsigned int old = *reinterpret_cast<volatile unsigned int*>(p);

@@ -24,8 +24,9 @@
 // nsrc * S * cap rows of every lane once.  With cap = m most of the output
 // is zeros (7/8 of it at S = 8), so the zero fill is most of the bytes.
 //
-// Design.  A tile is SP_TILE rows of ONE source (tiles never cross a
-// source block, also when m is not a multiple of SP_TILE), so a tile's
+// Design: partition.cuh's tiled partition, with a source as its block of
+// rows.  A tile is PT_TILE rows of ONE source (tiles never cross a
+// source block, also when m is not a multiple of PT_TILE), so a tile's
 // classes are just the S + 1 targets.  Three launches:
 //   1. sp_classify: a block per tile computes each row's target once,
 //      stores it as uint16 and counts the tile's rows per target
@@ -41,7 +42,7 @@
 //        steps, a prefix over warps and targets across the block), keeps
 //        the tile's permutation in shared memory in bucket order, and
 //        then, lane by lane, consecutive threads write consecutive rows
-//        of a bucket run (runs are ~SP_TILE / (S + 1) rows long).  A lane
+//        of a bucket run (runs are ~PT_TILE / (S + 1) rows long).  A lane
 //        of at most 8 bytes is first staged into shared memory by
 //        coalesced loads; a wider row (the [n, K] layout) is moved in
 //        16, 8 or 4-byte words, consecutive threads on consecutive words;
@@ -50,12 +51,7 @@
 //   Every output byte is written once.
 #include "partition.cuh"
 
-#define SP_THREADS 256
-#define SP_WARPS (SP_THREADS / 32)
-#define SP_ROWS 16                          // rows a thread ranks
-#define SP_TILE (SP_THREADS * SP_ROWS)      // rows of a tile (4096)
-#define SP_WARP_ROWS (SP_TILE / SP_WARPS)   // contiguous rows of a warp
-#define SP_FILL_BYTES (SP_THREADS * 16 * 8) // zero bytes a fill block owns
+#define SP_FILL_BYTES (PT_THREADS * 16 * 8) // zero bytes a fill block owns
 #define SP_MAX_LANES 16
 
 struct SpTargets {
@@ -65,15 +61,26 @@ struct SpTargets {
   int nshards;
   unsigned int maxpar;
 
-  __device__ __forceinline__ int operator()(long long i) const {
+  struct Row {
+    unsigned int word;   // the target, or the hash's low lane
+    bool sent;
+  };
+
+  __device__ __forceinline__ Row load(long long i) const {
+    Row r;
+    r.sent = mask == nullptr || mask[i] != 0;
+    r.word = tgt != nullptr ? static_cast<unsigned int>(tgt[i]) : hash_lo[i];
+    return r;
+  }
+
+  __device__ __forceinline__ int classify(const Row& r) const {
     const int S = nshards;
-    if (mask != nullptr && !mask[i]) return S;
+    if (!r.sent) return S;
     if (tgt != nullptr) {
-      const int t = tgt[i];
+      const int t = static_cast<int>(r.word);
       return (t < 0 || t > S) ? S : t;
     }
-    const unsigned int kg = fmix32(hash_lo[i]) % maxpar;
-    return static_cast<int>(static_cast<long long>(kg) * S / maxpar);
+    return pt_key_group_index(fmix32(r.word), maxpar, static_cast<unsigned int>(S));
   }
 };
 
@@ -88,258 +95,75 @@ struct SpLanes {
   int stage_bytes;               // shared bytes per row for staged lanes
 };
 
-struct SpGeometry {
-  long long m;        // rows per source
-  long long cap;
-  int nshards;
-  int tps;            // tiles per source
-  long long tiles;
-};
-
-// The rows [row0, row0 + nrows) of tile `tile`.
-__device__ __forceinline__ void sp_tile_rows(const SpGeometry& g, long long tile,
-                                             int* s, int* j, long long* row0,
-                                             int* nrows) {
-  *s = static_cast<int>(tile / g.tps);
-  *j = static_cast<int>(tile - static_cast<long long>(*s) * g.tps);
-  const long long first = static_cast<long long>(*j) * SP_TILE;
-  *row0 = static_cast<long long>(*s) * g.m + first;
-  const long long left = g.m - first;
-  *nrows = static_cast<int>(left < SP_TILE ? left : SP_TILE);
-}
-
-// Exclusive prefix of v over the block's threads, in thread order.
-// scratch: SP_WARPS ints of shared memory.
-__device__ __forceinline__ int sp_block_exclusive(int v, int* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int u = __shfl_up_sync(0xFFFFFFFFu, incl, off);
-    if (lane >= off) incl += u;
-  }
-  if (lane == 31) scratch[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < SP_WARPS ? scratch[lane] : 0;
-    int wi = w;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(0xFFFFFFFFu, wi, off);
-      if (lane >= off) wi += u;
-    }
-    if (lane < SP_WARPS) scratch[lane] = wi - w;
-  }
-  __syncthreads();
-  return scratch[warp] + incl - v;
-}
-
-// 1. Targets (stored as uint16) and the tile's count per target.
-__global__ void sp_classify(SpTargets target_of, SpGeometry g,
-                            unsigned short* __restrict__ tcls,
-                            int* __restrict__ counts) {
-  extern __shared__ int s_hist[];  // SP_WARPS * (S + 1)
-  const int S = g.nshards;
-  const int C = S + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int s, j, nrows;
-  long long row0;
-  sp_tile_rows(g, blockIdx.x, &s, &j, &row0, &nrows);
-  for (int c = threadIdx.x; c < SP_WARPS * C; c += SP_THREADS) s_hist[c] = 0;
-  __syncthreads();
-  int* mine = s_hist + warp * C;
-  const unsigned int lower = (1u << lane) - 1u;
-  for (int k = 0; k < SP_ROWS; ++k) {
-    const int r = k * SP_THREADS + threadIdx.x;
-    const bool valid = r < nrows;
-    const int t = valid ? target_of(row0 + r) : -1;
-    if (valid) tcls[row0 + r] = static_cast<unsigned short>(t);
-    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, t);
-    if (valid && (peers & lower) == 0) mine[t] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < S; c += SP_THREADS) {
-    int sum = 0;
-    for (int w = 0; w < SP_WARPS; ++w) sum += s_hist[w * C + c];
-    counts[(static_cast<long long>(s) * S + c) * g.tps + j] = sum;
-  }
+// 1. Targets (stored as uint16) and the tile's count per target < S.
+__global__ void __launch_bounds__(PT_THREADS)
+sp_classify(SpTargets target_of, PtGeometry g, unsigned short* __restrict__ tcls,
+            int* __restrict__ counts) {
+  extern __shared__ int s_hist[];  // S + 1
+  pt_classify(target_of, g, tcls, counts, g.nclass - 1, s_hist);
 }
 
 // 2. Per (source, target) column of tps tile counts: the exclusive prefix
 // (rank base of each tile's rows in the bucket) and the bucket's count.
-__global__ void sp_scan(const int* __restrict__ counts, long long columns,
-                        int tps, long long cap, int* __restrict__ offs,
-                        int* __restrict__ out_counts) {
-  const int lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(PT_THREADS)
+sp_scan(const int* __restrict__ counts, long long columns, int tps,
+        long long cap, int* __restrict__ offs, int* __restrict__ out_counts) {
   const long long col =
-      static_cast<long long>(blockIdx.x) * SP_WARPS + (threadIdx.x >> 5);
+      static_cast<long long>(blockIdx.x) * PT_WARPS + (threadIdx.x >> 5);
   if (col >= columns) return;  // uniform across the warp
-  const int* in = counts + col * tps;
-  int* out = offs + col * tps;
-  long long carry = 0;
-  for (int j0 = 0; j0 < tps; j0 += 32) {
-    const int j = j0 + lane;
-    const int v = j < tps ? in[j] : 0;
-    int incl = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(0xFFFFFFFFu, incl, off);
-      if (lane >= off) incl += u;
-    }
-    if (j < tps) out[j] = static_cast<int>(carry + incl - v);
-    carry += __shfl_sync(0xFFFFFFFFu, incl, 31);
-  }
-  if (lane == 0) out_counts[col] = static_cast<int>(carry < cap ? carry : cap);
-}
-
-// A lane of rows of at most 8 bytes: stage the tile's rows in shared
-// memory (coalesced), then write each bucket run with consecutive threads
-// on consecutive rows.
-template <typename T>
-__device__ __forceinline__ void sp_move_staged(
-    const unsigned char* src_b, unsigned char* dst_b, unsigned char* stage_b,
-    long long row0, int nrows, const unsigned int* sorted, const int* lim,
-    const long long* dbase) {
-  const T* src = reinterpret_cast<const T*>(src_b) + row0;
-  T* dst = reinterpret_cast<T*>(dst_b);
-  T* stage = reinterpret_cast<T*>(stage_b);
-  T v[SP_ROWS];
-#pragma unroll
-  for (int k = 0; k < SP_ROWS; ++k) {
-    const int r = k * SP_THREADS + threadIdx.x;
-    if (r < nrows) v[k] = src[r];
-  }
-#pragma unroll
-  for (int k = 0; k < SP_ROWS; ++k) {
-    const int r = k * SP_THREADS + threadIdx.x;
-    if (r < nrows) stage[r] = v[k];
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < nrows; p += SP_THREADS) {
-    const unsigned int e = sorted[p];
-    const int c = static_cast<int>(e >> 16);
-    if (p < lim[c]) dst[dbase[c] + p] = stage[e & 0xFFFFu];
-  }
-  __syncthreads();  // the stage is reused by the next lane
+  const long long carry = pt_scan_column(counts + col * tps, offs + col * tps, tps);
+  if ((threadIdx.x & 31) == 0)
+    out_counts[col] = static_cast<int>(carry < cap ? carry : cap);
 }
 
 // A wide row (words of U per row): consecutive threads on consecutive
 // words of a bucket run; each row is read from its tile window (L1/L2).
 template <typename U>
-__device__ __forceinline__ void sp_move_words(
-    const unsigned char* src_b, unsigned char* dst_b, int words,
-    long long row0, int nrows, const unsigned int* sorted, const int* lim,
-    const long long* dbase) {
+__device__ __forceinline__ void sp_move_words(const unsigned char* src_b,
+                                              unsigned char* dst_b, int words,
+                                              long long row0, int nrows,
+                                              const PtShared& sh) {
   const U* src = reinterpret_cast<const U*>(src_b) + row0 * words;
   U* dst = reinterpret_cast<U*>(dst_b);
   const int total = nrows * words;
-  for (int x = threadIdx.x; x < total; x += SP_THREADS) {
+  for (int x = threadIdx.x; x < total; x += PT_THREADS) {
     const int p = x / words;
     const int u = x - p * words;
-    const unsigned int e = sorted[p];
+    const unsigned int e = sh.sorted[p];
     const int c = static_cast<int>(e >> 16);
-    if (p < lim[c])
-      dst[(dbase[c] + p) * words + u] =
+    if (p < sh.lim[c])
+      dst[(sh.dbase[c] + p) * words + u] =
           src[static_cast<long long>(e & 0xFFFFu) * words + u];
   }
 }
 
-__device__ void sp_scatter_tile(const SpLanes& lanes, const SpGeometry& g,
-                                long long tile,
+__device__ void sp_scatter_tile(const SpLanes& lanes, const PtGeometry& g,
+                                long long cap, long long tile,
                                 const unsigned short* __restrict__ tcls,
                                 const int* __restrict__ offs,
                                 unsigned char* smem) {
-  const int S = g.nshards;
-  const int C = S + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int S = g.nclass - 1;
+  const int C = g.nclass;
   int s, j, nrows;
   long long row0;
-  sp_tile_rows(g, tile, &s, &j, &row0, &nrows);
-  // shared memory: stage | dbase[C] | sorted[SP_TILE] | seen[W][C] |
-  // tstart[C] | lim[C] | scratch[W]
-  unsigned char* stage = smem;
-  long long* dbase =
-      reinterpret_cast<long long*>(smem + static_cast<size_t>(lanes.stage_bytes) * SP_TILE);
-  unsigned int* sorted = reinterpret_cast<unsigned int*>(dbase + C);
-  int* seen = reinterpret_cast<int*>(sorted + SP_TILE);
-  int* tstart = seen + SP_WARPS * C;
-  int* lim = tstart + C;
-  int* scratch = lim + C;
-  for (int c = threadIdx.x; c < SP_WARPS * C; c += SP_THREADS) seen[c] = 0;
-  __syncthreads();
-
-  // rank each row among its warp's rows of its target, in row order
-  int* mine = seen + warp * C;
-  const unsigned int lower = (1u << lane) - 1u;
-  int cls[SP_ROWS], rank[SP_ROWS];
-#pragma unroll
-  for (int k = 0; k < SP_ROWS; ++k) {
-    const int r = warp * SP_WARP_ROWS + k * 32 + lane;
-    cls[k] = r < nrows ? static_cast<int>(tcls[row0 + r]) : -1;
-  }
-#pragma unroll
-  for (int k = 0; k < SP_ROWS; ++k) {
-    const int c = cls[k];
-    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, c);
-    rank[k] = c >= 0 ? mine[c] + __popc(peers & lower) : 0;
-    __syncwarp();
-    if (c >= 0 && (peers & lower) == 0) mine[c] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // per target: each warp's base within the tile's run, the tile's count
-  for (int c = threadIdx.x; c < C; c += SP_THREADS) {
-    int run = 0;
-    for (int w = 0; w < SP_WARPS; ++w) {
-      const int v = seen[w * C + c];
-      seen[w * C + c] = run;
-      run += v;
-    }
-    lim[c] = run;
-  }
-  __syncthreads();
-  // the runs in target order: tstart = exclusive prefix of the counts
-  const int per = (C + SP_THREADS - 1) / SP_THREADS;
-  const int lo = threadIdx.x * per < C ? threadIdx.x * per : C;
-  const int hi = lo + per < C ? lo + per : C;
-  int local = 0;
-  for (int c = lo; c < hi; ++c) local += lim[c];
-  int run = sp_block_exclusive(local, scratch);
-  for (int c = lo; c < hi; ++c) {
-    tstart[c] = run;
-    run += lim[c];
-  }
-  __syncthreads();
+  pt_tile_rows(g, tile, &s, &j, &row0, &nrows);
+  const PtShared sh = pt_carve(smem, C, lanes.stage_bytes);
+  pt_rank_tile(C, tcls, row0, nrows, sh);
   // where each run goes: sorted position p of target c is bucket row
   // dbase[c] + p, written while p < lim[c] (the rows below cap)
-  for (int c = threadIdx.x; c < C; c += SP_THREADS) {
-    const int cnt = lim[c];
-    const int st = tstart[c];
+  for (int c = threadIdx.x; c < C; c += PT_THREADS) {
+    const int cnt = sh.lim[c];
+    const int st = sh.tstart[c];
     if (c < S) {
       const long long bucket = static_cast<long long>(s) * S + c;
       const long long base = offs[bucket * g.tps + j];
-      long long keep = g.cap - base;
+      long long keep = cap - base;
       keep = keep < 0 ? 0 : (keep > cnt ? cnt : keep);
-      lim[c] = st + static_cast<int>(keep);
-      dbase[c] = bucket * g.cap + base - st;
+      sh.lim[c] = st + static_cast<int>(keep);
+      sh.dbase[c] = bucket * cap + base - st;
     } else {
-      lim[c] = st;  // padding: never written
-      dbase[c] = 0;
-    }
-  }
-  // the tile's permutation, in bucket order
-#pragma unroll
-  for (int k = 0; k < SP_ROWS; ++k) {
-    const int c = cls[k];
-    if (c >= 0) {
-      const int r = warp * SP_WARP_ROWS + k * 32 + lane;
-      sorted[tstart[c] + seen[warp * C + c] + rank[k]] =
-          (static_cast<unsigned int>(c) << 16) | static_cast<unsigned int>(r);
+      sh.lim[c] = st;  // padding: never written
+      sh.dbase[c] = 0;
     }
   }
   __syncthreads();
@@ -349,18 +173,12 @@ __device__ void sp_scatter_tile(const SpLanes& lanes, const SpGeometry& g,
     unsigned char* dst = lanes.dst[L];
     const int w = lanes.width[L];
     if (w <= 8) {
-      switch (w) {
-        case 1: sp_move_staged<unsigned char>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
-        case 2: sp_move_staged<unsigned short>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
-        case 4: sp_move_staged<unsigned int>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
-        default: sp_move_staged<unsigned long long>(src, dst, stage, row0, nrows, sorted, lim, dbase); break;
-      }
+      pt_move_width(src, dst, w, row0, nrows, sh);
     } else {
-      const int u = lanes.word[L];
-      switch (u) {
-        case 16: sp_move_words<uint4>(src, dst, w / 16, row0, nrows, sorted, lim, dbase); break;
-        case 8: sp_move_words<uint2>(src, dst, w / 8, row0, nrows, sorted, lim, dbase); break;
-        default: sp_move_words<unsigned int>(src, dst, w / 4, row0, nrows, sorted, lim, dbase); break;
+      switch (lanes.word[L]) {
+        case 16: sp_move_words<uint4>(src, dst, w / 16, row0, nrows, sh); break;
+        case 8: sp_move_words<uint2>(src, dst, w / 8, row0, nrows, sh); break;
+        default: sp_move_words<unsigned int>(src, dst, w / 4, row0, nrows, sh); break;
       }
     }
   }
@@ -375,16 +193,16 @@ __device__ __forceinline__ void sp_zero_bytes(unsigned char* dst, long long lo,
   long long b = static_cast<long long>(((base + hi) & ~15ULL) - base);
   if (a > hi) a = hi;
   if (b < a) b = a;
-  for (long long q = lo + threadIdx.x; q < a; q += SP_THREADS) dst[q] = 0;
+  for (long long q = lo + threadIdx.x; q < a; q += PT_THREADS) dst[q] = 0;
   uint4* v = reinterpret_cast<uint4*>(dst + a);
   const long long nv = (b - a) >> 4;
-  for (long long q = threadIdx.x; q < nv; q += SP_THREADS)
+  for (long long q = threadIdx.x; q < nv; q += PT_THREADS)
     v[q] = make_uint4(0u, 0u, 0u, 0u);
-  for (long long q = b + threadIdx.x; q < hi; q += SP_THREADS) dst[q] = 0;
+  for (long long q = b + threadIdx.x; q < hi; q += PT_THREADS) dst[q] = 0;
 }
 
-__device__ void sp_fill_chunk(const SpLanes& lanes, const SpGeometry& g,
-                              long long f, const int* __restrict__ out_counts) {
+__device__ void sp_fill_chunk(const SpLanes& lanes, long long cap, long long f,
+                              const int* __restrict__ out_counts) {
   int L = 0;
   while (L + 1 < lanes.n && f >= lanes.fill_start[L + 1]) ++L;
   const long long local = f - lanes.fill_start[L];
@@ -392,8 +210,8 @@ __device__ void sp_fill_chunk(const SpLanes& lanes, const SpGeometry& g,
   const long long bucket = local / chunks;
   const long long chunk = local - bucket * chunks;
   const long long w = lanes.width[L];
-  const long long b0 = bucket * g.cap * w;
-  const long long b1 = b0 + g.cap * w;
+  const long long b0 = bucket * cap * w;
+  const long long b1 = b0 + cap * w;
   long long lo = b0 + chunk * SP_FILL_BYTES;
   long long hi = lo + SP_FILL_BYTES < b1 ? lo + SP_FILL_BYTES : b1;
   const long long z = b0 + static_cast<long long>(out_counts[bucket]) * w;
@@ -403,23 +221,17 @@ __device__ void sp_fill_chunk(const SpLanes& lanes, const SpGeometry& g,
 }
 
 // 3. Tile blocks [0, tiles), then fill blocks.
-__global__ void __launch_bounds__(SP_THREADS)
-sp_scatter_fill(SpLanes lanes, SpGeometry g,
+__global__ void __launch_bounds__(PT_THREADS)
+sp_scatter_fill(SpLanes lanes, PtGeometry g, long long cap,
                 const unsigned short* __restrict__ tcls,
                 const int* __restrict__ offs,
                 const int* __restrict__ out_counts) {
   extern __shared__ __align__(16) unsigned char sp_smem[];
   const long long b = blockIdx.x;
   if (b < g.tiles)
-    sp_scatter_tile(lanes, g, b, tcls, offs, sp_smem);
+    sp_scatter_tile(lanes, g, cap, b, tcls, offs, sp_smem);
   else
-    sp_fill_chunk(lanes, g, b - g.tiles, out_counts);
-}
-
-static size_t sp_scatter_smem(int C, int stage_bytes) {
-  return static_cast<size_t>(stage_bytes) * SP_TILE + sizeof(long long) * C +
-         sizeof(unsigned int) * SP_TILE + sizeof(int) * (SP_WARPS * C + 2 * C) +
-         sizeof(int) * SP_WARPS;
+    sp_fill_chunk(lanes, cap, b - g.tiles, out_counts);
 }
 
 // Packs n rows (nsrc blocks of n / nsrc) into nsrc * S buckets of cap rows.
@@ -438,17 +250,12 @@ extern "C" int ft_shard_pack(const void* tgt, const void* hash_lo,
                              void* tcls, void* counts, void* offs,
                              void* stream) {
   if (n <= 0 || nsrc < 1 || n % nsrc != 0 || nshards < 1 ||
-      nshards + 1 > 65535 || cap < 1 || nlanes < 1 || nlanes > SP_MAX_LANES ||
+      nshards + 1 > PT_MAX_CLASSES || cap < 1 || nlanes < 1 || nlanes > SP_MAX_LANES ||
       n / nsrc > 0x7FFFFFFFLL ||
       (tgt == nullptr && (hash_lo == nullptr || max_parallelism < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SpGeometry g;
-  g.m = n / nsrc;
-  g.cap = cap;
-  g.nshards = nshards;
-  g.tps = static_cast<int>((g.m + SP_TILE - 1) / SP_TILE);
-  g.tiles = static_cast<long long>(nsrc) * g.tps;
+  const PtGeometry g = pt_geometry(n, n / nsrc, nsrc, nshards + 1);
   SpTargets target_of;
   target_of.tgt = static_cast<const int*>(tgt);
   target_of.hash_lo = static_cast<const unsigned int*>(hash_lo);
@@ -491,30 +298,30 @@ extern "C" int ft_shard_pack(const void* tgt, const void* hash_lo,
     return static_cast<int>(cudaErrorInvalidValue);
   const int C = nshards + 1;
 
-  const size_t hist = sizeof(int) * SP_WARPS * C;
+  const size_t hist = sizeof(int) * C;
   cudaError_t err = cudaFuncSetAttribute(
       sp_classify, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(hist));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sp_classify<<<static_cast<unsigned int>(g.tiles), SP_THREADS, hist, st>>>(
+  sp_classify<<<static_cast<unsigned int>(g.tiles), PT_THREADS, hist, st>>>(
       target_of, g, static_cast<unsigned short*>(tcls),
       static_cast<int*>(counts));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sp_scan<<<static_cast<unsigned int>((buckets + SP_WARPS - 1) / SP_WARPS),
-            SP_THREADS, 0, st>>>(static_cast<const int*>(counts), buckets,
+  sp_scan<<<static_cast<unsigned int>((buckets + PT_WARPS - 1) / PT_WARPS),
+            PT_THREADS, 0, st>>>(static_cast<const int*>(counts), buckets,
                                  g.tps, cap, static_cast<int*>(offs),
                                  static_cast<int*>(out_counts));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sp_scatter_smem(C, lanes.stage_bytes);
+  const size_t smem = pt_scatter_smem(C, lanes.stage_bytes);
   err = cudaFuncSetAttribute(sp_scatter_fill,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   sp_scatter_fill<<<static_cast<unsigned int>(g.tiles + fill_blocks),
-                    SP_THREADS, smem, st>>>(
-      lanes, g, static_cast<const unsigned short*>(tcls),
+                    PT_THREADS, smem, st>>>(
+      lanes, g, cap, static_cast<const unsigned short*>(tcls),
       static_cast<const int*>(offs), static_cast<const int*>(out_counts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -101,7 +101,7 @@ _SIGNATURES = {
     },
     "chain_route": {
         "ft_chain_route": (_P, _P, _LL, _I, _LL, _LL, _I, _P, _P, _P, _I, _P,
-                           _LL, _LL, _P, _P, _P, _P, _P),
+                           _LL, _LL, _P, _P, _P, _P, _P, _P, _P),
     },
     "gather_segment_sum": {
         "ft_gather_segment_sum": (_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P,

@@ -11,6 +11,10 @@ Precondition of both: no src row is also a dst row in the same call
 (the reference reads every src from the state as it was before the
 call).  The plain version raises when it is broken; the kernel cannot
 check it without a synchronisation and relies on the caller.
+
+float32 min / max follow the reference's order (``float_order``): a NaN
+wins and -0 < +0; with a unique dst, a row keeps its own bits unless the
+src beats it.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import math
 
 import torch
 
-from flink_tpu_torch.kernels import loader
+from flink_tpu_torch.kernels import float_order, loader
 
 OPS = {"add": 0, "min": 1, "max": 2}
 _DTYPES = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
@@ -68,6 +72,13 @@ def merge_rows_plain(comp: torch.Tensor, dst: torch.Tensor,
         raise ValueError("merge_rows: a src row is also a dst row")
     if unique_dst and len(torch.unique(d)) != len(d):
         raise ValueError("merge_rows: unique_dst with a repeated dst row")
+    if comp.dtype == torch.float32 and op != "add":
+        # the reference's order (float_order): the same merge on keys
+        old = float_order.keys(comp, op)
+        new = old.clone()
+        merge_rows_plain(new, dst, src, op, unique_dst)
+        float_order.write_changed(comp.view(-1), old.view(-1), new.view(-1))
+        return
     rows = comp[s]
     if unique_dst:
         cur = comp[d]

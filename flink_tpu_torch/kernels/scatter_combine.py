@@ -4,6 +4,10 @@
 Replaces ``flink_tpu/streaming/vectorized.py`` ``make_masked_update``
 -> ``flink_tpu/ops/device_agg.py`` Sum/Count/Min/Max/Avg ``.update``.
 ``scatter_combine_plain`` is the same function in plain PyTorch.
+
+float32 min / max follow the reference's order (``float_order``): a NaN
+wins and -0 < +0, whatever the row order; a NaN that a min stores is
+0xFFFFFFFF, a max's 0x7FFFFFFF.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from flink_tpu_torch.kernels import loader
+from flink_tpu_torch.kernels import float_order, loader
 
 OPS = {"add": 0, "min": 1, "max": 2}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
@@ -52,7 +56,12 @@ def scatter_combine_plain(state: torch.Tensor, slots: torch.Tensor,
         vals = values[:n].to(state.dtype)
     keep = (idx >= 0) & (idx < state.shape[0])
     idx, vals = idx[keep], vals[keep]
+    reduce = "amin" if op == "min" else "amax"
     if op == "add":
         state.index_add_(0, idx, vals)
+    elif state.dtype == torch.float32:
+        old = float_order.keys(state, op)
+        new = old.scatter_reduce(0, idx, float_order.keys(vals, op), reduce)
+        float_order.write_changed(state, old, new)
     else:
-        state.scatter_reduce_(0, idx, vals, "amin" if op == "min" else "amax")
+        state.scatter_reduce_(0, idx, vals, reduce)

@@ -41,14 +41,11 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from flink_tpu_torch.kernels import loader
-from flink_tpu_torch.kernels.chain_route import MAX_CLASSES
+from flink_tpu_torch.kernels.chain_route import MAX_CLASSES, TILE_ROWS
 from flink_tpu_torch.ops.hashing import fmix32
 
 #: lanes one launch moves
 MAX_LANES = 16
-#: rows of one source a block of the kernel ranks (SP_TILE in
-#: csrc/shard_pack.cu); the scratch holds a count per tile and target
-TILE_ROWS = 4096
 _LANE32 = (torch.int32, torch.uint32, torch.float32)
 
 Lanes = Union[Sequence[torch.Tensor], torch.Tensor]

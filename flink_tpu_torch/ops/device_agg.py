@@ -240,9 +240,16 @@ class DeviceAggregateFunction(AggregateFunction):
         return out.item() if np.ndim(out) == 0 else out
 
     def merge(self, a, b):
-        ops = {"add": np.add, "min": np.minimum, "max": np.maximum}
-        return {k: ops[self.combiners[k]](np.asarray(a[k]), np.asarray(b[k]))
-                for k in self.state_specs()}
+        """a ⊕ b: ``merge_rows`` on a two-row CPU state, as the reference
+        runs ``merge_slots`` on its two stacked rows (float min / max in
+        its order: NaN wins, -0 < +0)."""
+        specs = self.state_specs()
+        state = {k: torch.from_numpy(np.stack([
+            np.asarray(x[k], device_dtype(specs[k].dtype)).reshape(np.shape(a[k]))
+            for x in (a, b)])) for k in specs}
+        self.merge_rows(state, torch.zeros(1, dtype=torch.int32),
+                        torch.ones(1, dtype=torch.int32))
+        return {k: v.numpy()[0] for k, v in state.items()}
 
     def _host_record(self, value):
         """One scalar value → (values[1], vh_hi[1], vh_lo[1])."""

@@ -17,8 +17,24 @@ same in every turn:
 - ``gather_segment_sum`` on a Graph500 scale-22 graph (PageRank's
   contributions; a checkout with ``segment_plan`` is timed on its plan,
   built once beforehand and timed on its own);
-- ``chain_route`` route4 and route128 (2^20 rows, one call per event
-  pair, as ``chip_smoke.py`` times it: the call reads the host).
+- ``scatter_combine`` at the graph shape (the same graph: float32 min
+  over its 67.1M edges, int32 min over the 134.2M undirected edges, into
+  4,194,304 slots filled before each call, one call per event pair) and
+  at the entry (2^20 rows into 50k slots, add / min / max in float32 and
+  int32, the state carried over, a run; min and max also from one state
+  each call, ``_fresh``, one call per event pair);
+- ``chain_route`` in every mode of ``chip_smoke.chain_route_entry``
+  (route4, route128, plain, window, mesh40; 2^20 rows): the launch
+  alone as a run, without the host read of the class starts (a checkout
+  without ``chain_route_launch`` runs its own wrapper's launch, scratch
+  allocated per call as it did), and the call that reads the starts,
+  one per event pair (``_host``).
+
+``shard_pack``, ``chain_route`` and ``scatter_combine`` (add at the
+entry, both graph shapes with the fill), with ``index_add_`` and
+``scatter_reduce_`` beside them, also get ``_split``: the device ms of
+each kernel per call, from a ``torch.profiler`` trace of 10 calls (CUPTI
+kernel records, by kernel name), taken at the end of the turn.
 
 Prints one JSON object per turn, then a summary line: the median of each
 checkout's turns per entry.  Needs a CUDA card.
@@ -52,10 +68,14 @@ def worker(root: str) -> dict:
     from flink_tpu_torch import kernels as K
     cs = _chip_smoke()
     dev = torch.device("cuda", 0)
-    K.build_all(("shard_pack", "gather_segment_sum", "chain_route"))
+    K.build_all(("shard_pack", "gather_segment_sum", "chain_route",
+                 "scatter_combine"))
+
     out = {"root": root, "package": K.__file__,
            "device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi()}
+    # profiled last: a trace slows the launches that follow it
+    splits = {}
 
     # shard_pack at chip_smoke.shard_pack_entry's inputs
     rng = np.random.default_rng(5)
@@ -86,6 +106,8 @@ def worker(root: str) -> dict:
         ok = torch.equal(got[1], want[1]) and all(torch.equal(g, w) for g, w in outs)
         out[name] = {"ms": cs.cuda_ms(lambda: K.shard_pack(data, S, cap, **kw)),
                      "bit_equal_to_plain": bool(ok)}
+        splits[name + "_split"] = (lambda d=data, c=cap, k=kw, s=S:
+                                   K.shard_pack(d, s, c, **k))
     del lanes, rows, got, want, outs
     torch.cuda.empty_cache()
 
@@ -103,20 +125,136 @@ def worker(root: str) -> dict:
     else:
         call = lambda: K.gather_segment_sum(x, src, dst, n)  # noqa: E731
     out["gather_segment_sum"] = {"ms": cs.cuda_ms(call)}
-    del src, dst, deg, x, call
+    del deg, x, call
     torch.cuda.empty_cache()
 
-    # chain_route, as chip_smoke.chain_route_entry times it
-    keys, ts, vh = cs.config2_events(np.random.default_rng(11), n_events=1 << 20)
+    # scatter_combine at chip_smoke.scatter_combine_graph_entry's inputs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(63)
+    for name, slots, msgs, ident in (
+            ("f32_min_directed", dst, torch.rand(len(dst), generator=gen, device=dev),
+             float("inf")),
+            ("i32_min_undirected", torch.cat([dst, src]), torch.cat([src, dst]),
+             int(np.iinfo(np.int32).max))):
+        e = len(slots)
+        state = torch.full((n,), ident, dtype=msgs.dtype, device=dev)
+        fill = lambda: state.fill_(ident)                   # noqa: E731
+        out[f"scatter_combine_graph_{name}"] = {"ms": cs.cuda_ms(
+            lambda: K.scatter_combine(state, slots, msgs, e, "min"), 10, fill)}
+        splits[f"scatter_combine_graph_{name}_split"] = (
+            lambda st=state, sl=slots, m=msgs, e=e, i=ident:
+            (st.fill_(i), K.scatter_combine(st, sl, m, e, "min")))
+        idx = slots.to(torch.int64)
+        splits[f"scatter_reduce_graph_{name}_split"] = (
+            lambda st=state, x=idx, m=msgs, i=ident:
+            (st.fill_(i), st.scatter_reduce_(0, x, m, "amin")))
+        del state, slots, msgs, idx
+    del src, dst
+    torch.cuda.empty_cache()
+
+    # scatter_combine at chip_smoke.kernel_phase's entry
+    rng = np.random.default_rng(7)
+    N, S = 1 << 20, 50_000
+    cslots = t(rng.integers(0, S, N).astype(np.int32))
+    for dt, tag in ((torch.float32, "f32"), (torch.int32, "i32")):
+        vals = t(rng.integers(-1000, 1000, N)).to(dt)
+        for op in ("add", "min", "max"):
+            state = t(rng.integers(-50, 50, S)).to(dt)
+            out[f"scatter_combine_{op}_{tag}"] = {"ms": cs.cuda_ms(
+                lambda: K.scatter_combine(state, cslots, vals, N, op))}
+            if op == "add":
+                splits[f"scatter_combine_add_{tag}_split"] = (
+                    lambda st=state, v=vals, c=cslots: K.scatter_combine(st, c, v, N, "add"))
+                splits[f"index_add_{tag}_split"] = (
+                    lambda st=state, v=vals, c=cslots: st.index_add_(0, c, v))
+            if op != "add":     # from the same state each call
+                base = state.clone()
+                out[f"scatter_combine_{op}_{tag}_fresh"] = {"ms": cs.cuda_ms(
+                    lambda: K.scatter_combine(state, cslots, vals, N, op), 10,
+                    lambda: state.copy_(base))}
+    del cslots, vals, state, base
+
+    # chain_route in chip_smoke.chain_route_entry's modes
+    n = 1 << 20
+    keys, ts, vh = cs.config2_events(np.random.default_rng(11), n_events=n)
     key = torch.from_numpy(keys.astype(np.int64)).to(dev)
-    cols = [key, torch.from_numpy(vh.view(np.int64)).to(dev),
-            torch.from_numpy(ts).to(dev)]
+    val = torch.from_numpy(vh.view(np.int64)).to(dev)
+    tt = torch.from_numpy(ts).to(dev)
+    t_neg = tt - 500
     keep = torch.from_numpy(vh.view(np.int64) % 7 != 0).to(dev)
-    for nch in (4, 128):
-        kw = dict(key=key, num_channels=nch, max_parallelism=128)
-        out[f"chain_route_route{nch}"] = {"ms": cs.cuda_ms(
+    launch = getattr(K, "chain_route_launch", _old_chain_launch)
+    route4 = dict(key=key, num_channels=4, max_parallelism=128)
+    for mode, kw, tcol in (
+            ("route4", route4, tt),
+            ("route128", dict(key=key, num_channels=128, max_parallelism=128), tt),
+            ("plain", {}, tt),
+            ("window", dict(ts=t_neg, pane_offset=0, slide=1000), t_neg),
+            ("mesh40", dict(route4, shard_rows=n // 8, n_shards=8), tt)):
+        cols = [key, val, tcol]
+        out[f"chain_route_{mode}"] = {"ms": cs.cuda_ms(lambda: launch(cols, keep, **kw))}
+        splits[f"chain_route_{mode}_split"] = (lambda c=cols, k=kw, m=keep:
+                                               launch(c, m, **k))
+        out[f"chain_route_{mode}_host"] = {"ms": cs.cuda_ms(
             lambda: K.chain_route(cols, keep, **kw), single=True)}
+    for name, fn in splits.items():
+        out[name] = _kernel_split(fn)
     return out
+
+
+def _kernel_split(fn, reps: int = 10) -> dict:
+    """Device ms per call of each kernel that fn launches (torch.profiler,
+    CUDA activity): kernel name (up to its argument list) -> ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us:
+            name = ev.key.split("(")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def _old_chain_launch(cols, keep, key=None, num_channels=0, max_parallelism=0,
+                      ts=None, pane_offset=0, slide=0, shard_rows=0, n_shards=0):
+    """The launch of a checkout whose ``chain_route`` wrapper has no
+    device-only form (the design before the tiled partition): its
+    wrapper's allocations and launch, without the host read of the
+    class starts."""
+    import ctypes
+    import torch
+    cr = sys.modules["flink_tpu_torch.kernels.chain_route"]
+    loader = cr.loader
+    dev = keep.device
+    nclass = cr._num_classes(key, num_channels, max_parallelism)
+    n = keep.numel()
+    shards = cr._shards(n, shard_rows, n_shards)
+    outs = [torch.empty_like(c) for c in cols]
+    pane = torch.empty(n, dtype=torch.int64, device=dev) if slide else None
+    tiles = -(-n // cr.TILE_ROWS)
+    counts = torch.empty(nclass * shards * tiles, dtype=torch.int32, device=dev)
+    offsets = torch.empty_like(counts)
+    starts = torch.empty(nclass * shards, dtype=torch.int64, device=dev)
+    k = len(cols)
+    src = (ctypes.c_longlong * k)(*[c.data_ptr() for c in cols])
+    dst = (ctypes.c_longlong * k)(*[o.data_ptr() for o in outs])
+    widths = (ctypes.c_int * k)(*[c.element_size() for c in cols])
+    loader.launch("chain_route", "ft_chain_route", loader.ptr(key),
+                  keep.data_ptr(), n, nclass, max_parallelism, shard_rows,
+                  shards, ctypes.addressof(src), ctypes.addressof(dst),
+                  ctypes.addressof(widths), k,
+                  loader.ptr(ts) if slide else None, pane_offset, slide,
+                  loader.ptr(pane), counts.data_ptr(), offsets.data_ptr(),
+                  starts.data_ptr())
+    return outs, pane, starts
 
 
 def main() -> int:

@@ -103,6 +103,94 @@ def test_scatter_combine_matches_plain(cuda, dtype, op):
     assert torch.equal(got.cpu(), ref)
 
 
+def _same_bits(got, want):
+    """Bit for bit, except that a NaN equals any NaN."""
+    got, want = got.cpu(), want.cpu()
+    if got.dtype != torch.float32:
+        return torch.equal(got, want)
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    return torch.equal(gn, wn) and torch.equal(
+        got[~gn].view(torch.int32), want[~wn].view(torch.int32))
+
+
+_SPECIAL = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -1.5],
+                    np.float32)
+
+
+@pytest.mark.parametrize("slots_kind", ["uniform", "zipf"])
+@pytest.mark.parametrize("dtype,op", [
+    (dt, op) for dt in (torch.float32, torch.int32) for op in ("add", "min", "max")
+] + [(torch.int32, "count"), (torch.float32, "count")])
+def test_scatter_combine_edges_match_plain(cuda, dtype, op, slots_kind):
+    """Every op and dtype: NaN, +-0 and
+    +-inf in the values and in the state (float32 min/max in the
+    reference's order), out-of-range slots, a uniform or a Zipf slot
+    column, row counts that are no multiple of 4 or 8, and slot and
+    value columns that start off their 16-byte alignment (the same
+    offset, and offsets that differ)."""
+    rng = np.random.default_rng(sum(map(ord, f"{dtype}{op}{slots_kind}")))
+    c, n_rows = 777, 50_003
+    if slots_kind == "zipf":
+        slots_np = np.minimum(rng.zipf(1.3, n_rows) - 2, c).astype(np.int32)
+    else:
+        slots_np = rng.integers(-3, c + 3, n_rows).astype(np.int32)
+    if dtype == torch.float32:
+        vals_np = rng.integers(-1000, 1000, n_rows).astype(np.float32)
+        if op in ("min", "max"):
+            pick = rng.random(n_rows) < 0.3
+            vals_np[pick] = rng.choice(_SPECIAL, pick.sum())
+        base_np = rng.integers(-50, 50, c).astype(np.float32)
+        if op in ("min", "max"):
+            base_np[:40] = np.resize(np.concatenate(
+                [_SPECIAL, np.array([0x7FC00000, 0xFFC00000], np.uint32).view(np.float32)]), 40)
+    else:
+        info = np.iinfo(np.int32)
+        vals_np = rng.integers(info.min, info.max, n_rows, dtype=np.int64).astype(np.int32) \
+            if op in ("min", "max") else rng.integers(-1000, 1000, n_rows).astype(np.int32)
+        base_np = rng.integers(-50, 50, c).astype(np.int32)
+    kind = "add" if op == "count" else op
+    for s_off, v_off in ((0, 0), (1, 1), (3, 3), (1, 2), (2, 0)):
+        n = n_rows - 17 - max(s_off, v_off)
+        slots = torch.from_numpy(slots_np)
+        vals = None if op == "count" else torch.from_numpy(vals_np)
+        ref = torch.from_numpy(base_np.copy())
+        K.scatter_combine_plain(ref, slots[s_off:], None if vals is None else vals[v_off:],
+                                n, kind)
+        got = torch.from_numpy(base_np.copy()).to(cuda)
+        d_slots = slots.to(cuda)[s_off:]
+        d_vals = None if vals is None else vals.to(cuda)[v_off:]
+        before = K.LAUNCHES["scatter_combine"]
+        K.scatter_combine(got, d_slots, d_vals, n, kind)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["scatter_combine"] == before + 1
+        assert _same_bits(got, ref), (s_off, v_off)
+
+
+@pytest.mark.parametrize("unique", [False, True])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_merge_rows_float_order_matches_plain(cuda, op, unique):
+    """float32 min/max merges with NaN, +-0 and +-inf in the dst and src
+    rows (the reference's order), both modes."""
+    rng = np.random.default_rng(51 if op == "min" else 52)
+    c = 3000
+    specials = np.concatenate([_SPECIAL, np.array([0x7FC00000, 0xFFC00000],
+                                                  np.uint32).view(np.float32)])
+    base_np = rng.choice(specials, c).astype(np.float32)
+    perm = rng.permutation(c).astype(np.int32)
+    if unique:
+        dst, src = perm[:800], perm[800:1600]
+    else:
+        dst = rng.choice(perm[:200], 1500).astype(np.int32)
+        src = perm[200:1700]
+    dst, src = torch.from_numpy(dst), torch.from_numpy(src)
+    ref = torch.from_numpy(base_np.copy())
+    K.merge_rows_plain(ref, dst, src, op, unique_dst=unique)
+    got = torch.from_numpy(base_np.copy()).to(cuda)
+    K.merge_rows(got, dst.to(cuda), src.to(cuda), op, unique_dst=unique)
+    torch.cuda.synchronize()
+    assert _same_bits(got, ref)
+
+
 @pytest.mark.parametrize("shape,dtype,fill", [
     ((700, 64), torch.uint8, 0), ((700,), torch.float32, float(np.finfo(np.float32).max)),
     ((700,), torch.int32, -7), ((700, 3), torch.float32, 1.5)])
@@ -414,6 +502,77 @@ def test_chain_route_row_shards_match_plain(cuda, mode):
         assert torch.equal(g[idx].cpu(), w[idx].cpu())
     if mode == "window":
         assert torch.equal(got[1][idx].cpu(), want[1][idx].cpu())
+
+
+@pytest.mark.parametrize("case", ["ragged_n", "shard_below_a_tile",
+                                  "shard_not_a_tile_multiple", "empty_shard",
+                                  "one_class", "classes_2048", "columns_17",
+                                  "widths_1_2", "window_negative"])
+def test_chain_route_edge_cases(cuda, case):
+    """The tiled kernel's edges, each bit-equal to the plain version (with
+    row shards: the class starts and every shard's kept rows): n not a
+    multiple of the 4096-row tile, shards shorter than a tile and shards
+    that end inside one, an empty last shard, every row in one class,
+    2047 channels (2048 classes), 17 columns (two scatter launches), 1-
+    and 2-byte columns, panes of negative timestamps; and the launch's
+    device starts equal to the host ones."""
+    from torch_port_util import shard_bounds
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n, nch, S, m = 3 * 4096 + 1234, 4, 0, 0
+    if case == "shard_below_a_tile":
+        S, m = 8, 1000
+        n = S * m - 77
+    elif case == "shard_not_a_tile_multiple":
+        S, m = 5, 4096 + 2049
+        n = S * m - 300
+    elif case == "empty_shard":
+        S, m = 6, 5000
+        n = 4 * m + 10                 # shard 5 holds nothing
+    elif case == "classes_2048":
+        nch, n = 2047, 200_000
+    key = rng.integers(-2**62, 2**62, n)
+    keep = rng.random(n) > 1 / 7
+    if case == "one_class":
+        keep[:] = True
+        nch = 1
+    ts = rng.integers(-10**6, 10**6, n) - (10**6 if case == "window_negative" else 0)
+    cols = [key, rng.integers(-2**31, 2**31, n).astype(np.int32), ts]
+    if case == "columns_17":
+        cols = [rng.integers(-2**62, 2**62, n) for _ in range(17)]
+    if case == "widths_1_2":
+        cols = [rng.integers(-128, 128, n).astype(np.int8),
+                rng.integers(-2**15, 2**15, n).astype(np.int16),
+                rng.random(n) > 0.5, rng.integers(0, 256, n).astype(np.uint8)]
+    window = case == "window_negative"
+    kw = dict(num_channels=0 if window else nch,
+              max_parallelism=0 if window else max(128, nch),
+              pane_offset=-37 if window else 0, slide=1000 if window else 0,
+              shard_rows=m, n_shards=S)
+    nclass = 2 if window else nch + 1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)   # noqa: E731
+    args = lambda: ([t(c) for c in cols], t(keep), None if window else t(key))  # noqa: E731
+    tsd = t(ts) if window else None
+    want = K.chain_route_plain(*args(), ts=tsd, **kw)
+    got = K.chain_route(*args(), ts=tsd, **kw)
+    dev_starts = K.chain_route_launch(*args(), ts=tsd, **kw)[2]
+    torch.cuda.synchronize()
+    assert np.array_equal(got[2], want[2])
+    assert np.array_equal(dev_starts.cpu().numpy(), got[2])
+    if S:
+        counts, _ = shard_bounds(got[2], S, nclass)
+        idx = torch.from_numpy(np.concatenate([
+            np.arange(got[2][s * nclass], got[2][s * nclass] + counts[s])
+            for s in range(S)])).to(cuda)
+        if case == "empty_shard":
+            assert counts[-1] == 0 and got[2][-nclass] == n
+    else:
+        assert got[2][-1] == keep.sum()
+        idx = torch.arange(int(got[2][-1]), device=cuda)
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == w.dtype and torch.equal(g[idx].cpu(), w[idx].cpu())
+    if window:
+        assert torch.equal(got[1][idx].cpu(), want[1][idx].cpu())
+        assert bool((got[1] < 0).any())
 
 
 @pytest.mark.parametrize("layout", ["lanes_hashed", "lanes_target", "rows",
