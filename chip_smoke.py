@@ -230,6 +230,30 @@ def cuda_ms(fn, reps: int = 10, setup=None, single: bool = False) -> float:
     return float(np.median(times))
 
 
+def kernel_device_ms(fn, reps: int = 10) -> dict:
+    """Device ms per call of each kernel that fn launches, from a
+    torch.profiler trace (CUDA activity) of reps calls after one warm-up:
+    kernel name (up to its argument list) -> ms.  A trace slows the
+    launches after it: take it after the timed runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us:
+            name = ev.key.split("(")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over two tensors of one shape, compared in
     float64 a block of rows at a time (the register file is 5 GB)."""
@@ -377,20 +401,45 @@ def kernel_phase(dev, hbm: float):
     check(torch.equal(regs_raw, ref), "hll_update (raw lanes) registers bit-equal")
     update_err = max(max_abs_err(regs, ref), max_abs_err(regs_raw, ref))
     del regs_raw
-    words = np.unique((slots_np.astype(np.int64) * m + reg_np) // 4).size
+    addr = slots_np.astype(np.int64) * m + reg_np
+    words = np.unique(addr // 4).size
+    sectors = np.unique(addr // 32).size
     zero = lambda t: (lambda: K.clear_rows(t, 0))          # noqa: E731
-    ms = cuda_ms(lambda: K.hll_update(regs, slots, rank, reg, N), 5, zero(regs))
+    update = lambda: K.hll_update(regs, slots, rank, reg, N)   # noqa: E731
+    ms = cuda_ms(update, 10, zero(regs))
+    # the same batch onto the registers it left: every row loses
+    onto = cuda_ms(update, 10)
     plain = cuda_ms(lambda: K.hll_update_plain(ref, slots, rank, reg, N), 5,
                     zero(ref))
+    check(torch.equal(regs, ref), "hll_update bit-equal after the batch onto itself")
     flat_idx = slots.to(torch.int64) * m + reg.to(torch.int64)
     lib = cuda_ms(lambda: ref.view(-1).scatter_reduce_(0, flat_idx, rank, "amax"),
-                  5, zero(ref))
+                  10, zero(ref))
     b, by = bound(7 * N + 8 * words, 3 * N, hbm)
+    # the memory moves a random word as a 32-byte sector each way
+    floor = bound(7 * N + 64 * sectors, 3 * N, hbm)[0]
     entries["hll_update"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=b, bound_by=by, max_abs_err=update_err)
+                                 bound_ms=b, bound_by=by, max_abs_err=update_err,
+                                 sector_floor_ms=floor)
     detail.append({"kernel": "hll_update", "rows": N, "slots": C,
-                   "distinct_words": int(words), "library": "scatter_reduce_ amax",
-                   "timer": SINGLE})
+                   "distinct_words": int(words), "distinct_sectors": int(sectors),
+                   "library": "scatter_reduce_ amax", "timer": SINGLE,
+                   "sector_floor_ms": floor, "onto_itself_ms": onto,
+                   "onto_itself_timer": RUN})
+    # probe: the same rows with slots confined to 16,384 slots (64 MiB)
+    confined = slots % (1 << 14)
+    K.clear_rows(regs, 0)
+    K.clear_rows(ref, 0)
+    K.hll_update(regs, confined, rank, reg, N)
+    K.hll_update_plain(ref, confined, rank, reg, N)
+    check(torch.equal(regs, ref), "hll_update bit-equal with slots confined to 64 MiB")
+    detail.append({"kernel": "hll_update", "probe": "slots confined to 16,384 slots "
+                   "(64 MiB), after a clear", "rows": N, "timer": SINGLE,
+                   "ms": cuda_ms(lambda: K.hll_update(regs, confined, rank, reg, N),
+                                 10, zero(regs))})
+    K.clear_rows(regs, 0)
+    K.hll_update(regs, slots, rank, reg, N)
+    del confined
     # the keyed backend's flush: 16384 rows of raw hash lanes
     nf = 16384
     fwords = np.unique((slots_np[:nf].astype(np.int64) * m + reg_np[:nf]) // 4).size
@@ -423,8 +472,8 @@ def kernel_phase(dev, hbm: float):
 
     # clear_rows: range form over the whole arena (the full-fire
     # re-init) and list form over 2^18 slots
-    K.clear_rows(regs, 0, slots=gslots)
     ref.copy_(regs)
+    K.clear_rows(regs, 0, slots=gslots)
     K.clear_rows_plain(ref, 0, slots=gslots)
     check(torch.equal(regs, ref), "clear_rows list form equal")
     clear_err = max_abs_err(regs, ref)
@@ -433,14 +482,37 @@ def kernel_phase(dev, hbm: float):
     ms = cuda_ms(lambda: K.clear_rows(regs, 0))
     plain = cuda_ms(lambda: K.clear_rows_plain(regs, 0))
     lib = cuda_ms(lambda: regs.fill_(0))
+    check(int(regs.max()) == 0, "clear_rows range form filled the arena (timed)")
     b, by = bound(C * m, 0, hbm)
     entries["clear_rows"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                  bound_ms=b, bound_by=by, max_abs_err=clear_err)
+    gidx = gslots.to(torch.int64)
     lms = cuda_ms(lambda: K.clear_rows(regs, 0, slots=gslots))
+    list_lib = cuda_ms(lambda: regs.index_fill_(0, gidx, 0))
     detail.append({"kernel": "clear_rows", "range_rows": C, "list_rows": 1 << 18,
-                   "list_ms": lms,
+                   "list_ms": lms, "list_library_ms": list_lib,
                    "list_bound_ms": bound((1 << 18) * (m + 4), 0, hbm)[0],
-                   "library": "fill_"})
+                   "library": "fill_", "list_library": "index_fill_"})
+    # the sessions path's small list clears: 48 slots of a [1024, 4096]
+    # uint8 and of a [1024] float32 component (Min's fill), as a run here
+    # and as the kernel's device time after every other entry's timing
+    small = torch.from_numpy(np.random.default_rng(13).choice(1024, 48, replace=False)
+                             .astype(np.int32)).to(dev)
+    fmax = float(np.finfo(np.float32).max)
+    small_clears = []
+    for comp, fill in ((torch.ones((1024, m), dtype=torch.uint8, device=dev), 0),
+                       (torch.ones(1024, dtype=torch.float32, device=dev), fmax)):
+        want = comp.clone()
+        K.clear_rows_plain(want, fill, slots=small)
+        K.clear_rows(comp, fill, slots=small)
+        check(torch.equal(comp, want), f"clear_rows small list {comp.dtype} equal")
+        call = (lambda c=comp, f=fill: K.clear_rows(c, f, slots=small))
+        row = {"kernel": "clear_rows", "small_list": list(comp.shape),
+               "dtype": str(comp.dtype), "slots": 48, "run_ms": cuda_ms(call, 20),
+               "bound_ms": bound(48 * (comp[0].numel() * comp.element_size() + 4),
+                                 0, hbm)[0]}
+        detail.append(row)
+        small_clears.append((row, call))
     del regs, ref, flat_idx
     torch.cuda.empty_cache()
 
@@ -506,6 +578,8 @@ def kernel_phase(dev, hbm: float):
     shard_pack_entry(dev, hbm, rng, entries, detail)
     graph_kernel_entries(dev, hbm, entries, detail)
     ml_kernel_entries(dev, hbm, entries, detail)
+    for row, call in small_clears:     # a trace slows the launches after it
+        row["device_ms"] = sum(kernel_device_ms(call).values())
     for d in detail:
         d.setdefault("timer", RUN)
     emit({"kernel_variants": detail})

@@ -11,17 +11,41 @@ function in plain PyTorch.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from flink_tpu_torch.kernels import loader
 
+_WORDS: Dict[tuple, Tuple[int, int, int]] = {}
 
-def _pattern(comp: torch.Tensor, fill) -> bytes:
-    np_dtype = torch.empty(0, dtype=comp.dtype).numpy().dtype
-    return np.array([fill], dtype=np_dtype).tobytes()
+
+def fill_word(dtype: torch.dtype, fill, row_bytes: int,
+              align: int) -> Tuple[int, int, int]:
+    """``(width, lo, hi)`` for the kernel: the widest store ``width`` in
+    (16, 8, 4, 2, 1) bytes that the element pattern, ``row_bytes`` and
+    the base's alignment ``align`` (its address mod 16) allow, and the
+    little-endian 16-byte word ``(lo, hi)`` holding ``fill`` as numpy
+    casts it to ``dtype``, repeated to ``width`` bytes, zero above.
+    Cached per argument tuple (a float fill keyed by its bits, so -0.0
+    is not 0.0)."""
+    key = (dtype, float(fill).hex() if isinstance(fill, (float, np.floating))
+           else fill, row_bytes, align)
+    word = _WORDS.get(key)
+    if word is None:
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        pat = np.array([fill], dtype=np_dtype).tobytes()
+        width = next(w for w in (16, 8, 4, 2, 1)
+                     if w % len(pat) == 0 and row_bytes % w == 0
+                     and align % w == 0)
+        b = (pat * (width // len(pat))).ljust(16, b"\0")
+        word = (width, int.from_bytes(b[:8], "little"),
+                int.from_bytes(b[8:], "little"))
+        if len(_WORDS) >= 4096:
+            _WORDS.clear()
+        _WORDS[key] = word
+    return word
 
 
 def clear_rows(comp: torch.Tensor, fill, slots: Optional[torch.Tensor] = None,
@@ -45,17 +69,12 @@ def clear_rows(comp: torch.Tensor, fill, slots: Optional[torch.Tensor] = None,
             raise ValueError(f"rows [{start}, {start + rows}) outside [0, {c})")
     if rows == 0:
         return
-    pat = _pattern(comp, fill)
     row_bytes = comp.element_size() * math.prod(comp.shape[1:])
-    width = next(w for w in (16, 8, 4, 1)
-                 if w % len(pat) == 0 and row_bytes % w == 0
-                 and comp.data_ptr() % w == 0)
-    word = (pat * (width // len(pat))).ljust(16, b"\0")
-    lo = int.from_bytes(word[:8], "little")
-    hi = int.from_bytes(word[8:], "little")
-    loader.launch("clear_rows", "ft_clear_rows", comp.data_ptr(),
-                  loader.ptr(slots), rows if slots is not None else 0,
-                  start, rows, row_bytes // width, c, width, lo, hi)
+    base = comp.data_ptr()
+    width, lo, hi = fill_word(comp.dtype, fill, row_bytes, base % 16)
+    loader.launch("clear_rows", "ft_clear_rows", base, loader.ptr(slots),
+                  rows if slots is not None else 0, start, rows,
+                  row_bytes // width, c, width, lo, hi)
 
 
 def clear_rows_plain(comp: torch.Tensor, fill,

@@ -2,6 +2,7 @@
 """Time the redesigned kernels of two checkouts in turns, on one card.
 
     python3 scripts/kernel_ab.py --old PATH [--turns old,new,new,old]
+                                 [--kernels clear_rows,hll_update]
 
 PATH is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``).  Each turn is one worker process
@@ -9,10 +10,10 @@ that puts a checkout first on ``sys.path``, builds that checkout's
 kernels, and times them at the entry shapes of ``chip_smoke.py``, with
 ``chip_smoke.cuda_ms`` of THIS checkout (reps calls back to back between
 one pair of CUDA events, / reps) on inputs made from fixed seeds, the
-same in every turn:
+same in every turn.  ``--kernels`` picks the groups (default: all):
 
-- ``shard_pack`` K11a (8 sources of 2^17 rows, five 4-byte lanes and the
-  bool mask, hashed targets, cap 2^17) and K11c (8 x 2^17 rows of 6
+- ``shard_pack``: K11a (8 sources of 2^17 rows, five 4-byte lanes and
+  the bool mask, hashed targets, cap 2^17) and K11c (8 x 2^17 rows of 6
   uint32 lanes, given targets, cap 2^16);
 - ``gather_segment_sum`` on a Graph500 scale-22 graph (PageRank's
   contributions; a checkout with ``segment_plan`` is timed on its plan,
@@ -28,13 +29,23 @@ same in every turn:
   alone as a run, without the host read of the class starts (a checkout
   without ``chain_route_launch`` runs its own wrapper's launch, scratch
   allocated per call as it did), and the call that reads the starts,
-  one per event pair (``_host``).
+  one per event pair (``_host``);
+- ``clear_rows`` on the [1.25M, 4096] uint8 register file (5.12 GB):
+  the range form over all of it, the list form over 2^18 slots, with
+  ``fill_`` and ``index_fill_`` (int64 index made beforehand) beside
+  them; and the session path's small list clears, 48 slots of a [1024,
+  4096] uint8 and of a [1024] float32 component (fill finfo.max);
+- ``hll_update``: 2^20 compressed rows (uint16 registers) into that
+  file, one call per event pair after an untimed clear
+  (``_after_clear``), the same batch onto the registers it left as a
+  run (``_onto_itself``: every row loses), the slots confined to 16,384
+  slots after a clear (``_confined``), ``scatter_reduce_`` amax after a
+  clear, and the keyed backend's flush (16,384 rows of raw lanes, a
+  run).
 
-``shard_pack``, ``chain_route`` and ``scatter_combine`` (add at the
-entry, both graph shapes with the fill), with ``index_add_`` and
-``scatter_reduce_`` beside them, also get ``_split``: the device ms of
-each kernel per call, from a ``torch.profiler`` trace of 10 calls (CUPTI
-kernel records, by kernel name), taken at the end of the turn.
+Most entries also get ``_split``: the device ms of each kernel per
+call, from a ``torch.profiler`` trace of 10 calls
+(``chip_smoke.kernel_device_ms``), taken at the end of the turn.
 
 Prints one JSON object per turn, then a summary line: the median of each
 checkout's turns per entry.  Needs a CUDA card.
@@ -62,26 +73,43 @@ def _chip_smoke():
     return mod
 
 
-def worker(root: str) -> dict:
+GROUPS = ("shard_pack", "gather_segment_sum", "scatter_combine", "chain_route",
+          "clear_rows", "hll_update")
+
+
+def worker(root: str, groups) -> dict:
     sys.path.insert(0, root)
     import torch
     from flink_tpu_torch import kernels as K
     cs = _chip_smoke()
     dev = torch.device("cuda", 0)
-    K.build_all(("shard_pack", "gather_segment_sum", "chain_route",
-                 "scatter_combine"))
+    K.build_all(groups)
 
     out = {"root": root, "package": K.__file__,
            "device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi()}
     # profiled last: a trace slows the launches that follow it
     splits = {}
+    for group in groups:
+        GROUP_FNS[group](K, cs, dev, out, splits)
+        torch.cuda.empty_cache()
+    for name, fn in splits.items():
+        out[name] = cs.kernel_device_ms(fn)
+    return out
 
+
+def _tensor(dev):
+    import torch
+    return lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _shard_pack(K, cs, dev, out, splits):
+    import torch
+    t = _tensor(dev)
     # shard_pack at chip_smoke.shard_pack_entry's inputs
     rng = np.random.default_rng(5)
     S, m = 8, 1 << 17
     n = S * m
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)   # noqa: E731
     kh = cs.splitmix64_np(rng.integers(0, 1_000_000, n).astype(np.uint64))
     vh = cs.splitmix64_np(rng.integers(0, 2**63, n).astype(np.uint64))
     mask = rng.random(n) >= 0.01
@@ -108,13 +136,19 @@ def worker(root: str) -> dict:
                      "bit_equal_to_plain": bool(ok)}
         splits[name + "_split"] = (lambda d=data, c=cap, k=kw, s=S:
                                    K.shard_pack(d, s, c, **k))
-    del lanes, rows, got, want, outs
-    torch.cuda.empty_cache()
 
-    # gather_segment_sum at chip_smoke.graph_kernel_entries' inputs
+
+def _graph(cs, dev):
+    import torch
     src_np, dst_np, _ = cs.kronecker_edges(dev, 22, seed=61)
+    return (torch.from_numpy(a).to(dev) for a in (src_np, dst_np))
+
+
+def _gather_segment_sum(K, cs, dev, out, splits):
+    import torch
+    # gather_segment_sum at chip_smoke.graph_kernel_entries' inputs
+    src, dst = _graph(cs, dev)
     n = 1 << 22
-    src, dst = (torch.from_numpy(a).to(dev) for a in (src_np, dst_np))
     deg = torch.clamp(torch.bincount(src, minlength=n), min=1).to(torch.float32)
     x = torch.full((n,), 1.0 / n, device=dev) / deg
     if hasattr(K, "segment_plan"):
@@ -125,9 +159,13 @@ def worker(root: str) -> dict:
     else:
         call = lambda: K.gather_segment_sum(x, src, dst, n)  # noqa: E731
     out["gather_segment_sum"] = {"ms": cs.cuda_ms(call)}
-    del deg, x, call
-    torch.cuda.empty_cache()
 
+
+def _scatter_combine(K, cs, dev, out, splits):
+    import torch
+    t = _tensor(dev)
+    src, dst = _graph(cs, dev)
+    n = 1 << 22
     # scatter_combine at chip_smoke.scatter_combine_graph_entry's inputs
     gen = torch.Generator(device=dev)
     gen.manual_seed(63)
@@ -149,8 +187,6 @@ def worker(root: str) -> dict:
             lambda st=state, x=idx, m=msgs, i=ident:
             (st.fill_(i), st.scatter_reduce_(0, x, m, "amin")))
         del state, slots, msgs, idx
-    del src, dst
-    torch.cuda.empty_cache()
 
     # scatter_combine at chip_smoke.kernel_phase's entry
     rng = np.random.default_rng(7)
@@ -172,8 +208,10 @@ def worker(root: str) -> dict:
                 out[f"scatter_combine_{op}_{tag}_fresh"] = {"ms": cs.cuda_ms(
                     lambda: K.scatter_combine(state, cslots, vals, N, op), 10,
                     lambda: state.copy_(base))}
-    del cslots, vals, state, base
 
+
+def _chain_route(K, cs, dev, out, splits):
+    import torch
     # chain_route in chip_smoke.chain_route_entry's modes
     n = 1 << 20
     keys, ts, vh = cs.config2_events(np.random.default_rng(11), n_events=n)
@@ -196,31 +234,69 @@ def worker(root: str) -> dict:
                                                launch(c, m, **k))
         out[f"chain_route_{mode}_host"] = {"ms": cs.cuda_ms(
             lambda: K.chain_route(cols, keep, **kw), single=True)}
-    for name, fn in splits.items():
-        out[name] = _kernel_split(fn)
-    return out
 
 
-def _kernel_split(fn, reps: int = 10) -> dict:
-    """Device ms per call of each kernel that fn launches (torch.profiler,
-    CUDA activity): kernel name (up to its argument list) -> ms."""
+def _clear_rows(K, cs, dev, out, splits):
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0)
-        if us:
-            name = ev.key.split("(")[0]
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
-    return out
+    C, m = 1_250_000, 4096
+    regs = torch.zeros((C, m), dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(13)
+    gslots = torch.from_numpy(rng.integers(0, C, 1 << 18).astype(np.int32)).to(dev)
+    gidx = gslots.to(torch.int64)
+    small = torch.from_numpy(rng.integers(0, 1024, 48).astype(np.int32)).to(dev)
+    u8 = torch.zeros((1024, m), dtype=torch.uint8, device=dev)
+    f32 = torch.zeros(1024, dtype=torch.float32, device=dev)
+    fmax = float(np.finfo(np.float32).max)
+    calls = {"clear_rows_range": lambda: K.clear_rows(regs, 0),
+             "fill_": lambda: regs.fill_(0),
+             "clear_rows_list": lambda: K.clear_rows(regs, 0, slots=gslots),
+             "index_fill_": lambda: regs.index_fill_(0, gidx, 0),
+             "clear_rows_small_u8": lambda: K.clear_rows(u8, 0, slots=small),
+             "clear_rows_small_f32": lambda: K.clear_rows(f32, fmax, slots=small)}
+    for name, fn in calls.items():
+        out[name] = {"ms": cs.cuda_ms(fn, 20)}
+        splits[name + "_split"] = fn
+
+
+def _hll_update(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    t = _tensor(dev)
+    C, P, N = 1_250_000, 12, 1 << 20
+    m = 1 << P
+    rng = np.random.default_rng(11)
+    slots_np = rng.integers(0, 1_000_000, N).astype(np.int32)
+    vh = cs.splitmix64_np(rng.integers(0, 2**63, N, dtype=np.int64))
+    hi_np = (vh >> np.uint64(32)).astype(np.uint32)
+    lo_np = (vh & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    rank_np, reg_np = HyperLogLogAggregate(P).compress_value_hash(hi_np, lo_np)
+    slots, rank, reg = t(slots_np), t(rank_np), t(reg_np.view(np.int16))
+    hi, lo = t(hi_np.view(np.int32)), t(lo_np.view(np.int32))
+    confined = t(slots_np % (1 << 14))
+    regs = torch.zeros((C, m), dtype=torch.uint8, device=dev)
+    clear = lambda: K.clear_rows(regs, 0)                     # noqa: E731
+    update = lambda: K.hll_update(regs, slots, rank, reg, N)  # noqa: E731
+    out["hll_update_after_clear"] = {"ms": cs.cuda_ms(update, 10, clear)}
+    clear()
+    out["hll_update_onto_itself"] = {"ms": cs.cuda_ms(update, 10)}
+    out["hll_update_confined"] = {"ms": cs.cuda_ms(
+        lambda: K.hll_update(regs, confined, rank, reg, N), 10, clear)}
+    idx = slots.to(torch.int64) * m + reg.to(torch.int64)
+    flat = regs.view(-1)
+    out["scatter_reduce_after_clear"] = {"ms": cs.cuda_ms(
+        lambda: flat.scatter_reduce_(0, idx, rank, "amax"), 10, clear)}
+    nf = 16384
+    out["hll_update_raw_flush"] = {"ms": cs.cuda_ms(
+        lambda: K.hll_update(regs, slots[:nf], hi[:nf], lo[:nf], nf), 20)}
+    splits["hll_update_after_clear_split"] = lambda: (clear(), update())
+    splits["hll_update_onto_itself_split"] = update
+    splits["scatter_reduce_after_clear_split"] = lambda: (
+        clear(), flat.scatter_reduce_(0, idx, rank, "amax"))
+
+
+GROUP_FNS = {"shard_pack": _shard_pack, "gather_segment_sum": _gather_segment_sum,
+             "scatter_combine": _scatter_combine, "chain_route": _chain_route,
+             "clear_rows": _clear_rows, "hll_update": _hll_update}
 
 
 def _old_chain_launch(cols, keep, key=None, num_channels=0, max_parallelism=0,
@@ -261,17 +337,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", help="the other checkout's root")
     ap.add_argument("--turns", default="old,new,new,old")
+    ap.add_argument("--kernels", default=",".join(GROUPS),
+                    help="comma-separated groups, from " + ", ".join(GROUPS))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, args.kernels.split(","))), flush=True)
         return 0
     if not args.old:
         ap.error("--old is required")
+    unknown = set(args.kernels.split(",")) - set(GROUPS)
+    if unknown:
+        ap.error(f"unknown kernel groups {sorted(unknown)}")
     roots = {"old": str(Path(args.old).resolve()), "new": str(HERE)}
     turns = []
     for turn in args.turns.split(","):
-        res = subprocess.run([sys.executable, __file__, "--worker", roots[turn]],
+        res = subprocess.run([sys.executable, __file__, "--worker", roots[turn],
+                              "--kernels", args.kernels],
                              capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stderr)

@@ -1,0 +1,205 @@
+// The designs measured against clear_rows and hll_update and not kept,
+// built beside the kernels' own sources (included here) by
+// scripts/kernel_probe.py, which times them on the card.
+//
+// - ft_probe_clear_range_bulk: the range clear as TMA bulk stores
+//   (cp.async.bulk.global.shared::cta) from a 32 KiB shared-memory
+//   buffer holding the fill, one thread a block issuing them, at most 8
+//   bulk groups in flight a block, 4 blocks an SM.  16-byte aligned
+//   ranges only.
+// - ft_probe_clear_range: the kernel's range form with 8 blocks an SM
+//   walking the 32 KiB chunks instead of a block a chunk (variant 0), and
+//   the same with streaming stores (variant 1).  16-byte aligned ranges
+//   only.
+// - ft_probe_hll_update: the compressed hll_update (uint16 registers)
+//   with the rows a thread forced (1, 2, 4 or 8) and one of four ways to
+//   apply them: 0 = load every row's word, then CAS the rows below their
+//   rank; 1 = CAS first on every row (an atomicCAS expecting an empty
+//   word, its return value serving as the load); 2 = as 0, after
+//   ordering each tile's 2048 rows by word address in shared memory;
+//   3 = the kernel's own (a warp's sample picks 0 or 1 for its other
+//   rows).
+#include "../flink_tpu_torch/kernels/csrc/clear_rows.cu"
+#include "../flink_tpu_torch/kernels/csrc/hll_update.cu"
+
+#include <cub/block/block_radix_sort.cuh>
+
+#define PB_BUF_BYTES 32768
+#define PB_THREADS 128
+
+__global__ void __launch_bounds__(PB_THREADS)
+probe_clear_range_bulk(char* body, long long body_bytes, uint4 fill) {
+  __shared__ __align__(128) uint4 buf[PB_BUF_BYTES / 16];
+  for (int i = threadIdx.x; i < PB_BUF_BYTES / 16; i += PB_THREADS) buf[i] = fill;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const uint32_t src = static_cast<uint32_t>(__cvta_generic_to_shared(buf));
+  const long long chunks = (body_bytes + PB_BUF_BYTES - 1) / PB_BUF_BYTES;
+  for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const long long off = c * PB_BUF_BYTES;
+    const long long left = body_bytes - off;
+    const uint32_t bytes = left < PB_BUF_BYTES ? static_cast<uint32_t>(left)
+                                               : PB_BUF_BYTES;
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        :: "l"(body + off), "r"(src), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 8;\n" ::: "memory");
+  }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the range form's kernel with streaming stores (evict first from L2)
+__global__ void __launch_bounds__(CR_THREADS)
+probe_clear_range_cs(uint4* __restrict__ body, long long body_words, uint4 fill) {
+  const long long chunks = (body_words + CR_CHUNK - 1) / CR_CHUNK;
+  for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
+    uint4* p = body + c * CR_CHUNK;
+    const long long left = body_words - c * CR_CHUNK;
+    if (left >= CR_CHUNK) {
+#pragma unroll
+      for (int k = 0; k < CR_CHUNK / CR_THREADS; ++k)
+        __stcs(p + threadIdx.x + k * CR_THREADS, fill);
+    } else {
+      for (int i = threadIdx.x; i < static_cast<int>(left); i += CR_THREADS)
+        __stcs(p + i, fill);
+    }
+  }
+}
+
+// variant 0: the kernel with 8 blocks an SM walking the chunks; 1: the
+// same with streaming stores
+extern "C" int ft_probe_clear_range(void* base, long long bytes, int variant,
+                                    void* stream) {
+  if ((reinterpret_cast<uintptr_t>(base) | static_cast<uintptr_t>(bytes)) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const long long words = bytes / 16;
+  const long long chunks = (words + CR_CHUNK - 1) / CR_CHUNK;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunks == 0) return static_cast<int>(cudaGetLastError());
+  long long blocks = static_cast<long long>(sm_count()) * CR_BLOCKS_PER_SM;
+  if (blocks > chunks) blocks = chunks;
+  if (variant == 0)
+    clear_range_kernel<<<static_cast<unsigned int>(blocks), CR_THREADS, 0, s>>>(
+        static_cast<uint4*>(base), words, nullptr, 0, nullptr, 0, zero);
+  else
+    probe_clear_range_cs<<<static_cast<unsigned int>(blocks), CR_THREADS, 0, s>>>(
+        static_cast<uint4*>(base), words, zero);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ft_probe_clear_range_bulk(void* base, long long bytes,
+                                         unsigned long long fill_lo,
+                                         unsigned long long fill_hi,
+                                         void* stream) {
+  if ((reinterpret_cast<uintptr_t>(base) | static_cast<uintptr_t>(bytes)) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint4 f;
+  f.x = static_cast<unsigned int>(fill_lo);
+  f.y = static_cast<unsigned int>(fill_lo >> 32);
+  f.z = static_cast<unsigned int>(fill_hi);
+  f.w = static_cast<unsigned int>(fill_hi >> 32);
+  long long blocks = (bytes + PB_BUF_BYTES - 1) / PB_BUF_BYTES;
+  const long long cap = 4LL * sm_count();
+  if (blocks > cap) blocks = cap;
+  if (blocks > 0)
+    probe_clear_range_bulk<<<static_cast<unsigned int>(blocks), PB_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<char*>(base), bytes, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode 0: load every row's word, then CAS; 1: CAS first on every row
+template <int R, typename Src>
+__global__ void __launch_bounds__(HU_THREADS)
+probe_hll_uniform(uint8_t* __restrict__ regs, Src src, long long n,
+                  long long m, long long capacity, int cas_first) {
+  const long long first =
+      static_cast<long long>(blockIdx.x) * (HU_THREADS * R) + threadIdx.x;
+  HuRow rows[R];
+  hu_rows<R>(src, regs, first, n, m, capacity, rows);
+  unsigned int old[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    old[k] = rows[k].rank && !cas_first ? __ldcg(rows[k].word) : 0u;
+  hu_cas<R>(rows, old);
+}
+
+// mode 2: mode 0 after ordering the tile's rows by word address
+template <typename Src>
+__global__ void __launch_bounds__(HU_THREADS)
+probe_hll_sorted(uint8_t* __restrict__ regs, Src src, long long n, long long m,
+                 long long capacity) {
+  constexpr int R = 8;
+  using Sort = cub::BlockRadixSort<unsigned int, HU_THREADS, R, unsigned int>;
+  __shared__ typename Sort::TempStorage tmp;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * (HU_THREADS * R) + threadIdx.x;
+  HuRow rows[R];
+  hu_rows<R>(src, regs, first, n, m, capacity, rows);
+  unsigned int key[R], val[R];
+  unsigned int* const words = reinterpret_cast<unsigned int*>(regs);
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    key[k] = rows[k].rank ? static_cast<unsigned int>(rows[k].word - words)
+                          : 0xFFFFFFFFu;
+    val[k] = rows[k].rank | (rows[k].shift << 8);
+  }
+  Sort(tmp).SortBlockedToStriped(key, val);
+  unsigned int old[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    rows[k].word = words + key[k];
+    rows[k].rank = key[k] == 0xFFFFFFFFu ? 0u : (val[k] & 0xFFu);
+    rows[k].shift = val[k] >> 8;
+    old[k] = rows[k].rank ? __ldcg(rows[k].word) : 0u;
+  }
+  hu_cas<R>(rows, old);
+}
+
+// mode 3: the kernel's own design (a sampled choice per warp)
+template <int R>
+static void probe_hll_launch(int mode, uint8_t* regs,
+                             const HuCompressed<uint16_t>& src, long long n,
+                             long long m, long long capacity, cudaStream_t s) {
+  using Src = HuCompressed<uint16_t>;
+  const unsigned int grid =
+      static_cast<unsigned int>((n + HU_THREADS * R - 1) / (HU_THREADS * R));
+  if (mode == 3)
+    hll_update_kernel<R, Src><<<grid, HU_THREADS, 0, s>>>(regs, src, n, m, capacity);
+  else
+    probe_hll_uniform<R, Src><<<grid, HU_THREADS, 0, s>>>(regs, src, n, m,
+                                                          capacity, mode);
+}
+
+// mode 2 needs R = 8 and a file of fewer than 2^32 - 1 words
+extern "C" int ft_probe_hll_update(void* regs, const void* slots,
+                                   const void* rank, const void* reg,
+                                   long long n, long long m,
+                                   long long capacity, int rows_per_thread,
+                                   int mode, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* r = static_cast<uint8_t*>(regs);
+  const HuCompressed<uint16_t> src{static_cast<const int32_t*>(slots),
+                                   static_cast<const uint8_t*>(rank),
+                                   static_cast<const uint16_t*>(reg)};
+  if (mode == 2) {
+    if (rows_per_thread != 8 || capacity * m / 4 >= 0xFFFFFFFFLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned int grid =
+        static_cast<unsigned int>((n + HU_THREADS * 8 - 1) / (HU_THREADS * 8));
+    probe_hll_sorted<HuCompressed<uint16_t>><<<grid, HU_THREADS, 0, s>>>(r, src, n, m, capacity);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (rows_per_thread) {
+    case 8: probe_hll_launch<8>(mode, r, src, n, m, capacity, s); break;
+    case 4: probe_hll_launch<4>(mode, r, src, n, m, capacity, s); break;
+    case 2: probe_hll_launch<2>(mode, r, src, n, m, capacity, s); break;
+    case 1: probe_hll_launch<1>(mode, r, src, n, m, capacity, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

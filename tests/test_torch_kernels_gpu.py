@@ -215,6 +215,147 @@ def test_kernel_refuses_a_wrong_dtype(cuda):
         K.hll_update(regs, slots, lanes, lanes, 2)
 
 
+def _bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+# (shape, dtype, fill): stores of 1, 2, 4, 8 and 16 bytes; a thread, a
+# group of lanes, a warp and a block a listed row (short lists of rows of
+# 64 words or more go a block a row too)
+CLEAR_SHAPES = [
+    ((700, 3), torch.uint8, 0xAB), ((700, 5), torch.int16, -7),
+    ((700,), torch.float32, float(np.finfo(np.float32).max)),
+    ((700, 3), torch.int32, -7), ((700,), torch.int64, -7),
+    ((700, 4096), torch.uint8, 0), ((64, 32768), torch.uint8, 0x5A),
+    ((700, 2), torch.float32, -0.0)]
+
+
+@pytest.mark.parametrize("shape,dtype,fill", CLEAR_SHAPES)
+def test_clear_rows_edges_match_plain(cuda, shape, dtype, fill):
+    rng = np.random.default_rng(41)
+    c = shape[0]
+    base = torch.from_numpy(rng.integers(1, 100, shape)).to(dtype)
+    dup = rng.integers(0, c, 150)
+    listed = np.concatenate([dup, dup[:40], [-1, -c, c, c + 5]])  # repeats, OOB
+    rng.shuffle(listed)
+    # a long list: past the card's warps, so wide rows take the warp path
+    long = rng.integers(-2, c + 2, 20_000).astype(np.int32)
+    cases = [{"slots": torch.from_numpy(listed.astype(np.int32))},
+             {"slots": torch.from_numpy(long)},
+             {"slots": torch.zeros(0, dtype=torch.int32)},          # empty list
+             {"start": 13, "count": c - 13 - 7},   # off every chunk boundary
+             {"start": 3, "count": 1}, {"start": c - 1, "count": 1},
+             {"start": 5, "count": 0}, {}]
+    for kw in cases:
+        ref = base.clone()
+        K.clear_rows_plain(ref, fill, **kw)
+        got = base.to(cuda)
+        K.clear_rows(got, fill, **{k: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+                                   for k, v in kw.items()})
+        torch.cuda.synchronize()
+        assert torch.equal(_bytes(got.cpu()), _bytes(ref)), kw
+
+
+@pytest.mark.parametrize("shape,dtype,fill", [
+    ((300, 1024), torch.int32, -7), ((300, 3), torch.int32, 5),
+    ((300,), torch.float32, 1.5)])
+def test_clear_rows_on_a_base_aligned_to_4_bytes(cuda, shape, dtype, fill):
+    # a row slice of a larger tensor: the base is 4 bytes past a 16-byte
+    # boundary, so the stores narrow to 4 bytes (the list form) or a head
+    # and tail go apart from the body (the range form)
+    rng = np.random.default_rng(42)
+    n = int(np.prod(shape))
+    host = torch.from_numpy(rng.integers(1, 100, n + 1)).to(dtype)
+    slots = torch.from_numpy(rng.integers(-2, shape[0] + 2, 120).astype(np.int32))
+    for kw in ({"slots": slots}, {"start": 7, "count": shape[0] - 20}, {}):
+        ref = host.clone()
+        K.clear_rows_plain(ref[1:].view(shape), fill, **kw)
+        big = host.to(cuda)
+        comp = big[1:].view(shape)
+        assert comp.data_ptr() % 16 == 4
+        K.clear_rows(comp, fill, **{k: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+                                    for k, v in kw.items()})
+        torch.cuda.synchronize()
+        assert torch.equal(_bytes(big.cpu()), _bytes(ref)), kw
+
+
+def test_clear_rows_past_2_31_bytes(cuda):
+    # [540000, 4096] uint8 is 2.21 GB: a range and a list that end past 2^31
+    c, m = 540_000, 4096
+    comp = torch.ones((c, m), dtype=torch.uint8, device=cuda)
+    want = comp.clone()
+    start = (1 << 31) // m - 1000                  # ends well past 2^31 bytes
+    K.clear_rows(comp, 0, start=start, count=c - start - 3)
+    K.clear_rows_plain(want, 0, start=start, count=c - start - 3)
+    torch.cuda.synchronize()
+    assert torch.equal(comp, want)
+    slots = torch.tensor([c - 1, c - 2, 3, (1 << 31) // m + 1, c], dtype=torch.int32,
+                         device=cuda)
+    comp.fill_(9)
+    want.fill_(9)
+    K.clear_rows(comp, 7, slots=slots)
+    K.clear_rows_plain(want, 7, slots=slots)
+    torch.cuda.synchronize()
+    assert torch.equal(comp, want)
+
+
+def _compressed(rng, n, m, reg_dtype):
+    rank = rng.integers(0, 34, n).astype(np.uint8)
+    rank[:5] = 33
+    rank[5:10] = 0
+    reg = rng.integers(0, m, n).astype(reg_dtype)
+    return torch.from_numpy(rank), torch.from_numpy(reg)
+
+
+@pytest.mark.parametrize("form", ["raw", "u16", "u32"])
+@pytest.mark.parametrize("case", ["one_word", "all_lose", "edges"])
+def test_hll_update_edges_match_plain(cuda, form, case):
+    rng = np.random.default_rng(43)
+    c, m, n_rows = 2000, 256, 50_000
+    if form == "raw":
+        hi, lo = _lanes(rng, n_rows)
+        h, l_ = torch.from_numpy(hi.view(np.int32)), torch.from_numpy(lo.view(np.int32))
+    else:
+        h, l_ = _compressed(rng, n_rows, m, np.int16 if form == "u16" else np.int32)
+    slots = rng.integers(-3, c + 3, n_rows).astype(np.int32)   # a few OOB
+    n = n_rows - 999                                        # masked tail
+    base = torch.from_numpy(rng.integers(0, 3, (c, m)).astype(np.uint8))
+    if case == "one_word":
+        # every row on the word holding registers 8..11 of slot 5: all retries
+        slots[:] = 5
+        if form == "raw":
+            l_ = torch.from_numpy((8 + rng.integers(0, 4, n_rows)).astype(np.int32))
+        else:
+            l_ = torch.from_numpy((8 + rng.integers(0, 4, n_rows)).astype(l_.numpy().dtype))
+    elif case == "all_lose":
+        base = torch.full((c, m), 40, dtype=torch.uint8)    # above every rank
+    ref = base.clone()
+    sl = torch.from_numpy(slots)
+    K.hll_update_plain(ref, sl, h, l_, n)
+    got = base.to(cuda)
+    K.hll_update(got, sl.to(cuda), h.to(cuda), l_.to(cuda), n)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    if case == "all_lose":
+        assert torch.equal(ref, base)
+
+
+def test_hll_update_past_2_31_bytes(cuda):
+    # [540000, 4096] uint8 registers (2.21 GB), rows on slots past 2^31 bytes
+    rng = np.random.default_rng(44)
+    c, m, n = 540_000, 4096, 1 << 16
+    regs = torch.zeros((c, m), dtype=torch.uint8, device=cuda)
+    slots = rng.integers(c - 20_000, c + 2, n).astype(np.int32)
+    rank, reg = _compressed(rng, n, m, np.int16)
+    want = regs.clone()
+    args = (torch.from_numpy(slots).to(cuda), rank.to(cuda), reg.to(cuda), n)
+    K.hll_update(regs, *args)
+    K.hll_update_plain(want, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(regs, want)
+    assert int(regs[c - 20_000:].sum()) > 0
+
+
 @pytest.mark.parametrize("unique", [False, True])
 @pytest.mark.parametrize("shape,dtype,op", [
     ((3000, 1024), torch.uint8, "max"), ((3000, 1024), torch.uint8, "min"),
