@@ -21,7 +21,10 @@ exit code at 0):
                 ``hll_log_finish`` on the compacted cells of 2^23
                 config #2 events, ``table_insert`` with 2^20 records
                 into 1.5M positions (empty, half full, all hits,
-                regional), compared as key -> slot maps;
+                regional), compared as key -> slot maps; the scattered
+                kernels (``hll_update``, ``countmin_update``,
+                ``table_insert``) also get a sector floor, 32 bytes for
+                each distinct 32-byte sector they touch each way;
                 ``scatter_combine`` at its entry (2^20 rows into 50k
                 slots; float32 min / max with NaN, +-0 and +-inf against
                 the plain version) and at the graph path's shape (the
@@ -132,7 +135,10 @@ exit code at 0):
                 chain's map -> filter -> 4-channel route (2^22 events)
                 with ``devices()`` widened to 8: 40 composite classes,
                 bit-equal to the single-device program and the
-                per-operator path;
+                per-operator path; (f) a Count on MeshTumblingWindows
+                over 2^22 config #2 events, snapshot after half of them
+                (mid-window) and restored into a fresh engine, firing
+                what the uninterrupted run fires;
 17. the launch counts of phases 4-16, each path counted on its own:
    every kernel the path runs must have launched there.
 
@@ -413,8 +419,9 @@ def kernel_phase(dev, hbm: float):
                     zero(ref))
     check(torch.equal(regs, ref), "hll_update bit-equal after the batch onto itself")
     flat_idx = slots.to(torch.int64) * m + reg.to(torch.int64)
-    lib = cuda_ms(lambda: ref.view(-1).scatter_reduce_(0, flat_idx, rank, "amax"),
-                  10, zero(ref))
+    lib_call = lambda: ref.view(-1).scatter_reduce_(0, flat_idx, rank, "amax")  # noqa: E731
+    lib = cuda_ms(lib_call, 10, zero(ref))
+    lib_onto = cuda_ms(lib_call, 10)            # onto the registers it left
     b, by = bound(7 * N + 8 * words, 3 * N, hbm)
     # the memory moves a random word as a 32-byte sector each way
     floor = bound(7 * N + 64 * sectors, 3 * N, hbm)[0]
@@ -425,7 +432,7 @@ def kernel_phase(dev, hbm: float):
                    "distinct_words": int(words), "distinct_sectors": int(sectors),
                    "library": "scatter_reduce_ amax", "timer": SINGLE,
                    "sector_floor_ms": floor, "onto_itself_ms": onto,
-                   "onto_itself_timer": RUN})
+                   "onto_itself_library_ms": lib_onto, "onto_itself_timer": RUN})
     # probe: the same rows with slots confined to 16,384 slots (64 MiB)
     confined = slots % (1 << 14)
     K.clear_rows(regs, 0)
@@ -739,10 +746,16 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
                                                     lo, N), 5)
     lib = cuda_ms(cm_library)
     b, by = bound(16 * N + 8 * cells + 8 * targets, 3 * D * N, hbm)
+    # the memory moves a random word as a 32-byte sector each way
+    sectors = int(torch.unique(flat // 8).numel()) + int(
+        torch.unique(s64 // 8).numel())
+    floor = bound(16 * N + 64 * sectors, 3 * D * N, hbm)[0]
     entries["countmin_update"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                      bound_ms=b, bound_by=by, max_abs_err=err)
+                                      bound_ms=b, bound_by=by, max_abs_err=err,
+                                      sector_floor_ms=floor)
     detail.append({"kernel": "countmin_update", "rows": N, "slots": S,
                    "depth": D, "width": W, "distinct_cells": cells,
+                   "distinct_sectors": sectors, "sector_floor_ms": floor,
                    "library": "index_put_ accumulate (indices precomputed)"})
 
     # countmin_query: 2^20 queries, half of them items the table holds
@@ -1047,79 +1060,141 @@ def table_insert_entry(dev, hbm, rng, entries, detail):
     import torch
     from flink_tpu_torch import kernels as K
     from flink_tpu_torch.ops.device_table import make_table
-    C, N, P = 1_500_000, 1 << 20, 128
+    C, N, P = TI_POSITIONS, TI_RECORDS, TI_MAX_PROBES
     n = N - 1000                                     # a padded tail
-
-    def lanes(keys):
-        hi = (keys >> np.uint64(32)).astype(np.uint32)
-        lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-        return hi, lo, torch.from_numpy(hi.view(np.int32)).to(dev), \
-            torch.from_numpy(lo.view(np.int32)).to(dev)
-
-    def snapshot(t):
-        return [a.clone() for a in t]
-
-    def restore(t, saved):
-        return lambda: [a.copy_(b) for a, b in zip(t, saved)]
-
-    batch_a = rng.integers(0, 1_000_000, N).astype(np.uint64)
-    batch_a[:64] = 0                                  # key (0, 0), repeated
-    batch_b = rng.integers(0, 1_000_000, N).astype(np.uint64)
-    prefill = rng.permutation(1_000_000)[:C // 2].astype(np.uint64)
     rows = []
-    for state, keys, pre in (("empty", batch_a, None),
-                             ("half_full", batch_b, prefill),
-                             ("all_hits", batch_a, batch_a)):
+    for case in table_insert_cases(dev, rng):
+        state = case["state"]
         card, plain = make_table(C, dev), make_table(C, dev)
-        if pre is not None:
-            _, _, ph, pl = lanes(pre)
-            for t in (card, plain):
-                K.table_insert_plain(*t, ph, pl, len(pre), P)
-        hi, lo, h_d, l_d = lanes(keys)
-        saved = snapshot(card)
+        for t in (card, plain):
+            case["fill"](t)
+        h_d, l_d = case["lanes"]
+        kw = case["kw"]
+        saved = [a.clone() for a in card]
         ov = torch.zeros(1, dtype=torch.int64, device=dev)
-        got = K.table_insert(*card, h_d, l_d, n, P, overflow=ov)
-        ref = K.table_insert_plain(*plain, h_d, l_d, n, P)
+        got = K.table_insert(*card, h_d, l_d, n, P, overflow=ov, **kw)
+        ref = K.table_insert_plain(*plain, h_d, l_d, n, P, **kw)
         torch.cuda.synchronize()
         check(int(ov) == 0, f"table_insert {state}: no overflow")
-        faults, probes = key_map_check(f"table_insert {state}", card, plain, hi,
-                                       lo, got.cpu().numpy(), ref.cpu().numpy(), n, P)
+        got = got.cpu().numpy()
+        faults, probes = key_map_check(
+            f"table_insert {state}", card, plain, case["hi"], case["lo"], got,
+            ref.cpu().numpy(), n, P, case["region"], kw.get("region_size", 0))
         new_keys = int(card.occupied.sum() - saved[2].sum())
-        ms = cuda_ms(lambda: K.table_insert(*card, h_d, l_d, n, P),
-                     setup=None if state == "all_hits" else restore(card, saved))
-        plain_ms = cuda_ms(lambda: K.table_insert_plain(*plain, h_d, l_d, n, P), 3,
-                           setup=None if state == "all_hits" else restore(plain, saved))
+        read, written = chain_sectors(case, got, n, saved[2], card.occupied)
+        restore = None if state == "all_hits" else (
+            lambda t=card, s=saved: [a.copy_(b) for a, b in zip(t, s)])
+        ms = cuda_ms(lambda: K.table_insert(*card, h_d, l_d, n, P, **kw),
+                     setup=restore)
         b, by = bound(12 * n + 9 * probes + 9 * new_keys, probes, hbm)
-        rows.append(dict(state=state, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                         bound_by=by, probes=probes, faults=faults, new_keys=new_keys,
-                         load_after=float(card.occupied.sum()) / C,
-                         timer=RUN if state == "all_hits" else SINGLE))
-    # one regional call: 4 regions of 375,000 positions
-    R = 4
-    region = rng.integers(0, R, N).astype(np.int32)
-    reg_d = torch.from_numpy(region).to(dev)
-    card, plain = make_table(C, dev), make_table(C, dev)
-    hi, lo, h_d, l_d = lanes(batch_a)
-    got = K.table_insert(*card, h_d, l_d, n, P, region=reg_d, region_size=C // R)
-    ref = K.table_insert_plain(*plain, h_d, l_d, n, P, region=reg_d,
-                               region_size=C // R)
-    faults, probes = key_map_check("table_insert regional", card, plain, hi, lo,
-                                   got.cpu().numpy(), ref.cpu().numpy(), n, P,
-                                   region, C // R)
-    saved = [torch.zeros_like(a) for a in card]
-    rows.append(dict(state="regional", probes=probes, faults=faults, ms=cuda_ms(
-        lambda: K.table_insert(*card, h_d, l_d, n, P, region=reg_d,
-                               region_size=C // R), setup=restore(card, saved)),
-        timer=SINGLE))
+        row = dict(state=state, ms=ms, bound_ms=b, bound_by=by,
+                   sector_floor_ms=bound(12 * n + 32 * (read + written), probes,
+                                         hbm)[0],
+                   sectors_read=read, sectors_written=written, probes=probes,
+                   faults=faults, new_keys=new_keys,
+                   load_after=float(card.occupied.sum()) / C,
+                   timer=RUN if restore is None else SINGLE)
+        if state != "regional":
+            prestore = None if restore is None else (
+                lambda t=plain, s=saved: [a.copy_(b) for a, b in zip(t, s)])
+            row["plain_ms"] = cuda_ms(
+                lambda: K.table_insert_plain(*plain, h_d, l_d, n, P), 3,
+                setup=prestore)
+        rows.append(row)
+        del card, plain, saved
     head = next(r for r in rows if r["state"] == "half_full")
     # the error figure: key -> slot faults found, summed over the four
     # states (a slot is an index, so there is no numeric difference)
     entries["table_insert"] = dict(ms=head["ms"], plain_ms=head["plain_ms"],
                                    library_ms=None, bound_ms=head["bound_ms"],
                                    bound_by=head["bound_by"],
-                                   max_abs_err=float(sum(r["faults"] for r in rows)))
+                                   max_abs_err=float(sum(r["faults"] for r in rows)),
+                                   sector_floor_ms=head["sector_floor_ms"])
     detail.append({"kernel": "table_insert", "records": N, "positions": C,
-                   "max_probes": P, "states": rows, "timer": "per state"})
+                   "max_probes": P, "states": rows, "timer": "per state",
+                   "sector_floor": "12 B a record, and a 32-byte sector for "
+                   "each distinct sector of occupied, key_hi and key_lo that "
+                   "the probe chains read, and again for each one a claim "
+                   "wrote"})
+
+
+#: table_insert's entry: config #2's 1M-key space into 1.5M positions
+TI_POSITIONS, TI_RECORDS, TI_MAX_PROBES = 1_500_000, 1 << 20, 128
+
+
+def table_insert_cases(dev, rng):
+    """table_insert's entry batches (``chip_smoke`` and
+    ``scripts/kernel_ab.py``): a dict per state with its host lanes
+    (``hi``, ``lo``, uint32), their card copies (``lanes``), the call's
+    keywords (``kw``: the regional call's region and size), ``region``
+    (numpy or None) and ``fill(table)``, which puts the state's prefill
+    into an empty table.  States: empty, half_full (half the positions
+    prefilled), all_hits (the batch onto itself) and regional (4 regions
+    of 375,000 positions, empty)."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    C, N, P = TI_POSITIONS, TI_RECORDS, TI_MAX_PROBES
+
+    def lanes(keys):
+        hi = (keys >> np.uint64(32)).astype(np.uint32)
+        lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        return hi, lo, (torch.from_numpy(hi.view(np.int32)).to(dev),
+                        torch.from_numpy(lo.view(np.int32)).to(dev))
+
+    def filler(pre):
+        if pre is None:
+            return lambda t: None
+        _, _, (ph, pl) = lanes(pre)
+        return lambda t: K.table_insert_plain(*t, ph, pl, len(pre), P)
+
+    batch_a = rng.integers(0, 1_000_000, N).astype(np.uint64)
+    batch_a[:64] = 0                                  # key (0, 0), repeated
+    batch_b = rng.integers(0, 1_000_000, N).astype(np.uint64)
+    prefill = rng.permutation(1_000_000)[:C // 2].astype(np.uint64)
+    region = rng.integers(0, 4, N).astype(np.int32)
+    cases = []
+    for state, keys, pre, reg in (("empty", batch_a, None, None),
+                                  ("half_full", batch_b, prefill, None),
+                                  ("all_hits", batch_a, batch_a, None),
+                                  ("regional", batch_a, None, region)):
+        hi, lo, dl = lanes(keys)
+        kw = {} if reg is None else dict(region=torch.from_numpy(reg).to(dev),
+                                         region_size=C // 4)
+        cases.append(dict(state=state, hi=hi, lo=lo, lanes=dl, kw=kw,
+                          region=reg, fill=filler(pre)))
+    return cases
+
+
+def chain_sectors(case, slots, n, occ_before, occ_after):
+    """Distinct 32-byte sectors of the table's three arrays (occupied: 1
+    B a position; key_hi, key_lo: 4 B) on the probe chains that the
+    batch's first n rows walked (chain start to their slot), and those
+    of the positions that the batch claimed: (read, written)."""
+    from flink_tpu_torch.ops.device_table import _chain_base
+    hi = case["hi"][:n].astype(np.int64)
+    lo = case["lo"][:n].astype(np.int64)
+    s = slots[:n].astype(np.int64)
+    ok = s >= 0
+    hi, lo, s = hi[ok], lo[ok], s[ok]
+    base = _chain_base(hi, lo)
+    if case["region"] is None:
+        modulus, offset = TI_POSITIONS, np.zeros(len(s), np.int64)
+    else:
+        modulus = case["kw"]["region_size"]
+        offset = case["region"][:n][ok].astype(np.int64) * modulus
+    walked, at = [], np.arange(len(s))
+    for p in range(TI_MAX_PROBES):
+        pos = offset[at] + ((base[at] + p) & 0xFFFFFFFF) % modulus
+        walked.append(pos)
+        at = at[pos != s[at]]
+        if not len(at):
+            break
+
+    def sectors(pos):
+        return np.unique(pos // 32).size + 2 * np.unique(pos // 8).size
+    claimed = np.nonzero((occ_after != 0).cpu().numpy()
+                         & (occ_before == 0).cpu().numpy())[0]
+    return sectors(np.unique(np.concatenate(walked))), sectors(claimed)
 
 
 # ---------------------------------------------------------------------
@@ -2693,6 +2768,61 @@ def _mesh_scatter(dev, mesh, rng, n_events, n_keys, region, step, chunk,
             "max_memory_allocated": peak}
 
 
+def _mesh_snapshot(dev, mesh, rng, n_events, n_keys, region, step, chunk):
+    """(f) config #2's events through MeshTumblingWindows with a Count: a
+    snapshot after half the events (mid-window), restored into a fresh
+    engine that takes the other half; its fire equals an uninterrupted
+    run's."""
+    import torch
+    from flink_tpu_torch.ops.device_agg import CountAggregate
+    from flink_tpu_torch.parallel import MeshTumblingWindows
+    keys, ts, _ = config2_events(rng, n_events, n_keys)
+    half = n_events // 2
+
+    def engine():
+        eng = MeshTumblingWindows(CountAggregate(), 1000, mesh,
+                                  capacity_per_window_shard=region, ring=2,
+                                  step_batch=step)
+        eng.emit_arrays = True
+        return eng
+
+    def feed(eng, sl):
+        for i in range(sl.start, sl.stop, chunk):
+            part = slice(i, min(i + chunk, sl.stop))
+            eng.process_batch(keys[part], ts[part])
+
+    first = engine()
+    feed(first, slice(0, half))
+    t0 = time.perf_counter()
+    snap = first.snapshot()
+    t1 = time.perf_counter()
+    del first
+    restored = engine()
+    restored.restore(snap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del snap
+    feed(restored, slice(half, n_events))
+    restored.advance_watermark(999)
+    got = _fired_arrays(restored)
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def whole():
+        eng = engine()
+        feed(eng, slice(0, n_events))
+        eng.advance_watermark(999)
+        return _fired_arrays(eng)
+    want = _launch_free(whole)
+    check(all(np.array_equal(np.asarray(a), np.asarray(b))
+              for a, b in zip(got, want)) and len(got[0]) > 0,
+          "mesh snapshot: a run restored mid-window fires what the "
+          "uninterrupted run fires")
+    return {"events": n_events, "snapshot_after": half, "fired": int(len(got[0])),
+            "snapshot_s": t1 - t0, "restore_s": t2 - t1}
+
+
 def _mesh_log(dev, mesh, rng, n_events, n_keys, step, chunk):
     """(b) the same config #2 events through MeshLogTumblingWindows
     (host finish) against LogStructuredTumblingWindows."""
@@ -2926,11 +3056,13 @@ def mesh_phase(dev, n_events=1 << 23, n_keys=1_000_000, region=1 << 18,
                sliding_events=1 << 22, sliding_region=1 << 18,
                sliding_chunk=1 << 19, job_events=1 << 21, job_keys=8000,
                composite_events=1 << 19, chain_events=1 << 22,
-               chain_batch=1 << 20):
+               chain_batch=1 << 20, snapshot_events=1 << 22):
     """The mesh path on 8 virtual shards of the card: (a) config #2 on
     the sharded scatter tier, (b) on the mesh log tier, (c) config #3 on
     the sharded sliding engine, (d) DataStream jobs with set_mesh, (e)
-    the fused chain's mesh leg.  Each against its single-device twin."""
+    the fused chain's mesh leg, each against its single-device twin;
+    (f) a mesh snapshot restored mid-window against the uninterrupted
+    run."""
     from flink_tpu_torch.parallel import Mesh
     mesh = Mesh([dev] * 8)
     rng = np.random.default_rng(41)
@@ -2942,6 +3074,8 @@ def mesh_phase(dev, n_events=1 << 23, n_keys=1_000_000, region=1 << 18,
            "jobs": _mesh_jobs(dev, mesh, rng, job_events, job_keys,
                               composite_events),
            "chain": _mesh_chain(dev, rng, chain_events, n_keys, chain_batch),
+           "snapshot": _mesh_snapshot(dev, mesh, rng, snapshot_events, n_keys,
+                                      region, step, chunk),
            "exchange": "Mesh.all_to_all on one card: a device transpose; no "
                        "NCCL collective is measured"}
     emit({"mesh": out})
@@ -3482,26 +3616,34 @@ def ml_kernel_entries(dev, hbm, entries, detail, shrink=1):
                 "ratings": nnz, "max_row_ratings": int(terms.max()), "factors": f}
         return res, info, (indptr, cols, gw)
 
+    def library(fixed, n_rows, indptr, cols, gw):
+        """index_add_ of the materialized [nnz, f, f] outer products."""
+        rows_sorted = torch.repeat_interleave(torch.arange(n_rows, device=dev),
+                                              indptr[1:] - indptr[:-1])
+        vc = fixed.index_select(0, cols)
+        outer = vc[:, :, None] * vc[:, None, :]           # [nnz, f, f], 8 GB
+        ms = cuda_ms(lambda: gw.index_add_(0, rows_sorted, outer), 3)
+        del rows_sorted, vc, outer
+        torch.cuda.empty_cache()
+        return ms
+
+    lib_name = "index_add_ of the materialized [nnz, f, f] outer products (G only)"
     # the user side, from item-shaped factors, with the library call
     V = torch.from_numpy(rng.normal(0, 0.1, (n_items, f)).astype(np.float32)).to(dev)
     res, info, (indptr, cols, gw) = side("users", u, i, n_users, V)
-    rows_sorted = torch.repeat_interleave(torch.arange(n_users, device=dev),
-                                          indptr[1:] - indptr[:-1])
-    vc = V.index_select(0, cols)
-    outer = vc[:, :, None] * vc[:, None, :]               # [nnz, f, f], 8 GB
-    lib = cuda_ms(lambda: gw.index_add_(0, rows_sorted, outer), 3)
-    entries["gram_accumulate"] = dict(res, library_ms=lib)
-    detail.append(dict(info, library="index_add_ of the materialized "
-                       "[nnz, f, f] outer products (G only)"))
-    del gw, vc, outer, rows_sorted, indptr, cols
+    entries["gram_accumulate"] = dict(res, library_ms=library(V, n_users, indptr,
+                                                              cols, gw))
+    detail.append(dict(info, library=lib_name))
+    del gw, indptr, cols
     torch.cuda.empty_cache()
     # the item side, from user-shaped factors drawn from a seed of their
     # own (the KNN data below stays as it was)
     U = torch.from_numpy(np.random.default_rng(32).normal(0, 0.1, (n_users, f))
                          .astype(np.float32)).to(dev)
-    res, info, _ = side("items", i, u, n_items, U)
-    detail.append(dict(info, **res))
-    del U, V, vals_all, _
+    res, info, (indptr, cols, gw) = side("items", i, u, n_items, U)
+    detail.append(dict(info, **res, library=lib_name,
+                       library_ms=library(U, n_items, indptr, cols, gw)))
+    del U, V, vals_all, indptr, cols, gw
     torch.cuda.empty_cache()
 
     X = torch.from_numpy(mnist_shape(rng, 60_000 // shrink)).to(dev)

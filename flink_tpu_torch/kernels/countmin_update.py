@@ -44,6 +44,8 @@ def countmin_update(table: torch.Tensor, total: torch.Tensor,
     c, d, w = table.shape
     if total.shape[0] != c:
         raise ValueError(f"total has {total.shape[0]} rows, table {c}")
+    if not 0 < w < 1 << 32:
+        raise ValueError(f"width {w} outside [1, 2^32)")
     if not (0 <= n <= min(len(slots), len(values), len(hi), len(lo))):
         raise ValueError(f"n={n} exceeds the {len(slots)} rows given")
     if n == 0:

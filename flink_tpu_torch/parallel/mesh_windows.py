@@ -74,6 +74,32 @@ class _KeyDirectory:
         if hashes is not None:
             self.add(hashes, keys)
 
+    @classmethod
+    def from_dict(cls, d: Dict[int, Any]) -> "_KeyDirectory":
+        """From the reference's ``{hash: key}``.  Keys of one numpy
+        scalar type become an array of that type, rows of one 2-D key
+        array a 2-D array, as ingest stores them; any other keys an
+        object array."""
+        hashes = np.fromiter(d.keys(), np.uint64, len(d))
+        vals = list(d.values())
+        kind = type(vals[0]) if vals else None
+        if kind is not None and issubclass(kind, np.generic) and all(
+                type(v) is kind for v in vals):
+            keys = np.array(vals)
+        elif kind is np.ndarray and all(
+                type(v) is np.ndarray and v.shape == vals[0].shape
+                and v.dtype == vals[0].dtype for v in vals):
+            keys = np.stack(vals)
+        else:
+            keys = np.fromiter(vals, object, len(vals))
+        return cls(hashes, keys)
+
+    def to_dict(self) -> Dict[int, Any]:
+        """The reference's ``{hash: key}``: int hashes, keys as ingest
+        held them."""
+        uniq, keys = self.export()
+        return dict(zip(uniq.tolist(), keys))
+
     def add(self, hashes: np.ndarray, keys: np.ndarray) -> None:
         self._parts.append((np.asarray(hashes, np.uint64), keys))
         self._table = None
@@ -100,6 +126,22 @@ class _KeyDirectory:
                 uniq[np.minimum(idx, len(uniq) - 1)] != h64)):
             raise KeyError("a fired key hash is in no window directory")
         return keys[idx]
+
+
+def _restore_directories(kd: dict, live) -> Dict[int, _KeyDirectory]:
+    """A snapshot's key directories in any of the layouts written: per
+    window ``{start: {hash: key}}`` (both packages), the port's older
+    ``{start: (hashes, keys)}``, or the legacy flat ``{hash: key}``,
+    which every live window draws on."""
+    if not kd:
+        return {}
+    first = next(iter(kd.values()))
+    if isinstance(first, dict):
+        return {s: _KeyDirectory.from_dict(d) for s, d in kd.items()}
+    if (isinstance(first, tuple) and len(first) == 2
+            and isinstance(first[0], np.ndarray)):
+        return {s: _KeyDirectory(*d) for s, d in kd.items()}
+    return {s: _KeyDirectory.from_dict(kd) for s in live}
 
 
 def _region(r: int, region_size: int) -> slice:
@@ -453,7 +495,7 @@ class MeshTumblingWindows:
             "num_late_dropped": self.num_late_dropped,
             "ring_window": list(self.ring_window),
             "live": dict(self.live),
-            "key_directory": {s: d.export()
+            "key_directory": {s: d.to_dict()
                               for s, d in self.key_directory.items()},
             "pending": {s: [(np.array(kh), None if v is None else np.array(v),
                              None if h is None else np.array(h))
@@ -466,11 +508,13 @@ class MeshTumblingWindows:
 
     def restore(self, snap: dict) -> None:
         # key -> shard routing derives from max_parallelism: a mismatch
-        # would route keys away from their restored state
-        if snap["max_parallelism"] != self.max_parallelism:
+        # would route keys away from their restored state; snapshots
+        # without it were taken at the old fixed default of 128
+        snap_mp = snap.get("max_parallelism", 128)
+        if snap_mp != self.max_parallelism:
             raise ValueError(
                 f"mesh window checkpoint was taken at max_parallelism="
-                f"{snap['max_parallelism']}; this operator is configured "
+                f"{snap_mp}; this operator is configured "
                 f"{self.max_parallelism}")
         hi, lo, occ = snap["table"]
         if len(hi) != self.n_shards:
@@ -485,8 +529,8 @@ class MeshTumblingWindows:
         self.num_late_dropped = snap["num_late_dropped"]
         self.ring_window = list(snap["ring_window"])
         self.live = dict(snap["live"])
-        self.key_directory = {s: _KeyDirectory(*d)
-                              for s, d in snap["key_directory"].items()}
+        self.key_directory = _restore_directories(snap["key_directory"],
+                                                  snap["live"])
         if snap.get("fired_horizon") is not None:
             self._fired_horizon = snap["fired_horizon"]
         if hasattr(self, "_blocked"):

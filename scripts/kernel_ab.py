@@ -41,7 +41,16 @@ same in every turn.  ``--kernels`` picks the groups (default: all):
   run (``_onto_itself``: every row loses), the slots confined to 16,384
   slots after a clear (``_confined``), ``scatter_reduce_`` amax after a
   clear, and the keyed backend's flush (16,384 rows of raw lanes, a
-  run).
+  run);
+- ``countmin_update``: 2^19 records into a [2^14, 4, 2048] int32 table
+  (512 MiB), the table carried over, a run, beside ``index_put_`` with
+  accumulate (indices made beforehand); and the same records onto 64
+  slots (``_64_slots``: a 2 MiB table in the L2, slots repeating within
+  a warp);
+- ``table_insert`` at ``chip_smoke.table_insert_cases``' batches: 2^20
+  records into 1.5M positions, empty, half full and regional (one call
+  per event pair after an untimed restore of the table), and all hits
+  (a run).
 
 Most entries also get ``_split``: the device ms of each kernel per
 call, from a ``torch.profiler`` trace of 10 calls
@@ -74,7 +83,7 @@ def _chip_smoke():
 
 
 GROUPS = ("shard_pack", "gather_segment_sum", "scatter_combine", "chain_route",
-          "clear_rows", "hll_update")
+          "clear_rows", "hll_update", "countmin_update", "table_insert")
 
 
 def worker(root: str, groups) -> dict:
@@ -294,9 +303,76 @@ def _hll_update(K, cs, dev, out, splits):
         clear(), flat.scatter_reduce_(0, idx, rank, "amax"))
 
 
+def _countmin_update(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.ops.hashing import countmin_rows
+    t = _tensor(dev)
+    # chip_smoke.sketch_kernel_entries' shape: 2^19 records into
+    # [2^14, 4, 2048] int32 (512 MiB), weights 1-3
+    rng = np.random.default_rng(17)
+    S, D, W, N = 1 << 14, 4, 2048, 1 << 19
+    slots = t(rng.integers(0, S, N).astype(np.int32))
+    vals = t(rng.integers(1, 4, N).astype(np.float32))
+    vh = cs.splitmix64_np(rng.integers(0, 2**63, N, dtype=np.int64))
+    hi, lo = (t(a) for a in cs.lanes_np(vh))
+    table = torch.zeros((S, D, W), dtype=torch.int32, device=dev)
+    total = torch.zeros(S, dtype=torch.int32, device=dev)
+    call = lambda: K.countmin_update(table, total, slots, vals, hi, lo, N)  # noqa: E731
+    rt, rtot = table.clone(), total.clone()
+    call()
+    K.countmin_update_plain(rt, rtot, slots, vals, hi, lo, N)
+    out["countmin_update"] = {"ms": cs.cuda_ms(call, 20), "bit_equal_to_plain":
+                              bool(torch.equal(table, rt) and torch.equal(total, rtot))}
+    s64 = slots.to(torch.int64)
+    flat = ((s64[None, :] * D + torch.arange(D, device=dev)[:, None]) * W
+            + countmin_rows(hi, lo, D, W).to(torch.int64)).reshape(-1)
+    w_rep = vals.to(torch.int32).expand(D, -1).reshape(-1)
+    w32 = vals.to(torch.int32)
+
+    def library():
+        table.view(-1).index_put_((flat,), w_rep, accumulate=True)
+        total.index_put_((s64,), w32, accumulate=True)
+    out["index_put_"] = {"ms": cs.cuda_ms(library, 20)}
+    splits["countmin_update_split"] = call
+    splits["index_put_split"] = library
+    # the same records onto 64 slots: a 2 MiB table the L2 holds, and
+    # slots that repeat within a warp
+    few = t(rng.integers(0, 64, N).astype(np.int32))
+    small = torch.zeros((64, D, W), dtype=torch.int32, device=dev)
+    small_total = torch.zeros(64, dtype=torch.int32, device=dev)
+    call_l2 = lambda: K.countmin_update(small, small_total, few, vals, hi, lo, N)  # noqa: E731
+    out["countmin_update_64_slots"] = {"ms": cs.cuda_ms(call_l2, 20)}
+    splits["countmin_update_64_slots_split"] = call_l2
+
+
+def _table_insert(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.ops.device_table import make_table
+    # chip_smoke.table_insert_entry's batches: 2^20 records (1000 of
+    # them padding) into 1.5M positions
+    C, P = cs.TI_POSITIONS, cs.TI_MAX_PROBES
+    n = cs.TI_RECORDS - 1000
+    for case in cs.table_insert_cases(dev, np.random.default_rng(19)):
+        state, (h_d, l_d), kw = case["state"], case["lanes"], case["kw"]
+        card = make_table(C, dev)
+        case["fill"](card)
+        saved = [a.clone() for a in card]
+        restore = lambda c=card, s=saved: [a.copy_(b) for a, b in zip(c, s)]  # noqa: E731
+        call = lambda c=card, h=h_d, l=l_d, k=kw: K.table_insert(*c, h, l, n, P, **k)  # noqa: E731
+        if state == "all_hits":
+            out[f"table_insert_{state}"] = {"ms": cs.cuda_ms(call, 20)}
+            splits[f"table_insert_{state}_split"] = call
+        else:
+            out[f"table_insert_{state}"] = {"ms": cs.cuda_ms(call, 10, restore)}
+            splits[f"table_insert_{state}_split"] = (
+                lambda r=restore, c=call: (r(), c()))
+        del saved
+
+
 GROUP_FNS = {"shard_pack": _shard_pack, "gather_segment_sum": _gather_segment_sum,
              "scatter_combine": _scatter_combine, "chain_route": _chain_route,
-             "clear_rows": _clear_rows, "hll_update": _hll_update}
+             "clear_rows": _clear_rows, "hll_update": _hll_update,
+             "countmin_update": _countmin_update, "table_insert": _table_insert}
 
 
 def _old_chain_launch(cols, keep, key=None, num_channels=0, max_parallelism=0,

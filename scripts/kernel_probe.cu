@@ -1,4 +1,5 @@
-// The designs measured against clear_rows and hll_update and not kept,
+// The designs measured against clear_rows, hll_update, countmin_update
+// and table_insert and not kept, and their floors,
 // built beside the kernels' own sources (included here) by
 // scripts/kernel_probe.py, which times them on the card.
 //
@@ -19,8 +20,19 @@
 //   ordering each tile's 2048 rows by word address in shared memory;
 //   3 = the kernel's own (a warp's sample picks 0 or 1 for its other
 //   rows).
+// - ft_probe_countmin_red: countmin_update's atomics alone, a thread a
+//   record adding 1 to its d table cells and its total: variant 0 at
+//   cell indices computed beforehand (int32 [n, d], and the slots),
+//   loading only them; variant 1 at hashed cells of the same table (a
+//   power of two of cells and of slots), loading nothing; variant 2
+//   loads the indexed cells instead of adding to them (the memory's
+//   rate for the same random words, without the L2's atomics).
+// - ft_probe_table_insert: table_insert with G lanes a record (1, 2, 4,
+//   8 or 16).
 #include "../flink_tpu_torch/kernels/csrc/clear_rows.cu"
+#include "../flink_tpu_torch/kernels/csrc/countmin_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/hll_update.cu"
+#include "../flink_tpu_torch/kernels/csrc/table_insert.cu"
 
 #include <cub/block/block_radix_sort.cuh>
 
@@ -202,4 +214,72 @@ extern "C" int ft_probe_hll_update(void* regs, const void* slots,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void __launch_bounds__(CM_THREADS)
+probe_countmin_red(int32_t* table, int32_t* total,
+                   const int32_t* __restrict__ cells,
+                   const int32_t* __restrict__ tslots, long long n, int depth,
+                   long long cell_mask, long long slot_mask, int variant) {
+  FT_GRID_STRIDE(i, n) {
+    if (variant == 2) {
+      int acc = __ldcg(total + tslots[i]);
+      for (int r = 0; r < depth; ++r) acc ^= __ldcg(table + cells[i * depth + r]);
+      if (acc == 0x7FFFFFF5) total[0] = acc;   // never: keeps the loads
+    } else if (variant == 1) {
+      unsigned long long h = static_cast<unsigned long long>(i) *
+                             0x9E3779B97F4A7C15ULL;
+      for (int r = 0; r <= depth; ++r) {
+        h ^= h >> 31;
+        h *= 0xBF58476D1CE4E5B9ULL;
+        h ^= h >> 29;
+        if (r < depth)
+          atomicAdd(table + static_cast<long long>(h & cell_mask), 1);
+        else
+          atomicAdd(total + static_cast<long long>(h & slot_mask), 1);
+      }
+    } else {
+      for (int r = 0; r < depth; ++r) atomicAdd(table + cells[i * depth + r], 1);
+      atomicAdd(total + tslots[i], 1);
+    }
+  }
+}
+
+// variant 1 needs a power of two of cells and of slots
+extern "C" int ft_probe_countmin_red(void* table, void* total,
+                                     const void* cells, const void* tslots,
+                                     long long n, int depth,
+                                     long long table_cells,
+                                     long long capacity, int variant,
+                                     void* stream) {
+  if (n > 0)
+    probe_countmin_red<<<grid_for(n, CM_THREADS), CM_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int32_t*>(table), static_cast<int32_t*>(total),
+        static_cast<const int32_t*>(cells), static_cast<const int32_t*>(tslots),
+        n, depth, table_cells - 1, capacity - 1, variant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ft_probe_table_insert(void* key_hi, void* key_lo,
+                                     void* occupied, long long capacity,
+                                     const void* h_hi, const void* h_lo,
+                                     const void* mask, const void* region,
+                                     long long region_size, long long n,
+                                     long long n_rows, int max_probes,
+                                     void* slots, void* overflow, int group,
+                                     void* stream) {
+#define PB_TI(G)                                                            \
+  return launch_table_insert<G>(key_hi, key_lo, occupied, capacity, h_hi,  \
+                                h_lo, mask, region, region_size, n, n_rows, \
+                                max_probes, slots, overflow, stream)
+  switch (group) {
+    case 1: PB_TI(1);
+    case 2: PB_TI(2);
+    case 4: PB_TI(4);
+    case 8: PB_TI(8);
+    case 16: PB_TI(16);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PB_TI
 }

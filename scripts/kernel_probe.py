@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""The designs that ``clear_rows`` and ``hll_update`` were measured
-against, timed beside the kernels on the card at ``chip_smoke.py``'s
-entry shapes.
+"""The designs that ``clear_rows``, ``hll_update``, ``countmin_update``
+and ``table_insert`` were measured against, timed beside the kernels on
+the card at ``chip_smoke.py``'s entry shapes.
 
-    python3 scripts/kernel_probe.py
+    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin_update,table_insert]
 
-Builds ``scripts/kernel_probe.cu`` (which includes the two kernels'
+Builds ``scripts/kernel_probe.cu`` (which includes the four kernels'
 sources) with the loader's nvcc flags into the kernels' build directory
 and prints one JSON object; every time is ``chip_smoke.cuda_ms`` (a
 run of calls between one pair of CUDA events, / reps, or one call per
-event pair after an untimed clear, the median: ``*_after_clear``):
+event pair after an untimed clear or restore, the median:
+``*_after_clear``, ``single``).  ``--groups`` picks what runs (default:
+all):
 
 - ``clear_range``: the kernel's range form (a block a 32 KiB chunk), the
   same kernel with 8 blocks an SM walking the chunks (``walking``) and
@@ -28,12 +30,24 @@ event pair after an untimed clear, the median: ``*_after_clear``):
   16,384 slots (64 MiB), to see what the walk over 5 GB costs;
   ``scatter_reduce_`` amax after a clear beside them.  Each variant's
   registers are checked bit-equal to the kernel's.
+- ``countmin``: 2^19 records into a [2^14, 4, 2048] int32 table, weight
+  1: the kernel, and its atomics alone (``atomics_only``: the same 4 + 1
+  adds a record at cell indices made beforehand, loading only them;
+  ``atomics_hashed``: as many adds at hashed cells, loading nothing;
+  ``loads_only``: loads of the indexed cells in place of the adds),
+  each a run; the indexed atomics' table is checked equal to the
+  kernel's.  Then the same at 64 slots (a 2 MiB table the L2 holds).
+- ``table_insert``: ``chip_smoke.table_insert_cases``' four states with
+  1, 2, 4, 8 and 16 lanes a record (``g1`` .. ``g16``; the kernel is
+  one of them), each checked as a key -> slot map and timed one call
+  per event pair after a restore (all hits: a run).
 
 Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import importlib.util
@@ -52,8 +66,8 @@ def _build() -> ctypes.CDLL:
     from flink_tpu_torch.kernels import loader
     csrc = ROOT / "flink_tpu_torch" / "kernels" / "csrc"
     h = hashlib.sha256()
-    for f in (SRC, *sorted(csrc.glob("*.cuh")), csrc / "clear_rows.cu",
-              csrc / "hll_update.cu"):
+    for f in (SRC, *sorted(csrc.glob("*.cuh")),
+              *(csrc / f"{k}.cu" for k in KERNELS)):
         h.update(f.read_bytes())
     out = ROOT / "flink_tpu_torch" / "kernels" / "_build" / \
         f"kernel_probe-{h.hexdigest()[:16]}.so"
@@ -69,114 +83,237 @@ def _build() -> ctypes.CDLL:
     lib.ft_probe_clear_range_bulk.argtypes = (P, LL, ULL, ULL, P)
     lib.ft_probe_clear_range.argtypes = (P, LL, I, P)
     lib.ft_probe_hll_update.argtypes = (P, P, P, P, LL, LL, LL, I, I, P)
+    lib.ft_probe_countmin_red.argtypes = (P, P, P, P, LL, I, LL, LL, I, P)
+    lib.ft_probe_table_insert.argtypes = (P, P, P, LL, P, P, P, P, LL, LL, LL,
+                                          I, P, P, I, P)
     return lib
 
 
+#: the kernels whose sources kernel_probe.cu includes
+KERNELS = ("clear_rows", "countmin_update", "hll_update", "table_insert")
+GROUPS = ("clear_rows", "hll_update", "countmin", "table_insert")
+
+
+def _stream():
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ok(err):
+    if err != 0:
+        raise RuntimeError(f"probe launch failed with CUDA error {err}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma-separated, from " + ", ".join(GROUPS))
+    groups = ap.parse_args().groups.split(",")
+    if set(groups) - set(GROUPS):
+        ap.error(f"unknown groups {sorted(set(groups) - set(GROUPS))}")
     sys.path.insert(0, str(ROOT))
     import torch
     from flink_tpu_torch import kernels as K
-    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    dev = torch.device("cuda", 0)
-    K.build_all(("clear_rows", "hll_update"))
+    K.build_all(KERNELS)
     lib = _build()
-    stream = lambda: torch.cuda.current_stream().cuda_stream   # noqa: E731
-
-    def ok(err):
-        if err != 0:
-            raise RuntimeError(f"probe launch failed with CUDA error {err}")
-
     res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": cs.nvidia_smi()}
+    if "clear_rows" in groups or "hll_update" in groups:
+        _clear_and_hll(K, cs, lib, res, groups)
+    if "countmin" in groups:
+        res["countmin"] = _countmin(K, cs, lib)
+    if "table_insert" in groups:
+        res["table_insert"] = _table_insert(K, cs, lib)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def _clear_and_hll(K, cs, lib, res, groups):
+    import torch
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    dev = torch.device("cuda", 0)
+    stream, ok = _stream, _ok
     C, P, N = 1_250_000, 12, 1 << 20
     m = 1 << P
     regs = torch.zeros((C, m), dtype=torch.uint8, device=dev)
 
-    # the range clear, five ways, in turns
-    ways = {"kernel": lambda: K.clear_rows(regs, 0),
-            "walking": lambda: ok(lib.ft_probe_clear_range(
-                regs.data_ptr(), regs.numel(), 0, stream())),
-            "streaming": lambda: ok(lib.ft_probe_clear_range(
-                regs.data_ptr(), regs.numel(), 1, stream())),
-            "bulk": lambda: ok(lib.ft_probe_clear_range_bulk(
-                regs.data_ptr(), regs.numel(), 0, 0, stream())),
-            "fill_": lambda: regs.fill_(0)}
-    times = {k: [] for k in ways}
-    for k in [*ways, *reversed(ways)]:
-        times[k].append(cs.cuda_ms(ways[k], 20))
-    filled = {}
-    for k, fn in ways.items():
-        regs.fill_(7)
-        fn()
-        torch.cuda.synchronize()
-        filled[k] = int(regs.max()) == 0
-    res["clear_range"] = {"bytes": regs.numel(), "ms": times, "filled": filled,
-                          "bound_ms": cs.bound(regs.numel(), 0, 3.35e12)[0]}
-    # the list form: 2^18 random slots, the same slots sorted, and the
-    # range form over as many bytes
-    lslots = np.random.default_rng(13).integers(0, C, 1 << 18).astype(np.int32)
-    listed = {"random": torch.from_numpy(lslots).to(dev),
-              "sorted": torch.from_numpy(np.sort(lslots)).to(dev)}
-    res["clear_list"] = {k: cs.cuda_ms(lambda s=s: K.clear_rows(regs, 0, slots=s), 20)
-                         for k, s in listed.items()}
-    res["clear_list"]["range_same_bytes"] = cs.cuda_ms(
-        lambda: K.clear_rows(regs, 0, start=0, count=1 << 18), 20)
-    res["clear_list"]["bound_ms"] = cs.bound((1 << 18) * (m + 4), 0, 3.35e12)[0]
-
-    # hll_update: chip_smoke.kernel_phase's batch
-    rng = np.random.default_rng(11)
-    slots_np = rng.integers(0, 1_000_000, N).astype(np.int32)
-    vh = cs.splitmix64_np(rng.integers(0, 2**63, N, dtype=np.int64))
-    agg = HyperLogLogAggregate(P)
-    rank_np, reg_np = agg.compress_value_hash(
-        (vh >> np.uint64(32)).astype(np.uint32),
-        (vh & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-    rank = torch.from_numpy(rank_np).to(dev)
-    reg = torch.from_numpy(reg_np.view(np.int16)).to(dev)
-    clear = lambda: K.clear_rows(regs, 0)                    # noqa: E731
-    hll = {}
-    for corner in (None, 1 << 18, 1 << 14):
-        sl = slots_np if corner is None else slots_np % corner
-        slots = torch.from_numpy(sl).to(dev)
-        tag = "file" if corner is None else f"{corner}_slots"
-        clear()
-        K.hll_update(regs, slots, rank, reg, N)
-        want = regs.clone()
-
-        def probe(r, mode, s=slots):
-            return lambda: ok(lib.ft_probe_hll_update(
-                regs.data_ptr(), s.data_ptr(), rank.data_ptr(), reg.data_ptr(),
-                N, m, C, r, mode, stream()))
-
-        variants = {"kernel": lambda s=slots: K.hll_update(regs, s, rank, reg, N)}
-        for r in ((1, 2, 4, 8) if corner is None else (8,)):
-            for mode, name in ((0, "load"), (1, "cas"), (3, "sampled")):
-                variants[f"{name}_r{r}"] = probe(r, mode)
-        variants["sorted_r8"] = probe(8, 2)
-        out = {}
-        for name, fn in variants.items():
-            clear()
+    if "clear_rows" in groups:
+        # the range clear, five ways, in turns
+        ways = {"kernel": lambda: K.clear_rows(regs, 0),
+                "walking": lambda: ok(lib.ft_probe_clear_range(
+                    regs.data_ptr(), regs.numel(), 0, stream())),
+                "streaming": lambda: ok(lib.ft_probe_clear_range(
+                    regs.data_ptr(), regs.numel(), 1, stream())),
+                "bulk": lambda: ok(lib.ft_probe_clear_range_bulk(
+                    regs.data_ptr(), regs.numel(), 0, 0, stream())),
+                "fill_": lambda: regs.fill_(0)}
+        times = {k: [] for k in ways}
+        for k in [*ways, *reversed(ways)]:
+            times[k].append(cs.cuda_ms(ways[k], 20))
+        filled = {}
+        for k, fn in ways.items():
+            regs.fill_(7)
             fn()
             torch.cuda.synchronize()
-            equal = bool(torch.equal(regs, want))
-            after = cs.cuda_ms(fn, 10, clear)
-            clear()
-            onto = cs.cuda_ms(fn, 10)                   # the batch onto itself
-            out[name] = {"after_clear_ms": after, "onto_itself_ms": onto,
-                         "bit_equal": equal}
-        idx = slots.to(torch.int64) * m + reg.to(torch.int64)
-        flat = regs.view(-1)
-        out["scatter_reduce_"] = {"after_clear_ms": cs.cuda_ms(
-            lambda: flat.scatter_reduce_(0, idx, rank, "amax"), 10, clear)}
-        hll[tag] = out
-        del want, idx, slots
-        torch.cuda.empty_cache()
-    res["hll"] = hll
-    print(json.dumps(res), flush=True)
-    return 0
+            filled[k] = int(regs.max()) == 0
+        res["clear_range"] = {"bytes": regs.numel(), "ms": times, "filled": filled,
+                              "bound_ms": cs.bound(regs.numel(), 0, 3.35e12)[0]}
+        # the list form: 2^18 random slots, the same slots sorted, and the
+        # range form over as many bytes
+        lslots = np.random.default_rng(13).integers(0, C, 1 << 18).astype(np.int32)
+        listed = {"random": torch.from_numpy(lslots).to(dev),
+                  "sorted": torch.from_numpy(np.sort(lslots)).to(dev)}
+        res["clear_list"] = {k: cs.cuda_ms(lambda s=s: K.clear_rows(regs, 0, slots=s), 20)
+                             for k, s in listed.items()}
+        res["clear_list"]["range_same_bytes"] = cs.cuda_ms(
+            lambda: K.clear_rows(regs, 0, start=0, count=1 << 18), 20)
+        res["clear_list"]["bound_ms"] = cs.bound((1 << 18) * (m + 4), 0, 3.35e12)[0]
 
+    if "hll_update" in groups:
+        # hll_update: chip_smoke.kernel_phase's batch
+        rng = np.random.default_rng(11)
+        slots_np = rng.integers(0, 1_000_000, N).astype(np.int32)
+        vh = cs.splitmix64_np(rng.integers(0, 2**63, N, dtype=np.int64))
+        agg = HyperLogLogAggregate(P)
+        rank_np, reg_np = agg.compress_value_hash(
+            (vh >> np.uint64(32)).astype(np.uint32),
+            (vh & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+        rank = torch.from_numpy(rank_np).to(dev)
+        reg = torch.from_numpy(reg_np.view(np.int16)).to(dev)
+        clear = lambda: K.clear_rows(regs, 0)                    # noqa: E731
+        hll = {}
+        for corner in (None, 1 << 18, 1 << 14):
+            sl = slots_np if corner is None else slots_np % corner
+            slots = torch.from_numpy(sl).to(dev)
+            tag = "file" if corner is None else f"{corner}_slots"
+            clear()
+            K.hll_update(regs, slots, rank, reg, N)
+            want = regs.clone()
+
+            def probe(r, mode, s=slots):
+                return lambda: ok(lib.ft_probe_hll_update(
+                    regs.data_ptr(), s.data_ptr(), rank.data_ptr(), reg.data_ptr(),
+                    N, m, C, r, mode, stream()))
+
+            variants = {"kernel": lambda s=slots: K.hll_update(regs, s, rank, reg, N)}
+            for r in ((1, 2, 4, 8) if corner is None else (8,)):
+                for mode, name in ((0, "load"), (1, "cas"), (3, "sampled")):
+                    variants[f"{name}_r{r}"] = probe(r, mode)
+            variants["sorted_r8"] = probe(8, 2)
+            out = {}
+            for name, fn in variants.items():
+                clear()
+                fn()
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(regs, want))
+                after = cs.cuda_ms(fn, 10, clear)
+                clear()
+                onto = cs.cuda_ms(fn, 10)                   # the batch onto itself
+                out[name] = {"after_clear_ms": after, "onto_itself_ms": onto,
+                             "bit_equal": equal}
+            idx = slots.to(torch.int64) * m + reg.to(torch.int64)
+            flat = regs.view(-1)
+            out["scatter_reduce_"] = {"after_clear_ms": cs.cuda_ms(
+                lambda: flat.scatter_reduce_(0, idx, rank, "amax"), 10, clear)}
+            hll[tag] = out
+            del want, idx, slots
+            torch.cuda.empty_cache()
+        res["hll"] = hll
+
+
+
+def _countmin(K, cs, lib):
+    import torch
+    from flink_tpu_torch.ops.hashing import countmin_rows
+    dev = torch.device("cuda", 0)
+    out = {}
+    for S in (1 << 14, 64):
+        rng = np.random.default_rng(17)
+        D, W, N = 4, 2048, 1 << 19
+        slots = torch.from_numpy(rng.integers(0, S, N).astype(np.int32)).to(dev)
+        ones = torch.ones(N, dtype=torch.float32, device=dev)
+        vh = cs.splitmix64_np(rng.integers(0, 2**63, N, dtype=np.int64))
+        hi, lo = (torch.from_numpy(a).to(dev) for a in cs.lanes_np(vh))
+        cells = ((slots.to(torch.int64)[:, None] * D
+                  + torch.arange(D, device=dev)[None, :]) * W
+                 + countmin_rows(hi, lo, D, W).to(torch.int64).t()).to(torch.int32)
+        cells = cells.contiguous()                 # [N, D], record-major
+        table = torch.zeros((S, D, W), dtype=torch.int32, device=dev)
+        total = torch.zeros(S, dtype=torch.int32, device=dev)
+        ref, rtot = table.clone(), total.clone()
+
+        def red(variant, t=table, tot=total, c=cells, s=slots, S=S):
+            return lambda: _ok(lib.ft_probe_countmin_red(
+                t.data_ptr(), tot.data_ptr(), c.data_ptr(), s.data_ptr(),
+                N, D, S * D * W, S, variant, _stream()))
+        K.countmin_update(table, total, slots, ones, hi, lo, N)
+        red(0, ref, rtot)()
+        torch.cuda.synchronize()
+        row = {"records": N, "table": [S, D, W],
+               "indexed_atomics_equal_kernel": bool(torch.equal(table, ref)
+                                                    and torch.equal(total, rtot))}
+        ways = {"kernel": lambda t=table, tot=total, s=slots, h=hi, l=lo, o=ones:
+                K.countmin_update(t, tot, s, o, h, l, N),
+                "atomics_only": red(0), "atomics_hashed": red(1),
+                "loads_only": red(2)}
+        times = {k: [] for k in ways}
+        for k in [*ways, *reversed(ways)]:
+            times[k].append(cs.cuda_ms(ways[k], 20))
+        row["ms"] = times
+        out[f"slots_{S}"] = row
+        del table, total, ref, rtot, cells
+        torch.cuda.empty_cache()
+    return out
+
+
+def _table_insert(K, cs, lib):
+    import torch
+    from flink_tpu_torch.ops.device_table import key_map_faults, make_table
+    dev = torch.device("cuda", 0)
+    C, P = cs.TI_POSITIONS, cs.TI_MAX_PROBES
+    n = cs.TI_RECORDS - 1000
+    live = np.arange(cs.TI_RECORDS) < n
+    out = {}
+    for case in cs.table_insert_cases(dev, np.random.default_rng(19)):
+        state, (h_d, l_d), kw = case["state"], case["lanes"], case["kw"]
+        reg = kw.get("region")
+        size = kw.get("region_size", 0)
+        card, plain = make_table(C, dev), make_table(C, dev)
+        for t in (card, plain):
+            case["fill"](t)
+        K.table_insert_plain(*plain, h_d, l_d, n, P, **kw)
+        saved = [a.clone() for a in card]
+
+        def restore(c=card, s=saved):
+            for a, b in zip(c, s):
+                a.copy_(b)
+
+        row = {}
+        for g in (1, 2, 4, 8, 16):
+            slots = torch.empty(len(h_d), dtype=torch.int32, device=dev)
+            ov = torch.zeros(1, dtype=torch.int64, device=dev)
+
+            def call(g=g, slots=slots, ov=ov):
+                _ok(lib.ft_probe_table_insert(
+                    card.key_hi.data_ptr(), card.key_lo.data_ptr(),
+                    card.occupied.data_ptr(), C, h_d.data_ptr(), l_d.data_ptr(),
+                    None, None if reg is None else reg.data_ptr(), size, n,
+                    len(h_d), P, slots.data_ptr(), ov.data_ptr(), g, _stream()))
+            restore()
+            call()
+            torch.cuda.synchronize()
+            got = slots.cpu().numpy()
+            faults, _ = key_map_faults(card, case["hi"], case["lo"], got, P, live,
+                                       case["region"], size, reference=plain)
+            faults["unresolved"] = int((got[live] < 0).sum())
+            ms = (cs.cuda_ms(call, 20) if state == "all_hits"
+                  else cs.cuda_ms(call, 10, restore))
+            row[f"g{g}"] = {"ms": ms, "faults": faults, "overflow": int(ov)}
+        out[state] = row
+        del card, plain, saved
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -433,6 +433,56 @@ def test_countmin_update_and_query_match_plain(cuda, depth, width):
     assert torch.equal(got.cpu(), K.countmin_query_plain(rt, qs, hi[:20_000], lo[:20_000]))
 
 
+@pytest.mark.parametrize("case", ["depth1", "depth8_odd_width", "ragged_n",
+                                  "slots_out_of_range", "extreme_weights",
+                                  "one_slot_a_warp"])
+def test_countmin_update_edges_match_plain(cuda, case):
+    """Tables and totals bit-equal to the plain version at the kernel's
+    edges: depth 1 and 8, widths that are not powers of two, a record
+    count that is not a multiple of a warp or a block, slots -1 and >= C,
+    NaN / +-inf / +-2^31 / -0 / subnormal weights (saturating toward
+    zero), and whole warps on one slot (merged total adds)."""
+    rng = np.random.default_rng({"depth1": 1, "depth8_odd_width": 2,
+                                 "ragged_n": 3, "slots_out_of_range": 4,
+                                 "extreme_weights": 5, "one_slot_a_warp": 6}[case])
+    c, depth, width, n_rows = 257, 4, 2048, 20_000
+    if case == "depth1":
+        depth, width = 1, 256
+    elif case == "depth8_odd_width":
+        depth, width = 8, 2047
+    elif case == "ragged_n":
+        n_rows, width = 1013, 1000
+    slots = rng.integers(0, c, n_rows).astype(np.int32)
+    vals = rng.integers(1, 5, n_rows).astype(np.float32)
+    hi, lo = _lanes(rng, n_rows)
+    if case == "slots_out_of_range":
+        pick = rng.random(n_rows) < 0.3
+        slots[pick] = rng.choice(np.int32([-1, -2**31, c, c + 1, 2**31 - 1]),
+                                 int(pick.sum()))
+    elif case == "extreme_weights":
+        vals = rng.choice(np.float32([np.nan, np.inf, -np.inf, 2.0**31, -2.0**31,
+                                      -2.0**32, 2.0**31 - 128, -0.0, 1e-45, 0.5,
+                                      -0.99, 3.0]), n_rows).astype(np.float32)
+    elif case == "one_slot_a_warp":
+        slots[:] = 5
+        slots[rng.random(n_rows) < 0.1] = 6
+        hi[: n_rows // 2] = hi[0]                 # half of them one item
+        lo[: n_rows // 2] = lo[0]
+    n = n_rows - 7
+    table = torch.from_numpy(rng.integers(0, 5, (c, depth, width)).astype(np.int32))
+    total = torch.from_numpy(rng.integers(0, 5, c).astype(np.int32))
+    args = (torch.from_numpy(slots), torch.from_numpy(vals),
+            torch.from_numpy(hi.view(np.int32)), torch.from_numpy(lo.view(np.int32)))
+    orig = table.clone()
+    rt, rtot = table.clone(), total.clone()
+    K.countmin_update_plain(rt, rtot, *args, n)
+    gt, gtot = table.to(cuda), total.to(cuda)
+    K.countmin_update(gt, gtot, *(a.to(cuda) for a in args), n)
+    torch.cuda.synchronize()
+    assert torch.equal(gt.cpu(), rt) and torch.equal(gtot.cpu(), rtot)
+    assert not torch.equal(rt, orig)              # the batch wrote something
+
+
 @pytest.mark.parametrize("geometry", [(0.05, 1e-3, 1e6), (0.01, 1e-9, 1e9)])
 def test_quantile_update_matches_plain(cuda, geometry):
     from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
@@ -566,6 +616,118 @@ def test_table_insert_matches_plain_as_key_map(cuda, case):
             assert int(ov) > 0 and (ref[live] < 0).any()
         else:
             assert int(ov) == 0 and (ref[live] >= 0).all()
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32_inverse(h: int) -> int:
+    """The x with fmix32(x) == h (each step of fmix32 is a bijection)."""
+    h ^= h >> 16
+    h = h * pow(0xC2B2AE35, -1, 1 << 32) & _M32
+    h ^= (h >> 13) ^ (h >> 26)
+    h = h * pow(0x85EBCA6B, -1, 1 << 32) & _M32
+    return h ^ (h >> 16)
+
+
+def _cluster(base: int, k: int):
+    """k distinct keys whose probe chains all start at ``base`` (before
+    the modulus): hi = 1..k, lo chosen so lo ^ hi * 0x9E3779B9 is the
+    same fmix32 preimage."""
+    x = _fmix32_inverse(base)
+    hi = np.arange(1, k + 1, dtype=np.uint64)
+    lo = (np.uint64(x) ^ ((hi * np.uint64(0x9E3779B9)) & np.uint64(_M32)))
+    return hi.astype(np.uint32), lo.astype(np.uint32)
+
+
+def _chain(base: int, k: int, modulus: int, offset: int = 0):
+    return [offset + ((base + p) & _M32) % modulus for p in range(k)]
+
+
+def _insert_both(cuda, cap, hi, lo, n, max_probes, mask=None, region=None,
+                 region_size=0):
+    from flink_tpu_torch.ops.device_table import make_table
+    plain, card = make_table(cap, device="cpu"), make_table(cap, device=cuda)
+
+    def args(t):
+        kw = dict(mask=None if mask is None else torch.from_numpy(mask).to(t),
+                  region=None if region is None else torch.from_numpy(region).to(t),
+                  region_size=region_size)
+        return (torch.from_numpy(hi.view(np.int32)).to(t),
+                torch.from_numpy(lo.view(np.int32)).to(t), n, max_probes), kw
+    a, kw = args("cpu")
+    ref = K.table_insert_plain(plain.key_hi, plain.key_lo, plain.occupied, *a,
+                               **kw).numpy()
+    a, kw = args(cuda)
+    ov = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = K.table_insert(card.key_hi, card.key_lo, card.occupied, *a, overflow=ov,
+                         **kw)
+    torch.cuda.synchronize()
+    return plain, card, ref, got.cpu().numpy(), int(ov)
+
+
+@pytest.mark.parametrize("case", ["wrap_2_32", "wrap_modulus", "wrap_region",
+                                  "repeats_over_a_group", "overflow_p1",
+                                  "overflow_p2"])
+def test_table_insert_edges(cuda, case):
+    """The probe sequence (base + p) mod 2^32 mod modulus wraps at 2^32
+    and at the modulus (within a region, at its end): a cluster of keys
+    sharing one chain start fills the first positions of that chain, in
+    the JAX package's order.  Keys repeated more times than a probing
+    group has lanes, key (0, 0) and masked rows resolve as the plain
+    version's key map.  At max_probes 1 and 2 a cluster resolves that
+    many keys, the rest get -1 and count on the device."""
+    from flink_tpu_torch.ops.device_table import key_map_faults
+    rng = np.random.default_rng(3)
+    cap, max_probes, region, region_size, mask = 1000, 64, None, 0, None
+    k = 12
+    if case == "wrap_2_32":
+        base = 2**32 - 3
+    elif case == "wrap_modulus":
+        base = 998 + 1000 * 12345
+    elif case == "wrap_region":
+        base, region_size, cap = 998 + 1000 * 777, 1000, 5000
+    else:
+        base = 2**32 - 1
+    if case == "repeats_over_a_group":
+        keys = rng.integers(0, 40, 30_000).astype(np.uint64)
+        keys[rng.random(len(keys)) < 0.05] = 0            # key (0, 0)
+        hi = (keys >> np.uint64(32)).astype(np.uint32)
+        lo = (keys & np.uint64(_M32)).astype(np.uint32)
+        mask = rng.random(len(keys)) < 0.9
+        cap = 4096
+    else:
+        chi, clo = _cluster(base, k)
+        pick = rng.permutation(np.repeat(np.arange(k), 3))  # each key 3 times
+        hi, lo = chi[pick], clo[pick]
+        if case == "wrap_region":
+            region = np.full(len(hi), 3, np.int32)
+        if case.startswith("overflow"):
+            max_probes = int(case[-1])
+    n = len(hi) - 2 if case == "repeats_over_a_group" else len(hi)
+    live = np.arange(len(hi)) < n
+    if mask is not None:
+        live &= mask
+    plain, card, ref, got, ov = _insert_both(cuda, cap, hi, lo, n, max_probes,
+                                             mask, region, region_size)
+    occupied = set(np.nonzero(card.occupied.cpu().numpy())[0].tolist())
+    if case.startswith("overflow"):
+        first = _chain(base, max_probes, cap)
+        assert occupied == set(first)                 # max_probes keys took them
+        assert len(set(got[got >= 0].tolist())) == max_probes
+        assert ov == int((got[live] < 0).sum()) == 3 * (k - max_probes)
+        faults, _ = key_map_faults(card, hi, lo, got, max_probes, live)
+    else:
+        if case != "repeats_over_a_group":
+            offset = 3 * region_size if region is not None else 0
+            modulus = region_size or cap
+            want = _chain(base, k, modulus, offset)
+            assert occupied == set(want)
+            assert occupied == set(np.nonzero(plain.occupied.numpy())[0].tolist())
+        assert ov == 0 and (got[live] >= 0).all() and (ref[live] >= 0).all()
+        faults, _ = key_map_faults(card, hi, lo, got, max_probes, live, region,
+                                   region_size, reference=plain)
+    assert not any(faults.values()), faults
 
 
 @pytest.mark.parametrize("mode", ["plain", "route4", "route128", "window",

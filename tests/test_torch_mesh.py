@@ -685,6 +685,139 @@ def test_mesh_sliding_blocked_window_fires_on_later_call(meshes):
 
 
 # ---------------------------------------------------------------------
+# snapshots across the packages: one package's mid-window snapshot
+# restores into the other's engine, and the restored run fires what an
+# uninterrupted run fires
+
+
+def _snapshot_inputs(keys):
+    rng = np.random.default_rng(21)
+    n = 600
+    ids = rng.integers(0, 40, n)
+    k = {"str": lambda: np.array([f"user-{i}" for i in ids]),
+         "int": lambda: ids.astype(np.int64),
+         "pair": lambda: np.stack([ids, ids % 3], axis=1)}[keys]()
+    ts = np.sort(rng.integers(0, 4000, n)).astype(np.int64)
+    vals = rng.integers(1, 50, n).astype(np.float32)
+    return k, ts, vals
+
+
+def _window_engine(pkg, mesh, engine, agg):
+    a = pkg.da.CountAggregate() if agg == "count" else pkg.da.SumAggregate()
+    kw = dict(capacity_per_window_shard=128, step_batch=64)
+    if engine == "tumbling":
+        return _tumbling(pkg, mesh, a, 1000, **kw)
+    return _sliding(pkg, mesh, a, 2000, 1000, **kw)
+
+
+def _window_run(pkg, mesh, engine, agg, keys, cut=None, restore_into=None):
+    """Feed the inputs in 3 batches with a watermark after each; with
+    ``cut``, snapshot after that many batches and go on in a fresh engine
+    of package ``restore_into`` restored from it.  Returns the fired
+    (key, start, end) -> value of both engines together."""
+    k, ts, vals = _snapshot_inputs(keys)
+    v = None if agg == "count" else vals
+    eng = _window_engine(pkg, mesh, engine, agg)
+    out = {}
+    for b, sl in enumerate(np.array_split(np.arange(len(k)), 3)):
+        if b == cut:
+            out.update(_emitted(eng, str))
+            pkg, mesh = restore_into
+            fresh = _window_engine(pkg, mesh, engine, agg)
+            fresh.restore(eng.snapshot())
+            eng = fresh
+        eng.process_batch(k[sl], ts[sl], None if v is None else v[sl])
+        eng.advance_watermark(int(ts[sl][-1]) - 1)
+    eng.advance_watermark(20_000)
+    out.update(_emitted(eng, str))
+    return out
+
+
+@pytest.mark.parametrize("keys", ["int", "str", "pair"])
+@pytest.mark.parametrize("agg", ["count", "sum"])
+@pytest.mark.parametrize("engine", ["tumbling", "sliding"])
+@pytest.mark.parametrize("direction", ["reference_to_port", "port_to_reference"])
+def test_mesh_window_snapshot_crosses_packages(meshes, direction, engine, agg,
+                                               keys):
+    src, dst = (J, T) if direction == "reference_to_port" else (T, J)
+    key = (engine, agg, keys)
+    for pkg in (J, T):        # the uninterrupted runs, shared by both directions
+        if (pkg, *key) not in _WHOLE_RUNS:
+            _WHOLE_RUNS[(pkg, *key)] = _window_run(pkg, meshes[pkg], *key)
+    # the snapshot after the first of three batches falls mid-window
+    got = _window_run(src, meshes[src], *key, 1, (dst, meshes[dst]))
+    same = _same_counts if agg == "count" else _same_sums
+    same(_WHOLE_RUNS[(dst, *key)], got)
+    same(_WHOLE_RUNS[(src, *key)], got)
+    assert len(got) > 0
+
+
+_WHOLE_RUNS: dict = {}
+
+
+@pytest.mark.parametrize("layout", ["flat", "tuple"])
+@pytest.mark.parametrize("engine", ["tumbling", "sliding"])
+def test_mesh_window_older_directory_layouts_restore(meshes, engine, layout):
+    """The legacy flat ``{hash: key}`` directory (every live window draws
+    on it) and the port's older ``{start: (hashes, keys)}`` still restore,
+    and a snapshot without max_parallelism is taken as 128."""
+    mesh = meshes[T]
+    whole = _window_run(T, mesh, engine, "count", "str")
+    k, ts, _ = _snapshot_inputs("str")
+    eng = _window_engine(T, mesh, engine, "count")
+    sl = np.array_split(np.arange(len(k)), 3)
+    eng.process_batch(k[sl[0]], ts[sl[0]])
+    eng.advance_watermark(int(ts[sl[0]][-1]) - 1)
+    out = _emitted(eng, str)
+    snap = eng.snapshot()
+    dirs = snap["key_directory"]
+    assert all(isinstance(d, dict) for d in dirs.values())
+    if layout == "flat":
+        flat = {}
+        for d in dirs.values():
+            flat.update(d)
+        snap["key_directory"] = flat
+    else:
+        snap["key_directory"] = {
+            s: (np.array(sorted(d), np.uint64),
+                np.array([d[h] for h in sorted(d)])) for s, d in dirs.items()}
+    del snap["max_parallelism"]
+    fresh = _window_engine(T, mesh, engine, "count")
+    fresh.restore(snap)
+    for part in sl[1:]:
+        fresh.process_batch(k[part], ts[part])
+        fresh.advance_watermark(int(ts[part][-1]) - 1)
+    fresh.advance_watermark(20_000)
+    out.update(_emitted(fresh, str))
+    _same_counts(whole, out)
+
+
+@pytest.mark.parametrize("direction", ["reference_to_port", "port_to_reference"])
+def test_mesh_log_snapshot_crosses_packages(meshes, direction):
+    k, ts, v = _snapshot_inputs("int")
+    v = v.astype(np.float64)
+    src, dst = (J, T) if direction == "reference_to_port" else (T, J)
+
+    def build(pkg):
+        return pkg.ml.MeshLogTumblingWindows(pkg.da.SumAggregate(np.float64),
+                                             1000, meshes[pkg], step_batch=128)
+    half = len(k) // 2
+    a = build(src)
+    a.process_batch(k[:half], ts[:half], v[:half])
+    a.advance_watermark(int(ts[half - 1]) - 1)
+    b = build(dst)
+    b.restore(a.snapshot())
+    whole = build(dst)
+    whole.process_batch(k, ts, v)
+    whole.advance_watermark(10_000)
+    b.process_batch(k[half:], ts[half:], v[half:])
+    b.advance_watermark(10_000)
+    got = _log_results(a)
+    got.update(_log_results(b))
+    assert got == _log_results(whole) and len(got) > 0
+
+
+# ---------------------------------------------------------------------
 # mesh_log: test_mesh_log.py's cases
 
 
