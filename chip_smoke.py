@@ -46,8 +46,12 @@ exit code at 0):
                 own; two launches bit-identical; beside a CSR SpMV and
                 ``index_add_``), ``edge_popcount`` on a scale-18 bitset
                 (8.6 GB),
-                ``gram_accumulate`` on MovieLens-20M-shaped ratings,
-                ``knn_topk`` on MNIST-shaped products;
+                ``gram_accumulate`` on MovieLens-20M-shaped ratings
+                (both sides on their plans, each plan's build timed; two
+                calls and the wrapper's own plan bit-equal; f = 64 on a
+                2M-rating user side), ``knn_topk`` on MNIST-shaped
+                products; ``quantile_result`` also from an odd row, with
+                Q = 16 and at the default geometry (2,075 buckets);
 4. ``engine``   the scatter-tier window engine at BASELINE config #2
                 (slots from the C++ NativeSlotIndex): a 1M-key space,
                 2^23 events in one 1 s window, HLL precision 12, 1.25M
@@ -321,6 +325,15 @@ def _device_seconds(marks):
 def bound(nbytes: float, ops: float, hbm: float):
     t_bytes, t_ops = nbytes / hbm * 1e3, ops / _OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gram_bound(nnz: int, n_rows: int, n_cols: int, f: int, hbm: float):
+    """gram_accumulate's bound: the bytes it must move (each rating's
+    column and value, 8 B; the fixed table, indptr, G and b once: factor
+    rows gathered again come from the L2) and f(f+1)/2 + f FMAs a rating
+    (G is symmetric)."""
+    return bound(8 * nnz + 4 * n_cols * f + 8 * (n_rows + 1)
+                 + 4 * n_rows * (f * f + f), 2 * nnz * (f * (f + 1) // 2 + f), hbm)
 
 
 def clz32_np(x: np.ndarray) -> np.ndarray:
@@ -796,11 +809,14 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
     check(torch.equal(table, rt), "merge_rows i32 add at 32 KiB rows bit-equal")
     err = max_abs_err(table, rt)
     row = D * W * 4
+    d64, s64_ = dst.to(torch.int64), src.to(torch.int64)
     detail.append({"kernel": "merge_rows", "case": "i32 add 32 KiB rows "
                    "(session Count-Min merge)", "rows": 4 * m, "unique_dst": False,
                    "ms": cuda_ms(lambda: K.merge_rows(table, dst, src, "add")),
                    "plain_ms": cuda_ms(lambda: K.merge_rows_plain(
                        rt, dst, src, "add"), 3),
+                   "library_ms": cuda_ms(lambda: rt.index_add_(0, d64, rt[s64_])),
+                   "library": "index_add_ of the gathered source rows",
                    "bound_ms": bound(4 * m * (row + 8) + 2 * m * row, 0, hbm)[0],
                    "max_abs_err": err})
     del table, total, rt, rtot, flat, w_rep, qcols
@@ -845,27 +861,37 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
                    "library": "bucketize + index_put_ accumulate"})
 
     # quantile_result: dense over 2^20 rows (a row slice), gathered over
-    # 2^18 rows, Q = 2, on the histograms quantile_update left
+    # 2^18 rows, Q = 2, on the histograms quantile_update left; the same
+    # dense rows from an odd row (8-byte aligned), and with Q = 16
     qs, bv = agg._tables(dev)
     R, G = 1 << (20 - shift), 1 << (18 - shift)
     dense = hist[:R]
+    odd = hist[1:R + 1]
     gslots = t(rng.integers(0, C, G).astype(np.int32))
     got_d, want_d = K.quantile_result(dense, qs, bv), K.quantile_result_plain(dense, qs, bv)
     got_g = K.quantile_result(hist, qs, bv, slots=gslots)
     want_g = K.quantile_result_plain(hist, qs, bv, slots=gslots)
+    got_o, want_o = K.quantile_result(odd, qs, bv), K.quantile_result_plain(odd, qs, bv)
+    q16 = t(np.float32(np.linspace(0.0, 1.0, 16)))
+    got_16, want_16 = (K.quantile_result(dense, q16, bv),
+                       K.quantile_result_plain(dense, q16, bv))
     torch.cuda.synchronize()
-    check(torch.equal(got_d, want_d) and torch.equal(got_g, want_g),
-          "quantile_result values bit-equal (dense and gathered)")
+    check(torch.equal(got_d, want_d) and torch.equal(got_g, want_g)
+          and torch.equal(got_o, want_o) and torch.equal(got_16, want_16),
+          "quantile_result values bit-equal (dense, gathered, from an odd row, Q = 16)")
     err = max(max_abs_err(got_d, want_d), max_abs_err(got_g, want_g))
+    g64 = gslots.to(torch.int64)
 
-    def q_result_library():
-        cum = torch.cumsum(dense.to(torch.float32), dim=-1)
+    def q_result_library(slots=None):
+        h = dense if slots is None else hist[slots]
+        cum = torch.cumsum(h.to(torch.float32), dim=-1)
         target = torch.clamp_min(qs[None, :] * cum[:, -1:], 1.0)
         idx = torch.searchsorted(cum, target)
         return bv[torch.where(idx >= B, 0, idx)]
 
-    check(torch.equal(q_result_library(), got_d),
-          "cumsum + searchsorted agrees with quantile_result")
+    check(torch.equal(q_result_library(), got_d)
+          and torch.equal(q_result_library(g64), got_g),
+          "cumsum + searchsorted agrees with quantile_result (dense and gathered)")
     ms = cuda_ms(lambda: K.quantile_result(dense, qs, bv))
     plain = cuda_ms(lambda: K.quantile_result_plain(dense, qs, bv), 3)
     lib = cuda_ms(q_result_library, 5)
@@ -877,7 +903,14 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
                    "gathered_ms": cuda_ms(lambda: K.quantile_result(
                        hist, qs, bv, slots=gslots)),
                    "gathered_bound_ms": bound(G * (4 + B * 4 + 8), 0, hbm)[0],
-                   "library": "cumsum + searchsorted"})
+                   "gathered_library_ms": cuda_ms(lambda: q_result_library(g64), 5),
+                   "odd_row_ms": cuda_ms(lambda: K.quantile_result(odd, qs, bv)),
+                   "q16_ms": cuda_ms(lambda: K.quantile_result(dense, q16, bv)),
+                   "q16_bound_ms": bound(R * B * 4 + R * 64, 2 * R * B, hbm)[0],
+                   "library": "cumsum + searchsorted (gathered: hist[slots] first)"})
+    del got_d, want_d, got_g, want_g, got_o, want_o, got_16, want_16, odd
+    quantile_result_default_entry(dev, hbm, detail, shift)
+    quantile_result_wide_checks(dev, detail, shift)
 
     # merge_rows, int32 add at the sliding union row (B * 4 bytes): 2^18
     # pane rows into as many fresh union rows, unique dst
@@ -891,15 +924,88 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
     check(torch.equal(hist, ref), "merge_rows i32 add at sliding rows bit-equal")
     err = max_abs_err(hist, ref)
     row = B * 4
+    d64, s64_ = dst.to(torch.int64), src.to(torch.int64)
     detail.append({"kernel": "merge_rows", "case": f"i32 add {row} B rows "
                    "(sliding union merge)", "rows": k, "unique_dst": True,
                    "ms": cuda_ms(lambda: K.merge_rows(hist, dst, src, "add",
                                                       unique_dst=True)),
                    "plain_ms": cuda_ms(lambda: K.merge_rows_plain(
                        ref, dst, src, "add", unique_dst=True), 3),
+                   "library_ms": cuda_ms(lambda: ref.index_add_(0, d64, ref[s64_])),
+                   "library": "index_add_ of the gathered source rows",
                    "bound_ms": bound(k * (row + 8) + 2 * k * row, 0, hbm)[0],
                    "max_abs_err": err})
     del hist, ref, dense, hflat
+    torch.cuda.empty_cache()
+
+
+def quantile_result_default_entry(dev, hbm, detail, shift=0):
+    """quantile_result at the aggregate's default geometry (relative
+    accuracy 0.01 over 1e-9 .. 1e9: 2,075 buckets, 8.3 KB a row), dense
+    over 2^17 rows from an odd row, Q = 2, on 2^19 lognormal values."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    agg = QuantileSketchAggregate()
+    rng = np.random.default_rng(43)
+    B, R, N = agg.buckets, 1 << (17 - shift), 1 << (19 - shift)
+    hist = torch.zeros((R + 1, B), dtype=torch.int32, device=dev)
+    slots = torch.from_numpy(rng.integers(0, R + 1, N).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.lognormal(3.0, 1.0, N).astype(np.float32)).to(dev)
+    K.quantile_update(hist, slots, v, N, agg.min_value, agg.log_gamma, agg.offset)
+    qs, bv = agg._tables(dev)
+    rows = hist[1:]
+    got, want = K.quantile_result(rows, qs, bv), K.quantile_result_plain(rows, qs, bv)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"quantile_result bit-equal at the default geometry ({B} buckets)")
+    detail.append({"kernel": "quantile_result", "case": "default geometry",
+                   "dense_rows": R, "buckets": B, "quantiles": 2,
+                   "ms": cuda_ms(lambda: K.quantile_result(rows, qs, bv)),
+                   "plain_ms": cuda_ms(lambda: K.quantile_result_plain(rows, qs, bv), 3),
+                   "bound_ms": bound(R * B * 4 + R * 8, 2 * R * B, hbm)[0],
+                   "max_abs_err": max_abs_err(got, want)})
+    del hist, rows, got, want
+    torch.cuda.empty_cache()
+
+
+def quantile_result_wide_checks(dev, detail, shift=0):
+    """quantile_result where its two forms meet: relative accuracy 0.0047
+    over 1e-9 .. 1e9 (4,412 buckets, the widest row of the staged form:
+    four rings a block), 0.004 (5,183) and 0.001 (20,726), both in the
+    global-memory form; 4,096 rows of lognormal values, Q = 5; dense
+    from an odd row and gathered over 8,192 slots with some past both
+    ends, each bit-equal to the plain version."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    rng = np.random.default_rng(47)
+    R, N = 1 << (12 - shift), 1 << (22 - shift)
+    for acc in (0.0047, 0.004, 0.001):
+        agg = QuantileSketchAggregate(quantiles=(0.0, 0.25, 0.5, 0.99, 1.0),
+                                      relative_accuracy=acc)
+        B = agg.buckets
+        hist = torch.zeros((R + 1, B), dtype=torch.int32, device=dev)
+        slots = torch.from_numpy(rng.integers(0, R + 1, N).astype(np.int32)).to(dev)
+        v = torch.from_numpy(rng.lognormal(3.0, 1.0, N).astype(np.float32)).to(dev)
+        K.quantile_update(hist, slots, v, N, agg.min_value, agg.log_gamma, agg.offset)
+        hist[1:17] = 0                                   # empty rows
+        qs, bv = agg._tables(dev)
+        rows = hist[1:]
+        gslots = torch.from_numpy(rng.integers(-3, R + 4, 2 * R).astype(np.int32)).to(dev)
+        got_d, want_d = K.quantile_result(rows, qs, bv), K.quantile_result_plain(rows, qs, bv)
+        got_g = K.quantile_result(hist, qs, bv, slots=gslots)
+        want_g = K.quantile_result_plain(hist, qs, bv, gslots)
+        torch.cuda.synchronize()
+        check(torch.equal(got_d, want_d) and torch.equal(got_g, want_g),
+              f"quantile_result bit-equal on rows of {B} buckets, dense from an odd "
+              "row and gathered")
+        detail.append({"kernel": "quantile_result", "case": "wide rows",
+                       "relative_accuracy": acc, "buckets": B, "dense_rows": R,
+                       "gathered_rows": 2 * R, "quantiles": 5,
+                       "ms": cuda_ms(lambda: K.quantile_result(rows, qs, bv)),
+                       "plain_ms": cuda_ms(lambda: K.quantile_result_plain(rows, qs, bv), 3)})
+        del hist, rows, got_d, want_d, got_g, want_g, slots, v
     torch.cuda.empty_cache()
 
 
@@ -3589,12 +3695,23 @@ def ml_kernel_entries(dev, hbm, entries, detail, shrink=1):
     n_users, n_items, f = int(u.max()) + 1, int(i.max()) + 1, 10
     vals_all = torch.from_numpy(r).to(dev)
 
-    def side(name, row_ids, col_ids, n_rows, fixed):
-        """One half-step's Gram sums against the plain version: a sum of
-        t float32 terms in another order is within 2 t eps sum|terms|."""
+    def side(name, row_ids, col_ids, n_rows, fixed, vals_all=vals_all):
+        """One half-step's Gram sums on its plan against the plain
+        version: a sum of t float32 terms in another order is within
+        2 t eps sum|terms|; two calls, and the wrapper's own plan, give
+        the same bits, and G is symmetric bit for bit."""
         indptr, cols, vals = rating_csr(torch.from_numpy(row_ids).to(dev),
                                         torch.from_numpy(col_ids).to(dev), vals_all, n_rows)
-        g, b = K.gram_accumulate(fixed, indptr, cols, vals)
+        plan_ms = cuda_ms(lambda: K.gram_plan(indptr), 3, single=True)
+        plan = K.gram_plan(indptr)
+        g, b = K.gram_accumulate(fixed, indptr, cols, vals, plan=plan)
+        again = K.gram_accumulate(fixed, indptr, cols, vals, plan=plan)
+        own = K.gram_accumulate(fixed, indptr, cols, vals)
+        check(all(torch.equal(x, y) for o in (again, own) for x, y in zip((g, b), o))
+              and torch.equal(g, g.transpose(1, 2)),
+              f"gram_accumulate ({name} side): two calls and the wrapper's own plan "
+              "bit-equal, G symmetric bit for bit")
+        del again, own
         gw, bw = K.gram_accumulate_plain(fixed, indptr, cols, vals)
         gm, bm = K.gram_accumulate_plain(fixed.abs(), indptr, cols, vals.abs())
         terms = (indptr[1:] - indptr[:-1]).double()
@@ -3605,15 +3722,18 @@ def ml_kernel_entries(dev, hbm, entries, detail, shrink=1):
                     * bm.double()).all()),
               f"gram_accumulate ({name} side) within 2 t eps sum|terms| of plain")
         del g, b, bw, gm, bm
-        nnz = len(cols)
-        b_, by = bound(nnz * (8 + 4 * f) + n_rows * (f * f + f) * 4 + 8 * (n_rows + 1),
-                       2 * nnz * f * (f + 1), hbm)
-        res = dict(ms=cuda_ms(lambda: K.gram_accumulate(fixed, indptr, cols, vals)),
+        nnz, f_ = len(cols), fixed.shape[1]
+        b_, by = gram_bound(nnz, n_rows, len(fixed), f_, hbm)
+        res = dict(ms=cuda_ms(lambda: K.gram_accumulate(fixed, indptr, cols, vals,
+                                                        plan=plan)),
                    plain_ms=cuda_ms(lambda: K.gram_accumulate_plain(
                        fixed, indptr, cols, vals), 3),
                    bound_ms=b_, bound_by=by, max_abs_err=err)
         info = {"kernel": "gram_accumulate", "side": name, "rows": n_rows,
-                "ratings": nnz, "max_row_ratings": int(terms.max()), "factors": f}
+                "ratings": nnz, "max_row_ratings": int(terms.max()), "factors": f_,
+                "plan_ms": plan_ms, "plan_chunks": len(plan.row),
+                "plan_split_rows": len(plan.split_row), "chunk_ratings": plan.width,
+                "plan_timer": SINGLE}
         return res, info, (indptr, cols, gw)
 
     def library(fixed, n_rows, indptr, cols, gw):
@@ -3644,6 +3764,18 @@ def ml_kernel_entries(dev, hbm, entries, detail, shrink=1):
     detail.append(dict(info, **res, library=lib_name,
                        library_ms=library(U, n_items, indptr, cols, gw)))
     del U, V, vals_all, indptr, cols, gw
+    torch.cuda.empty_cache()
+    # f = 64 (the kernel's largest) on a user side cut to about 2M
+    # ratings, from a seed of its own
+    r64 = np.random.default_rng(33)
+    u6, i6, s6 = movielens_shape(r64, 20_000_263 // (10 * shrink),
+                                 138_493 // (10 * shrink), 26_744 // (10 * shrink))
+    V64 = torch.from_numpy(r64.normal(0, 0.1, (int(i6.max()) + 1, 64))
+                           .astype(np.float32)).to(dev)
+    res, info, _ = side("users, f = 64", u6, i6, int(u6.max()) + 1, V64,
+                        torch.from_numpy(s6).to(dev))
+    detail.append(dict(info, **res))
+    del V64, _
     torch.cuda.empty_cache()
 
     X = torch.from_numpy(mnist_shape(rng, 60_000 // shrink)).to(dev)

@@ -31,7 +31,8 @@ PyTorch versions.
 ``edge_popcount``  common neighbours per vertex pair from a packed
                    adjacency bitset (triangles, clustering)
 ``gram_accumulate``  per-row Gram matrices and right-hand sides of an
-                   ALS half-step from ratings grouped by row
+                   ALS half-step from ratings grouped by row, on a
+                   ``gram_plan`` of chunks built once per fit and side
 ``knn_topk``       k smallest squared distances per query row from a
                    GEMM output, lower index first on ties
 =================  ==================================================
@@ -52,8 +53,8 @@ from flink_tpu_torch.kernels.edge_popcount import (edge_popcount,
                                                    edge_popcount_plain)
 from flink_tpu_torch.kernels.gather_segment_sum import (
     SegmentPlan, gather_segment_sum, gather_segment_sum_plain, segment_plan)
-from flink_tpu_torch.kernels.gram_accumulate import (gram_accumulate,
-                                                     gram_accumulate_plain)
+from flink_tpu_torch.kernels.gram_accumulate import (
+    GramPlan, gram_accumulate, gram_accumulate_plain, gram_plan)
 from flink_tpu_torch.kernels.hll_estimate import (hll_estimate,
                                                   hll_estimate_plain)
 from flink_tpu_torch.kernels.hll_log_finish import (hll_log_finish,
@@ -81,6 +82,7 @@ __all__ = [
     "countmin_update", "countmin_update_plain", "edge_popcount",
     "edge_popcount_plain", "gather_segment_sum", "gather_segment_sum_plain",
     "SegmentPlan", "segment_plan",
+    "GramPlan", "gram_plan",
     "gram_accumulate", "gram_accumulate_plain", "hll_estimate",
     "hll_estimate_plain", "hll_log_finish", "hll_log_finish_plain",
     "hll_update", "hll_update_plain", "knn_topk", "knn_topk_plain",

@@ -111,7 +111,8 @@ _SIGNATURES = {
         "ft_edge_popcount": (_P, _LL, _P, _P, _LL, _P, _P),
     },
     "gram_accumulate": {
-        "ft_gram_accumulate": (_P, _P, _P, _P, _LL, _I, _P, _P, _P),
+        "ft_gram_accumulate": (_P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _I,
+                               _P, _P, _P, _P),
     },
     "knn_topk": {
         "ft_knn_topk": (_P, _P, _P, _LL, _LL, _I, _P, _P),

@@ -4,7 +4,8 @@ ALS matrix factorization).
 Each half-step solves, for every user (then every item) at once,
 ``(sum_c v_c v_c^T + lambda I) x = sum_c r_c v_c``: the ``gram_accumulate``
 kernel builds the Gram matrices and right-hand sides from the ratings
-grouped by row (``rating_csr``, once per fit and side), and the batched
+grouped by row (``rating_csr``) on a plan of chunks (``gram_plan``, on
+the card), both once per fit and side, and the batched
 solve is ``torch.linalg.solve`` (cuSOLVER on the card).  The initial
 factors are the reference's draws from ``np.random.default_rng(seed)``.
 Fitted state and ``predict`` are host numpy; ``fit`` runs on ``cuda``
@@ -13,12 +14,15 @@ unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.kernels import gram_accumulate
-from flink_tpu_torch.kernels.gram_accumulate import rating_csr
+from flink_tpu_torch.kernels.gram_accumulate import (GramPlan, gram_plan,
+                                                     rating_csr)
 from flink_tpu_torch.ml.pipeline import Estimator
 
 
@@ -39,10 +43,11 @@ class ALS(Estimator):
         self._items = None
 
     def solve_side(self, fixed: torch.Tensor, indptr: torch.Tensor,
-                   cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+                   cols: torch.Tensor, vals: torch.Tensor,
+                   plan: Optional[GramPlan] = None) -> torch.Tensor:
         """Factors [rows, f] of one side from the other side's ``fixed``
-        and the ratings grouped by row."""
-        grams, rhs = gram_accumulate(fixed, indptr, cols, vals)
+        and the ratings grouped by row (``plan``: their ``gram_plan``)."""
+        grams, rhs = gram_accumulate(fixed, indptr, cols, vals, plan=plan)
         grams.diagonal(dim1=1, dim2=2).add_(self.lambda_)
         # the batched solve may return a column-major batch: the next
         # half-step's kernel reads the factors row-major
@@ -69,9 +74,13 @@ class ALS(Estimator):
         uj, ij, rj = (torch.from_numpy(a).to(dev) for a in (u, it, r))
         by_user = rating_csr(uj, ij, rj, n_u)
         by_item = rating_csr(ij, uj, rj, n_i)
+        # the plans serve the kernel only: on the CPU nothing reads them
+        on_card = dev.type == "cuda"
+        plan_u = gram_plan(by_user[0]) if on_card else None
+        plan_i = gram_plan(by_item[0]) if on_card else None
         for _ in range(self.iterations):
-            U = self.solve_side(V, *by_user)
-            V = self.solve_side(U, *by_item)
+            U = self.solve_side(V, *by_user, plan=plan_u)
+            V = self.solve_side(U, *by_item, plan=plan_i)
         self.user_factors = U.cpu().numpy()
         self.item_factors = V.cpu().numpy()
         self._users = uidx

@@ -50,7 +50,19 @@ same in every turn.  ``--kernels`` picks the groups (default: all):
 - ``table_insert`` at ``chip_smoke.table_insert_cases``' batches: 2^20
   records into 1.5M positions, empty, half full and regional (one call
   per event pair after an untimed restore of the table), and all hits
-  (a run).
+  (a run);
+- ``quantile_result`` at ``chip_smoke.sketch_kernel_entries``' shapes:
+  the config #3 file ([2^22, 210] int32, 2^19 lognormal values through
+  ``quantile_update``), dense over 2^20 rows from row 0 and from row 1
+  (8-byte aligned rows), Q = 2 and Q = 16, gathered over 2^18 slots;
+  and the default geometry (2,075 buckets), dense over 2^17 rows from
+  row 1;
+- ``gram_accumulate`` at MovieLens-20M's shape, f = 10 (``chip_smoke.
+  ml_kernel_entries``' ratings and factors): the user and the item
+  side, and f = 64 on a user side of about 2M ratings; a checkout with
+  ``gram_plan`` is timed on plans built beforehand (each build timed on
+  its own, ``*_plan_ms``), and on plans of 512, 1024, 4096 and 8192
+  ratings a chunk beside its default (``_w<N>``).
 
 Most entries also get ``_split``: the device ms of each kernel per
 call, from a ``torch.profiler`` trace of 10 calls
@@ -83,7 +95,8 @@ def _chip_smoke():
 
 
 GROUPS = ("shard_pack", "gather_segment_sum", "scatter_combine", "chain_route",
-          "clear_rows", "hll_update", "countmin_update", "table_insert")
+          "clear_rows", "hll_update", "countmin_update", "table_insert",
+          "quantile_result", "gram_accumulate")
 
 
 def worker(root: str, groups) -> dict:
@@ -369,10 +382,76 @@ def _table_insert(K, cs, dev, out, splits):
         del saved
 
 
+def _quantile_result(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    t = _tensor(dev)
+    rng = np.random.default_rng(23)
+    for tag, geometry, C, R, starts in (("", cs.Q3, 1 << 22, 1 << 20, (0, 1)),
+                                        ("_default", {}, (1 << 17) + 1, 1 << 17, (1,))):
+        agg = QuantileSketchAggregate(**geometry)
+        N = 1 << 19
+        hist = torch.zeros((C, agg.buckets), dtype=torch.int32, device=dev)
+        K.quantile_update(hist, t(rng.integers(0, C, N).astype(np.int32)),
+                          t(rng.lognormal(3.0, 1.0, N).astype(np.float32)), N,
+                          agg.min_value, agg.log_gamma, agg.offset)
+        qs, bv = agg._tables(dev)
+        calls = {}
+        for s0 in starts:
+            rows = hist[s0:s0 + R]
+            name = f"quantile_result{tag}_dense" + ("_odd" if s0 % 2 else "")
+            calls[name] = lambda r=rows, q=qs, b=bv: K.quantile_result(r, q, b)
+        if not tag:
+            q16 = t(np.float32(np.linspace(0.0, 1.0, 16)))
+            calls["quantile_result_q16"] = (lambda r=hist[:R], q=q16, b=bv:
+                                            K.quantile_result(r, q, b))
+            gslots = t(rng.integers(0, C, 1 << 18).astype(np.int32))
+            calls["quantile_result_gathered"] = (lambda h=hist, q=qs, b=bv, g=gslots:
+                                                 K.quantile_result(h, q, b, slots=g))
+        for name, fn in calls.items():
+            out[name] = {"ms": cs.cuda_ms(fn, 20)}
+            splits[name + "_split"] = fn    # the trace at the end keeps the file
+
+
+def _gram_accumulate(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.kernels.gram_accumulate import rating_csr
+    planned = hasattr(K, "gram_plan")
+    rng = np.random.default_rng(31)
+    u, i, r = cs.movielens_shape(rng)
+    V = torch.from_numpy(rng.normal(0, 0.1, (int(i.max()) + 1, 10))
+                         .astype(np.float32)).to(dev)
+    U = torch.from_numpy(np.random.default_rng(32).normal(0, 0.1, (int(u.max()) + 1, 10))
+                         .astype(np.float32)).to(dev)
+    r64 = np.random.default_rng(33)
+    u6, i6, s6 = cs.movielens_shape(r64, 2_000_026, 13_849, 2_674)
+    V64 = torch.from_numpy(r64.normal(0, 0.1, (int(i6.max()) + 1, 64))
+                           .astype(np.float32)).to(dev)
+    for name, rows, cols, vals, fixed in (("users", u, i, r, V), ("items", i, u, r, U),
+                                          ("users_f64", u6, i6, s6, V64)):
+        csr = rating_csr(*(torch.from_numpy(a).to(dev) for a in (rows, cols, vals)),
+                         int(rows.max()) + 1)
+        key = f"gram_accumulate_{name}"
+        if planned:
+            plan = K.gram_plan(csr[0])
+            out[key + "_plan_ms"] = {"ms": cs.cuda_ms(lambda: K.gram_plan(csr[0]), 3,
+                                                      single=True)}
+            call = lambda c=csr, f=fixed, p=plan: K.gram_accumulate(f, *c, plan=p)  # noqa: E731
+            for w in (512, 1024, 4096, 8192):
+                pw = K.gram_plan(csr[0], w)
+                out[f"{key}_w{w}"] = {"ms": cs.cuda_ms(
+                    lambda c=csr, f=fixed, p=pw: K.gram_accumulate(f, *c, plan=p))}
+        else:
+            call = lambda c=csr, f=fixed: K.gram_accumulate(f, *c)  # noqa: E731
+        out[key] = {"ms": cs.cuda_ms(call)}
+        splits[key + "_split"] = call
+
+
 GROUP_FNS = {"shard_pack": _shard_pack, "gather_segment_sum": _gather_segment_sum,
              "scatter_combine": _scatter_combine, "chain_route": _chain_route,
              "clear_rows": _clear_rows, "hll_update": _hll_update,
-             "countmin_update": _countmin_update, "table_insert": _table_insert}
+             "countmin_update": _countmin_update, "table_insert": _table_insert,
+             "quantile_result": _quantile_result, "gram_accumulate": _gram_accumulate}
 
 
 def _old_chain_launch(cols, keep, key=None, num_channels=0, max_parallelism=0,

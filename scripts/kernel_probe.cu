@@ -29,10 +29,25 @@
 //   rate for the same random words, without the L2's atomics).
 // - ft_probe_table_insert: table_insert with G lanes a record (1, 2, 4,
 //   8 or 16).
+// - ft_probe_stream_sum: quantile_result's floor, a plain streaming read
+//   and sum of the same bytes (16-byte loads, a grid-stride loop, one
+//   word a block written so the loads stay).
+// - ft_probe_gram_gather: gram_accumulate's floors at f = 10 with no
+//   row structure (a thread takes ratings i, i + stride, ...): variant
+//   0 loads each rating's column, value and factor row and adds them
+//   up (the gathers alone); variant 1 adds each rating's upper triangle
+//   and right-hand side to 65 sums in registers (the gathers with the
+//   FMAs), as the kernel's lanes do.  One word a thread is written.
+// - ft_probe_quantile_global: quantile_result's global-memory form
+//   launched at any row width (the kernel's launcher takes it only for
+//   rows too wide for the staged form), to set the width where one form
+//   gives way to the other.
 #include "../flink_tpu_torch/kernels/csrc/clear_rows.cu"
 #include "../flink_tpu_torch/kernels/csrc/countmin_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/hll_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/table_insert.cu"
+#include "../flink_tpu_torch/kernels/csrc/gram_accumulate.cu"
+#include "../flink_tpu_torch/kernels/csrc/quantile_result.cu"
 
 #include <cub/block/block_radix_sort.cuh>
 
@@ -282,4 +297,118 @@ extern "C" int ft_probe_table_insert(void* key_hi, void* key_lo,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PB_TI
+}
+
+__global__ void __launch_bounds__(256)
+probe_stream_sum(const int4* __restrict__ src, long long n16, int* __restrict__ out) {
+  int acc = 0;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n16;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int4 v = __ldcs(src + i);
+    acc += v.x + v.y + v.z + v.w;
+  }
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xFFFFFFFFu, acc, off);
+  if ((threadIdx.x & 31) == 0) atomicAdd(out + blockIdx.x, acc);
+}
+
+// bytes: a multiple of 16 from a 16-byte aligned base; out: grid words
+extern "C" int ft_probe_stream_sum(const void* src, long long bytes, void* out,
+                                   int blocks, void* stream) {
+  probe_stream_sum<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(src), bytes / 16, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VARIANT>
+__global__ void __launch_bounds__(128)
+probe_gram_gather(const float* __restrict__ fixed, const int32_t* __restrict__ cols,
+                  const float* __restrict__ vals, long long n, float* __restrict__ out) {
+  constexpr int F = 10, TRI = F * (F + 1) / 2, NE = TRI + F, U = 4;
+  float acc[VARIANT == 1 ? NE : 1];
+#pragma unroll
+  for (int e = 0; e < (VARIANT == 1 ? NE : 1); ++e) acc[e] = 0.0f;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       base < n; base += stride * U) {
+    int c[U];
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long k = base + stride * u;
+      c[u] = k < n ? cols[k] : -1;
+      v[u] = k < n ? vals[k] : 0.0f;
+    }
+    float x[U][F];
+#pragma unroll
+    for (int u = 0; u < U; ++u) GramLoad<F>::row(fixed, c[u], x[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (VARIANT == 1) {
+        int e = 0;
+#pragma unroll
+        for (int i = 0; i < F; ++i) {
+#pragma unroll
+          for (int j = i; j < F; ++j, ++e) acc[e] = fmaf(x[u][i], x[u][j], acc[e]);
+        }
+#pragma unroll
+        for (int i = 0; i < F; ++i) acc[TRI + i] = fmaf(v[u], x[u][i], acc[TRI + i]);
+      } else {
+        float s = v[u];
+#pragma unroll
+        for (int i = 0; i < F; ++i) s += x[u][i];
+        acc[0] += s;
+      }
+    }
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int e = 0; e < (VARIANT == 1 ? NE : 1); ++e) s += acc[e];
+  out[static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x] = s;
+}
+
+// fixed: [*, 10] float32, 8-byte aligned rows; out: blocks * 128 floats
+extern "C" int ft_probe_gram_gather(const void* fixed, const void* cols,
+                                    const void* vals, long long n, int blocks,
+                                    int variant, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* fx = static_cast<const float*>(fixed);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* v = static_cast<const float*>(vals);
+  auto* o = static_cast<float*>(out);
+  if (variant == 1) probe_gram_gather<1><<<blocks, 128, 0, s>>>(fx, c, v, n, o);
+  else probe_gram_gather<0><<<blocks, 128, 0, s>>>(fx, c, v, n, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int QM>
+static int probe_quantile_global(const int32_t* hist, const int32_t* slots,
+                                 long long rows, int buckets, long long capacity,
+                                 const float* qs, int nq, const float* bv, float* out,
+                                 cudaStream_t s) {
+  int seg = (buckets + 31) / 32;
+  if ((seg & 1) == 0) ++seg;
+  long long blocks = (rows + QR_WARPS - 1) / QR_WARPS;
+  const long long cap = static_cast<long long>(sm_count()) * 16;
+  if (blocks > cap) blocks = cap;
+  quantile_result_global<QM><<<static_cast<unsigned int>(blocks), QR_THREADS, 0, s>>>(
+      hist, slots, rows, buckets, capacity, seg, qs, nq, bv, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ft_probe_quantile_global(const void* hist, const void* slots,
+                                        long long rows, long long buckets,
+                                        long long capacity, const void* qs, int nq,
+                                        const void* bucket_val, void* out,
+                                        void* stream) {
+  if (nq < 1 || nq > kMaxQ || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* h = static_cast<const int32_t*>(hist);
+  const auto* sl = static_cast<const int32_t*>(slots);
+  const auto* q = static_cast<const float*>(qs);
+  const auto* bv = static_cast<const float*>(bucket_val);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  const int b = static_cast<int>(buckets);
+  if (nq <= 2) return probe_quantile_global<2>(h, sl, rows, b, capacity, q, nq, bv, o, st);
+  if (nq <= 8) return probe_quantile_global<8>(h, sl, rows, b, capacity, q, nq, bv, o, st);
+  return probe_quantile_global<16>(h, sl, rows, b, capacity, q, nq, bv, o, st);
 }

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""The designs that ``clear_rows``, ``hll_update``, ``countmin_update``
-and ``table_insert`` were measured against, timed beside the kernels on
-the card at ``chip_smoke.py``'s entry shapes.
+"""The designs that ``clear_rows``, ``hll_update``, ``countmin_update``,
+``table_insert``, ``quantile_result`` and ``gram_accumulate`` were
+measured against, and their floors, timed beside the kernels on the card
+at ``chip_smoke.py``'s entry shapes.
 
-    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin_update,table_insert]
+    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin,table_insert,quantile_result,quantile_wide,gram_accumulate]
 
-Builds ``scripts/kernel_probe.cu`` (which includes the four kernels'
+Builds ``scripts/kernel_probe.cu`` (which includes six kernels'
 sources) with the loader's nvcc flags into the kernels' build directory
 and prints one JSON object; every time is ``chip_smoke.cuda_ms`` (a
 run of calls between one pair of CUDA events, / reps, or one call per
@@ -41,6 +42,19 @@ all):
   1, 2, 4, 8 and 16 lanes a record (``g1`` .. ``g16``; the kernel is
   one of them), each checked as a key -> slot map and timed one call
   per event pair after a restore (all hits: a run).
+- ``quantile_result``: the kernel's floor, a plain streaming read and
+  sum of the same bytes (``stream_sum``), beside the kernel, at the
+  config #3 geometry (2^20 rows of 210 buckets, from row 0 of a 2^22-row
+  file) and the default one (2^17 rows of 2,075), in turns.
+- ``quantile_wide``: the kernel (its launcher's pick of form) against
+  its global-memory form forced, at 2,075 to 13,818 buckets (about 256
+  MiB of rows each), in turns; the forced form checked bit-equal to the
+  plain version.
+- ``gram_accumulate``: at MovieLens-20M's shape, f = 10, the factor-row
+  gathers alone (``gathers``: each rating's column, value and factor
+  row loaded and added up, no row structure) and the gathers with the
+  FMAs (``gathers_fma``: each rating's 65 products added in registers),
+  beside the kernel on its default plan, on both sides, in turns.
 
 Needs a CUDA card.
 """
@@ -86,12 +100,17 @@ def _build() -> ctypes.CDLL:
     lib.ft_probe_countmin_red.argtypes = (P, P, P, P, LL, I, LL, LL, I, P)
     lib.ft_probe_table_insert.argtypes = (P, P, P, LL, P, P, P, P, LL, LL, LL,
                                           I, P, P, I, P)
+    lib.ft_probe_stream_sum.argtypes = (P, LL, P, I, P)
+    lib.ft_probe_gram_gather.argtypes = (P, P, P, LL, I, I, P, P)
+    lib.ft_probe_quantile_global.argtypes = (P, P, LL, LL, LL, P, I, P, P, P)
     return lib
 
 
 #: the kernels whose sources kernel_probe.cu includes
-KERNELS = ("clear_rows", "countmin_update", "hll_update", "table_insert")
-GROUPS = ("clear_rows", "hll_update", "countmin", "table_insert")
+KERNELS = ("clear_rows", "countmin_update", "hll_update", "table_insert",
+           "gram_accumulate", "quantile_result")
+GROUPS = ("clear_rows", "hll_update", "countmin", "table_insert",
+          "quantile_result", "quantile_wide", "gram_accumulate")
 
 
 def _stream():
@@ -117,7 +136,7 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    K.build_all(KERNELS)
+    K.build_all((*KERNELS, "quantile_update", "quantile_result"))
     lib = _build()
     res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": cs.nvidia_smi()}
     if "clear_rows" in groups or "hll_update" in groups:
@@ -126,6 +145,12 @@ def main() -> int:
         res["countmin"] = _countmin(K, cs, lib)
     if "table_insert" in groups:
         res["table_insert"] = _table_insert(K, cs, lib)
+    if "quantile_result" in groups:
+        res["quantile_result"] = _quantile(K, cs, lib)
+    if "quantile_wide" in groups:
+        res["quantile_wide"] = _quantile_wide(K, cs, lib)
+    if "gram_accumulate" in groups:
+        res["gram_accumulate"] = _gram(K, cs, lib)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -314,6 +339,111 @@ def _table_insert(K, cs, lib):
         out[state] = row
         del card, plain, saved
     return out
+
+def _in_turns(cs, ways, reps=20):
+    """Each way timed, then each again in reverse order."""
+    times = {k: [] for k in ways}
+    for k in [*ways, *reversed(ways)]:
+        times[k].append(cs.cuda_ms(ways[k], reps))
+    return times
+
+
+def _quantile(K, cs, lib):
+    import torch
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    dev = torch.device("cuda", 0)
+    out = {}
+    rng = np.random.default_rng(23)
+    blocks = 132 * 8
+    acc = torch.zeros(blocks, dtype=torch.int32, device=dev)
+    for tag, geometry, C, R in (("config3", cs.Q3, 1 << 22, 1 << 20),
+                                ("default", {}, 1 << 17, 1 << 17)):
+        agg = QuantileSketchAggregate(**geometry)
+        B, N = agg.buckets, 1 << 19
+        hist = torch.zeros((C, B), dtype=torch.int32, device=dev)
+        K.quantile_update(hist, torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).to(dev),
+                          torch.from_numpy(rng.lognormal(3.0, 1.0, N).astype(np.float32)).to(dev),
+                          N, agg.min_value, agg.log_gamma, agg.offset)
+        rows = hist[:R]
+        qs, bv = agg._tables(dev)
+        nbytes = R * B * 4 // 16 * 16
+        ways = {"kernel": lambda r=rows, q=qs, b=bv: K.quantile_result(r, q, b),
+                "stream_sum": lambda r=rows, n=nbytes: _ok(lib.ft_probe_stream_sum(
+                    r.data_ptr(), n, acc.data_ptr(), blocks, _stream()))}
+        out[tag] = {"rows": R, "buckets": B, "ms": _in_turns(cs, ways),
+                    "bound_ms": cs.bound(R * B * 4 + R * 8, 2 * R * B, 3.35e12)[0]}
+        del hist, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def _quantile_wide(K, cs, lib):
+    """The kernel (its launcher's pick) against the global-memory form
+    forced, at widths from 2,075 to 13,818 buckets (relative accuracy
+    0.01 to 0.0015 over 1e-9 .. 1e9), about 256 MiB of rows, Q = 5."""
+    import torch
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(29)
+    out = {}
+    for acc in (0.01, 0.007, 0.0047, 0.004, 0.003, 0.002, 0.0015):
+        agg = QuantileSketchAggregate(quantiles=(0.0, 0.25, 0.5, 0.99, 1.0),
+                                      relative_accuracy=acc)
+        B = agg.buckets
+        R, N = (1 << 26) // B, 1 << 22
+        hist = torch.zeros((R, B), dtype=torch.int32, device=dev)
+        K.quantile_update(hist, torch.from_numpy(rng.integers(0, R, N).astype(np.int32)).to(dev),
+                          torch.from_numpy(rng.lognormal(3.0, 1.0, N).astype(np.float32)).to(dev),
+                          N, agg.min_value, agg.log_gamma, agg.offset)
+        qs, bv = agg._tables(dev)
+        res = torch.empty((R, 5), dtype=torch.float32, device=dev)
+
+        def forced(h=hist, r=R, b=B, q=qs, v=bv, o=res):
+            _ok(lib.ft_probe_quantile_global(h.data_ptr(), None, r, b, r, q.data_ptr(), 5,
+                                             v.data_ptr(), o.data_ptr(), _stream()))
+        forced()
+        same = bool(torch.equal(res, K.quantile_result_plain(hist, qs, bv)))
+        ways = {"kernel": lambda h=hist, q=qs, v=bv: K.quantile_result(h, q, v),
+                "global": forced}
+        out[str(acc)] = {"buckets": B, "rows": R, "global_bit_equal": same,
+                         "ms": _in_turns(cs, ways),
+                         "bound_ms": cs.bound(R * B * 4 + R * 20, 2 * R * B, 3.35e12)[0]}
+        del hist, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gram(K, cs, lib):
+    import torch
+    from flink_tpu_torch.kernels.gram_accumulate import rating_csr
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(31)
+    u, i, r = cs.movielens_shape(rng)
+    V = torch.from_numpy(rng.normal(0, 0.1, (int(i.max()) + 1, 10))
+                         .astype(np.float32)).to(dev)
+    U = torch.from_numpy(np.random.default_rng(32).normal(0, 0.1, (int(u.max()) + 1, 10))
+                         .astype(np.float32)).to(dev)
+    blocks = 132 * 16
+    sink = torch.empty(blocks * 128, dtype=torch.float32, device=dev)
+    out = {}
+    for name, rows, cols, fixed in (("users", u, i, V), ("items", i, u, U)):
+        indptr, c, v = rating_csr(*(torch.from_numpy(a).to(dev) for a in (rows, cols, r)),
+                                  int(rows.max()) + 1)
+        plan = K.gram_plan(indptr)
+        n = len(c)
+
+        def probe(variant, c=c, v=v, fixed=fixed, n=n):
+            return lambda: _ok(lib.ft_probe_gram_gather(
+                fixed.data_ptr(), c.data_ptr(), v.data_ptr(), n, blocks, variant,
+                sink.data_ptr(), _stream()))
+        ways = {"kernel": lambda f=fixed, ip=indptr, c=c, v=v, p=plan:
+                K.gram_accumulate(f, ip, c, v, plan=p),
+                "gathers": probe(0), "gathers_fma": probe(1)}
+        nr, f = len(indptr) - 1, 10
+        out[name] = {"ratings": n, "ms": _in_turns(cs, ways, 10),
+                     "bound_ms": cs.gram_bound(n, nr, len(fixed), f, 3.35e12)[0]}
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -534,6 +534,97 @@ def test_quantile_result_matches_plain(cuda, geometry):
     assert (K.quantile_result(g, gq, gbv)[:5] == 0).all()
 
 
+def _quantile_edge_rows(rng, c, b):
+    """Sparse random rows, with empty rows, a row holding only its last
+    bucket, and rows whose target is reached exactly on the first and
+    the last bucket of one lane's segment (the kernel's seg buckets a
+    lane, seg = ceil(b / 32) made odd)."""
+    hist = rng.integers(0, 6, (c, b)).astype(np.int32)
+    hist *= (rng.random((c, b)) < 0.03).astype(np.int32)
+    hist[:3] = 0
+    hist[3, :] = 0
+    hist[3, -1] = 1
+    seg = -(-b // 32) | 1
+    for r, (at, then) in enumerate([(seg - 1, seg), (seg, 2 * seg),
+                                    (2 * seg - 1, b - 1), (0, seg)], start=4):
+        hist[r, :] = 0
+        hist[r, at] = 2
+        hist[r, then] = 2          # q = 0.5 reaches its target at `at`
+    hist[9:12] = 0
+    return hist
+
+
+@pytest.mark.parametrize("nq", [1, 2, 5, 16])
+@pytest.mark.parametrize("geometry", [(0.05, 1e-3, 1e6), (0.01, 1e-9, 1e9)])
+def test_quantile_result_edges_match_plain(cuda, geometry, nq):
+    """Bit-equal to the plain version: B = 210 and 2,075; dense slices
+    from odd rows (rows of 840 B are 8-byte aligned there) and of row
+    counts no tile divides; enough rows that every block refills its
+    stages; gathered slots past both ends (clamped)."""
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    acc, mn, mx = geometry
+    quantiles = (0.5, 0.0, 1.0, 0.99, 0.25, *np.linspace(0.05, 0.95, 11))[:nq]
+    agg = QuantileSketchAggregate(quantiles=quantiles, relative_accuracy=acc,
+                                  min_value=mn, max_value=mx)
+    rng = np.random.default_rng(41)
+    c = 20_000
+    hist = _quantile_edge_rows(rng, c, agg.buckets)
+    h, g = torch.from_numpy(hist), torch.from_numpy(hist).to(cuda)
+    qs, bv = agg._tables(torch.device("cpu"))
+    gq, gbv = agg._tables(cuda)
+    for lo, hi in ((0, c), (1, c), (3, 40), (101, 134), (7, 8), (4, 9), (333, 19_998)):
+        ref = K.quantile_result_plain(h[lo:hi], qs, bv)
+        got = K.quantile_result(g[lo:hi], gq, gbv)
+        assert torch.equal(got.cpu(), ref), (lo, hi)
+    slots = rng.integers(-3, c + 3, 9000).astype(np.int32)
+    slots[:6] = [-(2 ** 31), -1, 0, c - 1, c, 2 ** 31 - 1]
+    sl = torch.from_numpy(slots)
+    for lo, hi in ((0, c), (2, 13)):
+        ref = K.quantile_result_plain(h[lo:hi], qs, bv, sl)
+        got = K.quantile_result(g[lo:hi], gq, gbv, sl.to(cuda))
+        assert torch.equal(got.cpu(), ref), (lo, hi)
+    dense = K.quantile_result(g, gq, gbv)
+    assert (dense[:3] == 0).all()
+    before = K.LAUNCHES["quantile_result"]
+    assert torch.equal(K.quantile_result(g, gq, gbv), dense)
+    assert K.LAUNCHES["quantile_result"] == before + 1
+
+
+@pytest.mark.parametrize("nq", [2, 16])
+@pytest.mark.parametrize("accuracy", [0.0047, 0.004, 0.002, 0.001])
+def test_quantile_result_wide_rows_match_plain(cuda, accuracy, nq):
+    """Both forms at the width where they meet: relative accuracy 0.0047
+    over 1e-9 .. 1e9 (4,412 buckets) is the widest row the staged form
+    takes (four rings a block); 0.004 (5,183), 0.002 (10,364) and 0.001
+    (20,726) run the global-memory form.  Bit-equal to the plain
+    version, dense from row 0 and from odd rows, and gathered with slots
+    past both ends (clamped)."""
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    quantiles = (0.5, 0.0, 1.0, 0.99, 0.25, *np.linspace(0.05, 0.95, 11))[:nq]
+    agg = QuantileSketchAggregate(quantiles=quantiles, relative_accuracy=accuracy,
+                                  min_value=1e-9, max_value=1e9)
+    rng = np.random.default_rng(43)
+    c = 1500
+    hist = _quantile_edge_rows(rng, c, agg.buckets)
+    h, g = torch.from_numpy(hist), torch.from_numpy(hist).to(cuda)
+    qs, bv = agg._tables(torch.device("cpu"))
+    gq, gbv = agg._tables(cuda)
+    for lo, hi in ((0, c), (1, c), (7, 8), (333, c - 1)):
+        ref = K.quantile_result_plain(h[lo:hi], qs, bv)
+        got = K.quantile_result(g[lo:hi], gq, gbv)
+        assert torch.equal(got.cpu(), ref), (lo, hi)
+    slots = rng.integers(-3, c + 3, 4000).astype(np.int32)
+    slots[:6] = [-(2 ** 31), -1, 0, c - 1, c, 2 ** 31 - 1]
+    sl = torch.from_numpy(slots)
+    for lo, hi in ((0, c), (3, 40)):
+        ref = K.quantile_result_plain(h[lo:hi], qs, bv, sl)
+        got = K.quantile_result(g[lo:hi], gq, gbv, sl.to(cuda))
+        assert torch.equal(got.cpu(), ref), (lo, hi)
+    before = K.LAUNCHES["quantile_result"]
+    K.quantile_result(g, gq, gbv)
+    assert K.LAUNCHES["quantile_result"] == before + 1
+
+
 @pytest.mark.parametrize("p", [4, 12, 16])
 def test_hll_log_finish_matches_plain_and_host_fire(cuda, p):
     """Sums bit-equal (exact dyadic float64), estimates bit-equal to the
@@ -1152,6 +1243,91 @@ def test_gram_accumulate_matches_plain(cuda, f):
     assert bool(((b.double() - bw.double()).abs()
                  <= _sum_reorder_bound(terms[:, None], bm.double())).all())
     assert torch.equal(g, g.transpose(1, 2))           # symmetric bit for bit
+
+
+@pytest.mark.parametrize("f", [1, 10, 16, 17, 64])
+def test_gram_accumulate_plan_edges(cuda, f):
+    """Rows of 0, 1, W - 1, W, W + 1 and 5 W ratings (W the plan's chunk)
+    and one row holding most ratings: within the reorder bound of the
+    plain version, G symmetric bit for bit, a given plan and the
+    wrapper's own equal, two calls bit-equal, one launch a call; a plan
+    of narrower chunks (every row split) within the bound too."""
+    from flink_tpu_torch.kernels.gram_accumulate import CHUNK_RATINGS, rating_csr
+    W = CHUNK_RATINGS
+    rng = np.random.default_rng(29)
+    counts = [0, 1, W - 1, W, 0, W + 1, 5 * W, 24 * W + 5]
+    counts += rng.integers(0, 200, 300).tolist()
+    rows = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    rows = rows[rng.permutation(len(rows))]
+    n_rows, n_cols = len(counts), 3000
+    cols = rng.integers(0, n_cols, len(rows)).astype(np.int32)
+    vals = rng.integers(1, 11, len(rows)).astype(np.float32) / 2
+    fixed = torch.from_numpy(rng.standard_normal((n_cols, f)).astype(np.float32)).to(cuda)
+    indptr, c, v = rating_csr(*(torch.from_numpy(a).to(cuda) for a in (rows, cols, vals)),
+                              n_rows)
+    assert (indptr[1:] - indptr[:-1]).tolist() == counts
+    plan = K.gram_plan(indptr)
+    before = K.LAUNCHES["gram_accumulate"]
+    g, b = K.gram_accumulate(fixed, indptr, c, v, plan=plan)
+    assert K.LAUNCHES["gram_accumulate"] == before + 1
+    g2, b2 = K.gram_accumulate(fixed, indptr, c, v, plan=plan)
+    g3, b3 = K.gram_accumulate(fixed, indptr, c, v)
+    for x, y in ((g, g2), (b, b2), (g, g3), (b, b3)):
+        assert torch.equal(x, y)
+    assert torch.equal(g, g.transpose(1, 2))
+    gw, bw = K.gram_accumulate_plain(fixed, indptr, c, v)
+    gm, bm = K.gram_accumulate_plain(fixed.abs(), indptr, c, v.abs())
+    terms = (indptr[1:] - indptr[:-1]).double()
+    narrow = K.gram_plan(indptr, 64)
+    gn, bn = K.gram_accumulate(fixed, indptr, c, v, plan=narrow)
+    assert torch.equal(gn, gn.transpose(1, 2))
+    for gg, bb in ((g, b), (gn, bn)):
+        assert bool(((gg.double() - gw.double()).abs()
+                     <= _sum_reorder_bound(terms[:, None, None], gm.double())).all())
+        assert bool(((bb.double() - bw.double()).abs()
+                     <= _sum_reorder_bound(terms[:, None], bm.double())).all())
+    assert bool((g[0] == 0).all() and (b[0] == 0).all())      # the empty row
+
+
+def test_gram_accumulate_refuses_a_plan_of_another_matrix(cuda):
+    from flink_tpu_torch.kernels.gram_accumulate import rating_csr
+    rows = torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda)
+    indptr, c, v = rating_csr(rows, rows, rows.float(), 2)
+    fixed = torch.ones((2, 3), device=cuda)
+    other = K.gram_plan(torch.tensor([0, 1, 2, 3], device=cuda))
+    with pytest.raises(ValueError, match="plan covers"):
+        K.gram_accumulate(fixed, indptr, c, v, plan=other)
+    with pytest.raises(ValueError, match="plan is on"):
+        K.gram_accumulate(fixed, indptr, c, v, plan=K.gram_plan(indptr.cpu()))
+    # the same totals from another indptr tensor: refused, not misread
+    with pytest.raises(ValueError, match="another indptr"):
+        K.gram_accumulate(fixed, indptr, c, v, plan=K.gram_plan(indptr.clone()))
+
+
+def test_als_fit_passes_one_plan_per_side(cuda, monkeypatch):
+    """On the card ALS.fit builds a plan of each side once, from that
+    side's indptr, and hands it to every half-step."""
+    from flink_tpu_torch import ml as tm
+    from flink_tpu_torch.ml import recommendation as trec
+    seen = []
+    real = trec.gram_accumulate
+
+    def recording(fixed, indptr, cols, vals, plan=None):
+        seen.append((plan, indptr))
+        return real(fixed, indptr, cols, vals, plan=plan)
+
+    monkeypatch.setattr(trec, "gram_accumulate", recording)
+    rng = np.random.default_rng(3)
+    ratings = [(int(u), int(i), float(r)) for u, i, r in
+               zip(rng.integers(0, 20, 300), rng.integers(0, 15, 300),
+                   rng.integers(1, 6, 300))]
+    als = tm.ALS(num_factors=3, iterations=3, seed=1, device=cuda).fit(ratings)
+    assert np.isfinite(als.user_factors).all() and np.isfinite(als.item_factors).all()
+    assert len(seen) == 6
+    for plan, indptr in seen:
+        assert isinstance(plan, K.GramPlan) and plan.indptr is indptr
+    assert seen[0][0] is seen[2][0] is seen[4][0]
+    assert seen[1][0] is seen[3][0] is seen[5][0]
 
 
 def test_gram_accumulate_refuses_too_many_factors(cuda):

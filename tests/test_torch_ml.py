@@ -25,7 +25,7 @@ import torch
 import flink_tpu.ml as jm
 import flink_tpu_torch.ml as tm
 from flink_tpu_torch import kernels as K
-from flink_tpu_torch.kernels.gram_accumulate import rating_csr
+from flink_tpu_torch.kernels.gram_accumulate import CHUNK_RATINGS, rating_csr
 from flink_tpu_torch.ml.pipeline import params_from_numpy
 
 EPS = float(np.finfo(np.float32).eps)
@@ -325,6 +325,10 @@ def test_als_one_sweep_matches_jax():
     a solve moves by at most cond(A) times the relative change of A and
     b (first order), with cond and norms taken in float64 per row; the
     solvers' own backward error adds f * eps * cond."""
+    _one_sweep_against_jax()
+
+
+def _one_sweep_against_jax():
     rng = np.random.default_rng(8)
     ratings = _ratings(rng, 60, 40, 1500)
     lam, f = 0.1, 5
@@ -352,6 +356,122 @@ def test_als_one_sweep_matches_jax():
         x = np.linalg.solve(A, b)
         atol = 2 * cond * rel * np.linalg.norm(x) + 4 * EPS * np.abs(x).max()
         assert np.abs(t.user_factors[e] - j.user_factors[e]).max() <= atol, e
+
+
+def _plan_rows(counts):
+    indptr = torch.zeros(len(counts) + 1, dtype=torch.int64)
+    torch.cumsum(torch.tensor(counts, dtype=torch.int64), 0, out=indptr[1:])
+    return indptr
+
+
+W_SMALL = 8
+PLAN_CASES = {
+    # rows of 0, 1, W - 1, W, W + 1 and 5 W ratings, between empty rows
+    "edges": [0, 1, W_SMALL - 1, W_SMALL, 0, W_SMALL + 1, 5 * W_SMALL, 0],
+    "one_row_holds_most": [3, 0, 40 * W_SMALL + 3, 2, 1],
+    "all_empty": [0, 0, 0],
+    "no_rows": [],
+    "random": np.random.default_rng(12).integers(0, 3 * W_SMALL, 200).tolist(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+@pytest.mark.parametrize("width", [1, W_SMALL, CHUNK_RATINGS])
+def test_gram_plan_chunks_cover_each_row_once(case, width):
+    """Every rating in exactly one chunk, a chunk inside one row and at
+    most ``width`` long, each row's chunks consecutive and in rating
+    order, an empty row one empty chunk; rows of several chunks have
+    consecutive partial slots, in chunk order."""
+    counts = PLAN_CASES[case]
+    indptr = _plan_rows(counts)
+    plan = K.gram_plan(indptr, width)
+    n = len(counts)
+    assert (plan.n_rows, plan.nnz, plan.width) == (n, int(indptr[-1]), width)
+    row, span, part = plan.row.numpy(), plan.span.numpy(), plan.part.numpy()
+    assert plan.row.dtype == torch.int32 and plan.span.dtype == torch.int64
+    assert span.shape == (len(row), 2)
+    want_chunks = [max(1, -(-c // width)) for c in counts]
+    assert len(row) == sum(want_chunks)
+    assert np.all(np.diff(row) >= 0) if len(row) else n == 0
+    covered = np.zeros(int(indptr[-1]), np.int64)
+    ip = indptr.numpy()
+    for r in range(n):
+        mine = np.flatnonzero(row == r)
+        assert len(mine) == want_chunks[r]
+        lo, hi = span[mine, 0], span[mine, 1]
+        assert np.all(hi - lo <= width) and np.all(hi >= lo)
+        assert lo[0] == ip[r] and hi[-1] == ip[r + 1]
+        assert np.array_equal(lo[1:], hi[:-1])           # consecutive, in order
+        for a, b in zip(lo, hi):
+            covered[a:b] += 1
+        if len(mine) > 1:
+            assert np.all(part[mine] >= 0) and np.all(np.diff(part[mine]) == 1)
+        else:
+            assert part[mine].tolist() == [-1]
+    assert np.all(covered == 1)
+    split = [r for r in range(n) if want_chunks[r] > 1]
+    assert plan.split_row.tolist() == split
+    sizes = [want_chunks[r] for r in split]
+    assert plan.split_ptr.tolist() == np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    assert plan.partials == sum(sizes)
+    for s, r in enumerate(split):
+        mine = np.flatnonzero(row == r)
+        assert part[mine].tolist() == list(range(plan.split_ptr[s], plan.split_ptr[s + 1]))
+
+
+def test_gram_plan_refuses_bad_input():
+    with pytest.raises(ValueError, match="int64"):
+        K.gram_plan(torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="chunks of 0"):
+        K.gram_plan(torch.zeros(3, dtype=torch.int64), 0)
+
+
+def test_gram_accumulate_with_a_plan_matches_jax_segment_sums():
+    """A plan on the CPU changes nothing: the plain version's sums with
+    and without it, bit for bit, and both against the reference's."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(17)
+    n_rows, n_cols, f = 30, 25, 4
+    rows = np.concatenate([np.full(500, 3), rng.integers(0, n_rows, 700)]).astype(np.int32)
+    cols = rng.integers(0, n_cols, len(rows)).astype(np.int32)
+    vals = (rng.integers(1, 11, len(rows)) / 2.0).astype(np.float32)
+    fixed = rng.normal(0, 1, (n_cols, f)).astype(np.float32)
+    csr = rating_csr(*(torch.from_numpy(a) for a in (rows, cols, vals)), n_rows)
+    plan = K.gram_plan(csr[0], 64)
+    got_g, got_b = K.gram_accumulate(torch.from_numpy(fixed), *csr, plan=plan)
+    bare_g, bare_b = K.gram_accumulate(torch.from_numpy(fixed), *csr)
+    assert torch.equal(got_g, bare_g) and torch.equal(got_b, bare_b)
+    vc = jnp.asarray(fixed)[jnp.asarray(cols)]
+    want_g = np.asarray(jax.ops.segment_sum(vc[:, :, None] * vc[:, None, :],
+                                            jnp.asarray(rows), num_segments=n_rows))
+    mag = np.asarray(jax.ops.segment_sum(jnp.abs(vc)[:, :, None] * jnp.abs(vc)[:, None, :],
+                                         jnp.asarray(rows), num_segments=n_rows))
+    terms = np.bincount(rows, minlength=n_rows)
+    assert np.all(np.abs(got_g.numpy() - want_g) <= reorder_bound(terms[:, None, None], mag))
+
+
+def test_als_fit_on_the_cpu_builds_no_plan_and_matches_jax(monkeypatch):
+    """On the CPU ALS.fit hands every half-step plan=None (the plain
+    version reads no plan, so none is built); the fit still matches the
+    reference's within the one-sweep test's bound."""
+    from flink_tpu_torch.ml import recommendation as trec
+    seen = []
+    real = trec.gram_accumulate
+
+    def recording(fixed, indptr, cols, vals, plan=None):
+        seen.append((plan, len(indptr) - 1, len(cols)))
+        return real(fixed, indptr, cols, vals, plan=plan)
+
+    monkeypatch.setattr(trec, "gram_accumulate", recording)
+    monkeypatch.setattr(trec, "gram_plan", lambda *a, **k: pytest.fail("a plan on the CPU"))
+    _one_sweep_against_jax()
+    assert len(seen) == 2
+    seen.clear()
+    tm.ALS(num_factors=3, iterations=3, seed=1, **CPU).fit(
+        _ratings(np.random.default_rng(3), 20, 15, 300))
+    assert len(seen) == 6
+    assert all(plan is None for plan, _, _ in seen)
 
 
 # ---------------------------------------------------------------------

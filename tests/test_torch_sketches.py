@@ -184,6 +184,31 @@ def test_quantile_result_selects_the_same_bucket(geometry):
     assert (got[:3] == 0).all() and (want[:3] == 0).all()
 
 
+@pytest.mark.parametrize("geometry", ["config3", "default"])
+@pytest.mark.parametrize("start,stop", [(1, 300), (37, 38), (101, 262)])
+def test_quantile_result_dense_on_a_slice_from_an_odd_row(geometry, start, stop):
+    """A fire tile is a row slice ``hist[s:s + tile]`` at any row s (on
+    the card a row of 210 int32 is only 8-byte aligned there): the
+    port's result_dense on the slice against the reference's result of
+    those slots and its result_dense of the same slice."""
+    kw = Q3 if geometry == "config3" else {}
+    qkw = dict(kw, quantiles=(0.1, 0.5, 0.99))
+    jagg, tagg = js.QuantileSketchAggregate(**qkw), ts.QuantileSketchAggregate(**qkw)
+    hist = _histograms(8, 300, tagg.buckets)
+    hist[start] = 0                                   # an empty first row
+    got = tagg.result_dense({"hist": _t(hist)[start:stop]}).numpy()
+    want = np.asarray(jagg.result({"hist": jnp.asarray(hist)},
+                                  jnp.arange(start, stop, dtype=jnp.int32)))
+    want_dense = np.asarray(jagg.result_dense({"hist": jnp.asarray(hist[start:stop])}))
+    assert got.shape == (stop - start, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(want, want_dense)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert (got[0] == 0).all()
+    # the same bucket as the gathered form of the whole file
+    full = tagg.result({"hist": _t(hist)}, torch.arange(start, stop, dtype=torch.int32))
+    np.testing.assert_array_equal(got, full.numpy())
+
+
 @pytest.mark.parametrize("kind", ["countmin", "quantile"])
 def test_merges_match_merge_slots(kind):
     rng = np.random.default_rng(7)
