@@ -45,7 +45,12 @@ exit code at 0):
                 scale-22 graph's edges (the plan's build timed on its
                 own; two launches bit-identical; beside a CSR SpMV and
                 ``index_add_``), ``edge_popcount`` on a scale-18 bitset
-                (8.6 GB),
+                (8.6 GB; its plan's scan, fill and glue and its pair
+                pass timed apart, the pair pass's global form forced
+                and checked, the plan's list statistics and a sector
+                floor) and on 64 rows of 65,536 words (the global form);
+                ``merge_rows`` also as the session Count-Min
+                ``merge_slots`` (table and total, one launch);
                 ``gram_accumulate`` on MovieLens-20M-shaped ratings
                 (both sides on their plans, each plan's build timed; two
                 calls and the wrapper's own plan bit-equal; f = 64 on a
@@ -57,7 +62,9 @@ exit code at 0):
                 2^23 events in one 1 s window, HLL precision 12, 1.25M
                 slots (5.12 GB of registers on the card), checked
                 against an independent numpy HLL on 4,096 keys;
-5. ``job``      eight jobs through ``StreamExecutionEnvironment``: HLL
+5. ``job``      eight jobs through ``StreamExecutionEnvironment`` (the
+                merges they make counted by aggregate and pairs a call,
+                ``job_merges``): HLL
                 unique visitors (2^21 events, 1M keys, tumbling 1 s, on
                 the log tier), a word count (SumAggregate, 50k string
                 words, tumbling 5 s, on the fused string-sum engine),
@@ -648,7 +655,9 @@ def merge_set_entries(dev, hbm, rng, entries, detail):
             check(torch.equal(got, want),
                   f"merge_rows {label} unique={unique} bit-equal")
             err = max_abs_err(got, want)
-            ms = cuda_ms(lambda: K.merge_rows(got, dst, src, op, unique_dst=unique))
+            # a merge of a few pairs is host time: a long run steadies it
+            ms = cuda_ms(lambda: K.merge_rows(got, dst, src, op, unique_dst=unique),
+                         200 if k <= 16 else 10)
             plain = cuda_ms(lambda: K.merge_rows_plain(want, dst, src, op,
                                                        unique_dst=unique), 3)
             lib = cuda_ms(lambda: library_merge(want, dst, src, op))
@@ -665,6 +674,7 @@ def merge_set_entries(dev, hbm, rng, entries, detail):
                 entries["merge_rows"] = row
         del base, got, want
     torch.cuda.empty_cache()
+    countmin_merge_entry(dev, hbm, pairs, detail)
 
     # set_rows: a restore's key-group block (8192 rows of 4096 B) into a
     # 2^20-row file, and the promotion's single row, from the host
@@ -704,6 +714,46 @@ def merge_set_entries(dev, hbm, rng, entries, detail):
 #: BASELINE config #3's sketch geometry (bench.py bench_sliding_quantile)
 Q3 = dict(quantiles=(0.5, 0.99), relative_accuracy=0.05, min_value=1e-3,
           max_value=1e6)
+
+
+def countmin_merge_entry(dev, hbm, pairs, detail):
+    """The session Count-Min merge through ``agg.merge_slots`` (4 x 2048
+    int32 counters and the total, 4,096 slots), 2 and 16 pairs folded
+    four to a target: one launch for both components, bit-equal to the
+    plain merges, timed beside the two launches one component at a time
+    that it replaces."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.sketches import CountMinSketchAggregate
+    agg = CountMinSketchAggregate(4, 2048)
+    c = 4096
+    base = {"table": torch.randint(0, 1000, (c, 4, 2048), dtype=torch.int32, device=dev),
+            "total": torch.randint(0, 1000, (c,), dtype=torch.int32, device=dev)}
+    row_bytes = 4 * 4 * 2048 + 4
+    for k in (2, 16):
+        dst, src = pairs(c, k, repeat=True)
+        got = {name: t.clone() for name, t in base.items()}
+        want = {name: t.clone() for name, t in base.items()}
+        before = K.LAUNCHES["merge_rows"]
+        agg.merge_slots(got, dst, src)
+        launches = K.LAUNCHES["merge_rows"] - before
+        K.merge_rows_many_plain([want["table"], want["total"]], dst, src,
+                                ["add", "add"])
+        torch.cuda.synchronize()
+        check(launches == 1 and all(torch.equal(got[n], want[n]) for n in got),
+              f"Count-Min merge_slots of {k} pairs: one launch, bit-equal")
+        ms = cuda_ms(lambda: agg.merge_slots(got, dst, src), 200)
+        two = cuda_ms(lambda: (K.merge_rows(got["table"], dst, src, "add"),
+                               K.merge_rows(got["total"], dst, src, "add")), 200)
+        targets = int(torch.unique(dst).numel())
+        detail.append({"kernel": "merge_rows", "case": "Count-Min merge_slots, "
+                       "table and total in one launch", "rows": k,
+                       "unique_dst": False, "launches": launches, "ms": ms,
+                       "two_launches_ms": two,
+                       "bound_ms": bound(k * (row_bytes + 8) + 2 * targets * row_bytes,
+                                         0, hbm)[0]})
+    del base, got, want
+    torch.cuda.empty_cache()
 
 
 def lanes_np(vh: np.ndarray):
@@ -1491,6 +1541,24 @@ def _run_job(agg, events, size_ms, dev):
 
 
 def job_phase(dev):
+    from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
+    merges = {}
+
+    def note_merge(args, _):
+        key = f"{type(args[0]).__name__} k={len(args[2])}"
+        merges[key] = merges.get(key, 0) + 1
+
+    restore = _recording(DeviceAggregateFunction, "_merge", note_merge)
+    try:
+        _job_phase(dev)
+    finally:
+        restore()
+    # the merges the jobs made (aggregate, pairs a call): each is one
+    # merge_rows launch
+    emit({"job_merges": dict(sorted(merges.items()))})
+
+
+def _job_phase(dev):
     import torch
     from flink_tpu_torch.ops.device_agg import SumAggregate
     from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
@@ -3387,8 +3455,102 @@ def graph_kernel_entries(dev, hbm, entries, detail, scale=22, tri_scale=18):
     detail.append({"kernel": "edge_popcount", "vertices": n, "pairs": p,
                    "words": words, "bitset_bytes": 4 * n * words,
                    "per_pair_bound_ms": bound(8 * words * p + 12 * p, 0, hbm)[0],
-                   "library": None})
+                   **edge_popcount_split(dev, hbm, adj, u, v, got),
+                   "library": None,
+                   "timer": "ms, pairs_ms, global_form_ms, scan_ms, fill_ms: " + RUN
+                   + "; plan_ms: " + SINGLE})
     del adj, u, v, got, want
+    torch.cuda.empty_cache()
+    edge_popcount_wide_check(dev, detail)
+
+
+def edge_popcount_split(dev, hbm, adj, u, v, want):
+    """edge_popcount's parts at one input: the plan (its scan, its fill,
+    the glue between as the rest), the pair pass on it, and the pair pass
+    in its global form forced (checked bit-equal); the plan's statistics
+    (rows listed and dense, entries, the pairs' small-row entries), and a
+    sector floor: the bitset read once, the lists written once, and each
+    pair's small list read in 32-byte sectors, with 12 B of indices and
+    count a pair."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.kernels import loader
+    from flink_tpu_torch.kernels.edge_popcount import _vec
+    n, words = adj.shape
+    p = len(u)
+    plan = K.popcount_plan(adj, u, v)
+    vec = _vec(adj)
+    mask_words = -(-(words // vec) // 32)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    masks = torch.empty(n * mask_words, dtype=torch.int32, device=dev)
+    entries = torch.empty_like(plan.entries)
+    scan = lambda: loader.launch(                                  # noqa: E731
+        "edge_popcount", "ft_edge_scan", adj.data_ptr(), n, words, vec,
+        counts.data_ptr(), masks.data_ptr(), mask_words)
+    fill = lambda: loader.launch(                                  # noqa: E731
+        "edge_popcount", "ft_edge_fill", adj.data_ptr(), n, words, vec,
+        counts.data_ptr(), plan.dense_above, plan.offsets.data_ptr(),
+        masks.data_ptr(), mask_words, entries.data_ptr())
+    scan_ms, fill_ms = cuda_ms(scan, 5), cuda_ms(fill, 5)
+    check(torch.equal(counts, plan.counts) and torch.equal(entries, plan.entries),
+          "edge_popcount: the scan and fill timed give the plan's lists")
+    plan_ms = cuda_ms(lambda: K.popcount_plan(adj, u, v), 5, single=True)
+    pairs_ms = cuda_ms(lambda: K.edge_pairs(adj, plan), 5)
+    forced = torch.empty_like(want)
+    glob = lambda: loader.launch(                                  # noqa: E731
+        "edge_popcount", "ft_edge_popcount", adj.data_ptr(), words, vec,
+        plan.counts.data_ptr(), plan.dense_above, plan.offsets.data_ptr(),
+        plan.entries.data_ptr(), plan.big.data_ptr(), plan.small.data_ptr(),
+        plan.order.data_ptr(), p, forced.data_ptr(), 1)
+    glob()
+    check(torch.equal(forced, want), "edge_popcount global form bit-equal")
+    global_ms = cuda_ms(glob, 5)
+    scnt = plan.counts.index_select(0, plan.small).to(torch.int64)
+    dense = plan.counts > plan.dense_above
+    small_dense = scnt > plan.dense_above
+    listed_len = torch.where(small_dense, 0, scnt)
+    sectors = int(((8 * listed_len + 31) // 32).sum())
+    n_entries = len(plan.entries)
+    floor_bytes = 4 * n * words + 8 * n_entries + 32 * sectors + 12 * p
+    return {"plan_ms": plan_ms, "scan_ms": scan_ms, "fill_ms": fill_ms,
+            "glue_ms": plan_ms - scan_ms - fill_ms, "pairs_ms": pairs_ms,
+            "global_form_ms": global_ms, "dense_above": plan.dense_above,
+            "rows_dense": int(dense.sum()),
+            "rows_listed_nonempty": int(((plan.counts > 0) & ~dense).sum()),
+            "entries": n_entries, "entries_bytes": 8 * n_entries,
+            "sum_small_list_entries": int(listed_len.sum()),
+            "pairs_small_dense": int(small_dense.sum()),
+            "sector_floor_ms": bound(floor_bytes, 0, hbm)[0],
+            "sector_floor": "bitset once + lists written once + each pair's "
+                            "small list in 32-byte sectors + 12 B a pair"}
+
+
+def edge_popcount_wide_check(dev, detail):
+    """edge_popcount on rows too wide for a block's shared memory (64 rows
+    of 65,536 words: the global form), random rows of 0 to 40,000 bits,
+    one dense and one empty, 3,000 random pairs: bit-equal to plain."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    rng = np.random.default_rng(64)
+    n, words = 64, 65_536
+    sizes = rng.integers(0, 40_000, n)
+    sizes[3], sizes[5] = 1_500_000, 0
+    rows = torch.from_numpy(np.repeat(np.arange(n), sizes)).to(dev)
+    cols = torch.from_numpy(rng.integers(0, 32 * words, len(rows))).to(dev)
+    flat = torch.zeros(n * words, dtype=torch.int64, device=dev)
+    bits = torch.unique(rows * (32 * words) + cols)
+    word = bits // 32
+    flat.index_add_(0, word, torch.bitwise_left_shift(torch.ones_like(bits), bits % 32))
+    adj = torch.where(flat >= 2 ** 31, flat - 2 ** 32, flat).to(torch.int32).view(n, words)
+    u = torch.from_numpy(rng.integers(0, n, 3000).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(0, n, 3000).astype(np.int32)).to(dev)
+    got = K.edge_popcount(adj, u, v)
+    check(torch.equal(got, K.edge_popcount_plain(adj, u, v)),
+          "edge_popcount wide rows (global form) bit-equal to plain")
+    detail.append({"kernel": "edge_popcount", "case": "wide rows: the global form",
+                   "rows": n, "words": words, "pairs": 3000,
+                   "ms": cuda_ms(lambda: K.edge_popcount(adj, u, v), 3)})
+    del flat, adj, rows, cols, bits, word
     torch.cuda.empty_cache()
 
 

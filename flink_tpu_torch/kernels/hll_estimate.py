@@ -36,14 +36,16 @@ def hll_estimate(regs: torch.Tensor, alpha: float,
     if regs.device.type == "cpu":
         return hll_estimate_plain(regs, alpha, slots)
     dev = regs.device
-    loader.check(regs, "regs", (torch.uint8,), dev, ndim=2)
+    if slots is None:
+        loader.check(regs, "regs", (torch.uint8,), dev, ndim=2)
+    else:
+        loader.check_all(regs, (regs, "regs", (torch.uint8,), 2),
+                         (slots, "slots", (torch.int32,), 1))
     c, m = regs.shape
     if m < 16 or m & (m - 1):
         raise ValueError(f"register rows must be a power of two >= 16, got {m}")
     if regs.data_ptr() % 16:
         raise ValueError("regs must be 16-byte aligned")
-    if slots is not None:
-        loader.check(slots, "slots", (torch.int32,), dev, ndim=1)
     rows = c if slots is None else len(slots)
     out = torch.empty(rows, dtype=torch.float32, device=dev)
     if rows == 0:

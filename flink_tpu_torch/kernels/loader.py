@@ -16,7 +16,10 @@ Nothing here runs at import: this module imports on machines with no
 CUDA toolkit, where only the plain PyTorch versions run.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  ``launch`` keeps each
+exported function once it is bound and reads the current stream's raw
+handle, so a launch costs the ctypes call and little else on the host;
+``check_all`` checks a wrapper's tensors in one pass.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -75,7 +78,7 @@ _SIGNATURES = {
                           _P),
     },
     "merge_rows": {
-        "ft_merge_rows": (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P),
+        "ft_merge_rows": (_P, _I, _P),
     },
     "set_rows": {
         "ft_set_rows": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
@@ -108,7 +111,10 @@ _SIGNATURES = {
                                   _P, _P),
     },
     "edge_popcount": {
-        "ft_edge_popcount": (_P, _LL, _P, _P, _LL, _P, _P),
+        "ft_edge_scan": (_P, _LL, _LL, _I, _P, _P, _LL, _P),
+        "ft_edge_fill": (_P, _LL, _LL, _I, _P, _LL, _P, _P, _LL, _P, _P),
+        "ft_edge_popcount": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P, _P, _LL, _P,
+                             _I, _P),
     },
     "gram_accumulate": {
         "ft_gram_accumulate": (_P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _I,
@@ -209,11 +215,26 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: exported function name -> its ctypes function, bound at first launch
+_functions: Dict[str, Callable[..., int]] = {}
+
+
+def current_stream() -> int:
+    """The raw handle of the current device's current CUDA stream (the
+    one ``torch.cuda.stream(...)`` sets), read without building a
+    ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(name: str, fn: str, *args) -> None:
     """Call one exported launcher on the current stream; count the
     launch and raise if CUDA refused it."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(name), fn)(*args, stream)
+    f = _functions.get(fn)
+    if f is None:
+        if fn not in _SIGNATURES[name]:
+            raise KeyError(f"{name}: {fn} has no declared C signature")
+        f = _functions[fn] = getattr(library(name), fn)
+    err = f(*args, current_stream())
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
@@ -238,3 +259,16 @@ def check(t: torch.Tensor, what: str, dtypes, device: torch.device,
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{what} must have {ndim} dimensions, got "
                          f"{tuple(t.shape)}")
+
+
+def check_all(first: torch.Tensor, *specs) -> None:
+    """``check`` of every ``(tensor, what, dtypes, ndim)`` in ``specs``
+    against ``first``'s device, in one pass: device indices are compared
+    as ints, and only a tensor that fails the pass goes through
+    ``check``, which raises its error."""
+    index = first.get_device()
+    for t, what, dtypes, ndim in specs:
+        if (t.get_device() != index or t.dtype not in dtypes
+                or not t.is_contiguous()
+                or (ndim is not None and t.dim() != ndim)):
+            check(t, what, dtypes, first.device, ndim)

@@ -20,6 +20,7 @@ from flink_tpu_torch.kernels import float_order, loader
 
 OPS = {"add": 0, "min": 1, "max": 2}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
+_INT32 = (torch.int32,)
 
 
 def scatter_combine(state: torch.Tensor, slots: torch.Tensor,
@@ -31,11 +32,13 @@ def scatter_combine(state: torch.Tensor, slots: torch.Tensor,
     if state.device.type == "cpu":
         scatter_combine_plain(state, slots, values, n, op)
         return
-    dev = state.device
-    loader.check(state, "state", tuple(_DTYPES), dev, ndim=1)
-    loader.check(slots, "slots", (torch.int32,), dev, ndim=1)
-    if values is not None:
-        loader.check(values, "values", (state.dtype,), dev, ndim=1)
+    if values is None:
+        loader.check_all(state, (state, "state", _DTYPES, 1),
+                         (slots, "slots", _INT32, 1))
+    else:
+        loader.check_all(state, (state, "state", _DTYPES, 1),
+                         (slots, "slots", _INT32, 1),
+                         (values, "values", (state.dtype,), 1))
     rows = len(slots) if values is None else min(len(slots), len(values))
     if not 0 <= n <= rows:
         raise ValueError(f"n={n} exceeds the {rows} rows given")

@@ -35,7 +35,7 @@ import torch
 from flink_tpu_torch.core.functions import AggregateFunction
 from flink_tpu_torch.core.keygroups import stable_hash64
 from flink_tpu_torch.device import DeviceLike, resolve_device
-from flink_tpu_torch.kernels import clear_rows, merge_rows, scatter_combine
+from flink_tpu_torch.kernels import clear_rows, merge_rows_many, scatter_combine
 
 State = Dict[str, torch.Tensor]
 
@@ -191,12 +191,15 @@ class DeviceAggregateFunction(AggregateFunction):
         return self._merge(state, dst, src, unique_dst=True)
 
     def _merge(self, state: State, dst, src, unique_dst: bool) -> State:
-        for name in self.state_specs():
-            op = self.combiners.get(name)
-            if op is None:
-                raise NotImplementedError(
-                    f"{type(self).__name__} does not support merging")
-            merge_rows(state[name], dst, src, op, unique_dst=unique_dst)
+        names = list(self.state_specs())
+        ops = [self.combiners.get(name) for name in names]
+        if None in ops:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support merging")
+        # every component in one launch, as the reference jits one merge
+        # over the whole state dict
+        merge_rows_many([state[name] for name in names], dst, src, ops,
+                        unique_dst=unique_dst)
         return state
 
     def clear_range(self, state: State, start: int, count: int) -> State:

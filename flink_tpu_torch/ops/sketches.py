@@ -12,7 +12,7 @@
 
 A merge (``merge_slots`` / ``merge_rows``, each component by its
 ``combiners`` op: register-wise max, counter-wise add) is one
-``merge_rows`` launch per component.  Registers, counters and
+``merge_rows`` launch for all the components.  Registers, counters and
 histograms come from exact integer arithmetic (the quantile bucket
 from float32 steps as the reference takes them), so they are
 bit-equal to the reference's apart from float32 ``log`` rounding at

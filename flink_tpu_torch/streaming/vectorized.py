@@ -19,7 +19,7 @@ per (key, window), never per slot.
 The sliding engine (``VectorizedSlidingWindows``) aggregates each
 record once into its slide-sized pane and composes a window at fire
 time by merging its panes into fresh union slots on the device
-(``agg.merge_rows``, one ``merge_rows`` launch per pane and component).
+(``agg.merge_rows``, one ``merge_rows`` launch per pane).
 
 Differences from the JAX engine, each because PyTorch runs eagerly and
 updates in place: no power-of-two padding of micro-batches, merges or

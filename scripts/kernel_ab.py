@@ -62,7 +62,17 @@ same in every turn.  ``--kernels`` picks the groups (default: all):
   side, and f = 64 on a user side of about 2M ratings; a checkout with
   ``gram_plan`` is timed on plans built beforehand (each build timed on
   its own, ``*_plan_ms``), and on plans of 512, 1024, 4096 and 8192
-  ratings a chunk beside its default (``_w<N>``).
+  ratings a chunk beside its default (``_w<N>``);
+- ``edge_popcount`` at ``chip_smoke.graph_kernel_entries``' scale-18
+  triangle input (3.8M pairs, an 8.59 GB bitset): the whole call, and on
+  a checkout with ``popcount_plan`` the plan (one call per event pair)
+  and the pair pass on it;
+- ``merge_rows``: the main-path form (uint8 max, 2 pairs into one target
+  of a [4096, 4096] file, a run of 200), a float32 add of 2 pairs, the
+  session Count-Min merge through ``agg.merge_slots`` (table and total
+  of 8,192 slots: two launches on a checkout without
+  ``merge_rows_many``), int32 add of 4,096 pairs of 32 KiB rows folded
+  four to a target, and 2^18 unique pairs of 840 B rows.
 
 Most entries also get ``_split``: the device ms of each kernel per
 call, from a ``torch.profiler`` trace of 10 calls
@@ -96,7 +106,7 @@ def _chip_smoke():
 
 GROUPS = ("shard_pack", "gather_segment_sum", "scatter_combine", "chain_route",
           "clear_rows", "hll_update", "countmin_update", "table_insert",
-          "quantile_result", "gram_accumulate")
+          "quantile_result", "gram_accumulate", "edge_popcount", "merge_rows")
 
 
 def worker(root: str, groups) -> dict:
@@ -447,11 +457,66 @@ def _gram_accumulate(K, cs, dev, out, splits):
         splits[key + "_split"] = call
 
 
+def _edge_popcount(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.graph import library as tlib
+    # edge_popcount at chip_smoke.graph_kernel_entries' inputs: the scale-18
+    # Kronecker graph's canonical pairs and bitset (8.59 GB)
+    n = 1 << 18
+    src, dst, _ = cs.kronecker_edges(dev, 18, seed=62)
+    pairs = tlib._NeighborPairs(cs._graph(src, dst, np.ones(len(src), np.float32),
+                                          n)).pairs
+    u, v = (torch.from_numpy(np.ascontiguousarray(pairs[:, i], np.int32)).to(dev)
+            for i in (0, 1))
+    adj = tlib.adjacency_bitset(n, u, v)
+    call = lambda: K.edge_popcount(adj, u, v)               # noqa: E731
+    out["edge_popcount"] = {"ms": cs.cuda_ms(call, 5)}
+    splits["edge_popcount_split"] = call
+    if hasattr(K, "popcount_plan"):
+        plan = K.popcount_plan(adj, u, v)
+        out["edge_popcount_plan"] = {"ms": cs.cuda_ms(
+            lambda: K.popcount_plan(adj, u, v), 5, single=True)}
+        out["edge_popcount_pairs"] = {"ms": cs.cuda_ms(lambda: K.edge_pairs(adj, plan), 5)}
+
+
+def _merge_rows(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.ops.sketches import CountMinSketchAggregate
+    t = _tensor(dev)
+    rng = np.random.default_rng(41)
+    perm = rng.permutation(1 << 12).astype(np.int32)
+    dst2, src2 = t(perm[[0, 0]]), t(perm[1:3])            # 2 pairs, one target
+    regs = torch.randint(0, 30, (4096, 4096), dtype=torch.uint8, device=dev)
+    f32 = torch.randint(0, 99, (4096,), device=dev).to(torch.float32)
+    table = torch.randint(0, 99, (8192, 4, 2048), dtype=torch.int32, device=dev)
+    cm = {"table": table, "total": torch.randint(0, 99, (8192,), dtype=torch.int32,
+                                                  device=dev)}
+    agg = CountMinSketchAggregate(4, 2048)
+    perm8 = rng.permutation(8192).astype(np.int32)
+    dst4k, src4k = t(np.repeat(perm8[:1024], 4)), t(perm8[1024:5120])
+    # the sliding unions' form: 2^18 unique pairs of 840 B rows
+    hist = torch.randint(0, 9, (1 << 20, 210), dtype=torch.int32, device=dev)
+    hperm = rng.permutation(1 << 20).astype(np.int32)
+    hdst, hsrc = t(hperm[:1 << 18]), t(hperm[1 << 18:1 << 19])
+    calls = {
+        # chip_smoke.merge_set_entries' main-path form: u8 max, 2 pairs, a run
+        "merge_rows_u8_max_2": lambda: K.merge_rows(regs, dst2, src2, "max"),
+        "merge_rows_f32_add_2": lambda: K.merge_rows(f32, dst2, src2, "add"),
+        "merge_rows_cm_merge_slots_2": lambda: agg.merge_slots(cm, dst2, src2),
+        "merge_rows_i32_add_32k_4096": lambda: K.merge_rows(table, dst4k, src4k, "add"),
+        "merge_rows_i32_add_840_unique": lambda: K.merge_rows(hist, hdst, hsrc, "add",
+                                                              unique_dst=True)}
+    for name, fn in calls.items():
+        out[name] = {"ms": cs.cuda_ms(fn, 200 if name.endswith("_2") else 20)}
+        splits[name + "_split"] = fn
+
+
 GROUP_FNS = {"shard_pack": _shard_pack, "gather_segment_sum": _gather_segment_sum,
              "scatter_combine": _scatter_combine, "chain_route": _chain_route,
              "clear_rows": _clear_rows, "hll_update": _hll_update,
              "countmin_update": _countmin_update, "table_insert": _table_insert,
-             "quantile_result": _quantile_result, "gram_accumulate": _gram_accumulate}
+             "quantile_result": _quantile_result, "gram_accumulate": _gram_accumulate,
+             "edge_popcount": _edge_popcount, "merge_rows": _merge_rows}
 
 
 def _old_chain_launch(cols, keep, key=None, num_channels=0, max_parallelism=0,

@@ -42,6 +42,10 @@
 //   launched at any row width (the kernel's launcher takes it only for
 //   rows too wide for the staged form), to set the width where one form
 //   gives way to the other.
+// - ft_probe_edge_lists: edge_popcount's pair pass without its bitmap:
+//   the small rows' lists read alone, in the plan's pair order.
+// - ft_probe_merge_add: merge_rows' int32 add with a repeated dst as
+//   its atomics alone, its loads alone, and the two together.
 #include "../flink_tpu_torch/kernels/csrc/clear_rows.cu"
 #include "../flink_tpu_torch/kernels/csrc/countmin_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/hll_update.cu"
@@ -411,4 +415,77 @@ extern "C" int ft_probe_quantile_global(const void* hist, const void* slots,
   if (nq <= 2) return probe_quantile_global<2>(h, sl, rows, b, capacity, q, nq, bv, o, st);
   if (nq <= 8) return probe_quantile_global<8>(h, sl, rows, b, capacity, q, nq, bv, o, st);
   return probe_quantile_global<16>(h, sl, rows, b, capacity, q, nq, bv, o, st);
+}
+
+// edge_popcount's lists read alone: a warp a sorted pair reads the small
+// row's list (its entries added up, no bitmap, no dense rows), as the
+// pair pass reads them; one word a warp is written only if the sum hits
+// a value it never does, so the loads stay.
+__global__ void __launch_bounds__(256)
+probe_edge_lists(const int32_t* __restrict__ counts, long long dense_above,
+                 const long long* __restrict__ offsets,
+                 const int2* __restrict__ entries,
+                 const int32_t* __restrict__ small, long long n_pairs,
+                 int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long nwarps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  unsigned int acc = 0;
+  for (long long q = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+       q < n_pairs; q += nwarps) {
+    const int sm = small[q];
+    const int cnt = counts[sm];
+    if (cnt > dense_above) continue;
+    const int2* e = entries + offsets[sm];
+    for (int i = lane; i < cnt; i += 32) acc += static_cast<unsigned int>(__ldg(e + i).y);
+  }
+  acc = __reduce_add_sync(0xFFFFFFFFu, acc);
+  if (acc == 0x7FFFFFF5u) out[0] = static_cast<int>(acc);
+}
+
+extern "C" int ft_probe_edge_lists(const void* counts, long long dense_above,
+                                   const void* offsets, const void* entries,
+                                   const void* small, long long n_pairs,
+                                   void* out, void* stream) {
+  if (n_pairs > 0)
+    probe_edge_lists<<<grid_for(n_pairs * 32, 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(counts), dense_above,
+        static_cast<const long long*>(offsets), static_cast<const int2*>(entries),
+        static_cast<const int32_t*>(small), n_pairs, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// merge_rows' floors for an int32 add with a repeated dst: a grid-stride
+// loop over k * row_words words, as the kernel's 4-byte-word loop:
+// variant 0 adds 1 to each dst word (the atomics alone, no src read);
+// variant 1 loads the src word and the dst word and adds neither (the
+// loads alone); variant 2 loads the src word and adds it atomically
+// (the kernel's work, 4-byte words).
+__global__ void __launch_bounds__(256)
+probe_merge_add(int* __restrict__ base, const int32_t* __restrict__ dst,
+                const int32_t* __restrict__ src, long long k,
+                long long row_words, int variant) {
+  FT_GRID_STRIDE(i, k * row_words) {
+    const long long r = i / row_words;
+    const long long w = i - r * row_words;
+    int* out = base + static_cast<long long>(dst[r]) * row_words + w;
+    if (variant == 0) {
+      atomicAdd(out, 1);
+    } else {
+      const int s = __ldcg(base + static_cast<long long>(src[r]) * row_words + w);
+      if (variant == 2) atomicAdd(out, s);
+      else if ((s ^ __ldcg(out)) == 0x7FFFFFF5) out[0] = s;   // never
+    }
+  }
+}
+
+extern "C" int ft_probe_merge_add(void* base, const void* dst, const void* src,
+                                  long long k, long long row_words, int variant,
+                                  void* stream) {
+  if (k > 0)
+    probe_merge_add<<<grid_for(k * row_words, 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int*>(base), static_cast<const int32_t*>(dst),
+        static_cast<const int32_t*>(src), k, row_words, variant);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The designs that ``clear_rows``, ``hll_update``, ``countmin_update``,
-``table_insert``, ``quantile_result`` and ``gram_accumulate`` were
-measured against, and their floors, timed beside the kernels on the card
-at ``chip_smoke.py``'s entry shapes.
+``table_insert``, ``quantile_result``, ``gram_accumulate``,
+``edge_popcount`` and ``merge_rows`` were measured against, and their
+floors, timed beside the kernels on the card at ``chip_smoke.py``'s
+entry shapes; and the host time of a small launch, part by part.
 
-    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin,table_insert,quantile_result,quantile_wide,gram_accumulate]
+    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin,table_insert,quantile_result,quantile_wide,gram_accumulate,edge_popcount,merge_rows,launch_host]
 
 Builds ``scripts/kernel_probe.cu`` (which includes six kernels'
 sources) with the loader's nvcc flags into the kernels' build directory
@@ -50,6 +51,16 @@ all):
   its global-memory form forced, at 2,075 to 13,818 buckets (about 256
   MiB of rows each), in turns; the forced form checked bit-equal to the
   plain version.
+- ``edge_popcount``: at the scale-18 triangle input, the bitset's
+  streaming read (``stream_bitset``), the small rows' lists read alone in
+  the plan's pair order (``lists_alone``), the pair pass in its
+  shared-memory form and its global form forced, and the whole call.
+- ``merge_rows``: the int32 add of 4,096 pairs of 32 KiB rows folded four
+  to a target (the session Count-Min merge): the kernel, its atomics
+  alone, its loads alone and the two in 4-byte words.
+- ``launch_host``: host microseconds of a small ``merge_rows`` call and
+  of its parts (checks, argument pack, stream handle, the launch, the
+  ctypes call with no kernel), 20,000 calls each.
 - ``gram_accumulate``: at MovieLens-20M's shape, f = 10, the factor-row
   gathers alone (``gathers``: each rating's column, value and factor
   row loaded and added up, no row structure) and the gathers with the
@@ -103,6 +114,8 @@ def _build() -> ctypes.CDLL:
     lib.ft_probe_stream_sum.argtypes = (P, LL, P, I, P)
     lib.ft_probe_gram_gather.argtypes = (P, P, P, LL, I, I, P, P)
     lib.ft_probe_quantile_global.argtypes = (P, P, LL, LL, LL, P, I, P, P, P)
+    lib.ft_probe_edge_lists.argtypes = (P, LL, P, P, P, LL, P, P)
+    lib.ft_probe_merge_add.argtypes = (P, P, P, LL, LL, I, P)
     return lib
 
 
@@ -110,7 +123,8 @@ def _build() -> ctypes.CDLL:
 KERNELS = ("clear_rows", "countmin_update", "hll_update", "table_insert",
            "gram_accumulate", "quantile_result")
 GROUPS = ("clear_rows", "hll_update", "countmin", "table_insert",
-          "quantile_result", "quantile_wide", "gram_accumulate")
+          "quantile_result", "quantile_wide", "gram_accumulate", "edge_popcount",
+          "merge_rows", "launch_host")
 
 
 def _stream():
@@ -136,7 +150,8 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    K.build_all((*KERNELS, "quantile_update", "quantile_result"))
+    K.build_all((*KERNELS, "quantile_update", "quantile_result", "edge_popcount",
+                 "merge_rows"))
     lib = _build()
     res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": cs.nvidia_smi()}
     if "clear_rows" in groups or "hll_update" in groups:
@@ -151,6 +166,12 @@ def main() -> int:
         res["quantile_wide"] = _quantile_wide(K, cs, lib)
     if "gram_accumulate" in groups:
         res["gram_accumulate"] = _gram(K, cs, lib)
+    if "edge_popcount" in groups:
+        res["edge_popcount"] = _edge_popcount(K, cs, lib)
+    if "merge_rows" in groups:
+        res["merge_rows"] = _merge_rows(K, cs, lib)
+    if "launch_host" in groups:
+        res["launch_host"] = _launch_host(K)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -443,6 +464,119 @@ def _gram(K, cs, lib):
         out[name] = {"ratings": n, "ms": _in_turns(cs, ways, 10),
                      "bound_ms": cs.gram_bound(n, nr, len(fixed), f, 3.35e12)[0]}
     return out
+
+
+def _edge_popcount(K, cs, lib):
+    """At chip_smoke's scale-18 triangle input: the bitset's streaming
+    read, the small rows' lists read alone in the plan's pair order, the
+    pair pass (its shared-memory form and its global form forced) and
+    the whole call, in turns."""
+    import torch
+    from flink_tpu_torch.graph import library as tlib
+    from flink_tpu_torch.kernels import loader
+    from flink_tpu_torch.kernels.edge_popcount import _vec
+    dev = torch.device("cuda", 0)
+    n = 1 << 18
+    src, dst, _ = cs.kronecker_edges(dev, 18, seed=62)
+    pairs = tlib._NeighborPairs(cs._graph(src, dst, np.ones(len(src), np.float32),
+                                          n)).pairs
+    u, v = (torch.from_numpy(np.ascontiguousarray(pairs[:, i], np.int32)).to(dev)
+            for i in (0, 1))
+    adj = tlib.adjacency_bitset(n, u, v)
+    plan = K.popcount_plan(adj, u, v)
+    blocks = 132 * 8
+    acc = torch.zeros(blocks, dtype=torch.int32, device=dev)
+    out = torch.empty_like(u)
+    words, p = adj.shape[1], len(u)
+
+    def pairs_form(global_form):
+        return lambda: loader.launch(
+            "edge_popcount", "ft_edge_popcount", adj.data_ptr(), words, _vec(adj),
+            plan.counts.data_ptr(), plan.dense_above, plan.offsets.data_ptr(),
+            plan.entries.data_ptr(), plan.big.data_ptr(), plan.small.data_ptr(),
+            plan.order.data_ptr(), p, out.data_ptr(), global_form)
+    ways = {"stream_bitset": lambda: _ok(lib.ft_probe_stream_sum(
+                adj.data_ptr(), 4 * n * words, acc.data_ptr(), blocks, _stream())),
+            "lists_alone": lambda: _ok(lib.ft_probe_edge_lists(
+                plan.counts.data_ptr(), plan.dense_above, plan.offsets.data_ptr(),
+                plan.entries.data_ptr(), plan.small.data_ptr(), p, acc.data_ptr(),
+                _stream())),
+            "pairs_shared": pairs_form(0), "pairs_global": pairs_form(1),
+            "whole_call": lambda: K.edge_popcount(adj, u, v)}
+    return {"pairs": p, "bitset_bytes": 4 * n * words,
+            "entries": len(plan.entries), "ms": _in_turns(cs, ways, 5),
+            "bitset_read_ms": cs.bound(4 * n * words, 0, 3.35e12)[0]}
+
+
+def _merge_rows(K, cs, lib):
+    """merge_rows' int32 add at the session Count-Min row (32 KiB), 4,096
+    sources folded four to a target of an 8,192-row table: the kernel
+    against its atomics alone, its loads alone and both in 4-byte words,
+    in turns; the table checked equal to the kernel's after the adds."""
+    import torch
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(19)
+    c, k, row_words = 8192, 4096, 4 * 2048
+    perm = rng.permutation(c).astype(np.int32)
+    dst = torch.from_numpy(np.repeat(perm[:1024], 4)).to(dev)
+    src = torch.from_numpy(perm[1024:1024 + k]).to(dev)
+    table = torch.randint(0, 99, (c, 4, 2048), dtype=torch.int32, device=dev)
+    ref = table.clone()
+    K.merge_rows(table, dst, src, "add")
+    _ok(lib.ft_probe_merge_add(ref.data_ptr(), dst.data_ptr(), src.data_ptr(), k,
+                               row_words, 2, _stream()))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(table, ref))
+
+    def probe(variant):
+        return lambda: _ok(lib.ft_probe_merge_add(
+            table.data_ptr(), dst.data_ptr(), src.data_ptr(), k, row_words, variant,
+            _stream()))
+    ways = {"kernel": lambda: K.merge_rows(table, dst, src, "add"),
+            "atomics_only": probe(0), "loads_only": probe(1), "add_4b_words": probe(2)}
+    return {"pairs": k, "row_bytes": 4 * row_words, "probe_equal_kernel": same,
+            "ms": _in_turns(cs, ways),
+            "bound_ms": cs.bound(k * (4 * row_words + 8) + 2 * 1024 * 4 * row_words,
+                                 0, 3.35e12)[0]}
+
+
+def _launch_host(K, calls=20_000):
+    """Host microseconds of one small ``merge_rows`` call and of its
+    parts (the main path's form: uint8 max, 2 pairs into one target of a
+    [4096, 4096] file), each the mean of ``calls`` calls in a loop ended
+    by a synchronisation: the whole call; its tensor checks; the argument
+    pack; the stream handle, and the ``torch.cuda.Stream`` object it
+    replaces; the launch alone; the same ctypes call with no kernel to
+    launch (k = 0)."""
+    import time
+    import torch
+    from flink_tpu_torch.kernels import loader
+    from flink_tpu_torch.kernels.merge_rows import _INT32, _PACK
+    dev = torch.device("cuda", 0)
+    regs = torch.randint(0, 30, (4096, 4096), dtype=torch.uint8, device=dev)
+    dst = torch.tensor([5, 5], dtype=torch.int32, device=dev)
+    src = torch.tensor([6, 7], dtype=torch.int32, device=dev)
+    args = (dst.data_ptr(), src.data_ptr(), 2, 0, regs.data_ptr(), 4096, 4096, 0, 2, 4)
+    packed, empty = _PACK[1](*args), _PACK[1](*args[:2], 0, *args[3:])
+
+    def us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+    return {"calls": calls, "us": {
+        "merge_rows_call": us(lambda: K.merge_rows(regs, dst, src, "max")),
+        "check_all": us(lambda: loader.check_all(regs, (dst, "dst", _INT32, 1),
+                                                 (src, "src", _INT32, 1))),
+        "pack": us(lambda: _PACK[1](*args)),
+        "current_stream": us(loader.current_stream),
+        "torch_current_stream": us(lambda: torch.cuda.current_stream().cuda_stream),
+        "launch": us(lambda: loader.launch("merge_rows", "ft_merge_rows", packed, 1)),
+        "ctypes_call_no_kernel": us(lambda: loader.launch("merge_rows", "ft_merge_rows",
+                                                          empty, 1))}}
 
 
 if __name__ == "__main__":

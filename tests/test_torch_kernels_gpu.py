@@ -383,6 +383,61 @@ def test_merge_rows_matches_plain(cuda, shape, dtype, op, unique):
     assert torch.equal(got.cpu(), ref)
 
 
+@pytest.mark.parametrize("unique", [False, True])
+def test_merge_rows_many_matches_plain(cuda, unique):
+    """One launch merges components of mixed dtypes, widths and ops
+    (float32 with NaN and +-0), bit-equal to the plain merges one
+    component at a time."""
+    rng = np.random.default_rng(53)
+    c = 3000
+    specials = rng.choice(_SPECIAL, c).astype(np.float32)
+    comps = [torch.from_numpy(rng.integers(0, 30, (c, 1024)).astype(np.uint8)),
+             torch.from_numpy(rng.integers(-1000, 1000, (c, 4, 8)).astype(np.int32)),
+             torch.from_numpy(rng.integers(-1000, 1000, c).astype(np.int32)),
+             torch.from_numpy(specials.copy()),
+             torch.from_numpy(rng.choice(_SPECIAL, (c, 3)).astype(np.float32)),
+             torch.from_numpy(rng.integers(-9, 9, c).astype(np.float32))]
+    ops = ["max", "add", "min", "min", "max", "add"]
+    perm = rng.permutation(c).astype(np.int32)
+    if unique:
+        dst, src = perm[:800], perm[800:1600]
+    else:
+        dst = rng.choice(perm[:200], 1500).astype(np.int32)
+        src = perm[200:1700]
+    dst, src = torch.from_numpy(dst), torch.from_numpy(src)
+    want = [x.clone() for x in comps]
+    K.merge_rows_many_plain(want, dst, src, ops, unique_dst=unique)
+    got = [x.to(cuda) for x in comps]
+    before = K.LAUNCHES["merge_rows"]
+    K.merge_rows_many(got, dst.to(cuda), src.to(cuda), ops, unique_dst=unique)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_rows"] == before + 1
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+
+
+def test_launch_runs_on_the_current_stream(cuda):
+    """A launch inside ``torch.cuda.stream(s)`` runs on s: with the
+    default stream held up by a sleep, a merge launched under s is done
+    (and read back on s) before the default stream is free."""
+    from flink_tpu_torch.kernels import loader
+    s = torch.cuda.Stream()
+    comp = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
+    comp[1] = 7
+    dst = torch.tensor([0], dtype=torch.int32, device=cuda)
+    src = torch.tensor([1], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    assert loader.current_stream() == torch.cuda.current_stream().cuda_stream
+    torch.cuda._sleep(2_000_000_000)        # about a second on the default stream
+    with torch.cuda.stream(s):
+        assert loader.current_stream() == s.cuda_stream
+        K.merge_rows(comp, dst, src, "max")
+        row = comp[0].cpu()                   # a copy on s, synchronised
+    assert not torch.cuda.default_stream().query()
+    assert bool((row == 7).all())
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("shape,dtype", [((2000, 4096), torch.uint8),
                                          ((2000,), torch.float32),
                                          ((2000, 3), torch.int32),
@@ -1216,8 +1271,93 @@ def test_edge_popcount_matches_plain(cuda, n):
     v = torch.from_numpy(rng.integers(0, n, 50_000).astype(np.int32)).to(cuda)
     before = K.LAUNCHES["edge_popcount"]
     got = K.edge_popcount(adj, u, v)
-    assert K.LAUNCHES["edge_popcount"] == before + 1
+    # three launches a call: the scan, the lists' fill, the pairs
+    assert K.LAUNCHES["edge_popcount"] == before + 3
     assert torch.equal(got, K.edge_popcount_plain(adj, u, v))
+
+
+def _bitset(n, words, rows, cols):
+    """int32 [n, words] with bit ``cols[i]`` set in row ``rows[i]``."""
+    a = np.zeros(n * words, np.uint32)
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    np.bitwise_or.at(a, rows * words + cols // 32,
+                     np.uint32(1) << (cols % 32).astype(np.uint32))
+    return torch.from_numpy(a.view(np.int32).reshape(n, words))
+
+
+def _sparse_case(case, rng):
+    """(adj on the CPU, u, v): a Kronecker graph's bitset with hub rows
+    (dense rows among sparse ones), its canonical pairs or unsorted,
+    repeated and u == v pairs, or rows too wide for shared memory."""
+    if case == "wide_rows":                   # the global form: 64 x 65,536 words
+        n, words = 64, 65_536
+        sizes = rng.integers(0, 40_000, n)
+        sizes[3], sizes[5] = 1_500_000, 0     # a dense row, an empty one
+        rows = np.repeat(np.arange(n), sizes)
+        cols = rng.integers(0, words * 32, len(rows))
+        adj = _bitset(n, words, rows, cols)
+        u, v = rng.integers(0, n, 3000), rng.integers(0, n, 3000)
+    else:
+        scale = 12 if case == "word_rows" else 14
+        n = (1 << scale) - (40 if case == "word_rows" else 0)  # words % 4 != 0
+        src, dst = _kronecker(rng, scale)
+        hub = rng.integers(0, n, n // 2)      # row 17: a hub of ~n/2.5 neighbours
+        src = np.concatenate([src, np.full(len(hub), 17)])
+        dst = np.concatenate([dst, hub])
+        keep = (src < n) & (dst < n) & (src != dst)
+        a, b = np.minimum(src[keep], dst[keep]), np.maximum(src[keep], dst[keep])
+        pairs = np.unique(a * n + b)
+        u, v = pairs // n, pairs % n
+        adj = _bitset(n, (n + 31) // 32, np.concatenate([u, v]), np.concatenate([v, u]))
+        if case == "pair_orders":             # unsorted, repeated, u == v
+            idx = rng.integers(0, len(u), 3 * len(u))
+            u, v = u[idx], v[idx]
+            v = np.where(rng.random(len(u)) < 0.05, u, v)
+            swap = rng.random(len(u)) < 0.5
+            u, v = np.where(swap, v, u), np.where(swap, u, v)
+    return (adj, torch.from_numpy(u.astype(np.int32)),
+            torch.from_numpy(v.astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["kronecker_hub", "pair_orders", "word_rows",
+                                  "wide_rows"])
+def test_edge_popcount_sparse_matches_plain(cuda, case):
+    """Bit-equal to the plain version on sparse bitsets with dense hub
+    rows (the shared-memory form), with unsorted, repeated and u == v
+    pairs, with rows of a word count not a multiple of 4, and with rows
+    too wide for shared memory (the global form); the card's plan equals
+    the CPU's; three launches a call."""
+    rng = np.random.default_rng(25)
+    adj, u, v = _sparse_case(case, rng)
+    want = K.edge_popcount_plain(adj, u, v)
+    cpu_plan = K.popcount_plan(adj, u, v)
+    assert bool((cpu_plan.counts > cpu_plan.dense_above).any())
+    assert len(cpu_plan.entries) > 0
+    g, gu, gv = adj.to(cuda), u.to(cuda), v.to(cuda)
+    before = K.LAUNCHES["edge_popcount"]
+    got = K.edge_popcount(g, gu, gv)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["edge_popcount"] == before + 3
+    assert torch.equal(got.cpu(), want)
+    plan = K.popcount_plan(g, gu, gv)
+    for name in ("counts", "offsets", "entries", "big", "small", "order"):
+        assert torch.equal(getattr(plan, name).cpu(), getattr(cpu_plan, name)), name
+    # the global form forced at the same shapes
+    from flink_tpu_torch.kernels import loader
+    forced = torch.empty_like(gu)
+    loader.launch("edge_popcount", "ft_edge_popcount", g.data_ptr(), g.shape[1],
+                  4 if g.shape[1] % 4 == 0 else 1, plan.counts.data_ptr(),
+                  plan.dense_above, plan.offsets.data_ptr(), plan.entries.data_ptr(),
+                  plan.big.data_ptr(), plan.small.data_ptr(), plan.order.data_ptr(),
+                  len(gu), forced.data_ptr(), 1)
+    assert torch.equal(forced.cpu(), want)
+
+
+def test_edge_popcount_refuses_pairs_out_of_range(cuda):
+    adj = torch.zeros((100, 4), dtype=torch.int32, device=cuda)
+    u = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        K.edge_popcount(adj, u, torch.tensor([3, 100], dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.parametrize("f", [1, 10, 64])
