@@ -906,8 +906,11 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
     b, by = bound(8 * N + 8 * hcells, 30 * N, hbm)
     entries["quantile_update"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                       bound_ms=b, bound_by=by, max_abs_err=err)
+    # the sector floor: a 32-byte sector read and written per distinct
+    # cell (each RED misses the L2), and the 8 B a record of input
     detail.append({"kernel": "quantile_update", "rows": N, "slots": C,
                    "buckets": B, "distinct_cells": hcells,
+                   "sector_floor_ms": bound(8 * N + 64 * hcells, 0, hbm)[0],
                    "library": "bucketize + index_put_ accumulate"})
 
     # quantile_result: dense over 2^20 rows (a row slice), gathered over
@@ -1132,45 +1135,55 @@ def config2_events(rng, n_events=1 << 23, n_keys=1_000_000):
     return keys, ts, splitmix64_np(users)
 
 
-def within_one_ulp(got, want) -> bool:
+#: one hll_log_finish launch of the mesh path: a shard's window of its
+#: set_mesh HLL job (2^21 events over 8,000 keys in four 1 s windows, 8
+#: shards): 2^16 events over 1,000 keys (the mesh phase records the
+#: path's own launch shapes beside it)
+MESH_LOG_FINISH = (1 << 16, 1000)
+
+
+def log_finish_inputs(dev, rng, n_events=1 << 23, n_keys=1_000_000, p=12):
+    """hll_log_finish's inputs from a real hll_log_compact of config #2's
+    events (keys uniform over n_keys, one window): (ranks, ends) on dev,
+    m, alpha, and the host cells (keys, regs, ranks) for the C++ fire."""
     import torch
-    ulp = (torch.nextafter(want, torch.full_like(want, float("inf"))) - want).abs()
-    return bool(((got - want).abs() <= ulp).all())
+    from flink_tpu_torch import native as nat
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    keys, _, vh = config2_events(rng, n_events, n_keys)
+    regs, ranks = nat.hll_make_cells(vh, p)
+    _, _, crk, ends = nat.hll_log_compact(keys, regs, ranks, p)
+    return (torch.from_numpy(crk).to(dev), torch.from_numpy(ends).to(dev),
+            1 << p, HyperLogLogAggregate(p).alpha, (keys, regs, ranks))
 
 
 def log_finish_entry(dev, hbm, rng, entries, detail):
-    """hll_log_finish at config #2: the compacted cells of a real
-    hll_log_compact of 2^23 events over a 1M-key space, p = 12."""
+    """hll_log_finish at config #2 (the compacted cells of a real
+    hll_log_compact of 2^23 events over a 1M-key space, p = 12), and at
+    the shape of one of the mesh path's launches."""
     import torch
     from flink_tpu_torch import kernels as K
     from flink_tpu_torch import native as nat
-    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
-    p = 12
-    m, agg = 1 << p, HyperLogLogAggregate(p)
-    keys, _, vh = config2_events(rng)
-    regs, ranks = nat.hll_make_cells(vh, p)
-    _, _, crk, ends = nat.hll_log_compact(keys, regs, ranks, p)
-    n_cells, n_keys = len(crk), len(ends)
-    r = torch.from_numpy(crk).to(dev)
-    e = torch.from_numpy(ends).to(dev)
+    r, e, m, alpha, (keys, regs, ranks) = log_finish_inputs(dev, rng)
+    p = m.bit_length() - 1
+    n_cells, n_keys = len(r), len(e)
     sums = torch.empty(n_keys, dtype=torch.float64, device=dev)
     want_sums = torch.empty_like(sums)
-    est = K.hll_log_finish(r, e, m, agg.alpha, inv_sum=sums)
-    want_est = K.hll_log_finish_plain(r, e, m, agg.alpha, inv_sum=want_sums)
-    check(torch.equal(K.hll_log_finish(r, e, m, agg.alpha), est),
+    est = K.hll_log_finish(r, e, m, alpha, inv_sum=sums)
+    want_est = K.hll_log_finish_plain(r, e, m, alpha, inv_sum=want_sums)
+    check(torch.equal(K.hll_log_finish(r, e, m, alpha), est),
           "hll_log_finish estimates the same without the sums")
     torch.cuda.synchronize()
     check(torch.equal(sums, want_sums), "hll_log_finish sums bit-equal to plain")
-    check(within_one_ulp(est, want_est), "hll_log_finish estimates within 1 ulp of plain")
+    check(torch.equal(est, want_est), "hll_log_finish estimates bit-equal to plain")
     _, host = nat.hll_log_fire(keys, regs, ranks, p)
     host_t = torch.from_numpy(host).to(dev)
-    check(within_one_ulp(est, host_t), "hll_log_finish within 1 ulp of the C++ host fire")
-    ms = cuda_ms(lambda: K.hll_log_finish(r, e, m, agg.alpha))
-    plain = cuda_ms(lambda: K.hll_log_finish_plain(r, e, m, agg.alpha), 5)
+    check(torch.equal(est, host_t), "hll_log_finish estimates bit-equal to the C++ host fire")
+    ms = cuda_ms(lambda: K.hll_log_finish(r, e, m, alpha))
+    plain = cuda_ms(lambda: K.hll_log_finish_plain(r, e, m, alpha), 5)
     # one torch pipeline for the same function: exp2, index_add_, elementwise
     lengths = torch.diff(e.to(torch.int64), prepend=e.new_zeros(1, dtype=torch.int64))
     key_of = torch.repeat_interleave(torch.arange(n_keys, device=dev), lengths)
-    mf, am2 = float(m), agg.alpha * m * m
+    mf, am2 = float(m), alpha * m * m
 
     def library():
         s = torch.zeros(n_keys, dtype=torch.float64, device=dev).index_add_(
@@ -1189,6 +1202,20 @@ def log_finish_entry(dev, hbm, rng, entries, detail):
     detail.append({"kernel": "hll_log_finish", "cells": n_cells, "keys": n_keys,
                    "equal_to_host_fire": int((est == host_t).sum()),
                    "library": "exp2 + index_add_ + elementwise"})
+    # one launch of the mesh path's shape (its set_mesh job's shard windows)
+    r, e, m, alpha, (keys, regs, ranks) = log_finish_inputs(dev, rng, *MESH_LOG_FINISH)
+    n_cells, n_keys = len(r), len(e)
+    est = K.hll_log_finish(r, e, m, alpha)
+    _, host = nat.hll_log_fire(keys, regs, ranks, p)
+    check(torch.equal(est, K.hll_log_finish_plain(r, e, m, alpha))
+          and torch.equal(est.cpu(), torch.from_numpy(host)),
+          "hll_log_finish at the mesh launch shape bit-equal to plain and the host fire")
+    fn = lambda: K.hll_log_finish(r, e, m, alpha)    # noqa: E731
+    detail.append({"kernel": "hll_log_finish", "case": "one launch of the mesh path",
+                   "cells": n_cells, "keys": n_keys,
+                   "ms": cuda_ms(fn, 50), "device_ms": kernel_device_ms(fn),
+                   "plain_ms": cuda_ms(lambda: K.hll_log_finish_plain(r, e, m, alpha), 5),
+                   "bound_ms": bound(n_cells + 12 * n_keys, n_cells + 8 * n_keys, hbm)[0]})
 
 
 def key_map_check(what, table, plain, hi, lo, slots, ref, n, max_probes,
@@ -3111,6 +3138,7 @@ def _mesh_jobs(dev, mesh, rng, n, n_keys, n_composite):
     the same job without a mesh."""
     from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
     from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming import log_windows
     from flink_tpu_torch.streaming.device_window_operator import DeviceWindowOperator
     from flink_tpu_torch.streaming.sources import (
         BoundedOutOfOrdernessTimestampExtractor, CollectSink)
@@ -3144,7 +3172,11 @@ def _mesh_jobs(dev, mesh, rng, n, n_keys, n_composite):
         env.execute("mesh-job")
         return sorted(sink), time.perf_counter() - t0
     out = {}
+    # the (keys, cells) of each hll_log_finish launch of the mesh runs
+    finishes = []
     DeviceWindowOperator._ensure_engine = noting
+    unrecord = _recording(log_windows, "hll_log_finish",
+                          lambda a, r: finishes.append((len(a[1]), len(a[0]))))
     try:
         for name, key_of, evs in (
                 ("int_keys", lambda e: e[0], events),
@@ -3152,6 +3184,7 @@ def _mesh_jobs(dev, mesh, rng, n, n_keys, n_composite):
                  events[:n_composite])):
             engines.clear()
             got, secs = run(True, key_of, evs)
+            unrecord()
             tier = sorted(set(engines))
             want, plain_s = _launch_free(run, False, key_of, evs)
             check(got == want and len(got) > 0,
@@ -3161,6 +3194,8 @@ def _mesh_jobs(dev, mesh, rng, n, n_keys, n_composite):
                          "meshless_events_per_s": len(evs) / plain_s}
     finally:
         DeviceWindowOperator._ensure_engine = ensure
+        unrecord()
+    out["int_keys"]["hll_log_finish_launches"] = finishes
     check(out["int_keys"]["tier"] == ["MeshLogTumblingWindows"]
           and out["composite_keys"]["tier"] == ["MeshTumblingWindows"],
           "mesh jobs: integer keys on the mesh log tier, composite keys on "

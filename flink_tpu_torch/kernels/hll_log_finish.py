@@ -21,20 +21,25 @@ import torch
 
 from flink_tpu_torch.kernels import loader
 
-_LOG_TABLES: Dict[Tuple[int, str], torch.Tensor] = {}
+_LOG_TABLES: Dict[Tuple[int, object], torch.Tensor] = {}
+_U8, _I32, _F64 = (torch.uint8,), (torch.int32,), (torch.float64,)
 
 
 def log_table(m: int, device) -> torch.Tensor:
     """float64 [m + 1]: ``log z`` for 1 <= z <= m from the C library's
     ``log`` (the function the C++ host fire calls); entry 0 is unused.
     Cached per (m, device)."""
-    key = (m, str(device))
+    key = (m, device)
     tab = _LOG_TABLES.get(key)
     if tab is None:
         vals = [0.0] + [math.log(z) for z in range(1, m + 1)]
         tab = torch.tensor(vals, dtype=torch.float64).to(device)
         _LOG_TABLES[key] = tab
     return tab
+
+
+#: rank bytes a call takes, at most (the kernel's positions are 32-bit)
+MAX_CELLS = (1 << 31) - 64
 
 
 def _check_m(m: int) -> None:
@@ -46,26 +51,30 @@ def hll_log_finish(ranks: torch.Tensor, ends: torch.Tensor, m: int,
                    alpha: float,
                    inv_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The float64 estimate [n_keys] of key runs ``ranks[ends[k-1]:ends[k]]``
-    (uint8 ranks, int32 exclusive ends); each key's inv_sum goes to
-    ``inv_sum`` (float64 [n_keys]) when given."""
+    (uint8 ranks in [0, 33], int32 exclusive ends); each key's inv_sum
+    goes to ``inv_sum`` (float64 [n_keys]) when given.  On the card, one
+    launch."""
     if ranks.device.type == "cpu":
         return hll_log_finish_plain(ranks, ends, m, alpha, inv_sum)
     _check_m(m)
     dev = ranks.device
-    loader.check(ranks, "ranks", (torch.uint8,), dev, ndim=1)
-    loader.check(ends, "ends", (torch.int32,), dev, ndim=1)
-    n_keys = len(ends)
-    if inv_sum is not None:
-        loader.check(inv_sum, "inv_sum", (torch.float64,), dev, ndim=1)
-        if len(inv_sum) != n_keys:
-            raise ValueError(f"inv_sum holds {len(inv_sum)} keys, expected {n_keys}")
+    n_keys, n_cells = ends.numel(), ranks.numel()   # not len(): a Python-level call
+    if inv_sum is None:
+        loader.check_all(ranks, (ranks, "ranks", _U8, 1), (ends, "ends", _I32, 1))
+    else:
+        loader.check_all(ranks, (ranks, "ranks", _U8, 1), (ends, "ends", _I32, 1),
+                         (inv_sum, "inv_sum", _F64, 1))
+        if inv_sum.numel() != n_keys:
+            raise ValueError(f"inv_sum holds {inv_sum.numel()} keys, expected {n_keys}")
+    if n_cells > MAX_CELLS:
+        raise ValueError(f"hll_log_finish takes at most {MAX_CELLS} rank bytes, "
+                         f"got {n_cells}")
     est = torch.empty(n_keys, dtype=torch.float64, device=dev)
     if n_keys == 0:
         return est
     loader.launch("hll_log_finish", "ft_hll_log_finish", ranks.data_ptr(),
-                  ends.data_ptr(), n_keys, m, alpha * m * m,
-                  log_table(m, dev).data_ptr(), est.data_ptr(),
-                  loader.ptr(inv_sum))
+                  ends.data_ptr(), n_keys, n_cells, m, alpha * m * m,
+                  log_table(m, dev).data_ptr(), est.data_ptr(), loader.ptr(inv_sum))
     return est
 
 

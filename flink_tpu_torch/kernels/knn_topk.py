@@ -3,10 +3,13 @@ GEMM output and the squared norms (kernel ``csrc/knn_topk.cu``).
 
 Replaces ``flink_tpu/ml/classification.py`` ``KNN.kneighbors.nearest``
 (:96-102): ``d2 = (|q|^2 + |x|^2) - 2 Q X^T`` in that float32 order,
-then the k smallest, lower index first on equal distances (the tie
-rule of ``lax.top_k``, which ``torch.topk`` does not promise).
+then the k smallest in the order of ``lax.top_k(-d2, k)``: the total
+order of float32 (a NaN of negative sign first, -0 before +0, a NaN of
+positive sign last), the lower index first on equal bits (a tie rule
+``torch.topk`` does not promise).
 ``knn_topk_plain`` is the same function in plain PyTorch: a stable sort
-of the same ``d2``, a block of query rows at a time.
+of the same ``d2``'s order keys (``total_order_keys``), a block of query
+rows at a time.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ def knn_topk(qx: torch.Tensor, qn: torch.Tensor, xn: torch.Tensor,
              k: int) -> torch.Tensor:
     """int32 [m, k]: per query row of ``qx = Q X^T`` [m, n] (float32),
     with ``qn`` [m] and ``xn`` [n] the squared norms, the indices of the
-    k smallest distances in order, lower index first on ties."""
+    k smallest distances in the total order of float32, lower index
+    first on equal bits."""
     if not 1 <= k <= qx.shape[1]:
         raise ValueError(f"k={k} for {qx.shape[1]} training points")
     if qx.device.type == "cpu":
@@ -51,6 +55,13 @@ def knn_topk(qx: torch.Tensor, qn: torch.Tensor, xn: torch.Tensor,
     return out
 
 
+def total_order_keys(d: torch.Tensor) -> torch.Tensor:
+    """int32 keys of float32 ``d`` whose signed order is the total order
+    of float32: -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN."""
+    b = d.view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
 #: distances the plain version sorts at a time
 _BLOCK_FLOATS = 1 << 28
 
@@ -61,5 +72,6 @@ def knn_topk_plain(qx: torch.Tensor, qn: torch.Tensor, xn: torch.Tensor,
     out = torch.empty((qx.shape[0], k), dtype=torch.int32, device=qx.device)
     for i in range(0, qx.shape[0], rows):
         d2 = squared_distances(qx[i:i + rows], qn[i:i + rows], xn)
-        out[i:i + rows] = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+        keys = total_order_keys(d2)
+        out[i:i + rows] = torch.sort(keys, dim=1, stable=True).indices[:, :k]
     return out

@@ -96,7 +96,7 @@ _SIGNATURES = {
         "ft_quantile_result": (_P, _P, _LL, _LL, _LL, _P, _I, _P, _P, _P),
     },
     "hll_log_finish": {
-        "ft_hll_log_finish": (_P, _P, _LL, _LL, _D, _P, _P, _P, _P),
+        "ft_hll_log_finish": (_P, _P, _LL, _LL, _LL, _D, _P, _P, _P, _P),
     },
     "table_insert": {
         "ft_table_insert": (_P, _P, _P, _LL, _P, _P, _P, _P, _LL, _LL, _LL,

@@ -73,6 +73,14 @@ same in every turn.  ``--kernels`` picks the groups (default: all):
   of 8,192 slots: two launches on a checkout without
   ``merge_rows_many``), int32 add of 4,096 pairs of 32 KiB rows folded
   four to a target, and 2^18 unique pairs of 840 B rows.
+- ``hll_log_finish`` at ``chip_smoke.log_finish_entry``'s config #2
+  entry (the compacted cells of 2^23 events over 1M keys, p = 12) and at
+  the shape of one of the mesh path's launches
+  (``chip_smoke.MESH_LOG_FINISH``: 2^16 events over 1,000 keys), a run
+  of 50, and the host microseconds a call (``host_us``: 500 calls queued
+  without a synchronisation, the least of 5 loops);
+- ``knn_topk`` at ``chip_smoke.ml_kernel_entries``' MNIST shape (10,000
+  queries, 60,000 points) for k = 3 (the entry), 1, 16 and 64.
 
 Most entries also get ``_split``: the device ms of each kernel per
 call, from a ``torch.profiler`` trace of 10 calls
@@ -106,7 +114,8 @@ def _chip_smoke():
 
 GROUPS = ("shard_pack", "gather_segment_sum", "scatter_combine", "chain_route",
           "clear_rows", "hll_update", "countmin_update", "table_insert",
-          "quantile_result", "gram_accumulate", "edge_popcount", "merge_rows")
+          "quantile_result", "gram_accumulate", "edge_popcount", "merge_rows",
+          "hll_log_finish", "knn_topk")
 
 
 def worker(root: str, groups) -> dict:
@@ -511,12 +520,61 @@ def _merge_rows(K, cs, dev, out, splits):
         splits[name + "_split"] = fn
 
 
+def _hll_log_finish(K, cs, dev, out, splits):
+    for tag, shape in (("config2", (1 << 23, 1_000_000)),
+                       ("mesh_launch", cs.MESH_LOG_FINISH)):
+        r, e, m, alpha, _ = cs.log_finish_inputs(dev, np.random.default_rng(31),
+                                                 *shape)
+        name = f"hll_log_finish_{tag}"
+
+        def fn(r=r, e=e, m=m, a=alpha):
+            return K.hll_log_finish(r, e, m, a)
+        out[name] = {"ms": cs.cuda_ms(fn, 50), "host_us": _host_us(fn),
+                     "cells": len(r), "keys": len(e)}
+        splits[name + "_split"] = fn
+
+
+def _host_us(fn, calls=500):
+    """Host microseconds a call: the least of 5 loops of ``calls`` calls
+    queued without a synchronisation."""
+    import time
+    import torch
+    best = float("inf")
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / calls * 1e6
+
+
+def _knn_topk(K, cs, dev, out, splits):
+    import torch
+    rng = np.random.default_rng(37)
+    X = torch.from_numpy(cs.mnist_shape(rng, 60_000)).to(dev)
+    Q = torch.from_numpy(cs.mnist_shape(rng, 10_000)).to(dev)
+    qx = torch.matmul(Q, X.t())
+    qn, xn = (Q * Q).sum(1), (X * X).sum(1)
+    del X, Q
+    for k in (3, 1, 16, 64):
+        name = f"knn_topk_k{k}"
+
+        def fn(k=k):
+            return K.knn_topk(qx, qn, xn, k)
+        out[name] = {"ms": cs.cuda_ms(fn, 10)}
+        if k == 3:
+            splits[name + "_split"] = fn
+
+
 GROUP_FNS = {"shard_pack": _shard_pack, "gather_segment_sum": _gather_segment_sum,
              "scatter_combine": _scatter_combine, "chain_route": _chain_route,
              "clear_rows": _clear_rows, "hll_update": _hll_update,
              "countmin_update": _countmin_update, "table_insert": _table_insert,
              "quantile_result": _quantile_result, "gram_accumulate": _gram_accumulate,
-             "edge_popcount": _edge_popcount, "merge_rows": _merge_rows}
+             "edge_popcount": _edge_popcount, "merge_rows": _merge_rows,
+             "hll_log_finish": _hll_log_finish, "knn_topk": _knn_topk}
 
 
 def _old_chain_launch(cols, keep, key=None, num_channels=0, max_parallelism=0,
@@ -589,6 +647,10 @@ def main() -> int:
                         if isinstance(v, dict) and "ms" in v})
         summary[side] = {k: float(np.median([tr[k]["ms"] for tr in mine]))
                          for k in names}
+        for k in names:
+            if all("host_us" in tr[k] for tr in mine):
+                summary[side][k + "_host_us"] = float(np.median(
+                    [tr[k]["host_us"] for tr in mine]))
         if any("segment_plan_ms" in tr for tr in mine):
             summary[side]["segment_plan_ms"] = float(np.median(
                 [tr["segment_plan_ms"] for tr in mine]))

@@ -46,12 +46,31 @@
 //   the small rows' lists read alone, in the plan's pair order.
 // - ft_probe_merge_add: merge_rows' int32 add with a repeated dst as
 //   its atomics alone, its loads alone, and the two together.
+// - ft_probe_hll_finish_registers: hll_log_finish's first tiled form
+//   (each thread's words walked from registers), not kept.
+// - ft_probe_hll_finish_parts: hll_log_finish's second tiled form (the
+//   rank span staged in shared memory), not kept, whole (mode 0) and with
+//   a part taken out (the walk, the estimator, the rank loads, the shared
+//   atomics).
+// - ft_probe_hll_log_finish: the kernel at forced lanes a key and a
+//   forced long-run threshold (words a lane over which the warp sums a
+//   run; 1 << 20: never); ft_probe_hll_lanes: the launcher's pick of
+//   lanes a key.
+// - ft_probe_quantile_red: quantile_update's floors, a thread a record:
+//   variant 0 adds 1 at flat cell indices computed beforehand (int64,
+//   the 8 B a record that slot and value take; no log, no division: the
+//   atomics alone); variant 1 a plain load and store at the same cells
+//   (the memory's rate for the same random words without the L2's
+//   atomics; races lose counts, nothing reads them); variant 2 reads the
+//   slot and the value only (the inputs' stream).
 #include "../flink_tpu_torch/kernels/csrc/clear_rows.cu"
 #include "../flink_tpu_torch/kernels/csrc/countmin_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/hll_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/table_insert.cu"
 #include "../flink_tpu_torch/kernels/csrc/gram_accumulate.cu"
 #include "../flink_tpu_torch/kernels/csrc/quantile_result.cu"
+#include "../flink_tpu_torch/kernels/csrc/knn_topk.cu"
+#include "../flink_tpu_torch/kernels/csrc/hll_log_finish.cu"
 
 #include <cub/block/block_radix_sort.cuh>
 
@@ -487,5 +506,275 @@ extern "C" int ft_probe_merge_add(void* base, const void* dst, const void* src,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(base), static_cast<const int32_t*>(dst),
         static_cast<const int32_t*>(src), k, row_words, variant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// quantile_update's floors (see the head of this file); one word is
+// written only if the inputs hit a value they never do, so the loads stay
+__global__ void __launch_bounds__(256)
+probe_quantile_red(int32_t* hist, const long long* __restrict__ flat,
+                   const int32_t* __restrict__ slots,
+                   const float* __restrict__ values, long long n, int variant) {
+  FT_GRID_STRIDE(i, n) {
+    if (variant == 0) {
+      atomicAdd(hist + flat[i], 1);
+    } else if (variant == 1) {
+      int32_t* c = hist + flat[i];
+      *c = __ldcg(c) + 1;
+    } else if ((slots[i] ^ __float_as_int(values[i])) == 0x7FFFFFF5) {
+      hist[0] = 0;   // never
+    }
+  }
+}
+
+extern "C" int ft_probe_quantile_red(void* hist, const void* flat,
+                                     const void* slots, const void* values,
+                                     long long n, int variant, void* stream) {
+  if (n > 0)
+    probe_quantile_red<<<grid_for(n, 256), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int32_t*>(hist), static_cast<const long long*>(flat),
+        static_cast<const int32_t*>(slots), static_cast<const float*>(values),
+        n, variant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hll_log_finish's first tiled form, not kept: each thread's four words
+// of the rank span walked from registers, the byte loop unrolled over
+// them (the kernel now stages the span in shared memory and walks it in
+// a short loop).  Same interface and results as ft_hll_log_finish.
+#define PH_THREADS 256
+#define PH_MAX_TILE 1024
+#define PH_WORDS 4
+#define PH_FRAC 33
+
+__global__ void __launch_bounds__(PH_THREADS)
+probe_hll_finish_registers(const uint8_t* __restrict__ ranks,
+                      const int32_t* __restrict__ ends, long long n_keys,
+                      int tile, long long m, double alpha_m2,
+                      const double* __restrict__ log_tab,
+                      double* __restrict__ est,
+                      double* __restrict__ inv_sum_out) {
+  // run[j] is where the tile's key j starts, run[nk] where the tile ends
+  __shared__ int run[PH_MAX_TILE + 1];
+  __shared__ unsigned long long acc[PH_MAX_TILE];
+  const long long k0 = static_cast<long long>(blockIdx.x) * tile;
+  const int nk = static_cast<int>(min(static_cast<long long>(tile), n_keys - k0));
+  for (int j = threadIdx.x; j <= nk; j += PH_THREADS)
+    run[j] = k0 + j == 0 ? 0 : ends[k0 + j - 1];
+  for (int j = threadIdx.x; j < nk; j += PH_THREADS) acc[j] = 0;
+  __syncthreads();
+
+  const int lo = run[0], hi = run[nk];
+  if (hi > lo) {
+    // 16-byte words of memory: byte p of ranks is byte p + off of them
+    const int off = static_cast<int>(reinterpret_cast<uintptr_t>(ranks) & 15);
+    const uint4* words = reinterpret_cast<const uint4*>(ranks - off);
+    const int w_end = ((hi - 1 + off) >> 4) + 1;
+    for (int w0 = ((lo + off) >> 4) + threadIdx.x * PH_WORDS; w0 < w_end;
+         w0 += PH_THREADS * PH_WORDS) {
+      uint4 w[PH_WORDS];
+#pragma unroll
+      for (int g = 0; g < PH_WORDS; ++g)
+        w[g] = w0 + g < w_end ? __ldg(words + w0 + g) : make_uint4(0, 0, 0, 0);
+      const int p0 = (w0 << 4) - off;  // the position of the words' first byte
+      const int first = max(lo, p0), end = min(hi, p0 + 16 * PH_WORDS);
+      // the last key j of the tile with run[j] <= first (first < hi)
+      int j = 0, top = nk;
+      while (top - j > 1) {
+        const int mid = (j + top) >> 1;
+        if (run[mid] <= first) j = mid; else top = mid;
+      }
+      int next = run[j + 1];
+      unsigned long long s = 0;
+#pragma unroll
+      for (int g = 0; g < PH_WORDS; ++g) {
+        const unsigned int c[4] = {w[g].x, w[g].y, w[g].z, w[g].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          unsigned int v = c[q];
+          int p = p0 + 16 * g + 4 * q;
+#pragma unroll 1
+          for (int b = 0; b < 4; ++b, ++p, v >>= 8) {
+            if (p < first || p >= end) continue;
+            while (p >= next) {  // the run ended: hand its part to the key
+              if (s) atomicAdd(acc + j, s);
+              s = 0;
+              next = run[++j + 1];
+            }
+            s += 1ULL << (PH_FRAC - (v & 0xFFu));
+          }
+        }
+      }
+      if (s) atomicAdd(acc + j, s);
+    }
+  }
+  __syncthreads();
+
+
+
+  const double mf = static_cast<double>(m);
+  for (int j = threadIdx.x; j < nk; j += PH_THREADS) {
+    const long long present = static_cast<long long>(run[j + 1]) - run[j];
+    // exact: acc < 2^53, and the scale is a power of two
+    const double s = static_cast<double>(acc[j]) * 0x1p-33;
+    // registers not present contribute 2^-0 = 1 each
+    const double zeros = mf - static_cast<double>(present);
+    const double inv_sum = zeros + s;
+    double e = alpha_m2 / inv_sum;
+    if (e <= 2.5 * mf && zeros > 0.0)
+      e = mf * (__ldg(log_tab + m) - __ldg(log_tab + (m - present)));
+    est[k0 + j] = e;
+    if (inv_sum_out != nullptr) inv_sum_out[k0 + j] = inv_sum;
+  }
+}
+
+
+extern "C" int ft_probe_hll_finish_registers(const void* ranks, const void* ends,
+                                             long long n_keys, int tile, long long m,
+                                             double alpha_m2, const void* log_tab,
+                                             void* est, void* inv_sum, void* stream) {
+  if (tile < 1 || tile > PH_MAX_TILE) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_keys > 0)
+    probe_hll_finish_registers<<<static_cast<unsigned int>((n_keys + tile - 1) / tile),
+                                 PH_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(ranks), static_cast<const int32_t*>(ends), n_keys,
+        tile, m, alpha_m2, static_cast<const double*>(log_tab),
+        static_cast<double*>(est), static_cast<double*>(inv_sum));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ft_probe_hll_log_finish(const void* ranks, const void* ends,
+                                       long long n_keys, int group, int long_words,
+                                       long long m, double alpha_m2,
+                                       const void* log_tab, void* est, void* stream) {
+  return lf_launch(ranks, ends, n_keys, group, long_words, m, alpha_m2, log_tab,
+                   est, nullptr, stream);
+}
+
+extern "C" int ft_probe_hll_lanes(long long n_keys, long long n_cells) {
+  return lf_lanes_per_key(n_keys, n_cells);
+}
+
+// hll_log_finish with its parts taken out, to see what a block's time
+// is made of (the results are wrong where a part is out): MODE bit 0
+// skips the walk over the staged bytes, bit 1 the estimator (the sums
+// are stored), bit 2 the loads of the rank words (the stage holds
+// ranks of 1), bit 3 takes plain stores for the shared atomics.  MODE 0
+// is the second tiled form, not kept: a block's rank span staged in
+// shared memory in 16 KiB chunks and walked by each thread in a short
+// loop, the sums added by 64-bit shared atomics.
+#define PS_THREADS 256
+#define PS_MAX_TILE 1024
+#define PS_CHUNK 16384
+#define PS_SPAN (PS_CHUNK / PS_THREADS)
+#define PS_FRAC 33
+template <int MODE>
+__global__ void __launch_bounds__(PS_THREADS)
+probe_hll_finish_parts(const uint8_t* __restrict__ ranks,
+                      const int32_t* __restrict__ ends, long long n_keys,
+                      int tile, long long m, double alpha_m2,
+                      const double* __restrict__ log_tab,
+                      double* __restrict__ est,
+                      double* __restrict__ inv_sum_out) {
+  // run[j] is where the tile's key j starts, run[nk] where the tile ends
+  __shared__ int run[PS_MAX_TILE + 1];
+  __shared__ unsigned long long acc[PS_MAX_TILE];
+  __shared__ uint4 stage[PS_CHUNK / 16];
+  const long long k0 = static_cast<long long>(blockIdx.x) * tile;
+  const int nk = static_cast<int>(min(static_cast<long long>(tile), n_keys - k0));
+  for (int j = threadIdx.x; j <= nk; j += PS_THREADS)
+    run[j] = k0 + j == 0 ? 0 : ends[k0 + j - 1];
+  for (int j = threadIdx.x; j < nk; j += PS_THREADS) acc[j] = 0;
+  __syncthreads();
+
+  const int lo = run[0], hi = run[nk];
+  // 16-byte words of memory: byte p of ranks is byte p + off of them
+  const int off = static_cast<int>(reinterpret_cast<uintptr_t>(ranks) & 15);
+  const uint4* words = reinterpret_cast<const uint4*>(ranks - off);
+  const int w_end = hi > lo ? ((hi - 1 + off) >> 4) + 1 : 0;
+  for (int c = (lo + off) >> 4; c < w_end; c += PS_CHUNK / 16) {
+    // stage the chunk's words: every load issued before any store
+    const int nw = min(PS_CHUNK / 16, w_end - c);
+    uint4 v[PS_CHUNK / 16 / PS_THREADS];
+#pragma unroll
+    for (int i = 0; i < PS_CHUNK / 16 / PS_THREADS; ++i) {
+      const int wi = threadIdx.x + i * PS_THREADS;
+      if (wi < nw) v[i] = (MODE & 4) ? make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u) : __ldg(words + c + wi);
+    }
+#pragma unroll
+    for (int i = 0; i < PS_CHUNK / 16 / PS_THREADS; ++i) {
+      const int wi = threadIdx.x + i * PS_THREADS;
+      if (wi < nw) stage[wi] = v[i];
+    }
+    __syncthreads();
+    // the thread's bytes of the chunk, within the span
+    const int c0 = (c << 4) - off;  // the position of the chunk's first byte
+    const int mine = c0 + PS_SPAN * static_cast<int>(threadIdx.x);
+    const int first = max(lo, mine);
+    const int end = min(min(hi, c0 + 16 * nw), mine + PS_SPAN);
+    if (!(MODE & 1) && first < end) {
+      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(stage);
+      // the last key j of the tile with run[j] <= first (first < hi)
+      int j = 0, top = nk;
+      while (top - j > 1) {
+        const int mid = (j + top) >> 1;
+        if (run[mid] <= first) j = mid; else top = mid;
+      }
+      int next = run[j + 1];
+      unsigned long long s = 0;
+#pragma unroll 4
+      for (int p = first; p < end; ++p) {
+        while (p >= next) {  // the run ended: hand its part to the key
+          if (s) {
+            if (MODE & 8) acc[j] = s; else atomicAdd(acc + j, s);
+          }
+          s = 0;
+          next = run[++j + 1];
+        }
+        s += 1ULL << (PS_FRAC - bytes[p - c0]);
+      }
+      if (MODE & 8) acc[j] = s; else atomicAdd(acc + j, s);
+    }
+    __syncthreads();
+  }
+
+  const double mf = static_cast<double>(m);
+  for (int j = threadIdx.x; j < nk; j += PS_THREADS) {
+    const long long present = static_cast<long long>(run[j + 1]) - run[j];
+    // exact: acc < 2^53, and the scale is a power of two
+    const double s = static_cast<double>(acc[j]) * 0x1p-33;
+    // registers not present contribute 2^-0 = 1 each
+    const double zeros = mf - static_cast<double>(present);
+    const double inv_sum = zeros + s;
+    double e = inv_sum;
+    if (!(MODE & 2)) {
+      e = alpha_m2 / inv_sum;
+      if (e <= 2.5 * mf && zeros > 0.0)
+        e = mf * (__ldg(log_tab + m) - __ldg(log_tab + (m - present)));
+    }
+    est[k0 + j] = e;
+    if (inv_sum_out != nullptr) inv_sum_out[k0 + j] = inv_sum;
+  }
+}
+
+
+extern "C" int ft_probe_hll_finish_parts(const void* ranks, const void* ends,
+                                         long long n_keys, int tile, long long m,
+                                         double alpha_m2, const void* log_tab,
+                                         void* est, int mode, void* stream) {
+  const unsigned int blocks = static_cast<unsigned int>((n_keys + tile - 1) / tile);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* r = static_cast<const uint8_t*>(ranks);
+  const int32_t* e = static_cast<const int32_t*>(ends);
+  const double* t = static_cast<const double*>(log_tab);
+  double* o = static_cast<double*>(est);
+#define PH_PARTS(M) \
+  case M: probe_hll_finish_parts<M><<<blocks, PS_THREADS, 0, s>>>(r, e, n_keys, tile, m, alpha_m2, t, o, nullptr); break;
+  switch (mode) {
+    PH_PARTS(0) PH_PARTS(1) PH_PARTS(2) PH_PARTS(3) PH_PARTS(4) PH_PARTS(8) PH_PARTS(7)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PH_PARTS
   return static_cast<int>(cudaGetLastError());
 }

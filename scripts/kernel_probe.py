@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """The designs that ``clear_rows``, ``hll_update``, ``countmin_update``,
 ``table_insert``, ``quantile_result``, ``gram_accumulate``,
-``edge_popcount`` and ``merge_rows`` were measured against, and their
+``edge_popcount``, ``merge_rows``, ``hll_log_finish``,
+``quantile_update`` and ``knn_topk`` were measured against, and their
 floors, timed beside the kernels on the card at ``chip_smoke.py``'s
 entry shapes; and the host time of a small launch, part by part.
 
-    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin,table_insert,quantile_result,quantile_wide,gram_accumulate,edge_popcount,merge_rows,launch_host]
+    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin,table_insert,quantile_result,quantile_wide,gram_accumulate,edge_popcount,merge_rows,launch_host,hll_log_finish,quantile_update,knn_topk]
 
-Builds ``scripts/kernel_probe.cu`` (which includes six kernels'
+Builds ``scripts/kernel_probe.cu`` (which includes eight kernels'
 sources) with the loader's nvcc flags into the kernels' build directory
 and prints one JSON object; every time is ``chip_smoke.cuda_ms`` (a
 run of calls between one pair of CUDA events, / reps, or one call per
@@ -60,12 +61,29 @@ all):
   alone, its loads alone and the two in 4-byte words.
 - ``launch_host``: host microseconds of a small ``merge_rows`` call and
   of its parts (checks, argument pack, stream handle, the launch, the
-  ctypes call with no kernel), 20,000 calls each.
+  ctypes call with no kernel), 20,000 calls each; and of an
+  ``hll_log_finish`` call at the mesh launch shape and of its launch.
 - ``gram_accumulate``: at MovieLens-20M's shape, f = 10, the factor-row
   gathers alone (``gathers``: each rating's column, value and factor
   row loaded and added up, no row structure) and the gathers with the
   FMAs (``gathers_fma``: each rating's 65 products added in registers),
   beside the kernel on its default plan, on both sides, in turns.
+- ``hll_log_finish``: at the config #2 entry (the compacted cells of
+  2^23 events over 1M keys) and at one of the mesh path's launches
+  (``chip_smoke.MESH_LOG_FINISH``), the kernel against a streaming read
+  of as many bytes as its ranks and run ends, a write of its estimates
+  alone, itself at forced lanes a key, and its two tiled forms not kept
+  (``registers``, ``staged``; the latter with each part taken out), in
+  turns; device ms from a profiler trace.  Then config #2 with its keys
+  drawn from a Zipf law (s = 0.99, YCSB's zipfian constant, over the
+  same 1M keys): the kernel, and the launcher's lanes and 1 lane a key
+  each with the warp's round for long runs and without it.
+- ``quantile_update``: at the entry (2^19 lognormal values into a [2^22,
+  210] int32 file), the kernel against its atomics alone at flat cell
+  indices made beforehand, a plain load and store at the same cells,
+  and a read of its inputs alone, in turns; its sector floor.
+- ``knn_topk``: at the MNIST entry (10,000 x 60,000, k = 3), the kernel
+  against a streaming read of qx, in turns.
 
 Needs a CUDA card.
 """
@@ -77,6 +95,7 @@ import ctypes
 import hashlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -116,15 +135,24 @@ def _build() -> ctypes.CDLL:
     lib.ft_probe_quantile_global.argtypes = (P, P, LL, LL, LL, P, I, P, P, P)
     lib.ft_probe_edge_lists.argtypes = (P, LL, P, P, P, LL, P, P)
     lib.ft_probe_merge_add.argtypes = (P, P, P, LL, LL, I, P)
+    lib.ft_probe_quantile_red.argtypes = (P, P, P, P, LL, I, P)
+    lib.ft_probe_hll_finish_registers.argtypes = (P, P, LL, I, LL, ctypes.c_double, P,
+                                                  P, P, P)
+    lib.ft_probe_hll_log_finish.argtypes = (P, P, LL, I, I, LL, ctypes.c_double, P, P,
+                                            P)
+    lib.ft_probe_hll_lanes.argtypes = (LL, LL)
+    lib.ft_probe_hll_finish_parts.argtypes = (P, P, LL, I, LL, ctypes.c_double, P, P,
+                                              I, P)
     return lib
 
 
 #: the kernels whose sources kernel_probe.cu includes
 KERNELS = ("clear_rows", "countmin_update", "hll_update", "table_insert",
-           "gram_accumulate", "quantile_result")
+           "gram_accumulate", "quantile_result", "knn_topk", "hll_log_finish")
 GROUPS = ("clear_rows", "hll_update", "countmin", "table_insert",
           "quantile_result", "quantile_wide", "gram_accumulate", "edge_popcount",
-          "merge_rows", "launch_host")
+          "merge_rows", "launch_host", "hll_log_finish", "quantile_update",
+          "knn_topk")
 
 
 def _stream():
@@ -151,7 +179,7 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     K.build_all((*KERNELS, "quantile_update", "quantile_result", "edge_popcount",
-                 "merge_rows"))
+                 "merge_rows", "hll_log_finish", "knn_topk"))
     lib = _build()
     res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": cs.nvidia_smi()}
     if "clear_rows" in groups or "hll_update" in groups:
@@ -171,7 +199,13 @@ def main() -> int:
     if "merge_rows" in groups:
         res["merge_rows"] = _merge_rows(K, cs, lib)
     if "launch_host" in groups:
-        res["launch_host"] = _launch_host(K)
+        res["launch_host"] = _launch_host(K, cs)
+    if "hll_log_finish" in groups:
+        res["hll_log_finish"] = _hll_log_finish(K, cs, lib)
+    if "quantile_update" in groups:
+        res["quantile_update"] = _quantile_update(K, cs, lib)
+    if "knn_topk" in groups:
+        res["knn_topk"] = _knn_topk(K, cs, lib)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -540,14 +574,17 @@ def _merge_rows(K, cs, lib):
                                  0, 3.35e12)[0]}
 
 
-def _launch_host(K, calls=20_000):
+def _launch_host(K, cs, calls=20_000):
     """Host microseconds of one small ``merge_rows`` call and of its
     parts (the main path's form: uint8 max, 2 pairs into one target of a
     [4096, 4096] file), each the mean of ``calls`` calls in a loop ended
     by a synchronisation: the whole call; its tensor checks; the argument
     pack; the stream handle, and the ``torch.cuda.Stream`` object it
     replaces; the launch alone; the same ctypes call with no kernel to
-    launch (k = 0)."""
+    launch (k = 0).  Then an ``hll_log_finish`` call at the mesh launch
+    shape and its launch alone (``loader.launch`` with the arguments
+    made beforehand), each the mean of 500 calls queued without a
+    synchronisation (the host's time, not the card's)."""
     import time
     import torch
     from flink_tpu_torch.kernels import loader
@@ -576,7 +613,223 @@ def _launch_host(K, calls=20_000):
         "torch_current_stream": us(lambda: torch.cuda.current_stream().cuda_stream),
         "launch": us(lambda: loader.launch("merge_rows", "ft_merge_rows", packed, 1)),
         "ctypes_call_no_kernel": us(lambda: loader.launch("merge_rows", "ft_merge_rows",
-                                                          empty, 1))}}
+                                                          empty, 1)),
+        **_log_finish_host_us(K, cs)}}
+
+
+def _log_finish_host_us(K, cs, calls=500):
+    import time
+    import torch
+    from flink_tpu_torch.kernels import loader
+    from flink_tpu_torch.kernels.hll_log_finish import log_table
+    dev = torch.device("cuda", 0)
+    r, e, m, alpha, _ = cs.log_finish_inputs(dev, np.random.default_rng(31),
+                                             *cs.MESH_LOG_FINISH)
+    est = torch.empty(len(e), dtype=torch.float64, device=dev)
+    args = (r.data_ptr(), e.data_ptr(), len(e), len(r), m, alpha * m * m,
+            log_table(m, dev).data_ptr(), est.data_ptr(), None)
+
+    def us(fn):
+        best = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return best / calls * 1e6
+    return {"hll_log_finish_mesh_call": us(lambda: K.hll_log_finish(r, e, m, alpha)),
+            "hll_log_finish_launch": us(lambda: loader.launch(
+                "hll_log_finish", "ft_hll_log_finish", *args))}
+
+
+#: the kernel's words a lane over which the warp sums a run, and a
+#: threshold no run reaches (runs hold at most 65,536 cells)
+LONG_WORDS = int(re.search(r"#define LF_LONG_WORDS (\d+)", (
+    ROOT / "flink_tpu_torch" / "kernels" / "csrc" / "hll_log_finish.cu").read_text())[1])
+NO_LONG = 1 << 20
+
+
+def _zipf_log_finish_inputs(cs, dev, rng, n_events=1 << 23, n_keys=1_000_000,
+                            s=0.99, p=12):
+    """config #2's compacted cells with the keys drawn from a Zipf law of
+    exponent s over the key space (the ranks of popularity shuffled over
+    the key ids): (ranks, ends) on dev, m, alpha."""
+    import torch
+    from flink_tpu_torch import native as nat
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    w = 1.0 / np.arange(1, n_keys + 1, dtype=np.float64) ** s
+    ranked = rng.choice(n_keys, n_events, p=w / w.sum())
+    keys = rng.permutation(n_keys).astype(np.uint64)[ranked]
+    vh = cs.splitmix64_np(rng.integers(0, 2**63, n_events).astype(np.uint64))
+    regs, ranks = nat.hll_make_cells(vh, p)
+    _, _, crk, ends = nat.hll_log_compact(keys, regs, ranks, p)
+    return (torch.from_numpy(crk).to(dev), torch.from_numpy(ends).to(dev),
+            1 << p, HyperLogLogAggregate(p).alpha)
+
+
+def _hll_log_finish(K, cs, lib):
+    """hll_log_finish at chip_smoke's config #2 entry and at the shape of
+    one of the mesh path's launches: the kernel against a streaming read
+    of as many bytes as its ranks and run ends (the floor of its reads),
+    a write of its estimates alone (``zero_``), the kernel at forced
+    lanes a key (1 to 32), and the two tiled forms not kept (at the
+    tiles of keys a block they took there): ``registers`` and
+    ``staged``, the latter also with a part taken out (``no_walk``,
+    ``no_estimator``, ``no_rank_loads``, ``no_atomics``, and
+    ``launch_and_ends`` with all three of the first out), in turns; the
+    kernel's and the read's device ms from a profiler trace.  Then
+    config #2 with Zipf keys (``zipf``): the kernel, the launcher's lanes
+    without the warp's round for long runs (``no_long``), and 1 lane a
+    key with and without it, in turns, each checked equal to the
+    kernel."""
+    import torch
+    from flink_tpu_torch.kernels.hll_log_finish import log_table
+    dev = torch.device("cuda", 0)
+    blocks = 132 * 8
+    acc = torch.zeros(blocks, dtype=torch.int32, device=dev)
+    out = {}
+
+    def forced(r, e, m, a, est, g, long_words):
+        tab = log_table(m, dev)
+        return lambda: _ok(lib.ft_probe_hll_log_finish(
+            r.data_ptr(), e.data_ptr(), len(e), g, long_words, m, a * m * m,
+            tab.data_ptr(), est.data_ptr(), _stream()))
+
+    for tag, shape, tile in (("config2", (1 << 23, 1_000_000), 1024),
+                             ("mesh_launch", cs.MESH_LOG_FINISH, 32)):
+        r, e, m, alpha, _ = cs.log_finish_inputs(dev, np.random.default_rng(31),
+                                                 *shape)
+        n_cells, n_keys = len(r), len(e)
+        nbytes = (n_cells + 4 * n_keys + 15) // 16 * 16
+        buf = torch.ones(nbytes, dtype=torch.uint8, device=dev)
+        est = torch.empty(n_keys, dtype=torch.float64, device=dev)
+        tab = log_table(m, dev)
+        ways = {"kernel": lambda r=r, e=e, m=m, a=alpha: K.hll_log_finish(r, e, m, a),
+                "stream_read": lambda b=buf, n=nbytes: _ok(lib.ft_probe_stream_sum(
+                    b.data_ptr(), n, acc.data_ptr(), blocks, _stream())),
+                "write_estimates": est.zero_,
+                "registers": lambda r=r, e=e, m=m, a=alpha: _ok(
+                    lib.ft_probe_hll_finish_registers(
+                        r.data_ptr(), e.data_ptr(), len(e), tile, m, a * m * m,
+                        tab.data_ptr(), est.data_ptr(), None, _stream()))}
+        for mode, part in ((0, "staged"), (1, "no_walk"), (2, "no_estimator"),
+                           (4, "no_rank_loads"), (8, "no_atomics"),
+                           (7, "launch_and_ends")):
+            ways[part] = lambda r=r, e=e, m=m, a=alpha, md=mode: _ok(
+                lib.ft_probe_hll_finish_parts(r.data_ptr(), e.data_ptr(), len(e), tile,
+                                              m, a * m * m, tab.data_ptr(),
+                                              est.data_ptr(), md, _stream()))
+        for g in (1, 2, 4, 8, 16, 32):
+            ways[f"lanes_{g}"] = forced(r, e, m, alpha, est, g, LONG_WORDS)
+        want = K.hll_log_finish(r, e, m, alpha)
+        same = {}
+        for form in ("registers", "staged", *(f"lanes_{g}" for g in (1, 2, 4, 8, 16, 32))):
+            est.zero_()
+            ways[form]()
+            same[form] = bool(torch.equal(est, want))
+        out[tag] = {"cells": n_cells, "keys": n_keys, "forms_equal_kernel": same,
+                    "lanes_per_key": lib.ft_probe_hll_lanes(n_keys, n_cells),
+                    "old_tile": tile, "ms": _in_turns(cs, ways),
+                    "device_ms": cs.kernel_device_ms(ways["kernel"]),
+                    "lanes_device_ms": {g: cs.kernel_device_ms(ways[f"lanes_{g}"])
+                                        for g in (1, 2, 4, 8, 16, 32)},
+                    "staged_device_ms": cs.kernel_device_ms(ways["staged"]),
+                    "stream_device_ms": cs.kernel_device_ms(ways["stream_read"]),
+                    "bound_ms": cs.bound(n_cells + 12 * n_keys, n_cells + 8 * n_keys,
+                                         3.35e12)[0]}
+        del r, e, buf, est
+    r, e, m, alpha = _zipf_log_finish_inputs(cs, dev, np.random.default_rng(43))
+    n_cells, n_keys = len(r), len(e)
+    lanes = lib.ft_probe_hll_lanes(n_keys, n_cells)
+    runs = torch.diff(e.to(torch.int64), prepend=e.new_zeros(1, dtype=torch.int64))
+    est = torch.empty(n_keys, dtype=torch.float64, device=dev)
+    ways = {"kernel": lambda: K.hll_log_finish(r, e, m, alpha),
+            "no_long": forced(r, e, m, alpha, est, lanes, NO_LONG),
+            "lanes_1": forced(r, e, m, alpha, est, 1, LONG_WORDS),
+            "lanes_1_no_long": forced(r, e, m, alpha, est, 1, NO_LONG)}
+    want = K.hll_log_finish(r, e, m, alpha)
+    same = {}
+    for way in ("no_long", "lanes_1", "lanes_1_no_long"):
+        est.zero_()
+        ways[way]()
+        same[way] = bool(torch.equal(est, want))
+    # runs the warp sums: over LONG_WORDS words a lane (a run from byte 15)
+    words = (runs + 30) // 16
+    out["zipf"] = {"cells": n_cells, "keys": n_keys, "zipf_s": 0.99,
+                   "lanes_per_key": lanes, "longest_run": int(runs.max()),
+                   "warp_runs_at_lanes": int((words > LONG_WORDS * lanes).sum()),
+                   "warp_runs_at_1_lane": int((words > LONG_WORDS).sum()),
+                   "ways_equal_kernel": same, "ms": _in_turns(cs, ways),
+                   "device_ms": {w: cs.kernel_device_ms(fn) for w, fn in ways.items()},
+                   "bound_ms": cs.bound(n_cells + 12 * n_keys, n_cells + 8 * n_keys,
+                                        3.35e12)[0]}
+    return out
+
+
+def _quantile_update(K, cs, lib):
+    """quantile_update at chip_smoke's entry (2^19 lognormal values into a
+    [2^22, 210] int32 file, 3.5 GB): the kernel against (a) its atomics
+    alone at flat cell indices made beforehand, (b) a plain load and
+    store at the same cells and (c) a read of its inputs alone, in
+    turns; (a)'s histogram checked equal to the kernel's.  The sector
+    floor: a 32-byte sector read and written per distinct cell, and the
+    8 B a record of input."""
+    import torch
+    from flink_tpu_torch.kernels.quantile_update import bucket_of
+    from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(29)
+    agg = QuantileSketchAggregate(**cs.Q3)
+    B, C, N = agg.buckets, 1 << 22, 1 << 19
+    slots = torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.lognormal(3.0, 1.0, N).astype(np.float32)).to(dev)
+    args = (agg.min_value, agg.log_gamma, agg.offset)
+    flat = (slots.to(torch.int64) * B + bucket_of(v, *args, B)).contiguous()
+    hist = torch.zeros((C, B), dtype=torch.int32, device=dev)
+    ref = torch.zeros_like(hist)
+    K.quantile_update(hist, slots, v, N, *args)
+    _ok(lib.ft_probe_quantile_red(ref.data_ptr(), flat.data_ptr(), slots.data_ptr(),
+                                  v.data_ptr(), N, 0, _stream()))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(hist, ref))
+    del ref
+    cells = int(torch.unique(flat).numel())
+
+    def probe(variant):
+        return lambda: _ok(lib.ft_probe_quantile_red(
+            hist.data_ptr(), flat.data_ptr(), slots.data_ptr(), v.data_ptr(), N,
+            variant, _stream()))
+    ways = {"kernel": lambda: K.quantile_update(hist, slots, v, N, *args),
+            "atomics_only": probe(0), "plain_rmw": probe(1), "inputs_only": probe(2)}
+    return {"records": N, "file": [C, B], "distinct_cells": cells,
+            "atomics_equal_kernel": same, "ms": _in_turns(cs, ways),
+            "bound_ms": cs.bound(8 * N + 8 * cells, 30 * N, 3.35e12)[0],
+            "sector_floor_ms": cs.bound(8 * N + 64 * cells, 0, 3.35e12)[0]}
+
+
+def _knn_topk(K, cs, lib):
+    """knn_topk at chip_smoke's MNIST entry (10,000 queries, 60,000
+    points, k = 3): the kernel against a streaming read of qx (2.4 GB),
+    in turns."""
+    import torch
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(37)
+    X = torch.from_numpy(cs.mnist_shape(rng, 60_000)).to(dev)
+    Q = torch.from_numpy(cs.mnist_shape(rng, 10_000)).to(dev)
+    qx = torch.matmul(Q, X.t())
+    qn, xn = (Q * Q).sum(1), (X * X).sum(1)
+    del X, Q
+    blocks = 132 * 8
+    acc = torch.zeros(blocks, dtype=torch.int32, device=dev)
+    m, n = qx.shape
+    ways = {"kernel": lambda: K.knn_topk(qx, qn, xn, 3),
+            "stream_qx": lambda: _ok(lib.ft_probe_stream_sum(
+                qx.data_ptr(), 4 * m * n, acc.data_ptr(), blocks, _stream()))}
+    return {"queries": m, "points": n, "k": 3, "ms": _in_turns(cs, ways, 5),
+            "bound_ms": cs.bound(4 * m * n + 4 * (m + n) + 12 * m, 3 * m * n,
+                                 3.35e12)[0]}
 
 
 if __name__ == "__main__":

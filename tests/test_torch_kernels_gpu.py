@@ -713,6 +713,97 @@ def test_hll_log_finish_matches_plain_and_host_fire(cuda, p):
     np.testing.assert_array_equal(got_est.cpu().numpy(), host)
 
 
+def _hll_runs(rng, p, layout):
+    """Compacted cells (ranks 1..33 and run ends) of one layout: a key
+    with all m cells (a warp a key); one key of 5 cells; 300,000 keys of
+    0..15 cells (a lane a key) with full keys among them, side by side
+    and alone in a warp, empty runs, and a full last key.  The ranks
+    carry 16 spare bytes, for views that start past an allocation's
+    16-byte boundary."""
+    m = 1 << p
+    if layout == "full_key":
+        lengths = np.array([m])
+    elif layout == "one_key":
+        lengths = np.array([5])
+    else:
+        lengths = rng.integers(1, 16, 300_000)
+        lengths[[1023, 1024, 2047, 2048, 299_999]] = m
+        lengths[[7, 8, 5000]] = 0
+    ends = np.cumsum(np.minimum(lengths, m)).astype(np.int32)
+    ranks = rng.integers(1, 34, int(ends[-1]) + 16).astype(np.uint8)
+    ranks[::101] = 33
+    return ranks, ends
+
+
+@pytest.mark.parametrize("p", [4, 12, 16])
+@pytest.mark.parametrize("layout,offset", [("full_key", 0), ("full_key", 13),
+                                           ("long_among_short", 0), ("long_among_short", 5),
+                                           ("one_key", 1)])
+def test_hll_log_finish_layouts_match_plain(cuda, p, layout, offset):
+    """Sums and estimates bit-equal to the plain version, with and without
+    inv_sum, one launch a call, for rank spans that start ``offset``
+    bytes past a 16-byte boundary of memory."""
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    rng = np.random.default_rng(p * 7 + offset)
+    ranks, ends = _hll_runs(rng, p, layout)
+    m, n, alpha = 1 << p, int(ends[-1]), HyperLogLogAggregate(p).alpha
+    e = torch.from_numpy(ends)
+    want_sum = torch.empty(len(ends), dtype=torch.float64)
+    want = K.hll_log_finish_plain(torch.from_numpy(ranks[offset:offset + n].copy()),
+                                  e, m, alpha, inv_sum=want_sum)
+    r = torch.from_numpy(ranks).to(cuda)[offset:offset + n]
+    assert r.data_ptr() % 16 == offset
+    ec = e.to(cuda)
+    got_sum = torch.empty(len(ends), dtype=torch.float64, device=cuda)
+    before = K.LAUNCHES["hll_log_finish"]
+    got = K.hll_log_finish(r, ec, m, alpha, inv_sum=got_sum)
+    assert K.LAUNCHES["hll_log_finish"] == before + 1
+    alone = K.hll_log_finish(r, ec, m, alpha)
+    assert K.LAUNCHES["hll_log_finish"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got_sum.cpu(), want_sum)
+    assert torch.equal(got.cpu(), want) and torch.equal(alone.cpu(), want)
+
+
+def _hll_runs_for_lanes(rng, group):
+    """(p, ranks, ends) at which the launcher takes ``group`` lanes a key
+    on a card of 132 SMs: many keys with BATCH words a lane (1: runs of
+    1..15 cells, 2: runs of 20..60), and few keys with a word a lane (8:
+    2,000 runs of ~70 cells at p = 16, 32: 500 runs of 300..1,000); with
+    runs long enough for the warp (full at p = 12, 20,000 cells at
+    p = 16) among the short ones below 32 lanes."""
+    p, n, lo, hi, long_len, where = {
+        1: (12, 300_000, 1, 16, 4096, (1023, 1024, 2047, 299_999)),
+        2: (12, 100_000, 20, 61, 4096, (0, 31, 32, 99_999)),
+        8: (16, 2_000, 40, 101, 20_000, (0, 3, 4, 1_999)),
+        32: (12, 500, 300, 1001, 4096, (0, 499))}[group]
+    lengths = rng.integers(lo, hi, n)
+    lengths[list(where)] = long_len
+    lengths[[5, 6]] = 0
+    ends = np.cumsum(lengths).astype(np.int32)
+    ranks = rng.integers(1, 34, int(ends[-1])).astype(np.uint8)
+    ranks[::97] = 33
+    return p, ranks, ends
+
+
+@pytest.mark.parametrize("group", [1, 2, 8, 32])
+def test_hll_log_finish_lane_choices_match_plain(cuda, group):
+    """Shapes at which the launcher takes 1, 2, 8 and 32 lanes a key,
+    long runs among short ones: sums and estimates bit-equal to the
+    plain version, one launch."""
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    p, ranks, ends = _hll_runs_for_lanes(np.random.default_rng(40 + group), group)
+    m, alpha = 1 << p, HyperLogLogAggregate(p).alpha
+    r, e = torch.from_numpy(ranks), torch.from_numpy(ends)
+    want_sum = torch.empty(len(ends), dtype=torch.float64)
+    want = K.hll_log_finish_plain(r, e, m, alpha, inv_sum=want_sum)
+    sums = torch.empty(len(ends), dtype=torch.float64, device=cuda)
+    before = K.LAUNCHES["hll_log_finish"]
+    est = K.hll_log_finish(r.to(cuda), e.to(cuda), m, alpha, inv_sum=sums)
+    assert K.LAUNCHES["hll_log_finish"] == before + 1
+    assert torch.equal(sums.cpu(), want_sum) and torch.equal(est.cpu(), want)
+
+
 @pytest.mark.parametrize("case", ["empty", "half_full_and_hits", "full", "regions"])
 def test_table_insert_matches_plain_as_key_map(cuda, case):
     from flink_tpu_torch.ops.device_table import key_map_faults, make_table
@@ -1493,6 +1584,55 @@ def test_knn_topk_matches_plain(cuda, k, data):
     Q, X = torch.from_numpy(Q).to(cuda), torch.from_numpy(X).to(cuda)
     qx = torch.matmul(Q, X.t())
     qn, xn = (Q * Q).sum(1), (X * X).sum(1)
+    before = K.LAUNCHES["knn_topk"]
+    got = K.knn_topk(qx, qn, xn, k)
+    assert K.LAUNCHES["knn_topk"] == before + 1
+    assert torch.equal(got, K.knn_topk_plain(qx, qn, xn, k))
+
+
+def _knn_special(rng, m, n):
+    """qx, qn, xn whose distances hold ties, zeros, +-inf, NaN of both
+    signs scattered, one row of NaN only, and a row where 2 qx
+    overflows while qn + xn - 2 qx would not (a fused multiply-add
+    would keep it finite)."""
+    qx = rng.integers(-2, 3, (m, n)).astype(np.float32)
+    qn = rng.integers(0, 3, m).astype(np.float32)
+    xn = rng.integers(0, 3, n).astype(np.float32)
+    qx[rng.random((m, n)) < 0.01] = np.nan
+    qx[rng.random((m, n)) < 0.01] = np.uint32(0xFFC00000).view(np.float32)
+    qx[3] = np.nan
+    qn[8], qx[8, :30] = 3e38, 2e38
+    qn[5], xn[:40:3], qx[5, :40] = 0.0, 0.0, 0.0          # zero distances
+    qx[6, 10:20] = -np.inf                                # +inf distances
+    qx[7, 50:52] = np.inf                                 # -inf distances
+    return qx, qn, xn
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 64])
+@pytest.mark.parametrize("shape", ["n_odd", "row_offset", "special"])
+def test_knn_topk_edges_match_plain(cuda, k, shape):
+    """n % 4 != 0 (every row at its own alignment); rows that start 4
+    bytes past a 16-byte boundary, with xn at yet another alignment;
+    ties, NaN, zero and +-inf distances: bit-equal to the stable sort."""
+    rng = np.random.default_rng(25)
+    m = 37
+    if shape == "n_odd":
+        n = 4099
+        qx = torch.from_numpy(rng.integers(-3, 4, (m, n)).astype(np.float32))
+        qn = torch.from_numpy(rng.integers(0, 9, m).astype(np.float32))
+        xn = torch.from_numpy(rng.integers(0, 9, n).astype(np.float32))
+        qx, qn, xn = qx.to(cuda), qn.to(cuda), xn.to(cuda)
+    elif shape == "row_offset":
+        n = 4096
+        buf = torch.from_numpy(rng.standard_normal(m * n + 1).astype(np.float32)).to(cuda)
+        qx = buf[1:].view(m, n)
+        xbuf = torch.from_numpy(rng.standard_normal(n + 2).astype(np.float32)).to(cuda)
+        xn = xbuf[2:]
+        qn = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(cuda)
+        assert qx.data_ptr() % 16 == 4 and xn.data_ptr() % 16 == 8
+    else:
+        n = 4000
+        qx, qn, xn = (torch.from_numpy(a).to(cuda) for a in _knn_special(rng, m, n))
     before = K.LAUNCHES["knn_topk"]
     got = K.knn_topk(qx, qn, xn, k)
     assert K.LAUNCHES["knn_topk"] == before + 1

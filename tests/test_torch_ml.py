@@ -26,6 +26,7 @@ import flink_tpu.ml as jm
 import flink_tpu_torch.ml as tm
 from flink_tpu_torch import kernels as K
 from flink_tpu_torch.kernels.gram_accumulate import CHUNK_RATINGS, rating_csr
+from flink_tpu_torch.kernels.knn_topk import squared_distances
 from flink_tpu_torch.ml.pipeline import params_from_numpy
 
 EPS = float(np.finfo(np.float32).eps)
@@ -490,6 +491,35 @@ def test_knn_indices_equal_jax_with_ties(k, levels):
     np.testing.assert_array_equal(got, want)
     d2 = ((Q[:, None].astype(np.int64) - X[None].astype(np.int64)) ** 2).sum(-1)
     assert (np.diff(np.sort(d2, 1)[:, :k + 1], axis=1) == 0).any()   # real ties
+
+
+def _knn_special_points(rng):
+    """Training points and queries whose distances hold NaN of both
+    signs (a NaN coordinate; inf - inf), +-inf, -0 and +0, exact zeros
+    (queries equal to training points) and ties (repeated points)."""
+    X = rng.integers(-2, 3, (300, 6)).astype(np.float32)
+    Q = rng.integers(-2, 3, (60, 6)).astype(np.float32)
+    X[[3, 40, 41]] = X[3]
+    X[7, 2], X[8, 0], X[9] = np.inf, -np.inf, np.inf
+    X[10, 5], X[11, [1, 4]] = np.nan, [np.inf, -np.inf]
+    X[12], X[13, 3] = 0.0, -0.0
+    Q[:10] = X[[3, 7, 8, 9, 10, 11, 12, 13, 20, 21]]
+    Q[10, 1], Q[11], Q[12, 0], Q[13] = np.nan, np.inf, -np.inf, 0.0
+    Q[14, 2], Q[14, 3] = np.inf, 0.0
+    return X, Q
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 300])
+def test_knn_indices_equal_jax_with_nan_inf_and_zero_distances(k):
+    """The reference's lax.top_k(-d2) order over NaN, +-inf and signed
+    zero distances (k = 300: every point, the whole order)."""
+    X, Q = _knn_special_points(np.random.default_rng(0))
+    got = tm.KNN(k=k, **CPU).fit(X).kneighbors(Q)
+    want = jm.KNN(k=k).fit(X).kneighbors(Q)
+    np.testing.assert_array_equal(got, want)
+    Qt, Xt = torch.from_numpy(Q), torch.from_numpy(X)
+    d2 = squared_distances(Qt @ Xt.T, (Qt * Qt).sum(1), (Xt * Xt).sum(1)).numpy()
+    assert np.isnan(d2).any() and np.isinf(d2).any() and (d2 == 0).any()
 
 
 def test_knn_topk_plain_is_a_stable_sort():
