@@ -762,10 +762,90 @@ def lanes_np(vh: np.ndarray):
             (vh & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32))
 
 
+#: countmin_query at the heavy_hitters phase's layout: 2^19 queries into
+#: 100,000 live slots of a [2^18, 4, 2048] int32 table (8 GiB)
+CM_PATH = (1 << 18, 100_000, 1 << 19)
+
+
+def countmin_query_inputs(dev, rng, shape="entry", shift=0):
+    """countmin_query's inputs at a main-path shape, (table, slots, hi,
+    lo), the table filled by countmin_update.  ``entry``: 2^19 records
+    (weights 1-3) into [2^14, 4, 2048] int32 (512 MiB), and 2^20
+    queries, the records' own (slot, item) pairs and as many new ones.
+    ``path`` (``CM_PATH``): the heavy_hitters phase's layout, 2^19
+    records (60% from 8 heavy items, the rest from 10^5 tail items) into
+    100,000 live slots of [2^18, 4, 2048] (8 GiB), queried at the
+    records' pairs.  ``shift`` divides the counts by 2^shift (a rehearsal
+    on the CPU)."""
+    import torch
+    from flink_tpu_torch import kernels as K
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    D, W = 4, 2048
+    if shape == "entry":
+        S, N, Q = 1 << (14 - shift), 1 << (19 - shift), 1 << (20 - shift)
+        slots = rng.integers(0, S, Q).astype(np.int32)
+        items = rng.integers(0, 2**63, Q, dtype=np.int64)
+        weights = rng.integers(1, 4, N).astype(np.float32)
+    else:
+        S, live, N = (x >> shift for x in CM_PATH)
+        Q = N
+        slots = rng.choice(S, live, replace=False).astype(np.int32)[
+            rng.integers(0, live, N)]
+        items = np.where(rng.random(N) < 0.6, rng.integers(0, 8, N),
+                         rng.integers(8, 8 + 100_000, N))
+        weights = np.ones(N, np.float32)
+    hi, lo = (t(a) for a in lanes_np(splitmix64_np(items)))
+    qslots = t(slots)
+    table = torch.zeros((S, D, W), dtype=torch.int32, device=dev)
+    total = torch.zeros(S, dtype=torch.int32, device=dev)
+    K.countmin_update(table, total, qslots, t(weights), hi, lo, N)
+    return table, qslots, hi, lo
+
+
+def countmin_query_entry(dev, hbm, rng, shape, shift=0):
+    """countmin_query at a main-path shape (``countmin_query_inputs``)
+    held bit-equal to its plain version: (its entry of the kernels'
+    line, its detail), with the bound (4 B a distinct cell) and the
+    sector floor (32 B a distinct sector)."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.hashing import countmin_rows
+    table, qslots, qhi, qlo = countmin_query_inputs(dev, rng, shape, shift)
+    Q, (S, D, W) = len(qslots), table.shape
+    got = K.countmin_query(table, qslots, qhi, qlo)
+    want = K.countmin_query_plain(table, qslots, qhi, qlo)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"countmin_query at the {shape} shape bit-equal")
+    qs64 = qslots.to(torch.int64)
+    r = torch.arange(D, device=dev)[:, None]
+    qcols = countmin_rows(qhi, qlo, D, W).to(torch.int64)
+    flat = ((qs64[None, :] * D + r) * W + qcols).reshape(-1)
+    cells = int(torch.unique(flat).numel())
+    sectors = int(torch.unique(flat // 8).numel())
+    del flat
+    ms = cuda_ms(lambda: K.countmin_query(table, qslots, qhi, qlo))
+    plain = cuda_ms(lambda: K.countmin_query_plain(table, qslots, qhi, qlo))
+    lib = cuda_ms(lambda: table[qs64[None, :].expand(D, -1), r, qcols].amin(0))
+    b, by = bound(16 * Q + 4 * cells, 3 * D * Q, hbm)
+    entry = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                 max_abs_err=max_abs_err(got, want),
+                 sector_floor_ms=bound(16 * Q + 32 * sectors, 3 * D * Q, hbm)[0])
+    detail = {"kernel": "countmin_query", "shape": shape, "queries": Q,
+              "table": [S, D, W], "distinct_cells": cells,
+              "distinct_sectors": sectors, **entry,
+              "library": "advanced indexing + amin (columns precomputed)"}
+    del table, got, want
+    torch.cuda.empty_cache()
+    return entry, detail
+
+
 def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
-    """countmin_update, countmin_query, quantile_update and
-    quantile_result at the main paths' shapes, each against its plain
-    version on the card, with merge_rows at the sketch row widths
+    """countmin_update, countmin_query (also at the heavy_hitters
+    phase's layout), quantile_update and quantile_result at the main
+    paths' shapes, each against its plain version on the card, with
+    merge_rows at the sketch row widths
     (``shift`` > 0 divides every count by 2^shift, for a rehearsal on
     the CPU)."""
     import torch
@@ -821,31 +901,12 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
                    "distinct_sectors": sectors, "sector_floor_ms": floor,
                    "library": "index_put_ accumulate (indices precomputed)"})
 
-    # countmin_query: 2^20 queries, half of them items the table holds
-    Q = 1 << (20 - shift)
-    qslots = t(np.concatenate([slots.cpu().numpy(), rng.integers(0, S, Q - N)
-                               .astype(np.int32)]))
-    qvh = np.concatenate([vh, splitmix64_np(rng.integers(0, 2**63, Q - N,
-                                                         dtype=np.int64))])
-    qhi, qlo = (t(a) for a in lanes_np(qvh))
-    got = K.countmin_query(table, qslots, qhi, qlo)
-    want = K.countmin_query_plain(table, qslots, qhi, qlo)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "countmin_query estimates bit-equal")
-    qs64 = qslots.to(torch.int64)
-    qcols = countmin_rows(qhi, qlo, D, W).to(torch.int64)
-    qcells = int(torch.unique(((qs64[None, :] * D + r) * W + qcols)
-                              .reshape(-1)).numel())
-    ms = cuda_ms(lambda: K.countmin_query(table, qslots, qhi, qlo))
-    plain = cuda_ms(lambda: K.countmin_query_plain(table, qslots, qhi, qlo))
-    lib = cuda_ms(lambda: table[qs64[None, :].expand(D, -1), r, qcols].amin(0))
-    b, by = bound(16 * Q + 4 * qcells, 3 * D * Q, hbm)
-    entries["countmin_query"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                     bound_ms=b, bound_by=by,
-                                     max_abs_err=max_abs_err(got, want))
-    detail.append({"kernel": "countmin_query", "queries": Q,
-                   "distinct_cells": qcells,
-                   "library": "advanced indexing + amin (columns precomputed)"})
+    # countmin_query at its entry and at the heavy_hitters layout
+    for shape in ("entry", "path"):
+        entry, info = countmin_query_entry(dev, hbm, rng, shape, shift)
+        if shape == "entry":
+            entries["countmin_query"] = entry
+        detail.append(info)
 
     # merge_rows, int32 add at the session Count-Min row (32 KiB): 2^12
     # sources folded four to a target, against the plain version
@@ -869,7 +930,7 @@ def sketch_kernel_entries(dev, hbm, rng, entries, detail, shift=0):
                    "library": "index_add_ of the gathered source rows",
                    "bound_ms": bound(4 * m * (row + 8) + 2 * m * row, 0, hbm)[0],
                    "max_abs_err": err})
-    del table, total, rt, rtot, flat, w_rep, qcols
+    del table, total, rt, rtot, flat, w_rep
     torch.cuda.empty_cache()
 
     # quantile_update: 2^19 lognormal values into [2^22, B] int32 (3.5 GB)

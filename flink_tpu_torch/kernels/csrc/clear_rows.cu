@@ -34,7 +34,8 @@
 // of 64 words or more in a list shorter than that grid's warps (the
 // session path's few dozen 4 KiB rows), go a block a row instead, so a
 // short list still spreads over the card.  Slots outside [0, C) are
-// skipped.  On an H100 SXM (700 W) 2^18 random 4 KiB rows of a 5.12 GB
+// skipped (-1 is the port's skip mark; ops/slot_index.py).  On an H100
+// SXM (700 W) 2^18 random 4 KiB rows of a 5.12 GB
 // file take 0.347 ms, 92% of the bound, and the same slots sorted 0.325,
 // 99%: what the rest costs is the rows' random order over the file, not
 // the stores (scripts/kernel_probe.py).

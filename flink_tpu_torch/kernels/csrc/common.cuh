@@ -34,6 +34,17 @@ static inline int sm_count() {
   return cached[dev];
 }
 
+// The row a gather reads for int32 slot s of c >= 1 rows, by the
+// reference's index rule (numpy's, as JAX indexes): a negative slot wraps
+// once (s + c), then the row clamps into [0, c).  A slot in [0, c) takes
+// one unsigned compare.
+__device__ __forceinline__ long long ft_gather_row(int32_t s, long long c) {
+  const long long r = s;
+  if (static_cast<unsigned long long>(r) < static_cast<unsigned long long>(c)) return r;
+  if (r >= 0) return c - 1;
+  return r + c < 0 ? 0 : r + c;
+}
+
 #define FT_GRID_STRIDE(i, n)                                              \
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +    \
                      threadIdx.x;                                         \

@@ -31,8 +31,10 @@
 // 4 x 2048 the table passes 2^31 bytes.  The weight converts with
 // __float2int_rz (toward zero, saturating, NaN -> 0), as XLA's convert
 // does; a record of weight 0 adds nothing and is skipped.  Records at or
-// beyond n, and slots outside [0, C), write nothing, as the reference's
-// mask and XLA's out-of-bounds scatter drop them.
+// beyond n write nothing, as the reference's mask drops them, and so do
+// slots outside [0, C): -1 is the port's skip mark.  XLA's scatter would
+// wrap a slot in [-C, -1] to s + C and drop only the rest; the
+// reference's callers mask negative slots first (ops/slot_index.py).
 #include "common.cuh"
 
 #define CM_THREADS 256

@@ -17,12 +17,14 @@
 // a warp reads 512 contiguous bytes), build 2^-r from exponent bits
 // without a transcendental, and keep a float sum and an int zero count
 // in registers; a warp-shuffle then shared-memory reduction combines
-// them, and thread 0 applies the estimator.  One kernel serves the
-// dense form (slots == nullptr: rows 0 .. S of the given file, which
-// may be a row slice of a larger one) and the
-// gathered form (row = slots[b], clamped into [0, C) as XLA's gather
-// clamps).  The reduction order differs from XLA's, so results agree
-// to float32 rounding (held at rtol 1e-5), not bit for bit.  The
+// them, and thread 0 applies the estimator.  One kernel, compiled for
+// each form (no branch on the form in the block), serves the dense form
+// (slots == nullptr: rows 0 .. S of the given file, which may be a row
+// slice of a larger one) and the gathered form (row = slots[b]: a
+// negative slot wraps once to s + C, then the row clamps into [0, C),
+// the reference's index rule, ft_gather_row).  The reduction order
+// differs from XLA's, so results agree to float32 rounding (held at
+// rtol 1e-5), not bit for bit.  The
 // linear-counting logs are correctly rounded float32 values; XLA's
 // float32 log of some integers is one ulp off, which the tests against
 // the JAX package allow for (see tests/torch_port_util.py).
@@ -38,18 +40,15 @@ __device__ __forceinline__ void accumulate_word(unsigned int w, float& s,
   }
 }
 
+// kGathered: row = slots[b] by the index rule; otherwise row b
+template <bool kGathered>
 __global__ void hll_estimate_kernel(const uint8_t* __restrict__ regs,
                                     const int32_t* __restrict__ slots,
                                     long long m,
                                     long long capacity, float alpha_m2,
                                     float* __restrict__ out) {
-  long long row;
-  if (slots != nullptr) {
-    row = slots[blockIdx.x];
-    row = row < 0 ? 0 : (row >= capacity ? capacity - 1 : row);
-  } else {
-    row = static_cast<long long>(blockIdx.x);
-  }
+  const long long row = kGathered ? ft_gather_row(slots[blockIdx.x], capacity)
+                                  : static_cast<long long>(blockIdx.x);
   const uint4* p = reinterpret_cast<const uint4*>(regs + row * m);
   const long long nvec = m / 16;
   float s = 0.0f;
@@ -111,8 +110,10 @@ extern "C" int ft_hll_estimate(const void* regs, const void* slots,
     long long t = m / 16;
     int threads = t >= 256 ? 256 : (t <= 32 ? 32 : static_cast<int>(t));
     threads = (threads + 31) / 32 * 32;
-    hll_estimate_kernel<<<static_cast<unsigned int>(rows), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    auto kernel =
+        slots != nullptr ? hll_estimate_kernel<true> : hll_estimate_kernel<false>;
+    kernel<<<static_cast<unsigned int>(rows), threads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(regs),
         static_cast<const int32_t*>(slots), m, capacity, alpha_m2,
         static_cast<float*>(out));

@@ -33,9 +33,12 @@
 // cost one load.  A row that loses a CAS to another row retries from the
 // word the CAS returned.  Addressing is 64-bit ((int64)slot * m + reg):
 // at 1.25M slots x 4096 registers the file is 5.12e9 bytes, past 2^31.
-// Rows at or beyond n, rank-0 rows and slots outside [0, C) write
-// nothing, as the reference's mask and XLA's out-of-bounds scatter drop
-// them.  Max is order-free, so the result is bit-equal to the reference.
+// Rows at or beyond n and rank-0 rows write nothing, as the reference's
+// mask drops them, and so do slots outside [0, C): -1 is the port's skip
+// mark.  XLA's scatter would wrap a slot in [-C, -1] to s + C and drop
+// only the rest; the reference's callers mask negative slots first
+// (ops/slot_index.py).  Max is order-free, so the result is bit-equal
+// to the reference.
 #include "common.cuh"
 
 #define HU_THREADS 256

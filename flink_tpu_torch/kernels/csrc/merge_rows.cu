@@ -52,7 +52,9 @@
 // adds wrap, as XLA's do.  Float adds with a repeated dst run in an
 // order that changes from run to run.  Addressing is 64-bit
 // ((int64)slot * row_words): at 2^20 slots x 4096 B the file is past
-// 2^31 bytes.  Pairs with a slot outside [0, C) are skipped.
+// 2^31 bytes.  Pairs with a slot outside [0, C) are skipped: -1 is the
+// port's skip mark, where XLA's scatter and gather would wrap a slot in
+// [-C, -1] to s + C (ops/slot_index.py).
 #include "common.cuh"
 #include "float_order.cuh"
 

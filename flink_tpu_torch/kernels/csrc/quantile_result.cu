@@ -43,9 +43,10 @@
 // reference's formula); the kernel indexes it, so its values are
 // bit-equal to the plain version's.  Dense form (slots == nullptr): rows
 // 0 .. S of the given file, which may be a row slice of a larger one;
-// gathered form: row = slots[i], clamped into [0, C) as XLA's gather
-// clamps.  Rows too wide for QR_BLOCK_WARPS rings of QR_STAGES buffers
-// in a block's shared memory (~4,470 buckets on this card) are scanned
+// gathered form: row = slots[i], a negative slot wrapped once to s + C,
+// then clamped into [0, C) (the reference's index rule, ft_gather_row).
+// Rows too wide for QR_BLOCK_WARPS rings of QR_STAGES buffers in a
+// block's shared memory (~4,470 buckets on this card) are scanned
 // from global memory by the same warp routine, 8 warps a block: there a
 // staged block of fewer warps is slower (1.05x at 5,183 buckets, 2.6x at
 // 10,364).  Addressing is 64-bit.
@@ -70,11 +71,11 @@ __device__ __forceinline__ void qr_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+template <bool kGathered>
 __device__ __forceinline__ long long qr_row_index(const int32_t* __restrict__ slots,
                                                   long long i, long long capacity) {
-  if (slots == nullptr) return i;
-  long long row = slots[i];
-  return row < 0 ? 0 : (row >= capacity ? capacity - 1 : row);
+  if constexpr (kGathered) return ft_gather_row(slots[i], capacity);
+  return i;
 }
 
 __device__ __forceinline__ unsigned qr_smem(const void* p) {
@@ -215,7 +216,7 @@ __device__ __forceinline__ void qr_load_qs(float (&q)[QM], const float* __restri
   for (int k = 0; k < QM; ++k) q[k] = k < nq ? qs[k] : 0.0f;
 }
 
-template <int QM>
+template <int QM, bool kGathered>
 __global__ void __launch_bounds__(QR_BLOCK_WARPS * 32)
 quantile_result_staged(const int32_t* __restrict__ hist,
                        const int32_t* __restrict__ slots, long long rows,
@@ -255,12 +256,12 @@ quantile_result_staged(const int32_t* __restrict__ hist,
       const long long first = g * span_rows;
       const int n = static_cast<int>(min(static_cast<long long>(span_rows), rows - first));
       if (lane == 0) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      if (slots == nullptr) {
+      if constexpr (!kGathered) {
         qr_copy_span(st, reinterpret_cast<const unsigned char*>(hist + first * buckets),
                      n * nbytes, bars + stage, lane);
       } else {
         for (int r = 0; r < n; ++r) {
-          const long long row = qr_row_index(slots, first + r, capacity);
+          const long long row = qr_row_index<true>(slots, first + r, capacity);
           qr_copy_span(st + r * row_stride,
                        reinterpret_cast<const unsigned char*>(hist + row * buckets),
                        nbytes, bars + stage, lane);
@@ -289,10 +290,10 @@ quantile_result_staged(const int32_t* __restrict__ hist,
     for (int r = 0; r < n; ++r) {
       const long long i = first + r;
       const unsigned char* row;
-      if (slots == nullptr) {
+      if constexpr (!kGathered) {
         row = st + dense_shift + r * nbytes;
       } else {
-        const long long at = qr_row_index(slots, i, capacity);
+        const long long at = qr_row_index<true>(slots, i, capacity);
         row = st + r * row_stride + (reinterpret_cast<uintptr_t>(hist + at * buckets) & 15);
       }
       qr_scan_row<QM>(reinterpret_cast<const int32_t*>(row), buckets, seg, q, nq, values,
@@ -303,7 +304,7 @@ quantile_result_staged(const int32_t* __restrict__ hist,
   qr_wait<0>();
 }
 
-template <int QM>
+template <int QM, bool kGathered>
 __global__ void __launch_bounds__(QR_THREADS)
 quantile_result_global(const int32_t* __restrict__ hist,
                        const int32_t* __restrict__ slots, long long rows,
@@ -317,13 +318,13 @@ quantile_result_global(const int32_t* __restrict__ hist,
   const long long stride = static_cast<long long>(gridDim.x) * QR_WARPS;
   for (long long i = static_cast<long long>(blockIdx.x) * QR_WARPS + (threadIdx.x >> 5);
        i < rows; i += stride) {
-    const long long row = qr_row_index(slots, i, capacity);
+    const long long row = qr_row_index<kGathered>(slots, i, capacity);
     qr_scan_row<QM>(hist + row * buckets, buckets, seg, q, nq, bucket_val,
                     out + i * nq, lane);
   }
 }
 
-template <int QM>
+template <int QM, bool kGathered>
 static int qr_launch(const int32_t* hist, const int32_t* slots, long long rows,
                      int buckets, long long capacity, const float* qs, int nq,
                      const float* bucket_val, float* out, cudaStream_t stream) {
@@ -342,10 +343,10 @@ static int qr_launch(const int32_t* hist, const int32_t* slots, long long rows,
     int optin = 0;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(quantile_result_staged<QM>,
+    err = cudaFuncSetAttribute(quantile_result_staged<QM, kGathered>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(quantile_result_staged<QM>,
+    err = cudaFuncSetAttribute(quantile_result_staged<QM, kGathered>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -365,7 +366,7 @@ static int qr_launch(const int32_t* hist, const int32_t* slots, long long rows,
     if (shape_of[dev] != shape) {
       int per_sm = 0;
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, quantile_result_staged<QM>, threads, bytes);
+          &per_sm, quantile_result_staged<QM, kGathered>, threads, bytes);
       if (err != cudaSuccess) return static_cast<int>(err);
       per_sm_of[dev] = per_sm < 1 ? 1 : per_sm;
       shape_of[dev] = shape;
@@ -373,19 +374,30 @@ static int qr_launch(const int32_t* hist, const int32_t* slots, long long rows,
     const long long spans = (rows + span_rows - 1) / span_rows;
     long long blocks = static_cast<long long>(sm_count()) * per_sm_of[dev];
     if (blocks > (spans + warps - 1) / warps) blocks = (spans + warps - 1) / warps;
-    quantile_result_staged<QM><<<static_cast<unsigned int>(blocks), threads, bytes,
-                                 stream>>>(hist, slots, rows, buckets, capacity, seg,
-                                           span_rows, row_stride, qs, nq, bucket_val,
-                                           out);
+    quantile_result_staged<QM, kGathered>
+        <<<static_cast<unsigned int>(blocks), threads, bytes, stream>>>(
+            hist, slots, rows, buckets, capacity, seg, span_rows, row_stride, qs, nq,
+            bucket_val, out);
   } else {
     long long blocks = (rows + QR_WARPS - 1) / QR_WARPS;
     const long long cap = static_cast<long long>(sm_count()) * 16;
     if (blocks > cap) blocks = cap;
-    quantile_result_global<QM><<<static_cast<unsigned int>(blocks), QR_THREADS, 0,
-                                 stream>>>(hist, slots, rows, buckets, capacity, seg,
-                                           qs, nq, bucket_val, out);
+    quantile_result_global<QM, kGathered>
+        <<<static_cast<unsigned int>(blocks), QR_THREADS, 0, stream>>>(
+            hist, slots, rows, buckets, capacity, seg, qs, nq, bucket_val, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// each form (dense, gathered) is compiled apart: no branch on it per row
+template <bool kGathered>
+static int qr_by_q(const int32_t* h, const int32_t* sl, long long rows, int b,
+                   long long capacity, const float* q, int nq, const float* bv,
+                   float* o, cudaStream_t st) {
+  if (nq <= 2) return qr_launch<2, kGathered>(h, sl, rows, b, capacity, q, nq, bv, o, st);
+  if (nq <= 4) return qr_launch<4, kGathered>(h, sl, rows, b, capacity, q, nq, bv, o, st);
+  if (nq <= 8) return qr_launch<8, kGathered>(h, sl, rows, b, capacity, q, nq, bv, o, st);
+  return qr_launch<16, kGathered>(h, sl, rows, b, capacity, q, nq, bv, o, st);
 }
 
 extern "C" int ft_quantile_result(const void* hist, const void* slots,
@@ -403,8 +415,6 @@ extern "C" int ft_quantile_result(const void* hist, const void* slots,
   auto* o = static_cast<float*>(out);
   auto* st = static_cast<cudaStream_t>(stream);
   const int b = static_cast<int>(buckets);
-  if (nq <= 2) return qr_launch<2>(h, sl, rows, b, capacity, q, nq, bv, o, st);
-  if (nq <= 4) return qr_launch<4>(h, sl, rows, b, capacity, q, nq, bv, o, st);
-  if (nq <= 8) return qr_launch<8>(h, sl, rows, b, capacity, q, nq, bv, o, st);
-  return qr_launch<16>(h, sl, rows, b, capacity, q, nq, bv, o, st);
+  return sl != nullptr ? qr_by_q<true>(h, sl, rows, b, capacity, q, nq, bv, o, st)
+                       : qr_by_q<false>(h, sl, rows, b, capacity, q, nq, bv, o, st);
 }

@@ -22,7 +22,9 @@
 // 64-bit arithmetic.  max() keeps a NaN value NaN, as jnp.maximum and
 // torch.maximum do (fmaxf would not).  Addressing is 64-bit: at 2^22
 // slots of 209 buckets the file passes 2^31 bytes.  Records at or
-// beyond n, and slots outside [0, C), write nothing.
+// beyond n, and slots outside [0, C), write nothing (-1 is the port's
+// skip mark; XLA's scatter would wrap a slot in [-C, -1] to s + C, but
+// the reference's callers mask negative slots first: ops/slot_index.py).
 #include "common.cuh"
 
 __global__ void quantile_update_kernel(int32_t* __restrict__ hist,

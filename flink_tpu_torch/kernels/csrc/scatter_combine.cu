@@ -19,8 +19,10 @@
 // walking the rows in a grid-stride loop.  Rows before the first
 // 16-byte-aligned row and after the last full group of 4 go one per
 // thread; a values column whose alignment differs from the slots' goes one
-// row per thread throughout.  Slots outside [0, C) are dropped, as XLA
-// drops out-of-bounds scatter rows.
+// row per thread throughout.  Slots outside [0, C) are dropped: -1 is
+// the port's skip mark.  XLA's scatter would wrap a slot in [-C, -1] to
+// s + C and drop only the rest; the reference's callers mask negative
+// slots first (ops/slot_index.py).
 //
 // What limits it is the L2's atomics, not bytes: add issues one atomicAdd
 // per row.  Min and max first load the 8 rows' state words (L2 loads, in

@@ -16,8 +16,10 @@
 // alignment of both buffers, so a 4096-byte HLL row is 256 16-byte
 // loads and stores; a grid-stride loop maps a flat index to (row,
 // word), consecutive threads on consecutive words.  Slots outside
-// [0, C) are skipped.  With a repeated slot the last writer is
-// unspecified, as .at[].set leaves it; the backend's slots are unique.
+// [0, C) are skipped (-1 is the port's skip mark; XLA's .at[].set would
+// wrap a slot in [-C, -1] to s + C: ops/slot_index.py).  With a
+// repeated slot the last writer is unspecified, as .at[].set leaves it;
+// the backend's slots are unique.
 #include "common.cuh"
 
 template <typename W>

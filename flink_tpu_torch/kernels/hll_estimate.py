@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.kernels import loader
+from flink_tpu_torch.ops.slot_index import gather_rows
 
 #: rows per tile of the plain version (x m float32 + int32 intermediates)
 PLAIN_TILE = 1 << 16
@@ -31,8 +32,9 @@ def alpha_m2(alpha: float, m: int) -> float:
 
 def hll_estimate(regs: torch.Tensor, alpha: float,
                  slots: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """float32 estimate per row: rows ``slots`` (gathered form) or
-    every row of ``regs`` (dense form)."""
+    """float32 estimate per row: rows ``slots`` (gathered form; a
+    negative slot wraps once, then clamps, as ``ops.slot_index`` says)
+    or every row of ``regs`` (dense form)."""
     if regs.device.type == "cpu":
         return hll_estimate_plain(regs, alpha, slots)
     dev = regs.device
@@ -47,6 +49,8 @@ def hll_estimate(regs: torch.Tensor, alpha: float,
     if regs.data_ptr() % 16:
         raise ValueError("regs must be 16-byte aligned")
     rows = c if slots is None else len(slots)
+    if rows and c == 0:
+        raise ValueError("slots into a file of no rows")
     out = torch.empty(rows, dtype=torch.float32, device=dev)
     if rows == 0:
         return out
@@ -71,8 +75,7 @@ def hll_estimate_plain(regs: torch.Tensor, alpha: float,
         if slots is None:
             r = regs[i:j]
         else:
-            idx = slots[i:j].to(torch.int64).clamp(0, regs.shape[0] - 1)
-            r = regs[idx]
+            r = regs[gather_rows(slots[i:j], regs.shape[0])]
         r = r.to(torch.int32)
         inv = ((127 - r) << 23).view(torch.float32)
         est = am2 / inv.sum(dim=-1)

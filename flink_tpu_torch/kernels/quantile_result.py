@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from flink_tpu_torch.kernels import loader
+from flink_tpu_torch.ops.slot_index import gather_rows
 
 #: rows per tile of the plain version
 PLAIN_TILE = 1 << 16
@@ -27,10 +28,11 @@ MAX_Q = 16
 def quantile_result(hist: torch.Tensor, qs: torch.Tensor,
                     bucket_val: torch.Tensor,
                     slots: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """float32 ``[rows, Q]``: for each row (``slots``, or every row of
-    ``hist``) and quantile ``qs[k]``, ``bucket_val`` at the first bucket
-    whose cumulative count reaches ``max(qs[k] * total, 1)``, or
-    ``bucket_val[0]`` when none does (an empty row)."""
+    """float32 ``[rows, Q]``: for each row (``slots``, read by
+    ``ops.slot_index``'s rule, or every row of ``hist``) and quantile
+    ``qs[k]``, ``bucket_val`` at the first bucket whose cumulative count
+    reaches ``max(qs[k] * total, 1)``, or ``bucket_val[0]`` when none
+    does (an empty row)."""
     if hist.device.type == "cpu":
         return quantile_result_plain(hist, qs, bucket_val, slots)
     dev = hist.device
@@ -46,6 +48,8 @@ def quantile_result(hist: torch.Tensor, qs: torch.Tensor,
     if slots is not None:
         loader.check(slots, "slots", (torch.int32,), dev, ndim=1)
     rows = c if slots is None else len(slots)
+    if rows and c == 0:
+        raise ValueError("slots into a file of no rows")
     out = torch.empty((rows, nq), dtype=torch.float32, device=dev)
     if rows:
         loader.launch("quantile_result", "ft_quantile_result", hist.data_ptr(),
@@ -66,7 +70,7 @@ def quantile_result_plain(hist: torch.Tensor, qs: torch.Tensor,
         if slots is None:
             h = hist[i:j]
         else:
-            h = hist[slots[i:j].to(torch.int64).clamp(0, c - 1)]
+            h = hist[gather_rows(slots[i:j], c)]
         cum = torch.cumsum(h.to(torch.float32), dim=-1)
         total = cum[:, -1:]
         for k in range(len(qs)):

@@ -36,6 +36,7 @@ from flink_tpu_torch.core.functions import AggregateFunction
 from flink_tpu_torch.core.keygroups import stable_hash64
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.kernels import clear_rows, merge_rows_many, scatter_combine
+from flink_tpu_torch.ops.slot_index import torch_index
 
 State = Dict[str, torch.Tensor]
 
@@ -158,11 +159,14 @@ class DeviceAggregateFunction(AggregateFunction):
         beyond ``n`` contribute nothing — the reference's
         ``arange < n`` mask); returns ``state``.  slots: int32 [N];
         values: [N] of the state's device dtype; vh_hi/vh_lo: value
-        hash lanes, or whatever ``compress_value_hash`` returned."""
+        hash lanes, or whatever ``compress_value_hash`` returned.  A
+        slot outside ``[0, C)`` writes nothing (-1 is the engines' skip
+        mark; see ``ops.slot_index``)."""
 
     @abc.abstractmethod
     def result(self, state: State, slots: torch.Tensor) -> torch.Tensor:
-        """Finalize the rows ``slots`` (int32)."""
+        """Finalize the rows ``slots`` (int32), read by the reference's
+        index rule (``ops.slot_index``: -1 is the last row)."""
 
     def result_dense(self, state: State) -> torch.Tensor:
         """Finalize every row of a (possibly sliced) state block."""
@@ -180,7 +184,8 @@ class DeviceAggregateFunction(AggregateFunction):
         """In place: ``state[dst] ⊕= state[src]`` per component (its
         ``combiners`` op), a dst may repeat — the session-window
         namespace merge.  No src may also be a dst (see
-        ``kernels.merge_rows``)."""
+        ``kernels.merge_rows``); a pair with a slot outside ``[0, C)``
+        is skipped."""
         return self._merge(state, dst, src, unique_dst=False)
 
     def merge_rows(self, state: State, dst: torch.Tensor,
@@ -296,7 +301,7 @@ class SumAggregate(DeviceAggregateFunction):
         return state
 
     def result(self, state, slots):
-        return state["sum"][slots.to(torch.int64)]
+        return state["sum"][torch_index(slots, state["sum"].shape[0])]
 
     def result_dense(self, state):
         return state["sum"]
@@ -313,7 +318,7 @@ class CountAggregate(DeviceAggregateFunction):
         return state
 
     def result(self, state, slots):
-        return state["count"][slots.to(torch.int64)]
+        return state["count"][torch_index(slots, state["count"].shape[0])]
 
     def result_dense(self, state):
         return state["count"]
@@ -338,7 +343,7 @@ class MinAggregate(DeviceAggregateFunction):
         return state
 
     def result(self, state, slots):
-        return state["min"][slots.to(torch.int64)]
+        return state["min"][torch_index(slots, state["min"].shape[0])]
 
 
 class MaxAggregate(DeviceAggregateFunction):
@@ -360,7 +365,7 @@ class MaxAggregate(DeviceAggregateFunction):
         return state
 
     def result(self, state, slots):
-        return state["max"][slots.to(torch.int64)]
+        return state["max"][torch_index(slots, state["max"].shape[0])]
 
 
 class AvgAggregate(DeviceAggregateFunction):
@@ -378,6 +383,6 @@ class AvgAggregate(DeviceAggregateFunction):
         return state
 
     def result(self, state, slots):
-        idx = slots.to(torch.int64)
+        idx = torch_index(slots, state["count"].shape[0])
         cnt = state["count"][idx]
         return state["sum"][idx] / torch.clamp(cnt, min=1).to(torch.float32)

@@ -31,6 +31,7 @@ from flink_tpu_torch.kernels import (countmin_query, countmin_update,
                                      hll_estimate, hll_update,
                                      quantile_result, quantile_update)
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction, StateSpec
+from flink_tpu_torch.ops.slot_index import torch_index
 
 
 class HyperLogLogAggregate(DeviceAggregateFunction):
@@ -116,7 +117,7 @@ class CountMinSketchAggregate(DeviceAggregateFunction):
         return state
 
     def result(self, state, slots):
-        return state["total"][slots.to(torch.int64)]
+        return state["total"][torch_index(slots, state["total"].shape[0])]
 
     def result_dense(self, state):
         return state["total"]

@@ -81,6 +81,16 @@ same in every turn.  ``--kernels`` picks the groups (default: all):
   without a synchronisation, the least of 5 loops);
 - ``knn_topk`` at ``chip_smoke.ml_kernel_entries``' MNIST shape (10,000
   queries, 60,000 points) for k = 3 (the entry), 1, 16 and 64.
+- ``countmin_query`` at ``chip_smoke.countmin_query_inputs``' two
+  shapes: the entry (2^20 queries into a [2^14, 4, 2048] int32 table)
+  and the heavy_hitters phase's layout (2^19 queries into 100,000 live
+  slots of [2^18, 4, 2048], 8 GiB), a run of 50, and the host
+  microseconds a call (``host_us``).
+- ``result_gather``: the aggregates' ``result`` at 2^18 slots of a
+  1.25M-slot state (``chip_smoke.kernel_phase``'s rows): Sum (float32)
+  and Avg, which are tensor indexing and no kernel, and HLL at p = 12
+  (the gathered ``hll_estimate`` over 5.12 GB of registers), a run of
+  200, and ``host_us``.
 
 Most entries also get ``_split``: the device ms of each kernel per
 call, from a ``torch.profiler`` trace of 10 calls
@@ -115,7 +125,7 @@ def _chip_smoke():
 GROUPS = ("shard_pack", "gather_segment_sum", "scatter_combine", "chain_route",
           "clear_rows", "hll_update", "countmin_update", "table_insert",
           "quantile_result", "gram_accumulate", "edge_popcount", "merge_rows",
-          "hll_log_finish", "knn_topk")
+          "hll_log_finish", "knn_topk", "countmin_query", "result_gather")
 
 
 def worker(root: str, groups) -> dict:
@@ -124,7 +134,7 @@ def worker(root: str, groups) -> dict:
     from flink_tpu_torch import kernels as K
     cs = _chip_smoke()
     dev = torch.device("cuda", 0)
-    K.build_all(groups)
+    K.build_all([g for g in groups if g in K.KERNELS])
 
     out = {"root": root, "package": K.__file__,
            "device": torch.cuda.get_device_name(0),
@@ -568,13 +578,49 @@ def _knn_topk(K, cs, dev, out, splits):
             splits[name + "_split"] = fn
 
 
+def _countmin_query(K, cs, dev, out, splits):
+    import torch
+    for shape in ("entry", "path"):
+        table, slots, hi, lo = cs.countmin_query_inputs(dev, np.random.default_rng(43),
+                                                        shape)
+        name = f"countmin_query_{shape}"
+
+        def fn(t=table, s=slots, h=hi, l_=lo):
+            return K.countmin_query(t, s, h, l_)
+        out[name] = {"ms": cs.cuda_ms(fn, 50), "host_us": _host_us(fn),
+                     "queries": len(slots), "table": list(table.shape),
+                     "bit_equal_to_plain": bool(torch.equal(
+                         fn(), K.countmin_query_plain(table, slots, hi, lo)))}
+        splits[name + "_split"] = fn
+
+
+def _result_gather(K, cs, dev, out, splits):
+    import torch
+    from flink_tpu_torch.ops.device_agg import AvgAggregate, SumAggregate
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    rng = np.random.default_rng(11)
+    C = 1_250_000
+    fired = torch.from_numpy(rng.integers(0, C, 1 << 18).astype(np.int32)).to(dev)
+    for agg in (SumAggregate(np.float32), AvgAggregate(), HyperLogLogAggregate(12)):
+        st = agg.init_state(C, device=dev)
+        name = f"result_gather_{type(agg).__name__}"
+        reps = 20 if isinstance(agg, HyperLogLogAggregate) else 200
+
+        def fn(agg=agg, st=st):
+            return agg.result(st, fired)
+        out[name] = {"ms": cs.cuda_ms(fn, reps), "host_us": _host_us(fn, reps)}
+        splits[name + "_split"] = fn
+        del st
+
+
 GROUP_FNS = {"shard_pack": _shard_pack, "gather_segment_sum": _gather_segment_sum,
              "scatter_combine": _scatter_combine, "chain_route": _chain_route,
              "clear_rows": _clear_rows, "hll_update": _hll_update,
              "countmin_update": _countmin_update, "table_insert": _table_insert,
              "quantile_result": _quantile_result, "gram_accumulate": _gram_accumulate,
              "edge_popcount": _edge_popcount, "merge_rows": _merge_rows,
-             "hll_log_finish": _hll_log_finish, "knn_topk": _knn_topk}
+             "hll_log_finish": _hll_log_finish, "knn_topk": _knn_topk,
+             "countmin_query": _countmin_query, "result_gather": _result_gather}
 
 
 def _old_chain_launch(cols, keep, key=None, num_channels=0, max_parallelism=0,

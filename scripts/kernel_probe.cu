@@ -63,7 +63,31 @@
 //   (the memory's rate for the same random words without the L2's
 //   atomics; races lose counts, nothing reads them); variant 2 reads the
 //   slot and the value only (the inputs' stream).
+// - ft_probe_countmin_query: countmin_query at depth 4 and a
+//   power-of-two width in a form picked by `form`: 0 = the design
+//   before (a thread a query, a run-time depth loop, a modulo, __ldg);
+//   2 = the kernel's own cmq_launch (2 a thread, a pair a thread);
+//   1, 4, 8 = copies of it (pb_cmq_kernel) with that many queries a
+//   thread (inputs in loads of up to 4 words), a group a thread; 12 = 2
+//   a thread with cached loads (__ldg) in place of L1::no_allocate;
+//   101, 102, 104 = 1, 2, 4 a thread on a grid capped at what the SMs
+//   hold at the kernel's occupancy.
+// - ft_probe_cmq_gathers: countmin_query's floor, its gathers alone: a
+//   thread a query loads its 4 cells at flat int64 indices made
+//   beforehand ([q, 4], 32 B a query), all four in flight, and stores
+//   their min.  Given the indices sorted, the same gathers in ascending
+//   address order (what DRAM page locality would be worth).
+// - ft_probe_cmq_inputs: countmin_query's inputs alone, its 12 B a
+//   query read as a stream (16-byte loads) and 4 B a query written.
+// - ft_probe_hll_gathered: hll_estimate's gathered form (a block a
+//   row) with the slot's row computed by one of five rules: 0 = the
+//   clamp into [0, C) of the design before (slot -1 read row 0), 1 = a
+//   negative slot wrapped once, then clamped, in 64 bits, 2 = the
+//   kernels' ft_gather_row, 3 = the wrap and clamp in 32 bits by a
+//   select, 4 = the same by the slot's sign mask (3 and 4 hold below
+//   2^31 rows only).
 #include "../flink_tpu_torch/kernels/csrc/clear_rows.cu"
+#include "../flink_tpu_torch/kernels/csrc/countmin_query.cu"
 #include "../flink_tpu_torch/kernels/csrc/countmin_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/hll_update.cu"
 #include "../flink_tpu_torch/kernels/csrc/table_insert.cu"
@@ -413,8 +437,14 @@ static int probe_quantile_global(const int32_t* hist, const int32_t* slots,
   long long blocks = (rows + QR_WARPS - 1) / QR_WARPS;
   const long long cap = static_cast<long long>(sm_count()) * 16;
   if (blocks > cap) blocks = cap;
-  quantile_result_global<QM><<<static_cast<unsigned int>(blocks), QR_THREADS, 0, s>>>(
-      hist, slots, rows, buckets, capacity, seg, qs, nq, bv, out);
+  if (slots != nullptr)
+    quantile_result_global<QM, true><<<static_cast<unsigned int>(blocks), QR_THREADS, 0,
+                                        s>>>(hist, slots, rows, buckets, capacity, seg, qs,
+                                             nq, bv, out);
+  else
+    quantile_result_global<QM, false><<<static_cast<unsigned int>(blocks), QR_THREADS, 0,
+                                         s>>>(hist, slots, rows, buckets, capacity, seg, qs,
+                                              nq, bv, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -776,5 +806,346 @@ extern "C" int ft_probe_hll_finish_parts(const void* ranks, const void* ends,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PH_PARTS
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// countmin_query as it was before its redesign
+__global__ void probe_cmq_old(const int32_t* __restrict__ table,
+                              const int32_t* __restrict__ slots,
+                              const uint32_t* __restrict__ hi,
+                              const uint32_t* __restrict__ lo, long long q,
+                              int depth, long long width, long long capacity,
+                              int32_t* __restrict__ out) {
+  FT_GRID_STRIDE(i, q) {
+    long long slot = slots[i];
+    slot = slot < 0 ? 0 : (slot >= capacity ? capacity - 1 : slot);
+    const uint32_t h_hi = hi[i];
+    const uint32_t h_lo = lo[i];
+    const int32_t* row = table + slot * depth * width;
+    int32_t best = 0;
+    for (int r = 0; r < depth; ++r) {
+      const uint32_t h = h_lo + static_cast<uint32_t>(r) * h_hi;
+      const int32_t v =
+          __ldg(row + r * width + static_cast<long long>(h % static_cast<uint32_t>(width)));
+      best = r == 0 ? v : min(best, v);
+    }
+    out[i] = best;
+  }
+}
+
+// countmin_query's forms measured and not kept, copies of the kernel at
+// depth 4 and a power-of-two width: PER queries a thread (1, 2, 4 or 8;
+// inputs in loads of up to 4 words), the gathers cached (__ldg) or not
+// (kNoAlloc: L1::no_allocate, the kernel's own), on a grid of a group a
+// thread or capped at what the SMs hold at the kernel's occupancy (CAP).
+#define PB_CMQ_VEC(PER) ((PER) >= 4 ? 4 : (PER))
+
+template <int V, typename T>
+__device__ __forceinline__ void pb_cmq_vload(const T* p, T* dst) {
+  if constexpr (V == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    dst[0] = static_cast<T>(v.x); dst[1] = static_cast<T>(v.y);
+    dst[2] = static_cast<T>(v.z); dst[3] = static_cast<T>(v.w);
+  } else if constexpr (V == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    dst[0] = static_cast<T>(v.x); dst[1] = static_cast<T>(v.y);
+  } else {
+    dst[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void pb_cmq_vstore(int32_t* p, const int32_t* src) {
+  if constexpr (V == 4)
+    *reinterpret_cast<int4*>(p) = make_int4(src[0], src[1], src[2], src[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<int2*>(p) = make_int2(src[0], src[1]);
+  else
+    *p = src[0];
+}
+
+// queries [b, b + PER) a thread, as the kernel's pairs
+template <int PER, bool kNoAlloc>
+__global__ void __launch_bounds__(CMQ_THREADS)
+pb_cmq_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ slots,
+              const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
+              long long q, uint32_t width, long long capacity,
+              int32_t* __restrict__ out, int shift, bool vec, bool vec_out) {
+  constexpr int V = PB_CMQ_VEC(PER), D = 4;
+  const long long groups = (q + shift + PER - 1) / PER;
+  for (long long g = static_cast<long long>(blockIdx.x) * CMQ_THREADS + threadIdx.x;
+       g < groups; g += static_cast<long long>(gridDim.x) * CMQ_THREADS) {
+    const long long b = g * PER - shift;
+    const bool whole = vec && b >= 0 && b + PER <= q;
+    int32_t s[PER];
+    uint32_t h1[PER], h0[PER];
+    bool ok[PER];
+    if (whole) {
+#pragma unroll
+      for (int k = 0; k < PER; k += V) {
+        pb_cmq_vload<V>(slots + b + k, s + k);
+        pb_cmq_vload<V>(hi + b + k, h1 + k);
+        pb_cmq_vload<V>(lo + b + k, h0 + k);
+      }
+#pragma unroll
+      for (int k = 0; k < PER; ++k) ok[k] = true;
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const long long i = b + k;
+        ok[k] = i >= 0 && i < q;
+        s[k] = ok[k] ? slots[i] : 0;
+        h1[k] = ok[k] ? hi[i] : 0u;
+        h0[k] = ok[k] ? lo[i] : 0u;
+      }
+    }
+    int32_t v[PER][D];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int32_t* base = table + ft_gather_row(s[k], capacity) * (D * static_cast<long long>(width));
+#pragma unroll
+      for (int r = 0; r < D; ++r) {
+        const int32_t* p = base + static_cast<long long>(r) * width +
+                           cmq_col<true>(h0[k], h1[k], r, width);
+        v[k][r] = ok[k] ? (kNoAlloc ? cmq_load(p) : __ldg(p)) : 0;
+      }
+    }
+    int32_t best[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      best[k] = min(min(v[k][0], v[k][1]), min(v[k][2], v[k][3]));
+    if (whole && vec_out) {
+#pragma unroll
+      for (int k = 0; k < PER; k += V) pb_cmq_vstore<V>(out + b + k, best + k);
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (ok[k]) out[b + k] = best[k];
+    }
+  }
+}
+
+template <int PER, bool kNoAlloc, bool CAP>
+static int pb_cmq_launch(const int32_t* table, const int32_t* slots, const uint32_t* hi,
+                         const uint32_t* lo, long long q, uint32_t width,
+                         long long capacity, int32_t* out, cudaStream_t stream) {
+  auto kernel = pb_cmq_kernel<PER, kNoAlloc>;
+  const uintptr_t unit = 4u * PB_CMQ_VEC(PER);        // bytes of a vector
+  const uintptr_t off = reinterpret_cast<uintptr_t>(slots) & (unit - 1u);
+  const bool vec = off % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(hi) & (unit - 1u)) == off &&
+                   (reinterpret_cast<uintptr_t>(lo) & (unit - 1u)) == off;
+  const bool vec_out = vec && (reinterpret_cast<uintptr_t>(out) & (unit - 1u)) == off;
+  long long head = vec ? static_cast<long long>((unit - off) & (unit - 1u)) / 4 : 0;
+  if (head > q) head = q;
+  const int shift = head ? PER - static_cast<int>(head) : 0;
+  const long long groups = (q + shift + PER - 1) / PER;
+  long long blocks = (groups + CMQ_THREADS - 1) / CMQ_THREADS;
+  if (CAP) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, CMQ_THREADS, 0) !=
+            cudaSuccess || n < 1)
+      n = 1;
+    const long long cap = static_cast<long long>(sm_count()) * n;
+    if (blocks > cap) blocks = cap;
+  }
+  kernel<<<static_cast<unsigned int>(blocks), CMQ_THREADS, 0, stream>>>(
+      table, slots, hi, lo, q, width, capacity, out, shift, vec, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ft_probe_countmin_query(const void* table, const void* slots,
+                                       const void* hi, const void* lo, long long q,
+                                       int depth, long long width,
+                                       long long capacity, void* out, int form,
+                                       void* stream) {
+  const uint32_t w = static_cast<uint32_t>(width);
+  if (q <= 0 || depth != 4 || (w & (w - 1u)) != 0u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* t = static_cast<const int32_t*>(table);
+  auto* s = static_cast<const int32_t*>(slots);
+  auto* h = static_cast<const uint32_t*>(hi);
+  auto* l = static_cast<const uint32_t*>(lo);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case 0:
+      probe_cmq_old<<<grid_for(q, 256), 256, 0, st>>>(t, s, h, l, q, depth, width,
+                                                      capacity, o);
+      return static_cast<int>(cudaGetLastError());
+    case 2:
+      return cmq_launch<4, true>(t, s, h, l, q, depth, w, capacity, o, st);
+#define PB_CMQ(F, PER, NA, CAP) \
+  case F:                       \
+    return pb_cmq_launch<PER, NA, CAP>(t, s, h, l, q, w, capacity, o, st);
+    PB_CMQ(1, 1, true, false)
+    PB_CMQ(4, 4, true, false)
+    PB_CMQ(8, 8, true, false)
+    PB_CMQ(12, 2, false, false)
+    PB_CMQ(101, 1, true, true)
+    PB_CMQ(102, 2, true, true)
+    PB_CMQ(104, 4, true, true)
+#undef PB_CMQ
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+__global__ void __launch_bounds__(256)
+probe_cmq_gathers(const int32_t* __restrict__ table,
+                  const long long* __restrict__ cells, long long q,
+                  int32_t* __restrict__ out) {
+  FT_GRID_STRIDE(i, q) {
+    const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(cells + 4 * i));
+    const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(cells + 4 * i + 2));
+    const int32_t v0 = cmq_load(table + a.x);
+    const int32_t v1 = cmq_load(table + a.y);
+    const int32_t v2 = cmq_load(table + b.x);
+    const int32_t v3 = cmq_load(table + b.y);
+    out[i] = min(min(v0, v1), min(v2, v3));
+  }
+}
+
+extern "C" int ft_probe_cmq_gathers(const void* table, const void* cells,
+                                    long long q, void* out, void* stream) {
+  if (q > 0)
+    probe_cmq_gathers<<<grid_for(q, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(table), static_cast<const long long*>(cells), q,
+        static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q a multiple of 4, all four buffers 16-byte aligned
+__global__ void __launch_bounds__(256)
+probe_cmq_inputs(const int4* __restrict__ slots, const int4* __restrict__ hi,
+                 const int4* __restrict__ lo, long long n4, int4* __restrict__ out) {
+  FT_GRID_STRIDE(i, n4) {
+    const int4 s = __ldg(slots + i), h = __ldg(hi + i), l = __ldg(lo + i);
+    out[i] = make_int4(s.x ^ h.x ^ l.x, s.y ^ h.y ^ l.y, s.z ^ h.z ^ l.z,
+                       s.w ^ h.w ^ l.w);
+  }
+}
+
+extern "C" int ft_probe_cmq_inputs(const void* slots, const void* hi, const void* lo,
+                                   long long q, void* out, void* stream) {
+  if (q % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (q > 0)
+    probe_cmq_inputs<<<grid_for(q / 4, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int4*>(slots), static_cast<const int4*>(hi),
+        static_cast<const int4*>(lo), q / 4, static_cast<int4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+template <int RULE>
+__device__ __forceinline__ long long pb_row(int32_t s, long long c) {
+  if constexpr (RULE == 0) {
+    const long long r = s;
+    return r < 0 ? 0 : (r >= c ? c - 1 : r);
+  } else if constexpr (RULE == 1) {
+    long long r = s;
+    if (r < 0) r += c;
+    return r < 0 ? 0 : (r >= c ? c - 1 : r);
+  } else if constexpr (RULE == 2) {
+    return ft_gather_row(s, c);
+  } else if constexpr (RULE == 3) {
+    const int32_t c32 = static_cast<int32_t>(c);
+    const int32_t r = s < 0 ? s + c32 : s;
+    return min(max(r, 0), c32 - 1);
+  } else {
+    const int32_t c32 = static_cast<int32_t>(c);
+    const int32_t r = s + (c32 & (s >> 31));
+    return min(max(r, 0), c32 - 1);
+  }
+}
+
+__device__ __forceinline__ void pb_accumulate_word(unsigned int w, float& s, int& z) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = static_cast<int>((w >> (8 * k)) & 0xFFu);
+    s += __int_as_float((127 - r) << 23);
+    z += (r == 0);
+  }
+}
+
+// hll_estimate_kernel's gathered form, the row by rule RULE
+template <int RULE>
+__global__ void probe_hll_gathered(const uint8_t* __restrict__ regs,
+                                   const int32_t* __restrict__ slots, long long m,
+                                   long long capacity, float alpha_m2,
+                                   float* __restrict__ out) {
+  const long long row = pb_row<RULE>(slots[blockIdx.x], capacity);
+  const uint4* p = reinterpret_cast<const uint4*>(regs + row * m);
+  const long long nvec = m / 16;
+  float s = 0.0f;
+  int z = 0;
+  for (long long i = threadIdx.x; i < nvec; i += blockDim.x) {
+    const uint4 v = p[i];
+    pb_accumulate_word(v.x, s, z);
+    pb_accumulate_word(v.y, s, z);
+    pb_accumulate_word(v.z, s, z);
+    pb_accumulate_word(v.w, s, z);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xFFFFFFFFu, s, off);
+    z += __shfl_down_sync(0xFFFFFFFFu, z, off);
+  }
+  __shared__ float ws[32];
+  __shared__ int wz[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    ws[warp] = s;
+    wz[warp] = z;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    s = lane < nwarps ? ws[lane] : 0.0f;
+    z = lane < nwarps ? wz[lane] : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_down_sync(0xFFFFFFFFu, s, off);
+      z += __shfl_down_sync(0xFFFFFFFFu, z, off);
+    }
+    if (lane == 0) {
+      const float mf = static_cast<float>(m);
+      const float est = alpha_m2 / s;
+      const float zf = static_cast<float>(z);
+      const float lm = __double2float_rn(log(static_cast<double>(m)));
+      const float lz = __double2float_rn(log(static_cast<double>(fmaxf(zf, 1.0f))));
+      const float linear = mf * (lm - lz);
+      out[blockIdx.x] = (est <= 2.5f * mf && z > 0) ? linear : est;
+    }
+  }
+}
+
+// m a power of two >= 16; rules 3 and 4 need capacity < 2^31
+extern "C" int ft_probe_hll_gathered(const void* regs, const void* slots,
+                                     long long rows, long long m, long long capacity,
+                                     float alpha_m2, void* out, int rule, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  const long long t = m / 16;
+  int threads = t >= 256 ? 256 : (t <= 32 ? 32 : static_cast<int>(t));
+  threads = (threads + 31) / 32 * 32;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* r = static_cast<const uint8_t*>(regs);
+  auto* s = static_cast<const int32_t*>(slots);
+  auto* o = static_cast<float*>(out);
+  const unsigned int grid = static_cast<unsigned int>(rows);
+  switch (rule) {
+#define PB_RULE(R)                                                                 \
+  case R:                                                                          \
+    probe_hll_gathered<R><<<grid, threads, 0, st>>>(r, s, m, capacity, alpha_m2, o); \
+    break;
+    PB_RULE(0)
+    PB_RULE(1)
+    PB_RULE(2)
+    PB_RULE(3)
+    PB_RULE(4)
+#undef PB_RULE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,13 +2,13 @@
 """The designs that ``clear_rows``, ``hll_update``, ``countmin_update``,
 ``table_insert``, ``quantile_result``, ``gram_accumulate``,
 ``edge_popcount``, ``merge_rows``, ``hll_log_finish``,
-``quantile_update`` and ``knn_topk`` were measured against, and their
-floors, timed beside the kernels on the card at ``chip_smoke.py``'s
+``quantile_update``, ``knn_topk`` and ``countmin_query`` were measured
+against, and their floors, timed beside the kernels on the card at ``chip_smoke.py``'s
 entry shapes; and the host time of a small launch, part by part.
 
-    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin,table_insert,quantile_result,quantile_wide,gram_accumulate,edge_popcount,merge_rows,launch_host,hll_log_finish,quantile_update,knn_topk]
+    python3 scripts/kernel_probe.py [--groups clear_rows,hll_update,countmin,table_insert,quantile_result,quantile_wide,gram_accumulate,edge_popcount,merge_rows,launch_host,hll_log_finish,quantile_update,knn_topk,countmin_query,slot_rule]
 
-Builds ``scripts/kernel_probe.cu`` (which includes eight kernels'
+Builds ``scripts/kernel_probe.cu`` (which includes nine kernels'
 sources) with the loader's nvcc flags into the kernels' build directory
 and prints one JSON object; every time is ``chip_smoke.cuda_ms`` (a
 run of calls between one pair of CUDA events, / reps, or one call per
@@ -84,6 +84,24 @@ all):
   and a read of its inputs alone, in turns; its sector floor.
 - ``knn_topk``: at the MNIST entry (10,000 x 60,000, k = 3), the kernel
   against a streaming read of qx, in turns.
+- ``countmin_query``: at the entry (2^20 queries into a [2^14, 4, 2048]
+  int32 table) and at the heavy_hitters phase's layout (2^19 queries
+  into 100,000 live slots of [2^18, 4, 2048], 8 GiB;
+  ``chip_smoke.countmin_query_inputs``): the kernel, the design before
+  it (``old``), 1, 2, 4 and 8 queries a thread (a group a thread; 2 is
+  the kernel's), 2 with cached loads, and 1, 2 and 4 on a grid capped
+  at what the SMs hold at the kernel's occupancy (``*_capped``);
+  its gathers alone at flat int64 cells made beforehand, in query order
+  and in ascending cell order (``gathers_sorted``); its inputs alone;
+  in turns, with device ms from a profiler trace.  Each form's and the
+  gathers' estimates checked bit-equal to the plain version; the bound
+  and the sector floor (32 B a distinct sector, 16 B a query).
+- ``slot_rule``: the gathered ``hll_estimate`` at 2^18 of 1.25M slots
+  (p = 12, 5.12 GB of registers): the kernel, and a copy of it with
+  each rule for the slot's row (``ft_probe_hll_gathered``: the clamp of
+  the design before, the wrap and clamp in 64 bits, ``ft_gather_row``,
+  and two 32-bit forms), in turns, with device ms; each form's estimates
+  checked equal to the kernel's.
 
 Needs a CUDA card.
 """
@@ -143,16 +161,21 @@ def _build() -> ctypes.CDLL:
     lib.ft_probe_hll_lanes.argtypes = (LL, LL)
     lib.ft_probe_hll_finish_parts.argtypes = (P, P, LL, I, LL, ctypes.c_double, P, P,
                                               I, P)
+    lib.ft_probe_countmin_query.argtypes = (P, P, P, P, LL, I, LL, LL, P, I, P)
+    lib.ft_probe_cmq_gathers.argtypes = (P, P, LL, P, P)
+    lib.ft_probe_cmq_inputs.argtypes = (P, P, P, LL, P, P)
+    lib.ft_probe_hll_gathered.argtypes = (P, P, LL, LL, LL, ctypes.c_float, P, I, P)
     return lib
 
 
 #: the kernels whose sources kernel_probe.cu includes
 KERNELS = ("clear_rows", "countmin_update", "hll_update", "table_insert",
-           "gram_accumulate", "quantile_result", "knn_topk", "hll_log_finish")
+           "gram_accumulate", "quantile_result", "knn_topk", "hll_log_finish",
+           "countmin_query")
 GROUPS = ("clear_rows", "hll_update", "countmin", "table_insert",
           "quantile_result", "quantile_wide", "gram_accumulate", "edge_popcount",
           "merge_rows", "launch_host", "hll_log_finish", "quantile_update",
-          "knn_topk")
+          "knn_topk", "countmin_query", "slot_rule")
 
 
 def _stream():
@@ -206,6 +229,10 @@ def main() -> int:
         res["quantile_update"] = _quantile_update(K, cs, lib)
     if "knn_topk" in groups:
         res["knn_topk"] = _knn_topk(K, cs, lib)
+    if "countmin_query" in groups:
+        res["countmin_query"] = _countmin_query(K, cs, lib)
+    if "slot_rule" in groups:
+        res["slot_rule"] = _slot_rule(K, cs, lib)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -830,6 +857,97 @@ def _knn_topk(K, cs, lib):
     return {"queries": m, "points": n, "k": 3, "ms": _in_turns(cs, ways, 5),
             "bound_ms": cs.bound(4 * m * n + 4 * (m + n) + 12 * m, 3 * m * n,
                                  3.35e12)[0]}
+
+
+def _countmin_query(K, cs, lib):
+    """countmin_query at chip_smoke's entry and at the heavy_hitters
+    phase's layout: the kernel against the forms tried (``ways`` below),
+    its gathers alone (in query order and sorted by cell) and its inputs
+    alone, in turns; every form checked bit-equal to the plain version."""
+    import torch
+    from flink_tpu_torch.ops.hashing import countmin_rows
+    from flink_tpu_torch.ops.slot_index import gather_rows
+    dev = torch.device("cuda", 0)
+    out = {}
+    for shape in ("entry", "path"):
+        table, slots, hi, lo = cs.countmin_query_inputs(dev, np.random.default_rng(43),
+                                                        shape)
+        Q, (S, D, W) = slots.numel(), table.shape
+        r = torch.arange(D, device=dev)[None, :]
+        cells = ((gather_rows(slots, S)[:, None] * D + r) * W
+                 + countmin_rows(hi, lo, D, W).to(torch.int64).t()).contiguous()
+        ordered = torch.sort(cells.reshape(-1)).values
+        want = K.countmin_query_plain(table, slots, hi, lo)
+        o = torch.empty(Q, dtype=torch.int32, device=dev)
+
+        def form(f):
+            return lambda: _ok(lib.ft_probe_countmin_query(
+                table.data_ptr(), slots.data_ptr(), hi.data_ptr(), lo.data_ptr(), Q,
+                D, W, S, o.data_ptr(), f, _stream()))
+
+        def gathers(c):
+            return lambda: _ok(lib.ft_probe_cmq_gathers(
+                table.data_ptr(), c.data_ptr(), Q, o.data_ptr(), _stream()))
+        ways = {"kernel": lambda: K.countmin_query(table, slots, hi, lo),
+                "old": form(0), "per1": form(1), "per2": form(2), "per4": form(4),
+                "per8": form(8), "cached2": form(12), "per1_capped": form(101),
+                "per2_capped": form(102), "per4_capped": form(104),
+                "gathers": gathers(cells),
+                "gathers_sorted": gathers(ordered),
+                "inputs": lambda: _ok(lib.ft_probe_cmq_inputs(
+                    slots.data_ptr(), hi.data_ptr(), lo.data_ptr(), Q, o.data_ptr(),
+                    _stream()))}
+        equal = {}
+        for name in ("old", "per1", "per2", "per4", "per8", "cached2",
+                     "per1_capped", "per2_capped", "per4_capped", "gathers"):
+            o.zero_()
+            ways[name]()
+            torch.cuda.synchronize()
+            equal[name] = bool(torch.equal(o, want))
+        equal["kernel"] = bool(torch.equal(ways["kernel"](), want))
+        sectors = int(torch.unique(cells // 8).numel())
+        n_cells = int(torch.unique(cells).numel())
+        out[shape] = {"queries": Q, "table": [S, D, W], "distinct_cells": n_cells,
+                      "distinct_sectors": sectors, "equal_to_plain": equal,
+                      "ms": _in_turns(cs, ways),
+                      "device_ms": {w: cs.kernel_device_ms(fn) for w, fn in ways.items()},
+                      "bound_ms": cs.bound(16 * Q + 4 * n_cells, 3 * D * Q, 3.35e12)[0],
+                      "sector_floor_ms": cs.bound(16 * Q + 32 * sectors, 3 * D * Q,
+                                                  3.35e12)[0]}
+        del table, cells, ordered
+        torch.cuda.empty_cache()
+    return out
+
+
+def _slot_rule(K, cs, lib):
+    """The gathered hll_estimate with each rule for the slot's row."""
+    import torch
+    from flink_tpu_torch.kernels.hll_estimate import alpha_m2
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(11)
+    agg = HyperLogLogAggregate(12)
+    C, m = 1_250_000, agg.m
+    regs = torch.randint(0, 20, (C, m), dtype=torch.uint8, device=dev)
+    fired = torch.from_numpy(rng.integers(0, C, 1 << 18).astype(np.int32)).to(dev)
+    o = torch.empty(len(fired), dtype=torch.float32, device=dev)
+    am2 = alpha_m2(agg.alpha, m)
+
+    def rule(r):
+        return lambda: _ok(lib.ft_probe_hll_gathered(
+            regs.data_ptr(), fired.data_ptr(), len(fired), m, C, am2, o.data_ptr(), r,
+            _stream()))
+    ways = {"kernel": lambda: K.hll_estimate(regs, agg.alpha, slots=fired),
+            **{f"rule{r}": rule(r) for r in range(5)}}
+    want = ways["kernel"]()
+    equal = {}
+    for r in range(5):
+        rule(r)()
+        torch.cuda.synchronize()
+        equal[f"rule{r}"] = bool(torch.equal(o, want))
+    return {"rows": len(fired), "file": [C, m], "equal_to_kernel": equal,
+            "ms": _in_turns(cs, ways),
+            "device_ms": {w: cs.kernel_device_ms(fn) for w, fn in ways.items()}}
 
 
 if __name__ == "__main__":

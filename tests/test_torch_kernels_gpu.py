@@ -538,6 +538,118 @@ def test_countmin_update_edges_match_plain(cuda, case):
     assert not torch.equal(rt, orig)              # the batch wrote something
 
 
+def _cm_query_inputs(rng, c, depth, width, q):
+    """A table of random counts and q queries: slots in range, then -1,
+    -C, -C - 1, C, INT32_MIN and INT32_MAX among them."""
+    table = torch.from_numpy(rng.integers(0, 1 << 20, (c, depth, width))
+                             .astype(np.int32))
+    slots = rng.integers(0, c, q).astype(np.int32)
+    pick = rng.random(q) < 0.2
+    slots[pick] = rng.choice(np.int32([-1, -2, -c, -c - 1, c, c + 5, -2**31,
+                                       2**31 - 1]), int(pick.sum()))
+    hi, lo = _lanes(rng, q)
+    return (table, torch.from_numpy(slots), torch.from_numpy(hi.view(np.int32)),
+            torch.from_numpy(lo.view(np.int32)))
+
+
+@pytest.mark.parametrize("width", [2048, 999])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 8])
+def test_countmin_query_matches_plain(cuda, depth, width):
+    """Every depth form (1, 2, 3, 4 and 8 unrolled; 5 the generic loop),
+    a power-of-two width (mask) and an odd one (modulo), slots negative
+    and out of range: bit-equal, one launch a call."""
+    rng = np.random.default_rng(depth * 10 + (width & 1))
+    table, slots, hi, lo = _cm_query_inputs(rng, 301, depth, width, 50_001)
+    want = K.countmin_query_plain(table, slots, hi, lo)
+    gt = table.to(cuda)
+    before = K.LAUNCHES["countmin_query"]
+    got = K.countmin_query(gt, slots.to(cuda), hi.to(cuda), lo.to(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["countmin_query"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("q", [0, 1, 3, 5, 8, 4099])
+def test_countmin_query_counts_match_plain(cuda, q):
+    """Q of 0, 1, fewer than a vector, and not a multiple of one."""
+    rng = np.random.default_rng(100 + q)
+    table, slots, hi, lo = _cm_query_inputs(rng, 64, 4, 2048, q)
+    want = K.countmin_query_plain(table, slots, hi, lo)
+    before = K.LAUNCHES["countmin_query"]
+    got = K.countmin_query(table.to(cuda), slots.to(cuda), hi.to(cuda), lo.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (q,) and torch.equal(got.cpu(), want)
+    assert K.LAUNCHES["countmin_query"] == before + (1 if q else 0)
+
+
+@pytest.mark.parametrize("starts", [(1, 1, 1), (2, 2, 2), (3, 3, 3), (1, 2, 3),
+                                    (0, 0, 1), (4, 4, 4)])
+def test_countmin_query_on_slices_matches_plain(cuda, starts):
+    """slots, hi and lo sliced to start 1, 2 and 3 elements past an
+    aligned address (a scalar head, then vector loads), at offsets that
+    differ (scalar loads throughout), and 4 past (aligned again)."""
+    rng = np.random.default_rng(200 + sum(starts))
+    q = 10_007
+    table, slots, hi, lo = _cm_query_inputs(rng, 97, 4, 1024, q + 4)
+    gt = table.to(cuda)
+    views = [t.to(cuda)[a:a + q] for t, a in zip((slots, hi, lo), starts)]
+    for v, a in zip(views, starts):
+        assert v.data_ptr() % 16 == 4 * (a % 4)
+    want = K.countmin_query_plain(table, *(t[a:a + q] for t, a in
+                                           zip((slots, hi, lo), starts)))
+    got = K.countmin_query(gt, *views)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_countmin_query_past_two_to_the_31_rows_matches_plain(cuda):
+    """A table of 2^31 rows (of one cell: 8 GiB), where the slot rule
+    takes its 64-bit branch: -1 reads the last row, INT32_MIN row
+    2^31 - 2^31 = 0."""
+    c = 1 << 31
+    table = torch.empty((c, 1, 1), dtype=torch.int32, device=cuda)
+    slots = torch.tensor([-1, -2**31, 2**31 - 2, 1, 5, -7], dtype=torch.int32,
+                         device=cuda)
+    rows = torch.tensor([c - 1, 0, c - 2, 1, 5, c - 7], dtype=torch.int64, device=cuda)
+    table.view(-1)[rows] = torch.arange(6, dtype=torch.int32, device=cuda) + 100
+    lanes = torch.zeros(6, dtype=torch.int32, device=cuda)
+    got = K.countmin_query(table, slots, lanes, lanes)
+    want = K.countmin_query_plain(table, slots, lanes, lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.tolist() == [100, 101, 102, 103, 104, 105]
+
+
+@pytest.mark.parametrize("kernel", ["hll_estimate", "quantile_result"])
+def test_gathered_minus_one_and_minus_c_match_plain(cuda, kernel):
+    """The gathered forms at slots -1 and -C: the reference's rows C - 1
+    and 0, as the plain versions read them."""
+    rng = np.random.default_rng(300)
+    c = 1000
+    slots = np.tile(np.int32([-1, -c, c - 1, 0]), 50)
+    sl = torch.from_numpy(slots)
+    if kernel == "hll_estimate":
+        m = 1024
+        regs = torch.from_numpy(rng.integers(0, 12, (c, m)).astype(np.uint8))
+        regs[-1, :600] = 0                            # linear counting
+        ref = K.hll_estimate_plain(regs, 0.7213 / (1.0 + 1.079 / m), sl)
+        got = K.hll_estimate(regs.to(cuda), 0.7213 / (1.0 + 1.079 / m),
+                             sl.to(cuda)).cpu()
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5)
+    else:
+        from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
+        agg = QuantileSketchAggregate(quantiles=(0.5, 0.99))
+        hist = torch.from_numpy(rng.integers(0, 4, (c, agg.buckets)).astype(np.int32))
+        hist[0] = 0
+        qs, bv = agg._tables(torch.device("cpu"))
+        gq, gbv = agg._tables(cuda)
+        ref = K.quantile_result_plain(hist, qs, bv, sl)
+        got = K.quantile_result(hist.to(cuda), gq, gbv, sl.to(cuda)).cpu()
+        assert torch.equal(got, ref)
+    assert torch.equal(got[0::4], got[2::4]) and torch.equal(got[1::4], got[3::4])
+    assert not torch.equal(got[0], got[1])
+
+
 @pytest.mark.parametrize("geometry", [(0.05, 1e-3, 1e6), (0.01, 1e-9, 1e9)])
 def test_quantile_update_matches_plain(cuda, geometry):
     from flink_tpu_torch.ops.sketches import QuantileSketchAggregate
