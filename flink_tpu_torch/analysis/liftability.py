@@ -1,7 +1,5 @@
 """Ahead-of-time UDF liftability analysis (port of
-``flink_tpu/analysis/liftability.py:1-680``; the aggregate report and
-``returns_unhashable`` are not ported: no operator of the port reads
-them).
+``flink_tpu/analysis/liftability.py``).
 
 Classifies a user function (a map/filter lambda, a key selector) from
 its CPython bytecode and closure, without running it:
@@ -30,6 +28,11 @@ only, so a ``LIFTABLE`` verdict says nothing of which array library
 the function calls: a UDF calling numpy is liftable on host columns,
 and the fused program, which runs it on torch tensors, demotes when
 the call raises there.
+
+``analyze_aggregate`` combines the verdicts of an ``AggregateFunction``'s
+methods into an ``AggregateReport``: the generic window tier
+(``streaming/generic_agg.py``) takes a conclusive one in place of its
+runtime probe.
 """
 
 from __future__ import annotations
@@ -143,6 +146,25 @@ class UdfReport:
     verdict: str
     reasons: List[str]
     name: str = "<udf>"
+    location: Optional[str] = None
+
+    @property
+    def conclusive(self) -> bool:
+        return self.verdict != INCONCLUSIVE
+
+
+@dataclass
+class AggregateReport:
+    """Combined verdict over add / merge / get_result of an
+    AggregateFunction.  ``result_liftable`` tracks get_result on its
+    own (it can demote independently of the fold)."""
+
+    verdict: str
+    reasons: List[str]
+    result_liftable: bool = False
+    add: Optional[UdfReport] = None
+    merge: Optional[UdfReport] = None
+    get_result: Optional[UdfReport] = None
     location: Optional[str] = None
 
     @property
@@ -659,3 +681,90 @@ def _reasons_of(res: _SimResult) -> List[str]:
     if not res.complete and not reasons:
         reasons.append("bytecode not fully analyzable")
     return reasons
+
+
+def returns_unhashable(fn) -> Optional[str]:
+    """If ``fn`` provably returns an unhashable container (list, dict,
+    set) on its straight-line path, that kind, else None."""
+    raw, skip_first = unwrap_udf(fn)
+    if raw is None:
+        return None
+    res = _analyze_function(raw, skip_first)
+    for kind in res.return_kinds:
+        if kind in ("list", "dict", "set", "bytearray"):
+            return kind
+    return None
+
+
+def _spec_of_acc(acc0) -> Optional[object]:
+    """``LiftedAggregate._spec_of`` (a copy here: generic_agg imports
+    this module)."""
+    numeric = (int, float, bool, np.integer, np.floating, np.bool_)
+    if isinstance(acc0, numeric):
+        return "scalar"
+    if isinstance(acc0, (tuple, list)) and len(acc0) and all(
+            isinstance(f, numeric) for f in acc0):
+        return ("tuple" if isinstance(acc0, tuple) else "list", len(acc0))
+    return None
+
+
+def analyze_aggregate(agg) -> AggregateReport:
+    """Classify an ``AggregateFunction`` ahead of time.
+
+    The combined verdict follows the runtime probe's order: an impure
+    method anywhere makes the whole IMPURE; an accumulator that is not
+    numeric, or a SCALAR_ONLY add or merge, is SCALAR_ONLY; add and
+    merge both LIFTABLE lift the fold, with ``result_liftable`` for
+    get_result on its own.
+    """
+    reports = {m: analyze_udf(getattr(agg, m, None),
+                              name=f"{type(agg).__name__}.{m}")
+               for m in ("add", "merge", "get_result",
+                         "create_accumulator")}
+    add_r, merge_r = reports["add"], reports["merge"]
+    res_r, create_r = reports["get_result"], reports["create_accumulator"]
+    loc = add_r.location
+
+    impure = [r for r in reports.values() if r.verdict == IMPURE]
+    if impure:
+        reasons = [f"{r.name}: {why}" for r in impure for why in r.reasons]
+        return AggregateReport(IMPURE, reasons, add=add_r, merge=merge_r,
+                               get_result=res_r, location=loc)
+
+    try:
+        acc0 = agg.create_accumulator()
+        spec = _spec_of_acc(acc0)
+    except Exception as e:
+        return AggregateReport(
+            INCONCLUSIVE, [f"create_accumulator raised {e!r}"],
+            add=add_r, merge=merge_r, get_result=res_r, location=loc)
+    if spec is None:
+        return AggregateReport(
+            SCALAR_ONLY,
+            ["accumulator is not a numeric scalar or a flat numeric "
+             "tuple/list — the lifted tier stores accumulators as "
+             "parallel numpy columns"],
+            add=add_r, merge=merge_r, get_result=res_r, location=loc)
+
+    if SCALAR_ONLY in (add_r.verdict, merge_r.verdict):
+        src = add_r if add_r.verdict == SCALAR_ONLY else merge_r
+        reasons = [f"{src.name}: {why}" for why in src.reasons]
+        return AggregateReport(SCALAR_ONLY, reasons, add=add_r,
+                               merge=merge_r, get_result=res_r,
+                               location=loc)
+
+    if add_r.verdict == LIFTABLE and merge_r.verdict == LIFTABLE \
+            and create_r.verdict in (LIFTABLE, INCONCLUSIVE):
+        return AggregateReport(
+            LIFTABLE,
+            ["add and merge proven elementwise over numpy columns"],
+            result_liftable=(res_r.verdict == LIFTABLE),
+            add=add_r, merge=merge_r, get_result=res_r, location=loc)
+
+    reasons = []
+    for r in (add_r, merge_r):
+        if r.verdict != LIFTABLE:
+            reasons.extend(f"{r.name}: {why}" for why in r.reasons)
+    return AggregateReport(INCONCLUSIVE, reasons or ["not provable"],
+                           add=add_r, merge=merge_r, get_result=res_r,
+                           location=loc)

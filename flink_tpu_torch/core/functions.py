@@ -92,7 +92,44 @@ class AggregateFunction(Function, Generic[IN, ACC, OUT], abc.ABC):
     get_result / merge.  Implementations whose accumulator is a
     fixed-shape array state additionally implement
     :class:`flink_tpu_torch.ops.device_agg.DeviceAggregateFunction` to
-    run micro-batched on the card."""
+    run micro-batched on the card.
+
+    **The lift probe.**  Any other Python aggregate runs batched on the
+    generic tier (``streaming/generic_agg.py``) when the window shape
+    is eligible: the runtime probes it on a sample of at most 64
+    records of the first batch, replaying ``add`` / ``merge`` /
+    ``get_result`` with numpy columns in place of the scalar
+    accumulator fields against a per-record scalar reference.  Only an
+    exact match locks the lifted mode; an exception or a mismatch pins
+    the per-record scalar fold.  The contract this relies on:
+
+    - the accumulator is a number or a fixed-arity tuple/list of
+      numbers whose shape never changes across ``add``;
+    - ``add`` / ``merge`` / ``get_result`` are built from operations
+      numpy broadcasts elementwise (arithmetic, comparisons, ufuncs).
+      Python control flow on accumulator values (``if acc > ...:``)
+      fails the probe and demotes to the scalar fold, which is safe.
+
+    A probe can pass while lifting is still unwanted: the sample may
+    miss a value-dependent branch, or numpy's dtype promotion may hide
+    an overflow the scalar path would raise on.  Set the class or
+    instance attribute ``force_scalar = True`` to skip the probe and
+    pin the scalar fold; ``GenericWindowOperator(force_scalar=True)``
+    offers the same per operator.
+
+    **Ahead-of-time analysis.**  Before the probe runs, the liftability
+    analyzer (:mod:`flink_tpu_torch.analysis.liftability`) reads the
+    bytecode of ``add`` / ``merge`` / ``get_result``.  A conclusive
+    verdict decides the mode without the probe's scalar replay; an
+    inconclusive one leaves the probe in charge.  Set
+    ``force_probe = True`` to ignore the static verdict and always let
+    the runtime probe decide.
+    """
+
+    #: opt out of the generic tier's lift probe (see the class docstring)
+    force_scalar: bool = False
+    #: opt out of the ahead-of-time analysis: always probe
+    force_probe: bool = False
 
     @abc.abstractmethod
     def create_accumulator(self) -> ACC:

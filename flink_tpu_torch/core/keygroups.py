@@ -182,3 +182,22 @@ class KeyGroupRange:
 
     def __repr__(self):
         return f"KeyGroupRange[{self.start_key_group}, {self.end_key_group}]"
+
+
+def make_key_group_keep_fn(max_parallelism: int, num_subtasks: int,
+                           subtask_index: int):
+    """Ownership filter for rescaled restores of engine state: a key
+    array (anything ``hash_keys_np`` takes: integer keys, strings,
+    composite rows) -> bool mask of the keys whose key group routes to
+    ``subtask_index``, by the same hash and range split that routes a
+    live record.  None when one subtask owns everything."""
+    if num_subtasks <= 1:
+        return None
+
+    def keep(keys):
+        from flink_tpu_torch.streaming.vectorized import hash_keys_np
+        kh = hash_keys_np(np.asarray(keys))
+        return assign_operator_indexes_np(kh, max_parallelism,
+                                          num_subtasks) == subtask_index
+
+    return keep

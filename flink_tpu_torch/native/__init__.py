@@ -1,8 +1,9 @@
 """ctypes bindings of the port's C++ host runtime (``host_runtime.cpp``
 in this directory; port of ``flink_tpu/native/__init__.py``).
 
-The log-structured window tier, the slot index and the string interner
-run on it.  It is host code: the sort, the dedup and the estimate of the
+The log-structured window tier, the slot index, the string interner
+and the generic aggregate tier's grouping (``fold_prep``,
+``group_cols``, ``argsort_u64``) run on it.  It is host code: the sort, the dedup and the estimate of the
 log tier's host fire run on the CPU next to the card, as they do in the
 JAX package, whose ``native/host_runtime.cpp`` this copy carries
 unchanged (the port never loads that library).
@@ -124,6 +125,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         "ft_wordsums_load": ([c.c_void_p, i64p, f64p, c.c_int64], None),
         "ft_intern_sum": ([c.c_void_p, c.c_void_p, u8p, c.c_int64, c.c_int64,
                            f64p, c.c_int64, c.c_int64, i64p], c.c_int64),
+        "ft_fold_prep": ([u64p, c.c_int64, i64p, i64p, i64p, u64p], c.c_int64),
+        "ft_group_cols": ([u64p, c.c_int64, c.c_int64, i64p,
+                           c.POINTER(c.c_void_p), c.POINTER(c.c_void_p),
+                           c.c_void_p, i64p, i64p, u64p], c.c_int64),
+        "ft_argsort_u64": ([u64p, c.c_int64, i64p], None),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -496,3 +502,62 @@ class NativeWordSums:
         self._lib.ft_wordsums_load(
             self._h, np.ascontiguousarray(ids, np.int64),
             np.ascontiguousarray(sums, np.float64), len(ids))
+
+
+# ---- grouping of the generic aggregate tier ---------------------------------
+
+def fold_prep(keys: np.ndarray):
+    """Stable radix argsort, segment detection and a length-descending
+    segment layout in one C++ pass.  Returns (order, seg_starts,
+    seg_lens, ukeys), segments in length-descending order (key order
+    among equal lengths)."""
+    keys = np.ascontiguousarray(keys, np.uint64)
+    n = len(keys)
+    order = np.empty(n, np.int64)
+    seg_starts = np.empty(n, np.int64)
+    seg_lens = np.empty(n, np.int64)
+    ukeys = np.empty(n, np.uint64)
+    n_seg = lib().ft_fold_prep(keys, n, order, seg_starts, seg_lens, ukeys)
+    return order, seg_starts[:n_seg], seg_lens[:n_seg], ukeys[:n_seg]
+
+
+def group_cols(keys: np.ndarray, cols=(), want_order: bool = True):
+    """Grouping of keys below 2^22 with the payload columns
+    co-scattered in the same counting-sort pass: (order, scols,
+    seg_starts, seg_lens, ukeys) with segments length-descending, or
+    None when a key is outside the histogram or a column is not a
+    4- or 8-byte number.  ``order`` is None unless asked for."""
+    keys = np.ascontiguousarray(keys, np.uint64)
+    n = len(keys)
+    for col in cols:
+        if col.dtype.itemsize not in (4, 8) or col.dtype.kind not in "fiu":
+            return None
+    cols = [np.ascontiguousarray(col) for col in cols]
+    scols = [np.empty(n, col.dtype) for col in cols]
+    nc = len(cols)
+    elem = (np.asarray([col.dtype.itemsize for col in cols], np.int64)
+            if nc else np.zeros(1, np.int64))
+    src = (ctypes.c_void_p * max(nc, 1))(
+        *[col.ctypes.data for col in cols] or [None])
+    dst = (ctypes.c_void_p * max(nc, 1))(
+        *[s.ctypes.data for s in scols] or [None])
+    order = np.empty(n, np.int64) if want_order else None
+    seg_starts = np.empty(n, np.int64)
+    seg_lens = np.empty(n, np.int64)
+    ukeys = np.empty(n, np.uint64)
+    n_seg = lib().ft_group_cols(
+        keys, n, nc, elem, src, dst,
+        order.ctypes.data if want_order else None,
+        seg_starts, seg_lens, ukeys)
+    if n_seg < 0:
+        return None
+    return (order, scols, seg_starts[:n_seg], seg_lens[:n_seg],
+            ukeys[:n_seg])
+
+
+def argsort_u64(keys: np.ndarray) -> np.ndarray:
+    """Stable argsort of a uint64 column by the C++ radix sort."""
+    keys = np.ascontiguousarray(keys, np.uint64)
+    out = np.empty(len(keys), np.int64)
+    lib().ft_argsort_u64(keys, len(keys), out)
+    return out

@@ -5,7 +5,9 @@
 // package so that the port never loads the reference's library: the
 // persistent slot index, splitmix64 and key groups, the radix sort and
 // the HLL / Sum / sum-table / quantile / session log functions, the
-// string interner, the per-window word sums and the fused intern+sum.
+// string interner, the per-window word sums, the fused intern+sum and
+// the generic aggregate tier's grouping (fold_prep, group_cols,
+// argsort_u64).
 // The compiled per-record baselines, CEP and the interval join are not
 // part of it.  The functions are the reference's, unchanged, so both
 // packages give bit-equal results on the same inputs.
@@ -1240,6 +1242,175 @@ int64_t ft_intern_sum(void* interner, void* wsums, const uint8_t* rows,
     total_new += n_new;
   }
   return total_new;
+}
+
+// Fused fire-path grouping for the generic-aggregate log tier
+// (flink_tpu_torch/streaming/generic_agg.py): stable radix argsort by key,
+// segment (run) detection, and a LENGTH-DESCENDING segment layout in
+// one call — the diagonal-round fold then reads accumulator prefixes
+// as slice views.  Outputs:
+//   order[n]       sort permutation (caller permutes payload columns)
+//   seg_starts[*]  per segment, position in sorted space, len-desc
+//   seg_lens[*]    per segment, len-desc
+//   ukeys[*]       per segment key, same order
+// Returns n_seg.
+int64_t ft_fold_prep(const uint64_t* keys, int64_t n, int64_t* order,
+                     int64_t* seg_starts, int64_t* seg_lens,
+                     uint64_t* ukeys) {
+  if (n == 0) return 0;
+  struct KIdx {
+    uint64_t key;
+    int64_t idx;
+  };
+  // thread-local reusable scratch: fresh 32 MB allocations page-fault
+  // on first touch every call, which costs more than the sort passes
+  static thread_local std::unique_ptr<KIdx[]> tl_buf, tl_scratch;
+  static thread_local int64_t tl_cap = 0;
+  if (n > tl_cap) {
+    int64_t cap = 1;
+    while (cap < n) cap <<= 1;
+    tl_buf.reset(new KIdx[cap]);
+    tl_scratch.reset(new KIdx[cap]);
+    tl_cap = cap;
+  }
+  KIdx* buf = tl_buf.get();
+  KIdx* scratch = tl_scratch.get();
+  for (int64_t i = 0; i < n; ++i) buf[i] = KIdx{keys[i], i};
+  KIdx* sorted = radix_sort_by_key(buf, scratch, n);
+  // one walk: emit order + segment boundaries (arrival order within
+  // a segment is preserved by the stable sort)
+  int64_t n_seg = 0;
+  std::unique_ptr<int64_t[]> starts(new int64_t[n]), lens(new int64_t[n]);
+  uint64_t prev = ~sorted[0].key;  // != first key
+  for (int64_t i = 0; i < n; ++i) {
+    order[i] = sorted[i].idx;
+    uint64_t k = sorted[i].key;
+    if (k != prev) {
+      starts[n_seg] = i;
+      if (n_seg) lens[n_seg - 1] = i - starts[n_seg - 1];
+      ++n_seg;
+      prev = k;
+    }
+  }
+  lens[n_seg - 1] = n - starts[n_seg - 1];
+  // counting sort of segments by length, descending (stable)
+  int64_t max_len = 0;
+  for (int64_t s = 0; s < n_seg; ++s)
+    if (lens[s] > max_len) max_len = lens[s];
+  std::vector<int64_t> hist(max_len + 2, 0);
+  for (int64_t s = 0; s < n_seg; ++s) ++hist[max_len - lens[s]];
+  int64_t run = 0;
+  for (int64_t d = 0; d <= max_len; ++d) {
+    int64_t t = hist[d];
+    hist[d] = run;
+    run += t;
+  }
+  for (int64_t s = 0; s < n_seg; ++s) {
+    int64_t pos = hist[max_len - lens[s]]++;
+    seg_starts[pos] = starts[s];
+    seg_lens[pos] = lens[s];
+    ukeys[pos] = sorted[starts[s]].key;
+  }
+  return n_seg;
+}
+
+// Small-domain grouping with payload co-scatter: when keys fit a
+// counting-sort histogram (< 2^22), grouping is ONE count pass + ONE
+// scatter pass that permutes the scalar value column alongside the
+// order — the histogram IS the segment table, so there is no walk.
+// Segments come out length-descending (counting sort by run length).
+// elem_size: 4 or 8 (value element width), 0 = keys only.
+// Returns n_seg, or -1 when a key exceeds the domain (caller must
+// check key_or < 2^22 first; this is a backstop).
+int64_t ft_group_cols(const uint64_t* keys, int64_t n, int64_t ncols,
+                      const int64_t* elem_sizes, const void** cols,
+                      void** scols, int64_t* order,
+                      int64_t* seg_starts, int64_t* seg_lens,
+                      uint64_t* ukeys) {
+  if (n == 0) return 0;
+  uint64_t key_or = 0;
+  for (int64_t i = 0; i < n; ++i) key_or |= keys[i];
+  if (key_or >> 22) return -1;
+  const int64_t R = key_or ? (int64_t(2) << (63 - __builtin_clzll(key_or)))
+                           : 1;
+  // u32 cursors: half the histogram footprint of i64 — for 1M-key
+  // domains the cursor array then mostly lives in cache
+  static thread_local std::vector<uint32_t> hist;
+  hist.assign(R, 0);
+  for (int64_t i = 0; i < n; ++i) ++hist[keys[i]];
+  uint32_t run = 0;
+  for (int64_t d = 0; d < R; ++d) {
+    uint32_t t = hist[d];
+    hist[d] = run;
+    run += t;
+  }
+  // scatter pass: co-scatter every payload column (and the order,
+  // when requested) — each extra column is one more write stream,
+  // still cheaper than a separate numpy fancy-gather pass per column
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t pos = hist[keys[i]]++;
+    if (order) order[pos] = i;
+    for (int64_t c2 = 0; c2 < ncols; ++c2) {
+      if (elem_sizes[c2] == 8)
+        static_cast<uint64_t*>(scols[c2])[pos] =
+            static_cast<const uint64_t*>(cols[c2])[i];
+      else
+        static_cast<uint32_t*>(scols[c2])[pos] =
+            static_cast<const uint32_t*>(cols[c2])[i];
+    }
+  }
+  // hist[k] is now the END of bucket k; starts are hist[k-1] (or 0)
+  // — recover per-bucket runs and counting-sort them by length desc
+  int64_t n_seg = 0;
+  int64_t max_len = 0;
+  static thread_local std::vector<int64_t> sk, sl;
+  sk.clear();
+  sl.clear();
+  int64_t prev_end = 0;
+  for (int64_t d = 0; d < R; ++d) {
+    int64_t end = hist[d];
+    int64_t len = end - prev_end;
+    if (len > 0) {
+      sk.push_back(d);
+      sl.push_back(len);
+      if (len > max_len) max_len = len;
+      ++n_seg;
+    }
+    prev_end = end;
+  }
+  static thread_local std::vector<int64_t> lhist;
+  lhist.assign(max_len + 1, 0);
+  for (int64_t s = 0; s < n_seg; ++s) ++lhist[max_len - sl[s]];
+  int64_t lrun = 0;
+  for (int64_t d = 0; d <= max_len; ++d) {
+    int64_t t = lhist[d];
+    lhist[d] = lrun;
+    lrun += t;
+  }
+  for (int64_t s = 0; s < n_seg; ++s) {
+    int64_t pos = lhist[max_len - sl[s]]++;
+    int64_t key = sk[s];
+    seg_starts[pos] = (key ? static_cast<int64_t>(hist[key - 1]) : 0);
+    seg_lens[pos] = sl[s];
+    ukeys[pos] = static_cast<uint64_t>(key);
+  }
+  return n_seg;
+}
+
+// Stable argsort of a u64 key column via the adaptive LSD radix sort
+// (numpy's stable 64-bit argsort is a comparison sort and ~5x slower
+// at 8M keys).
+void ft_argsort_u64(const uint64_t* keys, int64_t n, int64_t* out) {
+  struct KIdx {
+    uint64_t key;
+    int64_t idx;
+  };
+  // raw new[]: POD stays uninitialized — vector's zero-fill of the
+  // two scratch buffers would cost more than the sort itself
+  std::unique_ptr<KIdx[]> buf(new KIdx[n]), scratch(new KIdx[n]);
+  for (int64_t i = 0; i < n; ++i) buf[i] = KIdx{keys[i], i};
+  KIdx* sorted = radix_sort_by_key(buf.get(), scratch.get(), n);
+  for (int64_t i = 0; i < n; ++i) out[i] = sorted[i].idx;
 }
 
 }  // extern "C"

@@ -19,9 +19,13 @@ compiles its fused chain program (``chain_fusion.try_fuse_subtask``)
 at the end of ``open()``, when its routes are wired; the chain head and
 every chained output hand a batch to the program anchored on their
 operator when it wants the batch.  End of input sends a final
-``MAX_TIMESTAMP`` watermark so every window fires.  Checkpoints,
-failover, metrics, processing time, threaded input channels and the
-cluster executors are later slices.
+``MAX_TIMESTAMP`` watermark so every window fires.  Every operator
+gets the executor's processing-time clock, a manually advanced
+``TestProcessingTimeService`` at 0 (the reference executor's default):
+an evicting window over ``GlobalWindows`` reads "now" from it.
+Checkpoints, failover, metrics, the wall-clock processing-time services
+and the end-of-input drain of processing-time timers, threaded input
+channels and the cluster executors are later slices.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from flink_tpu_torch.streaming.elements import (MAX_WATERMARK, MIN_TIMESTAMP,
 from flink_tpu_torch.streaming.graph import JobGraph, JobVertex
 from flink_tpu_torch.streaming.operators import Output, StreamOperator
 from flink_tpu_torch.streaming.sources import StreamSource
+from flink_tpu_torch.streaming.timers import (ProcessingTimeService,
+                                              TestProcessingTimeService)
 
 
 class JobExecutionResult:
@@ -169,7 +175,8 @@ class SubtaskInstance:
 
     def __init__(self, vertex: JobVertex, state_backend=None,
                  device: DeviceLike = None, subtask_index: int = 0,
-                 num_subtasks: int = 1):
+                 num_subtasks: int = 1, *,
+                 processing_time_service: ProcessingTimeService):
         self.vertex = vertex
         self.subtask_index = subtask_index
         #: where device state and a fused chain program run
@@ -186,7 +193,9 @@ class SubtaskInstance:
                     state_backend, compute_key_group_range_for_operator_index(
                         node.max_parallelism, num_subtasks, subtask_index),
                     node.max_parallelism, device=device)
-            op.setup(out, keyed_backend=keyed, key_selector=node.key_selector,
+            op.setup(out, keyed_backend=keyed,
+                     processing_time_service=processing_time_service,
+                     key_selector=node.key_selector,
                      operator_id=node.uid, subtask_index=subtask_index,
                      num_subtasks=num_subtasks,
                      max_parallelism=node.max_parallelism)
@@ -319,7 +328,8 @@ def gather_accumulators(all_tasks, into: Dict[str, Any]) -> None:
 class LocalExecutor:
     """Runs a JobGraph in this process, each vertex at its parallelism.
     ``state_backend`` (a name or a Configuration) and ``device`` build
-    the keyed operators' backends."""
+    the keyed operators' backends; every operator reads processing
+    time from the executor's one ``TestProcessingTimeService``."""
 
     #: records a source emits per loop step before the next source runs
     SOURCE_BUDGET = 1024
@@ -327,6 +337,7 @@ class LocalExecutor:
     def __init__(self, state_backend=None, device: DeviceLike = None):
         self.state_backend = state_backend
         self.device = device
+        self.pts = TestProcessingTimeService()
 
     def build_subtasks(self, job_graph: JobGraph
                        ) -> Dict[int, List[SubtaskInstance]]:
@@ -334,9 +345,10 @@ class LocalExecutor:
         all, or pointwise groups for a pointwise partitioner."""
         subtasks = {}
         for v in job_graph.topological_vertices():
-            subtasks[v.id] = [SubtaskInstance(v, self.state_backend,
-                                              self.device, i, v.parallelism)
-                              for i in range(v.parallelism)]
+            subtasks[v.id] = [
+                SubtaskInstance(v, self.state_backend, self.device, i,
+                                v.parallelism, processing_time_service=self.pts)
+                for i in range(v.parallelism)]
         for e in job_graph.edges:
             ups = subtasks[e.source_vertex_id]
             downs = subtasks[e.target_vertex_id]

@@ -1,5 +1,5 @@
 """DataStream API (port of ``flink_tpu/streaming/datastream.py:90-500,
-512-760, 787-1015``):
+512-760, 787-1098``):
 
     env = StreamExecutionEnvironment.get_execution_environment()
     env.set_state_backend("gpu")
@@ -15,20 +15,26 @@
 The environment runs on the card unless it is created with
 ``device="cpu"``; keyed operators get a keyed-state backend from the
 ``state.backend`` setting (``set_state_backend`` or a
-``Configuration``).  ``WindowedStream.aggregate`` routes as the
-reference does: a device-eligible aggregate (a DeviceAggregateFunction,
-default trigger, lateness 0, no late-data tag) runs on
-``DeviceWindowOperator`` (tumbling, sliding and session engines),
-anything else on ``WindowOperator`` over the keyed backend.  With
-``env.set_mesh(mesh)`` a tumbling device aggregate runs sharded over the
-mesh (``flink_tpu_torch.parallel``): the operator is added at
-parallelism 1, since the mesh is the parallelism, or, with a mesh
-factory, at the environment's parallelism, each subtask building its
-own mesh.  Other assigners run without the mesh, as in the reference.  The
-reference's other route is not ported and raises
-``NotImplementedError``: ``GenericWindowOperator``, for aggregates
-that are not device aggregates over the same window shapes;
-``disable_device_operator()`` sends them to ``WindowOperator``.
+``Configuration``).  ``WindowedStream.aggregate`` makes the reference's
+three-way choice.  On tumbling, sliding (size a multiple of the slide)
+and session windows with the default trigger, no evictor, lateness 0
+and no late-data tag, a ``DeviceAggregateFunction`` runs on
+``DeviceWindowOperator`` (the device engines) and any other Python
+``AggregateFunction`` on ``GenericWindowOperator`` (the generic tier,
+host numpy).  Everything else, and every job after
+``disable_device_operator()``, runs on ``WindowOperator`` over the
+keyed backend, as do ``reduce`` / ``fold`` / ``apply`` / ``process`` /
+``sum`` / ``min`` / ``max``; a stream with an evictor runs on
+``EvictingWindowOperator``.  ``trigger`` / ``evictor`` take a stream off
+both batch tiers.  ``count_window`` and ``count_window_all`` are
+``GlobalWindows`` with a (purging) ``CountTrigger``, and with a slide a
+``CountEvictor``; ``window_all`` keys every record to 0 and runs at
+parallelism 1.  With ``env.set_mesh(mesh)`` a tumbling device aggregate
+runs sharded over the mesh (``flink_tpu_torch.parallel``): the operator
+is added at parallelism 1, since the mesh is the parallelism, or, with
+a mesh factory, at the environment's parallelism, each subtask
+building its own mesh.  Other assigners run without the mesh, as in
+the reference.  Processing time is a later slice.
 """
 
 from __future__ import annotations
@@ -40,12 +46,17 @@ from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.functions import (AggregateFunction,
                                             as_filter_function,
                                             as_flat_map_function,
-                                            as_key_selector, as_map_function)
-from flink_tpu_torch.core.state import AggregatingStateDescriptor
+                                            as_key_selector, as_map_function,
+                                            as_reduce_function)
+from flink_tpu_torch.core.state import (AggregatingStateDescriptor,
+                                        FoldingStateDescriptor,
+                                        ListStateDescriptor,
+                                        ReducingStateDescriptor)
 from flink_tpu_torch.device import DeviceLike, resolve_device
-from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
 from flink_tpu_torch.streaming.device_window_operator import (
-    DeviceWindowOperator, batch_window_eligible, is_mesh_factory)
+    DeviceWindowOperator, is_device_eligible, is_mesh_factory)
+from flink_tpu_torch.streaming.generic_agg import (GenericWindowOperator,
+                                                   is_generic_eligible)
 from flink_tpu_torch.streaming.graph import (StreamEdge, StreamGraph,
                                              StreamNode, create_job_graph)
 from flink_tpu_torch.streaming.operators import (StreamFilter, StreamFlatMap,
@@ -58,8 +69,12 @@ from flink_tpu_torch.streaming.sources import (CollectSink,
                                                FromCollectionSource, PrintSink,
                                                SourceFunction, StreamSource,
                                                TimestampsAndWatermarksOperator)
-from flink_tpu_torch.streaming.window_operator import WindowOperator
-from flink_tpu_torch.streaming.windowing import (Time, TumblingEventTimeWindows,
+from flink_tpu_torch.streaming.window_operator import (EvictingWindowOperator,
+                                                      WindowOperator)
+from flink_tpu_torch.streaming.windowing import (CountEvictor, CountTrigger,
+                                                 GlobalWindows, PurgingTrigger,
+                                                 SlidingEventTimeWindows, Time,
+                                                 TumblingEventTimeWindows,
                                                  WindowAssigner)
 
 
@@ -219,6 +234,16 @@ class DataStream:
         return KeyedStream(self.env, self.node, as_key_selector(key_selector),
                            self._side_tag)
 
+    # ---- windows over a stream without keys --------------------------
+    def window_all(self, assigner: WindowAssigner) -> "AllWindowedStream":
+        """Every record into one key: the window runs at parallelism 1."""
+        return AllWindowedStream(self.key_by(lambda x: 0), assigner)
+
+    def count_window_all(self, size: int) -> "AllWindowedStream":
+        ws = AllWindowedStream(self.key_by(lambda x: 0), GlobalWindows.create())
+        ws._trigger = PurgingTrigger.of(CountTrigger(size))
+        return ws
+
     def assign_timestamps_and_watermarks(self, assigner,
                                          watermark_interval: int = 1) -> "DataStream":
         return self._add_op(
@@ -256,14 +281,54 @@ class KeyedStream(DataStream):
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
 
-    def time_window(self, size: Time) -> "WindowedStream":
-        return WindowedStream(self, TumblingEventTimeWindows.of(size))
+    def time_window(self, size: Time, slide: Optional[Time] = None
+                    ) -> "WindowedStream":
+        """Event-time tumbling windows, sliding ones with ``slide``."""
+        assigner = (TumblingEventTimeWindows.of(size) if slide is None
+                    else SlidingEventTimeWindows.of(size, slide))
+        return WindowedStream(self, assigner)
+
+    def count_window(self, size: int, slide: Optional[int] = None
+                     ) -> "WindowedStream":
+        """Windows of ``size`` elements per key; with ``slide``, a
+        window of the newest ``size`` elements every ``slide``."""
+        ws = WindowedStream(self, GlobalWindows.create())
+        if slide is None:
+            ws._trigger = PurgingTrigger.of(CountTrigger(size))
+        else:
+            ws._trigger = CountTrigger(slide)
+            ws._evictor = CountEvictor.of(size)
+        return ws
+
+
+def _field_reduce(field, combine):
+    """A reduce function combining field ``field`` of two elements (a
+    tuple or list position, or an attribute; the whole element when
+    None) and keeping the first element's other fields."""
+    if field is None:
+        return lambda a, b: combine(a, b)
+
+    def reducer(a, b):
+        if isinstance(a, tuple):
+            lst = list(a)
+            lst[field] = combine(a[field], b[field])
+            return tuple(lst)
+        if isinstance(a, list):
+            lst = list(a)
+            lst[field] = combine(a[field], b[field])
+            return lst
+        setattr(a, field, combine(getattr(a, field), getattr(b, field)))
+        return a
+
+    return reducer
 
 
 class WindowedStream:
     def __init__(self, keyed: KeyedStream, assigner: WindowAssigner):
         self._keyed = keyed
         self._assigner = assigner
+        self._trigger = None
+        self._evictor = None
         self._allowed_lateness = 0
         self._late_tag = None
         self._device_enabled = True
@@ -273,6 +338,18 @@ class WindowedStream:
         device window engine or the generic tier would take the
         aggregate."""
         self._device_enabled = False
+        return self
+
+    def trigger(self, trigger) -> "WindowedStream":
+        """Replace the assigner's default trigger (takes the stream off
+        the device and generic tiers)."""
+        self._trigger = trigger
+        return self
+
+    def evictor(self, evictor) -> "WindowedStream":
+        """Keep the raw elements and evict before the window function
+        (``EvictingWindowOperator``)."""
+        self._evictor = evictor
         return self
 
     def allowed_lateness(self, lateness) -> "WindowedStream":
@@ -287,14 +364,40 @@ class WindowedStream:
         self._late_tag = tag
         return self
 
+    def _build(self, name, state_descriptor, window_function,
+               single_value=None) -> DataStream:
+        """WindowOperator over the keyed backend, or
+        EvictingWindowOperator when an evictor is set."""
+        keyed = self._keyed
+        assigner, trigger, evictor = self._assigner, self._trigger, self._evictor
+        lateness, late_tag = self._allowed_lateness, self._late_tag
+        if evictor is not None:
+            pre = _pre_aggregator_for(state_descriptor) if single_value else None
+
+            def factory():
+                return EvictingWindowOperator(assigner, window_function,
+                                              trigger, evictor, lateness,
+                                              late_tag, pre_aggregator=pre)
+        else:
+            def factory():
+                return WindowOperator(assigner, state_descriptor,
+                                      window_function, trigger, lateness,
+                                      late_tag,
+                                      single_value_contents=single_value)
+        return keyed._add_op(name, factory, key_selector=keyed.key_selector,
+                             chaining="head")
+
+    # ---- terminal operations ----------------------------------------
     def aggregate(self, aggregate_function: AggregateFunction,
                   window_function=None, name: str = "window_aggregate") -> DataStream:
+        """The device engines for an eligible DeviceAggregateFunction,
+        the generic tier for any other aggregate on the same window
+        shapes, else WindowOperator (see the module docstring)."""
         keyed = self._keyed
         assigner = self._assigner
-        lateness, late_tag = self._allowed_lateness, self._late_tag
-        batch = self._device_enabled and batch_window_eligible(
-            assigner, lateness, late_tag, window_function)
-        if batch and isinstance(aggregate_function, DeviceAggregateFunction):
+        gate = (assigner, aggregate_function, self._trigger, self._evictor,
+                self._allowed_lateness, self._late_tag, window_function)
+        if self._device_enabled and is_device_eligible(*gate):
             device = keyed.env.device
             mesh, mesh_axis = keyed.env.mesh, keyed.env.mesh_axis
             if not isinstance(assigner, TumblingEventTimeWindows):
@@ -310,21 +413,97 @@ class WindowedStream:
                 return keyed._add_op(name, factory,
                                      key_selector=keyed.key_selector,
                                      chaining="head", parallelism=1)
-        elif batch:
-            raise NotImplementedError(
-                "GenericWindowOperator, the reference's vectorized tier for "
-                "aggregates that are not device aggregates, is not ported by "
-                "slice 2; .disable_device_operator() runs this aggregate on "
-                "WindowOperator")
-        else:
-            descriptor = AggregatingStateDescriptor("window-contents",
-                                                    aggregate_function)
+            return keyed._add_op(name, factory,
+                                 key_selector=keyed.key_selector,
+                                 chaining="head")
+        if self._device_enabled and is_generic_eligible(*gate):
+            def gfactory():
+                return GenericWindowOperator(assigner, aggregate_function,
+                                             window_function)
+            return keyed._add_op(name, gfactory,
+                                 key_selector=keyed.key_selector,
+                                 chaining="head")
+        return self._build(name, AggregatingStateDescriptor(
+            "window-contents", aggregate_function), window_function,
+            single_value=True)
 
-            def factory():
-                return WindowOperator(assigner, descriptor, window_function,
-                                      allowed_lateness=lateness,
-                                      late_data_tag=late_tag,
-                                      single_value_contents=True)
-        return keyed._add_op(name, factory, key_selector=keyed.key_selector,
-                             chaining="head")
+    def reduce(self, fn, window_function=None,
+               name: str = "window_reduce") -> DataStream:
+        return self._build(name, ReducingStateDescriptor(
+            "window-contents", as_reduce_function(fn)), window_function,
+            single_value=True)
 
+    def fold(self, initial_value, fold_function,
+             window_function=None) -> DataStream:
+        return self._build("window_fold", FoldingStateDescriptor(
+            "window-contents", initial_value, fold_function),
+            window_function, single_value=True)
+
+    def apply(self, window_function, name: str = "window_apply") -> DataStream:
+        """``window_function`` over the window's elements (a
+        WindowFunction, a ProcessWindowFunction or a callable(key,
+        window, elements) -> iterable)."""
+        return self._build(name, ListStateDescriptor("window-contents"),
+                           window_function, single_value=False)
+
+    def process(self, process_window_function,
+                name: str = "window_process") -> DataStream:
+        return self._build(name, ListStateDescriptor("window-contents"),
+                           process_window_function, single_value=False)
+
+    def sum(self, field=None) -> DataStream:
+        return self.reduce(_field_reduce(field, lambda a, b: a + b),
+                           name="window_sum")
+
+    def min(self, field=None) -> DataStream:
+        return self.reduce(_field_reduce(field, min), name="window_min")
+
+    def max(self, field=None) -> DataStream:
+        return self.reduce(_field_reduce(field, max), name="window_max")
+
+
+def _pre_aggregator_for(state_descriptor):
+    """The fire-time aggregation over raw elements on the evictor path:
+    the descriptor's reduce, aggregate or fold over the elements the
+    evictor kept."""
+    if isinstance(state_descriptor, ReducingStateDescriptor):
+        reduce = state_descriptor.reduce_function.reduce
+
+        def pre(values):
+            it = iter(values)
+            acc = next(it)
+            for v in it:
+                acc = reduce(acc, v)
+            return acc
+        return pre
+    if isinstance(state_descriptor, AggregatingStateDescriptor):
+        agg = state_descriptor.aggregate_function
+
+        def pre(values):
+            acc = agg.create_accumulator()
+            for v in values:
+                acc = agg.add(v, acc)
+            return agg.get_result(acc)
+        return pre
+    if isinstance(state_descriptor, FoldingStateDescriptor):
+        fold = state_descriptor.fold_function
+
+        def pre(values):
+            acc = state_descriptor.get_default_value()
+            for v in values:
+                acc = fold(acc, v)
+            return acc
+        return pre
+    return None
+
+
+class AllWindowedStream(WindowedStream):
+    """Windows over a stream without keys (``window_all``): every record
+    has key 0, and the window operator runs at parallelism 1."""
+
+    def _build(self, name, state_descriptor, window_function,
+               single_value=None) -> DataStream:
+        stream = super()._build(name, state_descriptor, window_function,
+                                single_value)
+        stream.node.parallelism = 1
+        return stream

@@ -163,19 +163,29 @@ def resolve_mesh(mesh):
     return mesh() if is_mesh_factory(mesh) else mesh
 
 
-def batch_window_eligible(assigner, allowed_lateness, late_tag,
-                          window_function) -> bool:
-    """The reference's gate, at graph construction, for its vectorized
-    window tiers: the device engines for a DeviceAggregateFunction, the
-    generic tier for any other aggregate (tumbling, sliding with size %
-    slide == 0, session; default trigger, lateness 0, no late-data
-    tag): the assigners the port's device engines cover
-    (``assigner_supported``)."""
+def batch_window_eligible(assigner, trigger, evictor, allowed_lateness,
+                          late_tag, window_function) -> bool:
+    """The window shapes both batch tiers take, the device engines and
+    the generic tier: an assigner they cover (``assigner_supported``)
+    with the default trigger, no evictor, lateness 0, no late-data tag
+    and a callable window function (or none)."""
+    if trigger is not None or evictor is not None:
+        return False
     if allowed_lateness != 0 or late_tag is not None:
         return False
     if window_function is not None and not callable(window_function):
         return False
     return assigner_supported(assigner)
+
+
+def is_device_eligible(assigner, aggregate_function, trigger, evictor,
+                       allowed_lateness, late_tag, window_function) -> bool:
+    """The graph builder's gate for the device engines: a
+    DeviceAggregateFunction on a shape ``batch_window_eligible`` takes."""
+    return (isinstance(aggregate_function, DeviceAggregateFunction)
+            and batch_window_eligible(assigner, trigger, evictor,
+                                      allowed_lateness, late_tag,
+                                      window_function))
 
 
 class DeviceWindowOperator(StreamOperator):

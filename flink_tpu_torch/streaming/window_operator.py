@@ -14,21 +14,27 @@ that a fused chain program computed on the card.  Merging assigners and per-row 
 ``process_element`` and the per-timer ``on_event_time``.
 
 The session mapping (window -> state window) is stored in keyed value
-state as ``{namespace: namespace}`` tuples, so snapshots hold plain
-values; a JAX-package snapshot's mapping of window objects restores
-too, but the JAX package cannot read the port's tuples back.
-``EvictingWindowOperator`` is a later slice.
+state as a dict of window objects, as the JAX package stores it; a
+mapping of namespace tuples restores too.
+
+``GlobalWindows`` (count windows) runs here too: its one window's
+cleanup time is ``MAX_TIMESTAMP``, so it registers no cleanup timer
+and fires only by its trigger; lateness does not apply to it.
+``EvictingWindowOperator`` keeps the raw (timestamp, value) pairs in
+list state and runs the evictor around the window function.
+Processing-time assigners are a later slice and raise.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Iterable, Optional
+from typing import Any, Iterable, List, Optional, Tuple
 
 import numpy as np
 
 from flink_tpu_torch.core.functions import _FieldKeySelector
 from flink_tpu_torch.core.state import (AggregatingStateDescriptor,
+                                        ListStateDescriptor,
                                         ReducingStateDescriptor,
                                         StateDescriptor,
                                         ValueStateDescriptor)
@@ -37,7 +43,8 @@ from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord
 from flink_tpu_torch.streaming.operators import (AbstractUdfStreamOperator,
                                                  OutputTag,
                                                  TimestampedCollector)
-from flink_tpu_torch.streaming.windowing import (SlidingEventTimeWindows,
+from flink_tpu_torch.streaming.windowing import (GlobalWindows,
+                                                 SlidingEventTimeWindows,
                                                  TimeWindow, Trigger,
                                                  TriggerContext,
                                                  TriggerResult,
@@ -66,6 +73,13 @@ class WindowFunction(abc.ABC):
     @abc.abstractmethod
     def apply(self, key, window, inputs: Iterable, out) -> None:
         ...
+
+
+class PassThroughWindowFunction(WindowFunction):
+    """Emit the window's contents as they are."""
+
+    def apply(self, key, window, inputs, out):
+        out.collect(inputs)
 
 
 def _processing_time(op) -> int:
@@ -136,10 +150,12 @@ class _InternalWindowFunction:
 # MergingWindowSet
 # ---------------------------------------------------------------------
 
-def _window(w) -> TimeWindow:
+def _window(w, window_type=TimeWindow):
     """A mapping entry: a namespace tuple, or a window object with start
     and end (of either package: session snapshots store those)."""
-    return TimeWindow.from_namespace(w) if isinstance(w, tuple) else TimeWindow(w.start, w.end)
+    if isinstance(w, tuple):
+        return window_type.from_namespace(w)
+    return window_type(w.start, w.end)
 
 
 class MergingWindowSet:
@@ -148,11 +164,11 @@ class MergingWindowSet:
     target and the others' state folds into it, so state is never
     re-namespaced."""
 
-    def __init__(self, mapping_state):
-        #: value state holding {window namespace: state window namespace}
+    def __init__(self, mapping_state, window_type=TimeWindow):
+        #: value state holding {window: state window}
         self._mapping_state = mapping_state
         m = mapping_state.value()
-        self.mapping: dict = {_window(w): _window(s)
+        self.mapping: dict = {_window(w, window_type): _window(s, window_type)
                               for w, s in m.items()} if m else {}
 
     def persist(self) -> None:
@@ -250,6 +266,18 @@ class _WindowTriggerContext(TriggerContext):
         return self._op.keyed_backend.get_partitioned_state(
             self.window.to_namespace(), descriptor)
 
+    #: the windows a merge folds into ``window``, set around on_merge
+    merged_windows = ()
+
+    def merge_partitioned_state(self, descriptor):
+        """Fold the merged windows' trigger state into the merge
+        result's namespace."""
+        state = self._op.keyed_backend.get_or_create_keyed_state(descriptor)
+        if hasattr(state, "merge_namespaces"):
+            state.merge_namespaces(
+                self.window.to_namespace(),
+                [w.to_namespace() for w in self.merged_windows])
+
 
 class _AssignerContext:
     def __init__(self, op: "WindowOperator"):
@@ -273,7 +301,8 @@ class WindowOperator(AbstractUdfStreamOperator):
                  late_data_tag: Optional[OutputTag] = None,
                  single_value_contents: Optional[bool] = None):
         super().__init__(window_function)
-        if not assigner.is_event_time():
+        if not assigner.is_event_time() and not isinstance(assigner,
+                                                           GlobalWindows):
             raise NotImplementedError(
                 f"{assigner!r}: processing-time windows are not ported")
         self.assigner = assigner
@@ -321,16 +350,21 @@ class WindowOperator(AbstractUdfStreamOperator):
                 if self._is_window_late(window):
                     continue
                 skipped = False
-                self._add_and_trigger(record.value, record.timestamp, window)
+                self._add_and_trigger(record, window)
         if skipped and self._is_element_late(record):
             self._late(record)
 
-    def _add_and_trigger(self, value, timestamp: int, window) -> None:
+    def _state_value(self, record: StreamRecord):
+        """What goes into window state for one record (the evicting
+        operator stores (timestamp, value) pairs)."""
+        return record.value
+
+    def _add_and_trigger(self, record: StreamRecord, window) -> None:
         self.window_state.set_current_namespace(window.to_namespace())
-        self.window_state.add(value)
+        self.window_state.add(self._state_value(record))
         self.trigger_ctx.window = window
-        result = self.trigger.on_element(value, timestamp, window,
-                                         self.trigger_ctx)
+        result = self.trigger.on_element(record.value, record.timestamp,
+                                         window, self.trigger_ctx)
         self._react(result, window)
         self._register_cleanup_timer(window)
 
@@ -504,30 +538,36 @@ class WindowOperator(AbstractUdfStreamOperator):
     def _replay_immediate(self, value, timestamp: int, wm: int) -> None:
         """Per-element body for a row's windows already past the
         watermark; its other windows were ingested column-wise."""
+        record = StreamRecord(value, timestamp)
         for window in self.assigner.assign_windows(value, timestamp,
                                                    self.assigner_ctx):
             if window.max_timestamp() > wm or self._is_window_late(window):
                 continue
-            self._add_and_trigger(value, timestamp, window)
+            self._add_and_trigger(record, window)
 
     def _mapping(self) -> MergingWindowSet:
         return MergingWindowSet(self.keyed_backend.get_partitioned_state(
-            VOID_NAMESPACE, self._mapping_desc))
+            VOID_NAMESPACE, self._mapping_desc), self.assigner.window_type())
 
     def _process_merging(self, record, windows, skipped):
         merging = self._mapping()
 
         def on_merge(merge_result, merged_windows, state_window,
                      merged_state_windows):
-            # fold the merged state windows into the surviving one
-            if merged_state_windows:
+            # fold the merged state windows into the surviving one (a
+            # folding state cannot merge, and keeps its target's value)
+            if merged_state_windows and hasattr(self.window_state,
+                                                "merge_namespaces"):
                 self.window_state.merge_namespaces(
                     state_window.to_namespace(),
                     [w.to_namespace() for w in merged_state_windows])
             # the trigger merges first, then the merged windows' trigger
             # state and cleanup timers go
             self.trigger_ctx.window = merge_result
+            self.trigger_ctx.merged_windows = [
+                w for w in merged_windows if w != merge_result]
             self.trigger.on_merge(merge_result, self.trigger_ctx)
+            self.trigger_ctx.merged_windows = ()
             for w in merged_windows:
                 if w == merge_result:
                     continue
@@ -543,7 +583,7 @@ class WindowOperator(AbstractUdfStreamOperator):
             skipped = False
             state_window = merging.get_state_window(actual)
             self.window_state.set_current_namespace(state_window.to_namespace())
-            self.window_state.add(record.value)
+            self.window_state.add(self._state_value(record))
             self.trigger_ctx.window = actual
             result = self.trigger.on_element(
                 record.value, record.timestamp, actual, self.trigger_ctx)
@@ -578,7 +618,8 @@ class WindowOperator(AbstractUdfStreamOperator):
                 self._emit(window, contents)
         if TriggerResult.is_purge(result):
             self.window_state.clear()
-        if timer.timestamp == self._cleanup_time(window):
+        if self.assigner.is_event_time() \
+                and timer.timestamp == self._cleanup_time(window):
             self._clear_all_state(window, merging)
         if merging is not None:
             merging.persist()
@@ -695,28 +736,42 @@ class WindowOperator(AbstractUdfStreamOperator):
                                   self, contents, self.collector)
 
     def _cleanup_time(self, window) -> int:
-        # capped at MAX_TIMESTAMP (Python ints do not wrap)
-        t = window.max_timestamp() + self.allowed_lateness
-        return t if t < MAX_TIMESTAMP else MAX_TIMESTAMP
+        if self.assigner.is_event_time():
+            # capped at MAX_TIMESTAMP (Python ints do not wrap)
+            t = window.max_timestamp() + self.allowed_lateness
+            return t if t < MAX_TIMESTAMP else MAX_TIMESTAMP
+        return window.max_timestamp()
 
     def _register_cleanup_timer(self, window) -> None:
         cleanup = self._cleanup_time(window)
         if cleanup == MAX_TIMESTAMP:
-            return  # end of time: nothing to collect
-        self.timer_service.register_event_time_timer(window.to_namespace(),
-                                                     cleanup)
+            return  # end of time (a GlobalWindow): nothing to collect
+        if self.assigner.is_event_time():
+            self.timer_service.register_event_time_timer(
+                window.to_namespace(), cleanup)
+        else:
+            self.timer_service.register_processing_time_timer(
+                window.to_namespace(), cleanup)
 
     def _delete_cleanup_timer(self, window) -> None:
         cleanup = self._cleanup_time(window)
-        if cleanup != MAX_TIMESTAMP:
-            self.timer_service.delete_event_time_timer(window.to_namespace(),
-                                                       cleanup)
+        if cleanup == MAX_TIMESTAMP:
+            return
+        if self.assigner.is_event_time():
+            self.timer_service.delete_event_time_timer(
+                window.to_namespace(), cleanup)
+        else:
+            self.timer_service.delete_processing_time_timer(
+                window.to_namespace(), cleanup)
 
     def _is_window_late(self, window) -> bool:
-        return self._cleanup_time(window) <= self.timer_service.current_watermark
+        return (self.assigner.is_event_time()
+                and self._cleanup_time(window)
+                <= self.timer_service.current_watermark)
 
     def _is_element_late(self, record: StreamRecord) -> bool:
-        return (record.timestamp is not None
+        return (self.assigner.is_event_time()
+                and record.timestamp is not None
                 and record.timestamp + self.allowed_lateness
                 <= self.timer_service.current_watermark)
 
@@ -727,3 +782,57 @@ class WindowOperator(AbstractUdfStreamOperator):
         self._internal_fn.clear(self.keyed_backend.current_key, window, self)
         if merging is not None:
             merging.retire_window(window)
+
+
+# ---------------------------------------------------------------------
+# EvictingWindowOperator
+# ---------------------------------------------------------------------
+
+class EvictingWindowOperator(WindowOperator):
+    """Keeps the raw (timestamp, value) pairs of a window in list state
+    and runs the evictor before (and after) the window function."""
+
+    def __init__(self, assigner, window_function, trigger=None,
+                 evictor=None, allowed_lateness=0, late_data_tag=None,
+                 pre_aggregator=None):
+        if evictor is None:
+            raise ValueError("EvictingWindowOperator requires an evictor")
+        super().__init__(assigner,
+                         ListStateDescriptor("window-contents-evicting"),
+                         window_function, trigger, allowed_lateness,
+                         late_data_tag, single_value_contents=False)
+        self.evictor = evictor
+        #: the raw elements must stay, so a reduce / aggregate / fold
+        #: runs at fire time over the elements the evictor kept
+        self.pre_aggregator = pre_aggregator
+        if pre_aggregator is not None:
+            self._internal_fn = _InternalWindowFunction(window_function,
+                                                        single_value=True)
+
+    def _batch_eligibility(self) -> Optional[str]:
+        return "evictor retains raw per-row elements"
+
+    def _state_value(self, record: StreamRecord):
+        # the pair lets a time evictor see each element's timestamp; the
+        # record itself still goes to the trigger and the late output
+        return (record.timestamp, record.value)
+
+    def _emit(self, window, contents) -> None:
+        elements: List[Tuple[int, Any]] = list(contents)
+        now = (self.timer_service.current_watermark
+               if self.assigner.is_event_time() else _processing_time(self))
+        kept = self.evictor.evict_before(elements, len(elements), window, now)
+        self.collector.set_absolute_timestamp(window.max_timestamp())
+        key = self.keyed_backend.current_key
+        values = [v for _, v in kept]
+        if self.pre_aggregator is not None:
+            if values:
+                self._internal_fn.process(key, window, self,
+                                          self.pre_aggregator(values),
+                                          self.collector)
+        else:
+            self._internal_fn.process(key, window, self, values,
+                                      self.collector)
+        after = self.evictor.evict_after(kept, len(kept), window, now)
+        # the survivors are the window's contents from here on
+        self.window_state.update([(ts, v) for ts, v in after])

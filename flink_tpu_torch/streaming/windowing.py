@@ -1,19 +1,29 @@
-"""Windows, assigners and triggers (port of
-``flink_tpu/streaming/windowing.py:18-238, 450-613``).
+"""Windows, assigners, triggers and evictors (port of
+``flink_tpu/streaming/windowing.py``).
 
 A ``TimeWindow`` covers [start, end); max_timestamp = end - 1; its
 namespace in keyed state is the tuple (start, end).  Tumbling and
 sliding starts align to ``timestamp - (timestamp - offset) % slide``;
-a session window is [timestamp, timestamp + gap) and merges with every
-window it intersects.  The port carries event-time assigners and the
-default ``EventTimeTrigger``; processing-time assigners, the other
-triggers and evictors are later slices.
+a session window is [timestamp, timestamp + gap) (the gap per element
+for ``DynamicEventTimeSessionWindows``) and merges with every window it
+intersects.  ``GlobalWindows`` puts everything into the one
+``GlobalWindow`` (namespace ``("__global__",)``, max_timestamp
+``MAX_TIMESTAMP``), which fires only by a trigger.  Triggers:
+``EventTimeTrigger`` (the event-time default), ``CountTrigger``,
+``PurgingTrigger``, ``ContinuousEventTimeTrigger`` and
+``DeltaTrigger``; evictors (``CountEvictor``, ``TimeEvictor``,
+``DeltaEvictor``) run in ``EvictingWindowOperator``.  Processing-time
+assigners and triggers are a later slice.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Iterable, Tuple
+from typing import Any, Callable, Iterable, List, Optional, Tuple
+
+from flink_tpu_torch.core.state import (ReducingStateDescriptor,
+                                        ValueStateDescriptor)
+from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP
 
 
 class Time:
@@ -39,6 +49,10 @@ class Time:
     @staticmethod
     def hours(h) -> "Time":
         return Time(h * 60 * 60 * 1000)
+
+    @staticmethod
+    def days(d) -> "Time":
+        return Time(d * 24 * 60 * 60 * 1000)
 
     def to_milliseconds(self) -> int:
         return self.milliseconds
@@ -108,6 +122,36 @@ class TimeWindow(Window):
 
     def __repr__(self):
         return f"TimeWindow[{self.start}, {self.end})"
+
+
+class GlobalWindow(Window):
+    """The one window covering everything."""
+
+    _instance: Optional["GlobalWindow"] = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def max_timestamp(self) -> int:
+        return MAX_TIMESTAMP
+
+    def __eq__(self, other):
+        return isinstance(other, GlobalWindow)
+
+    def __hash__(self):
+        return hash("GlobalWindow")
+
+    def __repr__(self):
+        return "GlobalWindow"
+
+    def to_namespace(self):
+        return ("__global__",)
+
+    @staticmethod
+    def from_namespace(ns) -> "GlobalWindow":
+        return GlobalWindow()
 
 
 # ---------------------------------------------------------------------
@@ -201,6 +245,155 @@ class EventTimeTrigger(Trigger):
         return "EventTimeTrigger()"
 
 
+class CountTrigger(Trigger):
+    """FIRE every ``max_count`` elements; the count per (key, window)
+    is partitioned trigger state."""
+
+    def __init__(self, max_count: int):
+        self.max_count = max_count
+        self._desc = ReducingStateDescriptor("trigger-count",
+                                             lambda a, b: a + b)
+
+    def on_element(self, element, timestamp, window, ctx):
+        count = ctx.get_partitioned_state(self._desc)
+        count.add(1)
+        if count.get() >= self.max_count:
+            count.clear()
+            return TriggerResult.FIRE
+        return TriggerResult.CONTINUE
+
+    def can_merge(self):
+        return True
+
+    def on_merge(self, window, ctx):
+        # the merged windows' counts fold into the result window's
+        if hasattr(ctx, "merge_partitioned_state"):
+            ctx.merge_partitioned_state(self._desc)
+
+    def clear(self, window, ctx):
+        ctx.get_partitioned_state(self._desc).clear()
+
+    def __repr__(self):
+        return f"CountTrigger({self.max_count})"
+
+
+class PurgingTrigger(Trigger):
+    """Wraps a trigger, turning its FIRE into FIRE_AND_PURGE."""
+
+    def __init__(self, inner: Trigger):
+        self.inner = inner
+
+    @staticmethod
+    def of(inner: Trigger) -> "PurgingTrigger":
+        return PurgingTrigger(inner)
+
+    def _wrap(self, r: int) -> int:
+        return TriggerResult.FIRE_AND_PURGE if TriggerResult.is_fire(r) else r
+
+    def on_element(self, element, timestamp, window, ctx):
+        return self._wrap(self.inner.on_element(element, timestamp, window, ctx))
+
+    def on_event_time(self, time, window, ctx):
+        return self._wrap(self.inner.on_event_time(time, window, ctx))
+
+    def on_processing_time(self, time, window, ctx):
+        return self._wrap(self.inner.on_processing_time(time, window, ctx))
+
+    def can_merge(self):
+        return self.inner.can_merge()
+
+    def on_merge(self, window, ctx):
+        self.inner.on_merge(window, ctx)
+
+    def clear(self, window, ctx):
+        self.inner.clear(window, ctx)
+
+    def __repr__(self):
+        return f"PurgingTrigger({self.inner!r})"
+
+
+class ContinuousEventTimeTrigger(Trigger):
+    """FIRE every ``interval`` of event time while the window is open,
+    and at its end."""
+
+    def __init__(self, interval):
+        self.interval = _ms(interval)
+        self._desc = ReducingStateDescriptor("fire-time", min)
+
+    @staticmethod
+    def of(interval) -> "ContinuousEventTimeTrigger":
+        return ContinuousEventTimeTrigger(interval)
+
+    def on_element(self, element, timestamp, window, ctx):
+        if window.max_timestamp() <= ctx.get_current_watermark():
+            return TriggerResult.FIRE
+        ctx.register_event_time_timer(window.max_timestamp())
+        fire = ctx.get_partitioned_state(self._desc)
+        if fire.get() is None:
+            start = timestamp - (timestamp % self.interval)
+            nxt = start + self.interval
+            ctx.register_event_time_timer(nxt)
+            fire.add(nxt)
+        return TriggerResult.CONTINUE
+
+    def on_event_time(self, time, window, ctx):
+        if time == window.max_timestamp():
+            return TriggerResult.FIRE
+        fire = ctx.get_partitioned_state(self._desc)
+        t = fire.get()
+        if t is not None and t == time:
+            fire.clear()
+            fire.add(time + self.interval)
+            ctx.register_event_time_timer(time + self.interval)
+            return TriggerResult.FIRE
+        return TriggerResult.CONTINUE
+
+    def can_merge(self):
+        return True
+
+    def on_merge(self, window, ctx):
+        if window.max_timestamp() > ctx.get_current_watermark():
+            ctx.register_event_time_timer(window.max_timestamp())
+
+    def clear(self, window, ctx):
+        fire = ctx.get_partitioned_state(self._desc)
+        t = fire.get()
+        if t is not None:
+            ctx.delete_event_time_timer(t)
+        fire.clear()
+
+    def __repr__(self):
+        return f"ContinuousEventTimeTrigger({self.interval})"
+
+
+class DeltaTrigger(Trigger):
+    """FIRE when ``delta_function(last fired element, element)`` exceeds
+    ``threshold``; the first element of a (key, window) only sets the
+    reference point."""
+
+    def __init__(self, threshold: float,
+                 delta_function: Callable[[Any, Any], float]):
+        self.threshold = threshold
+        self.delta_function = delta_function
+        self._desc = ValueStateDescriptor("delta-last")
+
+    def on_element(self, element, timestamp, window, ctx):
+        last = ctx.get_partitioned_state(self._desc)
+        if last.value() is None:
+            last.update(element)
+            return TriggerResult.CONTINUE
+        if self.delta_function(last.value(), element) > self.threshold:
+            last.update(element)
+            return TriggerResult.FIRE
+        return TriggerResult.CONTINUE
+
+    def clear(self, window, ctx):
+        ctx.get_partitioned_state(self._desc).clear()
+
+    def __repr__(self):
+        return f"DeltaTrigger({self.threshold})"
+
+
 # ---------------------------------------------------------------------
 # Window assigners
 # ---------------------------------------------------------------------
@@ -282,7 +475,12 @@ class SlidingEventTimeWindows(WindowAssigner):
         return f"SlidingEventTimeWindows({self.size}/{self.slide})"
 
 
-class EventTimeSessionWindows(WindowAssigner):
+class _SessionWindowsBase(WindowAssigner):
+    def is_merging(self):
+        return True
+
+
+class EventTimeSessionWindows(_SessionWindowsBase):
     """[timestamp, timestamp + gap) per record, merged with every
     window it intersects."""
 
@@ -301,8 +499,139 @@ class EventTimeSessionWindows(WindowAssigner):
     def is_event_time(self):
         return True
 
-    def is_merging(self):
+    def __repr__(self):
+        return f"EventTimeSessionWindows({self.gap})"
+
+
+class DynamicEventTimeSessionWindows(_SessionWindowsBase):
+    """Sessions whose gap ``gap_extractor(element)`` gives per
+    element."""
+
+    def __init__(self, gap_extractor: Callable[[Any], int]):
+        self.gap_extractor = gap_extractor
+
+    @staticmethod
+    def with_dynamic_gap(extractor) -> "DynamicEventTimeSessionWindows":
+        return DynamicEventTimeSessionWindows(extractor)
+
+    def assign_windows(self, element, timestamp, ctx):
+        gap = self.gap_extractor(element)
+        if gap <= 0:
+            raise ValueError("session gap must be positive")
+        return [TimeWindow(timestamp, timestamp + gap)]
+
+    def is_event_time(self):
         return True
 
     def __repr__(self):
-        return f"EventTimeSessionWindows({self.gap})"
+        return "DynamicEventTimeSessionWindows()"
+
+
+class GlobalWindows(WindowAssigner):
+    """Everything into the one GlobalWindow; it fires only by a trigger
+    (the default never fires)."""
+
+    class NeverTrigger(Trigger):
+        def can_merge(self):
+            return True
+
+        def on_merge(self, window, ctx):
+            pass
+
+        def __repr__(self):
+            return "NeverTrigger()"
+
+    @staticmethod
+    def create() -> "GlobalWindows":
+        return GlobalWindows()
+
+    def assign_windows(self, element, timestamp, ctx):
+        return [GlobalWindow()]
+
+    def get_default_trigger(self):
+        return GlobalWindows.NeverTrigger()
+
+    def is_event_time(self):
+        return False
+
+    def window_type(self):
+        return GlobalWindow
+
+    def __repr__(self):
+        return "GlobalWindows()"
+
+
+# ---------------------------------------------------------------------
+# Evictors
+# ---------------------------------------------------------------------
+
+class Evictor(abc.ABC):
+    """Works on the raw element buffer of an EvictingWindowOperator:
+    a list of (timestamp, value) pairs, oldest first."""
+
+    @abc.abstractmethod
+    def evict_before(self, elements: List[Tuple[int, Any]], size: int,
+                     window, current_time: int) -> List[Tuple[int, Any]]:
+        ...
+
+    def evict_after(self, elements: List[Tuple[int, Any]], size: int,
+                    window, current_time: int) -> List[Tuple[int, Any]]:
+        return elements
+
+
+class CountEvictor(Evictor):
+    """Keep the newest ``max_count`` elements."""
+
+    def __init__(self, max_count: int):
+        self.max_count = max_count
+
+    @staticmethod
+    def of(max_count: int) -> "CountEvictor":
+        return CountEvictor(max_count)
+
+    def evict_before(self, elements, size, window, current_time):
+        if size <= self.max_count:
+            return elements
+        return elements[size - self.max_count:]
+
+
+class TimeEvictor(Evictor):
+    """Keep the elements within ``window_size`` of the newest
+    timestamp."""
+
+    def __init__(self, window_size):
+        self.window_size = _ms(window_size)
+
+    @staticmethod
+    def of(window_size) -> "TimeEvictor":
+        return TimeEvictor(window_size)
+
+    def evict_before(self, elements, size, window, current_time):
+        if not elements:
+            return elements
+        if not any(ts is not None for ts, _ in elements):
+            return elements
+        max_ts = max(ts for ts, _ in elements if ts is not None)
+        cutoff = max_ts - self.window_size
+        return [(ts, v) for ts, v in elements if ts is None or ts > cutoff]
+
+
+class DeltaEvictor(Evictor):
+    """Evict the elements whose delta to the newest is at or over
+    ``threshold``."""
+
+    def __init__(self, threshold: float,
+                 delta_function: Callable[[Any, Any], float]):
+        self.threshold = threshold
+        self.delta_function = delta_function
+
+    @staticmethod
+    def of(threshold, delta_function) -> "DeltaEvictor":
+        return DeltaEvictor(threshold, delta_function)
+
+    def evict_before(self, elements, size, window, current_time):
+        if not elements:
+            return elements
+        newest = elements[-1][1]
+        return [(ts, v) for ts, v in elements
+                if self.delta_function(v, newest) < self.threshold]

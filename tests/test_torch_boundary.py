@@ -2,7 +2,8 @@
 jax, any module of flink_tpu or the JAX package's native library (a
 subprocess job runs the log tier, the keyed backend, the sliding and
 session log engines, the fused string sum, a DeviceTumblingWindows
-batch, a fused map/filter chain ahead of a window at parallelism 4,
+batch, a fused map/filter chain ahead of a window at parallelism 4, a
+Python aggregate on the generic tier, a count window over a device Sum,
 graph algorithms, an ML fit and a job on an 8-shard mesh (the mesh log
 tier), then reads its own sys.modules and
 /proc/self/maps), and its entry points never fall back to the CPU on
@@ -138,6 +139,35 @@ env.set_mesh(Mesh(["cpu"] * 8))
     .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
     .aggregate(agg).add_sink(CollectSink(meshed)))
 env.execute()
+# the generic tier (a Python aggregate) and a trigger job (a count
+# window over the gpu backend's device Sum)
+from flink_tpu_torch.core.functions import AggregateFunction
+class MeanOf(AggregateFunction):
+    def create_accumulator(self):
+        return (0.0, 0.0)
+    def add(self, v, acc):
+        return (acc[0] + v[1], acc[1] + 1.0)
+    def get_result(self, acc):
+        return acc[0] / acc[1]
+    def merge(self, a, b):
+        return (a[0] + b[0], a[1] + b[1])
+generic = []
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+(env.from_collection([(i % 7, i, 10 * i) for i in range(500)])
+    .assign_timestamps_and_watermarks(
+        BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+    .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
+    .aggregate(MeanOf()).add_sink(CollectSink(generic)))
+env.execute()
+counted = []
+agg = SumAggregate(np.float64)
+agg.extract_value = lambda e: e[1]
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.set_state_backend("gpu")
+(env.from_collection([(i % 7, i, 10 * i) for i in range(500)])
+    .key_by(lambda e: e[0]).count_window(10)
+    .aggregate(agg).add_sink(CollectSink(counted)))
+env.execute()
 maps = open("/proc/self/maps").read()
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "graph_ranks": len(ranks), "graph_components": len(set(comps.values())),
@@ -148,6 +178,8 @@ print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "device_windows_keys": len(dw.fired[0][0]),
                   "fused_results": len(fused),
                   "mesh_results": len(meshed),
+                  "generic_results": len(generic),
+                  "count_window_results": len(counted),
                   "mesh_engines": sorted(set(mesh_engines)),
                   "fused_batches": chain_fusion.FUSION_STATS.fused_batches,
                   "demotions": chain_fusion.FUSION_STATS.demotions,
@@ -177,6 +209,9 @@ def test_job_loads_neither_jax_nor_flink_tpu():
     assert report["fused_results"] == 7 * 21
     assert report["fused_batches"] == 4 and report["demotions"] == 0
     assert report["mesh_results"] == 7 * 5
+    assert report["generic_results"] == 7 * 5
+    # 500 records over 7 keys: 71 or 72 a key, 7 full windows of 10 each
+    assert report["count_window_results"] == 7 * 7
     assert report["mesh_engines"] == ["MeshLogTumblingWindows"]
     assert report["graph_ranks"] == 200 and report["graph_components"] >= 1
     assert report["als_users"] == 60 and report["knn_rows"] == 6
@@ -204,7 +239,8 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                    "streaming/chain_fusion.py", "kernels/chain_route.py",
                    "graph/library.py", "ml/recommendation.py",
                    "kernels/knn_topk.py", "kernels/shard_pack.py",
-                   "parallel/mesh.py", "parallel/mesh_log.py"):
+                   "parallel/mesh.py", "parallel/mesh_log.py",
+                   "streaming/generic_agg.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]

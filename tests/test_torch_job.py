@@ -111,14 +111,6 @@ def test_print_sink_and_accumulators(capsys):
     assert sorted(capsys.readouterr().out.split()) == ["w4", "w5"]
 
 
-def test_ineligible_aggregate_names_slice_2():
-    env = tds.StreamExecutionEnvironment.get_execution_environment(device="cpu")
-    ws = env.from_collection([1]).key_by(lambda x: x).window(
-        twin.TumblingEventTimeWindows.of(10))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ws.aggregate(object())
-
-
 def _keyed_job(ds, src, win, ops, agg, events, backend, lateness, **env_kw):
     """The job on a keyed-state backend: allowed lateness takes it off
     the device window engine onto WindowOperator in both packages; the

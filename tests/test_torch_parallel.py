@@ -127,6 +127,7 @@ def test_watermarks_min_combine_over_channels():
     from flink_tpu_torch.runtime.local import SubtaskInstance
     from flink_tpu_torch.streaming.graph import JobVertex, StreamNode
     from flink_tpu_torch.streaming.operators import StreamOperator
+    from flink_tpu_torch.streaming.timers import TestProcessingTimeService
 
     class _Recorder(StreamOperator):
         def __init__(self):
@@ -140,7 +141,8 @@ def test_watermarks_min_combine_over_channels():
             self.seen.append(watermark.timestamp)
 
     vertex = JobVertex(1, [StreamNode(1, "rec", _Recorder)], [])
-    st = SubtaskInstance(vertex, device="cpu")
+    st = SubtaskInstance(vertex, device="cpu",
+                         processing_time_service=TestProcessingTimeService())
     from flink_tpu_torch.streaming.elements import Watermark
     chans = [st.new_channel(0) for _ in range(3)]
     for ch, wm in ((0, 10), (1, 5), (2, 7), (1, 20), (0, 9), (2, 30), (0, 40)):
