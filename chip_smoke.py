@@ -170,7 +170,31 @@ exit code at 0):
                 backend (2^18 events, 10,000 keys) against the heap
                 backend on 500 sampled keys, and a ``count_window``
                 device Sum on the GPU backend;
-18. the launch counts of phases 4-17, each path counted on its own:
+18. ``recovery`` checkpoints, restarts, savepoints and processing time
+                through ``StreamExecutionEnvironment`` with
+                ``FsCheckpointStorage`` in a temporary directory: (1) HLL
+                p = 12 at config #2's key space (2^19 events over 1M
+                users, tumbling 1 s over 2 s of timestamps) on the
+                device window operator's scatter tier (integer pair
+                keys), failing once after a checkpoint taken at half the
+                input and restarting under ``fixed_delay``: one restart,
+                the source resumed at the checkpointed offset, the output
+                equal to the uninterrupted run's exactly, the snapshot's
+                bytes and seconds, the write's and the restore's
+                seconds; (2) ``"u%d"`` string keys (2^18 events,
+                interned onto the log tier, device finish); (3) HLL with
+                allowed lateness 1 s on the GPU keyed backend (2^16
+                events, 100k keys; the restore uploads through
+                ``set_rows``); (4) ``execute_async`` on (1)'s job,
+                ``stop_with_savepoint`` at the half, restored into a
+                fresh environment, the joined output equal to (1)'s
+                uninterrupted run; (5) processing time on the GPU
+                backend: four tumbling windows through the test
+                harness's clock (2^16 events, 100k keys) against numpy
+                HLL, a ``processing`` job flushed at the end of input
+                and processing-time sessions, both against the heap
+                backend;
+19. the launch counts of phases 4-18, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -289,6 +313,14 @@ def kernel_device_ms(fn, reps: int = 10) -> dict:
             name = ev.key.split("(")[0]
             out[name] = out.get(name, 0.0) + us / 1e3 / reps
     return out
+
+
+def allclose(got, want, rtol: float, atol: float = 0.0) -> bool:
+    """``np.testing.assert_allclose``'s test as a boolean: equal shapes,
+    |got - want| <= atol + rtol * |want| everywhere, NaN equal to NaN."""
+    got, want = np.asarray(got), np.asarray(want)
+    return got.shape == want.shape and bool(
+        np.allclose(got, want, rtol=rtol, atol=atol, equal_nan=True))
 
 
 def max_abs_err(a, b) -> float:
@@ -500,12 +532,12 @@ def kernel_phase(dev, hbm: float):
     got = K.hll_estimate(regs, agg.alpha)
     want = K.hll_estimate_plain(regs, agg.alpha)
     err_dense = float((got - want).abs().max())
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+    dense_ok = allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
     gslots = torch.from_numpy(rng.integers(0, C, 1 << 18).astype(np.int32)).to(dev)
     got_g = K.hll_estimate(regs, agg.alpha, slots=gslots)
     want_g = K.hll_estimate_plain(regs, agg.alpha, slots=gslots)
-    np.testing.assert_allclose(got_g.cpu().numpy(), want_g.cpu().numpy(), rtol=1e-5)
-    check(True, "hll_estimate within rtol 1e-5 (dense and gathered)")
+    check(dense_ok and allclose(got_g.cpu().numpy(), want_g.cpu().numpy(), rtol=1e-5),
+          "hll_estimate within rtol 1e-5 (dense and gathered)")
     ms = cuda_ms(lambda: K.hll_estimate(regs, agg.alpha))
     plain = cuda_ms(lambda: K.hll_estimate_plain(regs, agg.alpha), 3)
     b, by = bound(C * m + 4 * C, 5 * C * m, hbm)
@@ -1188,8 +1220,8 @@ def engine_phase(dev):
     want = hll_reference(np.searchsorted(sample, kh[sel]), vh[sel], len(sample), p)
     pos = {int(k): i for i, k in enumerate(fired_keys)}
     got = np.array([fired_res[pos[int(k)]] for k in sample])
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-    check(True, "engine sample of 4096 keys within rtol 1e-5 of numpy HLL")
+    check(allclose(got, want, rtol=1e-5),
+          "engine sample of 4096 keys within rtol 1e-5 of numpy HLL")
     out = {"engine": {
         "events": n_events, "keys": n_keys, "precision": p,
         "capacity": eng.capacity, "register_bytes": eng.capacity * (1 << p),
@@ -1543,8 +1575,8 @@ def log_tier_phase(dev, n_events=1 << 23, n_keys=1_000_000, chunk=1 << 20,
     want = hll_reference(np.searchsorted(sample, keys[sel]), vh[sel], len(sample), p)
     for tier, (fk, fr) in fired.items():
         got = fr[np.searchsorted(fk, sample)]
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=hll_atol(m))
-        check(True, f"log tier ({tier} finish): {n_sample} keys within rtol 1e-5 "
+        check(allclose(got, want, rtol=1e-5, atol=hll_atol(m)),
+              f"log tier ({tier} finish): {n_sample} keys within rtol 1e-5 "
               "(+ log slack) of numpy HLL")
     out["distinct_keys"] = int(len(dk))
     emit({"log_tier": out})
@@ -1692,8 +1724,8 @@ def _job_phase(dev):
     got = np.array([res[int(q)] for q in sample])
     # the job runs the log tier (float64 estimates): the float32
     # reference's linear-counting logs take the HLL log slack
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=hll_atol(1 << p))
-    check(True, "HLL job sample of 4096 pairs within rtol 1e-5 (+ log slack) "
+    check(allclose(got, want, rtol=1e-5, atol=hll_atol(1 << p)),
+          "HLL job sample of 4096 pairs within rtol 1e-5 (+ log slack) "
           "of numpy HLL")
     hll = {"events": n, "pairs": int(len(upairs)), "seconds": secs,
            "events_per_s": n / secs}
@@ -1758,9 +1790,9 @@ def keyed_job(dev, rng):
     check([r[:2] for r in got] == [r[:2] for r in want]
           and len(got) > len({r[:2] for r in got}),
           "keyed-backend job: the heap backend's windows, late refires included")
-    np.testing.assert_allclose([r[2] for r in got], [r[2] for r in want],
-                               rtol=1e-5, atol=hll_atol(4096))
-    check(True, "keyed-backend job: estimates within rtol 1e-5 (+ log slack) of heap")
+    check(allclose([r[2] for r in got], [r[2] for r in want],
+                   rtol=1e-5, atol=hll_atol(4096)),
+          "keyed-backend job: estimates within rtol 1e-5 (+ log slack) of heap")
     return {"events": n, "results": len(got), "seconds": secs,
             "events_per_s": n / secs, "heap_seconds": heap_secs}
 
@@ -1877,8 +1909,8 @@ def scatter_jobs(dev, rng, n=1 << 13):
     check([r[:3] for r in got] == [r[:3] for r in want] and len(got) > 1000,
           "tumbling_avg job: the heap backend's windows")
     # integer values: float32 sums are exact, the mean is one rounding
-    np.testing.assert_allclose([r[3] for r in got], [r[3] for r in want], rtol=1e-6)
-    check(True, "tumbling_avg job: means within rtol 1e-6 of heap")
+    check(allclose([r[3] for r in got], [r[3] for r in want], rtol=1e-6),
+          "tumbling_avg job: means within rtol 1e-6 of heap")
     out = {"tumbling_avg": {"events": n, "results": len(got), "seconds": secs,
                             "events_per_s": n / secs, "heap_seconds": heap_secs}}
     out.update(sketch_jobs(dev, rng, n, key_of=lambda k: (k, "x"), tag="_composite"))
@@ -1995,8 +2027,8 @@ def keyed_phase(dev, n_events=1 << 22, n_keys=1_000_000, chunk=1 << 20):
                      int(sel.sum()))
     want = hll_reference(np.searchsorted(sample, keys[sel]), vh, len(sample), p)
     got = np.array([res[int(k)] for k in sample])
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-    check(True, "keyed phase sample of 4096 keys within rtol 1e-5 of numpy HLL")
+    check(allclose(got, want, rtol=1e-5),
+          "keyed phase sample of 4096 keys within rtol 1e-5 of numpy HLL")
     check(len(state.slot_index) == 0, "keyed phase freed every slot after the fire")
     out = {"keyed": {
         "events": n_events, "keys": n_keys, "live_keys": int(len(distinct)),
@@ -2072,8 +2104,8 @@ def session_phase(dev, n=20_000, n_keys=2_000):
         if name == "sum":
             check(np.array_equal(*vals), "session sum: exact against heap")
         else:
-            np.testing.assert_allclose(*vals, rtol=1e-5, atol=hll_atol(4096))
-            check(True, "session hll: within rtol 1e-5 (+ log slack) of heap")
+            check(allclose(*vals, rtol=1e-5, atol=hll_atol(4096)),
+                  "session hll: within rtol 1e-5 (+ log slack) of heap")
         out[name] = {"sessions": len(got), "seconds": secs, "heap_seconds": heap_secs,
                      "evictions": st.evictions, "promotions": st.promotions,
                      "capacity": st.capacity}
@@ -3722,6 +3754,48 @@ def _graph(src, dst, w, n, values=None):
                  src, dst, w)
 
 
+#: the graph path's edges and its host references, started by main()
+#: ahead of the paths (graph_references_start)
+_GRAPH_REFS = {}
+
+
+def graph_references_start(dev, scale=22):
+    """Draw the graph path's Graph500 edges (seed 21) and start its host
+    references -- HITS at the default step count, the components,
+    Dijkstra and the max-flood -- in worker processes, which then run
+    beside the paths ahead of the graph path.  PageRank's reference is
+    started by the graph path, once the port's run has given its step
+    count.  The workers are daemons: graph_references_stop() or the
+    interpreter's exit ends them."""
+    import multiprocessing
+    t_gen = time.perf_counter()
+    src, dst, w = kronecker_edges(dev, scale, seed=21)
+    n = 1 << scale
+    deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
+    source = int(np.argmax(deg))
+    flood_vals = np.random.default_rng(22).integers(0, 1 << 30, n).astype(np.int32)
+    setup_s = time.perf_counter() - t_gen
+    pool = multiprocessing.get_context("spawn").Pool(5)
+    hits_steps = 50
+    _GRAPH_REFS.update(
+        scale=scale, src=src, dst=dst, w=w, source=source,
+        source_degree=int(deg[source]), flood_vals=flood_vals, setup_s=setup_s,
+        pool=pool, t_start=time.perf_counter(), hits_steps=hits_steps,
+        refs={"hits": pool.apply_async(_timed, (ref_hits64, src, dst, n, hits_steps)),
+              "components": pool.apply_async(_timed, (ref_components, src, dst, n)),
+              "sssp": pool.apply_async(_timed, (ref_dijkstra, src, dst, w, n, source)),
+              "flood": pool.apply_async(_timed, (ref_max_flood, src, dst, flood_vals))})
+
+
+def graph_references_stop():
+    """End the reference workers, finished or not."""
+    pool = _GRAPH_REFS.pop("pool", None)
+    _GRAPH_REFS.clear()
+    if pool is not None:
+        pool.terminate()
+        pool.join()
+
+
 def graph_phase(dev, scale=22, tri_scale=18, n_sample=4096):
     """The graph library on a Graph500 Kronecker graph (scale 22: 4.19M
     vertices, 67.1M directed edges, weights uniform in [0, 1)):
@@ -3730,23 +3804,23 @@ def graph_phase(dev, scale=22, tri_scale=18, n_sample=4096):
     PregelIteration max-flood; TriangleCount and ClusteringCoefficient
     at scale 18 (their dense bitset is n^2 / 8 bytes: 8.6 GB there,
     2 TB at scale 22).  Checked against numpy and scipy, computed in
-    worker processes beside the card's work."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    worker processes that graph_references_start() started ahead of
+    the paths (here, if it did not)."""
     import torch
     from flink_tpu_torch import graph as tg
     from flink_tpu_torch.graph import iterations as titer
     from flink_tpu_torch.graph import library as tlib
-    t_gen = time.perf_counter()
-    src, dst, w = kronecker_edges(dev, scale, seed=21)
+    if _GRAPH_REFS.get("scale") != scale:
+        graph_references_stop()
+        graph_references_start(dev, scale)
+    pre = _GRAPH_REFS
+    src, dst, w, source = pre["src"], pre["dst"], pre["w"], pre["source"]
+    flood_vals, pool, refs = pre["flood_vals"], pre["pool"], dict(pre["refs"])
     n, e = 1 << scale, len(src)
     g = _graph(src, dst, w, n)
-    deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
-    source = int(np.argmax(deg))
-    flood_vals = np.random.default_rng(22).integers(0, 1 << 30, n).astype(np.int32)
-    out = {"vertices": n, "edges": e, "setup_s": time.perf_counter() - t_gen,
-           "sssp_source_degree": int(deg[source]),
+    out = {"vertices": n, "edges": e, "setup_s": pre["setup_s"],
+           "sssp_source_degree": pre["source_degree"],
+           "references_started_s_before": time.perf_counter() - pre["t_start"],
            "cut": f"triangles and clustering at scale {tri_scale} "
                   f"(bitset {(1 << tri_scale) ** 2 // 8} bytes), not {scale}"}
     marks = {}
@@ -3759,63 +3833,55 @@ def graph_phase(dev, scale=22, tri_scale=18, n_sample=4096):
                                     "segment_plan"), marks),
                _kernel_clock(titer, ("scatter_combine",), marks),
                _recording(tlib, "gather_segment_sum", note_step)]
-    ctx = multiprocessing.get_context("spawn")
     try:
-        with ProcessPoolExecutor(5, mp_context=ctx) as pool:
-            # the power iterations start with the defaults' step counts,
-            # which float32 runs at this scale reach (a tolerance of 1e-9
-            # is below their rounding); resubmitted if a run stops sooner
-            steps = {"pagerank": 100, "hits": 50}
-            refs = {"pagerank": pool.submit(_timed, ref_pagerank64, src, dst, n,
-                                            steps["pagerank"]),
-                    "hits": pool.submit(_timed, ref_hits64, src, dst, n, steps["hits"]),
-                    "components": pool.submit(_timed, ref_components, src, dst, n),
-                    "sssp": pool.submit(_timed, ref_dijkstra, src, dst, w, n, source),
-                    "flood": pool.submit(_timed, ref_max_flood, src, dst, flood_vals)}
-            runs = {}
+        runs = {}
 
-            def run(name, fn, kernel):
-                """Run fn; count the calls of ``kernel`` it made (a
-                superstep each for the iterations)."""
-                before = len(marks.get(kernel, ()))
-                plans = len(marks.get("segment_plan", ()))
+        def run(name, fn, kernel):
+            """Run fn; count the calls of ``kernel`` it made (a
+            superstep each for the iterations)."""
+            before = len(marks.get(kernel, ()))
+            plans = len(marks.get("segment_plan", ()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            runs[name] = {"s": time.perf_counter() - t0,
+                          "calls": len(marks.get(kernel, ())) - before}
+            built = marks.get("segment_plan", [])[plans:]
+            if built:    # the plans' build, inside "s"
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = fn()
-                runs[name] = {"s": time.perf_counter() - t0,
-                              "calls": len(marks.get(kernel, ())) - before}
-                built = marks.get("segment_plan", [])[plans:]
-                if built:    # the plans' build, inside "s"
-                    torch.cuda.synchronize()
-                    runs[name]["plans"] = len(built)
-                    runs[name]["plan_s"] = sum(a.elapsed_time(b) for a, b in built) / 1e3
-                return res
+                runs[name]["plans"] = len(built)
+                runs[name]["plan_s"] = sum(a.elapsed_time(b) for a, b in built) / 1e3
+            return res
 
-            pr = run("pagerank", lambda: g.run(tg.PageRank(0.85, device=dev)),
-                     "gather_segment_sum")
-            if runs["pagerank"]["calls"] != steps["pagerank"]:
-                refs["pagerank"] = pool.submit(_timed, ref_pagerank64, src, dst, n,
-                                               runs["pagerank"]["calls"])
-            hubs, auths = run("hits", lambda: g.run(tg.HITS(device=dev)),
-                              "gather_segment_sum")
-            hits_steps = runs["hits"]["calls"] // 2
-            if hits_steps != steps["hits"]:
-                refs["hits"] = pool.submit(_timed, ref_hits64, src, dst, n, hits_steps)
-            cc = run("components", lambda: g.run(tg.ConnectedComponents(device=dev)),
-                     "scatter_combine")
-            sssp = run("sssp", lambda: g.run(tg.SingleSourceShortestPaths(
-                source, max_iterations=1000, device=dev)), "scatter_combine")
-            flood = run("pregel_max_flood", lambda: _graph(src, dst, w, n, flood_vals).run(
-                tg.PregelIteration(lambda s, ev: s, "max",
-                                   lambda v, c, step: torch.maximum(v, c), device=dev)),
-                "scatter_combine")
-            tri = _triangle_part(dev, tri_scale, n_sample, run, out)
-            t_wait = time.perf_counter()
-            timed = {k: f.result() for k, f in refs.items()}
-            out["reference_wait_s"] = time.perf_counter() - t_wait
+        # the float64 power iterations take the port's step counts (HITS
+        # started at the default's, which float32 runs at this scale
+        # reach; a tolerance of 1e-9 is below their rounding)
+        pr = run("pagerank", lambda: g.run(tg.PageRank(0.85, device=dev)),
+                 "gather_segment_sum")
+        refs["pagerank"] = pool.apply_async(
+            _timed, (ref_pagerank64, src, dst, n, runs["pagerank"]["calls"]))
+        hubs, auths = run("hits", lambda: g.run(tg.HITS(device=dev)),
+                          "gather_segment_sum")
+        hits_steps = runs["hits"]["calls"] // 2
+        if hits_steps != pre["hits_steps"]:
+            refs["hits"] = pool.apply_async(
+                _timed, (ref_hits64, src, dst, n, hits_steps))
+        cc = run("components", lambda: g.run(tg.ConnectedComponents(device=dev)),
+                 "scatter_combine")
+        sssp = run("sssp", lambda: g.run(tg.SingleSourceShortestPaths(
+            source, max_iterations=1000, device=dev)), "scatter_combine")
+        flood = run("pregel_max_flood", lambda: _graph(src, dst, w, n, flood_vals).run(
+            tg.PregelIteration(lambda s, ev: s, "max",
+                               lambda v, c, step: torch.maximum(v, c), device=dev)),
+            "scatter_combine")
+        tri = _triangle_part(dev, tri_scale, n_sample, run, out)
+        t_wait = time.perf_counter()
+        timed = {k: f.get() for k, f in refs.items()}
+        out["reference_wait_s"] = time.perf_counter() - t_wait
     finally:
         for r in reversed(restore):
             r()
+        graph_references_stop()
     out["reference_s"] = {k: t for k, (t, _) in timed.items()}
     ref = {k: r for k, (_, r) in timed.items()}
     out["runs"] = runs
@@ -4654,6 +4720,506 @@ def _rows_by(keys, win):
 
 
 # ---------------------------------------------------------------------
+# phase 18: recovery -- checkpoints, restarts, savepoints, processing time
+# ---------------------------------------------------------------------
+
+class _Gate:
+    """Shared by a recovery job's source and its failing map (class
+    attributes: the operator factories deep-copy the functions).  The
+    source emits up to ``hold`` records in one step and then holds the
+    stream; a checkpoint whose barrier it took while holding opens the
+    gate when it completes (``fail``), and the map then fails on the
+    next record, once.  A savepoint's job (``fail`` False) holds until
+    it is stopped."""
+
+    hold = 0
+    released = False
+    held_cid = None
+    reached = None
+    fail = False
+    failed = False
+    seen = 0
+    restored_offsets = []
+
+    @classmethod
+    def reset(cls, hold, fail):
+        cls.hold, cls.released, cls.held_cid = hold, hold == 0, None
+        cls.reached = threading.Event()
+        cls.fail, cls.failed, cls.seen = fail, False, 0
+        cls.restored_offsets = []
+
+
+_RECOVERY_CLASSES = {}
+
+
+def _recovery_classes():
+    """(holding source class, failing map class), built once."""
+    if not _RECOVERY_CLASSES:
+        from flink_tpu_torch.core.functions import MapFunction
+        from flink_tpu_torch.streaming.sources import FromCollectionSource
+
+        class HoldingSource(FromCollectionSource):
+            def emit_step(self, ctx, max_records):
+                if _Gate.released or self.offset < _Gate.hold:
+                    end = len(self.items) if _Gate.released else _Gate.hold
+                    return super().emit_step(ctx, max(end - self.offset, 1))
+                _Gate.reached.set()
+                time.sleep(0.0005)
+                return True
+
+            def snapshot_function_state(self, checkpoint_id=None):
+                if self.offset >= _Gate.hold and not _Gate.released \
+                        and checkpoint_id is not None:
+                    _Gate.held_cid = checkpoint_id
+                return super().snapshot_function_state(checkpoint_id)
+
+            def restore_function_state(self, state):
+                _Gate.restored_offsets.append(state["offset"])
+                super().restore_function_state(state)
+
+            def notify_checkpoint_complete(self, checkpoint_id):
+                if _Gate.fail and checkpoint_id == _Gate.held_cid:
+                    _Gate.released = True
+
+        class FailOnce(MapFunction):
+            def map(self, value):
+                _Gate.seen += 1
+                if _Gate.fail and _Gate.released and not _Gate.failed:
+                    _Gate.failed = True
+                    raise RuntimeError("induced failure after a mid-stream "
+                                       "checkpoint")
+                return value
+
+        _RECOVERY_CLASSES.update(source=HoldingSource, failer=FailOnce)
+    return _RECOVERY_CLASSES["source"], _RECOVERY_CLASSES["failer"]
+
+
+def _call_log(obj, names, log):
+    """Wrap obj.<name> for each name: each call appends (seconds,
+    result) to log[name].  Returns the restorer."""
+    saved = {n: obj.__dict__.get(n) for n in names}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            log.setdefault(name, []).append((time.perf_counter() - t0, r))
+            return r
+        return call
+
+    for n in names:
+        setattr(obj, n, wrap(n, getattr(obj, n)))
+
+    def restore():
+        for n, fn in saved.items():
+            if fn is None:
+                delattr(obj, n)
+            else:
+                setattr(obj, n, fn)
+    return restore
+
+
+def _host_bytes(obj) -> int:
+    """Host bytes of a snapshot structure: numpy arrays, bytes and keyed
+    snapshots' chunks."""
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if isinstance(obj, (bytes, bytearray)):
+        return len(obj)
+    if hasattr(obj, "total_bytes"):
+        return obj.total_bytes
+    if isinstance(obj, dict):
+        return sum(_host_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_host_bytes(v) for v in obj)
+    payload = getattr(obj, "payload", None)
+    return _host_bytes(payload) if payload is not None else 0
+
+
+def _plain_key(k):
+    """A key as Python values (a composite key's row as a tuple)."""
+    if isinstance(k, (np.ndarray, tuple)):
+        return tuple(x.item() if hasattr(x, "item") else x for x in k)
+    return k.item() if hasattr(k, "item") else k
+
+
+def _recovery_job(dev, items, key_of, agg, *, fail=False, backend=None,
+                  lateness=0, storage=None, savepoint_restore=None,
+                  run_async=False):
+    """HoldingSource -> (FailOnce) -> keyBy -> tumbling 1 s -> agg ->
+    (key, window start, result) rows; (rows, result or client,
+    seconds)."""
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.sources import CollectSink
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    source_cls, failer_cls = _recovery_classes()
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    if backend is not None:
+        env.set_state_backend(backend)
+    if fail:
+        # the first checkpoint comes at once, the next one after 1 s: at
+        # the hold, since the first half of the input goes in one step
+        env.enable_checkpointing(1000)
+        env.set_restart_strategy("fixed_delay", restart_attempts=2, delay_ms=0)
+    elif run_async:
+        env.enable_checkpointing(3_600_000)     # savepoints only
+    if storage is not None:
+        env.set_checkpoint_storage("filesystem", directory=storage, retain=1)
+    if savepoint_restore is not None:
+        env.set_savepoint_restore(savepoint_restore)
+    out = []
+    stream = env.add_source(source_cls(items, timestamped=True), name="src")
+    if fail:
+        stream = stream.map(failer_cls(), name="failer")
+    ws = stream.key_by(key_of).window(TumblingEventTimeWindows.of(1000))
+    if lateness:
+        ws = ws.allowed_lateness(lateness)
+    ws.aggregate(agg, window_function=lambda k, w, vals: [
+        (_plain_key(k), w.start, float(vals[0]))]).add_sink(CollectSink(out))
+    t0 = time.perf_counter()
+    if run_async:
+        return out, env.execute_async("chip-smoke-recovery"), t0
+    result = env.execute("chip-smoke-recovery")
+    return out, result, time.perf_counter() - t0
+
+
+def _recovery_leg(dev, name, items, key_of, make_agg, storage, log,
+                  backend=None, lateness=0):
+    """The job uninterrupted, then failing once after a checkpoint taken
+    at half the input and restarting from it: the same rows exactly."""
+    import torch
+    n = len(items)
+    _Gate.reset(0, False)
+    clean, _, clean_s = _recovery_job(dev, items, key_of, make_agg(),
+                                      backend=backend, lateness=lateness)
+    torch.cuda.synchronize()
+    log.clear()
+    _Gate.reset(n // 2, True)
+    got, result, secs = _recovery_job(dev, items, key_of, make_agg(),
+                                      fail=True, backend=backend,
+                                      lateness=lateness, storage=storage)
+    torch.cuda.synchronize()
+    check(_Gate.failed and result.restarts == 1,
+          f"recovery {name}: the job failed once and restarted once")
+    check(result.checkpoints_completed >= 1,
+          f"recovery {name}: a checkpoint completed before the failure")
+    check(_Gate.restored_offsets == [n // 2],
+          f"recovery {name}: the source resumed at the checkpointed offset "
+          f"{n // 2}, not at 0")
+    check(sorted(got) == sorted(clean) and len(clean) > 0,
+          f"recovery {name}: the output equals the uninterrupted run's exactly")
+    row = {"events": n, "results": len(clean), "seconds": secs,
+           "events_per_s": n / secs, "uninterrupted_seconds": clean_s,
+           "uninterrupted_events_per_s": n / clean_s,
+           "checkpoints_completed": result.checkpoints_completed,
+           "restarts": result.restarts}
+    for key, entries in log.items():
+        row[f"{key}_calls"] = len(entries)
+        row[f"{key}_s"] = [s for s, _ in entries]
+    snaps = [r for _, r in log.get("snapshot_state", [])]
+    row["snapshot_host_bytes"] = [_host_bytes(s) for s in snaps]
+    device = [s for s in snaps if "device_tier" in s]
+    row["device_snapshots"] = len(device)
+    row["device_tiers"] = sorted({s["device_tier"] for s in device})
+    row["string_key_directory_sizes"] = [len(s["string_key_directory"])
+                                         for s in device
+                                         if "string_key_directory" in s]
+    row["checkpoint_file_bytes"] = [r for _, r in log.get("persist", [])]
+    return clean, row
+
+
+def recovery_phase(dev, n_events=1 << 19, n_keys=1_000_000, n_log=1 << 18,
+                   n_keyed=1 << 16, keyed_keys=100_000, n_proc=1 << 16,
+                   proc_keys=100_000, n_proc_job=1 << 17,
+                   proc_job_keys=10_000, n_sessions=1 << 14,
+                   session_keys=400, n_sample=4096):
+    """Checkpoints, restarts, savepoints and processing time on the card
+    through StreamExecutionEnvironment, with FsCheckpointStorage in a
+    temporary directory: (1) HLL p = 12 at config #2's key space (2^19
+    events over 1M users, tumbling 1 s over 2 s of timestamps) on the
+    device window operator's scatter tier (integer pair keys), failing
+    once after a checkpoint taken at half the input, against the
+    uninterrupted run; (2) a job with string keys ("u%d", 2^18 events
+    over the same users), which the operator interns onto the log tier
+    (device finish); (3) HLL with allowed lateness 1 s on the GPU keyed
+    backend (2^16 events, 100k keys); (4) a savepoint of (1)'s job
+    through execute_async and stop_with_savepoint, restored into a fresh
+    environment; (5) processing time on the GPU backend: tumbling
+    windows through the test harness's clock (2^16 events, 100k keys)
+    against numpy HLL, a ``processing`` job (2^17 events, 10k keys)
+    flushed at the end of input against the heap backend, and
+    processing-time sessions (2^14 events, 400 keys, gap 1 s) against
+    the heap backend.  Each sub-part prints its events/s and seconds.
+    The event counts are cut from 2^21, 2^19, 2^20, 2^18 and 2^16 to
+    keep the whole script well inside its time limit; the key spaces
+    and the precision stay."""
+    import shutil
+    import tempfile
+
+    import torch
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.runtime import checkpoints as cps
+    from flink_tpu_torch.streaming.device_window_operator import \
+        DeviceWindowOperator
+    from flink_tpu_torch.streaming.window_operator import WindowOperator
+
+    p = 12
+    rng = np.random.default_rng(18)
+    users = rng.integers(0, n_keys, n_events)
+    visitors = rng.integers(0, 2 ** 62, n_events)
+    ts = np.sort(rng.integers(0, 2000, n_events))
+
+    def hll():
+        agg = HyperLogLogAggregate(p)
+        agg.extract_value = lambda e: e[-1]
+        return agg
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    disk = shutil.disk_usage(tmp)
+    emit({"recovery": {"storage": {"free_bytes": disk.free}}})
+    log = {}
+    restores = [_call_log(DeviceWindowOperator, ("snapshot_state",
+                                                 "restore_state"), log),
+                _call_log(WindowOperator, ("snapshot_state", "restore_state"),
+                          log),
+                _call_log(cps.FsCheckpointStorage, ("persist", "latest"), log)]
+    try:
+        # (1) the scatter tier at config #2's key space
+        items = [((int(u) >> 10, int(u) & 1023, int(v)), int(t))
+                 for u, v, t in zip(users, visitors, ts)]
+        t0 = time.perf_counter()
+        clean1, row = _recovery_leg(dev, "scatter", items,
+                                    lambda e: (e[0], e[1]), hll,
+                                    f"{tmp}/scatter", log)
+        check(row["device_tiers"] == ["vectorized"]
+              and not row["string_key_directory_sizes"],
+              "recovery scatter: every device snapshot taken was of the "
+              "scatter tier (device_tier 'vectorized')")
+        row["wall_s"] = time.perf_counter() - t0
+        emit({"recovery": {"scatter": row}})
+        shutil.rmtree(f"{tmp}/scatter", ignore_errors=True)
+
+        # (4) a savepoint of (1)'s job, restored in a fresh environment
+        t0 = time.perf_counter()
+        log.clear()
+        _Gate.reset(n_events // 2, False)
+        before, client, _ = _recovery_job(dev, items, lambda e: (e[0], e[1]),
+                                          hll(), run_async=True)
+        check(_Gate.reached.wait(600), "recovery savepoint: the job held")
+        t_sp = time.perf_counter()
+        path = client.stop_with_savepoint(f"{tmp}/sp", timeout=600)
+        sp_s = time.perf_counter() - t_sp
+        res = client.wait(600)
+        check(res.cancelled and Path(path).is_file(),
+              "recovery savepoint: stopped with a savepoint file")
+        sp_bytes = Path(path).stat().st_size
+        _Gate.reset(0, False)
+        after, _, after_s = _recovery_job(dev, items, lambda e: (e[0], e[1]),
+                                          hll(), savepoint_restore=path)
+        torch.cuda.synchronize()
+        check(sorted(before + after) == sorted(clean1),
+              "recovery savepoint: the output before and after the "
+              "savepoint equals the uninterrupted run's exactly")
+        emit({"recovery": {"savepoint": {
+            "events": n_events, "stop_with_savepoint_s": sp_s,
+            "savepoint_file_bytes": sp_bytes, "resume_s": after_s,
+            "restore_state_s": [s for s, _ in log.get("restore_state", [])],
+            "wall_s": time.perf_counter() - t0}}})
+        del items, clean1, before, after
+        shutil.rmtree(f"{tmp}/sp", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) string keys: interned onto the log tier
+        lsel = np.sort(rng.choice(n_events, n_log, replace=False))
+        items = [((f"u{u}", int(v)), int(t))
+                 for u, v, t in zip(users[lsel], visitors[lsel], ts[lsel])]
+        t0 = time.perf_counter()
+        _, row = _recovery_leg(dev, "log", items, lambda e: e[0], hll,
+                               f"{tmp}/log", log)
+        check(row["device_tiers"] == ["log"]
+              and len(row["string_key_directory_sizes"]) == row["device_snapshots"]
+              and min(row["string_key_directory_sizes"], default=0) > 0,
+              "recovery log: every device snapshot taken was of the log tier "
+              "(device_tier 'log') and carried its string-key directory")
+        row["wall_s"] = time.perf_counter() - t0
+        emit({"recovery": {"log": row}})
+        del items
+        shutil.rmtree(f"{tmp}/log", ignore_errors=True)
+
+        # (3) the GPU keyed backend (allowed lateness: WindowOperator)
+        kusers = rng.integers(0, keyed_keys, n_keyed)
+        kvis = rng.integers(0, 2 ** 62, n_keyed)
+        kts = np.sort(rng.integers(0, 2000, n_keyed))
+        items = [((int(u), int(v)), int(t)) for u, v, t in zip(kusers, kvis, kts)]
+        t0 = time.perf_counter()
+        _, row = _recovery_leg(dev, "gpu_backend", items, lambda e: e[0], hll,
+                               f"{tmp}/keyed", log, backend="gpu",
+                               lateness=1000)
+        row["wall_s"] = time.perf_counter() - t0
+        emit({"recovery": {"gpu_backend": row}})
+        del items
+    finally:
+        for r in restores:
+            r()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (5) processing time on the GPU backend
+    _processing_time_parts(dev, rng, p, n_proc, proc_keys, n_proc_job,
+                           proc_job_keys, n_sessions, session_keys, n_sample)
+
+
+def _processing_time_parts(dev, rng, p, n_proc, proc_keys, n_proc_job,
+                           proc_job_keys, n_sessions, session_keys, n_sample):
+    import torch
+    from flink_tpu_torch.core.keygroups import stable_hash64
+    from flink_tpu_torch.core.state import AggregatingStateDescriptor
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.harness import OneInputStreamOperatorTestHarness
+    from flink_tpu_torch.streaming.sources import CollectSink
+    from flink_tpu_torch.streaming.window_operator import WindowOperator
+    from flink_tpu_torch.streaming.windowing import (
+        ProcessingTimeSessionWindows, Time, TumblingProcessingTimeWindows)
+
+    def hll():
+        agg = HyperLogLogAggregate(p)
+        agg.extract_value = lambda e: e[1]
+        return agg
+
+    def harness(assigner, backend):
+        op = WindowOperator(assigner, AggregatingStateDescriptor("uv", hll()),
+                            window_function=lambda k, w, vals: [
+                                (k, w.start, float(vals[0]))])
+        h = OneInputStreamOperatorTestHarness(
+            op, key_selector=lambda e: e[0], state_backend=backend, device=dev)
+        h.open()
+        return h
+
+    # (a) tumbling processing-time windows on the harness clock
+    keys = rng.integers(0, proc_keys, n_proc)
+    vis = rng.integers(0, 2 ** 62, n_proc)
+    chunk = n_proc // 4
+    h = harness(TumblingProcessingTimeWindows.of(1000), "gpu")
+    t0 = time.perf_counter()
+    for i in range(4):
+        # the clock moves into window i, which fires window i - 1
+        h.set_processing_time(1000 * i)
+        for k, v in zip(keys[i * chunk:(i + 1) * chunk].tolist(),
+                        vis[i * chunk:(i + 1) * chunk].tolist()):
+            h.process_element((k, v), None)
+    h.set_processing_time(4000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = h.extract_output_values()
+    by_window = {}
+    for k, start, est in out:
+        by_window.setdefault(start, {})[k] = est
+    ok, worst = sorted(by_window) == [0, 1000, 2000, 3000], 0.0
+    for i in range(4):
+        wk = keys[i * chunk:(i + 1) * chunk]
+        distinct = np.unique(wk)
+        ok = ok and len(by_window.get(1000 * i, {})) == len(distinct)
+        sample = np.sort(rng.choice(distinct, min(n_sample, len(distinct)),
+                                    replace=False))
+        sel = np.isin(wk, sample)
+        vh = np.fromiter((stable_hash64(int(v)) for v in
+                          vis[i * chunk:(i + 1) * chunk][sel]),
+                         np.uint64, int(sel.sum()))
+        want = hll_reference(np.searchsorted(sample, wk[sel]), vh, len(sample), p)
+        got = np.array([by_window.get(1000 * i, {}).get(int(k), np.nan)
+                        for k in sample])
+        ok = ok and allclose(got, want, rtol=1e-5, atol=hll_atol(1 << p))
+        worst = max(worst, float(np.nanmax(np.abs(got - want) / want)))
+    check(ok, f"processing time: four tumbling windows on the harness clock, "
+          f"every key once, {n_sample} sampled keys a window within rtol "
+          "1e-5 (+ log slack) of numpy HLL")
+    emit({"recovery": {"processing_tumbling": _rate(
+        n_proc, secs, windows=len(by_window), results=len(out),
+        max_rel_err_vs_numpy=worst)}})
+    del h
+
+    # (b) a "processing" job flushed at the end of input on the GPU
+    # backend; the heap backend runs the same job on a sample of the
+    # keys (a filter ahead of the window: the same clock, the same
+    # windows), its per-record sketch updates being slow on the host
+    jkeys = rng.integers(0, proc_job_keys, n_proc_job)
+    jvis = rng.integers(0, 2 ** 62, n_proc_job)
+    rows = list(zip(jkeys.tolist(), jvis.tolist()))
+    picked = set(rng.choice(np.unique(jkeys), min(500, proc_job_keys),
+                            replace=False).tolist())
+    outs, secs = {}, {}
+    for backend in ("gpu", "heap"):
+        env = StreamExecutionEnvironment.get_execution_environment(
+            device=dev if backend == "gpu" else "cpu")
+        env.set_state_backend(backend)
+        env.set_stream_time_characteristic("processing")
+        outs[backend] = []
+        stream = env.from_collection(rows)
+        if backend == "heap":
+            stream = stream.filter(lambda e: e[0] in picked)
+        (stream.key_by(lambda e: e[0])
+            .time_window(Time.seconds(1))
+            .aggregate(hll(), window_function=lambda k, w, vals: [
+                (k, w.start, float(vals[0]))])
+            .add_sink(CollectSink(outs[backend])))
+        t0 = time.perf_counter()
+        env.execute("chip-smoke-processing")
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+    got = sorted(outs["gpu"])
+    want = sorted(outs["heap"])
+    got_picked = [r for r in got if r[0] in picked]
+    check(len(got) == len(np.unique(jkeys))
+          and [r[:2] for r in got_picked] == [r[:2] for r in want]
+          and allclose([r[2] for r in got_picked], [r[2] for r in want],
+                       rtol=1e-5, atol=hll_atol(1 << p)),
+          "processing job: the end-of-input flush on the GPU backend fires "
+          "every key once, equal to the heap backend on 500 sampled keys "
+          "(rtol 1e-5 + log slack)")
+    emit({"recovery": {"processing_job": _rate(
+        n_proc_job, secs["gpu"], results=len(got), heap_seconds=secs["heap"],
+        heap_keys=len(picked))}})
+
+    # (c) processing-time sessions on the harness clock: the clock never
+    # goes back, so a record extends its key's latest session and never
+    # bridges two (no state merge: merge_rows has nothing to do).  The
+    # heap backend takes the records of a sample of the keys at the same
+    # clock
+    skeys = rng.integers(0, session_keys, n_sessions)
+    svis = rng.integers(0, 2 ** 62, n_sessions)
+    clock = np.cumsum(rng.integers(0, 3, n_sessions))   # ms a record
+    sampled = set(rng.choice(session_keys, session_keys // 10,
+                             replace=False).tolist())
+    souts, ssecs = {}, {}
+    for backend in ("gpu", "heap"):
+        h = harness(ProcessingTimeSessionWindows.with_gap(1000), backend)
+        t0 = time.perf_counter()
+        for k, v, now in zip(skeys.tolist(), svis.tolist(), clock.tolist()):
+            h.set_processing_time(now)
+            if backend == "gpu" or k in sampled:
+                h.process_element((k, v), None)
+        h.set_processing_time(int(clock[-1]) + 10_000)
+        if backend == "gpu":
+            torch.cuda.synchronize()
+        ssecs[backend] = time.perf_counter() - t0
+        souts[backend] = sorted(h.extract_output_values())
+        del h
+    got, want = souts["gpu"], souts["heap"]
+    got_sampled = [r for r in got if r[0] in sampled]
+    check([r[:2] for r in got_sampled] == [r[:2] for r in want]
+          and len(want) > 0 and len(got) < n_sessions // 2
+          and allclose([r[2] for r in got_sampled], [r[2] for r in want],
+                       rtol=1e-5, atol=hll_atol(1 << p)),
+          "processing-time sessions on the GPU backend grow over many "
+          "records, and equal the heap backend's sessions and estimates on "
+          "a tenth of the keys (rtol 1e-5 + log slack)")
+    emit({"recovery": {"processing_sessions": _rate(
+        n_sessions, ssecs["gpu"], sessions=len(got),
+        heap_seconds=ssecs["heap"], heap_keys=len(sampled))}})
+
+
+# ---------------------------------------------------------------------
 
 SOURCES = {
     "hll_update": ("flink_tpu_torch/kernels/csrc/hll_update.cu",
@@ -4723,7 +5289,10 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                  "quantile_update", "quantile_result",
                                  "chain_route")),
          ("window_api", "window_api_phase", ("hll_update", "hll_estimate",
-                                             "clear_rows", "scatter_combine")))
+                                             "clear_rows", "scatter_combine")),
+         ("recovery", "recovery_phase", ("hll_update", "hll_estimate",
+                                         "clear_rows", "set_rows",
+                                         "hll_log_finish")))
 
 
 def main() -> int:
@@ -4765,14 +5334,21 @@ def main() -> int:
     t_kernels = time.perf_counter()
     entries = kernel_phase(dev, hbm)
     per_path, seconds = {}, {"kernels": time.perf_counter() - t_kernels}
-    for path, phase, needs in PATHS:
-        t0 = time.perf_counter()
-        K.reset_launch_counts()             # each main-path run starts here
-        globals()[phase](dev)
-        per_path[path] = dict(K.LAUNCHES)
-        seconds[path] = time.perf_counter() - t0
-        for kname in needs:
-            check(per_path[path][kname] > 0, f"{kname} launched on the {path} path")
+    # the graph path's host references run beside the paths before it
+    t0 = time.perf_counter()
+    graph_references_start(dev)
+    seconds["graph_references_start"] = time.perf_counter() - t0
+    try:
+        for path, phase, needs in PATHS:
+            t0 = time.perf_counter()
+            K.reset_launch_counts()             # each main-path run starts here
+            globals()[phase](dev)
+            per_path[path] = dict(K.LAUNCHES)
+            seconds[path] = time.perf_counter() - t0
+            for kname in needs:
+                check(per_path[path][kname] > 0, f"{kname} launched on the {path} path")
+    finally:
+        graph_references_stop()
     emit({"launches": per_path})
     emit({"seconds": seconds})
     launches = {k: sum(p[k] for p in per_path.values()) for k in K.KERNELS}

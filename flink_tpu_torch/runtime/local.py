@@ -1,6 +1,6 @@
 """Local executor: every vertex of a job at its parallelism, in this
-process (port of ``flink_tpu/runtime/local.py:110-300, 466-760,
-900-960, 1947-2003``).
+process, with checkpoints, restarts and savepoints (port of
+``flink_tpu/runtime/local.py:110-1160, 1226-1947``).
 
 Each JobVertex runs as N subtasks.  A keyed operator of subtask i owns
 the key-group range ``compute_key_group_range_for_operator_index(
@@ -11,32 +11,67 @@ device.  An edge wires every upstream subtask to every downstream one
 each channel keeps its watermark, and an operator sees a watermark only
 when the minimum over its input channels advances.
 
-Records and RecordBatches flow by direct calls, cooperative and on one
-thread: sources step in turn on one loop, a chain hands batches whole
-from operator to operator, and the chain-tail router splits a batch by
-key group (``split_batch``) into one sub-batch per channel.  A subtask
-compiles its fused chain program (``chain_fusion.try_fuse_subtask``)
-at the end of ``open()``, when its routes are wired; the chain head and
-every chained output hand a batch to the program anchored on their
-operator when it wants the batch.  End of input sends a final
-``MAX_TIMESTAMP`` watermark so every window fires.  Every operator
-gets the executor's processing-time clock, a manually advanced
-``TestProcessingTimeService`` at 0 (the reference executor's default):
-an evicting window over ``GlobalWindows`` reads "now" from it.
-Checkpoints, failover, metrics, the wall-clock processing-time services
-and the end-of-input drain of processing-time timers, threaded input
-channels and the cluster executors are later slices.
+Elements flow by direct calls, cooperative and on one thread: sources
+step in turn on one loop, a chain hands batches whole from operator to
+operator, and the chain-tail router splits a batch by key group
+(``split_batch``) into one sub-batch per channel.  A subtask compiles
+its fused chain program (``chain_fusion.try_fuse_subtask``) at the end
+of ``open()``, when its routes are wired.  End of input sends a final
+``MAX_TIMESTAMP`` watermark and then ``END_OF_STREAM`` down every
+channel.
+
+Processing time: every operator reads the executor's one
+``ProcessingTimeService`` (the environment's, else a
+``TestProcessingTimeService`` at 0).  A polled service fires its due
+timers once per loop turn, on this thread; at the end of input the
+test service fires every pending timer until nothing moves, so a
+finite job's processing-time windows emit their tails, and then every
+operator's ``finish`` runs, in topological order.
+
+Checkpoints (``enable_checkpointing``): the ``CheckpointCoordinator``
+marks the sources between steps; each source snapshots its chain,
+sends a ``CheckpointBarrier`` down every channel and acks.  In
+``exactly_once`` mode a subtask with several input channels holds what
+a channel delivers after its barrier in that channel's buffer until
+every live channel's barrier is in, snapshots, forwards the barrier and
+then replays the buffers; ``at_least_once`` only counts barriers.  A
+completed checkpoint is persisted, and ``notify_checkpoint_complete``
+reaches every operator.  A failure restarts the job under the restart
+strategy from the latest completed checkpoint (or, first, from
+``set_savepoint_restore``); a changed parallelism re-splits the state
+(``compute_restore_assignments``).  With ``set_failover_strategy(
+"region")`` only the failed subtask's pipelined region restores, the
+others carry their live state across.  ``execute_async`` runs the job
+on a thread of its own and returns a ``JobClient`` (cancel, savepoints).
+
+Metrics, latency markers, alignment spill and its abort cap, sources
+on threads of their own and the cluster executors are later slices.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Tuple
+import threading
+import time as _time
+from collections import deque
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 from flink_tpu_torch.core.keygroups import compute_key_group_range_for_operator_index
 from flink_tpu_torch.device import DeviceLike
+from flink_tpu_torch.runtime import faults
+from flink_tpu_torch.runtime.checkpoints import (CheckpointCoordinator,
+                                                 load_savepoint,
+                                                 make_checkpoint_storage,
+                                                 make_restart_strategy)
+from flink_tpu_torch.runtime.failover import (TaskFailureException,
+                                              build_region_index,
+                                              compute_pipelined_regions,
+                                              pointwise_targets, region_of)
 from flink_tpu_torch.state.loader import load_state_backend
-from flink_tpu_torch.streaming.elements import (MAX_WATERMARK, MIN_TIMESTAMP,
+from flink_tpu_torch.state.portable import OperatorStateSnapshot
+from flink_tpu_torch.streaming.elements import (END_OF_STREAM, MAX_WATERMARK,
+                                                MIN_TIMESTAMP,
+                                                CheckpointBarrier, EndOfStream,
                                                 Watermark)
 from flink_tpu_torch.streaming.graph import JobGraph, JobVertex
 from flink_tpu_torch.streaming.operators import Output, StreamOperator
@@ -44,33 +79,54 @@ from flink_tpu_torch.streaming.sources import StreamSource
 from flink_tpu_torch.streaming.timers import (ProcessingTimeService,
                                               TestProcessingTimeService)
 
-
 class JobExecutionResult:
     def __init__(self, job_name: str):
         self.job_name = job_name
         self.accumulators: Dict[str, Any] = {}
+        self.checkpoints_completed = 0
+        self.restarts = 0
+        #: restarts scoped to the failed pipelined region (the healthy
+        #: regions carried their live state across)
+        self.region_restarts = 0
+        self.cancelled = False
+
+
+class JobCancelledException(Exception):
+    pass
+
+
+class SuppressRestartsException(Exception):
+    """A failure that must not restart the job: one in the end-of-input
+    finish phase, after every input was consumed."""
+
+    def __init__(self, cause: BaseException):
+        super().__init__(str(cause))
+        self.cause = cause
 
 
 class _InputChannel:
-    """One input channel of a subtask: an upstream router pushes records,
-    batches and watermarks into it, and the subtask takes each at once."""
+    """One input channel of a subtask.  An upstream router pushes
+    elements into it and the subtask takes each at once, unless the
+    channel is blocked for a barrier alignment: then the channel holds
+    them, in order, until the alignment ends."""
 
-    __slots__ = ("subtask", "input_index", "channel_id")
+    __slots__ = ("subtask", "input_index", "channel_id", "blocked",
+                 "held", "eos")
 
     def __init__(self, subtask: "SubtaskInstance", input_index: int,
                  channel_id: int):
         self.subtask = subtask
         self.input_index = input_index
         self.channel_id = channel_id
+        self.blocked = False
+        self.held: deque = deque()
+        self.eos = False
 
     def push(self, element) -> None:
-        if element.is_record:
-            self.subtask.process_record(self.input_index, element)
-        elif element.is_watermark:
-            self.subtask.process_channel_watermark(
-                self.input_index, self.channel_id, element)
-        else:
-            self.subtask.process_batch_element(self.input_index, element)
+        if self.blocked or self.held:
+            self.held.append(element)
+            return
+        self.subtask.receive(self, element)
 
 
 class _ChainedOutput(Output):
@@ -108,8 +164,8 @@ class _ChainedOutput(Output):
 class _RouterOutput(Output):
     """Chain-tail output: each out-edge's partitioner picks the
     channels of every record, a batch is split per channel whole
-    (``split_batch``), and watermarks and end of stream go to every
-    channel."""
+    (``split_batch``), and watermarks, barriers and end of stream go to
+    every channel."""
 
     def __init__(self):
         #: (partitioner, [_InputChannel], side tag)
@@ -158,20 +214,25 @@ class _RouterOutput(Output):
                                                        len(channels)):
                     channels[idx].push(record)
 
-    def emit_watermark(self, watermark):
+    def _broadcast(self, element):
         for _, channels, _ in self.routes:
             for ch in channels:
-                ch.push(watermark)
+                ch.push(element)
+
+    def emit_watermark(self, watermark):
+        self._broadcast(watermark)
+
+    def broadcast_barrier(self, barrier: CheckpointBarrier):
+        self._broadcast(barrier)
 
     def broadcast_end_of_stream(self):
-        for _, channels, _ in self.routes:
-            for ch in channels:
-                ch.subtask.on_end_of_stream()
+        self._broadcast(END_OF_STREAM)
 
 
 class SubtaskInstance:
     """One parallel instance of a JobVertex: the chain's operators,
-    wired head to tail, with the router behind the tail."""
+    wired head to tail, with the router behind the tail, its input
+    channels and their barrier alignment."""
 
     def __init__(self, vertex: JobVertex, state_backend=None,
                  device: DeviceLike = None, subtask_index: int = 0,
@@ -179,6 +240,7 @@ class SubtaskInstance:
                  processing_time_service: ProcessingTimeService):
         self.vertex = vertex
         self.subtask_index = subtask_index
+        self.task_key = (vertex.id, subtask_index)
         #: where device state and a fused chain program run
         self.device = device
         self.operators: List[StreamOperator] = [
@@ -199,12 +261,22 @@ class SubtaskInstance:
                      operator_id=node.uid, subtask_index=subtask_index,
                      num_subtasks=num_subtasks,
                      max_parallelism=node.max_parallelism)
+        self.input_channels: List[_InputChannel] = []
         #: input_index -> {channel_id: watermark}
         self._watermarks: Dict[int, Dict[int, int]] = {}
         self._current_wm: Dict[int, int] = {}
-        self._channel_count = 0
-        self._eos_count = 0
         self.finished = False
+        # exactly-once alignment
+        self._align_id: Optional[int] = None
+        self._align_barrier: Optional[CheckpointBarrier] = None
+        self._align_received: Set[int] = set()
+        # at-least-once barrier counts: id -> (barrier, channel ids)
+        self._tracker_counts: Dict[int, Tuple[CheckpointBarrier, Set[int]]] = {}
+        #: set by the executor: callable(task_key, checkpoint_id, snapshot)
+        self.ack_fn = None
+        #: sources: (checkpoint_id, timestamp, options) to inject
+        self.pending_trigger: Optional[Tuple[int, int, dict]] = None
+        self._ctx = None
 
     @property
     def head(self) -> StreamOperator:
@@ -215,8 +287,8 @@ class SubtaskInstance:
         return isinstance(self.head, StreamSource)
 
     def new_channel(self, input_index: int) -> _InputChannel:
-        ch = _InputChannel(self, input_index, self._channel_count)
-        self._channel_count += 1
+        ch = _InputChannel(self, input_index, len(self.input_channels))
+        self.input_channels.append(ch)
         self._watermarks.setdefault(input_index, {})[ch.channel_id] = MIN_TIMESTAMP
         return ch
 
@@ -238,32 +310,76 @@ class SubtaskInstance:
             op.close()
 
     # ---- source path ------------------------------------------------
-    def source_step(self, max_records: int) -> bool:
-        """Emit up to max_records; True while the source has more."""
-        fn = self.head.user_function
-        if hasattr(fn, "emit_step"):
-            if not hasattr(self, "_ctx"):
-                self._ctx = self.head.make_context()
-            more = fn.emit_step(self._ctx, max_records)
-        else:
-            self.head.run()
-            more = False
-        if not more:
-            self.finish_source()
-        return more
-
-    def finish_source(self):
-        """End of input: event time to the end (the chain sees the final
-        watermark), then end of stream downstream."""
+    def source_step(self, max_records: int) -> None:
+        """Inject a pending barrier, then emit up to max_records; at the
+        end of input, finish the source."""
         if self.finished:
             return
+        try:
+            self.handle_pending_trigger()
+            fn = self.head.user_function
+            if hasattr(fn, "emit_step"):
+                if self._ctx is None:
+                    self._ctx = self.head.make_context()
+                more = fn.emit_step(self._ctx, max_records)
+            else:
+                self.head.run()
+                more = False
+            if not more:
+                self.finish_source()
+        except TaskFailureException:
+            raise
+        except Exception as e:  # noqa: BLE001
+            raise TaskFailureException(self.task_key, e) from e
+
+    def finish_source(self):
+        """End of input: a pending barrier first, then event time to the
+        end (the chain sees the final watermark), then end of stream
+        downstream."""
+        if self.finished:
+            return
+        self.handle_pending_trigger()
         self.head.output.emit_watermark(MAX_WATERMARK)
         self.finished = True
-        self.finish()
         self.router.broadcast_end_of_stream()
 
+    def handle_pending_trigger(self):
+        """Snapshot the source's chain and send the barrier, at a
+        record boundary."""
+        trig = self.pending_trigger
+        if trig is None or self.finished:
+            return
+        self.pending_trigger = None
+        cid, ts, options = trig
+        snapshot = self.snapshot(cid)
+        self.router.broadcast_barrier(CheckpointBarrier(cid, ts, options))
+        if self.ack_fn is not None:
+            self.ack_fn(self.task_key, cid, snapshot)
+
     # ---- input path -------------------------------------------------
+    def receive(self, ch: _InputChannel, element) -> None:
+        """One element of channel ``ch``; a failure is attributed to
+        this subtask (the failover strategy scopes the restart by it)."""
+        try:
+            if element.is_record:
+                self.process_record(ch.input_index, element)
+            elif element.is_watermark:
+                self.process_channel_watermark(ch.input_index, ch.channel_id,
+                                               element)
+            elif element.is_barrier:
+                self._on_barrier(ch, element)
+            elif isinstance(element, EndOfStream):
+                self._on_end_of_stream(ch)
+            else:
+                self.process_batch_element(ch.input_index, element)
+        except TaskFailureException:
+            raise
+        except Exception as e:  # noqa: BLE001
+            raise TaskFailureException(self.task_key, e) from e
+
     def process_record(self, input_index: int, record):
+        if faults._active is not None:
+            faults.fire("task.process")
         head = self.head
         head.set_key_context(record)
         head.process_element(record)
@@ -271,6 +387,8 @@ class SubtaskInstance:
     def process_batch_element(self, input_index: int, batch):
         """A RecordBatch through the head: its fused chain program when
         it wants the batch, else the operator's ``process_batch``."""
+        if faults._active is not None:
+            faults.fire("task.process")
         head = self.head
         fused = head._fused_chain
         if fused is not None and fused.wants(batch):
@@ -291,26 +409,155 @@ class SubtaskInstance:
         self._current_wm[input_index] = new_min
         self.head.process_watermark(Watermark(new_min))
 
-    def on_end_of_stream(self):
-        self._eos_count += 1
-        if self._eos_count == self._channel_count and not self.finished:
+    # ---- barriers ---------------------------------------------------
+    def _live_channel_ids(self) -> Set[int]:
+        return {c.channel_id for c in self.input_channels if not c.eos}
+
+    def _on_barrier(self, ch: _InputChannel, barrier: CheckpointBarrier):
+        cid = barrier.checkpoint_id
+        if barrier.options.get("mode") == "at_least_once":
+            entry = self._tracker_counts.setdefault(cid, (barrier, set()))
+            entry[1].add(ch.channel_id)
+            if entry[1] >= self._live_channel_ids():
+                del self._tracker_counts[cid]
+                self._complete_checkpoint(barrier)
+            return
+        if self._align_id is not None and cid != self._align_id:
+            # a newer barrier abandons the alignment in flight
+            self._release_alignment()
+        if self._align_id is None:
+            self._align_id = cid
+            self._align_barrier = barrier
+            self._align_received = set()
+        self._align_received.add(ch.channel_id)
+        ch.blocked = True
+        self._maybe_complete_alignment()
+
+    def _maybe_complete_alignment(self):
+        if self._align_id is None \
+                or not self._align_received >= self._live_channel_ids():
+            return
+        barrier = self._align_barrier
+        self._align_id = None
+        self._align_barrier = None
+        self._align_received = set()
+        self._complete_checkpoint(barrier)
+        self._release_alignment()
+
+    def _release_alignment(self):
+        """Unblock every channel and replay what each held, in order;
+        a replayed barrier may block its channel again."""
+        self._align_id = None
+        self._align_barrier = None
+        self._align_received = set()
+        for c in self.input_channels:
+            c.blocked = False
+        for c in self.input_channels:
+            while c.held and not c.blocked:
+                self.receive(c, c.held.popleft())
+
+    def _complete_checkpoint(self, barrier: CheckpointBarrier):
+        """Every live channel delivered the barrier: snapshot, forward
+        the barrier, ack."""
+        snapshot = self.snapshot(barrier.checkpoint_id)
+        self.router.broadcast_barrier(barrier)
+        if self.ack_fn is not None:
+            self.ack_fn(self.task_key, barrier.checkpoint_id, snapshot)
+
+    def _on_end_of_stream(self, ch: _InputChannel):
+        ch.eos = True
+        self._maybe_complete_alignment()
+        if not self.finished and all(c.eos for c in self.input_channels):
             self.finished = True
-            self.finish()
             self.router.broadcast_end_of_stream()
 
+    # ---- snapshots --------------------------------------------------
+    def snapshot(self, checkpoint_id: Optional[int] = None) -> dict:
+        return {"operators": {op.operator_id: op.snapshot_state(checkpoint_id)
+                              for op in self.operators}}
 
-def pointwise_targets(up_index: int, n_up: int, n_down: int) -> List[int]:
-    """The downstream subtasks a pointwise edge wires upstream subtask
-    ``up_index`` to: a contiguous group."""
-    if n_down >= n_up:
-        return list(range(up_index * n_down // n_up,
-                          (up_index + 1) * n_down // n_up))
-    return [up_index * n_down // n_up]
+    def restore(self, snapshots: List[dict]) -> None:
+        for op in self.operators:
+            per_op = [s["operators"][op.operator_id] for s in snapshots
+                      if op.operator_id in s.get("operators", {})]
+            if per_op:
+                op.restore_state(per_op)
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        for op in self.operators:
+            op.notify_checkpoint_complete(checkpoint_id)
+
+
+class JobClient:
+    """Handle on a job: its result, cancel and savepoints."""
+
+    def __init__(self):
+        self._cancel = threading.Event()
+        self._done = threading.Event()
+        self._result: Optional[JobExecutionResult] = None
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        #: the running attempt: {"subtasks", "coordinator"}
+        self.executor_state: Optional[dict] = None
+
+    def cancel(self) -> None:
+        self._cancel.set()
+
+    @property
+    def cancel_requested(self) -> bool:
+        return self._cancel.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> JobExecutionResult:
+        self._done.wait(timeout)
+        if not self._done.is_set():
+            raise TimeoutError("job still running")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+    def trigger_savepoint(self, directory: str,
+                          timeout: float = 60.0) -> str:
+        """Blocks until the savepoint is written; returns its path."""
+        # the job thread publishes executor_state while it sets the
+        # attempt up: a request right after the submit waits for it
+        deadline = _time.monotonic() + min(timeout, 5.0)
+        coordinator = None
+        while _time.monotonic() < deadline and not self.done:
+            coordinator = (self.executor_state or {}).get("coordinator")
+            if coordinator is not None:
+                break
+            _time.sleep(0.002)
+        if coordinator is None:
+            if self.done:
+                raise RuntimeError(
+                    "cannot savepoint: the job is no longer running")
+            raise RuntimeError("savepoints require checkpointing to be "
+                               "enabled (env.enable_checkpointing)")
+        return coordinator.trigger_savepoint(directory).wait(timeout)
+
+    def stop_with_savepoint(self, directory: str,
+                            timeout: float = 60.0) -> str:
+        """Savepoint, then cancel.  What the job processes between the
+        two reaches its sinks again after a restore from the
+        savepoint."""
+        path = self.trigger_savepoint(directory, timeout)
+        self.cancel()
+        self._done.wait(timeout)
+        return path
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def _finish(self, result=None, error=None):
+        self._result = result
+        self._error = error
+        self._done.set()
 
 
 def gather_accumulators(all_tasks, into: Dict[str, Any]) -> None:
     """User-function accumulators into the job result; lists
-    concatenate, numbers add (one contribution per function instance)."""
+    concatenate, numbers add, once per function instance."""
     seen = set()
     for st in all_tasks:
         for op in st.operators:
@@ -328,16 +575,22 @@ def gather_accumulators(all_tasks, into: Dict[str, Any]) -> None:
 class LocalExecutor:
     """Runs a JobGraph in this process, each vertex at its parallelism.
     ``state_backend`` (a name or a Configuration) and ``device`` build
-    the keyed operators' backends; every operator reads processing
-    time from the executor's one ``TestProcessingTimeService``."""
+    the keyed operators' backends; ``restart_strategy`` is a dict as
+    ``make_restart_strategy`` takes it; ``failover_strategy`` is
+    ``full`` or ``region``."""
 
     #: records a source emits per loop step before the next source runs
     SOURCE_BUDGET = 1024
 
-    def __init__(self, state_backend=None, device: DeviceLike = None):
+    def __init__(self, state_backend=None, device: DeviceLike = None,
+                 restart_strategy: Optional[dict] = None,
+                 processing_time_service: Optional[ProcessingTimeService] = None,
+                 failover_strategy: str = "full"):
         self.state_backend = state_backend
         self.device = device
-        self.pts = TestProcessingTimeService()
+        self.restart_strategy_config = restart_strategy or {"strategy": "none"}
+        self.pts = processing_time_service or TestProcessingTimeService()
+        self.failover_strategy = failover_strategy
 
     def build_subtasks(self, job_graph: JobGraph
                        ) -> Dict[int, List[SubtaskInstance]]:
@@ -361,21 +614,434 @@ class LocalExecutor:
                                     e.side_output_tag)
         return subtasks
 
+    # ---- public API -------------------------------------------------
     def execute(self, job_graph: JobGraph) -> JobExecutionResult:
+        client = JobClient()
+        self._run_job(job_graph, client)
+        return client.wait()
+
+    def execute_async(self, job_graph: JobGraph) -> JobClient:
+        """Run the job on a thread of its own.  Operators on the card
+        switch torch's process-wide default dtype around fused chain
+        stages, so the caller runs no torch work while the job runs;
+        it waits on the client, cancels it or asks for savepoints."""
+        client = JobClient()
+        t = threading.Thread(target=self._run_job, args=(job_graph, client),
+                             daemon=True, name="job-executor")
+        client._thread = t
+        t.start()
+        return client
+
+    # ---- the job, with restarts ------------------------------------
+    def _run_job(self, job_graph: JobGraph, client: JobClient) -> None:
         result = JobExecutionResult(job_graph.job_name)
-        subtasks = [st for group in self.build_subtasks(job_graph).values()
-                    for st in group]
-        opened: List[SubtaskInstance] = []
+        cp_config = job_graph.checkpoint_config
         try:
-            for st in reversed(subtasks):   # consumers before producers
+            storage = make_checkpoint_storage(cp_config) if cp_config else None
+            restart = make_restart_strategy(self.restart_strategy_config)
+            restore_from = initial_restore_point(job_graph)
+            carryover = None
+            regions = (compute_pipelined_regions(job_graph)
+                       if self.failover_strategy == "region" else None)
+            region_index = (build_region_index(regions)
+                            if regions is not None else None)
+            while True:
+                try:
+                    self._run_attempt(job_graph, client, result, storage,
+                                      restore_from, carryover)
+                    client._finish(result=result)
+                    return
+                except JobCancelledException:
+                    result.cancelled = True
+                    client._finish(result=result)
+                    return
+                except SuppressRestartsException as e:
+                    raise e.cause
+                except Exception as e:  # noqa: BLE001
+                    restart.notify_failure(_time.monotonic() * 1000.0)
+                    if client.cancel_requested or not restart.can_restart():
+                        if isinstance(e, TaskFailureException):
+                            raise e.cause from e
+                        raise
+                    result.restarts += 1
+                    if restart.delay_ms:
+                        _time.sleep(restart.delay_ms / 1000.0)
+                    restore_from = storage.latest() if storage else None
+                    carryover = None
+                    if (regions is not None
+                            and isinstance(e, TaskFailureException)
+                            and getattr(e, "live_state", None) is not None):
+                        failed = set(region_of(regions, e.task_key,
+                                               region_index))
+                        # a healthy subtask whose capture failed pulls
+                        # its whole region into the restart
+                        for fk in getattr(e, "capture_failed_keys", []):
+                            failed |= region_of(regions, fk, region_index)
+                        healthy = {k for k in e.live_state if k not in failed}
+                        if healthy:
+                            carryover = {k: e.live_state[k] for k in healthy}
+                            result.region_restarts += 1
+                            if restore_from is not None:
+                                restore_from = {
+                                    **restore_from,
+                                    "tasks": {k: v for k, v
+                                              in restore_from["tasks"].items()
+                                              if k in failed}}
+        except BaseException as e:  # noqa: BLE001
+            client._finish(error=e)
+
+    def _run_attempt(self, job_graph: JobGraph, client: JobClient,
+                     result: JobExecutionResult, storage,
+                     restore_from: Optional[dict],
+                     carryover: Optional[dict] = None) -> None:
+        reset = getattr(self.pts, "reset_timers", None)
+        if reset is not None:
+            reset()  # timers of a failed attempt's operators
+        subtasks = self.build_subtasks(job_graph)
+        all_tasks = [st for v in job_graph.topological_vertices()
+                     for st in subtasks[v.id]]
+        sources = [st for st in all_tasks if st.is_source]
+        opened: List[SubtaskInstance] = []
+        coordinator = None
+        try:
+            for st in reversed(all_tasks):   # consumers before producers
                 st.open()
                 opened.append(st)
-            active = [st for st in subtasks if st.is_source]
-            while active:
-                active = [st for st in active
-                          if st.source_step(self.SOURCE_BUDGET)]
+            # restore after open: the keyed backends take a restore once
+            # the operators bound their state descriptors
+            if carryover is not None:
+                for st in all_tasks:
+                    cap = carryover.get(st.task_key)
+                    if cap is not None:
+                        _restore_live_capture(st, cap)
+                    elif restore_from is not None \
+                            and st.task_key in restore_from["tasks"]:
+                        st.restore([restore_from["tasks"][st.task_key]])
+                # what the healthy subtasks held goes on downstream now
+                for st in all_tasks:
+                    st._release_alignment()
+            elif restore_from is not None:
+                assign_restore_snapshots(job_graph, restore_from, subtasks)
+
+            ack_queue: deque = deque()
+            cfg = job_graph.checkpoint_config
+            if storage is not None and cfg.get("interval"):
+                def trigger_sources(cid, ts, options):
+                    if any(s.finished for s in sources):
+                        return False
+                    for s in sources:
+                        s.pending_trigger = (cid, ts, options)
+                    return True
+
+                def notify_complete(cid):
+                    for st in all_tasks:
+                        st.notify_checkpoint_complete(cid)
+
+                coordinator = CheckpointCoordinator(
+                    interval_ms=cfg["interval"],
+                    mode=cfg.get("mode", "exactly_once"),
+                    storage=storage,
+                    expected_tasks={st.task_key for st in all_tasks},
+                    trigger_sources=trigger_sources,
+                    notify_complete=notify_complete,
+                    min_pause_ms=cfg.get("min_pause", 0),
+                    async_persist=bool(cfg.get("async_persist", False)),
+                    checkpoint_timeout_ms=cfg.get("timeout"),
+                    tolerable_checkpoint_failures=cfg.get("tolerable_failures"))
+                coordinator.vertex_parallelisms = {
+                    vid: v.parallelism for vid, v in job_graph.vertices.items()}
+                # ids go on across restarts
+                ids = storage.checkpoint_ids()
+                if ids:
+                    coordinator._id_counter = ids[-1]
+
+            def ack(task_key, cid, snapshot):
+                if faults.check("checkpoint.ack"):
+                    return  # lost in transit: the checkpoint times out
+                ack_queue.append((task_key, cid, snapshot))
+
+            for st in all_tasks:
+                st.ack_fn = ack
+            client.executor_state = {"subtasks": subtasks,
+                                     "coordinator": coordinator}
+            try:
+                self._loop(client, result, coordinator, ack_queue,
+                           all_tasks, sources)
+            except TaskFailureException as tfe:
+                if self.failover_strategy == "region":
+                    tfe.live_state, tfe.capture_failed_keys = \
+                        _capture_live_state(all_tasks, tfe.task_key)
+                raise
         finally:
+            if coordinator is not None:
+                try:
+                    coordinator.drain()  # land the writes in flight
+                except Exception:  # noqa: BLE001 - the attempt's outcome
+                    pass           # is decided already
+                result.checkpoints_completed = (
+                    getattr(result, "_cp_base", 0) + coordinator.completed_count)
+                result._cp_base = result.checkpoints_completed
+                coordinator.stopped = True
+                coordinator.fail_pending_savepoints(RuntimeError(
+                    "job attempt ended before the savepoint completed"))
+            for s in sources:
+                try:
+                    s.head.cancel()
+                except Exception:  # noqa: BLE001
+                    pass
             for st in opened:
                 st.close()
-        gather_accumulators(subtasks, result.accumulators)
-        return result
+
+    # ---- the loop ---------------------------------------------------
+    def _loop(self, client, result, coordinator, ack_queue, all_tasks,
+              sources):
+        pts = self.pts
+        pts_poll = getattr(pts, "fire_due", None)
+        active = list(sources)
+        while True:
+            if client.cancel_requested:
+                raise JobCancelledException()
+            # a due checkpoint's barrier goes ahead of this turn's records
+            if coordinator is not None and all(not s.finished for s in sources):
+                coordinator.maybe_trigger()
+            for s in active:
+                s.source_step(self.SOURCE_BUDGET)
+            active = [s for s in active if not s.finished]
+            if pts_poll is not None:
+                pts_poll()
+            if coordinator is not None:
+                self._take_acks(coordinator, ack_queue)
+                # a source that finished with a trigger it never took can
+                # never ack it
+                for s in sources:
+                    if s.finished and s.pending_trigger is not None:
+                        cid = s.pending_trigger[0]
+                        s.pending_trigger = None
+                        coordinator.decline(cid)
+            if not active:
+                break
+        # end of input: the test clock's pending timers fire until none
+        # is left, so processing-time windows emit their tails (their
+        # output reaches the sinks by direct calls and may register
+        # further timers)
+        if isinstance(pts, TestProcessingTimeService):
+            for _ in range(1000):
+                pts.fire_all_pending()
+                if not pts.has_pending():
+                    break
+        if coordinator is not None:
+            self._take_acks(coordinator, ack_queue)
+        # finish phase: end-of-input flushes, topologically; the input is
+        # consumed, so a failure here does not restart the job
+        try:
+            for st in all_tasks:
+                st.finish()
+        except Exception as e:  # noqa: BLE001
+            raise SuppressRestartsException(e) from e
+        gather_accumulators(all_tasks, result.accumulators)
+
+    @staticmethod
+    def _take_acks(coordinator, ack_queue) -> None:
+        while ack_queue:
+            task_key, cid, snapshot = ack_queue.popleft()
+            coordinator.acknowledge(task_key, cid, snapshot)
+
+
+# ---- restore assignment ----------------------------------------------
+
+def _op_snap_has_state(opsnap: dict) -> bool:
+    """Does one operator's snapshot carry anything whose loss would
+    change results?"""
+    for k, v in opsnap.items():
+        if k == "keyed":
+            if getattr(v, "key_group_bytes", None):
+                return True
+        elif k == "operator":
+            if getattr(v, "list_states", None) \
+                    or getattr(v, "broadcast_states", None):
+                return True
+        elif k == "timers":
+            if isinstance(v, dict) and (v.get("event") or v.get("proc")):
+                return True
+        elif k == "restore_old_parallelism":
+            continue
+        else:
+            return True
+    return False
+
+
+def _vertex_has_state(snaps: List[dict]) -> bool:
+    return any(_op_snap_has_state(op)
+               for s in snaps
+               for op in s.get("operators", {}).values())
+
+
+def compute_restore_assignments(vertex_parallelisms: Dict[int, int],
+                                restore_from: dict,
+                                vertex_uids: Optional[Dict[int, set]] = None,
+                                allow_non_restored: bool = False
+                                ) -> Dict[Tuple[int, int], List[dict]]:
+    """A checkpoint's or savepoint's task snapshots mapped onto the
+    (maybe rescaled) subtasks: task_key -> snapshot list.
+
+    With ``vertex_uids`` (new vertex id -> its chain's operator uids)
+    old vertices match new ones by operator uid; an old operator with
+    real state that matches no uid raises unless ``allow_non_restored``.
+    Without it the mapping is by vertex id.  At the same parallelism
+    the mapping is one to one.  At another one, keyed state and timers
+    go to every new subtask (each keeps its key-group range; each
+    operator snapshot is marked ``restore_old_parallelism`` so an
+    engine re-splits its own state), operator list state re-splits
+    round robin, and each old subtask's function state goes to exactly
+    one new subtask."""
+    task_snaps: Dict[Tuple[int, int], dict] = restore_from["tasks"]
+    old_par: Dict[int, int] = dict(restore_from.get("parallelisms") or {})
+    for (vid, idx) in task_snaps:
+        old_par[vid] = max(old_par.get(vid, 0), idx + 1)
+
+    def vsnaps_of(vid):
+        return [task_snaps[(vid, i)] for i in range(old_par[vid])
+                if (vid, i) in task_snaps]
+
+    edges: Dict[int, List[int]] = {}
+    if vertex_uids is None:
+        for vid in old_par:
+            if vid in vertex_parallelisms:
+                edges[vid] = [vid]
+    else:
+        for vid in old_par:
+            uids = {op_id for s in vsnaps_of(vid)
+                    for op_id in s.get("operators", {})}
+            edges[vid] = [nvid for nvid, nuids in vertex_uids.items()
+                          if uids & nuids]
+    # orphans by operator when uids are known: a vertex may match by
+    # one uid while a chained operator's uid moved
+    if vertex_uids is not None:
+        live_uids = set()
+        for uids in vertex_uids.values():
+            live_uids |= uids
+        orphan_ops = sorted({
+            op_id
+            for vid in old_par
+            for s in vsnaps_of(vid)
+            for op_id, opsnap in s.get("operators", {}).items()
+            if op_id not in live_uids and _op_snap_has_state(opsnap)})
+        detail = (f"checkpoint state for operators {orphan_ops} matches no "
+                  f"operator uid in the restored topology (did the plan "
+                  f"shape change without stable .uid()s?)")
+    else:
+        orphaned = [vid for vid in old_par if vid not in vertex_parallelisms]
+        orphan_ops = sorted(vid for vid in orphaned
+                            if _vertex_has_state(vsnaps_of(vid)))
+        detail = (f"checkpoint state for vertices {orphan_ops} matches no "
+                  f"vertex in the restored topology")
+    if orphan_ops:
+        if not allow_non_restored:
+            raise RuntimeError(
+                detail + "; restoring would silently drop state. Set "
+                "allow_non_restored_state to proceed without it.")
+        import warnings
+        warnings.warn(detail + "; DROPPED (allow_non_restored_state)",
+                      stacklevel=2)
+
+    out: Dict[Tuple[int, int], List[dict]] = {}
+    for vid, new_vids in edges.items():
+        if old_par.get(vid, 0) == 0:
+            continue
+        for nvid in new_vids:
+            new_p = vertex_parallelisms[nvid]
+            if old_par[vid] == new_p:
+                for i in range(new_p):
+                    if (vid, i) in task_snaps:
+                        out.setdefault((nvid, i), []).append(task_snaps[(vid, i)])
+                continue
+            vsnaps = vsnaps_of(vid)
+            stripped = []
+            op_state_parts: Dict[str, List] = {}
+            fn_states: Dict[str, List] = {}
+            for snap in vsnaps:
+                ops = {}
+                for op_id, opsnap in snap.get("operators", {}).items():
+                    cp = {k: v for k, v in opsnap.items()
+                          if k not in ("operator", "function")}
+                    cp["restore_old_parallelism"] = old_par[vid]
+                    ops[op_id] = cp
+                    if "operator" in opsnap:
+                        op_state_parts.setdefault(op_id, []).append(
+                            opsnap["operator"])
+                    if "function" in opsnap:
+                        fn_states.setdefault(op_id, []).append(
+                            opsnap["function"])
+                stripped.append({"operators": ops})
+            redistributed = {
+                op_id: OperatorStateSnapshot.redistribute(parts, new_p)
+                for op_id, parts in op_state_parts.items()}
+            for i in range(new_p):
+                extras = [{"operators": {
+                    op_id: {"operator": parts[i]}
+                    for op_id, parts in redistributed.items()}}]
+                for op_id, states in fn_states.items():
+                    for fstate in states[i::new_p]:
+                        extras.append({"operators": {op_id:
+                                                     {"function": fstate}}})
+                out.setdefault((nvid, i), []).extend(stripped + extras)
+    return out
+
+
+def assign_restore_snapshots(job_graph: JobGraph, restore_from: dict,
+                             subtasks: Dict[int, List[SubtaskInstance]]
+                             ) -> None:
+    mapping = compute_restore_assignments(
+        {vid: v.parallelism for vid, v in job_graph.vertices.items()},
+        restore_from,
+        vertex_uids={vid: {n.uid for n in v.chain}
+                     for vid, v in job_graph.vertices.items()},
+        allow_non_restored=job_graph.allow_non_restored_state)
+    for sts in subtasks.values():
+        for st in sts:
+            snaps = mapping.get(st.task_key)
+            if snaps:
+                st.restore(snaps)
+
+
+def initial_restore_point(job_graph: JobGraph) -> Optional[dict]:
+    """The savepoint the job graph names (``set_savepoint_restore``)."""
+    path = job_graph.savepoint_restore_path
+    return None if path is None else load_savepoint(path)
+
+
+# ---- region failover: live state of the healthy subtasks ---------------
+
+def _capture_live_state(all_tasks, failed_key):
+    """Operator snapshots, held channel elements, end-of-stream flags
+    and watermarks of every subtask but the failed one.  Returns
+    (captured, keys whose capture failed); a failed capture pulls its
+    region into the restart.  Barriers and alignments do not carry over:
+    the checkpoint in flight cannot complete, and the new attempt
+    reuses ids from the last completed one."""
+    out = {}
+    capture_failed = []
+    for st in all_tasks:
+        if st.task_key == failed_key:
+            continue
+        try:
+            out[st.task_key] = {
+                "snap": st.snapshot(),
+                "finished": st.finished,
+                "held": [[el for el in ch.held if not el.is_barrier]
+                         for ch in st.input_channels],
+                "eos": [ch.eos for ch in st.input_channels],
+                "wm": (copy.deepcopy(st._watermarks), dict(st._current_wm)),
+            }
+        except Exception:  # noqa: BLE001 - widen the restart instead
+            capture_failed.append(st.task_key)
+    return out, capture_failed
+
+
+def _restore_live_capture(st: SubtaskInstance, cap) -> None:
+    st.restore([cap["snap"]])
+    st.finished = cap["finished"]
+    for ch, held, eos in zip(st.input_channels, cap["held"], cap["eos"]):
+        ch.held.extend(held)
+        ch.eos = eos
+    st._watermarks, st._current_wm = cap["wm"]

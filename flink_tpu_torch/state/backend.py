@@ -39,22 +39,50 @@ VOID_NAMESPACE = ()
 
 
 class KeyedStateSnapshot:
-    """Serialized keyed state, one opaque chunk per key group."""
+    """Serialized keyed state, one opaque chunk per key group.
+
+    Each chunk is wrapped as a content-addressed ``SharedChunk``, so a
+    checkpoint storage stores a distinct chunk once across the
+    checkpoints it retains: an untouched key group adds ~0 bytes to the
+    next checkpoint (the incremental-checkpoint seam).  ``blobs()``
+    hands back raw bytes whether the snapshot is freshly taken
+    (wrapped) or resolved by a storage (raw)."""
 
     __slots__ = ("key_group_bytes", "meta")
 
     def __init__(self, key_group_bytes: Dict[int, bytes],
-                 meta: Optional[dict] = None):
+                 meta: Optional[dict] = None, wrap: bool = True):
+        if wrap:
+            from flink_tpu_torch.state.shared_registry import SharedChunk
+            key_group_bytes = {
+                kg: b if isinstance(b, SharedChunk) else SharedChunk(b)
+                for kg, b in key_group_bytes.items()}
         self.key_group_bytes = dict(key_group_bytes)
         self.meta = meta or {}
 
     def blobs(self):
         """Yields (key_group, raw_bytes)."""
-        yield from self.key_group_bytes.items()
+        from flink_tpu_torch.state.shared_registry import SharedChunk
+        for kg, b in self.key_group_bytes.items():
+            yield kg, (b.payload if isinstance(b, SharedChunk) else b)
 
     @property
     def total_bytes(self) -> int:
-        return sum(len(b) for b in self.key_group_bytes.values())
+        return sum(len(b) for _, b in self.blobs() if b is not None)
+
+    def _map_chunks_(self, fn):
+        """``shared_registry.map_chunks`` protocol: the snapshot with
+        every chunk node replaced by ``fn(node)``."""
+        from flink_tpu_torch.state.shared_registry import ChunkRef, SharedChunk
+        mapped = {}
+        changed = False
+        for kg, b in self.key_group_bytes.items():
+            nb = fn(b) if isinstance(b, (SharedChunk, ChunkRef)) else b
+            changed = changed or nb is not b
+            mapped[kg] = nb
+        if not changed:
+            return self
+        return KeyedStateSnapshot(mapped, dict(self.meta), wrap=False)
 
 
 def snapshot_from_chunks(key_group_bytes, meta: Optional[dict] = None

@@ -31,6 +31,7 @@ from flink_tpu_torch.core.state import (AggregatingState,
                                         ReducingStateDescriptor,
                                         StateDescriptor, ValueState,
                                         ValueStateDescriptor)
+from flink_tpu_torch.state import portable
 from flink_tpu_torch.state.backend import (VOID_NAMESPACE, KeyedStateBackend,
                                            KeyedStateSnapshot,
                                            decode_obj_column,
@@ -716,7 +717,7 @@ class HeapKeyedStateBackend(KeyedStateBackend):
 
 def load_chunk(blob: bytes) -> dict:
     """One key group's chunk; only the v2 format is read."""
-    chunk = pickle.loads(blob)
+    chunk = portable.loads(blob)
     if not (isinstance(chunk, dict) and chunk.get("v") == 2):
         raise ValueError("keyed-state chunk is not in the v2 format")
     return chunk

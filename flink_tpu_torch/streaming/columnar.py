@@ -157,6 +157,13 @@ class VectorizedCollectionSource(SourceFunction):
         clone._running = True
         return clone
 
+    # the read position is the source's checkpointed state
+    def snapshot_function_state(self, checkpoint_id=None) -> dict:
+        return {"offset": self.offset}
+
+    def restore_function_state(self, state: dict) -> None:
+        self.offset = state["offset"]
+
 
 class ColumnarCollectSink(SinkFunction):
     """Collects the batches it is given; row-style access for checks."""

@@ -34,7 +34,21 @@ runs sharded over the mesh (``flink_tpu_torch.parallel``): the operator
 is added at parallelism 1, since the mesh is the parallelism, or, with
 a mesh factory, at the environment's parallelism, each subtask
 building its own mesh.  Other assigners run without the mesh, as in
-the reference.  Processing time is a later slice.
+the reference.
+
+``set_stream_time_characteristic("processing")`` makes ``time_window``
+pick the processing-time assigners and drops the sources' timestamps;
+``"ingestion"`` stamps records with the processing-time clock at the
+source.  ``env.processing_time_service`` is the clock the executor
+hands every operator (a ``TestProcessingTimeService`` at 0 when None;
+a ``PolledProcessingTimeService`` for the wall clock).
+
+``enable_checkpointing`` turns on barrier checkpoints into the storage
+``set_checkpoint_storage`` picks (``memory``, or ``filesystem`` with a
+directory); ``set_restart_strategy`` / ``set_failover_strategy``
+decide what a failure does, ``set_savepoint_restore`` starts the next
+execution from a savepoint, and ``execute_async`` returns a
+``JobClient`` (see ``runtime/local.py``).
 """
 
 from __future__ import annotations
@@ -71,11 +85,10 @@ from flink_tpu_torch.streaming.sources import (CollectSink,
                                                TimestampsAndWatermarksOperator)
 from flink_tpu_torch.streaming.window_operator import (EvictingWindowOperator,
                                                       WindowOperator)
-from flink_tpu_torch.streaming.windowing import (CountEvictor, CountTrigger,
-                                                 GlobalWindows, PurgingTrigger,
-                                                 SlidingEventTimeWindows, Time,
-                                                 TumblingEventTimeWindows,
-                                                 WindowAssigner)
+from flink_tpu_torch.streaming.windowing import (
+    CountEvictor, CountTrigger, GlobalWindows, PurgingTrigger,
+    SlidingEventTimeWindows, SlidingProcessingTimeWindows, Time,
+    TumblingEventTimeWindows, TumblingProcessingTimeWindows, WindowAssigner)
 
 
 class StreamExecutionEnvironment:
@@ -96,6 +109,15 @@ class StreamExecutionEnvironment:
         #: device window aggregation sharded over this mesh (set_mesh)
         self.mesh = None
         self.mesh_axis = "kg"
+        self.time_characteristic = "event"
+        #: the executor's processing-time clock (None: a test clock at 0)
+        self.processing_time_service = None
+        self.checkpoint_config: Optional[dict] = None
+        self.checkpoint_storage: dict = {"storage": "memory", "retain": 1}
+        self.restart_strategy: dict = {"strategy": "none"}
+        self.failover_strategy = "full"
+        self.savepoint_restore_path: Optional[str] = None
+        self.allow_non_restored_state = False
         self._last_executor = None
 
     @staticmethod
@@ -123,6 +145,74 @@ class StreamExecutionEnvironment:
         self.parallelism = parallelism
         return self
 
+    def set_stream_time_characteristic(self, tc: str) -> "StreamExecutionEnvironment":
+        """``event`` (default), ``processing`` or ``ingestion``."""
+        if tc not in ("event", "processing", "ingestion"):
+            raise ValueError(f"unknown time characteristic {tc!r}")
+        self.time_characteristic = tc
+        return self
+
+    # ---- fault tolerance --------------------------------------------
+    def enable_checkpointing(self, interval_ms: int,
+                             mode: str = "exactly_once",
+                             async_persist: bool = False,
+                             timeout_ms: Optional[int] = None,
+                             tolerable_failures: Optional[int] = None
+                             ) -> "StreamExecutionEnvironment":
+        """A checkpoint every ``interval_ms`` of wall clock.  ``mode``:
+        ``exactly_once`` aligns barriers, ``at_least_once`` does not.
+        ``async_persist`` writes completed checkpoints on a writer
+        thread (operators hear of completion after the write);
+        ``timeout_ms`` aborts a checkpoint not fully acknowledged in
+        time; ``tolerable_failures`` = N tolerates N consecutive failed
+        checkpoints before the job fails (None: a failed write fails the
+        job, aborts never do)."""
+        if mode not in ("exactly_once", "at_least_once"):
+            raise ValueError(f"unknown checkpointing mode {mode!r}")
+        self.checkpoint_config = {"interval": interval_ms, "mode": mode,
+                                  "async_persist": async_persist}
+        if timeout_ms is not None:
+            self.checkpoint_config["timeout"] = timeout_ms
+        if tolerable_failures is not None:
+            self.checkpoint_config["tolerable_failures"] = tolerable_failures
+        return self
+
+    def set_checkpoint_storage(self, storage: str, directory: Optional[str] = None,
+                               retain: int = 1) -> "StreamExecutionEnvironment":
+        """``memory``, or ``filesystem`` under ``directory`` (a path or
+        a registered scheme such as ``mem://``), keeping the newest
+        ``retain`` checkpoints."""
+        self.checkpoint_storage = {"storage": storage, "retain": retain}
+        if directory is not None:
+            self.checkpoint_storage["dir"] = directory
+        return self
+
+    def set_restart_strategy(self, strategy: str, **kw) -> "StreamExecutionEnvironment":
+        """``none``, ``fixed_delay(restart_attempts, delay_ms)`` or
+        ``failure_rate(max_failures, failure_interval_ms, delay_ms)``."""
+        self.restart_strategy = {"strategy": strategy, **kw}
+        return self
+
+    def set_failover_strategy(self, strategy: str) -> "StreamExecutionEnvironment":
+        """``full`` (default) restarts the whole job; ``region`` only
+        the failed subtask's pipelined region."""
+        if strategy not in ("full", "region"):
+            raise ValueError(f"unknown failover strategy {strategy!r}")
+        self.failover_strategy = strategy
+        return self
+
+    def set_savepoint_restore(self, path: str,
+                              allow_non_restored_state: bool = False
+                              ) -> "StreamExecutionEnvironment":
+        """Start the next execution from the savepoint at ``path`` (a
+        file of either package).  At another parallelism keyed state
+        re-splits by key-group range.  State whose operator uid matches
+        nothing in the job fails the restore unless
+        ``allow_non_restored_state``."""
+        self.savepoint_restore_path = path
+        self.allow_non_restored_state = allow_non_restored_state
+        return self
+
     def set_max_parallelism(self, max_parallelism: int) -> "StreamExecutionEnvironment":
         self.max_parallelism = max_parallelism
         return self
@@ -130,8 +220,10 @@ class StreamExecutionEnvironment:
     # ---- sources ----------------------------------------------------
     def add_source(self, source_function: SourceFunction,
                    name: str = "source") -> "DataStream":
+        tc = self.time_characteristic
+
         def factory():
-            return StreamSource(copy.deepcopy(source_function))
+            return StreamSource(copy.deepcopy(source_function), tc)
         node = self.graph.add_node(StreamNode(
             self.graph.new_node_id(), name, factory, parallelism=1,
             max_parallelism=self.max_parallelism, is_source=True))
@@ -151,14 +243,32 @@ class StreamExecutionEnvironment:
         return self.graph
 
     def get_job_graph(self):
-        return create_job_graph(self.graph)
+        jg = create_job_graph(self.graph)
+        if self.checkpoint_config is not None:
+            jg.checkpoint_config = {**self.checkpoint_config,
+                                    **self.checkpoint_storage}
+        jg.savepoint_restore_path = self.savepoint_restore_path
+        jg.allow_non_restored_state = self.allow_non_restored_state
+        return jg
 
-    def execute(self, job_name: str = "job"):
+    def _make_executor(self, job_name: str):
         from flink_tpu_torch.runtime.local import LocalExecutor
         self.graph.job_name = job_name
-        self._last_executor = LocalExecutor(state_backend=self.config,
-                                            device=self.device)
-        return self._last_executor.execute(self.get_job_graph())
+        self._last_executor = LocalExecutor(
+            state_backend=self.config, device=self.device,
+            restart_strategy=self.restart_strategy,
+            processing_time_service=self.processing_time_service,
+            failover_strategy=self.failover_strategy)
+        return self._last_executor
+
+    def execute(self, job_name: str = "job"):
+        return self._make_executor(job_name).execute(self.get_job_graph())
+
+    def execute_async(self, job_name: str = "job"):
+        """Run the job on a thread of its own; returns its
+        ``JobClient``.  No torch work may run on the caller's thread
+        until the job ends (see ``LocalExecutor.execute_async``)."""
+        return self._make_executor(job_name).execute_async(self.get_job_graph())
 
 
 def _op_factory(cls, fn_factory):
@@ -211,6 +321,22 @@ class DataStream:
     def filter(self, fn, name: str = "filter") -> "DataStream":
         f = as_filter_function(fn)
         return self._add_op(name, _op_factory(StreamFilter, lambda: f))
+
+    def union(self, *streams: "DataStream") -> "DataStream":
+        """One stream of this one and ``streams``: a pass-through node
+        with an input channel from each."""
+        f = as_map_function(lambda x: x)
+        node = self.env.graph.add_node(StreamNode(
+            self.env.graph.new_node_id(), "union",
+            _op_factory(StreamMap, lambda: f),
+            parallelism=self.node.parallelism,
+            max_parallelism=self.env.max_parallelism,
+            chaining_strategy="never"))
+        for s in (self,) + streams:
+            self.env.graph.add_edge(StreamEdge(
+                s.node.id, node.id, s._edge_partitioner(node.parallelism),
+                side_output_tag=s._side_tag))
+        return DataStream(self.env, node)
 
     def set_parallelism(self, parallelism: int) -> "DataStream":
         """This operator's parallelism; a node of another parallelism
@@ -283,9 +409,15 @@ class KeyedStream(DataStream):
 
     def time_window(self, size: Time, slide: Optional[Time] = None
                     ) -> "WindowedStream":
-        """Event-time tumbling windows, sliding ones with ``slide``."""
-        assigner = (TumblingEventTimeWindows.of(size) if slide is None
-                    else SlidingEventTimeWindows.of(size, slide))
+        """Tumbling windows, sliding ones with ``slide``: of processing
+        time under the ``processing`` characteristic, else of event
+        time."""
+        if self.env.time_characteristic == "processing":
+            assigner = (TumblingProcessingTimeWindows.of(size) if slide is None
+                        else SlidingProcessingTimeWindows.of(size, slide))
+        else:
+            assigner = (TumblingEventTimeWindows.of(size) if slide is None
+                        else SlidingEventTimeWindows.of(size, slide))
         return WindowedStream(self, assigner)
 
     def count_window(self, size: int, slide: Optional[int] = None

@@ -38,14 +38,26 @@ Only the reference's semantic refusals (``TypeError`` for an aggregate
 without a cell decomposition, ``ValueError`` for its parameters) send a
 job from the log tier to the scatter tier; a failed build of the host
 runtime raises.
+
+``snapshot_state`` flushes the buffer and copies the engine's state to
+the host in the JAX engines' format, tagged with its tier
+(``vectorized``, ``log``, ``string_sum``, ``mesh_log``), with the
+string-key directory when keys are interned (ids are dense in
+first-seen order, so re-interning the directory rebuilds them).
+``restore_state`` builds the tier's engine and restores it; at another
+parallelism the log, string-sum and generic engines re-split their
+state through ``restore_many`` and the key-group filter the keyBy
+routes by, and a string-keyed or a non-splittable tier raises, as the
+JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 
+from flink_tpu_torch.core.keygroups import make_key_group_keep_fn
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.native import NativeStringInterner
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction, SumAggregate
@@ -372,3 +384,112 @@ class DeviceWindowOperator(StreamOperator):
                         self.collector.collect(v)
         # delivered results leave the buffer
         del emitted[start_idx:]
+
+    # ---- checkpoint -------------------------------------------------
+    def _tier(self) -> str:
+        from flink_tpu_torch.parallel.mesh_log import _MeshShardedLogEngine
+        if isinstance(self.engine, lw.StringSumTumblingWindows):
+            return "string_sum"
+        if isinstance(self.engine, _MeshShardedLogEngine):
+            return "mesh_log"
+        if isinstance(self.engine, (lw.LogStructuredTumblingWindows,
+                                    lw.LogStructuredSessionWindows)):
+            return "log"
+        return "vectorized"
+
+    def snapshot_state(self, checkpoint_id: Optional[int] = None) -> dict:
+        self._flush_buffer()
+        snap = super().snapshot_state(checkpoint_id)
+        if self.engine is not None:
+            snap["device_engine"] = self.engine.snapshot()
+            snap["device_tier"] = self._tier()
+        if self._interner is not None:
+            snap["string_key_directory"] = list(self._id_to_key)
+        return snap
+
+    def restore_state(self, snapshots) -> None:
+        super().restore_state(snapshots)
+        engine_snaps = [s for s in snapshots if "device_engine" in s]
+        rescaled = any(s.get("restore_old_parallelism", self.num_subtasks)
+                       != self.num_subtasks for s in snapshots)
+        if rescaled or len(engine_snaps) > 1:
+            self._restore_resplit(snapshots, engine_snaps)
+            return
+        for s in snapshots:
+            directory = s.get("string_key_directory")
+            if directory is not None:
+                self._interner = NativeStringInterner(max(16, 2 * len(directory)))
+                self._id_to_key = list(directory)
+                if directory:
+                    ids, _ = self._interner.intern(np.asarray(directory))
+                    if int(ids[-1]) != len(directory) - 1:
+                        raise RuntimeError("string-key directory did not "
+                                           "re-intern to its own ids")
+            if "device_engine" in s:
+                if self.engine is None:
+                    self.engine = self._engine_for_tier(s.get("device_tier"))
+                self.engine.restore(s["device_engine"])
+
+    def _engine_for_tier(self, tier):
+        """An empty engine of the tier a snapshot was taken on."""
+        if tier == "string_sum":
+            return lw.StringSumTumblingWindows(self.agg, self.assigner.size,
+                                               device=self.device)
+        if tier == "log":
+            engine = log_engine_for_assigner(self.assigner, self.agg,
+                                             self.device)
+            if engine is None:
+                raise RuntimeError("the checkpoint was taken on the log "
+                                   "tier, which does not take this "
+                                   "assigner and aggregate")
+            return engine
+        if tier == "mesh_log":
+            from flink_tpu_torch.parallel.mesh_log import \
+                mesh_log_engine_for_assigner
+            self.mesh = resolve_mesh(self.mesh)
+            if self.mesh is None:
+                raise RuntimeError("the checkpoint was taken on the mesh "
+                                   "log tier; restoring needs a mesh "
+                                   "(env.set_mesh)")
+            engine = mesh_log_engine_for_assigner(
+                self.assigner, self.agg, self.mesh, axis=self.mesh_axis,
+                max_parallelism=self.max_parallelism)
+            if engine is None:
+                raise RuntimeError("the checkpoint was taken on the mesh "
+                                   "log tier, which does not take this "
+                                   "assigner and aggregate")
+            return engine
+        self.mesh = resolve_mesh(self.mesh)
+        return engine_for_assigner(self.assigner, self.agg,
+                                   self.initial_capacity, self.device,
+                                   mesh=self.mesh, mesh_axis=self.mesh_axis,
+                                   max_parallelism=self.max_parallelism)
+
+    def _restore_resplit(self, snapshots, engine_snaps) -> None:
+        """A rescaled restore (or several snapshots into one subtask):
+        the engine keeps the keys whose key group routes here."""
+        if any(s.get("string_key_directory") is not None for s in snapshots):
+            raise ValueError(
+                "device window operator cannot re-split "
+                "dictionary-encoded string-keyed engine state "
+                "across a parallelism change; restore at the "
+                "checkpointed parallelism")
+        tiers = {s.get("device_tier") for s in engine_snaps}
+        if len(tiers) > 1:
+            raise ValueError(f"snapshots span engine tiers {sorted(tiers)}")
+        if not engine_snaps:
+            return
+        tier = tiers.pop()
+        if self.engine is None and tier in ("log", "string_sum"):
+            self.engine = self._engine_for_tier(tier)
+        if self.engine is None or not hasattr(self.engine, "restore_many"):
+            raise ValueError(
+                f"the {tier!r} engine tier cannot re-split "
+                "its state across a parallelism change; "
+                "restore at the checkpointed parallelism")
+        self.engine.restore_many(
+            [s["device_engine"] for s in engine_snaps],
+            keep_fn=make_key_group_keep_fn(self.max_parallelism,
+                                           self.num_subtasks,
+                                           self.subtask_index))
+

@@ -4,8 +4,10 @@ Records and watermarks flow through operator pipelines.  Timestamps are
 int milliseconds (event time); ``MAX_WATERMARK`` flushes all event-time
 state at end of input.  ``RecordBatch`` is a stream element of its
 own: sources emit batches, column kernels and the fused chain program
-consume them, and the router splits them by key group.  Stream status,
-latency markers and checkpoint barriers arrive with later slices.
+consume them, and the router splits them by key group.  A
+``CheckpointBarrier`` travels in band from the sources and
+``END_OF_STREAM`` closes a channel.  Stream status and latency markers
+arrive with later slices.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ class StreamElement:
 
     is_record = False
     is_watermark = False
+    is_barrier = False
 
 
 class StreamRecord(StreamElement):
@@ -152,3 +155,42 @@ class Watermark(StreamElement):
 
 
 MAX_WATERMARK = Watermark(MAX_TIMESTAMP)
+
+
+class CheckpointBarrier(StreamElement):
+    """In-band barrier of checkpoint ``checkpoint_id``.  ``options``:
+    ``mode`` ``exactly_once`` aligns a subtask's channels,
+    ``at_least_once`` only counts them; a savepoint sets
+    ``savepoint``."""
+
+    __slots__ = ("checkpoint_id", "timestamp", "options")
+
+    is_barrier = True
+
+    def __init__(self, checkpoint_id: int, timestamp: int,
+                 options: Optional[dict] = None):
+        self.checkpoint_id = checkpoint_id
+        self.timestamp = timestamp
+        self.options = options or {}
+
+    def __repr__(self):
+        return f"Barrier(#{self.checkpoint_id})"
+
+    def __eq__(self, other):
+        return (isinstance(other, CheckpointBarrier)
+                and self.checkpoint_id == other.checkpoint_id)
+
+    def __hash__(self):
+        return hash(self.checkpoint_id)
+
+
+class EndOfStream(StreamElement):
+    """The last element of a channel."""
+
+    __slots__ = ()
+
+    def __repr__(self):
+        return "EndOfStream"
+
+
+END_OF_STREAM = EndOfStream()

@@ -1691,9 +1691,9 @@ class GenericWindowOperator(StreamOperator):
         del emitted[start_idx:]
 
     # ---- checkpoint -------------------------------------------------
-    def snapshot_state(self) -> dict:
+    def snapshot_state(self, checkpoint_id: Optional[int] = None) -> dict:
         self._flush_buffer()
-        snap = StreamOperator.snapshot_state(self)
+        snap = StreamOperator.snapshot_state(self, checkpoint_id)
         if self.engine is not None:
             snap["generic_engine"] = self.engine.snapshot()
         return snap

@@ -12,7 +12,7 @@ of its own.
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 from flink_tpu_torch.streaming.partitioners import (ForwardPartitioner,
                                                     StreamPartitioner)
@@ -126,6 +126,11 @@ class JobGraph:
         self.job_name = job_name
         self.vertices: Dict[int, JobVertex] = {}
         self.edges: List[JobEdge] = []
+        #: interval, mode and storage of checkpoints; None: none taken
+        self.checkpoint_config: Optional[dict] = None
+        #: a savepoint the first attempt restores from
+        self.savepoint_restore_path: Optional[str] = None
+        self.allow_non_restored_state = False
 
     def in_edges(self, vertex_id: int) -> List[JobEdge]:
         return [e for e in self.edges if e.target_vertex_id == vertex_id]

@@ -28,11 +28,12 @@ quantile sketch (cell = (bucket, count), add) and, for sessions,
 Count-Min.  Other aggregates raise ``TypeError`` and run on the scatter
 tier (``streaming/vectorized.py``).
 
-Snapshots are the JAX engines' dicts.  The JAX package wraps each
-window's payload in a content-addressed ``SharedChunk``; the port has
-no shared-chunk registry and stores the payload dict itself, which the
-JAX engines restore as they restore an unresolved chunk, and it reads a
-JAX snapshot's chunks through their ``payload``.
+Snapshots are the JAX engines' dicts.  Each window's payload is a
+content-addressed ``SharedChunk`` (``state/shared_registry.py``), so a
+checkpoint storage keeps a window that took no records since the last
+checkpoint once; a version count per window log skips re-hashing it.
+A restore reads a chunk, a resolved payload dict, or the JAX package's
+chunk, through its ``payload``.
 """
 
 from __future__ import annotations
@@ -62,14 +63,16 @@ def _is_single_window(starts: np.ndarray) -> bool:
 
 
 class _WindowLog:
-    """Columnar append log of one window (or pane)."""
+    """Columnar append log of one window (or pane); ``version`` counts
+    appends (an unchanged version keeps the snapshot chunk's hash)."""
 
-    __slots__ = ("keys", "cols", "count", "compacted_size")
+    __slots__ = ("keys", "cols", "count", "version", "compacted_size")
 
     def __init__(self):
         self.keys: List[np.ndarray] = []
         self.cols: List[Tuple[np.ndarray, ...]] = []
         self.count = 0
+        self.version = 0
         #: cell count right after the last compaction: compaction
         #: re-arms only once the log has grown well past it, so a log
         #: whose compacted floor sits above the threshold cannot re-sort
@@ -80,6 +83,7 @@ class _WindowLog:
         self.keys.append(keys)
         self.cols.append(cols)
         self.count += len(keys)
+        self.version += 1
 
     def concat(self) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
         keys = (self.keys[0] if len(self.keys) == 1
@@ -112,18 +116,20 @@ class _SumTabLog:
     cell log when cardinality outgrows it.  Same interface as
     _WindowLog."""
 
-    __slots__ = ("tab", "log", "max_distinct")
+    __slots__ = ("tab", "log", "max_distinct", "version")
 
     def __init__(self, max_distinct: int = 1 << 19):
         self.tab = nat.NativeSumTable()
         self.log: Optional[_WindowLog] = None
         self.max_distinct = max_distinct
+        self.version = 0
 
     @property
     def count(self) -> int:
         return self.tab.n if self.log is None else self.log.count
 
     def append(self, keys: np.ndarray, values: np.ndarray) -> None:
+        self.version += 1
         if self.log is None:
             values = np.asarray(values, np.float64)
             consumed = self.tab.ingest(keys, values, self.max_distinct)
@@ -369,6 +375,8 @@ class LogStructuredTumblingWindows:
         self.lateness_horizon = window_size_ms
         self.compact_threshold = compact_threshold
         self.windows: Dict[int, Any] = {}
+        #: window start -> (log version, chunk hash) of the last snapshot
+        self._chunk_cache: Dict[int, Tuple[int, str]] = {}
         self.watermark = -(2 ** 63)
         self.emit = emit
         self.emitted: List[Tuple[Any, Any, int, int]] = []
@@ -447,13 +455,26 @@ class LogStructuredTumblingWindows:
 
     # ---- checkpoint integration ------------------------------------
     def snapshot(self) -> dict:
-        """Per-window compacted logs (copies: a snapshot never aliases
-        live arrays), in the JAX engine's format."""
+        """Per-window logs as SharedChunks, in the JAX engine's format.
+        Payloads are copies (a retained checkpoint may store any of
+        them, so none aliases live arrays); the version cache only skips
+        the re-hash of an untouched window."""
+        from flink_tpu_torch.state.shared_registry import SharedChunk
+        cache = self._chunk_cache
         wins = {}
         for start, log in self.windows.items():
+            start = int(start)
             keys, cols = log.concat()
-            wins[int(start)] = {"keys": keys.copy(),
-                                "cols": [c.copy() for c in cols]}
+            payload = {"keys": keys.copy(), "cols": [c.copy() for c in cols]}
+            cached = cache.get(start)
+            if cached is not None and cached[0] == log.version:
+                wins[start] = SharedChunk(payload, chunk_hash=cached[1])
+                continue
+            chunk = SharedChunk(payload)
+            cache[start] = (log.version, chunk.hash)
+            wins[start] = chunk
+        for start in [s for s in cache if s not in wins]:
+            del cache[start]
         return {"mode": self.mode.name, "size": self.size,
                 "watermark": self.watermark,
                 "num_late_dropped": self.num_late_dropped,
@@ -483,6 +504,7 @@ class LogStructuredTumblingWindows:
         if horizons:
             self._fired_horizon = max(horizons)
         self.windows = {}
+        self._chunk_cache = {}
         for snap in snaps:
             for start, w in snap["windows"].items():
                 w = _payload(w)

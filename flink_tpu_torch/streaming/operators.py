@@ -5,15 +5,20 @@ setup → open → process* → finish → close.  ``setup`` takes the
 operator's keyed backend and processing-time service and builds its
 ``InternalTimerService``; ``process_watermark`` advances the timers,
 ``set_key_context`` sets the backend's current key, and
-``snapshot_state`` / ``restore_state`` carry keyed state and timers.
+``snapshot_state`` / ``restore_state`` carry keyed state and timers
+(and, for a user function that defines ``snapshot_function_state`` /
+``restore_function_state``, its own state, such as a source's read
+position).  ``notify_checkpoint_complete`` reaches user functions that
+define it.
 
 ``StreamMap`` and ``StreamFilter`` run a UDF that the liftability
 analyzer proves LIFTABLE on whole numpy columns of a RecordBatch; the
 first batch is probed against the scalar UDF on its edge rows, and any
 exception, wrong shape or probe mismatch locks the operator onto the
 boxed per-record path.  Operator state, metrics and the type-flow
-prover's static skip (``_static_kernel``) are later slices; the device
-window operator is its own keyed state.
+prover's static skip (``_static_kernel``) are later slices (a snapshot
+that carries operator state does not restore); the device window
+operator is its own keyed state.
 """
 
 from __future__ import annotations
@@ -221,7 +226,7 @@ class StreamOperator(abc.ABC):
         pass
 
     # ---- snapshot ---------------------------------------------------
-    def snapshot_state(self) -> dict:
+    def snapshot_state(self, checkpoint_id: Optional[int] = None) -> dict:
         """Keyed state (pending micro-batches flushed first) and timers."""
         snap = {}
         if self.keyed_backend is not None:
@@ -234,12 +239,23 @@ class StreamOperator(abc.ABC):
         return snap
 
     def restore_state(self, snapshots: List[dict]) -> None:
+        for s in snapshots:
+            op_state = s.get("operator")
+            if getattr(op_state, "list_states", None) \
+                    or getattr(op_state, "broadcast_states", None):
+                raise NotImplementedError(
+                    f"operator {self.operator_id!r}: the snapshot carries "
+                    "operator state, which the port does not restore "
+                    "(operator state is not ported)")
         keyed = [s["keyed"] for s in snapshots if "keyed" in s]
         if keyed and self.keyed_backend is not None:
             self.keyed_backend.restore(keyed)
         timers = [s["timers"] for s in snapshots if "timers" in s]
         if timers and self.timer_service is not None:
             self.timer_service.restore(timers)
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:  # noqa: B027
+        pass
 
 
 class AbstractUdfStreamOperator(StreamOperator):
@@ -275,6 +291,28 @@ class AbstractUdfStreamOperator(StreamOperator):
     def close(self):
         if isinstance(self.user_function, RichFunction):
             self.user_function.close()
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        fn = self.user_function
+        if hasattr(fn, "notify_checkpoint_complete"):
+            fn.notify_checkpoint_complete(checkpoint_id)
+
+    def snapshot_state(self, checkpoint_id: Optional[int] = None) -> dict:
+        """The function's own state rides along when it defines
+        ``snapshot_function_state``."""
+        snap = super().snapshot_state(checkpoint_id)
+        fn = self.user_function
+        if hasattr(fn, "snapshot_function_state"):
+            snap["function"] = fn.snapshot_function_state(checkpoint_id)
+        return snap
+
+    def restore_state(self, snapshots) -> None:
+        super().restore_state(snapshots)
+        fn = self.user_function
+        if hasattr(fn, "restore_function_state"):
+            for s in snapshots:
+                if "function" in s:
+                    fn.restore_function_state(s["function"])
 
 
 # ---------------------------------------------------------------------

@@ -1,10 +1,16 @@
-"""Source and sink contracts and the built-ins slice 1 runs (port of
-``flink_tpu/streaming/sources.py:25-230, 346-380, 404-504``).
+"""Source and sink contracts and the built-ins the port runs (port of
+``flink_tpu/streaming/sources.py:25-280, 346-380, 404-504``).
 
 A source emits inside ``run()`` (or cooperatively through
-``emit_step``) via its context; event-time sources carry timestamps
-and watermarks; a timestamp assigner operator stamps records and emits
-periodic watermarks downstream.
+``emit_step``) via its context, which the time characteristic picks:
+event-time sources carry timestamps and watermarks
+(``ManualWatermarkContext``), processing time drops them
+(``NonTimestampContext``) and ingestion time stamps each record with
+the processing-time clock and emits a watermark per interval
+(``AutomaticWatermarkContext``).  A timestamp assigner operator stamps
+records and emits periodic watermarks downstream.  A replayable source
+keeps its read position in ``snapshot_function_state`` /
+``restore_function_state``, which the operator carries in checkpoints.
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ from typing import Any, Iterable, List, Optional
 
 from flink_tpu_torch.core.functions import RichFunction
 from flink_tpu_torch.streaming.elements import (MAX_TIMESTAMP, MAX_WATERMARK,
-                                                StreamRecord, Watermark)
+                                                RecordBatch, StreamRecord,
+                                                Watermark)
 from flink_tpu_torch.streaming.operators import AbstractUdfStreamOperator, Output
 
 
@@ -58,6 +65,31 @@ class RichSinkFunction(SinkFunction, RichFunction):
         RichFunction.__init__(self)
 
 
+class NonTimestampContext(SourceContext):
+    """Processing time: records carry no timestamp and source
+    watermarks are dropped."""
+
+    def __init__(self, output: Output):
+        self._output = output
+
+    def collect(self, value):
+        self._output.collect(StreamRecord(value, None))
+
+    def collect_with_timestamp(self, value, timestamp):
+        self.collect(value)
+
+    def collect_batch(self, batch):
+        if batch.ts is None:
+            self._output.collect_batch(batch)
+        else:
+            # the same rows without their stamps, as per-row collect()
+            # would give
+            self._output.collect_batch(RecordBatch(batch.cols))
+
+    def emit_watermark(self, watermark):
+        pass
+
+
 class ManualWatermarkContext(SourceContext):
     """Event time: the source provides timestamps and watermarks."""
 
@@ -77,10 +109,51 @@ class ManualWatermarkContext(SourceContext):
         self._output.emit_watermark(watermark)
 
 
+class AutomaticWatermarkContext(SourceContext):
+    """Ingestion time: each record gets the processing-time clock as
+    its timestamp, and a watermark follows each new ``interval_ms``
+    bucket of the clock."""
+
+    def __init__(self, output: Output, processing_time_service,
+                 interval_ms: int = 200):
+        self._output = output
+        self._pts = processing_time_service
+        self._interval = interval_ms
+        self._last_wm = None
+
+    def collect(self, value):
+        now = self._pts.get_current_processing_time()
+        self._output.collect(StreamRecord(value, now))
+        self._maybe_watermark(now)
+
+    def collect_with_timestamp(self, value, timestamp):
+        self.collect(value)  # ingestion time overrides source stamps
+
+    def emit_watermark(self, watermark):
+        pass  # watermarks are automatic
+
+    def _maybe_watermark(self, now: int):
+        bucket = now - (now % self._interval)
+        if self._last_wm is None or bucket > self._last_wm:
+            self._last_wm = bucket
+            self._output.emit_watermark(Watermark(bucket - 1))
+
+
 class StreamSource(AbstractUdfStreamOperator):
-    """Operator hosting a SourceFunction (event time)."""
+    """Operator hosting a SourceFunction; ``time_characteristic``
+    (``event``, ``processing`` or ``ingestion``) picks its context."""
+
+    def __init__(self, source_function: SourceFunction,
+                 time_characteristic: str = "event"):
+        super().__init__(source_function)
+        self.time_characteristic = time_characteristic
 
     def make_context(self) -> SourceContext:
+        if self.time_characteristic == "processing":
+            return NonTimestampContext(self.output)
+        if self.time_characteristic == "ingestion":
+            return AutomaticWatermarkContext(self.output,
+                                             self.processing_time_service)
         return ManualWatermarkContext(self.output)
 
     def run(self) -> None:
@@ -133,6 +206,13 @@ class FromCollectionSource(SourceFunction):
 
     def cancel(self):
         self._cancelled = True
+
+    # the read position is the source's checkpointed state
+    def snapshot_function_state(self, checkpoint_id=None) -> dict:
+        return {"offset": self.offset}
+
+    def restore_function_state(self, state: dict) -> None:
+        self.offset = state["offset"]
 
 
 class CollectSink(SinkFunction):

@@ -6,17 +6,26 @@ namespace), with a set that makes registering the same (timestamp,
 key, namespace) twice a no-op.  ``advance_watermark`` fires every due
 event-time timer in (timestamp, registration) order;
 ``pop_due_event_time_timers`` pops them all as columns for the batched
-window fire.  Timers are state: ``snapshot`` groups them per key group
-and ``restore`` keeps the groups of the backend's range.
-``TestProcessingTimeService`` is a manually advanced clock for the test
-harness; the wall-clock services are a later slice, and without a
-processing-time service a processing-time timer raises.
+window fire.  Processing-time timers register their earliest deadline
+on the operator's ``ProcessingTimeService``.  Timers are state:
+``snapshot`` groups them per key group and ``restore`` keeps the groups
+of the backend's range.
+
+Three processing-time services: ``TestProcessingTimeService`` is a
+manually advanced clock (the test harness's, and the executor's
+default); ``PolledProcessingTimeService`` reads the wall clock and
+fires due timers only when its owner calls ``fire_due`` (the executor
+polls it once per loop turn, so callbacks, and the kernels they
+launch, run on the executor's thread); ``SystemProcessingTimeService``
+fires on ``threading.Timer`` threads under a callback lock.
 """
 
 from __future__ import annotations
 
 import abc
 import heapq
+import threading
+import time as _time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from flink_tpu_torch.core.keygroups import assign_to_key_group
@@ -34,6 +43,104 @@ class ProcessingTimeService(abc.ABC):
 
     def shutdown(self) -> None:  # noqa: B027
         pass
+
+
+class SystemProcessingTimeService(ProcessingTimeService):
+    """Wall-clock timers on ``threading.Timer`` threads; each callback
+    runs under the callback lock.  A callback that reaches device state
+    launches its kernels from the timer's thread: jobs poll a
+    ``PolledProcessingTimeService`` on the executor's thread instead."""
+
+    def __init__(self, lock: Optional[threading.Lock] = None):
+        self._lock = lock or threading.Lock()
+        self._timers: Set[threading.Timer] = set()
+        self._shutdown = False
+
+    def get_current_processing_time(self) -> int:
+        return int(_time.time() * 1000)
+
+    def register_timer(self, timestamp: int, callback):
+        delay = max(0.0, (timestamp - self.get_current_processing_time()) / 1000.0)
+        t_box = []
+
+        def fire():
+            with self._lock:
+                self._timers.discard(t_box[0])
+                if not self._shutdown:
+                    callback(timestamp)
+
+        t = threading.Timer(delay, fire)
+        t_box.append(t)
+        t.daemon = True
+        self._timers.add(t)
+        t.start()
+        return t
+
+    def shutdown(self):
+        with self._lock:
+            self._shutdown = True
+            timers = list(self._timers)
+            self._timers.clear()
+        for t in timers:
+            t.cancel()
+
+
+class PolledProcessingTimeService(ProcessingTimeService):
+    """Wall-clock timers fired on the caller's thread by ``fire_due``."""
+
+    def __init__(self):
+        self._queue: List[Tuple[int, int, Callable]] = []
+        self._seq = 0
+        # a source thread may register (ingestion-time contexts) while
+        # fire_due pops on the executor's thread
+        self._lock = threading.Lock()
+
+    def get_current_processing_time(self) -> int:
+        return int(_time.time() * 1000)
+
+    def register_timer(self, timestamp: int, callback):
+        with self._lock:
+            heapq.heappush(self._queue, (timestamp, self._seq, callback))
+            self._seq += 1
+
+    def fire_due(self) -> int:
+        """Fire every timer due at the current clock; returns how many
+        fired.  Callbacks run outside the heap lock."""
+        now = self.get_current_processing_time()
+        fired = 0
+        while True:
+            with self._lock:
+                if not self._queue or self._queue[0][0] > now:
+                    break
+                ts, _, cb = heapq.heappop(self._queue)
+            cb(ts)
+            fired += 1
+        return fired
+
+    def fire_all_pending(self) -> None:
+        """End-of-input drain: fire every timer registered at entry
+        whatever the clock says, up to the latest of them, so timers
+        that re-arm themselves past it (continuous triggers) stop."""
+        with self._lock:
+            if not self._queue:
+                return
+            horizon = max(ts for ts, _, _ in self._queue)
+        while True:
+            with self._lock:
+                if not self._queue or self._queue[0][0] > horizon:
+                    return
+                ts, _, cb = heapq.heappop(self._queue)
+            cb(ts)
+
+    def has_pending(self) -> bool:
+        with self._lock:
+            return bool(self._queue)
+
+    def reset_timers(self) -> None:
+        """Drop every registered timer: a restarted attempt's operators
+        register their own."""
+        with self._lock:
+            self._queue.clear()
 
 
 class TestProcessingTimeService(ProcessingTimeService):
@@ -59,6 +166,27 @@ class TestProcessingTimeService(ProcessingTimeService):
             ts, _, cb = heapq.heappop(self._queue)
             cb(ts)
 
+    def advance(self, delta: int) -> None:
+        self.set_current_time(self._now + delta)
+
+    def fire_all_pending(self) -> None:
+        """Advance the clock to the latest registered timer, firing
+        everything due; timers that re-arm past it (continuous
+        triggers) stop, which bounds a finite job's end-of-input
+        drain."""
+        if not self._queue:
+            return
+        horizon = max(ts for ts, _, _ in self._queue)
+        self.set_current_time(max(horizon, self._now))
+
+    def has_pending(self) -> bool:
+        return bool(self._queue)
+
+    def reset_timers(self) -> None:
+        """Drop every registered timer (the clock stays): a restarted
+        attempt's operators register their own."""
+        self._queue.clear()
+
 
 class InternalTimer:
     __slots__ = ("timestamp", "key", "namespace")
@@ -76,7 +204,7 @@ class InternalTimerService:
     """Keyed event-time and processing-time timers for one operator."""
 
     def __init__(self, name: str, keyed_backend,
-                 processing_time_service: Optional[ProcessingTimeService],
+                 processing_time_service: ProcessingTimeService,
                  triggerable):
         self.name = name
         self._backend = keyed_backend
@@ -125,11 +253,6 @@ class InternalTimerService:
         self._event_set.discard((timestamp, self._backend.current_key, namespace))
 
     def register_processing_time_timer(self, namespace, timestamp: int) -> None:
-        if self._pts is None:
-            raise NotImplementedError(
-                "processing-time timers need a processing-time service; "
-                "the port's executor runs event time only (the wall-clock "
-                "services are not ported)")
         key = self._backend.current_key
         entry = (timestamp, key, namespace)
         if entry in self._proc_set:

@@ -22,7 +22,9 @@ cleanup time is ``MAX_TIMESTAMP``, so it registers no cleanup timer
 and fires only by its trigger; lateness does not apply to it.
 ``EvictingWindowOperator`` keeps the raw (timestamp, value) pairs in
 list state and runs the evictor around the window function.
-Processing-time assigners are a later slice and raise.
+Processing-time assigners place a record by the operator's
+processing-time clock; their triggers and cleanup timers are
+processing-time timers, fired through ``on_processing_time``.
 """
 
 from __future__ import annotations
@@ -43,8 +45,7 @@ from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord
 from flink_tpu_torch.streaming.operators import (AbstractUdfStreamOperator,
                                                  OutputTag,
                                                  TimestampedCollector)
-from flink_tpu_torch.streaming.windowing import (GlobalWindows,
-                                                 SlidingEventTimeWindows,
+from flink_tpu_torch.streaming.windowing import (SlidingEventTimeWindows,
                                                  TimeWindow, Trigger,
                                                  TriggerContext,
                                                  TriggerResult,
@@ -83,10 +84,6 @@ class PassThroughWindowFunction(WindowFunction):
 
 
 def _processing_time(op) -> int:
-    if op.processing_time_service is None:
-        raise NotImplementedError(
-            "no processing-time service: the port's executor runs event "
-            "time only (the wall-clock services are not ported)")
     return op.processing_time_service.get_current_processing_time()
 
 
@@ -301,10 +298,6 @@ class WindowOperator(AbstractUdfStreamOperator):
                  late_data_tag: Optional[OutputTag] = None,
                  single_value_contents: Optional[bool] = None):
         super().__init__(window_function)
-        if not assigner.is_event_time() and not isinstance(assigner,
-                                                           GlobalWindows):
-            raise NotImplementedError(
-                f"{assigner!r}: processing-time windows are not ported")
         self.assigner = assigner
         self.state_descriptor = state_descriptor
         self.trigger = trigger or assigner.get_default_trigger()
@@ -619,6 +612,32 @@ class WindowOperator(AbstractUdfStreamOperator):
         if TriggerResult.is_purge(result):
             self.window_state.clear()
         if self.assigner.is_event_time() \
+                and timer.timestamp == self._cleanup_time(window):
+            self._clear_all_state(window, merging)
+        if merging is not None:
+            merging.persist()
+
+    def on_processing_time(self, timer):
+        window = self.assigner.window_type().from_namespace(timer.namespace)
+        self.trigger_ctx.window = window
+        merging = None
+        if self.assigner.is_merging():
+            merging = self._mapping()
+            state_window = merging.get_state_window(window)
+            if state_window is None:
+                return  # merged away: a stale timer
+            self.window_state.set_current_namespace(state_window.to_namespace())
+        else:
+            self.window_state.set_current_namespace(window.to_namespace())
+        result = self.trigger.on_processing_time(timer.timestamp, window,
+                                                 self.trigger_ctx)
+        if TriggerResult.is_fire(result):
+            contents = self.window_state.get()
+            if contents is not None:
+                self._emit(window, contents)
+        if TriggerResult.is_purge(result):
+            self.window_state.clear()
+        if not self.assigner.is_event_time() \
                 and timer.timestamp == self._cleanup_time(window):
             self._clear_all_state(window, merging)
         if merging is not None:

@@ -9,11 +9,14 @@ for ``DynamicEventTimeSessionWindows``) and merges with every window it
 intersects.  ``GlobalWindows`` puts everything into the one
 ``GlobalWindow`` (namespace ``("__global__",)``, max_timestamp
 ``MAX_TIMESTAMP``), which fires only by a trigger.  Triggers:
-``EventTimeTrigger`` (the event-time default), ``CountTrigger``,
-``PurgingTrigger``, ``ContinuousEventTimeTrigger`` and
+``EventTimeTrigger`` (the event-time default), ``ProcessingTimeTrigger``
+(the processing-time default), ``CountTrigger``, ``PurgingTrigger``,
+``ContinuousEventTimeTrigger``, ``ContinuousProcessingTimeTrigger`` and
 ``DeltaTrigger``; evictors (``CountEvictor``, ``TimeEvictor``,
-``DeltaEvictor``) run in ``EvictingWindowOperator``.  Processing-time
-assigners and triggers are a later slice.
+``DeltaEvictor``) run in ``EvictingWindowOperator``.  The
+processing-time assigners (tumbling, sliding, sessions with a fixed or
+a per-element gap) place a record by the operator's processing-time
+clock at arrival instead of its timestamp.
 """
 
 from __future__ import annotations
@@ -245,6 +248,29 @@ class EventTimeTrigger(Trigger):
         return "EventTimeTrigger()"
 
 
+class ProcessingTimeTrigger(Trigger):
+    """FIRE when the processing-time clock passes the window's end."""
+
+    def on_element(self, element, timestamp, window, ctx):
+        ctx.register_processing_time_timer(window.max_timestamp())
+        return TriggerResult.CONTINUE
+
+    def on_processing_time(self, time, window, ctx):
+        return TriggerResult.FIRE
+
+    def can_merge(self):
+        return True
+
+    def on_merge(self, window, ctx):
+        ctx.register_processing_time_timer(window.max_timestamp())
+
+    def clear(self, window, ctx):
+        ctx.delete_processing_time_timer(window.max_timestamp())
+
+    def __repr__(self):
+        return "ProcessingTimeTrigger()"
+
+
 class CountTrigger(Trigger):
     """FIRE every ``max_count`` elements; the count per (key, window)
     is partitioned trigger state."""
@@ -366,6 +392,51 @@ class ContinuousEventTimeTrigger(Trigger):
         return f"ContinuousEventTimeTrigger({self.interval})"
 
 
+class ContinuousProcessingTimeTrigger(Trigger):
+    """FIRE every ``interval`` of processing time, aligned to the
+    interval grid."""
+
+    def __init__(self, interval):
+        self.interval = _ms(interval)
+        self._desc = ReducingStateDescriptor("fire-time-proc", min)
+
+    def on_element(self, element, timestamp, window, ctx):
+        now = ctx.get_current_processing_time()
+        fire = ctx.get_partitioned_state(self._desc)
+        if fire.get() is None:
+            start = now - (now % self.interval)
+            nxt = start + self.interval
+            ctx.register_processing_time_timer(nxt)
+            fire.add(nxt)
+        return TriggerResult.CONTINUE
+
+    def on_processing_time(self, time, window, ctx):
+        fire = ctx.get_partitioned_state(self._desc)
+        t = fire.get()
+        if t is not None and t == time:
+            fire.clear()
+            fire.add(time + self.interval)
+            ctx.register_processing_time_timer(time + self.interval)
+            return TriggerResult.FIRE
+        return TriggerResult.CONTINUE
+
+    def can_merge(self):
+        return True
+
+    def on_merge(self, window, ctx):
+        pass
+
+    def clear(self, window, ctx):
+        fire = ctx.get_partitioned_state(self._desc)
+        t = fire.get()
+        if t is not None:
+            ctx.delete_processing_time_timer(t)
+        fire.clear()
+
+    def __repr__(self):
+        return f"ContinuousProcessingTimeTrigger({self.interval})"
+
+
 class DeltaTrigger(Trigger):
     """FIRE when ``delta_function(last fired element, element)`` exceeds
     ``threshold``; the first element of a (key, window) only sets the
@@ -445,6 +516,32 @@ class TumblingEventTimeWindows(WindowAssigner):
         return f"TumblingEventTimeWindows({self.size})"
 
 
+class TumblingProcessingTimeWindows(WindowAssigner):
+    """Fixed-size, non-overlapping windows of processing time."""
+
+    def __init__(self, size, offset=0):
+        self.size = _ms(size)
+        self.offset = _ms(offset)
+
+    @staticmethod
+    def of(size, offset=0) -> "TumblingProcessingTimeWindows":
+        return TumblingProcessingTimeWindows(size, offset)
+
+    def assign_windows(self, element, timestamp, ctx):
+        now = ctx.get_current_processing_time()
+        start = TimeWindow.get_window_start_with_offset(now, self.offset, self.size)
+        return [TimeWindow(start, start + self.size)]
+
+    def get_default_trigger(self):
+        return ProcessingTimeTrigger()
+
+    def is_event_time(self):
+        return False
+
+    def __repr__(self):
+        return f"TumblingProcessingTimeWindows({self.size})"
+
+
 class SlidingEventTimeWindows(WindowAssigner):
     """Windows of ``size`` every ``slide``; a record lands in each."""
 
@@ -475,6 +572,38 @@ class SlidingEventTimeWindows(WindowAssigner):
         return f"SlidingEventTimeWindows({self.size}/{self.slide})"
 
 
+class SlidingProcessingTimeWindows(WindowAssigner):
+    """Windows of ``size`` every ``slide`` of processing time."""
+
+    def __init__(self, size, slide, offset=0):
+        self.size = _ms(size)
+        self.slide = _ms(slide)
+        self.offset = _ms(offset)
+
+    @staticmethod
+    def of(size, slide, offset=0) -> "SlidingProcessingTimeWindows":
+        return SlidingProcessingTimeWindows(size, slide, offset)
+
+    def assign_windows(self, element, timestamp, ctx):
+        now = ctx.get_current_processing_time()
+        windows = []
+        start = TimeWindow.get_window_start_with_offset(now, self.offset,
+                                                        self.slide)
+        while start > now - self.size:
+            windows.append(TimeWindow(start, start + self.size))
+            start -= self.slide
+        return windows
+
+    def get_default_trigger(self):
+        return ProcessingTimeTrigger()
+
+    def is_event_time(self):
+        return False
+
+    def __repr__(self):
+        return f"SlidingProcessingTimeWindows({self.size}/{self.slide})"
+
+
 class _SessionWindowsBase(WindowAssigner):
     def is_merging(self):
         return True
@@ -503,6 +632,31 @@ class EventTimeSessionWindows(_SessionWindowsBase):
         return f"EventTimeSessionWindows({self.gap})"
 
 
+class ProcessingTimeSessionWindows(_SessionWindowsBase):
+    """[now, now + gap) of processing time per record, merged with
+    every window it intersects."""
+
+    def __init__(self, gap):
+        self.gap = _ms(gap)
+
+    @staticmethod
+    def with_gap(gap) -> "ProcessingTimeSessionWindows":
+        return ProcessingTimeSessionWindows(gap)
+
+    def assign_windows(self, element, timestamp, ctx):
+        now = ctx.get_current_processing_time()
+        return [TimeWindow(now, now + self.gap)]
+
+    def get_default_trigger(self):
+        return ProcessingTimeTrigger()
+
+    def is_event_time(self):
+        return False
+
+    def __repr__(self):
+        return f"ProcessingTimeSessionWindows({self.gap})"
+
+
 class DynamicEventTimeSessionWindows(_SessionWindowsBase):
     """Sessions whose gap ``gap_extractor(element)`` gives per
     element."""
@@ -525,6 +679,34 @@ class DynamicEventTimeSessionWindows(_SessionWindowsBase):
 
     def __repr__(self):
         return "DynamicEventTimeSessionWindows()"
+
+
+class DynamicProcessingTimeSessionWindows(_SessionWindowsBase):
+    """Processing-time sessions whose gap ``gap_extractor(element)``
+    gives per element."""
+
+    def __init__(self, gap_extractor: Callable[[Any], int]):
+        self.gap_extractor = gap_extractor
+
+    @staticmethod
+    def with_dynamic_gap(extractor) -> "DynamicProcessingTimeSessionWindows":
+        return DynamicProcessingTimeSessionWindows(extractor)
+
+    def assign_windows(self, element, timestamp, ctx):
+        now = ctx.get_current_processing_time()
+        gap = self.gap_extractor(element)
+        if gap <= 0:
+            raise ValueError("session gap must be positive")
+        return [TimeWindow(now, now + gap)]
+
+    def get_default_trigger(self):
+        return ProcessingTimeTrigger()
+
+    def is_event_time(self):
+        return False
+
+    def __repr__(self):
+        return "DynamicProcessingTimeSessionWindows()"
 
 
 class GlobalWindows(WindowAssigner):

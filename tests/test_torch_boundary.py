@@ -4,8 +4,10 @@ subprocess job runs the log tier, the keyed backend, the sliding and
 session log engines, the fused string sum, a DeviceTumblingWindows
 batch, a fused map/filter chain ahead of a window at parallelism 4, a
 Python aggregate on the generic tier, a count window over a device Sum,
-graph algorithms, an ML fit and a job on an 8-shard mesh (the mesh log
-tier), then reads its own sys.modules and
+graph algorithms, an ML fit, a job on an 8-shard mesh (the mesh log
+tier), a checkpointed job that fails and restarts from its Fs
+checkpoint, and jobs restored from the JAX package's savepoint and
+checkpoint directory, then reads its own sys.modules and
 /proc/self/maps), and its entry points never fall back to the CPU on
 their own.  This test
 process has jax loaded already (the test configuration imports it), so
@@ -168,8 +170,82 @@ env.set_state_backend("gpu")
     .key_by(lambda e: e[0]).count_window(10)
     .aggregate(agg).add_sink(CollectSink(counted)))
 env.execute()
+# checkpoints: a job that fails after a checkpoint and restarts from
+# its Fs storage; then the JAX package's savepoint (argv[1]) and
+# checkpoint directory (argv[2]) restore jobs of the port
+import tempfile
+from flink_tpu_torch.core.functions import MapFunction, RichFunction
+from flink_tpu_torch.streaming.sources import FromCollectionSource
+from flink_tpu_torch.streaming.windowing import EventTimeSessionWindows
+class SumAgg(AggregateFunction):
+    def create_accumulator(self):
+        return 0
+    def add(self, v, acc):
+        return acc + v[1]
+    def get_result(self, acc):
+        return acc
+    def merge(self, a, b):
+        return a + b
+class FailOnce(MapFunction):
+    done = False
+    failed = False
+    def notify_checkpoint_complete(self, cid):
+        type(self).done = True
+    def map(self, v):
+        if type(self).done and not type(self).failed:
+            type(self).failed = True
+            raise RuntimeError("induced")
+        return v
+class Gated(FromCollectionSource):
+    ok = False
+    def notify_checkpoint_complete(self, cid):
+        type(self).ok = True
+    def emit_step(self, ctx, n):
+        if not type(self).ok and self.offset >= 300:
+            return True
+        return super().emit_step(ctx, min(n, max(1, 300 - self.offset)))
+def job(env, items, sink, assigner, failer=None):
+    stream = env.add_source(Gated(items, timestamped=True), name="src")
+    if failer is not None:
+        stream = stream.map(failer, name="failer")
+    (stream.key_by(lambda e: e[0]).window(assigner)
+        .aggregate(SumAgg(), lambda k, w, vals: [(k, w.start, v) for v in vals])
+        .add_sink(sink))
+items = [((f"k{i % 5}", 1), 10 * i) for i in range(600)]
+restarted = CollectSink()
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.enable_checkpointing(1)
+env.set_checkpoint_storage("filesystem", directory=tempfile.mkdtemp(), retain=2)
+env.set_restart_strategy("fixed_delay", restart_attempts=2, delay_ms=0)
+job(env, items, restarted, TumblingEventTimeWindows.of(1000), FailOnce())
+cp_result = env.execute()
+Gated.ok = True
+from_savepoint = CollectSink()
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.set_savepoint_restore(sys.argv[1])
+job(env, items, from_savepoint, EventTimeSessionWindows.with_gap(25))
+env.execute()
+class FailAtOpen(MapFunction, RichFunction):
+    opened = 0
+    def open(self, configuration=None):
+        type(self).opened += 1
+        if type(self).opened == 1:
+            raise RuntimeError("fail at open, once")
+    def map(self, v):
+        return v
+from_checkpoint = CollectSink()
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.enable_checkpointing(60_000)
+env.set_checkpoint_storage("filesystem", directory=sys.argv[2], retain=2)
+env.set_restart_strategy("fixed_delay", restart_attempts=2, delay_ms=0)
+job(env, items, from_checkpoint, TumblingEventTimeWindows.of(1000), FailAtOpen())
+env.execute()
 maps = open("/proc/self/maps").read()
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
+                  "restarts": cp_result.restarts,
+                  "restarted_sum": sum(v[2] for v in restarted.values),
+                  "from_savepoint": sorted(from_savepoint.values),
+                  "from_checkpoint": sorted(from_checkpoint.values),
                   "graph_ranks": len(ranks), "graph_components": len(set(comps.values())),
                   "als_users": len(als.user_factors), "knn_rows": len(nearest),
                   "sliding_results": len(windowed["sliding"]),
@@ -192,12 +268,124 @@ print(json.dumps({"results": len(out), "keyed_results": len(keyed),
 """
 
 
-def test_job_loads_neither_jax_nor_flink_tpu():
-    proc = subprocess.run([sys.executable, "-c", _JOB], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300,
+class _SumAgg:
+    def create_accumulator(self):
+        return 0
+
+    def add(self, v, acc):
+        return acc + v[1]
+
+    def get_result(self, acc):
+        return acc
+
+    def merge(self, a, b):
+        return a + b
+
+
+def _reference_files(tmp_path):
+    """The JAX package's savepoint of a session-window job holding at
+    record 300, and its checkpoint directory of a tumbling-window job
+    that failed after a checkpoint at record 300; the uninterrupted
+    runs' windows and sums for both."""
+    import threading
+
+    from flink_tpu.core.functions import AggregateFunction, MapFunction
+    from flink_tpu.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu.streaming.sources import CollectSink, FromCollectionSource
+    from flink_tpu.streaming.windowing import (EventTimeSessionWindows,
+                                              TumblingEventTimeWindows)
+
+    class Agg(_SumAgg, AggregateFunction):
+        pass
+
+    class Hold(FromCollectionSource):
+        """Holds at record 300; a checkpoint taken there releases it."""
+        stop_at = 300
+        reached = threading.Event()
+        held_cid = None
+        released = False
+
+        def emit_step(self, ctx, n):
+            if Hold.released:
+                return super().emit_step(ctx, n)
+            if self.offset >= Hold.stop_at:
+                Hold.reached.set()
+                return True
+            return super().emit_step(ctx, min(n, Hold.stop_at - self.offset))
+
+        def snapshot_function_state(self, checkpoint_id=None):
+            if self.offset >= Hold.stop_at:
+                Hold.held_cid = checkpoint_id
+            return super().snapshot_function_state(checkpoint_id)
+
+        def notify_checkpoint_complete(self, cid):
+            if Hold.release_on_checkpoint and cid == Hold.held_cid:
+                Hold.released = True
+
+    class Fail(MapFunction):
+        def map(self, v):
+            if Hold.released:
+                raise RuntimeError("stop after a checkpoint")
+            return v
+
+    items = [((f"k{i % 5}", 1), 10 * i) for i in range(600)]
+
+    def job(env, assigner, src, failer=None):
+        sink = CollectSink()
+        stream = env.add_source(src, name="src")
+        if failer is not None:
+            stream = stream.map(failer, name="failer")
+        (stream.key_by(lambda e: e[0]).window(assigner)
+            .aggregate(Agg(), lambda k, w, vals: [(k, w.start, v) for v in vals])
+            .add_sink(sink))
+        return sink
+
+    sessions = EventTimeSessionWindows.with_gap(25)
+    env = StreamExecutionEnvironment()
+    clean_sessions = job(env, sessions, FromCollectionSource(items, True))
+    env.execute()
+    Hold.release_on_checkpoint = False
+    env = StreamExecutionEnvironment()
+    env.enable_checkpointing(60_000)
+    before = job(env, sessions, Hold(items, timestamped=True))
+    client = env.execute_async()
+    assert Hold.reached.wait(60)
+    savepoint = client.stop_with_savepoint(str(tmp_path / "sp"))
+    client.wait(60)
+
+    Hold.release_on_checkpoint = True
+    tumbling = TumblingEventTimeWindows.of(1000)
+    env = StreamExecutionEnvironment()
+    clean_tumbling = job(env, tumbling, FromCollectionSource(items, True))
+    env.execute()
+    chk = str(tmp_path / "chk")
+    env = StreamExecutionEnvironment()
+    env.enable_checkpointing(1)
+    env.set_checkpoint_storage("filesystem", directory=chk, retain=2)
+    failed_before = job(env, tumbling, Hold(items, timestamped=True), Fail())
+    with pytest.raises(RuntimeError, match="stop after a checkpoint"):
+        env.execute()
+    return (savepoint, chk, sorted(clean_sessions.values), list(before.values),
+            sorted(clean_tumbling.values), list(failed_before.values))
+
+
+def test_job_loads_neither_jax_nor_flink_tpu(tmp_path):
+    (savepoint, chk, clean_sessions, before_sp, clean_tumbling,
+     before_chk) = _reference_files(tmp_path)
+    proc = subprocess.run([sys.executable, "-c", _JOB, savepoint, chk],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
+    # the port's checkpointed job restarted once and counted each record
+    # once; the JAX package's files restored jobs of the port, whose
+    # output joins the JAX jobs' output before the cut to the
+    # uninterrupted runs'
+    assert report["restarts"] == 1 and report["restarted_sum"] == 600
+    assert sorted(before_sp + [tuple(v) for v in report["from_savepoint"]]) \
+        == clean_sessions
+    assert sorted(before_chk + [tuple(v) for v in report["from_checkpoint"]]) \
+        == clean_tumbling
     assert report["results"] == 2 * 7 * 5
     assert report["keyed_results"] == 7 * 5
     # 5 s of events in 2 s windows sliding by 1 s; one session a key
@@ -240,7 +428,10 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                    "graph/library.py", "ml/recommendation.py",
                    "kernels/knn_topk.py", "kernels/shard_pack.py",
                    "parallel/mesh.py", "parallel/mesh_log.py",
-                   "streaming/generic_agg.py"):
+                   "streaming/generic_agg.py", "runtime/checkpoints.py",
+                   "runtime/faults.py", "runtime/failover.py",
+                   "runtime/chaos.py", "core/fs.py", "state/portable.py",
+                   "state/shared_registry.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]

@@ -434,12 +434,20 @@ def test_time_window_with_slide_and_days():
 
 
 def test_processing_time_assigners_still_raise():
-    class ProcTime(tw.TumblingEventTimeWindows):
-        def is_event_time(self):
-            return False
-
-    with pytest.raises(NotImplementedError, match="processing-time"):
-        two.WindowOperator(ProcTime(1000), tstate.ListStateDescriptor("w"))
+    """Processing-time assigners no longer raise: a tumbling one fires
+    on the harness clock in both packages alike (the full processing-time
+    cases are in test_torch_processing_time.py)."""
+    outs = {}
+    for pkg in ("torch", "jax"):
+        w = PKG[pkg]["w"]
+        h = _harness(pkg, _kv_sum_op(
+            pkg, w.TumblingProcessingTimeWindows.of(w.Time.seconds(1))), "heap")
+        h.set_processing_time(10)
+        h.process_element(("p", 1), None)
+        h.process_element(("p", 2), None)
+        h.set_processing_time(999)
+        outs[pkg] = [(r.value, r.timestamp) for r in h.get_output()]
+    assert outs["torch"] == outs["jax"] == [(("p", 3.0, 0, 1000), 999)]
     two.WindowOperator(tw.GlobalWindows.create(), tstate.ListStateDescriptor("w"))
 
 
