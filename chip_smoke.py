@@ -109,7 +109,10 @@ exit code at 0):
 13. ``chain``  the fused chain program: 2^23 config #2 events (1M
                 keys) through map -> filter -> a 4-channel key-group
                 exchange in batches of 2^20, fused and per operator,
-                per-channel batches bit-equal; window mode into
+                per-channel batches bit-equal; the same events' fused
+                pass under ``torch.profiler`` in a fresh worker process
+                (the H2D / kernel / D2H split and the idle share), its
+                DtoH bytes equal to the transfer ledger's; window mode into
                 WindowOperator on the GPU backend (2^20 events, 100k
                 keys) equal to the unfused run; the job
                 VectorizedCollectionSource -> map -> filter -> key_by(0)
@@ -194,7 +197,29 @@ exit code at 0):
                 HLL, a ``processing`` job flushed at the end of input
                 and processing-time sessions, both against the heap
                 backend;
-19. the launch counts of phases 4-18, each path counted on its own:
+19. ``telemetry`` the observability plane (tracer, device telemetry,
+                CUDA launch ledger): (a) 2^19 config #2 events (HLL
+                p = 12, tumbling 1 s, (key, key >> 10) pair keys on the
+                scatter tier) through the environment with the plane
+                off, then on: windows bit-equal, the off run leaves
+                every store empty, the events/s of both; (b) 2^19
+                integer-key events on the log tier with the device
+                finish; (c) the fused chain's route mode on 2^22 events,
+                and the same pass under ``torch.profiler`` in a fresh
+                worker process (late in a long process the profiler
+                lost memcpy records): the ledger's
+                ``d2h.chain.boundary`` bytes equal the profiler's DtoH
+                bytes, its D2H ms and the idle share beside them.  On
+                each on run the ledger's launches per kernel equal the
+                ``LAUNCHES`` delta (device ms > 0 and within the leg's
+                wall time), the Chrome trace written to a temporary
+                directory parses and holds the kernels' device-lane
+                events, the device window spans and the transfers;
+                (a) also reads the HBM from ``memory_stats`` (at least
+                the framework's own bytes) and the window operator's
+                ``numRecordsIn`` (the events fed) and
+                ``numLateRecordsDropped`` (0);
+20. the launch counts of phases 4-19, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -208,6 +233,8 @@ from __future__ import annotations
 
 import gc
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import threading
@@ -2693,11 +2720,10 @@ def chain_phase(dev, n_events=1 << 23, n_keys=1_000_000, batch=1 << 20,
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
     check(_same_channels(fused, per_op), "chain: second pass bit-equal too")
-
-    def third_pass():
-        for b in batches:
-            prog.run(b)
-    split = _device_split(third_pass)
+    # the split: the same events' pass under torch.profiler in a fresh
+    # process (late in a long process the profiler lost memcpy
+    # records), its DtoH bytes held to the transfer ledger's
+    split = _fresh_chain_split("chain", n_events, n_keys, batch, seed=23)
     out["prefix"] = {
         "events": n_events, "keys": n_keys, "batch": batch, "channels": 4,
         "kept": int(sum(len(x) for ch in per_op.channels for x in ch.got)),
@@ -2721,10 +2747,13 @@ def _device_split(fn) -> dict:
     what it ran: host-to-device and device-to-host copies, the
     chain_route kernels (chain_count / chain_scan / chain_scatter) and
     the rest (the UDF stages' torch kernels, fills, memsets).  Also the
-    host wall time of the run and the card's idle share in it; all
-    None when the trace holds no device event."""
+    host wall time of the run, the card's idle share in it and the bytes
+    of its device-to-host copies; all None when the trace holds no
+    device event.  Everything is read from the profile's exported
+    trace, exported before anything else reads the profile."""
+    import tempfile
+
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2732,27 +2761,35 @@ def _device_split(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
     ms = {"h2d": 0.0, "udf": 0.0, "kernel": 0.0, "d2h": 0.0}
-    n_events = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    n_events = d2h_bytes = 0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat", "").lower() not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
             continue
         n_events += 1
-        dur = e.time_range.elapsed_us() / 1e3
-        if "HtoD" in e.name:
+        dur = float(e.get("dur", 0.0)) / 1e3
+        name = e.get("name", "")
+        if "HtoD" in name:
             ms["h2d"] += dur
-        elif "DtoH" in e.name:
+        elif "DtoH" in name:
             ms["d2h"] += dur
-        elif "chain_" in e.name:
+            d2h_bytes += int((e.get("args") or {}).get("bytes", 0))
+        elif "chain_" in name:
             ms["kernel"] += dur
         else:
             ms["udf"] += dur
-    busy = sum(ms.values())
     if not n_events:
         return {"device_events": 0, "device_ms": None, "wall_ms": wall_ms,
-                "idle_share": None}
+                "idle_share": None, "d2h_bytes": None}
     return {"device_events": n_events, "device_ms": ms, "wall_ms": wall_ms,
-            "idle_share": 1.0 - busy / wall_ms}
+            "idle_share": 1.0 - sum(ms.values()) / wall_ms,
+            "d2h_bytes": d2h_bytes}
 
 
 def _chain_window(dev, rng, n, n_keys, chunk=1 << 18):
@@ -5220,6 +5257,291 @@ def _processing_time_parts(dev, rng, p, n_proc, proc_keys, n_proc_job,
 
 
 # ---------------------------------------------------------------------
+# phase 17: the observability plane (tracer, telemetry, launch ledger)
+# ---------------------------------------------------------------------
+
+def _plane(on: bool) -> None:
+    """Both planes on or off, their stores emptied."""
+    from flink_tpu_torch.runtime import tracing as tr
+    from flink_tpu_torch.runtime.device_stats import TELEMETRY
+    TELEMETRY.reset()
+    tr.get_tracer().reset()
+    tr.reset_kernel_stats()
+    TELEMETRY.enabled = on
+    tr.get_tracer().enabled = on
+
+
+def _ledger_leg(leg, before, secs) -> dict:
+    """The launch ledger of one leg against the LAUNCHES delta: equal
+    counts per kernel, every launch timed, device ms > 0 and within the
+    leg's wall time."""
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.runtime import tracing as tr
+    stats = tr.LAUNCH_LEDGER.stats()
+    delta = {k: K.LAUNCHES[k] - before[k] for k in K.KERNELS
+             if K.LAUNCHES[k] != before[k]}
+    got = {k[len("cuda."):]: v["launches"] for k, v in stats.items()}
+    check(got == delta and delta,
+          f"telemetry {leg}: ledger launches {got} equal the LAUNCHES delta "
+          f"{delta}")
+    for k, v in stats.items():
+        check(v["timed"] == v["launches"]
+              and 0 < v["device_ms"] <= secs * 1e3,
+              f"telemetry {leg}: {k} timed on every launch, device ms "
+              f"{v['device_ms']} in (0, {secs * 1e3}]")
+    return {k: {"launches": v["launches"], "device_ms": v["device_ms"],
+                "p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]}
+            for k, v in stats.items()}
+
+
+def _trace_check(leg, kernels, names) -> int:
+    """write_chrome_trace into a temporary directory; the file parses
+    and holds a cuda.<kernel> event on the device lane for each launched
+    kernel and the named events, each with ph and ts."""
+    import tempfile
+    from flink_tpu_torch.runtime import tracing as tr
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        written = tr.get_tracer().write_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    check(len(events) == written > 0, f"telemetry {leg}: the trace parses")
+    seen = {}
+    for e in events:
+        seen[e["name"]] = seen.get(e["name"], 0) + 1
+    bad = [e.get("name") for e in events if "ph" not in e or "ts" not in e]
+    check(not bad, f"telemetry {leg}: every event has ph and ts ({bad[:3]})")
+    for k in kernels:
+        dev_ev = [e for e in events if e["name"] == k]
+        check(dev_ev and all(e.get("lane") == "device" for e in dev_ev),
+              f"telemetry {leg}: {k} events on the device lane")
+    for n in names:
+        check(seen.get(n, 0) > 0, f"telemetry {leg}: {n} in the trace")
+    return len(events)
+
+
+def _telemetry_job(dev, events, key_of, p, snap):
+    """HLL p over 1 s tumbling windows through the environment; the first
+    fired window takes the HBM snapshot while the engine is alive."""
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.runtime.device_stats import TELEMETRY
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.sources import (
+        BoundedOutOfOrdernessTimestampExtractor, CollectSink)
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+
+    def window_fn(k, w, vals):
+        if snap is not None and not snap:
+            snap["hbm"] = TELEMETRY.hbm_snapshot()
+            snap["framework"] = TELEMETRY.framework_hbm()
+        return [(_key_id(k), w.start, vals[0])]
+
+    agg = HyperLogLogAggregate(p)
+    agg.extract_value = lambda e: e[1]
+    out = []
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    (env.from_collection(events)
+        .assign_timestamps_and_watermarks(
+            BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+        .key_by(key_of).window(TumblingEventTimeWindows.of(1000))
+        .aggregate(agg, window_function=window_fn)
+        .add_sink(CollectSink(out)))
+    torch_sync()
+    t0 = time.perf_counter()
+    env.execute("telemetry")
+    torch_sync()
+    return out, time.perf_counter() - t0, env.get_metric_registry().dump()
+
+
+def torch_sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def _fresh_chain_split(leg, n_chain, n_keys, batch, seed) -> dict:
+    """``_chain_profile_leg`` with the profiler, in a spawned worker:
+    the ledger's d2h.chain.boundary bytes must equal the profiler's
+    DtoH bytes there."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(1) as pool:
+        fresh = pool.apply(_chain_profile_leg,
+                           ("cuda", n_chain, n_keys, batch, True, seed, leg))
+    check(fresh["device_events"] > 0
+          and fresh["ledger_d2h_bytes"] == fresh["profiler_d2h_bytes"] > 0,
+          f"{leg}: ledger D2H bytes {fresh['ledger_d2h_bytes']} equal the "
+          f"profiler's DtoH bytes {fresh['profiler_d2h_bytes']}")
+    return fresh
+
+
+def _chain_profile_leg(dev, n_chain, n_keys, batch, profile, seed=43,
+                       leg="telemetry chain"):
+    """The fused chain's route mode on n_chain config #2 events (drawn
+    first from ``seed``): a first pass (the program verifies), then,
+    with the plane on, one pass (under torch.profiler when
+    ``profile``).  Returns the ledger's chain.boundary copies and the
+    profiler's split.  Also runs in a spawned worker, which sets
+    itself up."""
+    import torch
+    if profile:
+        sys.path.insert(0, str(ROOT))
+    from flink_tpu_torch import kernels as K
+    K.build_all(("chain_route",))
+    from flink_tpu_torch.runtime.device_stats import TELEMETRY
+    from flink_tpu_torch.streaming import chain_fusion as cf
+    from flink_tpu_torch.streaming.elements import RecordBatch
+    dev = torch.device(dev) if isinstance(dev, str) else dev
+    keys, ts, vh = config2_events(np.random.default_rng(seed), n_chain, n_keys)
+    f0, f1 = keys.astype(np.int64), (vh >> np.uint64(3)).astype(np.int64)
+    batches = [RecordBatch({"f0": f0[i:i + batch], "f1": f1[i:i + batch]},
+                           ts[i:i + batch]) for i in range(0, n_chain, batch)]
+    fused = _KeyRouter(4)
+    m2, f2 = _chain_ops(fused)
+    prog = cf.compile_chain([m2, f2], router=fused, device=dev)
+    check(prog is not None, f"{leg}: route mode compiled")
+    _plane(False)
+    for b in batches:              # the first pass verifies the program
+        prog.run(b)
+    _plane(True)
+    before = dict(K.LAUNCHES)
+
+    def chain_pass():
+        for b in batches:
+            prog.run(b)
+    out = {"batches": len(batches)}
+    if profile:
+        split = _device_split(chain_pass)
+        out.update(profiler_d2h_bytes=split["d2h_bytes"],
+                   profiler_d2h_ms=(split["device_ms"] or {}).get("d2h"),
+                   wall_ms=split["wall_ms"], idle_share=split["idle_share"],
+                   device_events=split["device_events"],
+                   device_ms=split["device_ms"])
+    else:
+        t0 = time.perf_counter()
+        chain_pass()
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["kernels"] = _ledger_leg(leg, before, out["wall_ms"] / 1e3)
+    check(set(out["kernels"]) == {"cuda.chain_route"},
+          f"{leg}: only chain_route launched ({set(out['kernels'])})")
+    pay = TELEMETRY.payload()
+    d2h = pay["transfers"]["d2h.chain.boundary"]
+    check(pay["kernels"][prog.label]["dispatches"] == len(batches),
+          f"{leg}: one dispatch of the program's label a batch")
+    out.update(ledger_d2h_bytes=d2h["bytes"], ledger_d2h_ms=d2h["total_ms"],
+               ledger_h2d=pay["transfers"]["h2d.chain.boundary"])
+    return out
+
+
+def telemetry_phase(dev, n_scatter=1 << 19, n_log=1 << 19, n_chain=1 << 22,
+                    n_keys=1_000_000, batch=1 << 20, p=12):
+    """The observability plane on the card: (a) config #2's events
+    (2^19, keys as (key, key >> 10) pairs, which take the scatter tier)
+    through the environment with the tracer and the telemetry off, then
+    on: bit-equal windows, the off run records nothing; (b) 2^19
+    integer-key events on the log tier with the device finish; (c) the
+    fused chain's route mode on 2^22 events, traced by torch.profiler
+    with the plane on: the ledger's chain.boundary D2H bytes are the
+    profiler's DtoH bytes."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.runtime import tracing as tr
+    from flink_tpu_torch.runtime.device_stats import TELEMETRY
+
+    rng = np.random.default_rng(41)
+    tracer = tr.get_tracer()
+    out = {}
+    try:
+        # (a) the scatter tier, off then on
+        keys, ts, vh = config2_events(rng, n_scatter, n_keys)
+        events = list(zip(keys.astype(np.int64).tolist(),
+                          (vh >> np.uint64(1)).astype(np.int64).tolist(),
+                          ts.tolist()))
+        pair = lambda e: (e[0], e[0] >> 10)  # noqa: E731
+        runs = {}
+        for on in (False, True):
+            _plane(on)
+            before = dict(K.LAUNCHES)
+            snap = {} if on else None
+            res, secs, dump = _telemetry_job(dev, events, pair, p, snap)
+            runs[on] = (sorted(res), secs)
+            if not on:
+                check(tracer.recent() == [] and tracer.stats() == {}
+                      and TELEMETRY.payload()["transfers"] == {}
+                      and tr.LAUNCH_LEDGER.stats() == {},
+                      "telemetry scatter: the off run leaves the tracer, the "
+                      "transfer ledger and the launch ledger empty")
+                continue
+            kernels = _ledger_leg("scatter", before, secs)
+            for k in ("hll_update", "hll_estimate", "clear_rows"):
+                check(f"cuda.{k}" in kernels, f"telemetry scatter: {k} ledgered")
+            n_trace = _trace_check("scatter", kernels, (
+                "device_window.flush", "device_window.fire", "device.transfer"))
+            hbm, fw = snap["hbm"], snap["framework"]
+            check(hbm["source"] == "memory_stats"
+                  and hbm["bytes_in_use"] >= fw["bytes_in_use"] > 0,
+                  f"telemetry scatter: HBM from memory_stats, in use "
+                  f"{hbm['bytes_in_use']} >= the framework's "
+                  f"{fw['bytes_in_use']} > 0")
+            rec_in = sum(v for k, v in dump.items()
+                         if "window_aggregate" in k and k.endswith(".numRecordsIn"))
+            late = sum(v for k, v in dump.items()
+                       if k.endswith(".numLateRecordsDropped"))
+            check(rec_in == n_scatter and late == 0,
+                  f"telemetry scatter: numRecordsIn {rec_in} == the events "
+                  f"fed, numLateRecordsDropped {late} == 0")
+            pay = TELEMETRY.payload()
+            out["scatter"] = {
+                "events": n_scatter, "windows": len(res),
+                "trace_events": n_trace, "kernels": kernels,
+                "transfers": pay["transfers"], "hbm": hbm,
+                "framework_hbm_bytes": fw["bytes_in_use"]}
+        check(runs[True][0] == runs[False][0] and len(runs[True][0]) > 0,
+              "telemetry scatter: windows bit-equal with the plane on and off")
+        out["scatter"]["events_per_s_off"] = n_scatter / runs[False][1]
+        out["scatter"]["events_per_s_on"] = n_scatter / runs[True][1]
+        out["scatter"]["seconds_off"] = runs[False][1]
+        out["scatter"]["seconds_on"] = runs[True][1]
+        del events, runs
+
+        # (b) the log tier with the device finish
+        keys, ts, vh = config2_events(rng, n_log, n_keys)
+        events = list(zip(keys.astype(np.int64).tolist(),
+                          (vh >> np.uint64(1)).astype(np.int64).tolist(),
+                          ts.tolist()))
+        _plane(True)
+        before = dict(K.LAUNCHES)
+        res, secs, dump = _telemetry_job(dev, events, lambda e: e[0], p, None)
+        kernels = _ledger_leg("log", before, secs)
+        check("cuda.hll_log_finish" in kernels,
+              "telemetry log: the device finish (hll_log_finish) ledgered")
+        pay = TELEMETRY.payload()
+        check(pay["transfers"].get("d2h.log.finish", {}).get("count", 0) > 0,
+              "telemetry log: the finish's copies ledgered under log.finish")
+        _trace_check("log", kernels, ("device_window.fire",))
+        out["log"] = {"events": n_log, "windows": len(res), "seconds": secs,
+                      "events_per_s": n_log / secs, "kernels": kernels,
+                      "transfers": pay["transfers"]}
+        del events
+
+        # (c) the fused chain's route mode: the ledger against LAUNCHES
+        # here, against torch.profiler in a fresh process (a profile
+        # taken late in a long process lost memcpy records on the card)
+        ledger = _chain_profile_leg(dev, n_chain, n_keys, batch, profile=False)
+        fresh = _fresh_chain_split("telemetry chain", n_chain, n_keys, batch,
+                                   seed=43)
+        check(ledger["ledger_d2h_bytes"] == fresh["ledger_d2h_bytes"],
+              "telemetry chain: the same pass ledgers the same D2H bytes in "
+              "both processes")
+        out["chain"] = {"events": n_chain, "this_process": ledger,
+                        "profiled": fresh}
+    finally:
+        _plane(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"telemetry": out})
+
+
+# ---------------------------------------------------------------------
 
 SOURCES = {
     "hll_update": ("flink_tpu_torch/kernels/csrc/hll_update.cu",
@@ -5292,7 +5614,10 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                              "clear_rows", "scatter_combine")),
          ("recovery", "recovery_phase", ("hll_update", "hll_estimate",
                                          "clear_rows", "set_rows",
-                                         "hll_log_finish")))
+                                         "hll_log_finish")),
+         ("telemetry", "telemetry_phase", ("hll_update", "hll_estimate",
+                                           "clear_rows", "hll_log_finish",
+                                           "chain_route")))
 
 
 def main() -> int:

@@ -12,6 +12,10 @@ carried over from a JAX job is never dropped silently.  The keys:
                                         beyond it cold slots spill to
                                         host RAM
 ``state.backend.tpu.microbatch-size``   pending-ring flush size
+``metrics.sample.interval.ms``          the metrics journal's cadence
+                                        (unset: no journal)
+``metrics.history.size``                samples kept per metric
+                                        (default 1024)
 ======================================  ================================
 """
 
@@ -24,7 +28,17 @@ KNOWN_KEYS = frozenset({
     "state.backend",
     "state.backend.tpu.max-device-slots",
     "state.backend.tpu.microbatch-size",
+    "metrics.sample.interval.ms",
+    "metrics.history.size",
 })
+
+
+class MetricOptions:
+    """The metrics keys (ref ``flink_tpu/core/config.py:333-343``)."""
+    #: time-series journal (``runtime/timeseries.py``): off unless set
+    SAMPLE_INTERVAL_MS = "metrics.sample.interval.ms"
+    HISTORY_SIZE = "metrics.history.size"
+    HISTORY_SIZE_DEFAULT = 1024
 
 
 class Configuration:

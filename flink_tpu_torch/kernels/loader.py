@@ -20,6 +20,12 @@ where it launches its kernel, and nowhere else.  ``launch`` keeps each
 exported function once it is bound and reads the current stream's raw
 handle, so a launch costs the ctypes call and little else on the host;
 ``check_all`` checks a wrapper's tensors in one pass.
+
+While the tracer or the device telemetry is on, ``launch`` goes through
+``runtime.tracing.LAUNCH_LEDGER``: the launch is counted under
+``cuda.<kernel>`` and bracketed by a CUDA timing-event pair on its
+stream, resolved later with no sync here.  Each nvcc build reports its
+seconds through ``record_compile_event("cuda.build.<kernel>", s)``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+
+from flink_tpu_torch.runtime import tracing as _tracing
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
 
 KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
            "merge_rows", "set_rows", "countmin_update", "countmin_query",
@@ -176,7 +185,8 @@ def _start_build(name: str) -> Optional[subprocess.Popen]:
         log.close()
 
 
-def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> None:
+def _finish_build(name: str, proc: Optional[subprocess.Popen],
+                  t0: float) -> None:
     if proc is None:
         return
     out = _library_path(name)
@@ -186,6 +196,9 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> None:
         log = out.with_suffix(".log").read_text()
         raise RuntimeError(f"nvcc failed for {name} (exit {rc}):\n{log}")
     os.replace(tmp, out)
+    # started together: each build's seconds run from the common start
+    _tracing.record_compile_event(f"cuda.build.{name}",
+                                  time.perf_counter() - t0)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> float:
@@ -195,7 +208,7 @@ def build_all(names: Iterable[str] = KERNELS) -> float:
     with _lock:
         procs = {name: _start_build(name) for name in names}
         for name, proc in procs.items():
-            _finish_build(name, proc)
+            _finish_build(name, proc, t0)
     return time.perf_counter() - t0
 
 
@@ -234,7 +247,11 @@ def launch(name: str, fn: str, *args) -> None:
         if fn not in _SIGNATURES[name]:
             raise KeyError(f"{name}: {fn} has no declared C signature")
         f = _functions[fn] = getattr(library(name), fn)
-    err = f(*args, current_stream())
+    if _tracing._tracer.enabled or TELEMETRY.enabled:
+        stream = current_stream()
+        err = _tracing.LAUNCH_LEDGER.record(name, lambda: f(*args, stream))
+    else:
+        err = f(*args, current_stream())
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "

@@ -22,14 +22,19 @@ index, ``VectorizedSlotIndex``, stays as the plain twin the tests use).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from flink_tpu_torch.runtime import tracing as _tracing
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
 
 _SRC = Path(__file__).resolve().parent / "host_runtime.cpp"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -53,6 +58,7 @@ def build() -> Path:
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
                               capture_output=True, text=True)
@@ -63,7 +69,32 @@ def build() -> Path:
         raise RuntimeError(f"g++ failed for the host runtime (exit "
                            f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
+    _tracing.record_compile_event("native.build.host_runtime",
+                                  time.perf_counter() - t0)
     return out
+
+
+_perf_ns = time.perf_counter_ns
+
+
+def _kernel(name: str):
+    """Dispatch count and wall time of one host-runtime entry, into
+    ``runtime.tracing``'s kernel store under the reference's name
+    (``native.<name>`` gauges and trace spans), while the tracer or the
+    device telemetry is on; off, the wrapper costs two attribute checks
+    and makes no timing call.  Errors pass straight through."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not (_tracing._tracer.enabled or TELEMETRY.enabled):
+                return fn(*args, **kwargs)
+            t0 = _perf_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _tracing.record_kernel(name, t0, _perf_ns())
+        return wrapper
+    return deco
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -151,6 +182,7 @@ def lib() -> ctypes.CDLL:
 
 # ---- hashing ----------------------------------------------------------------
 
+@_kernel("splitmix64")
 def splitmix64(x: np.ndarray) -> np.ndarray:
     x = np.ascontiguousarray(x, np.uint64)
     out = np.empty_like(x)
@@ -158,6 +190,7 @@ def splitmix64(x: np.ndarray) -> np.ndarray:
     return out
 
 
+@_kernel("key_groups")
 def key_groups(kh: np.ndarray, max_parallelism: int,
                n_shards: int) -> np.ndarray:
     kh = np.ascontiguousarray(kh, np.uint64)
@@ -190,6 +223,7 @@ class NativeSlotIndex:
     def n(self) -> int:
         return self._lib.ft_index_size(self._h)
 
+    @_kernel("index.lookup_or_insert")
     def lookup_or_insert(self, batch_hashes: np.ndarray, alloc):
         """Returns (slots[N] int64, first_idx): the batch row of each
         newly inserted hash, in slot-allocation order."""
@@ -221,6 +255,7 @@ class NativeSlotIndex:
 
 # ---- log-structured window tier ---------------------------------------------
 
+@_kernel("hll_log_compact")
 def hll_log_compact(keys: np.ndarray, regs: np.ndarray, ranks: np.ndarray,
                     precision: int):
     """Sort a window's HLL cell log by key and dedup (reg) -> max(rank).
@@ -240,6 +275,7 @@ def hll_log_compact(keys: np.ndarray, regs: np.ndarray, ranks: np.ndarray,
     return ok[:c], orr[:c], ork[:c], ends[:n_keys]
 
 
+@_kernel("hll_log_fire")
 def hll_log_fire(keys: np.ndarray, regs: np.ndarray, ranks: np.ndarray,
                  precision: int):
     """Host fire over a window's HLL cell log: (distinct keys, float64
@@ -254,6 +290,7 @@ def hll_log_fire(keys: np.ndarray, regs: np.ndarray, ranks: np.ndarray,
     return ok[:n_keys], est[:n_keys]
 
 
+@_kernel("sum_log_fire")
 def sum_log_fire(keys: np.ndarray, values: np.ndarray):
     """Per distinct key, the sum of its logged values (key-sorted)."""
     n = len(keys)
@@ -286,6 +323,7 @@ class NativeSumTable:
     def n(self) -> int:
         return self._lib.ft_sumtab_size(self._h)
 
+    @_kernel("sum_table.ingest")
     def ingest(self, keys: np.ndarray, values: np.ndarray,
                max_distinct: int) -> int:
         """Accumulate; returns the records consumed (< len(keys) when
@@ -303,6 +341,7 @@ class NativeSumTable:
         return keys[:k], sums[:k]
 
 
+@_kernel("hll_make_cells")
 def hll_make_cells(value_hashes: np.ndarray, precision: int):
     """(register u16, rank u8) cells from u64 value hashes in one pass
     (precision <= 16)."""
@@ -317,6 +356,7 @@ def hll_make_cells(value_hashes: np.ndarray, precision: int):
     return regs, ranks
 
 
+@_kernel("qsketch_log_fire")
 def qsketch_log_fire(keys: np.ndarray, buckets: np.ndarray, n_buckets: int,
                      quantiles, log_gamma: float, offset: int,
                      mid_corr: float, counts=None):
@@ -346,6 +386,7 @@ def qsketch_log_fire(keys: np.ndarray, buckets: np.ndarray, n_buckets: int,
     return ok[:n_keys], out[:n_keys * len(q)].reshape(n_keys, len(q))
 
 
+@_kernel("qsketch_log_compact")
 def qsketch_log_compact(keys: np.ndarray, buckets: np.ndarray, counts,
                         n_buckets: int):
     """Collapse (key, bucket) duplicates into count cells.  ``counts``
@@ -363,6 +404,7 @@ def qsketch_log_compact(keys: np.ndarray, buckets: np.ndarray, counts,
     return ok[:n_out].copy(), ob[:n_out].copy(), oc[:n_out].copy()
 
 
+@_kernel("session_log_fire")
 def session_log_fire(keys: np.ndarray, ts: np.ndarray, weights: np.ndarray,
                      vhs: np.ndarray, gap_ms: int, watermark: int,
                      depth: int, width: int, retained=None):
@@ -443,6 +485,7 @@ class NativeStringInterner:
     def n(self) -> int:
         return self._lib.ft_intern_size(self._h)
 
+    @_kernel("interner.intern")
     def intern(self, arr: np.ndarray):
         """→ (ids uint64 [n], first_idx int64 [n_new]): the batch row of
         each newly seen string, in id order."""
@@ -471,6 +514,7 @@ class NativeWordSums:
             self._lib.ft_wordsums_free(self._h)
             self._h = None
 
+    @_kernel("word_sums.add")
     def add(self, interner: NativeStringInterner, words: np.ndarray,
             weights=None):
         """→ first_idx of the newly interned words (append
@@ -490,6 +534,7 @@ class NativeWordSums:
     def touched(self) -> int:
         return self._lib.ft_wordsums_count(self._h)
 
+    @_kernel("word_sums.fire")
     def fire(self):
         """→ (ids int64, sums float64) of the touched ids; resets."""
         k = self.touched
@@ -506,6 +551,7 @@ class NativeWordSums:
 
 # ---- grouping of the generic aggregate tier ---------------------------------
 
+@_kernel("fold_prep")
 def fold_prep(keys: np.ndarray):
     """Stable radix argsort, segment detection and a length-descending
     segment layout in one C++ pass.  Returns (order, seg_starts,
@@ -521,6 +567,7 @@ def fold_prep(keys: np.ndarray):
     return order, seg_starts[:n_seg], seg_lens[:n_seg], ukeys[:n_seg]
 
 
+@_kernel("group_cols")
 def group_cols(keys: np.ndarray, cols=(), want_order: bool = True):
     """Grouping of keys below 2^22 with the payload columns
     co-scattered in the same counting-sort pass: (order, scols,
@@ -555,6 +602,7 @@ def group_cols(keys: np.ndarray, cols=(), want_order: bool = True):
             ukeys[:n_seg])
 
 
+@_kernel("argsort_u64")
 def argsort_u64(keys: np.ndarray) -> np.ndarray:
     """Stable argsort of a uint64 column by the C++ radix sort."""
     keys = np.ascontiguousarray(keys, np.uint64)

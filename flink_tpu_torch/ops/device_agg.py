@@ -27,7 +27,7 @@ its scalar programs to the CPU.
 from __future__ import annotations
 
 import abc
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,8 @@ from flink_tpu_torch.core.keygroups import stable_hash64
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.kernels import clear_rows, merge_rows_many, scatter_combine
 from flink_tpu_torch.ops.slot_index import torch_index
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.runtime.tracing import traced_call
 
 State = Dict[str, torch.Tensor]
 
@@ -47,6 +49,13 @@ class StateSpec(NamedTuple):
     dtype: np.dtype
     fill: float              # initial/cleared value
 
+
+def _apply(fn, *args):
+    return fn(*args)
+
+
+#: the scalar path's traced wrappers, one per label
+_SCALAR_CALLS: Dict[str, Callable] = {}
 
 _CANONICAL = {np.dtype(np.float64): np.dtype(np.float32),
               np.dtype(np.int64): np.dtype(np.int32),
@@ -232,19 +241,32 @@ class DeviceAggregateFunction(AggregateFunction):
         return {k: v.numpy()[0] if v.dim() > 1 else v.numpy()
                 for k, v in state.items()}
 
+    def _scalar_call(self, kind: str, fn, *args):
+        """One call of the scalar path, accounted as the reference's
+        ``agg.<Aggregate>.<kind>`` dispatch while the telemetry is on."""
+        if not TELEMETRY.enabled:
+            return fn(*args)
+        label = f"agg.{type(self).__name__}.{kind}"
+        call = _SCALAR_CALLS.get(label)
+        if call is None:
+            call = _SCALAR_CALLS[label] = traced_call(_apply, label)
+        return call(fn, *args)
+
     def add(self, value, accumulator):
         state = self._acc_state(accumulator)
         vals, hi, lo = self._host_record(value)
         if self.needs_value_hash:
             hi, lo = self.compress_value_hash(hi, lo)
-        self.update(state, torch.zeros(1, dtype=torch.int32),
-                    torch.from_numpy(vals), torch.from_numpy(hi),
-                    torch.from_numpy(lo), 1)
+        self._scalar_call("add", self.update, state,
+                          torch.zeros(1, dtype=torch.int32),
+                          torch.from_numpy(vals), torch.from_numpy(hi),
+                          torch.from_numpy(lo), 1)
         return self._acc_of(state)
 
     def get_result(self, accumulator):
-        out = self.result(self._acc_state(accumulator),
-                          torch.zeros(1, dtype=torch.int32)).numpy()[0]
+        out = self._scalar_call("result", self.result,
+                                self._acc_state(accumulator),
+                                torch.zeros(1, dtype=torch.int32)).numpy()[0]
         return out.item() if np.ndim(out) == 0 else out
 
     def merge(self, a, b):
@@ -255,8 +277,9 @@ class DeviceAggregateFunction(AggregateFunction):
         state = {k: torch.from_numpy(np.stack([
             np.asarray(x[k], device_dtype(specs[k].dtype)).reshape(np.shape(a[k]))
             for x in (a, b)])) for k in specs}
-        self.merge_rows(state, torch.zeros(1, dtype=torch.int32),
-                        torch.ones(1, dtype=torch.int32))
+        self._scalar_call("merge", self.merge_rows, state,
+                          torch.zeros(1, dtype=torch.int32),
+                          torch.ones(1, dtype=torch.int32))
         return {k: v.numpy()[0] for k, v in state.items()}
 
     def _host_record(self, value):

@@ -29,6 +29,7 @@ import torch
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.kernels import clear_rows, table_insert
 from flink_tpu_torch.ops.hashing import fmix32
+from flink_tpu_torch.runtime.tracing import traced_call
 
 
 class DeviceHashTable(NamedTuple):
@@ -81,7 +82,8 @@ def insert_or_lookup_impl(table: DeviceHashTable, h_hi, h_lo, mask=None,
 
 
 #: eager PyTorch has no separate traced entry point
-insert_or_lookup = insert_or_lookup_impl
+insert_or_lookup = traced_call(insert_or_lookup_impl,
+                               "table.insert_or_lookup")
 
 
 def insert_or_lookup_regions_impl(table: DeviceHashTable, h_hi, h_lo, region,
@@ -106,7 +108,7 @@ def insert_or_lookup_regions_impl(table: DeviceHashTable, h_hi, h_lo, region,
 insert_or_lookup_regions = insert_or_lookup_regions_impl
 
 
-def clear_entries(table: DeviceHashTable, slots) -> DeviceHashTable:
+def _clear_entries_impl(table: DeviceHashTable, slots) -> DeviceHashTable:
     """Free table positions (``occupied[slots] = False``, one
     ``clear_rows`` launch over the 1-byte rows).  As in the JAX package
     a point delete leaves no tombstone: the probe chain re-inserts a key
@@ -116,6 +118,9 @@ def clear_entries(table: DeviceHashTable, slots) -> DeviceHashTable:
          else torch.from_numpy(np.asarray(slots, np.int32)).to(dev))
     clear_rows(table.occupied, 0, slots=s)
     return table
+
+
+clear_entries = traced_call(_clear_entries_impl, "table.clear")
 
 
 def table_to_numpy(table: DeviceHashTable):

@@ -31,6 +31,8 @@ from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction, device_dtype
 from flink_tpu_torch.ops.device_table import (DeviceHashTable,
                                               insert_or_lookup, make_table)
 from flink_tpu_torch.parallel.mesh import Mesh
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.streaming.vectorized import _perf_ns
 
 
 def _bucketize(h_lo: torch.Tensor, n_shards: int,
@@ -164,8 +166,26 @@ class MeshWindowAggregation:
 
     def step(self, h_hi, h_lo, values, vh_hi, vh_lo, mask) -> None:
         """Process one global batch (length divisible by n_shards)."""
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
         self.state, overflow = self._step(self.state, h_hi, h_lo, values,
                                           vh_hi, vh_lo, mask)
+        if tel:
+            # the exchange is one call, so its legs are not separable:
+            # the call is billed as the collective phase, the overflow
+            # read as the copy back
+            t1 = _perf_ns()
+            overflow = np.asarray(overflow.cpu() if isinstance(
+                overflow, torch.Tensor) else overflow)
+            t2 = _perf_ns()
+            sent = sum(int(getattr(a, "nbytes", 0))
+                       for a in (h_hi, h_lo, values, vh_hi, vh_lo, mask))
+            TELEMETRY.record_transfer("h2d", sent, t0, t1, tag="mesh.step")
+            TELEMETRY.record_transfer("d2h", overflow.nbytes, t1, t2,
+                                      tag="mesh.step")
+            TELEMETRY.record_exchange_round("mesh.agg", 0.0, 0.0,
+                                            (t1 - t0) / 1e6,
+                                            (t2 - t1) / 1e6, sent)
         ov = int(overflow.sum())
         if ov:
             self.overflowed += ov
@@ -178,7 +198,15 @@ class MeshWindowAggregation:
     def fire(self):
         """Close the window: returns (key_hi, key_lo, results, occupied)
         host arrays concatenated over shards, and resets state."""
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
         self.state, (hi, lo, res, occ) = self._fire(self.state)
+        if tel:
+            TELEMETRY.record_transfer(
+                "d2h", sum(int(getattr(a, "nbytes", 0))
+                           for a in (hi, lo, res, occ)),
+                t0, _perf_ns(), tag="mesh.fire")
+            TELEMETRY.note_fire_read()
         return (hi.reshape(-1), lo.reshape(-1),
                 res.reshape(res.shape[0] * res.shape[1], *res.shape[2:]),
                 occ.reshape(-1))

@@ -38,8 +38,9 @@ from flink_tpu_torch.kernels import shard_pack
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
 from flink_tpu_torch.ops.sketches import CountMinSketchAggregate
 from flink_tpu_torch.parallel.mesh import Mesh
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
 from flink_tpu_torch.streaming import log_windows as lw
-from flink_tpu_torch.streaming.vectorized import hash_keys_np
+from flink_tpu_torch.streaming.vectorized import _perf_ns, hash_keys_np
 from flink_tpu_torch.streaming.windowing import (EventTimeSessionWindows,
                                                  SlidingEventTimeWindows,
                                                  TumblingEventTimeWindows)
@@ -192,27 +193,55 @@ class _MeshShardedLogEngine:
         take the host pack."""
         S, cap = self.n_shards, self.bucket_cap
         m = len(lanes) // S
+        telem = TELEMETRY.enabled
+        t0 = _perf_ns() if telem else 0
         te = np.where(mask, tgt, S).astype(np.int32, copy=False).reshape(S, m)
         counts_st = np.bincount(
             (self._src_base + te).ravel(),
             minlength=S * (S + 1)).reshape(S, S + 1)[:, :S]
         if (counts_st > cap).any():
             self._drain_inflight()
-            self._run_step_hostpack(lanes, te)
+            self._run_step_hostpack(lanes, te, t0)
             return
+        if telem:
+            # a phase-split round, delivered at once: the ledger times
+            # the copy to the card, the pack and exchange, and the copy
+            # back apart (each leg's wall time ends when its calls
+            # return; the copy back waits for the legs before it)
+            self._drain_inflight()
+        t1 = _perf_ns() if telem else 0
         dev = self.mesh.home
         with self.mesh.on(0):
             d_lanes = _lanes_to_device(lanes, dev)
             d_tgt = torch.from_numpy(np.ascontiguousarray(te).reshape(-1)).to(dev)
+            t2 = _perf_ns() if telem else 0
             bucks, counts = shard_pack(d_lanes, S, cap, target=d_tgt)
-        prev = self._inflight
-        self._inflight = (self.mesh.all_to_all(bucks),
-                          self.mesh.all_to_all(counts))
+        exchanged = (self.mesh.all_to_all(bucks), self.mesh.all_to_all(counts))
         self.num_packed_steps += 1
+        if telem:
+            t3 = _perf_ns()
+            recv, rcounts = self._to_host(*exchanged)
+            t4 = _perf_ns()
+            self._ledger_round(lanes.nbytes + te.nbytes, recv, rcounts,
+                               t0, t1, t2, t3, t4)
+            self._deliver_host(recv, rcounts)
+            return
+        prev = self._inflight
+        self._inflight = exchanged
         if prev is not None:
             self._deliver_recv(*prev)
 
-    def _run_step_hostpack(self, lanes: np.ndarray, te: np.ndarray) -> None:
+    @staticmethod
+    def _ledger_round(sent, recv, rcounts, t0, t1, t2, t3, t4) -> None:
+        got = sum(a.nbytes for a in (*recv, *rcounts))
+        TELEMETRY.record_transfer("h2d", sent, t1, t2, tag="mesh.exchange")
+        TELEMETRY.record_transfer("d2h", got, t3, t4, tag="mesh.exchange")
+        TELEMETRY.record_exchange_round(
+            "mesh.log", (t1 - t0) / 1e6, (t2 - t1) / 1e6, (t3 - t2) / 1e6,
+            (t4 - t3) / 1e6, sent)
+
+    def _run_step_hostpack(self, lanes: np.ndarray, te: np.ndarray,
+                           t0: int = 0) -> None:
         """Host counting-partition pack for a step where some (source,
         target) bucket overflows the cap: per-slice stable sort,
         explicit bucket fill, pure all_to_all, and the beyond-cap tail
@@ -240,10 +269,23 @@ class _MeshShardedLogEngine:
                 if n_t > c:
                     overflow.append((t, rows[c:]))
         dev = self.mesh.home
-        recv = self.mesh.all_to_all(_lanes_to_device(bucks, dev))
-        rcounts = self.mesh.all_to_all(torch.from_numpy(counts).to(dev))
+        telem = TELEMETRY.enabled
+        t1 = _perf_ns() if telem else 0
+        d_bucks = _lanes_to_device(bucks, dev)
+        d_counts = torch.from_numpy(counts).to(dev)
+        t2 = _perf_ns() if telem else 0
+        recv = self.mesh.all_to_all(d_bucks)
+        rcounts = self.mesh.all_to_all(d_counts)
         self.num_hostpack_steps += 1
-        self._deliver_recv(recv, rcounts)
+        if telem:
+            t3 = _perf_ns()
+            recv, rcounts = self._to_host(recv, rcounts)
+            t4 = _perf_ns()
+            self._ledger_round(bucks.nbytes + counts.nbytes, recv, rcounts,
+                               t0, t1, t2, t3, t4)
+            self._deliver_host(recv, rcounts)
+        else:
+            self._deliver_recv(recv, rcounts)
         # bucket-cap overflow: live rows the exchange could not fit.  One
         # process owns every shard engine, so they route host-side.
         for t, rows in overflow:
@@ -253,9 +295,17 @@ class _MeshShardedLogEngine:
     def _deliver_recv(self, recv, rcounts) -> None:
         """Hand shard j the rows ``recv[j][s, :rcounts[j][s]]``, source
         by source (one copy to the host per shard's device)."""
+        self._deliver_host(*self._to_host(recv, rcounts))
+
+    @staticmethod
+    def _to_host(recv, rcounts):
+        """The exchange's received buckets and counts as host arrays,
+        one list entry (or tensor row) per shard."""
         host = lambda x: (x.cpu().numpy() if isinstance(x, torch.Tensor)  # noqa: E731
                           else [r.cpu().numpy() for r in x])
-        recv, rcounts = host(recv), host(rcounts)
+        return host(recv), host(rcounts)
+
+    def _deliver_host(self, recv, rcounts) -> None:
         for j in range(self.n_shards):
             rows, counts = recv[j].view(np.uint32), rcounts[j]
             parts = [rows[s, :c] for s, c in enumerate(counts.tolist()) if c]

@@ -56,6 +56,7 @@ from flink_tpu_torch.parallel.mesh_agg import (_bucketize, _exchange,
                                                lane_tensor, step_lanes,
                                                to_host)
 from flink_tpu_torch.streaming.vectorized import hash_keys_np
+from flink_tpu_torch.state.stats import register_device_engine
 
 
 class MeshWindowOverflowError(RuntimeError):
@@ -283,6 +284,7 @@ class MeshTumblingWindows:
             mesh, axis, aggregate, max_parallelism, ring,
             capacity_per_window_shard, max_probes)
         self.table, self.state = init()
+        register_device_engine(self)
         self.watermark = -(2 ** 63)
         self.num_late_dropped = 0
         self.emitted: List[Tuple[Any, Any, int, int]] = []

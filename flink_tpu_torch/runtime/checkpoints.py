@@ -38,6 +38,7 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from flink_tpu_torch.runtime import faults
+from flink_tpu_torch.runtime.tracing import get_tracer, make_trace_context
 from flink_tpu_torch.state import portable
 
 
@@ -472,6 +473,45 @@ class CheckpointStats:
         }
 
 
+def checkpoint_stats_payload(coordinator, completed_base: int = 0) -> dict:
+    """The checkpoint history with a percentile summary over the
+    completed ones: the REST layer's ``/jobs/<name>/checkpoints`` shape
+    (ref ``flink_tpu/runtime/checkpoints.py:469``)."""
+    from flink_tpu_torch.runtime.timeseries import rollup
+
+    stats = getattr(coordinator, "stats", {}) or {}
+    history = [stats[cid].to_dict() for cid in sorted(stats)]
+    completed = [h for h in history if h["status"] == "completed"]
+    ack_latencies = [lat for h in completed
+                     for lat in h["ack_latency_ms"].values()]
+    summary = {
+        "count": len(completed),
+        "duration_ms": rollup([h["duration_ms"] for h in completed]),
+        "sync_duration_ms": rollup(
+            [h["sync_duration_ms"] for h in completed
+             if h["sync_duration_ms"] is not None]),
+        "async_duration_ms": rollup(
+            [h["async_duration_ms"] for h in completed
+             if h["async_duration_ms"] is not None]),
+        "state_bytes": rollup([h["state_bytes"] for h in completed]),
+        "ack_latency_ms": rollup(ack_latencies),
+    }
+    return {
+        "counts": {
+            "completed": completed_base
+            + getattr(coordinator, "completed_count", 0),
+            "failed": getattr(coordinator, "failed_count", 0),
+            "aborted": getattr(coordinator, "aborted_count", 0),
+            "timeout_aborts": getattr(coordinator, "timeout_aborts", 0),
+            "in_progress": len(getattr(coordinator, "pending", {}) or {}),
+        },
+        "latest_completed_id": getattr(coordinator,
+                                       "latest_completed_id", None),
+        "summary": summary,
+        "history": history,
+    }
+
+
 class SavepointRequest:
     """A user-triggered savepoint (ref: savepoint/SavepointV2.java +
     the `flink savepoint [-d]` / `cancel -s` CLI verbs).  Completed
@@ -611,6 +651,9 @@ class CheckpointCoordinator:
         self._savepoint_queue: deque = deque()
         #: in-flight savepoint checkpoints: cid -> request
         self._savepoint_cids: Dict[int, SavepointRequest] = {}
+        #: checkpoint id -> the trace context its barrier carries
+        #: (only while the tracer is on)
+        self._trace_ctxs: Dict[int, dict] = {}
         #: vertex_id -> parallelism, recorded into savepoints
         self.vertex_parallelisms: Dict[int, int] = {}
         # asynchronous snapshot materialization (ref: the async part
@@ -679,11 +722,23 @@ class CheckpointCoordinator:
             # savepoints always use aligned exactly-once barriers
             options = {"mode": "exactly_once", "savepoint": True}
             self._savepoint_cids[cid] = savepoint
+        tracer = get_tracer()
+        if tracer.enabled:
+            # the barrier's causal root: every barrier, alignment and
+            # ack event links back to this context, which rides the
+            # barrier's options through the graph
+            ctx = make_trace_context()
+            options["trace"] = ctx
+            self._trace_ctxs[cid] = ctx
+            tracer.record_instant("checkpoint.trigger", checkpoint_id=cid,
+                                  trace_id=ctx["trace_id"],
+                                  span_id=ctx["span_id"])
         ok = self._trigger_sources(cid, int(now), options)
         if ok is False:
             del self.pending[cid]
             self.stats.pop(cid, None)
             self._savepoint_cids.pop(cid, None)
+            self._trace_ctxs.pop(cid, None)
             return None
         return cid
 
@@ -724,6 +779,12 @@ class CheckpointCoordinator:
         st = self.stats.get(checkpoint_id)
         if st is not None and task_key in pc.acks:
             st.record_ack(task_key, self._clock() - st.trigger_ms)
+        ctx = self._trace_ctxs.get(checkpoint_id)
+        if ctx is not None:
+            get_tracer().record_instant(
+                "checkpoint.ack", checkpoint_id=checkpoint_id,
+                task=list(task_key) if task_key else None,
+                trace_id=ctx["trace_id"], parent_span_id=ctx["span_id"])
         if pc.fully_acknowledged:
             self._complete(pc)
 
@@ -732,6 +793,7 @@ class CheckpointCoordinator:
         the max_concurrent slot and counts toward the tolerable-
         failure budget (when one is configured)."""
         pc = self.pending.pop(checkpoint_id, None)
+        self._trace_ctxs.pop(checkpoint_id, None)
         req = self._savepoint_cids.pop(checkpoint_id, None)
         if req is not None:
             req.fail(RuntimeError(
@@ -757,6 +819,7 @@ class CheckpointCoordinator:
         for cid in [cid for cid, pc in self.pending.items()
                     if now - pc.timestamp >= self.checkpoint_timeout_ms]:
             pc = self.pending.pop(cid)
+            self._trace_ctxs.pop(cid, None)
             pc.discarded = True
             self.aborted_count += 1
             self.timeout_aborts += 1
@@ -879,6 +942,7 @@ class CheckpointCoordinator:
             st = self.stats.get(pc.checkpoint_id)
             if st is not None:
                 st.mark_failed(f"{type(err).__name__}: {err}", now)
+            self._trace_ctxs.pop(pc.checkpoint_id, None)
             if req is not None:
                 req.fail(err)
             if self.tolerable_checkpoint_failures is None:
@@ -894,6 +958,11 @@ class CheckpointCoordinator:
         if st is not None:
             st.complete_ms = now
             st.state_bytes = state_bytes if state_bytes is not None else -1
+        ctx = self._trace_ctxs.pop(pc.checkpoint_id, None)
+        if ctx is not None:
+            get_tracer().record_instant(
+                "checkpoint.complete", checkpoint_id=pc.checkpoint_id,
+                trace_id=ctx["trace_id"], parent_span_id=ctx["span_id"])
         if req is not None:
             try:
                 path = write_savepoint(

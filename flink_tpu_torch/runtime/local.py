@@ -44,13 +44,30 @@ strategy from the latest completed checkpoint (or, first, from
 others carry their live state across.  ``execute_async`` runs the job
 on a thread of its own and returns a ``JobClient`` (cancel, savepoints).
 
-Metrics, latency markers, alignment spill and its abort cap, sources
-on threads of their own and the cluster executors are later slices.
+Metrics (``runtime/metrics.py``): the executor's ``MetricRegistry``
+holds, per job, the reference's scopes: ``<job>.<vid>_<vertex>.<i>``
+with ``numRecordsIn`` / ``numRecordsOut`` and the time-attribution
+gauges, the operators' groups below it, ``latency`` histograms fed by
+the ``LatencyMarker`` every source emits each
+``latency_interval_ms``, and the process-wide ``state``, ``device``,
+``profiler``, ``native``, ``jit``, ``cuda`` and ``tracing`` groups.
+With ``sample_interval_ms`` a ``MetricsJournal`` samples the registry
+once per loop turn when due and a ``HealthEvaluator`` runs its rules on
+each sample.  While the tracer is on, each record or batch a subtask
+takes runs in an ``op.<vertex>.process`` span and barriers leave
+``checkpoint.barrier`` spans and ``checkpoint.align.begin`` instants.
+
+Records route by direct calls here, so no router ever lacks capacity:
+the backpressure gauges and the backpressured share of the time
+attribution read 0 until threaded channels exist.  Alignment spill and
+its abort cap, sources on threads of their own and the cluster
+executors are later slices.
 """
 
 from __future__ import annotations
 
 import copy
+import random
 import threading
 import time as _time
 from collections import deque
@@ -59,6 +76,13 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 from flink_tpu_torch.core.keygroups import compute_key_group_range_for_operator_index
 from flink_tpu_torch.device import DeviceLike
 from flink_tpu_torch.runtime import faults
+from flink_tpu_torch.runtime.backpressure import (TimeAccounting,
+                                                  derive_upstreams,
+                                                  locate_bottleneck,
+                                                  observe_subtask,
+                                                  read_vertex_stats,
+                                                  register_backpressure_gauges,
+                                                  register_time_attribution_gauges)
 from flink_tpu_torch.runtime.checkpoints import (CheckpointCoordinator,
                                                  load_savepoint,
                                                  make_checkpoint_storage,
@@ -67,17 +91,33 @@ from flink_tpu_torch.runtime.failover import (TaskFailureException,
                                               build_region_index,
                                               compute_pipelined_regions,
                                               pointwise_targets, region_of)
+from flink_tpu_torch.runtime.device_stats import (TELEMETRY,
+                                                  register_device_gauges)
+from flink_tpu_torch.runtime.metrics import (LatencyStats, MetricRegistry,
+                                             TaskIOMetricGroup,
+                                             register_checkpoint_gauges,
+                                             register_faulttolerance_gauges,
+                                             register_state_gauges,
+                                             register_state_introspection_gauges)
+from flink_tpu_torch.runtime.profiler import (get_profiler,
+                                              register_profiler_gauges)
+from flink_tpu_torch.runtime.tracing import (LAUNCH_LEDGER, get_tracer,
+                                             register_runtime_profile_gauges)
 from flink_tpu_torch.state.loader import load_state_backend
 from flink_tpu_torch.state.portable import OperatorStateSnapshot
 from flink_tpu_torch.streaming.elements import (END_OF_STREAM, MAX_WATERMARK,
                                                 MIN_TIMESTAMP,
                                                 CheckpointBarrier, EndOfStream,
-                                                Watermark)
+                                                LatencyMarker, Watermark)
 from flink_tpu_torch.streaming.graph import JobGraph, JobVertex
 from flink_tpu_torch.streaming.operators import Output, StreamOperator
 from flink_tpu_torch.streaming.sources import StreamSource
 from flink_tpu_torch.streaming.timers import (ProcessingTimeService,
                                               TestProcessingTimeService)
+
+#: channel choice for latency-marker forwarding
+_rand = random.Random(0)
+
 
 class JobExecutionResult:
     def __init__(self, job_name: str):
@@ -160,6 +200,9 @@ class _ChainedOutput(Output):
     def collect_side(self, tag, record):
         self.router.collect_side(tag, record)
 
+    def emit_latency_marker(self, marker):
+        self.op.process_latency_marker(marker)
+
 
 class _RouterOutput(Output):
     """Chain-tail output: each out-edge's partitioner picks the
@@ -170,12 +213,26 @@ class _RouterOutput(Output):
     def __init__(self):
         #: (partitioner, [_InputChannel], side tag)
         self.routes: List[Tuple[Any, List[_InputChannel], Any]] = []
+        #: numRecordsOut, set by the task layer
+        self.records_out_counter = None
+        #: the backpressure plane's stamp of the last moment without
+        #: capacity (never set here: routing is by direct call)
+        self.last_blocked_mono = 0.0
+
+    def has_capacity(self) -> bool:
+        """Direct calls never queue, so a record always has a place."""
+        return True
+
+    def has_queued_output(self) -> bool:
+        return False
 
     def add_route(self, partitioner, channels, side_tag=None) -> None:
         partitioner.setup(len(channels))
         self.routes.append((partitioner, channels, side_tag))
 
     def collect(self, record):
+        if self.records_out_counter is not None:
+            self.records_out_counter.count += 1
         for partitioner, channels, side_tag in self.routes:
             if side_tag is not None:
                 continue
@@ -186,8 +243,11 @@ class _RouterOutput(Output):
                 channels[idx].push(record)
 
     def collect_batch(self, batch):
-        if len(batch) == 0:
+        n = len(batch)
+        if n == 0:
             return
+        if self.records_out_counter is not None:
+            self.records_out_counter.count += n
         boxed = None
         for partitioner, channels, side_tag in self.routes:
             if side_tag is not None:
@@ -222,6 +282,13 @@ class _RouterOutput(Output):
     def emit_watermark(self, watermark):
         self._broadcast(watermark)
 
+    def emit_latency_marker(self, marker):
+        # one random channel per route, not a broadcast: a fan-out would
+        # multiply markers by the parallelism at every shuffle
+        for _, channels, side_tag in self.routes:
+            if side_tag is None and channels:
+                channels[_rand.randrange(len(channels))].push(marker)
+
     def broadcast_barrier(self, barrier: CheckpointBarrier):
         self._broadcast(barrier)
 
@@ -237,7 +304,8 @@ class SubtaskInstance:
     def __init__(self, vertex: JobVertex, state_backend=None,
                  device: DeviceLike = None, subtask_index: int = 0,
                  num_subtasks: int = 1, *,
-                 processing_time_service: ProcessingTimeService):
+                 processing_time_service: ProcessingTimeService,
+                 metrics_group=None, latency_stats=None):
         self.vertex = vertex
         self.subtask_index = subtask_index
         self.task_key = (vertex.id, subtask_index)
@@ -246,6 +314,20 @@ class SubtaskInstance:
         self.operators: List[StreamOperator] = [
             node.operator_factory() for node in vertex.chain]
         self.router = _RouterOutput()
+        # metrics: the subtask's group and IO counters, a fresh set per
+        # attempt; busy/idle/backpressured time observed once per turn
+        self.metrics_group = metrics_group
+        self.latency_stats = latency_stats
+        self.io_metrics = (TaskIOMetricGroup(metrics_group)
+                           if metrics_group is not None else None)
+        self.time_accounting = TimeAccounting()
+        if metrics_group is not None:
+            register_time_attribution_gauges(metrics_group,
+                                             self.time_accounting)
+            self.router.records_out_counter = self.io_metrics.num_records_out
+        # span names built once: the per-element path formats nothing
+        self._span_process = f"op.{vertex.name}.process"
+        self._span_checkpoint = "checkpoint.barrier"
         for i, (node, op) in enumerate(zip(vertex.chain, self.operators)):
             out = (_ChainedOutput(self.operators[i + 1], self.router)
                    if i + 1 < len(self.operators) else self.router)
@@ -261,6 +343,8 @@ class SubtaskInstance:
                      operator_id=node.uid, subtask_index=subtask_index,
                      num_subtasks=num_subtasks,
                      max_parallelism=node.max_parallelism)
+            if metrics_group is not None:
+                op.register_standard_metrics(metrics_group.add_group(node.uid))
         self.input_channels: List[_InputChannel] = []
         #: input_index -> {channel_id: watermark}
         self._watermarks: Dict[int, Dict[int, int]] = {}
@@ -351,10 +435,16 @@ class SubtaskInstance:
             return
         self.pending_trigger = None
         cid, ts, options = trig
-        snapshot = self.snapshot(cid)
-        self.router.broadcast_barrier(CheckpointBarrier(cid, ts, options))
-        if self.ack_fn is not None:
-            self.ack_fn(self.task_key, cid, snapshot)
+        # linked to the coordinator's trigger by the barrier's context
+        ctx = options.get("trace") if isinstance(options, dict) else None
+        with get_tracer().span_linked(self._span_checkpoint, ctx,
+                                      checkpoint_id=cid,
+                                      task=self.vertex.name,
+                                      subtask=self.subtask_index):
+            snapshot = self.snapshot(cid)
+            self.router.broadcast_barrier(CheckpointBarrier(cid, ts, options))
+            if self.ack_fn is not None:
+                self.ack_fn(self.task_key, cid, snapshot)
 
     # ---- input path -------------------------------------------------
     def receive(self, ch: _InputChannel, element) -> None:
@@ -362,7 +452,12 @@ class SubtaskInstance:
         this subtask (the failover strategy scopes the restart by it)."""
         try:
             if element.is_record:
-                self.process_record(ch.input_index, element)
+                tracer = get_tracer()
+                if tracer.enabled:
+                    with tracer.span(self._span_process):
+                        self.process_record(ch.input_index, element)
+                else:
+                    self.process_record(ch.input_index, element)
             elif element.is_watermark:
                 self.process_channel_watermark(ch.input_index, ch.channel_id,
                                                element)
@@ -370,8 +465,19 @@ class SubtaskInstance:
                 self._on_barrier(ch, element)
             elif isinstance(element, EndOfStream):
                 self._on_end_of_stream(ch)
+            elif element.is_latency_marker:
+                if self.latency_stats is not None:
+                    self.latency_stats.record(
+                        element, self.head.operator_id,
+                        _time.time() * 1000.0 - element.marked_time)
+                self.head.process_latency_marker(element)
             else:
-                self.process_batch_element(ch.input_index, element)
+                tracer = get_tracer()
+                if tracer.enabled:
+                    with tracer.span(self._span_process):
+                        self.process_batch_element(ch.input_index, element)
+                else:
+                    self.process_batch_element(ch.input_index, element)
         except TaskFailureException:
             raise
         except Exception as e:  # noqa: BLE001
@@ -380,6 +486,8 @@ class SubtaskInstance:
     def process_record(self, input_index: int, record):
         if faults._active is not None:
             faults.fire("task.process")
+        if self.io_metrics is not None:
+            self.io_metrics.num_records_in.count += 1
         head = self.head
         head.set_key_context(record)
         head.process_element(record)
@@ -389,6 +497,8 @@ class SubtaskInstance:
         it wants the batch, else the operator's ``process_batch``."""
         if faults._active is not None:
             faults.fire("task.process")
+        if self.io_metrics is not None:
+            self.io_metrics.num_records_in.count += len(batch)
         head = self.head
         fused = head._fused_chain
         if fused is not None and fused.wants(batch):
@@ -429,6 +539,17 @@ class SubtaskInstance:
             self._align_id = cid
             self._align_barrier = barrier
             self._align_received = set()
+            tracer = get_tracer()
+            if tracer.enabled:
+                # one marker per alignment, linked to the coordinator's
+                # trigger by the barrier's context
+                ctx = barrier.options.get("trace") \
+                    if isinstance(barrier.options, dict) else None
+                tracer.record_instant(
+                    "checkpoint.align.begin", checkpoint_id=cid,
+                    task=self.vertex.name, subtask=self.subtask_index,
+                    **({"trace_id": ctx["trace_id"],
+                        "parent_span_id": ctx["span_id"]} if ctx else {}))
         self._align_received.add(ch.channel_id)
         ch.blocked = True
         self._maybe_complete_alignment()
@@ -459,10 +580,16 @@ class SubtaskInstance:
     def _complete_checkpoint(self, barrier: CheckpointBarrier):
         """Every live channel delivered the barrier: snapshot, forward
         the barrier, ack."""
-        snapshot = self.snapshot(barrier.checkpoint_id)
-        self.router.broadcast_barrier(barrier)
-        if self.ack_fn is not None:
-            self.ack_fn(self.task_key, barrier.checkpoint_id, snapshot)
+        ctx = (barrier.options.get("trace")
+               if isinstance(barrier.options, dict) else None)
+        with get_tracer().span_linked(self._span_checkpoint, ctx,
+                                      checkpoint_id=barrier.checkpoint_id,
+                                      task=self.vertex.name,
+                                      subtask=self.subtask_index):
+            snapshot = self.snapshot(barrier.checkpoint_id)
+            self.router.broadcast_barrier(barrier)
+            if self.ack_fn is not None:
+                self.ack_fn(self.task_key, barrier.checkpoint_id, snapshot)
 
     def _on_end_of_stream(self, ch: _InputChannel):
         ch.eos = True
@@ -585,23 +712,46 @@ class LocalExecutor:
     def __init__(self, state_backend=None, device: DeviceLike = None,
                  restart_strategy: Optional[dict] = None,
                  processing_time_service: Optional[ProcessingTimeService] = None,
-                 failover_strategy: str = "full"):
+                 failover_strategy: str = "full",
+                 latency_interval_ms: Optional[int] = None,
+                 sample_interval_ms: Optional[int] = None,
+                 metrics_history_size: int = 1024):
         self.state_backend = state_backend
         self.device = device
         self.restart_strategy_config = restart_strategy or {"strategy": "none"}
         self.pts = processing_time_service or TestProcessingTimeService()
         self.failover_strategy = failover_strategy
+        self.metrics = MetricRegistry()
+        register_state_gauges(self.metrics)
+        register_state_introspection_gauges(self.metrics)
+        register_device_gauges(self.metrics)
+        register_profiler_gauges(self.metrics)
+        #: sources emit a LatencyMarker this often (None: never)
+        self.latency_interval_ms = latency_interval_ms
+        #: the metrics journal's cadence (None: no journal exists)
+        self.sample_interval_ms = sample_interval_ms
+        self.metrics_history_size = metrics_history_size
 
     def build_subtasks(self, job_graph: JobGraph
                        ) -> Dict[int, List[SubtaskInstance]]:
         """Every vertex's subtasks, and every edge's channels: all to
         all, or pointwise groups for a pointwise partitioner."""
+        job_group = self.metrics.job_group(job_graph.job_name)
+        latency_stats = LatencyStats(job_group)
+        register_runtime_profile_gauges(self.metrics)
         subtasks = {}
         for v in job_graph.topological_vertices():
+            vertex_group = job_group.add_group(f"{v.id}_{v.name}")
             subtasks[v.id] = [
                 SubtaskInstance(v, self.state_backend, self.device, i,
-                                v.parallelism, processing_time_service=self.pts)
+                                v.parallelism, processing_time_service=self.pts,
+                                metrics_group=vertex_group.add_group(str(i)),
+                                latency_stats=latency_stats)
                 for i in range(v.parallelism)]
+            # the sampling profiler's attribution, stamped once here
+            for i, st in enumerate(subtasks[v.id]):
+                st.profiler_scope = (job_graph.job_name, f"{v.id}_{v.name}", i)
+            register_backpressure_gauges(vertex_group, subtasks[v.id])
         for e in job_graph.edges:
             ups = subtasks[e.source_vertex_id]
             downs = subtasks[e.target_vertex_id]
@@ -637,6 +787,9 @@ class LocalExecutor:
         result = JobExecutionResult(job_graph.job_name)
         cp_config = job_graph.checkpoint_config
         try:
+            journal, evaluator = make_health_plane(
+                self.metrics, self.sample_interval_ms,
+                self.metrics_history_size, job_graph.job_name, client)
             storage = make_checkpoint_storage(cp_config) if cp_config else None
             restart = make_restart_strategy(self.restart_strategy_config)
             restore_from = initial_restore_point(job_graph)
@@ -648,12 +801,14 @@ class LocalExecutor:
             while True:
                 try:
                     self._run_attempt(job_graph, client, result, storage,
-                                      restore_from, carryover)
-                    client._finish(result=result)
+                                      restore_from, carryover, journal,
+                                      evaluator)
+                    _resolve_launch_ledger()
+                    self._finish(client, job_graph, result=result)
                     return
                 except JobCancelledException:
                     result.cancelled = True
-                    client._finish(result=result)
+                    self._finish(client, job_graph, result=result)
                     return
                 except SuppressRestartsException as e:
                     raise e.cause
@@ -688,12 +843,20 @@ class LocalExecutor:
                                               in restore_from["tasks"].items()
                                               if k in failed}}
         except BaseException as e:  # noqa: BLE001
-            client._finish(error=e)
+            self._finish(client, job_graph, error=e)
+
+    def _finish(self, client: JobClient, job_graph: JobGraph,
+                **outcome) -> None:
+        """The job's end: its gauges keep the values they read now and
+        let go of its operators, then the client learns the outcome."""
+        self.metrics.job_group(job_graph.job_name).freeze()
+        client._finish(**outcome)
 
     def _run_attempt(self, job_graph: JobGraph, client: JobClient,
                      result: JobExecutionResult, storage,
                      restore_from: Optional[dict],
-                     carryover: Optional[dict] = None) -> None:
+                     carryover: Optional[dict] = None,
+                     journal=None, evaluator=None) -> None:
         reset = getattr(self.pts, "reset_timers", None)
         if reset is not None:
             reset()  # timers of a failed attempt's operators
@@ -750,6 +913,10 @@ class LocalExecutor:
                     tolerable_checkpoint_failures=cfg.get("tolerable_failures"))
                 coordinator.vertex_parallelisms = {
                     vid: v.parallelism for vid, v in job_graph.vertices.items()}
+                register_checkpoint_gauges(self.metrics, job_graph.job_name,
+                                           coordinator)
+                register_faulttolerance_gauges(self.metrics,
+                                               job_graph.job_name, coordinator)
                 # ids go on across restarts
                 ids = storage.checkpoint_ids()
                 if ids:
@@ -762,11 +929,14 @@ class LocalExecutor:
 
             for st in all_tasks:
                 st.ack_fn = ack
-            client.executor_state = {"subtasks": subtasks,
-                                     "coordinator": coordinator}
+            client.executor_state = {
+                "subtasks": subtasks, "coordinator": coordinator,
+                "checkpoints_base": getattr(result, "_cp_base", 0),
+                "journal": journal, "health": evaluator,
+                "upstreams": derive_upstreams(job_graph)}
             try:
                 self._loop(client, result, coordinator, ack_queue,
-                           all_tasks, sources)
+                           all_tasks, sources, journal, evaluator)
             except TaskFailureException as tfe:
                 if self.failover_strategy == "region":
                     tfe.live_state, tfe.capture_failed_keys = \
@@ -794,18 +964,45 @@ class LocalExecutor:
 
     # ---- the loop ---------------------------------------------------
     def _loop(self, client, result, coordinator, ack_queue, all_tasks,
-              sources):
+              sources, journal=None, evaluator=None):
         pts = self.pts
         pts_poll = getattr(pts, "fire_due", None)
         active = list(sources)
+        profiler = get_profiler()
+        non_sources = [st for st in all_tasks if not st.is_source]
+        last_latency_emit = _time.monotonic()
         while True:
             if client.cancel_requested:
                 raise JobCancelledException()
+            # periodic latency markers from the sources
+            if self.latency_interval_ms is not None:
+                now = _time.monotonic()
+                if (now - last_latency_emit) * 1000.0 >= self.latency_interval_ms:
+                    last_latency_emit = now
+                    now_ms = _time.time() * 1000.0
+                    for s in active:
+                        s.head.output.emit_latency_marker(LatencyMarker(
+                            now_ms, s.head.operator_id, s.subtask_index))
             # a due checkpoint's barrier goes ahead of this turn's records
             if coordinator is not None and all(not s.finished for s in sources):
                 coordinator.maybe_trigger()
             for s in active:
+                if profiler.enabled:
+                    profiler.set_scope(s)
+                before = s.io_metrics.num_records_out.count \
+                    if s.io_metrics is not None else 0
                 s.source_step(self.SOURCE_BUDGET)
+                observe_subtask(s, s.io_metrics is not None and
+                                s.io_metrics.num_records_out.count != before)
+            # the other subtasks ran inside the sources' calls: one
+            # observation each per turn, busy when records came in
+            for st in non_sources:
+                io = st.io_metrics
+                if io is None:
+                    continue
+                seen = io.num_records_in.count
+                observe_subtask(st, seen != getattr(st, "_seen_in", 0))
+                st._seen_in = seen
             active = [s for s in active if not s.finished]
             if pts_poll is not None:
                 pts_poll()
@@ -818,6 +1015,9 @@ class LocalExecutor:
                         cid = s.pending_trigger[0]
                         s.pending_trigger = None
                         coordinator.decline(cid)
+            # the metrics journal's tick, and the health rules on a sample
+            if journal is not None and journal.maybe_sample():
+                evaluator.evaluate()
             if not active:
                 break
         # end of input: the test clock's pending timers fire until none
@@ -848,6 +1048,41 @@ class LocalExecutor:
 
 
 # ---- restore assignment ----------------------------------------------
+
+def _resolve_launch_ledger() -> None:
+    """The job's end: the launch ledger's pending CUDA events resolve
+    (one synchronize) while the plane is on."""
+    if get_tracer().enabled or TELEMETRY.enabled:
+        LAUNCH_LEDGER.resolve()
+
+
+def make_health_plane(metrics, sample_interval_ms: Optional[int],
+                      history_size: int, job_name: str, client):
+    """Journal and health evaluator of one job, shared by its restart
+    attempts so history survives a failover; (None, None) when sampling
+    is off, so the loop's tick is one None check (ref
+    ``flink_tpu/runtime/local.py:1162-1190``)."""
+    if sample_interval_ms is None:
+        return None, None
+    from flink_tpu_torch.runtime.timeseries import (HealthEvaluator,
+                                                    MetricsJournal,
+                                                    register_health_gauges)
+    journal = MetricsJournal(metrics, interval_ms=sample_interval_ms,
+                             history_size=history_size)
+
+    def bottleneck_supplier():
+        state = getattr(client, "executor_state", None) or {}
+        return locate_bottleneck(state.get("upstreams") or {},
+                                 read_vertex_stats(metrics.dump(), job_name))
+
+    evaluator = HealthEvaluator(
+        journal,
+        coordinator_supplier=lambda: (
+            getattr(client, "executor_state", None) or {}).get("coordinator"),
+        bottleneck_supplier=bottleneck_supplier)
+    register_health_gauges(metrics, job_name, evaluator)
+    return journal, evaluator
+
 
 def _op_snap_has_state(opsnap: dict) -> bool:
     """Does one operator's snapshot carry anything whose loss would

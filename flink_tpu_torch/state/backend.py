@@ -112,6 +112,10 @@ class KeyedStateBackend(abc.ABC):
         self._states: Dict[str, Any] = {}
         #: name -> descriptor it was bound with
         self._descriptors: Dict[str, StateDescriptor] = {}
+        # the introspection plane's registry (a WeakSet: free, and
+        # walked only while the plane is on)
+        from flink_tpu_torch.state.introspect import INTROSPECTION
+        INTROSPECTION.register_backend(self)
 
     # ---- key context ------------------------------------------------
     def set_current_key(self, key: Any) -> None:
@@ -187,6 +191,12 @@ class KeyedStateBackend(abc.ABC):
         has one, else the exact per-row path (set_current_key +
         set_current_namespace + add).  Returns the path taken, "batch"
         or "rows".  Leaves the current key/namespace undefined."""
+        from flink_tpu_torch.state.introspect import INTROSPECTION
+        from flink_tpu_torch.state.stats import STATE_STATS
+        n = len(keys)
+        name = _state_name(state)
+        if INTROSPECTION.enabled:
+            INTROSPECTION.note_ingest(name, keys, self.max_parallelism)
         native = getattr(state, "add_batch", None)
         if native is not None:
             if pre_extracted:
@@ -194,14 +204,16 @@ class KeyedStateBackend(abc.ABC):
                        pre_extracted=True)
             else:
                 native(keys, namespace, values, namespaces=namespaces)
+            STATE_STATS.note_batch(name, n)
             return "batch"
         if namespaces is None:
             state.set_current_namespace(namespace)
-        for i in range(len(keys)):
+        for i in range(n):
             self.set_current_key(keys[i])
             if namespaces is not None:
                 state.set_current_namespace(namespaces[i])
             state.add(values[i])
+        STATE_STATS.note_fallback(name, n)
         return "rows"
 
     def get_batch(self, state, keys, namespace, namespaces=None):
@@ -209,11 +221,14 @@ class KeyedStateBackend(abc.ABC):
         ``found[i]`` False where the row has no state.  Uses the state's
         own ``get_batch`` (one flush and one gather on the GPU backend)
         when it has one.  Leaves the current key/namespace undefined."""
+        from flink_tpu_torch.state.stats import STATE_STATS
+        n = len(keys)
+        name = _state_name(state)
         native = getattr(state, "get_batch", None)
         if native is not None:
             results, found = native(keys, namespace, namespaces=namespaces)
+            STATE_STATS.note_batch(name, n)
             return results, found, "batch"
-        n = len(keys)
         results = []
         found = np.empty(n, bool)
         if namespaces is None:
@@ -225,6 +240,7 @@ class KeyedStateBackend(abc.ABC):
             v = state.get()
             results.append(v)
             found[i] = v is not None
+        STATE_STATS.note_fallback(name, n)
         return results, found, "rows"
 
     def clear_batch(self, state, keys, namespace, namespaces=None) -> str:
@@ -242,6 +258,33 @@ class KeyedStateBackend(abc.ABC):
                 state.set_current_namespace(namespaces[i])
             state.clear()
         return "rows"
+
+    # ---- introspection ----------------------------------------------
+    def accounting_breakdown(self) -> Dict[str, Dict[int, dict]]:
+        """Per-(state, key group) rows, bytes and namespace counts of the
+        live state: this backend's own snapshot decoded as the offline
+        inspector decodes a checkpoint's (``inspect_snapshot_chunks``),
+        so live and offline accounting agree by construction.  Called
+        only by the introspection plane, on demand."""
+        from flink_tpu_torch.state.introspect import inspect_snapshot_chunks
+        from flink_tpu_torch.state.stats import STATE_STATS
+        # a read, not a checkpoint: the snapshot counters stay as they were
+        counted = STATE_STATS.snapshot_rows, STATE_STATS.snapshot_columns
+        try:
+            snap = self.snapshot()
+        finally:
+            STATE_STATS.snapshot_rows, STATE_STATS.snapshot_columns = counted
+        report = inspect_snapshot_chunks([snap])
+        return {name: {int(kg): dict(e) for kg, e in st["key_groups"].items()}
+                for name, st in report["states"].items()}
+
+    def dispose(self) -> None:
+        """Freeze the accounting into the introspection plane (while it
+        is on), then drop the bound states."""
+        from flink_tpu_torch.state.introspect import INTROSPECTION
+        if INTROSPECTION.enabled:
+            INTROSPECTION.note_dispose(self)
+        self._states.clear()
 
     # ---- snapshot / restore -----------------------------------------
     def _meta(self) -> dict:
@@ -350,3 +393,8 @@ def decode_obj_column(col, n: int) -> list:
     if col[0] == "pickle":
         return list(col[1])
     return _decode_value_column(col, n)
+
+
+def _state_name(state) -> str:
+    d = getattr(state, "_descriptor", None)
+    return getattr(d, "name", "?") if d is not None else "?"

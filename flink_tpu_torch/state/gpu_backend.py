@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import pickle
 import threading
+import time
 from collections import defaultdict
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -59,6 +60,8 @@ from flink_tpu_torch.core.state import (AggregatingState,
                                         ValueStateDescriptor)
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.kernels import set_rows
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.state.stats import STATE_STATS, register_device_state
 from flink_tpu_torch.ops.device_agg import (DeviceAggregateFunction,
                                             device_dtype)
 from flink_tpu_torch.state.backend import (VOID_NAMESPACE, KeyedStateBackend,
@@ -79,6 +82,9 @@ DEFAULT_MICROBATCH = 16384
 
 def _round_up_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
+
+
+_perf_ns = time.perf_counter_ns
 
 
 class DeviceAggregatingState(AggregatingState):
@@ -125,6 +131,7 @@ class DeviceAggregatingState(AggregatingState):
         self._pending_hi: List[int] = []
         self._pending_lo: List[int] = []
         self._device_lock = threading.RLock()
+        register_device_state(self)
 
     def set_current_namespace(self, namespace) -> None:
         self._namespace = namespace
@@ -178,8 +185,14 @@ class DeviceAggregatingState(AggregatingState):
         candidates.sort()
         victims = [s for _, s in candidates[:n]]
         idx = self._slots(victims)
+        if TELEMETRY.enabled:
+            t0 = _perf_ns()
         host_rows = {name: arr.index_select(0, idx.to(torch.int64)).cpu().numpy()
                      for name, arr in self.device_state.items()}
+        if TELEMETRY.enabled:
+            TELEMETRY.record_transfer(
+                "d2h", sum(a.nbytes for a in host_rows.values()), t0,
+                _perf_ns(), "state.evict")
         for i, s in enumerate(victims):
             entry = self.slot_meta[s]
             self.host_tier[entry] = {name: host_rows[name][i]
@@ -203,9 +216,15 @@ class DeviceAggregatingState(AggregatingState):
         row = self.host_tier[entry]
         idx = self._slots([slot])
         with self._device_lock:
+            if TELEMETRY.enabled:
+                t0 = _perf_ns()
             for name, val in row.items():
                 set_rows(self.device_state[name], idx,
                          torch.from_numpy(np.array(val)[None]))
+            if TELEMETRY.enabled:
+                TELEMETRY.record_transfer(
+                    "h2d", sum(getattr(v, "nbytes", 0) for v in row.values()),
+                    t0, _perf_ns(), "state.promote")
             del self.host_tier[entry]
             self.slot_index[entry] = slot
             self._slot_flushed[slot] = 1
@@ -311,7 +330,15 @@ class DeviceAggregatingState(AggregatingState):
                                  .astype(np.uint32).view(np.int32))
             lo = self._to_device(np.asarray(self._pending_lo, np.uint64)
                                  .astype(np.uint32).view(np.int32))
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
         agg.update(self.device_state, slots, values, hi, lo, n)
+        if tel:
+            TELEMETRY.record_transfer(
+                "h2d", sum(t.nbytes for t in (slots, values, hi, lo)
+                           if t is not None), t0, _perf_ns(), "state.flush")
+            TELEMETRY.note_flush(n)
+        STATE_STATS.note_flush(n)
         flushed = self._slot_flushed
         for s in self._pending_slots:
             flushed[s] = 1
@@ -321,8 +348,16 @@ class DeviceAggregatingState(AggregatingState):
         self._pending_lo.clear()
 
     # ---- read path --------------------------------------------------
-    def _result(self, state, slots: torch.Tensor) -> np.ndarray:
-        return self.agg.result(state, slots).cpu().numpy()
+    def _result(self, state, slots: torch.Tensor,
+                tag: str = "state.fire") -> np.ndarray:
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
+        res = self.agg.result(state, slots).cpu().numpy()
+        if tel:
+            TELEMETRY.record_transfer("d2h", res.nbytes, t0, _perf_ns(), tag)
+            if tag == "state.fire":
+                TELEMETRY.note_fire_read()
+        return res
 
     def get(self):
         slot = self._slot_for(self._backend.current_key, self._namespace,
@@ -371,9 +406,16 @@ class DeviceAggregatingState(AggregatingState):
     def _finalize_spilled(self, rows: List[Dict[str, np.ndarray]]) -> np.ndarray:
         """Results of host-tier rows: stack them into a temporary state
         on the device and finalize it with the same kernels."""
-        state = {name: self._to_device(np.stack([r[name] for r in rows]))
-                 for name in self.device_state}
-        return self._result(state, self._slots(np.arange(len(rows))))
+        host = {name: np.stack([r[name] for r in rows])
+                for name in self.device_state}
+        if TELEMETRY.enabled:
+            t0 = _perf_ns()
+            TELEMETRY.record_transfer(
+                "h2d", sum(a.nbytes for a in host.values()), t0, t0,
+                "state.fire.spill")
+        state = {name: self._to_device(a) for name, a in host.items()}
+        return self._result(state, self._slots(np.arange(len(rows))),
+                            "state.fire.spill")
 
     # ---- clear and merge --------------------------------------------
     def clear(self) -> None:
@@ -514,8 +556,14 @@ class DeviceAggregatingState(AggregatingState):
             nss.append(namespace)
             slots.append(slot)
         idx = self._slots(slots).to(torch.int64)
+        if TELEMETRY.enabled:
+            t0 = _perf_ns()
         comps = {name: arr.index_select(0, idx).cpu().numpy()
                  for name, arr in self.device_state.items()}
+        if TELEMETRY.enabled:
+            TELEMETRY.record_transfer(
+                "d2h", sum(a.nbytes for a in comps.values()), t0,
+                _perf_ns(), "state.snapshot")
         if self.host_tier:
             spilled = list(self.host_tier.items())
             for (key, namespace), _ in spilled:
@@ -663,6 +711,7 @@ class GpuKeyedStateBackend(KeyedStateBackend):
             for namespace, key, value in table.entries():
                 per_kg_rows[assign_to_key_group(key, mp)].append(
                     (name, namespace, key, value))
+                STATE_STATS.snapshot_rows += 1
         for name, dstate in self._device_states.items():
             for kg, (keys, nss, comps) in dstate.snapshot_columns().items():
                 per_kg_cols[kg].setdefault(name, []).append({
@@ -671,6 +720,7 @@ class GpuKeyedStateBackend(KeyedStateBackend):
                     "comps": comps,
                     "kind": "acc",
                 })
+                STATE_STATS.snapshot_columns += len(keys)
         chunks = {kg: pickle.dumps({"v": 2, "rows": per_kg_rows.get(kg, []),
                                     "cols": per_kg_cols.get(kg, {})},
                                    protocol=pickle.HIGHEST_PROTOCOL)

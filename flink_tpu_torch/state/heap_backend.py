@@ -642,6 +642,7 @@ class HeapKeyedStateBackend(KeyedStateBackend):
     def snapshot(self) -> KeyedStateSnapshot:
         """Per-key-group v2 chunks: each typed column block as one key
         column and one value buffer, everything else per row."""
+        from flink_tpu_torch.state.stats import STATE_STATS
         per_kg_rows: Dict[int, list] = defaultdict(list)
         per_kg_cols: Dict[int, Dict[str, list]] = defaultdict(dict)
         mp = self.max_parallelism
@@ -652,6 +653,7 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                         for key, value in zip(bkeys, boxed):
                             per_kg_rows[assign_to_key_group(key, mp)].append(
                                 (name, namespace, key, value))
+                            STATE_STATS.snapshot_rows += 1
                         continue
                     for kg, idx in split_column_by_key_group(bkeys, mp):
                         per_kg_cols[kg].setdefault(name, []).append({
@@ -660,10 +662,12 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                             "comps": {"value": vals[idx]},
                             "kind": "scalar",
                         })
+                        STATE_STATS.snapshot_columns += len(idx)
             else:
                 for namespace, key, value in table.entries():
                     per_kg_rows[assign_to_key_group(key, mp)].append(
                         (name, namespace, key, value))
+                    STATE_STATS.snapshot_rows += 1
         chunks = {kg: pickle.dumps({"v": 2, "rows": per_kg_rows.get(kg, []),
                                     "cols": per_kg_cols.get(kg, {})},
                                    protocol=pickle.HIGHEST_PROTOCOL)

@@ -56,14 +56,23 @@ order (channel-major for a route), which is the single-device program's
 global stable order, bit for bit.  A route whose ``shards * (channels +
 1)`` classes exceed the kernel's limit takes the single-device program.
 
-Not ported: transfer telemetry, the type-flow prover's static skip,
-``attach`` mode (the reference's ``_execute`` never produces it) and the
-consumers of ``fusion_report``.
+Telemetry: while ``TELEMETRY`` is on, a run is one dispatch of the
+program's label (``chain.<head>→<tail>``, the reference's ``traced_jit``
+label) and the ledger's ``chain.boundary`` tag holds its copies: one
+h2d of the columns, and one d2h of the results, the stage row counts,
+the pane starts and ``chain_route``'s class starts, so its bytes are
+every device-to-host byte of the run.  The reference pads to the
+bucket, so its bytes differ.
+
+Not ported: the type-flow prover's static skip, ``attach`` mode (the
+reference's ``_execute`` never produces it) and the consumers of
+``fusion_report``.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -72,6 +81,8 @@ import torch
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.kernels.chain_route import MAX_CLASSES
 from flink_tpu_torch.parallel import mesh as _mesh
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.runtime.tracing import traced_call
 
 log = logging.getLogger(__name__)
 
@@ -300,6 +311,12 @@ def compile_chain(operators, router=None,
 # the program
 # ---------------------------------------------------------------------
 
+def _run_program(prog: "FusedChainProgram", batch, tel):
+    """The program's traced body: a function of the module, so the
+    wrapper a program keeps holds no reference back to it."""
+    return prog._execute_inner(batch, tel)
+
+
 class FusedChainProgram:
     """One fused chain run: the UDF stages and ``chain_route`` on the
     card, the numpy-twin verification, and the host emission.  Anchored
@@ -326,6 +343,8 @@ class FusedChainProgram:
             or type(self.anchor).__name__
         tail_id = getattr(tail_op, "operator_id", "") or type(tail_op).__name__
         self.label = f"chain.{head_id}→{tail_id}"
+        # the reference's traced_jit label for the fused program
+        self._traced = traced_call(_run_program, self.label)
         self.active = True
         self.demoted_reason: Optional[str] = None
         self._verified_sigs: set = set()
@@ -395,6 +414,16 @@ class FusedChainProgram:
 
     # ---- internals ---------------------------------------------------
     def _execute(self, batch):
+        tel = TELEMETRY
+        if not tel.enabled:
+            return self._execute_inner(batch, None)
+        return self._traced(self, batch, tel)
+
+    def _execute_inner(self, batch, tel):
+        """The program on ``batch``; ``tel`` (the telemetry, when on)
+        ledgers the region's boundary copies under ``chain.boundary``:
+        one h2d of the columns, one d2h of the results with the class
+        starts that ``chain_route`` reads back."""
         from flink_tpu_torch.kernels.chain_route import chain_route
 
         n = len(batch)
@@ -426,8 +455,15 @@ class FusedChainProgram:
         use_mesh = (shards > 1
                     and bucket >= shards * MESH_MIN_ROWS_PER_SHARD
                     and shards * nclass <= MAX_CLASSES)
+        if tel is not None:
+            t0 = time.perf_counter_ns()
         d_cols = tuple(c.to(dev) for c in host_cols)
         d_ts, d_tsm = to_dev(ts), to_dev(tsm)
+        if tel is not None:
+            tel.record_transfer(
+                "h2d", sum(c.nbytes for c in host_cols)
+                + sum(a.nbytes for a in (ts, tsm) if a is not None),
+                t0, time.perf_counter_ns(), "chain.boundary")
         try:
             out_cols, keep, stage_rows, tuple_out = self._stages(
                 d_cols, scalar, n)
@@ -447,9 +483,19 @@ class FusedChainProgram:
             slide=self._w_slide if mode == "window" else 0,
             shard_rows=bucket // shards if use_mesh else 0,
             n_shards=shards if use_mesh else 0)
+        if tel is not None:
+            t2 = time.perf_counter_ns()
         host = [o.cpu().numpy() for o in outs]
         pane = pane.cpu().numpy() if pane is not None else None
         stage_rows = stage_rows.cpu().numpy()
+        if tel is not None:
+            # the class starts came back inside chain_route; their bytes
+            # count here, their copy time in the launch's
+            tel.record_transfer(
+                "d2h", sum(h.nbytes for h in host) + stage_rows.nbytes
+                + (pane.nbytes if pane is not None else 0)
+                + np.asarray(starts).nbytes,
+                t2, time.perf_counter_ns(), "chain.boundary")
         if use_mesh:
             host, pane, starts = _gather_shards(host, pane, starts, shards,
                                                 nclass)

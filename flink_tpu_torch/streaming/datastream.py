@@ -118,6 +118,8 @@ class StreamExecutionEnvironment:
         self.failover_strategy = "full"
         self.savepoint_restore_path: Optional[str] = None
         self.allow_non_restored_state = False
+        #: sources emit a LatencyMarker this often (None: never)
+        self.latency_tracking_interval: Optional[int] = None
         self._last_executor = None
 
     @staticmethod
@@ -251,14 +253,49 @@ class StreamExecutionEnvironment:
         jg.allow_non_restored_state = self.allow_non_restored_state
         return jg
 
+    def set_latency_tracking_interval(self, interval_ms: Optional[int]
+                                      ) -> "StreamExecutionEnvironment":
+        """Sources emit a ``LatencyMarker`` every ``interval_ms``; each
+        subtask it reaches records its age in the job's ``latency``
+        histograms."""
+        self.latency_tracking_interval = interval_ms
+        return self
+
+    def get_metric_registry(self):
+        """The registry of the last executor (filled by ``execute`` /
+        ``execute_async``), or None before the first."""
+        return self._last_executor.metrics if self._last_executor else None
+
+    def enable_tracing(self, enabled: bool = True
+                       ) -> "StreamExecutionEnvironment":
+        """Turn the process-wide tracer on (or off): operator, device
+        flush and fire, host-runtime, CUDA launch and checkpoint spans
+        land in its Chrome trace-event ring.  Export after the job with
+        ``env.get_tracer().write_chrome_trace(path)``."""
+        from flink_tpu_torch.runtime.tracing import get_tracer
+        get_tracer().enabled = enabled
+        return self
+
+    def get_tracer(self):
+        """The process-wide ``runtime.tracing.Tracer``."""
+        from flink_tpu_torch.runtime.tracing import get_tracer
+        return get_tracer()
+
     def _make_executor(self, job_name: str):
+        from flink_tpu_torch.core.config import MetricOptions
         from flink_tpu_torch.runtime.local import LocalExecutor
         self.graph.job_name = job_name
         self._last_executor = LocalExecutor(
             state_backend=self.config, device=self.device,
             restart_strategy=self.restart_strategy,
             processing_time_service=self.processing_time_service,
-            failover_strategy=self.failover_strategy)
+            failover_strategy=self.failover_strategy,
+            latency_interval_ms=self.latency_tracking_interval,
+            sample_interval_ms=self.config.get_integer(
+                MetricOptions.SAMPLE_INTERVAL_MS),
+            metrics_history_size=self.config.get_integer(
+                MetricOptions.HISTORY_SIZE,
+                MetricOptions.HISTORY_SIZE_DEFAULT))
         return self._last_executor
 
     def execute(self, job_name: str = "job"):

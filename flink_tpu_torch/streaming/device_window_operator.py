@@ -61,6 +61,7 @@ from flink_tpu_torch.core.keygroups import make_key_group_keep_fn
 from flink_tpu_torch.device import DeviceLike, resolve_device
 from flink_tpu_torch.native import NativeStringInterner
 from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction, SumAggregate
+from flink_tpu_torch.runtime.tracing import get_tracer
 from flink_tpu_torch.streaming import log_windows as lw
 from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord, Watermark
 from flink_tpu_torch.streaming.operators import StreamOperator, TimestampedCollector
@@ -237,6 +238,12 @@ class DeviceWindowOperator(StreamOperator):
             raise ValueError(
                 f"no device engine for assigner {self.assigner!r}")
         self.collector = TimestampedCollector(self.output)
+        # the WindowOperator's late counter and fire histogram, reset
+        # for this attempt
+        self._emit_batch_hist = None
+        if self.metrics is not None:
+            self.metrics.counter("numLateRecordsDropped").count = 0
+            self._emit_batch_hist = self.metrics.histogram("emitBatchSize")
 
     # ---- input ------------------------------------------------------
     def process_element(self, record: StreamRecord):
@@ -295,6 +302,14 @@ class DeviceWindowOperator(StreamOperator):
     def _flush_buffer(self):
         if not self._keys:
             return
+        tracer = get_tracer()
+        if tracer.enabled:
+            with tracer.span("device_window.flush", batch=len(self._keys)):
+                self._flush_buffer_inner()
+        else:
+            self._flush_buffer_inner()
+
+    def _flush_buffer_inner(self):
         agg = self.agg
         extract = agg.extract_value
         # overridden on the class or per instance (a plain function set
@@ -352,9 +367,18 @@ class DeviceWindowOperator(StreamOperator):
         self._flush_buffer()
         if self.engine is not None:
             before = len(self.engine.emitted)
-            self.engine.advance_watermark(wm)
-            self._emit_from(before)
+            tracer = get_tracer()
+            if tracer.enabled:
+                with tracer.span("device_window.fire", watermark=wm):
+                    self.engine.advance_watermark(wm)
+                    self._emit_from(before)
+            else:
+                self.engine.advance_watermark(wm)
+                self._emit_from(before)
             self.num_late_records_dropped = self.engine.num_late_dropped
+            if self.metrics is not None:
+                self.metrics.counter("numLateRecordsDropped").count = \
+                    self.engine.num_late_dropped
         self.current_watermark = wm
         self.output.emit_watermark(watermark)
 
@@ -369,6 +393,8 @@ class DeviceWindowOperator(StreamOperator):
 
     def _emit_from(self, start_idx: int):
         emitted = self.engine.emitted
+        if self._emit_batch_hist is not None and len(emitted) > start_idx:
+            self._emit_batch_hist.update(len(emitted) - start_idx)
         fn = self.window_function
         id_to_key = self._id_to_key if self._interner is not None else None
         for key, result, w_start, w_end in emitted[start_idx:]:

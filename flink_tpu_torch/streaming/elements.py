@@ -24,6 +24,7 @@ class StreamElement:
     is_record = False
     is_watermark = False
     is_barrier = False
+    is_latency_marker = False
 
 
 class StreamRecord(StreamElement):
@@ -182,6 +183,27 @@ class CheckpointBarrier(StreamElement):
 
     def __hash__(self):
         return hash(self.checkpoint_id)
+
+
+class LatencyMarker(StreamElement):
+    """A marker a source emits every latency-tracking interval; each
+    subtask it reaches records its age in the job's latency histograms
+    and forwards it down one channel (port of
+    ``flink_tpu/streaming/elements.py:231``)."""
+
+    __slots__ = ("marked_time", "operator_id", "subtask_index")
+
+    is_latency_marker = True
+
+    def __init__(self, marked_time: float, operator_id: str,
+                 subtask_index: int):
+        self.marked_time = marked_time
+        self.operator_id = operator_id
+        self.subtask_index = subtask_index
+
+    def __repr__(self):
+        return (f"LatencyMarker({self.marked_time} from "
+                f"{self.operator_id}/{self.subtask_index})")
 
 
 class EndOfStream(StreamElement):

@@ -34,9 +34,9 @@ Windows fire by watermark like the other tiers (window [start,
 start + size) fires when ``start + size - 1 <= watermark``); logs past
 a size threshold compact into per-key accumulator rows (folded with
 ``merge`` at fire), so steady-state memory is O(keys), not O(records).
-The operator's lift decision is kept as ``engine.lift.mode``,
-``decided_by`` and ``fallback_reason``; the reference's ``lift``
-metric gauges wait for the port's metric registry.
+The operator's lift decision is published as the reference's ``lift``
+gauges (``decision``, ``decided_by``, ``fallback_reason``) and as a
+``lift.decision`` trace instant.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ import numpy as np
 from flink_tpu_torch import native as nat
 from flink_tpu_torch.core.functions import _FieldKeySelector
 from flink_tpu_torch.core.keygroups import make_key_group_keep_fn
+from flink_tpu_torch.runtime.tracing import get_tracer
 from flink_tpu_torch.streaming.device_window_operator import \
     batch_window_eligible
 from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP
@@ -216,6 +217,10 @@ class LiftedAggregate:
             self.fallback_reason = reason
             if warn:
                 self._warn_fallback(reason)
+        get_tracer().record_instant(
+            "lift.decision", mode=mode, decided_by=decided_by,
+            reason=reason or "", operator=self.owner,
+            aggregate=type(self.agg).__name__)
 
     def _warn_fallback(self, reason: str) -> None:
         key = (type(self.agg).__name__, reason.split(":")[0])
@@ -1549,6 +1554,18 @@ class GenericWindowOperator(StreamOperator):
             raise ValueError(
                 f"no generic engine for assigner {self.assigner!r}")
         self.collector = TimestampedCollector(self.output)
+        if self.metrics is not None:
+            self.metrics.counter("numLateRecordsDropped").count = 0
+            g = self.metrics.add_group("lift")
+            g.gauge("decision", lambda: (
+                (self.engine.lift.mode if self.engine is not None
+                 else None) or "undecided"))
+            g.gauge("decided_by", lambda: (
+                (self.engine.lift.decided_by if self.engine is not None
+                 else None) or "undecided"))
+            g.gauge("fallback_reason", lambda: (
+                (self.engine.lift.fallback_reason
+                 if self.engine is not None else None) or ""))
 
     def _static_verdict(self):
         """AOT liftability analysis of the aggregate (pass 2), cached;
@@ -1673,6 +1690,9 @@ class GenericWindowOperator(StreamOperator):
             self.engine.advance_watermark(wm)
             self._emit_from(before)
             self.num_late_records_dropped = self.engine.num_late_dropped
+            if self.metrics is not None:
+                self.metrics.counter("numLateRecordsDropped").count = \
+                    self.engine.num_late_dropped
         self.current_watermark = wm
         self.output.emit_watermark(watermark)
 

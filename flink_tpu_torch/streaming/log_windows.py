@@ -52,7 +52,8 @@ from flink_tpu_torch.ops.link_probe import recommended_finish_tier
 from flink_tpu_torch.ops.sketches import (CountMinSketchAggregate,
                                           HyperLogLogAggregate,
                                           QuantileSketchAggregate)
-from flink_tpu_torch.streaming.vectorized import hash_keys_np
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.streaming.vectorized import _perf_ns, hash_keys_np
 
 
 def _is_single_window(starts: np.ndarray) -> bool:
@@ -213,10 +214,22 @@ class _HllMode:
         """The estimate phase of the fire on the device: the compacted
         ranks and run ends go to the card, one ``hll_log_finish``
         launch, the float64 estimates come back."""
+        # the reference's log.finish ledger, of unpadded arrays
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
         r = torch.from_numpy(ranks).to(self.device)
         e = torch.from_numpy(ends).to(self.device)
+        if tel:
+            TELEMETRY.record_transfer("h2d", ranks.nbytes + ends.nbytes, t0,
+                                      _perf_ns(), "log.finish")
         est = hll_log_finish(r, e, self.agg.m, self.agg.alpha)
-        return est.cpu().numpy()
+        t1 = _perf_ns() if tel else 0
+        out = est.cpu().numpy()
+        if tel:
+            TELEMETRY.record_transfer("d2h", out.nbytes, t1, _perf_ns(),
+                                      "log.finish")
+            TELEMETRY.note_fire_read()
+        return out
 
 
 class _SumMode:
@@ -435,6 +448,8 @@ class LogStructuredTumblingWindows:
                 continue
             keys, cols = log.concat()
             fired += self._fire_window(keys, cols, start, start + self.size)
+        if TELEMETRY.enabled:
+            TELEMETRY.note_windows_fired(fired)
         return fired
 
     def _fire_window(self, keys, cols, start: int, end: int) -> int:
@@ -733,6 +748,8 @@ class LogStructuredSlidingWindows(LogStructuredTumblingWindows):
             if P + self.window_size - 1 > watermark:
                 break
             del self.windows[P]
+        if TELEMETRY.enabled:
+            TELEMETRY.note_windows_fired(fired)
         return fired
 
 

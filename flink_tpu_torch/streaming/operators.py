@@ -26,13 +26,15 @@ from __future__ import annotations
 import abc
 import copy
 import logging
+import time as _time
 from typing import List, Optional
 
 import numpy as np
 
 from flink_tpu_torch.core.functions import KeySelector, RichFunction, RuntimeContext
-from flink_tpu_torch.streaming.elements import (MIN_TIMESTAMP, RecordBatch,
-                                                StreamRecord, Watermark)
+from flink_tpu_torch.streaming.elements import (MAX_TIMESTAMP, MIN_TIMESTAMP,
+                                                RecordBatch, StreamRecord,
+                                                Watermark)
 from flink_tpu_torch.streaming.timers import (InternalTimerService,
                                               ProcessingTimeService)
 
@@ -79,6 +81,10 @@ class Output(abc.ABC):
 
     def collect_side(self, tag: OutputTag, record: StreamRecord) -> None:
         """Dropped unless a side output is wired."""
+
+    def emit_latency_marker(self, marker) -> None:  # noqa: B027
+        """Dropped unless the output forwards markers (the chain and
+        the router do)."""
 
     def close(self) -> None:  # noqa: B027
         pass
@@ -150,6 +156,9 @@ class StreamOperator(abc.ABC):
         #: rows handled inside a fused chain program (counted into
         #: columnar_rows too)
         self.fused_rows: int = 0
+        #: the operator's MetricGroup once the task layer registered it
+        self.metrics = None
+        self._boxed_fallbacks_counter = None
 
     def setup(self, output: Output, keyed_backend=None,
               processing_time_service: Optional[ProcessingTimeService] = None,
@@ -168,6 +177,48 @@ class StreamOperator(abc.ABC):
             self.timer_service = InternalTimerService(
                 f"{self.operator_id}-timers", keyed_backend,
                 processing_time_service, self)
+
+    def register_standard_metrics(self, group) -> None:
+        """Attach the operator's MetricGroup and publish the gauges
+        every operator has: ``currentWatermark``, ``watermarkLag``
+        (event time against the wall clock, ms) and the ``columnar``
+        group (ref ``flink_tpu/streaming/operators.py:222-240``)."""
+        self.metrics = group
+        group.gauge("currentWatermark", lambda: self.current_watermark)
+        group.gauge("watermarkLag", self._watermark_lag_ms)
+        col = group.add_group("columnar")
+        col.gauge("ratio", self._columnar_ratio)
+        col.gauge("fused_ratio", self._fused_ratio)
+        col.gauge("fallback_reason",
+                  lambda: self.columnar_fallback_reason or "")
+        col.gauge("decided_by",
+                  lambda: self.columnar_decided_by or "")
+        col.gauge("probes", lambda: self.kernel_probes)
+        self._boxed_fallbacks_counter = col.counter("boxed_fallbacks")
+        self._boxed_fallbacks_counter.count = self.boxed_fallbacks
+
+    def _columnar_ratio(self):
+        total = self.columnar_rows + self.boxed_rows
+        if total == 0:
+            return None  # never saw a batch: ratio undefined
+        return self.columnar_rows / total
+
+    def _fused_ratio(self):
+        total = self.columnar_rows + self.boxed_rows
+        if total == 0:
+            return None
+        return self.fused_rows / total
+
+    def _watermark_lag_ms(self):
+        wm = self.current_watermark
+        if wm <= MIN_TIMESTAMP:
+            return None  # no watermark seen yet: lag undefined
+        if wm >= MAX_TIMESTAMP:
+            return 0.0  # final watermark: stream drained, no lag
+        return max(0.0, _time.time() * 1000.0 - wm)
+
+    def process_latency_marker(self, marker) -> None:
+        self.output.emit_latency_marker(marker)
 
     def open(self) -> None:  # noqa: B027
         pass
@@ -196,6 +247,8 @@ class StreamOperator(abc.ABC):
         self.boxed_fallbacks += 1
         if self.columnar_fallback_reason is None:
             self.columnar_fallback_reason = reason
+        if self._boxed_fallbacks_counter is not None:
+            self._boxed_fallbacks_counter.inc()
 
     def process_batch(self, batch) -> None:
         """Consume a RecordBatch: box it into records once, here, and

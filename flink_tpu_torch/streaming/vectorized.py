@@ -27,10 +27,23 @@ fire tiles (there is no compile cache to keep warm; rows at or beyond
 ``n`` still contribute nothing); the full-arena re-init after a full
 fire refills the existing register file in place (``clear_rows`` over
 [0, C)) where JAX drops and reallocates it.
+
+Observability follows the reference engine: each device call goes
+through ``traced_call`` under the reference's ``traced_jit`` label
+(``window.masked_update``, ``window.result``, ``window.result_contig``,
+``window.result_all``, ``window.clear``, ``window.clear_contig``,
+``window.merge``; the full-arena refill is the reference's untraced
+``init_state``), and the device telemetry ledgers ``window.flush``
+(h2d), ``window.fire`` and ``window.snapshot`` (d2h) with the host
+arrays' bytes.  The port ships micro-batches unpadded, so its
+``window.flush`` bytes are the records' own where the reference's are
+those of the power-of-two padding and its size-1 dummies.
 """
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -43,6 +56,32 @@ from flink_tpu_torch.ops.device_agg import (DeviceAggregateFunction,
                                             device_dtype, state_from_numpy,
                                             state_to_numpy)
 from flink_tpu_torch.ops.hashing import split_hash64_np
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.runtime.tracing import traced_call
+from flink_tpu_torch.state.stats import register_device_engine
+
+_perf_ns = time.perf_counter_ns
+
+
+def _nbytes(*arrays) -> int:
+    return sum(a.nbytes for a in arrays if a is not None)
+
+
+class agg_call:
+    """An engine's class attribute: ``engine.<attr>(*args)`` calls
+    ``engine.agg.<method>(*args)`` through ``traced_call`` under the
+    reference's label.  The method is looked up at each call (so a
+    swapped method on the aggregate is the one that runs), and the
+    engine is bound at each access, so the wrapper holds no engine."""
+
+    def __init__(self, method: str, label: str):
+        self._call = traced_call(
+            lambda agg, *args: getattr(agg, method)(*args), label)
+
+    def __get__(self, engine, owner=None) -> Callable:
+        if engine is None:
+            return self
+        return functools.partial(self._call, engine.agg)
 
 
 def hash_keys_np(keys) -> np.ndarray:
@@ -306,6 +345,13 @@ class VectorizedTumblingWindows:
 
     #: fire/clear tile in slots (bounded further by bytes per slot)
     FIRE_TILE = 1 << 18
+    # the aggregate's calls under the reference's traced_jit labels
+    _jit_update = agg_call("update", "window.masked_update")
+    _jit_result = agg_call("result", "window.result")
+    _jit_clear = agg_call("clear_slots", "window.clear")
+    _jit_result_contig = agg_call("result_dense", "window.result_contig")
+    _jit_clear_contig = agg_call("clear_range", "window.clear_contig")
+    _jit_result_all = agg_call("result_dense", "window.result_all")
 
     def __init__(self, aggregate: DeviceAggregateFunction, window_size_ms: int,
                  initial_capacity: int = 1 << 16,
@@ -344,6 +390,7 @@ class VectorizedTumblingWindows:
         budget = 256 << 20
         tile = 1 << max(9, (budget // bytes_per_slot).bit_length() - 1)
         self.FIRE_TILE = min(tile, type(self).FIRE_TILE)
+        register_device_engine(self)
 
     # ---- ingestion --------------------------------------------------
     def process_batch(
@@ -439,7 +486,14 @@ class VectorizedTumblingWindows:
             hi, lo = to_device(hi0, dev), to_device(lo0, dev)
         # rows [0, n) scatter in place: the JAX package's jitted
         # make_masked_update, with n passed where it derives a mask
-        self.state = self.agg.update(self.state, slots, values, hi, lo, n)
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
+        self.state = self._jit_update(self.state, slots, values, hi, lo, n)
+        if tel:
+            TELEMETRY.record_transfer(
+                "h2d", _nbytes(slots, values, hi, lo), t0, _perf_ns(),
+                "window.flush")
+            TELEMETRY.note_flush(n)
         self._p_slots.clear()
         self._p_values.clear()
         self._p_hi.clear()
@@ -472,6 +526,8 @@ class VectorizedTumblingWindows:
                 else:
                     self._clear_tiled(slots)
                 self.arena.release(slots)
+        if TELEMETRY.enabled:
+            TELEMETRY.note_windows_fired(fired)
         return fired
 
     def _emit_fire(self, keys, slots: np.ndarray, start: int, end: int,
@@ -490,7 +546,15 @@ class VectorizedTumblingWindows:
         if full:
             # one dense pass over the whole state, one device-to-host
             # copy of the per-slot results, host-side index into order
-            results = self.agg.result_dense(self.state).cpu().numpy()[slots]
+            res = self._jit_result_all(self.state)
+            tel = TELEMETRY.enabled
+            t0 = _perf_ns() if tel else 0
+            res_all = res.cpu().numpy()
+            if tel:
+                TELEMETRY.record_transfer("d2h", res_all.nbytes, t0,
+                                          _perf_ns(), "window.fire")
+                TELEMETRY.note_fire_read()
+            results = res_all[slots]
             if self.emit_arrays:
                 self.fired.append((keys, results, start, end))
                 return slots
@@ -522,26 +586,33 @@ class VectorizedTumblingWindows:
         of the state in place; ragged/unordered tiles gather."""
         if self._is_contiguous_tile(chunk, tile):
             s = int(chunk[0])
-            return self.agg.result_dense(
+            return self._jit_result_contig(
                 {k: v[s:s + tile] for k, v in self.state.items()})
-        return self.agg.result(self.state,
-                               to_device(chunk.astype(np.int32), self.device))
+        return self._jit_result(self.state,
+                                to_device(chunk.astype(np.int32), self.device))
 
     def _gather_tiled_np(self, slots: np.ndarray) -> np.ndarray:
         tile = self.FIRE_TILE
         # launch every tile before copying any result back
         outs = [self._fire_tile(slots[i:i + tile], tile)
                 for i in range(0, len(slots), tile)]
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        tel = TELEMETRY.enabled and outs
+        t0 = _perf_ns() if tel else 0
+        host = [o.cpu().numpy() for o in outs]
+        if tel:
+            TELEMETRY.record_transfer("d2h", _nbytes(*host), t0, _perf_ns(),
+                                      "window.fire")
+            TELEMETRY.note_fire_read(len(outs))
+        return np.concatenate(host)
 
     def _clear_tiled(self, slots: np.ndarray) -> None:
         tile = self.FIRE_TILE
         for i in range(0, len(slots), tile):
             chunk = slots[i:i + tile]
             if self._is_contiguous_tile(chunk, tile):
-                self.agg.clear_range(self.state, int(chunk[0]), tile)
+                self._jit_clear_contig(self.state, int(chunk[0]), tile)
             else:
-                self.agg.clear_slots(
+                self._jit_clear(
                     self.state, to_device(chunk.astype(np.int32), self.device))
 
     def block_until_ready(self) -> None:
@@ -554,8 +625,14 @@ class VectorizedTumblingWindows:
         arrays.  The dict is the JAX engine's snapshot format, so a
         snapshot restores into either package."""
         self.flush()
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
+        host_state = state_to_numpy(self.state)
+        if tel:
+            TELEMETRY.record_transfer("d2h", _nbytes(*host_state.values()),
+                                      t0, _perf_ns(), "window.snapshot")
         return {
-            "state": state_to_numpy(self.state),
+            "state": host_state,
             "capacity": self.capacity,
             "arena": _snapshot_arena(self.arena),
             "watermark": self.watermark,
@@ -606,12 +683,11 @@ class _ScratchMergeMixin:
     the scratch slot from the arena where the JAX engine does (the
     first merge), so arena numbering and snapshots match and restore
     in either package.  Requires self.agg / self.arena / self.state /
-    self.capacity / self.device."""
+    self.capacity / self.device and self._jit_merge: ``agg.merge_rows``
+    where every merge's dst are unique (plain loads and stores), else
+    ``agg.merge_slots`` (a dst may repeat)."""
 
     _scratch_slot_id: Optional[int] = None
-    #: True: every merge's dst are unique (``agg.merge_rows``, plain
-    #: loads and stores); False: a dst may repeat (``agg.merge_slots``)
-    unique_dst_merges = False
 
     def _scratch(self) -> int:
         if self._scratch_slot_id is None:
@@ -634,9 +710,7 @@ class _ScratchMergeMixin:
         self._scratch()
         d = device_slots(dst, self.capacity, self.device)
         s = device_slots(src, self.capacity, self.device)
-        merge = (self.agg.merge_rows if self.unique_dst_merges
-                 else self.agg.merge_slots)
-        self.state = merge(self.state, d, s)
+        self.state = self._jit_merge(self.state, d, s)
 
 
 class VectorizedSlidingWindows(_ScratchMergeMixin, VectorizedTumblingWindows):
@@ -651,7 +725,7 @@ class VectorizedSlidingWindows(_ScratchMergeMixin, VectorizedTumblingWindows):
     fire time, as device merges.  Semantics: WindowOperator +
     SlidingEventTimeWindows with lateness 0."""
 
-    unique_dst_merges = True
+    _jit_merge = agg_call("merge_rows", "window.merge")
 
     def __init__(self, aggregate: DeviceAggregateFunction,
                  window_size_ms: int, slide_ms: int,
@@ -729,6 +803,8 @@ class VectorizedSlidingWindows(_ScratchMergeMixin, VectorizedTumblingWindows):
             self._clear_tiled(union_slots)
             self.arena.release(union_slots)
         self._prune_panes(watermark)
+        if TELEMETRY.enabled:
+            TELEMETRY.note_windows_fired(fired)
         return fired
 
     def _prune_panes(self, watermark: int) -> None:

@@ -43,10 +43,13 @@ from flink_tpu_torch.ops.device_agg import (DeviceAggregateFunction,
                                             device_dtype, state_from_numpy,
                                             state_to_numpy)
 from flink_tpu_torch.ops.hashing import split_hash64_np
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.state.stats import register_device_engine
 from flink_tpu_torch.streaming.vectorized import (_restore_arena,
                                                   _ScratchMergeMixin,
                                                   _SlotArena,
                                                   _snapshot_arena,
+                                                  _nbytes, _perf_ns, agg_call,
                                                   device_slots, hash_keys_np,
                                                   to_device)
 
@@ -68,6 +71,12 @@ class VectorizedSessionWindows(_ScratchMergeMixin):
     with the accumulators resident on ``device`` (the card unless
     ``device="cpu"``)."""
 
+    # the aggregate's calls under the reference's traced_jit labels
+    _jit_update = agg_call("update", "window.masked_update")
+    _jit_merge = agg_call("merge_slots", "session.merge")
+    _jit_result = agg_call("result", "session.result")
+    _jit_clear = agg_call("clear_slots", "session.clear")
+
     def __init__(self, aggregate: DeviceAggregateFunction, gap_ms: int,
                  initial_capacity: int = 1 << 16,
                  emit: Optional[Callable[[Any, Any, int, int], None]] = None,
@@ -88,12 +97,13 @@ class VectorizedSessionWindows(_ScratchMergeMixin):
         #: stale when merges extend a session, pops revalidate against
         #: the live table
         self._expiry_heap: List[Tuple[int, int]] = []
+        register_device_engine(self)
 
     def _clear_release(self, slots: List[int]) -> None:
         if not slots:
             return
-        self.agg.clear_slots(self.state, device_slots(slots, self.capacity,
-                                                      self.device))
+        self._jit_clear(self.state, device_slots(slots, self.capacity,
+                                                 self.device))
         self.arena.release(np.asarray(slots, np.int64))
 
     # ---- ingestion --------------------------------------------------
@@ -169,9 +179,15 @@ class VectorizedSessionWindows(_ScratchMergeMixin):
             vh = np.asarray(value_hashes)[order][keep]
             hi0, lo0 = self.agg.compress_value_hash(*split_hash64_np(vh))
             hi, lo = to_device(hi0, dev), to_device(lo0, dev)
-        self.state = self.agg.update(
-            self.state, device_slots(rs, self.capacity, dev), vals, hi, lo,
-            len(rs))
+        d_slots = device_slots(rs, self.capacity, dev)
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
+        self.state = self._jit_update(self.state, d_slots, vals, hi, lo,
+                                      len(rs))
+        if tel:
+            TELEMETRY.record_transfer("h2d", _nbytes(d_slots, vals, hi, lo),
+                                      t0, _perf_ns(), "session.flush")
+            TELEMETRY.note_flush(len(rs))
 
         # 4. merge batch-sessions into the live table (host work per
         # session, the device merges of the batch in one call)
@@ -246,15 +262,23 @@ class VectorizedSessionWindows(_ScratchMergeMixin):
                 del self.table[khash]
         if not fire_slots:
             return 0
-        results = self.agg.result(
-            self.state, device_slots(fire_slots, self.capacity, self.device)
-        ).cpu().numpy()
+        res = self._jit_result(
+            self.state, device_slots(fire_slots, self.capacity, self.device))
+        tel = TELEMETRY.enabled
+        t0 = _perf_ns() if tel else 0
+        results = res.cpu().numpy()
+        if tel:
+            TELEMETRY.record_transfer("d2h", results.nbytes, t0, _perf_ns(),
+                                      "session.fire")
+            TELEMETRY.note_fire_read()
         for (key, start, end), res in zip(fire_meta, results):
             if self.emit is not None:
                 self.emit(key, res, start, end)
             else:
                 self.emitted.append((key, res, start, end))
         self._clear_release(fire_slots)
+        if TELEMETRY.enabled:
+            TELEMETRY.note_windows_fired(len(fire_slots))
         return len(fire_slots)
 
     def block_until_ready(self) -> None:

@@ -40,7 +40,10 @@ from flink_tpu_torch.core.state import (AggregatingStateDescriptor,
                                         ReducingStateDescriptor,
                                         StateDescriptor,
                                         ValueStateDescriptor)
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.runtime.tracing import get_tracer
 from flink_tpu_torch.state.backend import VOID_NAMESPACE
+from flink_tpu_torch.state.introspect import INTROSPECTION
 from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord
 from flink_tpu_torch.streaming.operators import (AbstractUdfStreamOperator,
                                                  OutputTag,
@@ -323,6 +326,12 @@ class WindowOperator(AbstractUdfStreamOperator):
             raise ValueError("WindowOperator needs a keyed state backend "
                              "(a key selector)")
         self._batch_demote_reason = self._batch_eligibility()
+        self._emit_batch_hist = None
+        if self.metrics is not None:
+            # eager, so monitoring sees the zero; a fresh attempt starts
+            # from zero (restart replays must not accumulate)
+            self.metrics.counter("numLateRecordsDropped").count = 0
+            self._emit_batch_hist = self.metrics.histogram("emitBatchSize")
         self.window_state = self.keyed_backend.get_or_create_keyed_state(
             self.state_descriptor)
         self.trigger_ctx = _WindowTriggerContext(self)
@@ -355,6 +364,10 @@ class WindowOperator(AbstractUdfStreamOperator):
     def _add_and_trigger(self, record: StreamRecord, window) -> None:
         self.window_state.set_current_namespace(window.to_namespace())
         self.window_state.add(self._state_value(record))
+        if INTROSPECTION.enabled:
+            INTROSPECTION.note_row(self.state_descriptor.name,
+                                   self.keyed_backend.current_key,
+                                   self.keyed_backend.max_parallelism)
         self.trigger_ctx.window = window
         result = self.trigger.on_element(record.value, record.timestamp,
                                          window, self.trigger_ctx)
@@ -366,6 +379,8 @@ class WindowOperator(AbstractUdfStreamOperator):
             self.output.collect_side(self.late_data_tag, record)
         else:
             self.num_late_records_dropped += 1
+            if self.metrics is not None:
+                self.metrics.counter("numLateRecordsDropped").inc()
 
     # ---- batch path -------------------------------------------------
     def _batch_eligibility(self) -> Optional[str]:
@@ -526,7 +541,10 @@ class WindowOperator(AbstractUdfStreamOperator):
                     self.output.collect_side(self.late_data_tag,
                                              StreamRecord(values[i], tlist[i]))
             else:
-                self.num_late_records_dropped += int(dropped.sum())
+                cnt = int(dropped.sum())
+                self.num_late_records_dropped += cnt
+                if self.metrics is not None:
+                    self.metrics.counter("numLateRecordsDropped").inc(cnt)
 
     def _replay_immediate(self, value, timestamp: int, wm: int) -> None:
         """Per-element body for a row's windows already past the
@@ -692,7 +710,10 @@ class WindowOperator(AbstractUdfStreamOperator):
             contents_col, found_mask, _ = backend.get_batch(
                 self.window_state, [key_col[i] for i in rows], None,
                 namespaces=[ns_col[i] for i in rows])
-            self._emit_fired(rows, key_col, ns_col, contents_col, found_mask)
+            emitted = self._emit_fired(rows, key_col, ns_col, contents_col,
+                                       found_mask)
+            if TELEMETRY.enabled and emitted:
+                TELEMETRY.note_windows_fired(emitted)
         cleanup_idx = np.nonzero(cleanup)[0]
         if cleanup_idx.size:
             rows = cleanup_idx.tolist()
@@ -710,27 +731,38 @@ class WindowOperator(AbstractUdfStreamOperator):
                                             wt.from_namespace(ns_col[i]), self)
 
     def _emit_fired(self, rows, key_col, ns_col, contents_col,
-                    found_mask) -> None:
+                    found_mask) -> int:
         """The window function over the gathered contents, in pop
-        order.  A device gather returns an ndarray whose 0-d rows unbox
-        as the per-row ``get()`` unboxes them."""
+        order; returns the windows that emitted.  A device gather
+        returns an ndarray whose 0-d rows unbox as the per-row ``get()``
+        unboxes them."""
         wt = self.assigner.window_type()
         backend = self.keyed_backend
         unbox = isinstance(contents_col, np.ndarray)
-        for j, i in enumerate(rows):
-            if not found_mask[j]:
-                continue
-            contents = contents_col[j]
-            if unbox:
-                if np.ndim(contents) == 0:
-                    contents = contents.item()
-            elif contents is None:
-                continue
-            window = wt.from_namespace(ns_col[i])
-            backend.set_current_key(key_col[i])
-            self.collector.set_absolute_timestamp(window.max_timestamp())
-            self._internal_fn.process(key_col[i], window, self, contents,
-                                      self.collector)
+        hist = self._emit_batch_hist
+        tracer = get_tracer()
+        span = tracer.span("window.fire.batch")
+        fired = 0
+        with span:
+            for j, i in enumerate(rows):
+                if not found_mask[j]:
+                    continue
+                contents = contents_col[j]
+                if unbox:
+                    if np.ndim(contents) == 0:
+                        contents = contents.item()
+                elif contents is None:
+                    continue
+                window = wt.from_namespace(ns_col[i])
+                backend.set_current_key(key_col[i])
+                if hist is not None:
+                    hist.update(len(contents)
+                                if hasattr(contents, "__len__") else 1)
+                self.collector.set_absolute_timestamp(window.max_timestamp())
+                self._internal_fn.process(key_col[i], window, self, contents,
+                                          self.collector)
+                fired += 1
+        return fired
 
     # ---- helpers ----------------------------------------------------
     def _react(self, result: int, window) -> None:
@@ -750,6 +782,21 @@ class WindowOperator(AbstractUdfStreamOperator):
 
     def _emit(self, window, contents) -> None:
         """Output timestamp = window.max_timestamp()."""
+        if self._emit_batch_hist is not None:
+            self._emit_batch_hist.update(
+                len(contents) if hasattr(contents, "__len__") else 1)
+        if TELEMETRY.enabled:
+            # one emitted (key, window): the denominator of the
+            # transfer-tax ratio
+            TELEMETRY.note_windows_fired(1)
+        tracer = get_tracer()
+        if tracer.enabled:
+            with tracer.span("window.fire"):
+                self.collector.set_absolute_timestamp(window.max_timestamp())
+                self._internal_fn.process(self.keyed_backend.current_key,
+                                          window, self, contents,
+                                          self.collector)
+            return
         self.collector.set_absolute_timestamp(window.max_timestamp())
         self._internal_fn.process(self.keyed_backend.current_key, window,
                                   self, contents, self.collector)

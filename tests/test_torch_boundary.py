@@ -7,9 +7,10 @@ Python aggregate on the generic tier, a count window over a device Sum,
 graph algorithms, an ML fit, a job on an 8-shard mesh (the mesh log
 tier), a checkpointed job that fails and restarts from its Fs
 checkpoint, and jobs restored from the JAX package's savepoint and
-checkpoint directory, then reads its own sys.modules and
-/proc/self/maps), and its entry points never fall back to the CPU on
-their own.  This test
+checkpoint directory, all with the tracer, the device telemetry and
+the state introspection on and a Chrome trace written at the end, then
+reads its own sys.modules and /proc/self/maps), and its entry points
+never fall back to the CPU on their own.  This test
 process has jax loaded already (the test configuration imports it), so
 the import check runs a job in a fresh interpreter."""
 
@@ -34,10 +35,18 @@ from flink_tpu_torch.streaming.sources import (
     BoundedOutOfOrdernessTimestampExtractor, CollectSink)
 from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
 import flink_tpu_torch.kernels, flink_tpu_torch.runtime.local
+# the observability plane, on for every job below
+import flink_tpu_torch.runtime.backpressure, flink_tpu_torch.runtime.profiler
+import flink_tpu_torch.runtime.timeseries, flink_tpu_torch.runtime.metrics
+from flink_tpu_torch.runtime.device_stats import TELEMETRY
+from flink_tpu_torch.state.introspect import INTROSPECTION
+TELEMETRY.enable()
+INTROSPECTION.enable()
 out = []
 for agg in (HyperLogLogAggregate(8), SumAggregate(np.float64)):
     agg.extract_value = lambda e: e[1]
     env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+    env.enable_tracing().set_latency_tracking_interval(1)
     (env.from_collection([(i % 7, i, 10 * i) for i in range(500)])
         .assign_timestamps_and_watermarks(
             BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
@@ -240,8 +249,19 @@ env.set_checkpoint_storage("filesystem", directory=sys.argv[2], retain=2)
 env.set_restart_strategy("fixed_delay", restart_attempts=2, delay_ms=0)
 job(env, items, from_checkpoint, TumblingEventTimeWindows.of(1000), FailAtOpen())
 env.execute()
+trace_path = tempfile.mktemp(suffix=".json")
+n_written = env.get_tracer().write_chrome_trace(trace_path)
+trace = json.load(open(trace_path))
+payload = TELEMETRY.payload()
+intro = INTROSPECTION.payload()
 maps = open("/proc/self/maps").read()
 print(json.dumps({"results": len(out), "keyed_results": len(keyed),
+                  "trace_events": len(trace["traceEvents"]),
+                  "trace_written": n_written,
+                  "trace_names": sorted({e["name"] for e in trace["traceEvents"]
+                                         if not e["name"].startswith("op.")}),
+                  "transfer_tags": sorted(payload["transfers"]),
+                  "ingested_states": sorted(intro["ingest"]),
                   "restarts": cp_result.restarts,
                   "restarted_sum": sum(v[2] for v in restarted.values),
                   "from_savepoint": sorted(from_savepoint.values),
@@ -409,6 +429,17 @@ def test_job_loads_neither_jax_nor_flink_tpu(tmp_path):
     assert report["port_runtime_loaded"]
     assert not report["reference_runtime_loaded"]
     assert report["modules"] == []
+    # the plane was on throughout: the trace file parses and holds the
+    # layers' spans, the ledger saw the device engines' copies
+    assert report["trace_events"] == report["trace_written"] > 0
+    for name in ("device_window.flush", "device_window.fire",
+                 "device.transfer", "window.fire.batch", "checkpoint.trigger",
+                 "checkpoint.barrier", "checkpoint.complete"):
+        assert name in report["trace_names"], name
+    assert any(n.startswith("native.") for n in report["trace_names"])
+    assert {"h2d.chain.boundary", "d2h.chain.boundary",
+            "h2d.state.flush"} <= set(report["transfer_tags"])
+    assert report["ingested_states"]
 
 
 def _imports(path: Path):
@@ -431,7 +462,11 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                    "streaming/generic_agg.py", "runtime/checkpoints.py",
                    "runtime/faults.py", "runtime/failover.py",
                    "runtime/chaos.py", "core/fs.py", "state/portable.py",
-                   "state/shared_registry.py"):
+                   "state/shared_registry.py", "runtime/tracing.py",
+                   "runtime/device_stats.py", "runtime/metrics.py",
+                   "runtime/timeseries.py", "runtime/backpressure.py",
+                   "runtime/profiler.py", "state/introspect.py",
+                   "state/stats.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]
