@@ -219,7 +219,35 @@ exit code at 0):
                 the framework's own bytes) and the window operator's
                 ``numRecordsIn`` (the events fed) and
                 ``numLateRecordsDropped`` (0);
-20. the launch counts of phases 4-19, each path counted on its own:
+20. ``sql``   the Table API and SQL: (a) BASELINE config #5 (``SELECT k,
+                APPROX_COUNT_DISTINCT(u) AS d FROM ev GROUP BY TUMBLE(ts,
+                INTERVAL '1' SECOND), k``) at the reference's size (2^22
+                events, 500,000 keys, one second, ``from_columns`` in
+                chunks of 2^19) on the columnar plan, its engine the log
+                tier with the device finish; every estimate within 4 HLL
+                standard errors (+ 3) of the exact distinct count, 4,096
+                sampled keys equal to numpy HLL and to the DataStream
+                job ``key_by().window(1 s).aggregate(HLL 12)`` on their
+                events, the events/s of the timed ``env.execute``; (b)
+                SESSION (gap 1 s) with APPROX_COUNT_DISTINCT on the
+                columnar plan (``VectorizedSessionWindows``), config
+                #4's 100,000 keys, 2^20 events over 30 s: the sessions
+                equal numpy's exactly, the estimates within the HLL
+                bound and, on 4,096 sessions, equal to numpy HLL; (c)
+                config #5 on 2^21 events with ``env.set_mesh`` on 8
+                virtual shards (the mesh log tier) and (d) at
+                parallelism 2 (the split exchange and
+                ``partition_custom``), each equal to the meshless run;
+                (e) the columnar interval join at ``bench_sql_join``'s
+                size (2^21 rows a side, 100,000 keys, +-500 ms over
+                60 s): the pair count and 1,024 sampled left rows' pairs
+                equal a numpy sort-and-searchsorted join; (f) a keyed
+                process function on the GPU backend (2^18 events over
+                4 s, 10,000 keys) keeping an AggregatingState of HLL 12
+                and emitting it at an event-time timer each second,
+                equal to the heap backend's on 500 sampled keys (through
+                a filter after the timestamps);
+21. the launch counts of phases 4-20, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -5583,6 +5611,410 @@ SOURCES = {
 }
 
 #: main-path runs, each with the kernels it must launch
+# ---------------------------------------------------------------------
+# the sql path: the Table API and SQL, BASELINE config #5
+# ---------------------------------------------------------------------
+
+def config5_events(n, n_keys, seed=13):
+    """Config #5's recipe (``bench.py``'s ``synth(n, n_keys, 1000)``):
+    uniform uint64 keys, sorted timestamps in one second, uint64
+    users."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, n).astype(np.uint64)
+    ts = np.sort(rng.integers(0, 1000, n).astype(np.int64))
+    users = rng.integers(0, 2 ** 63, n).astype(np.uint64)
+    return keys, ts, users
+
+
+CONFIG5_SQL = ("SELECT k, APPROX_COUNT_DISTINCT(u) AS d "
+               "FROM ev GROUP BY TUMBLE(ts, INTERVAL '1' SECOND), k")
+
+
+def _launch_delta(before) -> dict:
+    from flink_tpu_torch import kernels as K
+    return {k: K.LAUNCHES[k] - before[k] for k in before
+            if K.LAUNCHES[k] != before[k]}
+
+
+def _sql_run(dev, cols, sql, chunk, rowtime="ts", parallelism=1, mesh=None,
+             tables=None):
+    """One SQL query over columnar tables through
+    ``StreamTableEnvironment`` on the card: (the result table, its
+    batches' columns concatenated, seconds of env.execute, launches of
+    the run, the engines its window operators built)."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.streaming import columnar as col
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.table import StreamTableEnvironment
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_parallelism(parallelism)
+    if mesh is not None:
+        env.set_mesh(mesh)
+    t_env = StreamTableEnvironment.create(env)
+    for name, (tcols, rt) in (tables or {"ev": (cols, rowtime)}).items():
+        t_env.register_table(name, t_env.from_columns(tcols, rowtime=rt,
+                                                      chunk=chunk))
+    out = t_env.sql_query(sql)
+    sink = col.ColumnarCollectSink()
+    out.to_append_stream(batched=True).add_sink(sink)
+    engines = []
+    make = col.ColumnarWindowOperator._make_engine
+
+    def noted(op, key_dtype, require_log=False):
+        eng = make(op, key_dtype, require_log)
+        mode = getattr(eng, "mode", None)
+        engines.append((type(eng).__name__,
+                        getattr(mode, "finish_tier", None)))
+        return eng
+    col.ColumnarWindowOperator._make_engine = noted
+    before = dict(K.LAUNCHES)
+    try:
+        t0 = time.perf_counter()
+        env.execute("chip-smoke-sql")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        col.ColumnarWindowOperator._make_engine = make
+    names = list(sink.batches[0].cols) if sink.batches else []
+    got = {n: np.concatenate([np.asarray(b.cols[n]) for b in sink.batches])
+           for n in names}
+    return out, got, secs, _launch_delta(before), engines
+
+
+def _keyed_estimates(keys, est):
+    order = np.argsort(keys, kind="stable")
+    return keys[order], np.asarray(est, np.float64)[order]
+
+
+def _distinct_counts(groups, values):
+    """(sorted groups, distinct values of each) by one lexsort."""
+    order = np.lexsort((values, groups))
+    g, v = groups[order], values[order]
+    new = np.ones(len(g), bool)
+    new[1:] = (g[1:] != g[:-1]) | (v[1:] != v[:-1])
+    starts = np.ones(len(g), bool)
+    starts[1:] = g[1:] != g[:-1]
+    return g[starts], np.add.reduceat(new.astype(np.int64),
+                                      np.flatnonzero(starts))
+
+
+def _hll_bound(exact, m):
+    """4 standard errors of HLL at m registers (1.04 / sqrt(m)), plus 3
+    counts: at a few distinct values a key (config #5 has ~8) the
+    estimate is linear counting, which loses one count per register two
+    values share; three such collisions in one key have a probability
+    below 1e-4 at the largest keys of the run."""
+    return 4 * 1.04 / np.sqrt(m) * exact + 3.0
+
+
+def _sql_config5(dev, n, n_keys, chunk, n_sample, p, m):
+    """(a): config #5's query at the reference's size on the columnar
+    plan, against the DataStream job on the events of sampled keys and
+    the exact distinct counts of every key."""
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    keys, ts, users = config5_events(n, n_keys)
+    out, got, secs, launched, engines = _sql_run(
+        dev, {"k": keys, "u": users, "ts": ts}, CONFIG5_SQL, chunk)
+    check(bool(getattr(out, "columnar", False))
+          and out.stream.node.name == "columnar_window_agg",
+          "sql (a): config #5 lowers to the columnar plan")
+    check(engines == [("LogStructuredTumblingWindows", "device")],
+          f"sql (a): the engine is the log tier with the device finish ({engines})")
+    check(launched.get("hll_log_finish", 0) > 0,
+          f"sql (a): hll_log_finish launched ({launched})")
+    gk, gd = _keyed_estimates(got["k"], got["d"])
+    uk, exact = _distinct_counts(keys, users)
+    check(np.array_equal(gk, uk), f"sql (a): one row per key ({len(gk)})")
+    err = np.abs(gd - exact)
+    check(bool((err <= _hll_bound(exact, m)).all()),
+          "sql (a): every estimate within 4 HLL standard errors (+ 3) of the "
+          f"exact distinct count (worst {float(err.max()):.3f})")
+    # sampled keys: numpy HLL of their users, and the DataStream job
+    # key_by().window(1 s).aggregate(HLL 12) on their events
+    rng = np.random.default_rng(14)
+    sample = np.sort(rng.choice(uk, n_sample, replace=False))
+    sel = np.isin(keys, sample)
+    pos = np.searchsorted(gk, sample)
+    want = hll_reference(np.searchsorted(sample, keys[sel]),
+                         splitmix64_np(users[sel]), n_sample, p)
+    check(allclose(gd[pos], want, rtol=1e-5, atol=hll_atol(m)),
+          f"sql (a): {n_sample} sampled keys equal numpy HLL of their users")
+    events = list(zip(keys[sel].tolist(), users[sel].tolist(),
+                      ts[sel].tolist()))
+    agg = HyperLogLogAggregate(p)
+    agg.extract_value = lambda e: e[1]
+    ds_rows, ds_s = _api_job(
+        dev, events, lambda s: s.key_by(lambda e: e[0])
+        .window(TumblingEventTimeWindows.of(1000))
+        .aggregate(agg, lambda k, w, r: [(k, float(r[0]))]))
+    dk = np.array([k for k, _ in ds_rows], np.uint64)
+    dd = np.array([d for _, d in ds_rows], np.float64)
+    dk, dd = _keyed_estimates(dk, dd)
+    check(np.array_equal(dk, sample)
+          and allclose(gd[pos], dd, rtol=1e-6, atol=hll_atol(m)),
+          f"sql (a): {n_sample} sampled keys equal to the DataStream job "
+          "(rtol 1e-6 + log slack)")
+    return {"events": n, "keys": n_keys, "chunk": chunk, "rows": int(len(gk)),
+            "execute_s": secs, "events_per_s": n / secs,
+            "engines": engines, "launches": launched,
+            "max_rel_err": float((err / exact).max()),
+            "datastream_sample_events": int(sel.sum()),
+            "datastream_sample_s": ds_s}
+
+
+def _np_sessions(keys, ts, gap):
+    """Sessions by key: a new one where the key changes or the next event
+    is more than ``gap`` after the last; (order, session id per sorted
+    event, session keys, starts, ends)."""
+    order = np.lexsort((ts, keys))
+    k, t = keys[order], ts[order]
+    new = np.ones(len(k), bool)
+    new[1:] = (k[1:] != k[:-1]) | (t[1:] - t[:-1] > gap)
+    sid = np.cumsum(new) - 1
+    starts = t[new]
+    last = np.ones(len(k), bool)
+    last[:-1] = new[1:]
+    ends = t[last] + gap
+    return order, sid, k[new], starts, ends
+
+
+def _sql_session(dev, n, n_keys, span, gap, chunk, n_sample, p, m):
+    """(b): SESSION on the columnar plan, which falls back to
+    VectorizedSessionWindows on the card, against numpy's exact sessions
+    and distinct counts.  Timestamps are multiples of 3, so no two
+    events of a key are exactly a gap apart."""
+    rng = np.random.default_rng(15)
+    keys = rng.integers(0, n_keys, n).astype(np.int64)
+    ts = np.sort(3 * rng.integers(0, span // 3, n)).astype(np.int64)
+    users = rng.integers(0, 2 ** 63, n).astype(np.uint64)
+    sql = ("SELECT k, APPROX_COUNT_DISTINCT(u) AS d, SESSION_START(ts) AS s0, "
+           "SESSION_END(ts) AS s1 FROM ev "
+           f"GROUP BY SESSION(ts, INTERVAL '{gap}' MILLISECOND), k")
+    out, got, secs, launched, engines = _sql_run(
+        dev, {"k": keys, "u": users, "ts": ts}, sql, chunk)
+    check(bool(getattr(out, "columnar", False)),
+          "sql (b): SESSION stays on the columnar plan")
+    check([e for e, _ in engines] == ["VectorizedSessionWindows"],
+          f"sql (b): the engine is VectorizedSessionWindows ({engines})")
+    order, sid, sk, s0, s1 = _np_sessions(keys, ts, gap)
+    g = np.lexsort((got["s0"], got["k"]))
+    gk, g0, g1 = got["k"][g], got["s0"][g], got["s1"][g]
+    gd = np.asarray(got["d"], np.float64)[g]
+    check(np.array_equal(gk, sk) and np.array_equal(g0, s0)
+          and np.array_equal(g1, s1),
+          f"sql (b): the {len(sk)} sessions equal numpy's exactly")
+    vh = splitmix64_np(users[order])
+    _, exact = _distinct_counts(sid, users[order])
+    err = np.abs(gd - exact)
+    check(bool((err <= _hll_bound(exact, m)).all()),
+          "sql (b): every session's estimate within 4 HLL standard errors "
+          "(+ 3) of its exact distinct count")
+    pick = np.sort(np.random.default_rng(16).choice(len(sk), n_sample,
+                                                    replace=False))
+    sel = np.isin(sid, pick)
+    want = hll_reference(np.searchsorted(pick, sid[sel]), vh[sel], n_sample, p)
+    check(allclose(gd[pick], want, rtol=1e-5, atol=hll_atol(m)),
+          f"sql (b): {n_sample} sessions equal numpy HLL of their users")
+    for kname in ("hll_update", "merge_rows", "hll_estimate"):
+        check(launched.get(kname, 0) > 0, f"sql (b): {kname} launched ({launched})")
+    return {"events": n, "keys": n_keys, "span_ms": span, "gap_ms": gap,
+            "sessions": int(len(sk)), "execute_s": secs,
+            "events_per_s": n / secs, "engines": engines,
+            "launches": launched}
+
+
+def _sql_mesh_and_parallel(dev, n, n_keys, chunk, m):
+    """(c) config #5 on 8 virtual shards with env.set_mesh (the mesh log
+    tier) and (d) at parallelism 2 (the split exchange), each against
+    the meshless run at parallelism 1 on the same events."""
+    from flink_tpu_torch.parallel.mesh import Mesh
+    keys, ts, users = config5_events(n, n_keys, seed=17)
+    cols = {"k": keys, "u": users, "ts": ts}
+    runs = {}
+    for leg, kw in (("single", {}), ("mesh", {"mesh": Mesh([dev] * 8)}),
+                    ("parallel2", {"parallelism": 2})):
+        out, got, secs, launched, engines = _sql_run(dev, cols, CONFIG5_SQL,
+                                                     chunk, **kw)
+        check(bool(getattr(out, "columnar", False)),
+              f"sql ({leg}): the plan is columnar")
+        gk, gd = _keyed_estimates(got["k"], got["d"])
+        runs[leg] = (gk, gd, {"execute_s": secs, "events_per_s": n / secs,
+                              "engines": engines, "launches": launched,
+                              "rows": int(len(gk))})
+    gk, gd, _ = runs["single"]
+    for leg in ("mesh", "parallel2"):
+        lk, ld, _ = runs[leg]
+        check(np.array_equal(lk, gk) and allclose(ld, gd, rtol=1e-6,
+                                                   atol=hll_atol(m)),
+              f"sql ({leg}): rows equal the meshless run at parallelism 1")
+    mesh_info = runs["mesh"][2]
+    check([e for e, _ in mesh_info["engines"]] == ["MeshLogTumblingWindows"],
+          f"sql (mesh): the engine is the mesh log tier ({mesh_info['engines']})")
+    for kname in ("shard_pack", "hll_log_finish"):
+        check(mesh_info["launches"].get(kname, 0) > 0,
+              f"sql (mesh): {kname} launched ({mesh_info['launches']})")
+    par = runs["parallel2"][2]
+    check(len(par["engines"]) == 2 and par["launches"].get("hll_log_finish", 0) > 0,
+          f"sql (parallel2): two subtasks' log tiers, device finish ({par})")
+    return {"events": n, "keys": n_keys, **{leg: r[2] for leg, r in runs.items()}}
+
+
+def _sql_join(dev, n_each, n_keys, bound_ms, span_ms, chunk, n_sample):
+    """(e): the columnar interval join at bench_sql_join's size against
+    an independent numpy join (sort by key and time, searchsorted)."""
+    rng = np.random.default_rng(23)
+    lk = rng.integers(0, n_keys, n_each).astype(np.uint64)
+    lts = np.sort(rng.integers(0, span_ms, n_each).astype(np.int64))
+    rk = rng.integers(0, n_keys, n_each).astype(np.uint64)
+    rts = np.sort(rng.integers(0, span_ms, n_each).astype(np.int64))
+    sql = ("SELECT a.lid, b.rid FROM l AS a JOIN r AS b "
+           f"ON a.k = b.rk AND a.ts BETWEEN b.rts - INTERVAL '{bound_ms}' "
+           f"MILLISECOND AND b.rts + INTERVAL '{bound_ms}' MILLISECOND")
+    tables = {"l": ({"lid": np.arange(n_each), "k": lk, "ts": lts}, "ts"),
+              "r": ({"rid": np.arange(n_each), "rk": rk, "rts": rts}, "rts")}
+    out, got, secs, launched, _ = _sql_run(dev, None, sql, chunk,
+                                           tables=tables)
+    names = [nd.name for nd in out.stream.env.graph.nodes.values()]
+    check(bool(getattr(out, "columnar", False))
+          and "columnar_interval_join" in names,
+          f"sql (e): the join lowers to the columnar interval join ({names})")
+    # numpy: right rows sorted by (key, time); each left row's range
+    comp = (rk.astype(np.int64) << 20) | rts
+    r_order = np.argsort(comp, kind="stable")
+    sc = comp[r_order]
+    lkey = lk.astype(np.int64) << 20
+    lo = np.searchsorted(sc, lkey | np.maximum(lts - bound_ms, 0), "left")
+    hi = np.searchsorted(sc, lkey | (lts + bound_ms), "right")
+    n_pairs = int((hi - lo).sum())
+    lid, rid = got.get("lid", np.empty(0)), got.get("rid", np.empty(0))
+    check(len(lid) == n_pairs and n_pairs > 0,
+          f"sql (e): {len(lid)} pairs, numpy's join {n_pairs}")
+    sample = np.sort(np.random.default_rng(24).choice(n_each, n_sample,
+                                                      replace=False))
+    want = sorted((int(i), int(r)) for i in sample
+                  for r in r_order[lo[i]:hi[i]])
+    sel = np.isin(lid, sample)
+    have = sorted(zip(lid[sel].tolist(), rid[sel].tolist()))
+    check(have == want, f"sql (e): the pairs of {n_sample} sampled left rows "
+          "equal numpy's")
+    check(not launched, f"sql (e): host C++ only, no kernel ({launched})")
+    return {"rows_each": n_each, "keys": n_keys, "bound_ms": bound_ms,
+            "span_ms": span_ms, "pairs": n_pairs, "execute_s": secs,
+            "rows_per_s": 2 * n_each / secs}
+
+
+def _sql_process_function(dev, n, n_keys, span, n_sample, p, m):
+    """(f): a keyed process function on the GPU backend holding an
+    AggregatingState of HyperLogLogAggregate(12), emitting each key's
+    estimate at an event-time timer at each second's end and clearing
+    it, against the same job on the heap backend on the events of
+    sampled keys."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.core.state import AggregatingStateDescriptor
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.sources import (
+        BoundedOutOfOrdernessTimestampExtractor, CollectSink)
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.state.gpu_backend import DeviceAggregatingState
+    from flink_tpu_torch.streaming.operators import ProcessFunction
+    rng = np.random.default_rng(25)
+    events = list(zip(rng.integers(0, n_keys, n).tolist(),
+                      rng.integers(0, 1 << 40, n).tolist(),
+                      np.sort(rng.integers(0, span, n)).tolist()))
+    kinds = set()
+
+    class DistinctPerSecond(ProcessFunction):
+        desc = AggregatingStateDescriptor("users", HyperLogLogAggregate(p))
+
+        def process_element(self, value, ctx, out):
+            st = ctx.get_state(self.desc)
+            kinds.add(type(st).__name__)
+            st.add(value[1])
+            ctx.register_event_time_timer(value[2] - value[2] % 1000 + 999)
+
+        def on_timer(self, timestamp, ctx, out):
+            st = ctx.get_state(self.desc)
+            out.collect((ctx.get_current_key(), timestamp, float(st.get())))
+            st.clear()
+
+    sample = set(np.random.default_rng(26).choice(n_keys, n_sample,
+                                                  replace=False).tolist())
+    res = {}
+    for backend in ("gpu", "heap"):
+        # a watermark after every record: a second's timer fires before
+        # the next second's first record reaches the state.  The heap
+        # backend (a Python HLL a record) sees the sampled keys only,
+        # filtered after the timestamps so the watermarks are the same
+        env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+        env.set_state_backend(backend)
+        rows = []
+        stream = env.from_collection(events).assign_timestamps_and_watermarks(
+            BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+        if backend == "heap":
+            stream = stream.filter(lambda e: e[0] in sample)
+        (stream.key_by(lambda e: e[0]).process(DistinctPerSecond())
+            .add_sink(CollectSink(rows)))
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        env.execute("chip-smoke-sql-process")
+        torch.cuda.synchronize()
+        res[backend] = (sorted(rows), time.perf_counter() - t0,
+                        _launch_delta(before))
+    (g, g_s, g_l), (h, h_s, _) = res["gpu"], res["heap"]
+    check(DeviceAggregatingState.__name__ in kinds,
+          f"sql (f): the GPU backend gave the process function its device state ({kinds})")
+    gs = [r for r in g if r[0] in sample]
+    check([r[:2] for r in gs] == [r[:2] for r in h] and len(h) > 0,
+          f"sql (f): the same {len(h)} (key, second) timers of {n_sample} "
+          f"sampled keys fired on both backends ({len(g)} in all)")
+    check(allclose([r[2] for r in gs], [r[2] for r in h], rtol=1e-5,
+                   atol=hll_atol(m)),
+          "sql (f): GPU backend estimates equal the heap backend's on the "
+          "sampled keys (rtol 1e-5 + log slack)")
+    n_ticks = span // 1000
+    check(len(g) == len({(e[0], e[2] // 1000) for e in events})
+          and len(g) <= n_keys * n_ticks,
+          f"sql (f): one estimate a (key, second) with events ({len(g)})")
+    for kname in ("hll_update", "hll_estimate"):
+        check(g_l.get(kname, 0) > 0, f"sql (f): {kname} launched ({g_l})")
+    return {"events": n, "keys": n_keys, "timers": len(g),
+            "sampled_keys": n_sample, "sampled_timers": len(h),
+            "gpu_s": g_s, "heap_s": h_s, "gpu_events_per_s": n / g_s,
+            "launches": g_l}
+
+
+def sql_phase(dev, n_config5=1 << 22, config5_keys=500_000,
+              config5_chunk=1 << 19, n_session=1 << 20, session_keys=100_000,
+              n_mesh=1 << 21, n_join=1 << 21, join_keys=100_000,
+              n_process=1 << 18, process_keys=10_000, n_process_sample=500,
+              n_sample=4096):
+    """The Table API and SQL on the card: (a) BASELINE config #5 on the
+    columnar plan at the reference's size; (b) SESSION with
+    APPROX_COUNT_DISTINCT on the columnar plan (VectorizedSessionWindows);
+    (c) config #5 with env.set_mesh on 8 virtual shards and (d) at
+    parallelism 2; (e) the columnar interval join; (f) a keyed process
+    function with an HLL AggregatingState on the GPU backend, against
+    the heap backend on 500 sampled keys."""
+    from flink_tpu_torch.ops import link_probe
+    p = 12
+    m = 1 << p
+    link_probe.measure(dev)        # once per process, outside the timings
+    out = {"config5": _sql_config5(dev, n_config5, config5_keys,
+                                   config5_chunk, n_sample, p, m)}
+    out["session"] = _sql_session(dev, n_session, session_keys, 30_000, 1000,
+                                  1 << 18, n_sample, p, m)
+    out["mesh_parallel"] = _sql_mesh_and_parallel(dev, n_mesh, config5_keys,
+                                                  config5_chunk, m)
+    out["join"] = _sql_join(dev, n_join, join_keys, 500, 60_000, 1 << 20,
+                            1024)
+    out["process_function"] = _sql_process_function(
+        dev, n_process, process_keys, 4000, n_process_sample, p, m)
+    emit({"sql": out})
+
+
 PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")),
          ("jobs", "job_phase", ("hll_update", "hll_estimate", "scatter_combine",
                                 "clear_rows", "merge_rows", "quantile_update",
@@ -5617,7 +6049,9 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                          "hll_log_finish")),
          ("telemetry", "telemetry_phase", ("hll_update", "hll_estimate",
                                            "clear_rows", "hll_log_finish",
-                                           "chain_route")))
+                                           "chain_route")),
+         ("sql", "sql_phase", ("hll_log_finish", "hll_update", "hll_estimate",
+                               "merge_rows", "shard_pack", "clear_rows")))
 
 
 def main() -> int:

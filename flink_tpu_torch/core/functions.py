@@ -22,15 +22,40 @@ class Function:
 
 
 class RuntimeContext:
-    """Per-subtask metadata handed to rich functions."""
+    """Per-subtask metadata handed to rich functions, and keyed state
+    on a keyed stream (``get_state`` and the other accessors)."""
 
     def __init__(self, task_name: str = "task", index_of_subtask: int = 0,
-                 parallelism: int = 1, max_parallelism: int = 128):
+                 parallelism: int = 1, max_parallelism: int = 128,
+                 keyed_state_store=None):
         self.task_name = task_name
         self.index_of_this_subtask = index_of_subtask
         self.number_of_parallel_subtasks = parallelism
         self.max_number_of_parallel_subtasks = max_parallelism
+        self._keyed_state_store = keyed_state_store
         self.accumulators: dict[str, Any] = {}
+
+    def _keyed(self):
+        if self._keyed_state_store is None:
+            raise RuntimeError(
+                "Keyed state is only available on a keyed stream "
+                "(call .key_by(...) before the stateful function)")
+        return self._keyed_state_store
+
+    def get_state(self, descriptor):
+        return self._keyed().get_value_state(descriptor)
+
+    def get_list_state(self, descriptor):
+        return self._keyed().get_list_state(descriptor)
+
+    def get_reducing_state(self, descriptor):
+        return self._keyed().get_reducing_state(descriptor)
+
+    def get_aggregating_state(self, descriptor):
+        return self._keyed().get_aggregating_state(descriptor)
+
+    def get_map_state(self, descriptor):
+        return self._keyed().get_map_state(descriptor)
 
 
 class RichFunction(Function):

@@ -1,9 +1,10 @@
 """ctypes bindings of the port's C++ host runtime (``host_runtime.cpp``
 in this directory; port of ``flink_tpu/native/__init__.py``).
 
-The log-structured window tier, the slot index, the string interner
-and the generic aggregate tier's grouping (``fold_prep``,
-``group_cols``, ``argsort_u64``) run on it.  It is host code: the sort, the dedup and the estimate of the
+The log-structured window tier, the slot index, the string interner,
+the generic aggregate tier's grouping (``fold_prep``, ``group_cols``,
+``argsort_u64``) and the columnar interval join (``NativeIntervalJoin``)
+run on it.  It is host code: the sort, the dedup and the estimate of the
 log tier's host fire run on the CPU next to the card, as they do in the
 JAX package, whose ``native/host_runtime.cpp`` this copy carries
 unchanged (the port never loads that library).
@@ -161,6 +162,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                            c.POINTER(c.c_void_p), c.POINTER(c.c_void_p),
                            c.c_void_p, i64p, i64p, u64p], c.c_int64),
         "ft_argsort_u64": ([u64p, c.c_int64, i64p], None),
+        "ft_ivjoin_new": ([c.c_int64, c.c_int64, c.c_int64], c.c_void_p),
+        "ft_ivjoin_free": ([c.c_void_p], None),
+        "ft_ivjoin_push": ([c.c_void_p, c.c_int64, u64p, i64p, c.c_int64],
+                           c.c_int64),
+        "ft_ivjoin_pairs": ([c.c_void_p, i64p, i64p], c.c_int64),
+        "ft_ivjoin_prune": ([c.c_void_p, c.c_int64], None),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -547,6 +554,48 @@ class NativeWordSums:
         self._lib.ft_wordsums_load(
             self._h, np.ascontiguousarray(ids, np.int64),
             np.ascontiguousarray(sums, np.float64), len(ids))
+
+
+# ---- interval join ----------------------------------------------------------
+
+class NativeIntervalJoin:
+    """Batched time-bounded join core: per-key time-sorted buffers in
+    C++, probed one batch at a time (slot resolution for the whole batch
+    first, then the range searches).  ``push`` returns the new pairs as
+    global row ids per side, in push order; the caller owns the column
+    storage and gathers vectorized."""
+
+    __slots__ = ("_h", "_lib")
+
+    def __init__(self, lower_ms: int, upper_ms: int,
+                 capacity: int = 1 << 12):
+        self._lib = lib()
+        self._h = self._lib.ft_ivjoin_new(lower_ms, upper_ms,
+                                          _pow2_at_least(capacity))
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.ft_ivjoin_free(self._h)
+            self._h = None
+
+    @_kernel("interval_join.push")
+    def push(self, side: int, key_hashes: np.ndarray, ts: np.ndarray):
+        """Probe the other side with a batch of ``side`` (0 left, 1
+        right), then buffer it.  Returns (left_rows, right_rows), int64
+        global row ids of the pairs with r.ts - l.ts in [lower, upper]
+        and equal hashes."""
+        n_pairs = self._lib.ft_ivjoin_push(
+            self._h, side, np.ascontiguousarray(key_hashes, np.uint64),
+            np.ascontiguousarray(ts, np.int64), len(key_hashes))
+        left = np.empty(n_pairs, np.int64)
+        right = np.empty(n_pairs, np.int64)
+        self._lib.ft_ivjoin_pairs(self._h, left, right)
+        return left, right
+
+    def prune(self, watermark: int) -> None:
+        """Drop rows no longer joinable at ``watermark`` (left rows once
+        wm >= ts + upper, right rows once wm >= ts - lower)."""
+        self._lib.ft_ivjoin_prune(self._h, watermark)
 
 
 # ---- grouping of the generic aggregate tier ---------------------------------

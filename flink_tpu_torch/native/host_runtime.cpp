@@ -7,10 +7,10 @@
 // the HLL / Sum / sum-table / quantile / session log functions, the
 // string interner, the per-window word sums, the fused intern+sum and
 // the generic aggregate tier's grouping (fold_prep, group_cols,
-// argsort_u64).
-// The compiled per-record baselines, CEP and the interval join are not
-// part of it.  The functions are the reference's, unchanged, so both
-// packages give bit-equal results on the same inputs.
+// argsort_u64) and the interval join's batched core (ft_ivjoin_*).
+// The compiled per-record baselines and CEP are not part of it.  The
+// functions are the reference's, unchanged, so both packages give
+// bit-equal results on the same inputs.
 //
 // Build: g++ -O3 -march=native -shared -fPIC (flink_tpu_torch/native
 // loader, at first use).
@@ -1411,6 +1411,271 @@ void ft_argsort_u64(const uint64_t* keys, int64_t n, int64_t* out) {
   for (int64_t i = 0; i < n; ++i) buf[i] = KIdx{keys[i], i};
   KIdx* sorted = radix_sort_by_key(buf.get(), scratch.get(), n);
   for (int64_t i = 0; i < n; ++i) out[i] = sorted[i].idx;
+}
+
+}  // extern "C"
+
+// Batched interval-join engine state: per-key time-sorted row
+// buffers, probed a BATCH at a time with the phases split — slot
+// resolution for the whole batch first (independent probes overlap
+// in the OoO core), then the per-row range searches, then emission —
+// where a per-record join serializes hash -> probe -> search -> emit
+// for every record.  Pairs export as global row ids;
+// the Python side owns the column storage and gathers vectorized.
+
+namespace {
+
+// One slot-major run: rows grouped by key slot (ascending slot id,
+// contiguous segments), time-sorted within each segment.  The
+// log-structured layout replaces the first cut's per-key
+// std::vectors — 100k scattered allocations cost a cache miss per
+// row on probe AND append (the same misses the per-record baseline
+// pays, which is why that cut only broke even); runs make both walks
+// sequential.  Segment metadata is SPARSE (one entry per touched
+// slot, ascending) so a run costs O(batch keys), not O(all keys
+// ever); every consumer walks runs in ascending slot order with a
+// monotone cursor, so lookups stay O(1) amortized.
+struct IvRun {
+  std::vector<int64_t> ts, row;
+  //: parallel arrays: rows of slot touched[i] live at [start[i],
+  //: end[i]) — start advances as rows are pruned
+  std::vector<int64_t> touched, start, end;
+};
+
+// LSM-style side buffer: a compacted main run + recent tail runs
+// (one per pushed batch); tails fold into main once they outgrow it
+// or accumulate past the run cap, so each row merges O(log) times
+// and probes touch at most 1 + IV_MAX_TAILS segments per key.
+struct IvSide {
+  IvRun main_;
+  std::vector<IvRun> tail;
+  int64_t tail_rows = 0;   // live rows in tails
+  int64_t main_live = 0;   // live rows in main
+};
+
+constexpr int64_t IV_MAX_TAILS = 8;
+constexpr int64_t IV_MIN_MERGE = 1 << 16;
+
+struct FtIvJoin {
+  int64_t lower, upper;
+  ProbeTable table;
+  IvSide side_[2];
+  std::vector<int64_t> pairs_l, pairs_r;
+  std::vector<int64_t> slots, counts, perm;  // phase scratch
+  int64_t next_row[2] = {0, 0};
+
+  FtIvJoin(int64_t lo, int64_t up, int64_t cap)
+      : lower(lo), upper(up), table(cap) {}
+};
+
+// fold main + tails into one compacted run: a k-way walk over the
+// runs' ascending touched lists (k <= 1 + IV_MAX_TAILS), appending
+// each slot's live segments in chronological (main, tail-age) order.
+// Dead (pruned) prefixes drop here — merge IS the compaction.
+void iv_merge(IvSide& sd) {
+  IvRun out;
+  int64_t total = sd.main_live + sd.tail_rows;
+  out.ts.reserve(total);
+  out.row.reserve(total);
+  std::vector<const IvRun*> srcs;
+  srcs.push_back(&sd.main_);
+  for (IvRun& r : sd.tail) srcs.push_back(&r);
+  std::vector<int64_t> cur(srcs.size(), 0);
+  for (;;) {
+    int64_t s = INT64_MAX;
+    for (size_t i = 0; i < srcs.size(); ++i)
+      if (cur[i] < static_cast<int64_t>(srcs[i]->touched.size()))
+        s = std::min(s, srcs[i]->touched[cur[i]]);
+    if (s == INT64_MAX) break;
+    int64_t seg_begin = static_cast<int64_t>(out.ts.size());
+    for (size_t i = 0; i < srcs.size(); ++i) {
+      const IvRun& r = *srcs[i];
+      int64_t& c = cur[i];
+      if (c < static_cast<int64_t>(r.touched.size())
+          && r.touched[c] == s) {
+        out.ts.insert(out.ts.end(), r.ts.begin() + r.start[c],
+                      r.ts.begin() + r.end[c]);
+        out.row.insert(out.row.end(), r.row.begin() + r.start[c],
+                       r.row.begin() + r.end[c]);
+        ++c;
+      }
+    }
+    if (static_cast<int64_t>(out.ts.size()) > seg_begin) {
+      out.touched.push_back(s);
+      out.start.push_back(seg_begin);
+      out.end.push_back(static_cast<int64_t>(out.ts.size()));
+    }
+  }
+  sd.main_ = std::move(out);
+  sd.main_live = total;
+  sd.tail.clear();
+  sd.tail_rows = 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* ft_ivjoin_new(int64_t lower, int64_t upper, int64_t capacity_pow2) {
+  return new FtIvJoin(lower, upper, capacity_pow2);
+}
+
+void ft_ivjoin_free(void* p) { delete static_cast<FtIvJoin*>(p); }
+
+// Push one batch for `side` (0=left, 1=right): probe the OTHER
+// side's buffers for pairs (r.ts - l.ts in [lower, upper]), then
+// buffer the batch's own rows.  Returns the number of pairs found
+// (fetch with ft_ivjoin_pairs).  Rows get global ids in push order.
+int64_t ft_ivjoin_push(void* p, int64_t side, const uint64_t* kh,
+                       const int64_t* ts, int64_t n) {
+  FtIvJoin& j = *static_cast<FtIvJoin*>(p);
+  j.table.grow_if_needed(n);
+  // phase 1: resolve every row's key slot (independent table probes
+  // overlap in the OoO core — the ILP the per-record baseline's
+  // hash → probe → search → emit chain cannot get)
+  j.slots.resize(n);
+  for (int64_t i = 0; i < n; ++i)
+    j.slots[i] = j.table.get_or_insert(kh[i]);
+  int64_t n_slots = j.table.next_slot;
+  // phase 2: stable sort of the batch by slot into a slot-major run
+  // (rows of one key contiguous, still ts-sorted — input batches are
+  // time-sorted).  Counting sort when the batch is a fair share of
+  // the slot domain; comparison sort for small batches so a tiny
+  // push never pays O(all keys ever).
+  j.perm.resize(n);
+  if (4 * n >= n_slots) {
+    j.counts.assign(n_slots, 0);
+    for (int64_t i = 0; i < n; ++i) j.counts[j.slots[i]]++;
+    int64_t acc = 0;
+    for (int64_t s = 0; s < n_slots; ++s) {
+      int64_t c = j.counts[s];
+      j.counts[s] = acc;
+      acc += c;
+    }
+    for (int64_t i = 0; i < n; ++i) j.perm[j.counts[j.slots[i]]++] = i;
+  } else {
+    for (int64_t i = 0; i < n; ++i) j.perm[i] = i;
+    std::stable_sort(j.perm.begin(), j.perm.end(),
+                     [&](int64_t a, int64_t b) {
+                       return j.slots[a] < j.slots[b];
+                     });
+  }
+  IvRun run;
+  run.ts.resize(n);
+  run.row.resize(n);
+  int64_t base_row = j.next_row[side];
+  int64_t prev_slot = -1;
+  for (int64_t k = 0; k < n; ++k) {
+    int64_t i = j.perm[k];
+    int64_t s = j.slots[i];
+    if (s != prev_slot) {
+      if (prev_slot != -1) run.end.push_back(k);
+      run.touched.push_back(s);
+      run.start.push_back(k);
+      prev_slot = s;
+    }
+    run.ts[k] = ts[i];
+    run.row[k] = base_row + i;
+  }
+  if (prev_slot != -1) run.end.push_back(n);
+  // phase 3: probe the other side — for each batch key group, walk
+  // the other side's <= 1 + IV_MAX_TAILS contiguous segments with
+  // monotone two-pointer scans (all streams sequential; each run's
+  // touched-list cursor advances monotonically with the batch's
+  // ascending groups)
+  IvSide& other = j.side_[1 - side];
+  int64_t lo_off = side == 0 ? j.lower : -j.upper;
+  int64_t hi_off = side == 0 ? j.upper : -j.lower;
+  int64_t found0 = static_cast<int64_t>(j.pairs_l.size());
+  std::vector<const IvRun*> segs;
+  segs.push_back(&other.main_);
+  for (const IvRun& r : other.tail) segs.push_back(&r);
+  std::vector<int64_t> cur(segs.size(), 0);
+  for (size_t gi = 0; gi < run.touched.size(); ++gi) {
+    int64_t s = run.touched[gi];
+    int64_t ga = run.start[gi], gb = run.end[gi];
+    for (size_t si = 0; si < segs.size(); ++si) {
+      const IvRun& orun = *segs[si];
+      int64_t& c = cur[si];
+      const int64_t nt = static_cast<int64_t>(orun.touched.size());
+      while (c < nt && orun.touched[c] < s) ++c;
+      if (c >= nt || orun.touched[c] != s) continue;
+      int64_t b = orun.end[c];
+      int64_t lo = orun.start[c], hi = lo;
+      for (int64_t k = ga; k < gb; ++k) {
+        int64_t t = run.ts[k];
+        while (lo < b && orun.ts[lo] < t + lo_off) ++lo;
+        if (hi < lo) hi = lo;
+        while (hi < b && orun.ts[hi] <= t + hi_off) ++hi;
+        for (int64_t m = lo; m < hi; ++m) {
+          if (side == 0) {
+            j.pairs_l.push_back(run.row[k]);
+            j.pairs_r.push_back(orun.row[m]);
+          } else {
+            j.pairs_l.push_back(orun.row[m]);
+            j.pairs_r.push_back(run.row[k]);
+          }
+        }
+      }
+    }
+  }
+  // phase 4: the batch run becomes my newest tail; fold tails into
+  // main once they outgrow it (each row merges O(log) times) or the
+  // run count hits the cap (bounds probe segments and metadata even
+  // when pruning keeps tail_rows small)
+  IvSide& mine = j.side_[side];
+  mine.tail_rows += n;
+  mine.tail.push_back(std::move(run));
+  if (mine.tail_rows >= std::max<int64_t>(mine.main_live, IV_MIN_MERGE)
+      || static_cast<int64_t>(mine.tail.size()) >= IV_MAX_TAILS)
+    iv_merge(mine);
+  j.next_row[side] += n;
+  return static_cast<int64_t>(j.pairs_l.size()) - found0;
+}
+
+// Export and clear the pending pair row ids.
+int64_t ft_ivjoin_pairs(void* p, int64_t* l_out, int64_t* r_out) {
+  FtIvJoin& j = *static_cast<FtIvJoin*>(p);
+  int64_t k = static_cast<int64_t>(j.pairs_l.size());
+  std::memcpy(l_out, j.pairs_l.data(), sizeof(int64_t) * k);
+  std::memcpy(r_out, j.pairs_r.data(), sizeof(int64_t) * k);
+  j.pairs_l.clear();
+  j.pairs_r.clear();
+  return k;
+}
+
+// Drop rows no longer joinable at watermark `wm` (left rows once
+// wm >= ts + upper, right rows once wm >= ts - lower): advance every
+// segment's start pointer, then compact via merge when most physical
+// rows are dead — so a side that stops receiving pushes still
+// releases its memory.
+void ft_ivjoin_prune(void* p, int64_t wm) {
+  FtIvJoin& j = *static_cast<FtIvJoin*>(p);
+  for (int side = 0; side < 2; ++side) {
+    int64_t horizon = side == 0 ? j.upper : -j.lower;
+    IvSide& sd = j.side_[side];
+    int64_t dropped = 0;
+    for (size_t i = 0; i < sd.main_.touched.size(); ++i) {
+      int64_t& a = sd.main_.start[i];
+      int64_t b = sd.main_.end[i];
+      while (a < b && sd.main_.ts[a] + horizon <= wm) { ++a; ++dropped; }
+    }
+    sd.main_live -= dropped;
+    for (IvRun& r : sd.tail) {
+      int64_t rdropped = 0;
+      for (size_t i = 0; i < r.touched.size(); ++i) {
+        int64_t& a = r.start[i];
+        int64_t b = r.end[i];
+        while (a < b && r.ts[a] + horizon <= wm) { ++a; ++rdropped; }
+      }
+      sd.tail_rows -= rdropped;
+    }
+    int64_t physical = static_cast<int64_t>(sd.main_.ts.size());
+    for (const IvRun& r : sd.tail)
+      physical += static_cast<int64_t>(r.ts.size());
+    int64_t live = sd.main_live + sd.tail_rows;
+    if (physical > 2 * live + IV_MIN_MERGE) iv_merge(sd);
+  }
 }
 
 }  // extern "C"

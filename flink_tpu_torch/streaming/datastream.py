@@ -1,5 +1,5 @@
 """DataStream API (port of ``flink_tpu/streaming/datastream.py:90-500,
-512-760, 787-1098``):
+512-807, 863-1098``):
 
     env = StreamExecutionEnvironment.get_execution_environment()
     env.set_state_backend("gpu")
@@ -35,6 +35,16 @@ is added at parallelism 1, since the mesh is the parallelism, or, with
 a mesh factory, at the environment's parallelism, each subtask
 building its own mesh.  Other assigners run without the mesh, as in
 the reference.
+
+``process`` hosts a ``ProcessFunction`` (keyed: with keyed state and
+timers); a keyed stream's ``reduce`` / ``sum`` / ``min`` / ``max`` /
+``min_by`` / ``max_by`` emit the running reduction per element.
+``rebalance``, ``rescale``, ``shuffle``, ``broadcast``, ``global_``,
+``forward`` and ``partition_custom`` set the next edge's partitioner;
+``disable_chaining`` and ``start_new_chain`` control chaining.
+``join`` / ``co_group`` (windowed) and ``interval_join`` build on
+union, tags, a window apply and a keyed process function
+(``joining.py``).
 
 ``set_stream_time_characteristic("processing")`` makes ``time_window``
 pick the processing-time assigners and drops the sources' timestamps;
@@ -73,11 +83,19 @@ from flink_tpu_torch.streaming.generic_agg import (GenericWindowOperator,
                                                    is_generic_eligible)
 from flink_tpu_torch.streaming.graph import (StreamEdge, StreamGraph,
                                              StreamNode, create_job_graph)
-from flink_tpu_torch.streaming.operators import (StreamFilter, StreamFlatMap,
+from flink_tpu_torch.streaming.operators import (KeyedProcessOperator,
+                                                ProcessOperator,
+                                                StreamFilter, StreamFlatMap,
+                                                StreamGroupedReduce,
                                                 StreamMap, StreamSink)
-from flink_tpu_torch.streaming.partitioners import (ForwardPartitioner,
+from flink_tpu_torch.streaming.partitioners import (BroadcastPartitioner,
+                                                    CustomPartitionerWrapper,
+                                                    ForwardPartitioner,
+                                                    GlobalPartitioner,
                                                     KeyGroupStreamPartitioner,
                                                     RebalancePartitioner,
+                                                    RescalePartitioner,
+                                                    ShufflePartitioner,
                                                     StreamPartitioner)
 from flink_tpu_torch.streaming.sources import (CollectSink,
                                                FromCollectionSource, PrintSink,
@@ -359,6 +377,77 @@ class DataStream:
         f = as_filter_function(fn)
         return self._add_op(name, _op_factory(StreamFilter, lambda: f))
 
+    def process(self, process_function, name: str = "process") -> "DataStream":
+        """``process_function.process_element(value, ctx, out)`` per
+        element (a ``ProcessFunction``)."""
+        return self._add_op(name, _op_factory(ProcessOperator,
+                                              lambda: process_function))
+
+    def disable_chaining(self) -> "DataStream":
+        """This operator chains to neither neighbour."""
+        self.node.chaining_strategy = "never"
+        return self
+
+    def start_new_chain(self) -> "DataStream":
+        """This operator heads a new chain; later operators may chain
+        to it."""
+        self.node.chaining_strategy = "head"
+        return self
+
+    # ---- partitioning of the next edge -------------------------------
+    def rebalance(self) -> "DataStream":
+        return DataStream(self.env, self.node, RebalancePartitioner(),
+                          self._side_tag)
+
+    def rescale(self) -> "DataStream":
+        return DataStream(self.env, self.node, RescalePartitioner(),
+                          self._side_tag)
+
+    def shuffle(self) -> "DataStream":
+        return DataStream(self.env, self.node, ShufflePartitioner(),
+                          self._side_tag)
+
+    def broadcast(self) -> "DataStream":
+        """Every record to every downstream subtask."""
+        return DataStream(self.env, self.node, BroadcastPartitioner(),
+                          self._side_tag)
+
+    def global_(self) -> "DataStream":
+        return DataStream(self.env, self.node, GlobalPartitioner(),
+                          self._side_tag)
+
+    def forward(self) -> "DataStream":
+        return DataStream(self.env, self.node, ForwardPartitioner(),
+                          self._side_tag)
+
+    def partition_custom(self, partitioner, key_selector=None) -> "DataStream":
+        """``partitioner(key, num_channels)`` picks each record's
+        channel; the key is ``key_selector``'s, or the whole record."""
+        ks = as_key_selector(key_selector) if key_selector is not None else None
+        return DataStream(self.env, self.node,
+                          CustomPartitionerWrapper(partitioner, ks),
+                          self._side_tag)
+
+    # ---- joins ---------------------------------------------------------
+    def join(self, other: "DataStream"):
+        """``.where(k1).equal_to(k2).window(assigner).apply(fn)``:
+        ``fn(left, right)`` per pair of equal keys in one window."""
+        from flink_tpu_torch.streaming.joining import JoinedStreams
+        return JoinedStreams(self, other)
+
+    def co_group(self, other: "DataStream"):
+        """As ``join``, with ``fn(lefts, rights)`` once per key and
+        window."""
+        from flink_tpu_torch.streaming.joining import CoGroupedStreams
+        return CoGroupedStreams(self, other)
+
+    def interval_join(self, other: "DataStream"):
+        """``.where(k1).equal_to(k2).between(lower_ms, upper_ms)
+        .apply(fn)``: ``fn(l, r)`` for every pair of equal keys with
+        r.ts - l.ts in [lower, upper], stamped with the later time."""
+        from flink_tpu_torch.streaming.joining import IntervalJoinedStreams
+        return IntervalJoinedStreams(self, other)
+
     def union(self, *streams: "DataStream") -> "DataStream":
         """One stream of this one and ``streams``: a pass-through node
         with an input channel from each."""
@@ -441,6 +530,42 @@ class KeyedStream(DataStream):
                          side_tag)
         self.key_selector = key_selector
 
+    def _add_keyed_op(self, name: str, operator_factory) -> DataStream:
+        return self._add_op(name, operator_factory,
+                            key_selector=self.key_selector)
+
+    def process(self, process_function, name: str = "keyed_process") -> DataStream:
+        """A ``ProcessFunction`` with keyed state and timers."""
+        return self._add_keyed_op(
+            name, _op_factory(KeyedProcessOperator, lambda: process_function))
+
+    def reduce(self, fn, name: str = "reduce") -> DataStream:
+        """The running reduction of each key, emitted per element."""
+        f = as_reduce_function(fn)
+        return self._add_keyed_op(name, _op_factory(StreamGroupedReduce,
+                                                    lambda: f))
+
+    def sum(self, field=None) -> DataStream:
+        return self.reduce(_field_reduce(field, lambda a, b: a + b), name="sum")
+
+    def min(self, field=None) -> DataStream:
+        return self.reduce(_field_reduce(field, min), name="min")
+
+    def max(self, field=None) -> DataStream:
+        return self.reduce(_field_reduce(field, max), name="max")
+
+    def min_by(self, field) -> DataStream:
+        """The element with the least ``field`` so far (the earlier one
+        on a tie)."""
+        getter = _field_getter(field)
+        return self.reduce(lambda a, b: a if getter(a) <= getter(b) else b,
+                           name="min_by")
+
+    def max_by(self, field) -> DataStream:
+        getter = _field_getter(field)
+        return self.reduce(lambda a, b: a if getter(a) >= getter(b) else b,
+                           name="max_by")
+
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
 
@@ -468,6 +593,16 @@ class KeyedStream(DataStream):
             ws._trigger = CountTrigger(slide)
             ws._evictor = CountEvictor.of(size)
         return ws
+
+
+def _field_getter(field):
+    """Field ``field`` of an element: a tuple or list position, an
+    attribute, a callable's result, or the element itself when None."""
+    if field is None:
+        return lambda x: x
+    if callable(field):
+        return field
+    return lambda x: x[field] if isinstance(x, (tuple, list)) else getattr(x, field)
 
 
 def _field_reduce(field, combine):

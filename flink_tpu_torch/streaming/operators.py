@@ -1,5 +1,5 @@
 """Operator lifecycle and the operators the port runs (port of
-``flink_tpu/streaming/operators.py:68-370, 389-460, 477-752``).
+``flink_tpu/streaming/operators.py:68-460, 477-901``).
 
 setup → open → process* → finish → close.  ``setup`` takes the
 operator's keyed backend and processing-time service and builds its
@@ -10,6 +10,16 @@ operator's keyed backend and processing-time service and builds its
 ``restore_function_state``, its own state, such as a source's read
 position).  ``notify_checkpoint_complete`` reaches user functions that
 define it.
+
+``ProcessOperator`` and ``KeyedProcessOperator`` host a
+``ProcessFunction``: its context gives the record's timestamp, the
+watermark, side outputs and, keyed, the current key, keyed state in
+the void namespace (from the configured backend: on ``gpu`` an
+``AggregatingState`` of a device aggregate is the backend's device
+state) and event- and processing-time timers on the operator's timer
+service.  ``StreamGroupedReduce`` is the rolling keyed reduce.  A rich
+function's ``RuntimeContext`` reaches keyed state through a
+``KeyedStateStore``.
 
 ``StreamMap`` and ``StreamFilter`` run a UDF that the liftability
 analyzer proves LIFTABLE on whole numpy columns of a RecordBatch; the
@@ -31,7 +41,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from flink_tpu_torch.core.functions import KeySelector, RichFunction, RuntimeContext
+from flink_tpu_torch.core.functions import (KeySelector, ReduceFunction,
+                                            RichFunction, RuntimeContext)
+from flink_tpu_torch.core.state import ReducingStateDescriptor, StateDescriptor
+from flink_tpu_torch.state.backend import VOID_NAMESPACE
 from flink_tpu_torch.streaming.elements import (MAX_TIMESTAMP, MIN_TIMESTAMP,
                                                 RecordBatch, StreamRecord,
                                                 Watermark)
@@ -311,6 +324,22 @@ class StreamOperator(abc.ABC):
         pass
 
 
+class KeyedStateStore:
+    """Keyed state of a rich function, in the void namespace."""
+
+    def __init__(self, backend):
+        self._backend = backend
+
+    def _bind(self, descriptor):
+        return self._backend.get_partitioned_state(VOID_NAMESPACE, descriptor)
+
+    get_value_state = _bind
+    get_list_state = _bind
+    get_reducing_state = _bind
+    get_aggregating_state = _bind
+    get_map_state = _bind
+
+
 class AbstractUdfStreamOperator(StreamOperator):
     """Hosts a user function, forwarding open/close."""
 
@@ -329,11 +358,14 @@ class AbstractUdfStreamOperator(StreamOperator):
 
     def open(self):
         if isinstance(self.user_function, RichFunction):
+            store = (KeyedStateStore(self.keyed_backend)
+                     if self.keyed_backend is not None else None)
             self.user_function.set_runtime_context(RuntimeContext(
                 task_name=self.operator_id,
                 index_of_subtask=self.subtask_index,
                 parallelism=self.num_subtasks,
-                max_parallelism=self.max_parallelism))
+                max_parallelism=self.max_parallelism,
+                keyed_state_store=store))
             self.user_function.open(None)
 
     def finish(self):
@@ -592,3 +624,136 @@ class SinkContext:
     def __init__(self, timestamp, op):
         self.timestamp = timestamp
         self._op = op
+
+
+class StreamGroupedReduce(AbstractUdfStreamOperator):
+    """Rolling keyed reduce: emits the running reduction of the key at
+    every element."""
+
+    STATE_NAME = "_reduce_state"
+
+    def __init__(self, reduce_function: ReduceFunction):
+        super().__init__(reduce_function)
+
+    def open(self):
+        super().open()
+        self._state = self.keyed_backend.get_or_create_keyed_state(
+            ReducingStateDescriptor(self.STATE_NAME, self.user_function))
+
+    def process_element(self, record):
+        self._state.set_current_namespace(VOID_NAMESPACE)
+        self._state.add(record.value)
+        self.output.collect(StreamRecord(self._state.get(), record.timestamp))
+
+
+class ProcessOperator(AbstractUdfStreamOperator):
+    """Hosts a ProcessFunction on a stream without keys."""
+
+    def open(self):
+        super().open()
+        self._collector = TimestampedCollector(self.output)
+
+    def process_element(self, record):
+        self._collector.set_absolute_timestamp(record.timestamp)
+        ctx = ProcessFunctionContext(record, self)
+        self.user_function.process_element(record.value, ctx, self._collector)
+
+
+class KeyedProcessOperator(AbstractUdfStreamOperator):
+    """Hosts a ProcessFunction on a keyed stream, with keyed state and
+    timers; ``on_timer`` runs with the timer's key current."""
+
+    def open(self):
+        super().open()
+        self._collector = TimestampedCollector(self.output)
+
+    def process_element(self, record):
+        self._collector.set_absolute_timestamp(record.timestamp)
+        ctx = KeyedProcessFunctionContext(record, self)
+        self.user_function.process_element(record.value, ctx, self._collector)
+
+    def on_event_time(self, timer):
+        self._collector.set_absolute_timestamp(timer.timestamp)
+        ctx = OnTimerContext(timer, self, "event")
+        self.user_function.on_timer(timer.timestamp, ctx, self._collector)
+
+    def on_processing_time(self, timer):
+        self._collector.set_absolute_timestamp(None)
+        ctx = OnTimerContext(timer, self, "processing")
+        self.user_function.on_timer(timer.timestamp, ctx, self._collector)
+
+
+class ProcessFunctionContext:
+    """What ``process_element`` sees: the record's timestamp, the
+    clocks and side outputs."""
+
+    def __init__(self, record: StreamRecord, op: StreamOperator):
+        self._record = record
+        self._op = op
+
+    def timestamp(self) -> Optional[int]:
+        return self._record.timestamp
+
+    def current_processing_time(self) -> int:
+        pts = self._op.processing_time_service
+        return pts.get_current_processing_time() if pts else 0
+
+    def current_watermark(self) -> int:
+        return self._op.current_watermark
+
+    def output(self, tag: OutputTag, value) -> None:
+        self._op.output.collect_side(tag, StreamRecord(value, self._record.timestamp))
+
+
+class KeyedProcessFunctionContext(ProcessFunctionContext):
+    """Adds the current key, timers and keyed state."""
+
+    def get_current_key(self):
+        return self._op.keyed_backend.current_key
+
+    def register_event_time_timer(self, timestamp: int) -> None:
+        self._op.timer_service.register_event_time_timer(VOID_NAMESPACE, timestamp)
+
+    def register_processing_time_timer(self, timestamp: int) -> None:
+        self._op.timer_service.register_processing_time_timer(VOID_NAMESPACE, timestamp)
+
+    def delete_event_time_timer(self, timestamp: int) -> None:
+        self._op.timer_service.delete_event_time_timer(VOID_NAMESPACE, timestamp)
+
+    def delete_processing_time_timer(self, timestamp: int) -> None:
+        self._op.timer_service.delete_processing_time_timer(VOID_NAMESPACE, timestamp)
+
+    def get_state(self, descriptor: StateDescriptor):
+        return self._op.keyed_backend.get_partitioned_state(VOID_NAMESPACE, descriptor)
+
+
+class OnTimerContext(KeyedProcessFunctionContext):
+    """What ``on_timer`` sees: the timer's time, key and domain
+    (``event`` or ``processing``)."""
+
+    def __init__(self, timer, op, time_domain: str):
+        self._timer = timer
+        self._op = op
+        self._record = StreamRecord(None, timer.timestamp)
+        self.time_domain = time_domain
+
+    def timestamp(self):
+        return self._timer.timestamp
+
+    def get_current_key(self):
+        return self._timer.key
+
+
+class ProcessFunction(abc.ABC):
+    """``process_element(value, ctx, out)`` per element and
+    ``on_timer(timestamp, ctx, out)`` per timer that fires."""
+
+    @abc.abstractmethod
+    def process_element(self, value, ctx, out) -> None: ...
+
+    def on_timer(self, timestamp: int, ctx, out) -> None:  # noqa: B027
+        pass
+
+
+#: the same shape; the keyed context comes at run time
+KeyedProcessFunction = ProcessFunction

@@ -1,5 +1,11 @@
 """Edge partitioners: how records and batches pick a downstream channel
-(port of ``flink_tpu/streaming/partitioners.py:39-160, 213-330``).
+(port of ``flink_tpu/streaming/partitioners.py:39-201, 213-330,
+352-366``).
+
+Forward, rebalance (round robin), rescale (round robin inside a
+pointwise group), shuffle (uniform random), broadcast (every channel),
+global (channel 0), the keyBy edge's key-group partitioner, and a
+user's ``partitioner(key, num_channels)`` (``partition_custom``).
 
 ``select_channels`` returns the target channels of one record;
 ``split_batch`` routes a whole RecordBatch as (channel, sub-batch)
@@ -15,6 +21,7 @@ argsort.
 from __future__ import annotations
 
 import random
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -27,8 +34,6 @@ from flink_tpu_torch.streaming.operators import _batch_row_value
 
 
 class StreamPartitioner:
-    #: one record goes to one channel and whole batches may be split
-    supports_batch = False
     #: wired to a contiguous group of downstream subtasks, not to all
     is_pointwise = False
 
@@ -45,7 +50,6 @@ class StreamPartitioner:
 
 
 class ForwardPartitioner(StreamPartitioner):
-    supports_batch = True
     is_pointwise = True
 
     def split_batch(self, batch, num_channels):
@@ -57,8 +61,6 @@ class ForwardPartitioner(StreamPartitioner):
 
 class RebalancePartitioner(StreamPartitioner):
     """Round robin; whole batches go round robin too."""
-
-    supports_batch = True
 
     def __init__(self):
         self._next = -1
@@ -78,10 +80,85 @@ class RebalancePartitioner(StreamPartitioner):
         return "REBALANCE"
 
 
+class RescalePartitioner(StreamPartitioner):
+    """Round robin over the pointwise group of downstream subtasks this
+    upstream subtask is wired to; whole batches go round robin too."""
+
+    is_pointwise = True
+
+    def __init__(self):
+        self._next = -1
+
+    def select_channels(self, value, num_channels):
+        self._next = (self._next + 1) % num_channels
+        return [self._next]
+
+    def split_batch(self, batch, num_channels):
+        self._next = (self._next + 1) % num_channels
+        return [(self._next, batch)]
+
+    def __repr__(self):
+        return "RESCALE"
+
+
+class ShufflePartitioner(StreamPartitioner):
+    """A uniformly random channel per record, and per whole batch."""
+
+    def select_channels(self, value, num_channels):
+        return [random.randrange(num_channels)]
+
+    def split_batch(self, batch, num_channels):
+        return [(random.randrange(num_channels), batch)]
+
+    def __repr__(self):
+        return "SHUFFLE"
+
+
+class BroadcastPartitioner(StreamPartitioner):
+    """Every record to every channel."""
+
+    def select_channels(self, value, num_channels):
+        return list(range(num_channels))
+
+    def split_batch(self, batch, num_channels):
+        return [(c, batch) for c in range(num_channels)]
+
+    def __repr__(self):
+        return "BROADCAST"
+
+
+class GlobalPartitioner(StreamPartitioner):
+    """Everything to subtask 0."""
+
+    def select_channels(self, value, num_channels):
+        return [0]
+
+    def split_batch(self, batch, num_channels):
+        return [(0, batch)]
+
+    def __repr__(self):
+        return "GLOBAL"
+
+
+class CustomPartitionerWrapper(StreamPartitioner):
+    """``partitioner(key, num_channels)`` picks the channel; the key is
+    the key selector's, or the whole value without one."""
+
+    def __init__(self, partitioner: Callable[[Any, int], int],
+                 key_selector: Optional[KeySelector] = None):
+        self.partitioner = partitioner
+        self.key_selector = key_selector
+
+    def select_channels(self, value, num_channels):
+        key = self.key_selector.get_key(value) if self.key_selector else value
+        return [self.partitioner(key, num_channels) % num_channels]
+
+    def __repr__(self):
+        return "CUSTOM"
+
+
 class KeyGroupStreamPartitioner(StreamPartitioner):
     """keyBy edge: hash(key) -> key group -> subtask index."""
-
-    supports_batch = True
 
     def __init__(self, key_selector: KeySelector, max_parallelism: int):
         self.key_selector = key_selector

@@ -7,10 +7,11 @@ Python aggregate on the generic tier, a count window over a device Sum,
 graph algorithms, an ML fit, a job on an 8-shard mesh (the mesh log
 tier), a checkpointed job that fails and restarts from its Fs
 checkpoint, and jobs restored from the JAX package's savepoint and
-checkpoint directory, all with the tracer, the device telemetry and
-the state introspection on and a Chrome trace written at the end, then
-reads its own sys.modules and /proc/self/maps), and its entry points
-never fall back to the CPU on their own.  This test
+checkpoint directory, and a columnar and a row-path SQL job, all with
+the tracer, the device telemetry and the state introspection on and a
+Chrome trace written at the end, then reads its own sys.modules and
+/proc/self/maps), and its entry points never fall back to the CPU on
+their own.  This test
 process has jax loaded already (the test configuration imports it), so
 the import check runs a job in a fresh interpreter."""
 
@@ -249,6 +250,39 @@ env.set_checkpoint_storage("filesystem", directory=sys.argv[2], retain=2)
 env.set_restart_strategy("fixed_delay", restart_attempts=2, delay_ms=0)
 job(env, items, from_checkpoint, TumblingEventTimeWindows.of(1000), FailAtOpen())
 env.execute()
+# SQL: config #5 on the columnar plan, and a windowed and a continuous
+# GROUP BY and an interval join on the row plan
+from flink_tpu_torch.table import StreamTableEnvironment
+rng = np.random.default_rng(0)
+cols = {"k": rng.integers(0, 9, 2000), "u": rng.integers(0, 500, 2000),
+        "ts": np.sort(rng.integers(0, 3000, 2000))}
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+t_env = StreamTableEnvironment.create(env)
+t_env.register_table("ev", t_env.from_columns(cols, rowtime="ts", chunk=512))
+sql_col = t_env.sql_query("SELECT k, APPROX_COUNT_DISTINCT(u) AS d FROM ev "
+                          "GROUP BY TUMBLE(ts, INTERVAL '1' SECOND), k")
+sql_col_rows = CollectSink()
+sql_col.to_append_stream().add_sink(sql_col_rows)
+env.execute()
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+t_env = StreamTableEnvironment.create(env)
+rows = env.from_collection([(i % 7, i, 10 * i) for i in range(300)]) \
+    .assign_timestamps_and_watermarks(
+        BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+t_env.register_table("ev", t_env.from_data_stream(rows, ["k", "u", "ts"],
+                                                  rowtime="ts"))
+t_env.register_table("ev2", t_env.from_data_stream(rows, ["k2", "u2", "ts2"],
+                                                   rowtime="ts2"))
+sql_row_rows, sql_cont_rows, sql_join_rows = CollectSink(), CollectSink(), CollectSink()
+t_env.sql_query("SELECT k, COUNT(*) AS c, SUM(u) AS s FROM ev "
+                "GROUP BY TUMBLE(ts, INTERVAL '1' SECOND), k") \
+    .to_append_stream().add_sink(sql_row_rows)
+t_env.sql_query("SELECT k, SUM(u) AS s FROM ev GROUP BY k") \
+    .to_retract_stream().add_sink(sql_cont_rows)
+t_env.sql_query("SELECT u, u2 FROM ev JOIN ev2 ON k = k2 AND "
+                "ts BETWEEN ts2 - INTERVAL '10' MILLISECOND AND ts2") \
+    .to_append_stream().add_sink(sql_join_rows)
+env.execute()
 trace_path = tempfile.mktemp(suffix=".json")
 n_written = env.get_tracer().write_chrome_trace(trace_path)
 trace = json.load(open(trace_path))
@@ -277,6 +311,11 @@ print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "generic_results": len(generic),
                   "count_window_results": len(counted),
                   "mesh_engines": sorted(set(mesh_engines)),
+                  "sql_columnar_plan": bool(sql_col.columnar),
+                  "sql_columnar_rows": len(sql_col_rows.values),
+                  "sql_row_rows": len(sql_row_rows.values),
+                  "sql_retract_pairs": len(sql_cont_rows.values),
+                  "sql_join_rows": len(sql_join_rows.values),
                   "fused_batches": chain_fusion.FUSION_STATS.fused_batches,
                   "demotions": chain_fusion.FUSION_STATS.demotions,
                   "port_runtime_loaded": "flink_tpu_torch/native/_build/" in maps,
@@ -421,6 +460,15 @@ def test_job_loads_neither_jax_nor_flink_tpu(tmp_path):
     # 500 records over 7 keys: 71 or 72 a key, 7 full windows of 10 each
     assert report["count_window_results"] == 7 * 7
     assert report["mesh_engines"] == ["MeshLogTumblingWindows"]
+    # the SQL jobs: config #5 on the columnar plan (9 keys, 3 windows),
+    # the row plan's windowed and continuous GROUP BY (2 x 300 - 7
+    # retract pairs) and the interval join (a key recurs every 70 ms, so
+    # within 10 ms each row pairs only with itself)
+    assert report["sql_columnar_plan"]
+    assert report["sql_columnar_rows"] == 9 * 3
+    assert report["sql_row_rows"] == 7 * 3
+    assert report["sql_retract_pairs"] == 2 * 300 - 7
+    assert report["sql_join_rows"] == 300
     assert report["graph_ranks"] == 200 and report["graph_components"] >= 1
     assert report["als_users"] == 60 and report["knn_rows"] == 6
     # the log tier ran on the port's own host runtime, never the
@@ -466,7 +514,9 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                    "runtime/device_stats.py", "runtime/metrics.py",
                    "runtime/timeseries.py", "runtime/backpressure.py",
                    "runtime/profiler.py", "state/introspect.py",
-                   "state/stats.py"):
+                   "state/stats.py", "table/api.py", "table/sql_parser.py",
+                   "table/expressions.py", "table/functions.py",
+                   "table/__init__.py", "streaming/joining.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]

@@ -200,3 +200,81 @@ def test_word_sums_bit_equal():
     wt.load(*ft)
     wj.load(*fj)
     _eq(wt.fire(), wj.fire())
+
+
+def _iv_batches(rng, n_batches, n, n_keys, span, zero_keys=False):
+    """Time-sorted batches of (key hashes, timestamps), advancing."""
+    out = []
+    t0 = 0
+    for _ in range(n_batches):
+        kh = rng.integers(1, n_keys + 1, n).astype(np.uint64)
+        if zero_keys:
+            kh[:3] = 0
+        ts = np.sort(rng.integers(t0, t0 + span, n)).astype(np.int64)
+        t0 += span // 2
+        out.append((kh, ts))
+    return out
+
+
+def _numpy_pairs(side, kh, ts, base, other, alive, lower, upper):
+    """Pairs of a batch of ``side`` with the live rows of the other side
+    by sort and searchsorted on (key, time): (left row, right row)."""
+    if not other:
+        return set()
+    okh = np.array([r[0] for r in other], np.int64)
+    ots = np.array([r[1] for r in other], np.int64)
+    bias = 1 << 24
+    comp = np.where(alive, (okh << 32) | (ots + bias), -1)
+    order = np.argsort(comp, kind="stable")
+    sc = comp[order]
+    lo_off, hi_off = (lower, upper) if side == 0 else (-upper, -lower)
+    k64 = kh.astype(np.int64) << 32
+    lo = np.searchsorted(sc, k64 | (ts + lo_off + bias), "left")
+    hi = np.searchsorted(sc, k64 | (ts + hi_off + bias), "right")
+    out = set()
+    for k in range(len(kh)):
+        for r in order[lo[k]:hi[k]].tolist():
+            out.add((base + k, r) if side == 0 else (r, base + k))
+    return out
+
+
+@pytest.mark.parametrize("lower,upper,n,n_keys", [
+    (-50, 50, 200, 20),       # symmetric; counting sort of the batch
+    (0, 0, 500, 5),           # equal times only
+    (-300, -100, 3000, 40),   # the right side strictly earlier
+    (10, 400, 300, 5000),     # small batches of many keys: comparison sort
+])
+def test_interval_join_pairs_and_prune_bit_equal(lower, upper, n, n_keys):
+    """The batched interval join core: pairs (global row ids per side,
+    in the core's order) after every push, with prunes between, equal
+    to the reference's on the same hashes and timestamps, and equal as
+    a set to a numpy join of the live rows."""
+    rng = np.random.default_rng(n + n_keys)
+    steps = _iv_batches(rng, 12, n, n_keys, 2000, zero_keys=True)
+    t = tn.NativeIntervalJoin(lower, upper, capacity=16)
+    j = jn.NativeIntervalJoin(lower, upper, capacity=16)
+    rows = {0: [], 1: []}
+    wm = -(2 ** 63)
+    for i, (kh, ts) in enumerate(steps):
+        side = i % 2
+        got = t.push(side, kh, ts)
+        _eq(got, j.push(side, kh, ts))
+        horizon = upper if side == 1 else -lower
+        other = rows[1 - side]
+        alive = np.array([r[1] + horizon > wm for r in other], bool)
+        want = _numpy_pairs(side, kh, ts, len(rows[side]), other, alive,
+                            lower, upper)
+        assert set(zip(got[0].tolist(), got[1].tolist())) == want
+        rows[side] += list(zip(kh.tolist(), ts.tolist()))
+        wm = int(ts[len(ts) // 2])
+        t.prune(wm)
+        j.prune(wm)
+
+
+def test_interval_join_empty_push_and_free():
+    t = tn.NativeIntervalJoin(-5, 5)
+    e = np.empty(0, np.uint64), np.empty(0, np.int64)
+    left, right = t.push(0, *e)
+    assert len(left) == len(right) == 0
+    t.prune(10)
+    del t
