@@ -247,7 +247,39 @@ exit code at 0):
                 and emitting it at an event-time timer each second,
                 equal to the heap backend's on 500 sampled keys (through
                 a filter after the timestamps);
-21. the launch counts of phases 4-20, each path counted on its own:
+21. ``sources`` sources with their guarantees: (a) BASELINE config #1
+                as the example writes it and users run it: a feeder
+                thread listens on 127.0.0.1 and writes 2^19 words of a
+                seeded uniform 50,000-word vocabulary in lines of 16;
+                ``socket_text_stream`` on its own thread -> ``flat_map``
+                -> ``key_by(word)`` -> processing-time ``time_window(5
+                s)`` on the system clock -> ``aggregate(SumAggregate)``
+                on the GPU backend, checkpoints every 1 s; the feeder
+                keeps the socket open, quiet, until every word was
+                counted (a wall clock is not drained at the end of
+                input), then closes it and the source ends; per word the
+                sum over every fired window equals numpy's count
+                exactly; the example's ``reduce`` form on the heap
+                backend over 2^16 words likewise; (b) a blocking source
+                (``run()`` only) of 2^18 config #2 events (1M keys, 4 s)
+                in RecordBatches, keeping its offset in operator list
+                state through ``initialize_state``, 1 s HLL p = 12 on
+                WindowOperator over the GPU backend into a
+                ``TransactionalCollectSink`` that fails once after a
+                checkpoint taken at half the input completed:
+                the committed rows equal the uninterrupted run's bit for
+                bit, none twice, the source restored its offset; (c) an
+                ``InMemoryPartitionedLog`` of 4 partitions holding 2^18
+                config #2 events, ``ReplayableLogSource`` at
+                parallelism 4 -> 1 s HLL p = 12 on the device window
+                operator's log tier (device finish) -> a
+                ``TransactionalLogSink``, failing once after a checkpoint
+                past half the input: the committed output equals the
+                uninterrupted run's, and the source committed offsets
+                only on checkpoint completion and at the end of input
+                (events cut from the issue's 2^20 / 2^19 / 2^19 to fit
+                the path into ~60 s; key spaces and p kept);
+22. the launch counts of phases 4-21, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -6015,6 +6047,534 @@ def sql_phase(dev, n_config5=1 << 22, config5_keys=500_000,
     emit({"sql": out})
 
 
+# ---- the sources path: config #1 from a socket, a threaded source and
+# the replayable log, each failing once and restarting ------------------
+
+_SOURCES_CLASSES = {}
+
+
+class _Hold:
+    """Shared by leg (b)'s source and its failing sink (class
+    attributes: the source's factory copies the function).  The source
+    holds at ``hold`` records until a checkpoint whose barrier it took
+    there completes; the sink then fails at its next row, once."""
+
+    hold = 0
+    held_cid = None
+    released = False
+    failed = False
+    fail = False
+    restored_offsets = []
+    #: checkpoint id -> the offset the source snapshotted for it
+    snapshot_offsets = {}
+
+    @classmethod
+    def reset(cls, hold, fail):
+        cls.hold, cls.held_cid = hold, None
+        cls.released, cls.failed, cls.fail = not fail, False, fail
+        cls.restored_offsets = []
+        cls.snapshot_offsets = {}
+
+
+def _sources_classes():
+    """The user functions of the sources path, built once."""
+    if _SOURCES_CLASSES:
+        return _SOURCES_CLASSES
+    from flink_tpu_torch.core.functions import MapFunction
+    from flink_tpu_torch.streaming.elements import RecordBatch, Watermark
+    from flink_tpu_torch.streaming.sources import SinkFunction, SourceFunction
+    from flink_tpu_torch.streaming.two_phase import TransactionalCollectSink
+
+    class WordTotals(SinkFunction):
+        """(word, window start, count) rows: per-word totals, windows
+        fired, and ``done`` once ``expect`` words were counted."""
+
+        def __init__(self, expect):
+            self.expect = expect
+            self.totals = {}
+            self.rows = 0
+            self.total = 0.0
+            self.done = threading.Event()
+
+        def invoke(self, value, context=None):
+            word, _start, count = value
+            self.totals[word] = self.totals.get(word, 0.0) + count
+            self.rows += 1
+            self.total += count
+            if self.total >= self.expect:
+                self.done.set()
+
+    class BlockingEvents(SourceFunction):
+        """Leg (b)'s source: run() only (a thread of its own), over
+        (key, user, ts) columns.  Its read position lives in operator
+        list state, reached through ``initialize_state``; each
+        RecordBatch of ``batch`` rows, the position and a watermark go
+        out inside the checkpoint lock."""
+
+        def __init__(self, keys, users, ts, batch=1024):
+            self.keys, self.users, self.ts = keys, users, ts
+            self.batch = batch
+            self._op = None
+            self._cancelled = False
+
+        def initialize_state(self, op):
+            self._op = op
+
+        def run(self, ctx):
+            state = self._op.operator_state_backend.get_list_state("offset")
+            offset = (state.get() or [0])[0]
+            _Hold.restored_offsets.append(offset)
+            lock = ctx.get_checkpoint_lock()
+            n = len(self.ts)
+            while offset < n and not self._cancelled:
+                if not _Hold.released and offset >= _Hold.hold:
+                    time.sleep(0.001)       # held, outside the lock
+                    continue
+                end = min(n, offset + self.batch)
+                if not _Hold.released:
+                    end = min(end, _Hold.hold)
+                sl = slice(offset, end)
+                with lock:
+                    ctx.collect_batch(RecordBatch(
+                        {"f0": self.keys[sl], "f1": self.users[sl]},
+                        ts=self.ts[sl]))
+                    ctx.emit_watermark(Watermark(int(self.ts[end - 1]) - 1))
+                    offset = end
+                    state.update([offset])
+
+        def cancel(self):
+            self._cancelled = True
+
+        def snapshot_function_state(self, checkpoint_id=None):
+            offset = (self._op.operator_state_backend
+                      .get_list_state("offset").get() or [0])[0]
+            if checkpoint_id is not None:
+                _Hold.snapshot_offsets[checkpoint_id] = offset
+            if (_Hold.fail and not _Hold.released and checkpoint_id is not None
+                    and offset >= _Hold.hold):
+                _Hold.held_cid = checkpoint_id
+            return {}
+
+        def notify_checkpoint_complete(self, checkpoint_id):
+            if _Hold.fail and checkpoint_id == _Hold.held_cid:
+                _Hold.released = True
+
+    class FailAfterHoldSink(TransactionalCollectSink):
+        def invoke(self, value, context=None):
+            if _Hold.fail and _Hold.released and not _Hold.failed:
+                _Hold.failed = True
+                raise RuntimeError("induced failure after the held checkpoint")
+            super().invoke(value, context)
+
+    class FailAfterHalf(MapFunction):
+        """Leg (c)'s failure: once a checkpoint completes after half of
+        the input went through, the next record fails, once (class
+        attributes: four subtasks share them)."""
+
+        half = 0
+        seen = 0
+        armed = False
+        failed = False
+        fail = False
+
+        def notify_checkpoint_complete(self, checkpoint_id):
+            cls = type(self)
+            if cls.fail and cls.seen >= cls.half:
+                cls.armed = True
+
+        def map(self, value):
+            cls = type(self)
+            cls.seen += 1
+            if cls.armed and not cls.failed:
+                cls.failed = True
+                raise RuntimeError("induced failure after a checkpoint")
+            return value
+
+    _SOURCES_CLASSES.update(totals=WordTotals, blocking=BlockingEvents,
+                            fail_sink=FailAfterHoldSink,
+                            fail_half=FailAfterHalf)
+    return _SOURCES_CLASSES
+
+
+class _SocketFeeder:
+    """A TCP server on an ephemeral port of 127.0.0.1: sends ``chunks``
+    to the first client, then keeps the connection open, quiet, until
+    ``done`` is set (every window fired on the wall clock) or
+    ``limit_s`` passed, then closes it, which ends the source."""
+
+    def __init__(self, chunks, done, limit_s):
+        import socket
+        self.server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.server.bind(("127.0.0.1", 0))
+        self.server.listen(1)
+        self.server.settimeout(limit_s)
+        self.port = self.server.getsockname()[1]
+        self.chunks, self.done, self.limit_s = chunks, done, limit_s
+        self.t_first = self.t_sent = self.t_closed = None
+        self.error = None
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        try:
+            conn, _ = self.server.accept()
+            with conn:
+                self.t_first = time.perf_counter()
+                for chunk in self.chunks:
+                    conn.sendall(chunk)
+                self.t_sent = time.perf_counter()
+                self.done.wait(self.limit_s)
+            self.t_closed = time.perf_counter()
+        except OSError as e:
+            self.error = repr(e)
+        finally:
+            self.server.close()
+
+    def join(self):
+        self.thread.join(self.limit_s)
+        check(not self.thread.is_alive() and self.error is None,
+              f"sources: the socket feeder finished ({self.error})")
+
+
+def _word_lines(rng, n_words, n_vocab, per_line):
+    """n_words words of a seeded uniform n_vocab vocabulary, per_line a
+    line, as byte chunks; and numpy's count per word."""
+    idx = rng.integers(0, n_vocab, n_words)
+    vocab = np.asarray([f"word{i}" for i in range(n_vocab)])
+    words = vocab[idx].reshape(-1, per_line)
+    text = "\n".join(" ".join(row) for row in words) + "\n"
+    data = text.encode()
+    chunks = [data[i:i + (1 << 16)] for i in range(0, len(data), 1 << 16)]
+    counts = np.bincount(idx, minlength=n_vocab)
+    want = {f"word{i}": float(c) for i, c in enumerate(counts) if c}
+    return chunks, want
+
+
+def _socket_wordcount(dev, n_words, n_vocab, per_line, window_s, backend,
+                      reduce_form, limit_s, seed):
+    """Config #1 as the example writes it, against a real local socket;
+    returns (report, totals)."""
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.ops.device_agg import SumAggregate
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.timers import SystemProcessingTimeService
+    from flink_tpu_torch.streaming.windowing import Time
+    classes = _sources_classes()
+    chunks, want = _word_lines(np.random.default_rng(seed), n_words, n_vocab,
+                               per_line)
+    sink = classes["totals"](n_words)
+    feeder = _SocketFeeder(chunks, sink.done, limit_s)
+    n_lines = n_words // per_line
+    seen = {"lines": 0, "t_last": None}
+
+    def split(line):
+        seen["lines"] += 1
+        if seen["lines"] == n_lines:
+            seen["t_last"] = time.perf_counter()
+        return [(w, 1) for w in line.split()]
+
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_state_backend(backend)
+    env.set_stream_time_characteristic("processing")
+    env.processing_time_service = SystemProcessingTimeService()
+    env.enable_checkpointing(1000)
+    windowed = (env.socket_text_stream("127.0.0.1", feeder.port)
+                .flat_map(split)
+                .key_by(lambda wc: wc[0])
+                .time_window(Time.seconds(window_s)))
+    if reduce_form:
+        counts = (windowed.reduce(lambda a, b: (a[0], a[1] + b[1]),
+                                  lambda k, w, vals: [(k, w.start, float(v[1]))
+                                                      for v in vals]))
+    else:
+        agg = SumAggregate(np.float64)
+        agg.extract_value = lambda wc: wc[1]
+        counts = windowed.aggregate(agg, window_function=lambda k, w, vals: [
+            (k, w.start, float(vals[0]))])
+    counts.add_sink(sink)
+    before = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    result = env.execute("chip-smoke-socket-word-count")
+    torch_sync()
+    wall = time.perf_counter() - t0
+    feeder.join()
+    launches = _launch_delta(before)
+    check(seen["lines"] == n_lines,
+          f"sources (a): the job read all {n_lines} lines ({seen['lines']})")
+    ingest_s = seen["t_last"] - feeder.t_first
+    report = {"words": n_words, "lines": n_lines, "vocabulary": n_vocab,
+              "backend": backend, "form": "reduce" if reduce_form else "aggregate",
+              "window_s": window_s, "windows_fired": sink.rows,
+              "checkpoints_completed": result.checkpoints_completed,
+              "ingest_s": ingest_s, "events_per_s": n_words / ingest_s,
+              "send_s": feeder.t_sent - feeder.t_first,
+              "quiet_until_last_fire_s": feeder.t_closed - feeder.t_sent,
+              "job_wall_s": wall, "launches": launches}
+    check(sink.totals == want,
+          f"sources (a) {report['form']}: per word, the sum over every fired "
+          f"window equals numpy's count exactly ({len(want)} words, "
+          f"{sink.total} of {n_words})")
+    check(result.checkpoints_completed >= 1,
+          f"sources (a) {report['form']}: a checkpoint completed "
+          f"({result.checkpoints_completed})")
+    return report
+
+
+def _blocking_job(dev, cols, p, fail, sink):
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    classes = _sources_classes()
+    agg = HyperLogLogAggregate(p)
+    agg.extract_value = lambda e: e[1]
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_state_backend("gpu")
+    if fail:
+        env.enable_checkpointing(2000)
+        env.set_restart_strategy("fixed_delay", restart_attempts=2, delay_ms=0)
+    (env.add_source(classes["blocking"](*cols), name="blocking").uid("blocking")
+        .key_by(0).window(TumblingEventTimeWindows.of(1000))
+        .disable_device_operator()
+        .aggregate(agg, window_function=lambda k, w, vals: [
+            (int(k), w.start, float(vals[0]))])
+        .add_sink(sink))
+    t0 = time.perf_counter()
+    result = env.execute("chip-smoke-blocking-source")
+    torch_sync()
+    return result, time.perf_counter() - t0
+
+
+def _committed_on_completion(commits, events) -> bool:
+    """Every offset commit came from the completion of checkpoint c (or
+    the end of input), and each committed offset is one the source
+    snapshotted for c or an earlier checkpoint."""
+    snapped = {}
+    for _kind, cid, offsets in events:
+        if cid is not None:
+            snapped.setdefault(cid, {}).update(offsets)
+    for by, offsets in commits:
+        if by == "end":
+            continue
+        if by is None:
+            return False
+        for part, off in offsets.items():
+            if not any(c <= by and snap.get(part) == off
+                       for c, snap in snapped.items()):
+                return False
+    return True
+
+
+def _log_job(dev, in_log, out_log, p, fail, parallelism):
+    from flink_tpu_torch.connectors import (ReplayableLogSource,
+                                            TransactionalLogSink)
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    classes = _sources_classes()
+    agg = HyperLogLogAggregate(p)
+    agg.extract_value = lambda e: e[1]
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_parallelism(parallelism)
+    env.enable_checkpointing(250)
+    if fail:
+        env.set_restart_strategy("fixed_delay", restart_attempts=2, delay_ms=0)
+    (env.add_source(ReplayableLogSource(in_log, bounded=True,
+                                        watermark_lag_ms=0),
+                    name="log", parallelism=parallelism)
+        .map(classes["fail_half"](), name="failer")
+        .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
+        .aggregate(agg, window_function=lambda k, w, vals: [
+            (int(k), w.start, float(vals[0]))])
+        # one sink subtask: its transactions are the checkpoint's alone
+        .add_sink(TransactionalLogSink(out_log)).set_parallelism(1))
+    t0 = time.perf_counter()
+    result = env.execute("chip-smoke-replayable-log")
+    torch_sync()
+    return result, time.perf_counter() - t0
+
+
+def sources_phase(dev, n_words=1 << 19, n_vocab=50_000, per_line=16,
+                  window_s=5, n_reduce=1 << 16, n_blocking=1 << 18,
+                  n_log=1 << 18, n_keys=1_000_000, span_ms=4000,
+                  parallelism=4, limit_s=120.0):
+    """Sources with their guarantees on the card, through
+    StreamExecutionEnvironment: (a) BASELINE config #1 as the example
+    writes it, socket_text_stream on its own thread fed by a local
+    socket, processing-time 5 s windows on the system clock with
+    checkpoints, Sum on the GPU backend, and the example's reduce form
+    on the heap backend; (b) a blocking source keeping its offset in
+    operator list state, 1 s HLL on WindowOperator over the GPU backend
+    into TransactionalCollectSink, failing once after a checkpoint; (c)
+    the replayable log at parallelism 4, 1 s HLL on the device window
+    operator's log tier into a TransactionalLogSink, failing once after
+    a checkpoint.  Events are cut to fit the path into ~60 s (2^19
+    words, 2^18 events in (b) and (c)); key spaces and p are the
+    configs'."""
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.connectors import InMemoryPartitionedLog
+    from flink_tpu_torch.connectors.log_connector import ReplayableLogSource
+    from flink_tpu_torch.streaming import window_operator as wo
+    from flink_tpu_torch.streaming.two_phase import TransactionalCollectSink
+    p = 12
+    out = {}
+
+    # (a) config #1 from a socket
+    t0 = time.perf_counter()
+    out["socket_gpu"] = _socket_wordcount(dev, n_words, n_vocab, per_line,
+                                          window_s, "gpu", False, limit_s, 31)
+    for kname in ("scatter_combine", "clear_rows"):
+        check(out["socket_gpu"]["launches"].get(kname, 0) > 0,
+              f"sources (a): {kname} launched ({out['socket_gpu']['launches']})")
+    out["socket_heap_reduce"] = _socket_wordcount(
+        dev, n_reduce, n_vocab, per_line, window_s, "heap", True, limit_s, 32)
+    out["socket_wall_s"] = time.perf_counter() - t0
+    emit({"sources": {"socket": out["socket_gpu"],
+                      "socket_reduce": out["socket_heap_reduce"]}})
+
+    # (b) a blocking source that fails after a checkpoint and restarts
+    t0 = time.perf_counter()
+    classes = _sources_classes()
+    rng = np.random.default_rng(33)
+    cols = (rng.integers(0, n_keys, n_blocking),
+            rng.integers(0, 2 ** 62, n_blocking),
+            np.sort(rng.integers(0, span_ms, n_blocking)))
+    log = {}
+    restore = _call_log(wo.WindowOperator, ("snapshot_state", "restore_state"),
+                        log)
+    try:
+        _Hold.reset(0, False)
+        clean_sink = TransactionalCollectSink()
+        _, clean_s = _blocking_job(dev, cols, p, False, clean_sink)
+        log.clear()
+        _Hold.reset(n_blocking // 2, True)
+        sink = classes["fail_sink"]()
+        before = dict(K.LAUNCHES)
+        result, secs = _blocking_job(dev, cols, p, True, sink)
+        launches = _launch_delta(before)
+    finally:
+        restore()
+    clean, got = clean_sink.committed, sink.committed
+    check(_Hold.failed and result.restarts == 1,
+          "sources (b): the job failed once, after the checkpoint taken at "
+          "the hold completed, and restarted once")
+    restored = _Hold.restored_offsets
+    check(len(restored) == 2 and restored[0] == 0
+          and restored[1] >= n_blocking // 2
+          and restored[1] in _Hold.snapshot_offsets.values(),
+          f"sources (b): the source's operator list state restored the "
+          f"offset it snapshotted for a checkpoint at or past the hold "
+          f"({restored}; snapshots {_Hold.snapshot_offsets})")
+    check(len(set(got)) == len(got) and sorted(got) == sorted(clean)
+          and len(clean) > 0,
+          f"sources (b): the committed rows ({len(got)}) equal the "
+          f"uninterrupted run's bit for bit, none twice")
+    for kname in ("hll_update", "hll_estimate", "clear_rows", "set_rows"):
+        check(launches.get(kname, 0) > 0,
+              f"sources (b): {kname} launched ({launches})")
+    snaps = [(s, r) for s, r in log.get("snapshot_state", [])]
+    out["blocking"] = {
+        "events": n_blocking, "keys": n_keys, "span_ms": span_ms,
+        "rows": len(clean), "seconds": secs, "events_per_s": n_blocking / secs,
+        "uninterrupted_seconds": clean_s,
+        "uninterrupted_events_per_s": n_blocking / clean_s,
+        "checkpoints_completed": result.checkpoints_completed,
+        "snapshot_s": [s for s, _ in snaps],
+        "snapshot_host_bytes": [_host_bytes(r) for _, r in snaps],
+        "restore_s": [s for s, _ in log.get("restore_state", [])],
+        "launches": launches, "wall_s": time.perf_counter() - t0}
+    emit({"sources": {"blocking": out["blocking"]}})
+
+    # (c) the replayable log, exactly once
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(34)
+    keys = rng.integers(0, n_keys, n_log)
+    users = rng.integers(0, 2 ** 62, n_log)
+    ts = np.sort(rng.integers(0, span_ms, n_log))
+    in_log = InMemoryPartitionedLog(4)
+    for i, (k, u, t) in enumerate(zip(keys.tolist(), users.tolist(),
+                                      ts.tolist())):
+        in_log.append(i % 4, (k, u), t)
+    fill_s = time.perf_counter() - t0
+    fail_cls = classes["fail_half"]
+    runs = {}
+    for name, fail in (("clean", False), ("failing", True)):
+        fail_cls.half, fail_cls.seen = n_log // 2, 0
+        fail_cls.armed = fail_cls.failed = False
+        fail_cls.fail = fail
+        out_log = InMemoryPartitionedLog(4)
+        commits, events = [], []
+        in_log._committed.clear()
+        src_notify = ReplayableLogSource.notify_checkpoint_complete
+        src_finish = ReplayableLogSource.finish
+        src_snapshot = ReplayableLogSource.snapshot_function_state
+        log_commit = type(in_log).commit_offsets
+        phase = {"by": None}
+
+        def notify(self, cid, _f=src_notify):
+            phase["by"] = cid
+            try:
+                return _f(self, cid)
+            finally:
+                phase["by"] = None
+
+        def finish(self, _f=src_finish):
+            phase["by"] = "end"
+            try:
+                return _f(self)
+            finally:
+                phase["by"] = None
+
+        def snapshot(self, cid, _f=src_snapshot):
+            state = _f(self, cid)
+            events.append(("snapshot", cid, dict(state["offsets"])))
+            return state
+
+        def commit(self, offsets, _f=log_commit):
+            commits.append((phase["by"], dict(offsets)))
+            return _f(self, offsets)
+
+        ReplayableLogSource.notify_checkpoint_complete = notify
+        ReplayableLogSource.finish = finish
+        ReplayableLogSource.snapshot_function_state = snapshot
+        type(in_log).commit_offsets = commit
+        before = dict(K.LAUNCHES)
+        try:
+            result, secs = _log_job(dev, in_log, out_log, p, fail, parallelism)
+        finally:
+            ReplayableLogSource.notify_checkpoint_complete = src_notify
+            ReplayableLogSource.finish = src_finish
+            ReplayableLogSource.snapshot_function_state = src_snapshot
+            type(in_log).commit_offsets = log_commit
+        runs[name] = (sorted(out_log.all_values()), result, secs,
+                      _launch_delta(before), commits, events)
+    clean, _, clean_s, _, _, _ = runs["clean"]
+    got, result, secs, launches, commits, events = runs["failing"]
+    check(fail_cls.failed and result.restarts == 1,
+          "sources (c): the job failed once and restarted once")
+    check(got == clean and len(clean) > 0 and len(set(got)) == len(got),
+          f"sources (c): the committed output ({len(got)} rows) equals the "
+          "uninterrupted run's, none twice")
+    by_checkpoint = [c for c in commits if c[0] != "end"]
+    check(by_checkpoint and _committed_on_completion(commits, events),
+          f"sources (c): the source committed its offsets only when a "
+          f"checkpoint completed (offsets it had snapshotted for that "
+          f"checkpoint or an earlier one) and at the end of input "
+          f"({len(by_checkpoint)} commits on completion)")
+    check(launches.get("hll_log_finish", 0) > 0,
+          f"sources (c): hll_log_finish launched ({launches})")
+    out["log"] = {"events": n_log, "keys": n_keys, "partitions": 4,
+                  "parallelism": parallelism, "rows": len(clean),
+                  "log_fill_s": fill_s, "seconds": secs,
+                  "events_per_s": n_log / secs, "uninterrupted_seconds": clean_s,
+                  "uninterrupted_events_per_s": n_log / clean_s,
+                  "checkpoints_completed": result.checkpoints_completed,
+                  "offset_commits_on_completion": len(by_checkpoint),
+                  "offset_commits_at_end": len(commits) - len(by_checkpoint),
+                  "launches": launches, "wall_s": time.perf_counter() - t0}
+    emit({"sources": {"log": out["log"]}})
+
+
 PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")),
          ("jobs", "job_phase", ("hll_update", "hll_estimate", "scatter_combine",
                                 "clear_rows", "merge_rows", "quantile_update",
@@ -6051,7 +6611,10 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                            "clear_rows", "hll_log_finish",
                                            "chain_route")),
          ("sql", "sql_phase", ("hll_log_finish", "hll_update", "hll_estimate",
-                               "merge_rows", "shard_pack", "clear_rows")))
+                               "merge_rows", "shard_pack", "clear_rows")),
+         ("sources", "sources_phase", ("scatter_combine", "clear_rows",
+                                       "hll_update", "hll_estimate",
+                                       "set_rows", "hll_log_finish")))
 
 
 def main() -> int:

@@ -22,17 +22,19 @@ class Function:
 
 
 class RuntimeContext:
-    """Per-subtask metadata handed to rich functions, and keyed state
-    on a keyed stream (``get_state`` and the other accessors)."""
+    """Per-subtask metadata handed to rich functions, keyed state on a
+    keyed stream (``get_state`` and the other accessors), and the
+    operator's ``OperatorStateBackend`` as ``operator_state_store``."""
 
     def __init__(self, task_name: str = "task", index_of_subtask: int = 0,
                  parallelism: int = 1, max_parallelism: int = 128,
-                 keyed_state_store=None):
+                 keyed_state_store=None, operator_state_store=None):
         self.task_name = task_name
         self.index_of_this_subtask = index_of_subtask
         self.number_of_parallel_subtasks = parallelism
         self.max_number_of_parallel_subtasks = max_parallelism
         self._keyed_state_store = keyed_state_store
+        self.operator_state_store = operator_state_store
         self.accumulators: dict[str, Any] = {}
 
     def _keyed(self):

@@ -12,9 +12,29 @@ each channel keeps its watermark, and an operator sees a watermark only
 when the minimum over its input channels advances.
 
 Elements flow by direct calls, cooperative and on one thread: sources
-step in turn on one loop, a chain hands batches whole from operator to
-operator, and the chain-tail router splits a batch by key group
-(``split_batch``) into one sub-batch per channel.  A subtask compiles
+with ``emit_step`` step in turn on one loop, a chain hands batches
+whole from operator to operator, and the chain-tail router splits a
+batch by key group (``split_batch``) into one sub-batch per channel.
+
+A source without ``emit_step`` (a socket, a file, any blocking
+``run()``) runs on a thread of its own.  Its context hands every
+element (records, batches, watermarks, idleness, its end) to the loop
+through a bounded queue, under the subtask's emission lock (the
+context's ``get_checkpoint_lock()``); the loop drains the queue into
+the source's chain, so every operator, and every kernel launch, runs
+on the loop's thread.  A full queue blocks the source thread (the
+backpressure); cancel and close unblock it.  To inject a barrier the
+loop takes the emission lock, or, when the source holds it, waits for
+the source to park inside its next emission; then it drains the queue
+into the chain, snapshots the chain (the source's function and
+operator state with it) and sends the barrier, so the snapshot covers
+exactly the records ahead of the barrier.  Checkpoint notifications
+reach such a chain under the same lock.  While only such sources run
+and nothing is queued, the loop waits on the queues, woken by a new
+element or a due processing-time timer; a source thread's exception
+fails its task, and a thread that does not stop after cancel is an
+error that names it.  A job with a thread-hosted source restarts in
+full under region failover.  A subtask compiles
 its fused chain program (``chain_fusion.try_fuse_subtask``) at the end
 of ``open()``, when its routes are wired.  End of input sends a final
 ``MAX_TIMESTAMP`` watermark and then ``END_OF_STREAM`` down every
@@ -23,7 +43,8 @@ channel.
 Processing time: every operator reads the executor's one
 ``ProcessingTimeService`` (the environment's, else a
 ``TestProcessingTimeService`` at 0).  A polled service fires its due
-timers once per loop turn, on this thread; at the end of input the
+timers once per loop turn, on this thread, and a system service hands
+its due callbacks to the loop (its ``dispatcher``); at the end of input the
 test service fires every pending timer until nothing moves, so a
 finite job's processing-time windows emit their tails, and then every
 operator's ``finish`` runs, in topological order.
@@ -60,8 +81,7 @@ takes runs in an ``op.<vertex>.process`` span and barriers leave
 Records route by direct calls here, so no router ever lacks capacity:
 the backpressure gauges and the backpressured share of the time
 attribution read 0 until threaded channels exist.  Alignment spill and
-its abort cap, sources on threads of their own and the cluster
-executors are later slices.
+its abort cap and the cluster executors are later slices.
 """
 
 from __future__ import annotations
@@ -104,7 +124,7 @@ from flink_tpu_torch.runtime.profiler import (get_profiler,
 from flink_tpu_torch.runtime.tracing import (LAUNCH_LEDGER, get_tracer,
                                              register_runtime_profile_gauges)
 from flink_tpu_torch.state.loader import load_state_backend
-from flink_tpu_torch.state.portable import OperatorStateSnapshot
+from flink_tpu_torch.state.operator_state import OperatorStateSnapshot
 from flink_tpu_torch.streaming.elements import (END_OF_STREAM, MAX_WATERMARK,
                                                 MIN_TIMESTAMP,
                                                 CheckpointBarrier, EndOfStream,
@@ -113,6 +133,7 @@ from flink_tpu_torch.streaming.graph import JobGraph, JobVertex
 from flink_tpu_torch.streaming.operators import Output, StreamOperator
 from flink_tpu_torch.streaming.sources import StreamSource
 from flink_tpu_torch.streaming.timers import (ProcessingTimeService,
+                                              SystemProcessingTimeService,
                                               TestProcessingTimeService)
 
 #: channel choice for latency-marker forwarding
@@ -167,6 +188,87 @@ class _InputChannel:
             self.held.append(element)
             return
         self.subtask.receive(self, element)
+
+
+class SourceCancelled(Exception):
+    """Raised into a thread-hosted source's emission once its task was
+    cancelled or closed: the source's ``run()`` unwinds."""
+
+
+class _SourceHandoff:
+    """The bounded queue from a source's thread to the executor's loop.
+
+    The source thread appends under the subtask's emission lock; the
+    loop pops without it.  ``wake`` (shared by the attempt's sources)
+    is set when the queue turns non-empty, when the source parks for
+    the loop, and when it fails.  A full queue blocks the source until
+    the loop frees room (``space``) or the task closes."""
+
+    def __init__(self, subtask: "SubtaskInstance", capacity: int,
+                 wake: threading.Event):
+        self.st = subtask
+        self.queue: deque = deque()
+        self.capacity = capacity
+        self.wake = wake
+        self.space = threading.Event()
+        #: the source waits inside an emission, lock held, for the loop
+        self.parked = threading.Event()
+        self.resume = threading.Event()
+        self.closed = False
+
+    def put(self, element) -> None:
+        st = self.st
+        q = self.queue
+        while len(q) >= self.capacity:
+            if self.closed:
+                raise SourceCancelled(st.vertex.name)
+            self.space.clear()
+            if len(q) < self.capacity:
+                break
+            self.space.wait(0.05)
+        with st.emission_lock:
+            if self.closed:
+                raise SourceCancelled(st.vertex.name)
+            if st.pending_trigger is not None or st.pending_notifications:
+                # the loop needs the lock this source holds: wait here,
+                # at a record boundary, while it works
+                self.parked.set()
+                self.wake.set()
+                self.resume.wait()
+                self.resume.clear()
+                if self.closed:
+                    raise SourceCancelled(st.vertex.name)
+            q.append(element)
+        if len(q) == 1:
+            self.wake.set()
+
+    def release_parked(self) -> None:
+        self.parked.clear()
+        self.resume.set()
+
+    def close(self) -> None:
+        self.closed = True
+        self.space.set()
+        self.resume.set()
+
+
+class _HandoffOutput(Output):
+    """A thread-hosted source's output: every element goes into the
+    hand-off queue (the executor's loop forwards it down the chain)."""
+
+    __slots__ = ("_put",)
+
+    def __init__(self, handoff: _SourceHandoff):
+        self._put = handoff.put
+
+    def collect(self, record):
+        self._put(record)
+
+    def collect_batch(self, batch):
+        self._put(batch)
+
+    def emit_watermark(self, watermark):
+        self._put(watermark)
 
 
 class _ChainedOutput(Output):
@@ -325,6 +427,14 @@ class SubtaskInstance:
             register_time_attribution_gauges(metrics_group,
                                              self.time_accounting)
             self.router.records_out_counter = self.io_metrics.num_records_out
+        # a thread-hosted source: its emission lock (the context's
+        # checkpoint lock), hand-off queue, thread and failure
+        self.emission_lock = threading.RLock()
+        self.handoff: Optional[_SourceHandoff] = None
+        self._thread: Optional[threading.Thread] = None
+        self.thread_error: Optional[BaseException] = None
+        #: checkpoint ids whose notification waits for the emission lock
+        self.pending_notifications: deque = deque()
         # span names built once: the per-element path formats nothing
         self._span_process = f"op.{vertex.name}.process"
         self._span_checkpoint = "checkpoint.barrier"
@@ -394,6 +504,12 @@ class SubtaskInstance:
             op.close()
 
     # ---- source path ------------------------------------------------
+    @property
+    def supports_stepping(self) -> bool:
+        """A source with ``emit_step`` steps on the loop; any other runs
+        on a thread of its own."""
+        return hasattr(self.head.user_function, "emit_step")
+
     def source_step(self, max_records: int) -> None:
         """Inject a pending barrier, then emit up to max_records; at the
         end of input, finish the source."""
@@ -401,20 +517,113 @@ class SubtaskInstance:
             return
         try:
             self.handle_pending_trigger()
-            fn = self.head.user_function
-            if hasattr(fn, "emit_step"):
-                if self._ctx is None:
-                    self._ctx = self.head.make_context()
-                more = fn.emit_step(self._ctx, max_records)
-            else:
-                self.head.run()
-                more = False
-            if not more:
+            if self._ctx is None:
+                self._ctx = self.head.make_context()
+            if not self.head.user_function.emit_step(self._ctx, max_records):
                 self.finish_source()
         except TaskFailureException:
             raise
         except Exception as e:  # noqa: BLE001
             raise TaskFailureException(self.task_key, e) from e
+
+    # ---- thread-hosted source ----------------------------------------
+    def run_source_threaded(self, capacity: int, wake: threading.Event) -> None:
+        """Start the source's ``run()`` on a thread of its own, emitting
+        into the hand-off queue under the emission lock."""
+        handoff = self.handoff = _SourceHandoff(self, capacity, wake)
+        ctx = self.head.make_context(output=_HandoffOutput(handoff))
+        ctx._checkpoint_lock = self.emission_lock
+        fn = self.head.user_function
+
+        def target():
+            try:
+                fn.run(ctx)
+                handoff.put(END_OF_STREAM)
+            except SourceCancelled:
+                pass
+            except BaseException as e:  # noqa: BLE001 - fails the task
+                self.thread_error = e
+                wake.set()
+
+        self._thread = threading.Thread(
+            target=target, daemon=True,
+            name=f"source-{self.vertex.name}-{self.subtask_index}")
+        self._thread.start()
+
+    def drain_handoff(self, budget: int) -> int:
+        """Up to ``budget`` queued elements of the source's thread down
+        its chain, on the loop's thread; the source's end finishes it.
+        Returns how many were taken."""
+        handoff = self.handoff
+        q = handoff.queue
+        out = self.head.output
+        n = 0
+        try:
+            while q and n < budget:
+                el = q.popleft()
+                n += 1
+                if el.is_record:
+                    out.collect(el)
+                elif el.is_watermark:
+                    out.emit_watermark(el)
+                elif el is END_OF_STREAM:
+                    self.finish_source()
+                    break
+                else:
+                    out.collect_batch(el)
+        except TaskFailureException:
+            raise
+        except Exception as e:  # noqa: BLE001
+            raise TaskFailureException(self.task_key, e) from e
+        finally:
+            if n:
+                handoff.space.set()
+        return n
+
+    def serve_threaded_source(self) -> None:
+        """The loop's work that needs the emission lock: a pending
+        barrier (the queue drained first, so the snapshot covers what
+        is ahead of it) and checkpoint notifications.  Taken when the
+        lock is free, or while the source is parked for it."""
+        handoff = self.handoff
+        parked = handoff.parked.is_set()
+        if not parked and (self.pending_trigger is None
+                           and not self.pending_notifications):
+            return
+        if not parked and not self.emission_lock.acquire(blocking=False):
+            return   # the source parks at its next emission
+        try:
+            if self.pending_trigger is not None and not self.finished:
+                self.drain_handoff(1 << 62)
+                try:
+                    self.handle_pending_trigger()
+                except TaskFailureException:
+                    raise
+                except Exception as e:  # noqa: BLE001
+                    raise TaskFailureException(self.task_key, e) from e
+            self._deliver_notifications()
+        finally:
+            if parked:
+                handoff.release_parked()
+            else:
+                self.emission_lock.release()
+
+    def cancel_source(self) -> None:
+        """Stop the source: its function's ``cancel`` and, for a thread,
+        the hand-off queue closes so a blocked emission returns."""
+        if self.handoff is not None:
+            self.handoff.close()
+        try:
+            self.head.cancel()
+        except Exception:  # noqa: BLE001 - the attempt is ending
+            pass
+
+    def join_source(self, timeout: float) -> bool:
+        """True once the source's thread (if any) has stopped."""
+        if self._thread is None:
+            return True
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
 
     def finish_source(self):
         """End of input: a pending barrier first, then event time to the
@@ -611,8 +820,23 @@ class SubtaskInstance:
                 op.restore_state(per_op)
 
     def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        if self.handoff is not None:
+            # a live source thread's function hears of it under the
+            # emission lock; a finished one's thread has ended
+            self.pending_notifications.append(checkpoint_id)
+            if self.finished:
+                self._deliver_notifications()
+            else:
+                self.serve_threaded_source()
+            return
         for op in self.operators:
             op.notify_checkpoint_complete(checkpoint_id)
+
+    def _deliver_notifications(self) -> None:
+        while self.pending_notifications:
+            cid = self.pending_notifications.popleft()
+            for op in self.operators:
+                op.notify_checkpoint_complete(cid)
 
 
 class JobClient:
@@ -708,6 +932,12 @@ class LocalExecutor:
 
     #: records a source emits per loop step before the next source runs
     SOURCE_BUDGET = 1024
+    #: elements a thread-hosted source may have queued for the loop
+    HANDOFF_CAPACITY = 4096
+    #: seconds a source thread has to stop after cancel
+    SOURCE_JOIN_S = 5.0
+    #: the longest the loop waits on quiet source threads, in seconds
+    IDLE_WAIT_S = 0.05
 
     def __init__(self, state_backend=None, device: DeviceLike = None,
                  restart_strategy: Optional[dict] = None,
@@ -864,8 +1094,19 @@ class LocalExecutor:
         all_tasks = [st for v in job_graph.topological_vertices()
                      for st in subtasks[v.id]]
         sources = [st for st in all_tasks if st.is_source]
+        threaded = [s for s in sources if not s.supports_stepping]
         opened: List[SubtaskInstance] = []
         coordinator = None
+        #: set by source threads and the system clock's timers: the
+        #: loop has work
+        wake = threading.Event()
+        loop_calls: deque = deque()
+        system_clock = isinstance(self.pts, SystemProcessingTimeService)
+        if system_clock:
+            def dispatch(fn):
+                loop_calls.append(fn)
+                wake.set()
+            self.pts.dispatcher = dispatch
         try:
             for st in reversed(all_tasks):   # consumers before producers
                 st.open()
@@ -934,11 +1175,16 @@ class LocalExecutor:
                 "checkpoints_base": getattr(result, "_cp_base", 0),
                 "journal": journal, "health": evaluator,
                 "upstreams": derive_upstreams(job_graph)}
+            for s in threaded:
+                s.run_source_threaded(self.HANDOFF_CAPACITY, wake)
             try:
                 self._loop(client, result, coordinator, ack_queue,
-                           all_tasks, sources, journal, evaluator)
+                           all_tasks, sources, journal, evaluator,
+                           wake, loop_calls)
             except TaskFailureException as tfe:
-                if self.failover_strategy == "region":
+                # a thread-hosted source's run() cannot resume from live
+                # state: such a job restarts in full
+                if self.failover_strategy == "region" and not threaded:
                     tfe.live_state, tfe.capture_failed_keys = \
                         _capture_live_state(all_tasks, tfe.task_key)
                 raise
@@ -954,33 +1200,46 @@ class LocalExecutor:
                 coordinator.stopped = True
                 coordinator.fail_pending_savepoints(RuntimeError(
                     "job attempt ended before the savepoint completed"))
+            if system_clock:
+                # this attempt's timers die with it
+                self.pts.reset_timers()
+                self.pts.dispatcher = _drop_call
             for s in sources:
-                try:
-                    s.head.cancel()
-                except Exception:  # noqa: BLE001
-                    pass
+                s.cancel_source()
+            stuck = [s for s in threaded if not s.join_source(self.SOURCE_JOIN_S)]
             for st in opened:
                 st.close()
+            if stuck:
+                raise RuntimeError(
+                    "source thread(s) did not stop within "
+                    f"{self.SOURCE_JOIN_S} s of cancel: " + ", ".join(
+                        f"{s.vertex.name} (subtask {s.subtask_index})"
+                        for s in stuck))
 
     # ---- the loop ---------------------------------------------------
     def _loop(self, client, result, coordinator, ack_queue, all_tasks,
-              sources, journal=None, evaluator=None):
+              sources, journal=None, evaluator=None, wake=None,
+              loop_calls=None):
         pts = self.pts
         pts_poll = getattr(pts, "fire_due", None)
-        active = list(sources)
+        pts_next = getattr(pts, "next_timer", None)
+        active = [s for s in sources if s.supports_stepping]
+        threaded = [s for s in sources if not s.supports_stepping]
         profiler = get_profiler()
         non_sources = [st for st in all_tasks if not st.is_source]
         last_latency_emit = _time.monotonic()
         while True:
             if client.cancel_requested:
                 raise JobCancelledException()
+            if wake is not None:
+                wake.clear()
             # periodic latency markers from the sources
             if self.latency_interval_ms is not None:
                 now = _time.monotonic()
                 if (now - last_latency_emit) * 1000.0 >= self.latency_interval_ms:
                     last_latency_emit = now
                     now_ms = _time.time() * 1000.0
-                    for s in active:
+                    for s in active + threaded:
                         s.head.output.emit_latency_marker(LatencyMarker(
                             now_ms, s.head.operator_id, s.subtask_index))
             # a due checkpoint's barrier goes ahead of this turn's records
@@ -994,6 +1253,24 @@ class LocalExecutor:
                 s.source_step(self.SOURCE_BUDGET)
                 observe_subtask(s, s.io_metrics is not None and
                                 s.io_metrics.num_records_out.count != before)
+            # thread-hosted sources: a failure fails the task; barriers
+            # and notifications under the emission lock; then a budget
+            # of what the thread queued, down the chain on this thread
+            queued = False
+            for s in threaded:
+                if s.thread_error is not None:
+                    raise TaskFailureException(s.task_key, s.thread_error) \
+                        from s.thread_error
+                if profiler.enabled:
+                    profiler.set_scope(s)
+                s.serve_threaded_source()
+                if not s.finished:
+                    n = s.drain_handoff(self.SOURCE_BUDGET)
+                    observe_subtask(s, n > 0)
+                    queued = queued or bool(s.handoff.queue) \
+                        or s.handoff.parked.is_set()
+            while loop_calls:
+                loop_calls.popleft()()
             # the other subtasks ran inside the sources' calls: one
             # observation each per turn, busy when records came in
             for st in non_sources:
@@ -1004,6 +1281,7 @@ class LocalExecutor:
                 observe_subtask(st, seen != getattr(st, "_seen_in", 0))
                 st._seen_in = seen
             active = [s for s in active if not s.finished]
+            threaded = [s for s in threaded if not s.finished]
             if pts_poll is not None:
                 pts_poll()
             if coordinator is not None:
@@ -1018,8 +1296,17 @@ class LocalExecutor:
             # the metrics journal's tick, and the health rules on a sample
             if journal is not None and journal.maybe_sample():
                 evaluator.evaluate()
-            if not active:
+            if not active and not threaded:
                 break
+            if not active and not queued and not loop_calls:
+                # only source threads are left, and they are quiet: wait
+                # for an element or the next due timer, not spinning
+                timeout = self.IDLE_WAIT_S
+                nxt = pts_next() if pts_next is not None else None
+                if nxt is not None:
+                    timeout = min(timeout, max(
+                        0.0, (nxt - pts.get_current_processing_time()) / 1000.0))
+                wake.wait(timeout)
         # end of input: the test clock's pending timers fire until none
         # is left, so processing-time windows emit their tails (their
         # output reaches the sinks by direct calls and may register
@@ -1045,6 +1332,11 @@ class LocalExecutor:
         while ack_queue:
             task_key, cid, snapshot = ack_queue.popleft()
             coordinator.acknowledge(task_key, cid, snapshot)
+
+
+def _drop_call(fn) -> None:
+    """A system clock's dispatcher between jobs: a timer of an ended
+    attempt runs nowhere."""
 
 
 # ---- restore assignment ----------------------------------------------

@@ -14,10 +14,10 @@ pickling a class by name would import its module here.
 those JAX-package classes onto the port's copy and refuses every other
 class of the JAX package; it never imports that package.
 
-``OperatorStateSnapshot`` and ``SerializerConfigSnapshot`` are kept
-here as data only: the JAX package writes them into every operator
-and keyed snapshot, the port writes neither (operator state and
-serializer migration are not ported).
+``OperatorStateSnapshot`` is the port's own class
+(``state/operator_state.py``).  ``SerializerConfigSnapshot`` is kept
+here as data only: the JAX package writes it into every keyed
+snapshot, the port writes none (serializer migration is not ported).
 """
 
 from __future__ import annotations
@@ -26,40 +26,9 @@ import importlib
 import io
 import pickle
 import types
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 _REF = "flink_tpu"
-
-
-class OperatorStateSnapshot:
-    """The JAX package's operator-state snapshot: name -> (mode,
-    pickled items) list states and name -> pickled broadcast states."""
-
-    __slots__ = ("list_states", "broadcast_states")
-
-    def __init__(self, list_states: Dict[str, Tuple[str, bytes]],
-                 broadcast_states: Dict[str, bytes]):
-        self.list_states = list_states
-        self.broadcast_states = broadcast_states
-
-    @staticmethod
-    def redistribute(snapshots: List["OperatorStateSnapshot"],
-                     new_parallelism: int) -> List["OperatorStateSnapshot"]:
-        """Round-robin re-split of every old subtask's list items over
-        ``new_parallelism`` subtasks; union lists go whole to each."""
-        all_items: Dict[str, Tuple[str, List[Any]]] = {}
-        bcast: Dict[str, bytes] = {}
-        for snap in snapshots:
-            for name, (mode, blob) in snap.list_states.items():
-                all_items.setdefault(name, (mode, []))[1].extend(loads(blob))
-            bcast.update(snap.broadcast_states)
-        outs = []
-        for i in range(new_parallelism):
-            lists = {name: (mode, pickle.dumps(
-                items if mode == "union" else items[i::new_parallelism]))
-                for name, (mode, items) in all_items.items()}
-            outs.append(OperatorStateSnapshot(lists, dict(bcast)))
-        return outs
 
 
 class SerializerConfigSnapshot:
@@ -81,6 +50,7 @@ class SerializerConfigSnapshot:
 def _classes() -> Dict[Tuple[str, str], type]:
     """(JAX-package module, class name) -> the port's class."""
     from flink_tpu_torch.state.backend import KeyedStateSnapshot
+    from flink_tpu_torch.state.operator_state import OperatorStateSnapshot
     from flink_tpu_torch.state.shared_registry import ChunkRef, SharedChunk
     from flink_tpu_torch.streaming.windowing import GlobalWindow, TimeWindow
     return {

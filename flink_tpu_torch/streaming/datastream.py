@@ -53,6 +53,15 @@ source.  ``env.processing_time_service`` is the clock the executor
 hands every operator (a ``TestProcessingTimeService`` at 0 when None;
 a ``PolledProcessingTimeService`` for the wall clock).
 
+``add_source`` runs a source at the parallelism it is given (a
+``ParallelSourceFunction`` may take more than 1), each subtask with its
+own copy of the function and, for a rich function, its own runtime
+context; a source without ``emit_step`` runs on a thread of its own.
+``socket_text_stream`` (lines from a TCP socket) and ``read_text_file``
+are such sources, ``write_as_text`` writes a line per element, and a
+sink that decodes retract pairs (``enable_retract_decoding``) is told
+so when it is added to a Table's ``to_retract_stream()``.
+
 ``enable_checkpointing`` turns on barrier checkpoints into the storage
 ``set_checkpoint_storage`` picks (``memory``, or ``filesystem`` with a
 directory); ``set_restart_strategy`` / ``set_failover_strategy``
@@ -97,10 +106,13 @@ from flink_tpu_torch.streaming.partitioners import (BroadcastPartitioner,
                                                     RescalePartitioner,
                                                     ShufflePartitioner,
                                                     StreamPartitioner)
-from flink_tpu_torch.streaming.sources import (CollectSink,
+from flink_tpu_torch.streaming.sources import (CollectSink, FileTextSource,
                                                FromCollectionSource, PrintSink,
+                                               SocketTextStreamSource,
                                                SourceFunction, StreamSource,
-                                               TimestampsAndWatermarksOperator)
+                                               TimestampsAndWatermarksOperator,
+                                               WriteAsTextSink)
+from flink_tpu_torch.streaming.two_phase import TwoPhaseCommitSinkFunction
 from flink_tpu_torch.streaming.window_operator import (EvictingWindowOperator,
                                                       WindowOperator)
 from flink_tpu_torch.streaming.windowing import (
@@ -122,6 +134,8 @@ class StreamExecutionEnvironment:
         #: the keys the port reads: state.backend and its tuning keys
         self.config = configuration if configuration is not None else Configuration()
         self.graph = StreamGraph()
+        #: nodes of two-phase commit sinks (held to parallelism 1)
+        self._two_phase_sinks = []
         self.parallelism = 1
         self.max_parallelism = 128
         #: device window aggregation sharded over this mesh (set_mesh)
@@ -239,14 +253,12 @@ class StreamExecutionEnvironment:
 
     # ---- sources ----------------------------------------------------
     def add_source(self, source_function: SourceFunction,
-                   name: str = "source") -> "DataStream":
-        tc = self.time_characteristic
-
-        def factory():
-            return StreamSource(copy.deepcopy(source_function), tc)
+                   name: str = "source", parallelism: int = 1) -> "DataStream":
         node = self.graph.add_node(StreamNode(
-            self.graph.new_node_id(), name, factory, parallelism=1,
-            max_parallelism=self.max_parallelism, is_source=True))
+            self.graph.new_node_id(), name,
+            _source_factory(source_function, self.time_characteristic),
+            parallelism=parallelism, max_parallelism=self.max_parallelism,
+            is_source=True))
         return DataStream(self, node)
 
     def from_collection(self, items: Iterable[Any],
@@ -258,11 +270,29 @@ class StreamExecutionEnvironment:
     def from_elements(self, *items) -> "DataStream":
         return self.from_collection(list(items))
 
+    def socket_text_stream(self, hostname: str, port: int,
+                           delimiter: str = "\n",
+                           max_retries: int = 0) -> "DataStream":
+        return self.add_source(
+            SocketTextStreamSource(hostname, port, delimiter, max_retries),
+            name="socket_source")
+
+    def read_text_file(self, path: str) -> "DataStream":
+        return self.add_source(FileTextSource(path), name="file_source")
+
     # ---- execution --------------------------------------------------
     def get_stream_graph(self) -> StreamGraph:
         return self.graph
 
     def get_job_graph(self):
+        for node in self._two_phase_sinks:
+            if node.parallelism > 1:
+                # its subtasks would share one function and its open
+                # transaction: one subtask's barrier would pre-commit
+                # records another processed after its own barrier
+                raise ValueError(
+                    f"two-phase commit sink {node.name!r} runs at "
+                    f"parallelism {node.parallelism}; it needs 1")
         jg = create_job_graph(self.graph)
         if self.checkpoint_config is not None:
             jg.checkpoint_config = {**self.checkpoint_config,
@@ -324,6 +354,15 @@ class StreamExecutionEnvironment:
         ``JobClient``.  No torch work may run on the caller's thread
         until the job ends (see ``LocalExecutor.execute_async``)."""
         return self._make_executor(job_name).execute_async(self.get_job_graph())
+
+
+def _source_factory(source_function: SourceFunction,
+                    time_characteristic: str):
+    """A fresh copy of the function for every subtask and attempt."""
+    def factory():
+        return StreamSource(copy.deepcopy(source_function),
+                            time_characteristic)
+    return factory
 
 
 def _op_factory(cls, fn_factory):
@@ -503,11 +542,22 @@ class DataStream:
             lambda: TimestampsAndWatermarksOperator(assigner, watermark_interval))
 
     def add_sink(self, sink_function, name: str = "sink") -> "DataStreamSink":
+        # a Table's to_retract_stream() marks its stream; a sink that
+        # decodes retract pairs learns it here (plain streams are never
+        # sniffed for pair-shaped values)
+        if getattr(self, "carries_retract_pairs", False) and \
+                hasattr(sink_function, "enable_retract_decoding"):
+            sink_function.enable_retract_decoding()
         node = self._add_op(name, _op_factory(StreamSink, lambda: sink_function))
+        if isinstance(sink_function, TwoPhaseCommitSinkFunction):
+            self.env._two_phase_sinks.append(node.node)
         return DataStreamSink(node)
 
     def print_(self, prefix: str = "") -> "DataStreamSink":
         return self.add_sink(PrintSink(prefix), name="print")
+
+    def write_as_text(self, path: str) -> "DataStreamSink":
+        return self.add_sink(WriteAsTextSink(path), name="write_text")
 
     def collect_into(self, target: list) -> "DataStreamSink":
         return self.add_sink(CollectSink(target), name="collect")
@@ -517,6 +567,10 @@ class DataStreamSink:
     def __init__(self, stream: DataStream):
         self._stream = stream
         self.node = stream.node
+
+    def set_parallelism(self, parallelism: int) -> "DataStreamSink":
+        self.node.parallelism = parallelism
+        return self
 
     def name(self, name: str) -> "DataStreamSink":
         self.node.name = name

@@ -6,8 +6,9 @@ state at end of input.  ``RecordBatch`` is a stream element of its
 own: sources emit batches, column kernels and the fused chain program
 consume them, and the router splits them by key group.  A
 ``CheckpointBarrier`` travels in band from the sources and
-``END_OF_STREAM`` closes a channel.  Stream status and latency markers
-arrive with later slices.
+``END_OF_STREAM`` closes a channel.  A ``LatencyMarker`` measures a
+path's age; ``StreamStatus`` names a channel's ACTIVE or IDLE status
+(no executor path sends one yet).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ class StreamElement:
     is_watermark = False
     is_barrier = False
     is_latency_marker = False
+    is_stream_status = False
 
 
 class StreamRecord(StreamElement):
@@ -183,6 +185,38 @@ class CheckpointBarrier(StreamElement):
 
     def __hash__(self):
         return hash(self.checkpoint_id)
+
+
+class StreamStatus(StreamElement):
+    """ACTIVE/IDLE channel status, so that idle inputs need not hold
+    back the watermark (ref: StreamStatus.java)."""
+
+    __slots__ = ("status",)
+
+    is_stream_status = True
+
+    ACTIVE = 0
+    IDLE = 1
+
+    def __init__(self, status: int):
+        self.status = status
+
+    @property
+    def is_active(self) -> bool:
+        return self.status == StreamStatus.ACTIVE
+
+    def __repr__(self):
+        return "StreamStatus(ACTIVE)" if self.is_active else "StreamStatus(IDLE)"
+
+    def __eq__(self, other):
+        return isinstance(other, StreamStatus) and self.status == other.status
+
+    def __hash__(self):
+        return hash(("status", self.status))
+
+
+ACTIVE_STATUS = StreamStatus(StreamStatus.ACTIVE)
+IDLE_STATUS = StreamStatus(StreamStatus.IDLE)
 
 
 class LatencyMarker(StreamElement):

@@ -5,11 +5,17 @@ setup → open → process* → finish → close.  ``setup`` takes the
 operator's keyed backend and processing-time service and builds its
 ``InternalTimerService``; ``process_watermark`` advances the timers,
 ``set_key_context`` sets the backend's current key, and
-``snapshot_state`` / ``restore_state`` carry keyed state and timers
-(and, for a user function that defines ``snapshot_function_state`` /
+``snapshot_state`` / ``restore_state`` carry keyed state, operator
+state (``state/operator_state.py``: list and broadcast states; several
+snapshots restore as one, merged by ``redistribute``) and timers, and,
+for a user function that defines ``snapshot_function_state`` /
 ``restore_function_state``, its own state, such as a source's read
-position).  ``notify_checkpoint_complete`` reaches user functions that
-define it.
+position.  ``notify_checkpoint_complete`` reaches user functions that
+define it.  A user function with ``initialize_state(operator)`` gets
+its hosting operator at open, and with it the operator state backend;
+a rich function's ``RuntimeContext`` carries it as
+``operator_state_store``.  The executor opens operators before it
+restores them, so such a function reads its operator state lazily.
 
 ``ProcessOperator`` and ``KeyedProcessOperator`` host a
 ``ProcessFunction``: its context gives the record's timestamp, the
@@ -25,10 +31,9 @@ function's ``RuntimeContext`` reaches keyed state through a
 analyzer proves LIFTABLE on whole numpy columns of a RecordBatch; the
 first batch is probed against the scalar UDF on its edge rows, and any
 exception, wrong shape or probe mismatch locks the operator onto the
-boxed per-record path.  Operator state, metrics and the type-flow
-prover's static skip (``_static_kernel``) are later slices (a snapshot
-that carries operator state does not restore); the device window
-operator is its own keyed state.
+boxed per-record path.  The type-flow prover's static skip
+(``_static_kernel``) is a later slice; the device window operator is
+its own keyed state.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from flink_tpu_torch.core.functions import (KeySelector, ReduceFunction,
                                             RichFunction, RuntimeContext)
 from flink_tpu_torch.core.state import ReducingStateDescriptor, StateDescriptor
 from flink_tpu_torch.state.backend import VOID_NAMESPACE
+from flink_tpu_torch.state.operator_state import (OperatorStateBackend,
+                                                  OperatorStateSnapshot)
 from flink_tpu_torch.streaming.elements import (MAX_TIMESTAMP, MIN_TIMESTAMP,
                                                 RecordBatch, StreamRecord,
                                                 Watermark)
@@ -150,6 +157,7 @@ class StreamOperator(abc.ABC):
     def __init__(self):
         self.output: Optional[Output] = None
         self.keyed_backend = None
+        self.operator_state_backend: Optional[OperatorStateBackend] = None
         self.processing_time_service: Optional[ProcessingTimeService] = None
         self.timer_service: Optional[InternalTimerService] = None
         self.current_watermark: int = MIN_TIMESTAMP
@@ -174,12 +182,15 @@ class StreamOperator(abc.ABC):
         self._boxed_fallbacks_counter = None
 
     def setup(self, output: Output, keyed_backend=None,
+              operator_state_backend: Optional[OperatorStateBackend] = None,
               processing_time_service: Optional[ProcessingTimeService] = None,
               key_selector: Optional[KeySelector] = None,
               operator_id: str = "", subtask_index: int = 0,
               num_subtasks: int = 1, max_parallelism: int = 128) -> None:
         self.output = output
         self.keyed_backend = keyed_backend
+        self.operator_state_backend = (operator_state_backend
+                                       or OperatorStateBackend())
         self.processing_time_service = processing_time_service
         self.key_selector = key_selector
         self.operator_id = operator_id or type(self).__name__
@@ -293,29 +304,29 @@ class StreamOperator(abc.ABC):
 
     # ---- snapshot ---------------------------------------------------
     def snapshot_state(self, checkpoint_id: Optional[int] = None) -> dict:
-        """Keyed state (pending micro-batches flushed first) and timers."""
+        """Keyed state (pending micro-batches flushed first), operator
+        state and timers."""
         snap = {}
         if self.keyed_backend is not None:
             flush = getattr(self.keyed_backend, "flush_all", None)
             if flush is not None:
                 flush()
             snap["keyed"] = self.keyed_backend.snapshot()
+        if self.operator_state_backend is not None:
+            snap["operator"] = self.operator_state_backend.snapshot()
         if self.timer_service is not None:
             snap["timers"] = self.timer_service.snapshot()
         return snap
 
     def restore_state(self, snapshots: List[dict]) -> None:
-        for s in snapshots:
-            op_state = s.get("operator")
-            if getattr(op_state, "list_states", None) \
-                    or getattr(op_state, "broadcast_states", None):
-                raise NotImplementedError(
-                    f"operator {self.operator_id!r}: the snapshot carries "
-                    "operator state, which the port does not restore "
-                    "(operator state is not ported)")
         keyed = [s["keyed"] for s in snapshots if "keyed" in s]
         if keyed and self.keyed_backend is not None:
             self.keyed_backend.restore(keyed)
+        ops = [s["operator"] for s in snapshots if "operator" in s]
+        if ops and self.operator_state_backend is not None:
+            self.operator_state_backend.restore(
+                ops[0] if len(ops) == 1
+                else OperatorStateSnapshot.redistribute(ops, 1)[0])
         timers = [s["timers"] for s in snapshots if "timers" in s]
         if timers and self.timer_service is not None:
             self.timer_service.restore(timers)
@@ -365,8 +376,14 @@ class AbstractUdfStreamOperator(StreamOperator):
                 index_of_subtask=self.subtask_index,
                 parallelism=self.num_subtasks,
                 max_parallelism=self.max_parallelism,
-                keyed_state_store=store))
+                keyed_state_store=store,
+                operator_state_store=self.operator_state_backend))
             self.user_function.open(None)
+        # operator state for any function (the seam a replayable source
+        # keeps its positions through); restore runs after open
+        fn = self.user_function
+        if hasattr(fn, "initialize_state"):
+            fn.initialize_state(self)
 
     def finish(self):
         fn = self.user_function

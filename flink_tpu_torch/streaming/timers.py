@@ -17,7 +17,9 @@ default); ``PolledProcessingTimeService`` reads the wall clock and
 fires due timers only when its owner calls ``fire_due`` (the executor
 polls it once per loop turn, so callbacks, and the kernels they
 launch, run on the executor's thread); ``SystemProcessingTimeService``
-fires on ``threading.Timer`` threads under a callback lock.
+fires on ``threading.Timer`` threads under a callback lock, or, once
+the executor sets its ``dispatcher``, hands each due callback to the
+executor's loop, which runs it on its own thread.
 """
 
 from __future__ import annotations
@@ -46,15 +48,19 @@ class ProcessingTimeService(abc.ABC):
 
 
 class SystemProcessingTimeService(ProcessingTimeService):
-    """Wall-clock timers on ``threading.Timer`` threads; each callback
-    runs under the callback lock.  A callback that reaches device state
-    launches its kernels from the timer's thread: jobs poll a
-    ``PolledProcessingTimeService`` on the executor's thread instead."""
+    """Wall-clock timers on ``threading.Timer`` threads.  Without a
+    ``dispatcher`` each callback runs on its timer's thread under the
+    callback lock; with one (the executor sets it for a job) a due
+    callback is handed to it as a no-argument call, and the executor's
+    loop runs it, so every kernel a timer reaches launches from the
+    loop's thread."""
 
     def __init__(self, lock: Optional[threading.Lock] = None):
         self._lock = lock or threading.Lock()
         self._timers: Set[threading.Timer] = set()
         self._shutdown = False
+        #: callable(fn) that runs fn on the executor's loop, or None
+        self.dispatcher: Optional[Callable[[Callable[[], None]], None]] = None
 
     def get_current_processing_time(self) -> int:
         return int(_time.time() * 1000)
@@ -66,7 +72,11 @@ class SystemProcessingTimeService(ProcessingTimeService):
         def fire():
             with self._lock:
                 self._timers.discard(t_box[0])
-                if not self._shutdown:
+                if self._shutdown:
+                    return
+                if self.dispatcher is not None:
+                    self.dispatcher(lambda: callback(timestamp))
+                else:
                     callback(timestamp)
 
         t = threading.Timer(delay, fire)
@@ -79,6 +89,12 @@ class SystemProcessingTimeService(ProcessingTimeService):
     def shutdown(self):
         with self._lock:
             self._shutdown = True
+        self.reset_timers()
+
+    def reset_timers(self) -> None:
+        """Cancel every pending timer: a restarted attempt's operators
+        register their own."""
+        with self._lock:
             timers = list(self._timers)
             self._timers.clear()
         for t in timers:
@@ -102,6 +118,11 @@ class PolledProcessingTimeService(ProcessingTimeService):
         with self._lock:
             heapq.heappush(self._queue, (timestamp, self._seq, callback))
             self._seq += 1
+
+    def next_timer(self) -> Optional[int]:
+        """The earliest registered timestamp, or None."""
+        with self._lock:
+            return self._queue[0][0] if self._queue else None
 
     def fire_due(self) -> int:
         """Fire every timer due at the current clock; returns how many
@@ -328,9 +349,49 @@ class InternalTimerService:
         trigger timer in one call."""
         self._event_set.difference_update(entries)
 
+    def pop_due_processing_time_timers(
+            self, now: int) -> Tuple[List[int], List[Any], List[Any]]:
+        """Bulk sweep of every due processing-time timer <= now, as
+        (timestamps, keys, namespaces) columns in the order the
+        per-timer drain fires them (deleted entries skipped); firing is
+        the caller's job.  The same contract as
+        ``pop_due_event_time_timers``: valid when the callbacks would
+        register no new timer <= now."""
+        heap = self._proc_heap
+        live = self._proc_set
+        timestamps: List[int] = []
+        keys: List[Any] = []
+        namespaces: List[Any] = []
+        pop = heapq.heappop
+        while heap and heap[0][0] <= now:
+            ts, _, key, namespace = pop(heap)
+            entry = (ts, key, namespace)
+            if entry not in live:
+                continue
+            live.remove(entry)
+            timestamps.append(ts)
+            keys.append(key)
+            namespaces.append(namespace)
+        return timestamps, keys, namespaces
+
     def _on_processing_time(self, fired_at: int) -> None:
+        """Fire the due processing-time timers: as one batch when the
+        operator takes it (``on_processing_time_batch`` returns True),
+        else one callback a timer."""
         self._next_proc_registered = None
         now = self._pts.get_current_processing_time()
+        fire_batch = getattr(self._triggerable, "on_processing_time_batch",
+                             None)
+        if fire_batch is not None and fire_batch(now):
+            pass
+        else:
+            self._fire_processing_time_timers(now)
+        if self._proc_heap:
+            nxt = self._proc_heap[0][0]
+            self._next_proc_registered = nxt
+            self._pts.register_timer(nxt, self._on_processing_time)
+
+    def _fire_processing_time_timers(self, now: int) -> None:
         while self._proc_heap and self._proc_heap[0][0] <= now:
             ts, _, key, namespace = heapq.heappop(self._proc_heap)
             entry = (ts, key, namespace)
@@ -339,10 +400,6 @@ class InternalTimerService:
             self._proc_set.remove(entry)
             self._backend.set_current_key(key)
             self._triggerable.on_processing_time(InternalTimer(ts, key, namespace))
-        if self._proc_heap:
-            nxt = self._proc_heap[0][0]
-            self._next_proc_registered = nxt
-            self._pts.register_timer(nxt, self._on_processing_time)
 
     # ---- snapshot (timers are state, keyed per key group) -----------
     def snapshot(self) -> dict:

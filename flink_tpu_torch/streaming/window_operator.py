@@ -24,7 +24,10 @@ and fires only by its trigger; lateness does not apply to it.
 list state and runs the evictor around the window function.
 Processing-time assigners place a record by the operator's
 processing-time clock; their triggers and cleanup timers are
-processing-time timers, fired through ``on_processing_time``.
+processing-time timers.  Tumbling and sliding ones under the default
+trigger fire every due window as one batch
+(``on_processing_time_batch``: one ``get_batch``, one
+``clear_batch``), the others one ``on_processing_time`` a timer.
 """
 
 from __future__ import annotations
@@ -48,12 +51,10 @@ from flink_tpu_torch.streaming.elements import MAX_TIMESTAMP, StreamRecord
 from flink_tpu_torch.streaming.operators import (AbstractUdfStreamOperator,
                                                  OutputTag,
                                                  TimestampedCollector)
-from flink_tpu_torch.streaming.windowing import (SlidingEventTimeWindows,
-                                                 TimeWindow, Trigger,
-                                                 TriggerContext,
-                                                 TriggerResult,
-                                                 TumblingEventTimeWindows,
-                                                 WindowAssigner)
+from flink_tpu_torch.streaming.windowing import (
+    SlidingEventTimeWindows, SlidingProcessingTimeWindows, TimeWindow,
+    Trigger, TriggerContext, TriggerResult, TumblingEventTimeWindows,
+    TumblingProcessingTimeWindows, WindowAssigner)
 
 
 # ---------------------------------------------------------------------
@@ -326,6 +327,12 @@ class WindowOperator(AbstractUdfStreamOperator):
             raise ValueError("WindowOperator needs a keyed state backend "
                              "(a key selector)")
         self._batch_demote_reason = self._batch_eligibility()
+        # processing-time tumbling/sliding windows under the default
+        # trigger: every timer is the window's fire and its cleanup
+        self._proc_batch = (
+            isinstance(self.assigner, (TumblingProcessingTimeWindows,
+                                       SlidingProcessingTimeWindows))
+            and type(self.trigger) is type(self.assigner.get_default_trigger()))
         self._emit_batch_hist = None
         if self.metrics is not None:
             # eager, so monitoring sees the zero; a fresh attempt starts
@@ -730,6 +737,39 @@ class WindowOperator(AbstractUdfStreamOperator):
                     self._internal_fn.clear(key_col[i],
                                             wt.from_namespace(ns_col[i]), self)
 
+    def on_processing_time_batch(self, now: int) -> bool:
+        """Fire every due processing-time timer as one batch: one
+        ``get_batch`` of the (key, window) slots, emission in pop order,
+        one ``clear_batch``.  Taken by tumbling and sliding
+        processing-time windows under the default trigger (the timer
+        service's per-timer drain otherwise: returns False).  Each such
+        timer is a window's max timestamp, which is both its FIRE
+        (``ProcessingTimeTrigger``) and its cleanup, and the trigger
+        registers nothing when it fires, so the batch reads and clears
+        what the per-timer drain would, in the same order."""
+        if not self.batch_fires or not self._proc_batch:
+            return False
+        svc = self.timer_service
+        ts_col, key_col, ns_col = svc.pop_due_processing_time_timers(now)
+        n = len(ts_col)
+        if n == 0:
+            return True
+        backend = self.keyed_backend
+        contents_col, found_mask, _ = backend.get_batch(
+            self.window_state, key_col, None, namespaces=ns_col)
+        emitted = self._emit_fired(range(n), key_col, ns_col, contents_col,
+                                   found_mask)
+        if TELEMETRY.enabled and emitted:
+            TELEMETRY.note_windows_fired(emitted)
+        backend.clear_batch(self.window_state, key_col, None,
+                            namespaces=ns_col)
+        if isinstance(self._internal_fn.fn, ProcessWindowFunction):
+            wt = self.assigner.window_type()
+            for key, ns in zip(key_col, ns_col):
+                backend.set_current_key(key)
+                self._internal_fn.clear(key, wt.from_namespace(ns), self)
+        return True
+
     def _emit_fired(self, rows, key_col, ns_col, contents_col,
                     found_mask) -> int:
         """The window function over the gathered contents, in pop
@@ -857,6 +897,10 @@ class WindowOperator(AbstractUdfStreamOperator):
 class EvictingWindowOperator(WindowOperator):
     """Keeps the raw (timestamp, value) pairs of a window in list state
     and runs the evictor before (and after) the window function."""
+
+    #: every fire goes through ``_emit``, which runs the evictor and the
+    #: pre-aggregator; the batched sweeps call the window function alone
+    batch_fires = False
 
     def __init__(self, assigner, window_function, trigger=None,
                  evictor=None, allowed_lateness=0, late_data_tag=None,

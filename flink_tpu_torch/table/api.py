@@ -175,6 +175,7 @@ class Table:
         (True, row) for every row."""
         rs = getattr(self, "_retract_stream", None)
         if rs is not None:
+            rs.carries_retract_pairs = True
             return rs
         if getattr(self, "_updating", False):
             # derived from an updating aggregate: the retraction half
@@ -184,8 +185,10 @@ class Table:
                 "retract protocol lost: consume to_retract_stream() "
                 "on the aggregation result BEFORE filter/select, or "
                 "use a windowed aggregation (append-only)")
-        return self._as_rows().stream.map(lambda row: (True, row),
-                                          name="as_retract")
+        out = self._as_rows().stream.map(lambda row: (True, row),
+                                         name="as_retract")
+        out.carries_retract_pairs = True
+        return out
 
     def to_append_stream(self, batched: bool = False):
         """Stream of row tuples regardless of the physical plan: a

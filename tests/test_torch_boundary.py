@@ -7,7 +7,9 @@ Python aggregate on the generic tier, a count window over a device Sum,
 graph algorithms, an ML fit, a job on an 8-shard mesh (the mesh log
 tier), a checkpointed job that fails and restarts from its Fs
 checkpoint, and jobs restored from the JAX package's savepoint and
-checkpoint directory, and a columnar and a row-path SQL job, all with
+checkpoint directory, a columnar and a row-path SQL job, a socket
+word count on a thread-hosted source fed by a local thread, and a
+replayable-log job into a transactional log sink, all with
 the tracer, the device telemetry and the state introspection on and a
 Chrome trace written at the end, then reads its own sys.modules and
 /proc/self/maps), and its entry points never fall back to the CPU on
@@ -283,6 +285,49 @@ t_env.sql_query("SELECT u, u2 FROM ev JOIN ev2 ON k = k2 AND "
                 "ts BETWEEN ts2 - INTERVAL '10' MILLISECOND AND ts2") \
     .to_append_stream().add_sink(sql_join_rows)
 env.execute()
+# sources on their own threads: a socket word count fed by a local
+# thread, and the replayable log into a transactional log sink
+import socket, threading
+DeviceWindowOperator._ensure_engine = _ensure   # the mesh probe is done
+from flink_tpu_torch.connectors import (InMemoryPartitionedLog,
+                                        ReplayableLogSource,
+                                        TransactionalLogSink)
+server = socket.socket()
+server.bind(("127.0.0.1", 0))
+server.listen(1)
+server.settimeout(60)
+def feed():
+    conn, _ = server.accept()
+    with conn:
+        conn.sendall(b"".join(b"%d a%d b%d\n" % (10 * i, i % 3, i % 5)
+                              for i in range(300)))
+feeder = threading.Thread(target=feed, daemon=True)
+feeder.start()
+socket_words = []
+agg = SumAggregate(np.float64)
+agg.extract_value = lambda e: e[1]
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.enable_checkpointing(1)
+(env.socket_text_stream("127.0.0.1", server.getsockname()[1])
+    .flat_map(lambda line: [(w, 1.0, int(line.split()[0]))
+                            for w in line.split()[1:]])
+    .assign_timestamps_and_watermarks(
+        BoundedOutOfOrdernessTimestampExtractor(0, lambda e: e[2]))
+    .key_by(lambda e: e[0]).window(TumblingEventTimeWindows.of(1000))
+    .aggregate(agg).add_sink(CollectSink(socket_words)))
+env.execute()
+feeder.join(60)
+server.close()
+source_threads = [t.name for t in threading.enumerate()
+                  if t.name.startswith("source-")]
+in_log, out_log = InMemoryPartitionedLog(2), InMemoryPartitionedLog(2)
+for i in range(400):
+    in_log.append(i % 2, (i % 4, 1), i)
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.enable_checkpointing(1)
+(env.add_source(ReplayableLogSource(in_log, bounded=True), parallelism=2)
+    .add_sink(TransactionalLogSink(out_log)))
+env.execute()
 trace_path = tempfile.mktemp(suffix=".json")
 n_written = env.get_tracer().write_chrome_trace(trace_path)
 trace = json.load(open(trace_path))
@@ -316,6 +361,10 @@ print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "sql_row_rows": len(sql_row_rows.values),
                   "sql_retract_pairs": len(sql_cont_rows.values),
                   "sql_join_rows": len(sql_join_rows.values),
+                  "socket_results": len(socket_words),
+                  "socket_total": sum(float(v) for v in socket_words),
+                  "source_threads_left": source_threads,
+                  "log_records": len(out_log.all_values()),
                   "fused_batches": chain_fusion.FUSION_STATS.fused_batches,
                   "demotions": chain_fusion.FUSION_STATS.demotions,
                   "port_runtime_loaded": "flink_tpu_torch/native/_build/" in maps,
@@ -469,6 +518,12 @@ def test_job_loads_neither_jax_nor_flink_tpu(tmp_path):
     assert report["sql_row_rows"] == 7 * 3
     assert report["sql_retract_pairs"] == 2 * 300 - 7
     assert report["sql_join_rows"] == 300
+    # the socket job: 300 lines of two words over 3 s, 8 words a second
+    # (3 + 5 keys) in 3 windows; the log job committed every record once
+    assert report["socket_results"] == 8 * 3
+    assert report["socket_total"] == 600
+    assert report["source_threads_left"] == []
+    assert report["log_records"] == 400
     assert report["graph_ranks"] == 200 and report["graph_components"] >= 1
     assert report["als_users"] == 60 and report["knn_rows"] == 6
     # the log tier ran on the port's own host runtime, never the
@@ -516,7 +571,11 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                    "runtime/profiler.py", "state/introspect.py",
                    "state/stats.py", "table/api.py", "table/sql_parser.py",
                    "table/expressions.py", "table/functions.py",
-                   "table/__init__.py", "streaming/joining.py"):
+                   "table/__init__.py", "streaming/joining.py",
+                   "connectors/__init__.py", "connectors/partitioned_log.py",
+                   "connectors/log_connector.py",
+                   "connectors/bucketing_sink.py", "connectors/upsert_sink.py",
+                   "streaming/two_phase.py", "state/operator_state.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]
