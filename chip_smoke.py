@@ -65,7 +65,7 @@ exit code at 0):
 5. ``job``      eight jobs through ``StreamExecutionEnvironment`` (the
                 merges they make counted by aggregate and pairs a call,
                 ``job_merges``): HLL
-                unique visitors (2^21 events, 1M keys, tumbling 1 s, on
+                unique visitors (2^19 events, 1M keys, tumbling 1 s, on
                 the log tier), a word count (SumAggregate, 50k string
                 words, tumbling 5 s, on the fused string-sum engine),
                 both checked against numpy references; HLL with allowed
@@ -76,7 +76,7 @@ exit code at 0):
                 Avg and the same two sketch jobs on composite keys, each
                 checked against the same job on the heap backend;
 6. ``keyed``    WindowOperator on the GPU keyed-state backend at config
-                #2 through the test harness: 1M keys, 2^22 events in one
+                #2 through the test harness: 1M keys, 2^20 events in one
                 1 s window, HLL p = 12 (2^20 slots, 4.29 GB of
                 registers), a snapshot and restore mid-stream, one
                 batched fire, checked against numpy HLL on 4,096 keys;
@@ -85,16 +85,16 @@ exit code at 0):
                 and promotion), checked against the heap backend;
 8. ``sliding``  BASELINE config #3: VectorizedSlidingWindows, 10 s / 1 s,
                 p50/p99 quantile sketch (B = 210), a 10M-key space,
-                2^22 events over 10 s with a watermark per 2^19 chunk
+                2^21 events over 10 s with a watermark per 2^19 chunk
                 (>= 3 GB of sketch state), checked against numpy on
                 4,096 sampled (key, pane) histograms and (key, window)
                 results;
 9. ``session_cm`` BASELINE config #4: VectorizedSessionWindows, gap 1 s,
-                Count-Min 4 x 2048, 100k keys, 2^21 events over 30 s;
+                Count-Min 4 x 2048, 100k keys, 2^20 events over 30 s;
                 every session total exact and sampled tables bit-equal
                 against numpy;
 10. ``heavy_hitters`` WindowedHeavyHitters(1 s, phi 0.01), 100k keys, a
-                skewed item mix, 2^21 events over 4 s: no false
+                skewed item mix, 2^20 events over 4 s: no false
                 negatives, no estimate below the truth, every point
                 query equal to the plain version's;
 11. ``log_tier`` BASELINE config #2 through LogStructuredTumblingWindows
@@ -113,7 +113,7 @@ exit code at 0):
                 pass under ``torch.profiler`` in a fresh worker process
                 (the H2D / kernel / D2H split and the idle share), its
                 DtoH bytes equal to the transfer ledger's; window mode into
-                WindowOperator on the GPU backend (2^20 events, 100k
+                WindowOperator on the GPU backend (2^18 events, 100k
                 keys) equal to the unfused run; the job
                 VectorizedCollectionSource -> map -> filter -> key_by(0)
                 -> time_window(1 s) -> HLL 12 with the window at
@@ -129,8 +129,8 @@ exit code at 0):
                 scale 18; checked against scipy and numpy (components,
                 Dijkstra, float64 power iterations, a fixed point, 4,096
                 sampled edges' common neighbours);
-15. ``ml``     ALS at MovieLens-20M's shape (20M ratings, f = 10, 10
-                sweeps), KNN at MNIST's (60,000 x 784, 10,000 queries,
+15. ``ml``     ALS at MovieLens-20M's shape (20M ratings, f = 10, 5
+                sweeps: cut from 10 to make room for later paths), KNN at MNIST's (60,000 x 784, 10,000 queries,
                 k = 3), SVM at covtype's (581,012 x 54) and linear
                 regression at YearPredictionMSD's (463,715 x 90), each
                 checked against numpy float64;
@@ -143,40 +143,40 @@ exit code at 0):
                 (c) config #3 on MeshSlidingWindows (1M-key space, ring
                 16 of 2^18 slots: 28.2 GB), every (key, window) result
                 equal to VectorizedSlidingWindows'; (d) HLL jobs with
-                ``env.set_mesh``: integer keys (2^21 events, the mesh
-                log tier) and composite keys (2^19, the sharded scatter
+                ``env.set_mesh``: integer keys (2^19 events, the mesh
+                log tier) and composite keys (2^17, the sharded scatter
                 tier), each equal to the job without a mesh; (e) the
-                chain's map -> filter -> 4-channel route (2^22 events)
+                chain's map -> filter -> 4-channel route (2^21 events)
                 with ``devices()`` widened to 8: 40 composite classes,
                 bit-equal to the single-device program and the
                 per-operator path; (f) a Count on MeshTumblingWindows
-                over 2^22 config #2 events, snapshot after half of them
+                over 2^21 config #2 events, snapshot after half of them
                 (mid-window) and restored into a fresh engine, firing
                 what the uninterrupted run fires;
 17. ``window_api`` the window API through ``StreamExecutionEnvironment``:
                 (1) a Python aggregate (mean, count, max) on the generic
-                tier at config #2's key space (2^21 events, 1M keys,
+                tier at config #2's key space (2^19 events, 1M keys,
                 tumbling 1 s), lifted, exact against a numpy fold in
-                arrival order (mean within 1e-12), and on a 2^18-event
+                arrival order (mean within 1e-12), and on a 2^16-event
                 prefix equal to WindowOperator
                 (``disable_device_operator``); (2) an aggregate that
                 branches on values (the scalar fold) on sliding 3 s /
-                1 s and session (500 ms) windows, 2^18 events, equal to
+                1 s and session (500 ms) windows, 2^16 events, equal to
                 WindowOperator; (3) ``reduce`` / ``fold`` / ``apply`` /
-                ``process`` / ``sum`` / ``min`` / ``max`` on 2^16
+                ``process`` / ``sum`` / ``min`` / ``max`` on 2^15
                 events; (4) ``count_window`` with and without a slide,
                 ``PurgingTrigger(CountTrigger)``, ``DeltaTrigger``,
                 ``TimeEvictor``, dynamic sessions, ``window_all``,
-                ``count_window_all`` on 2^15 events, each exact against
+                ``count_window_all`` on 2^14 events, each exact against
                 numpy; (5) HLL p = 12 under
                 ``ContinuousEventTimeTrigger.of(250)`` on the GPU
-                backend (2^18 events, 10,000 keys) against the heap
+                backend (2^16 events, 10,000 keys) against the heap
                 backend on 500 sampled keys, and a ``count_window``
                 device Sum on the GPU backend;
 18. ``recovery`` checkpoints, restarts, savepoints and processing time
                 through ``StreamExecutionEnvironment`` with
                 ``FsCheckpointStorage`` in a temporary directory: (1) HLL
-                p = 12 at config #2's key space (2^19 events over 1M
+                p = 12 at config #2's key space (2^17 events over 1M
                 users, tumbling 1 s over 2 s of timestamps) on the
                 device window operator's scatter tier (integer pair
                 keys), failing once after a checkpoint taken at half the
@@ -184,27 +184,27 @@ exit code at 0):
                 the source resumed at the checkpointed offset, the output
                 equal to the uninterrupted run's exactly, the snapshot's
                 bytes and seconds, the write's and the restore's
-                seconds; (2) ``"u%d"`` string keys (2^18 events,
+                seconds; (2) ``"u%d"`` string keys (2^17 events,
                 interned onto the log tier, device finish); (3) HLL with
-                allowed lateness 1 s on the GPU keyed backend (2^16
+                allowed lateness 1 s on the GPU keyed backend (2^15
                 events, 100k keys; the restore uploads through
                 ``set_rows``); (4) ``execute_async`` on (1)'s job,
                 ``stop_with_savepoint`` at the half, restored into a
                 fresh environment, the joined output equal to (1)'s
                 uninterrupted run; (5) processing time on the GPU
                 backend: four tumbling windows through the test
-                harness's clock (2^16 events, 100k keys) against numpy
+                harness's clock (2^15 events, 100k keys) against numpy
                 HLL, a ``processing`` job flushed at the end of input
                 and processing-time sessions, both against the heap
                 backend;
 19. ``telemetry`` the observability plane (tracer, device telemetry,
-                CUDA launch ledger): (a) 2^19 config #2 events (HLL
+                CUDA launch ledger): (a) 2^17 config #2 events (HLL
                 p = 12, tumbling 1 s, (key, key >> 10) pair keys on the
                 scatter tier) through the environment with the plane
                 off, then on: windows bit-equal, the off run leaves
-                every store empty, the events/s of both; (b) 2^19
+                every store empty, the events/s of both; (b) 2^17
                 integer-key events on the log tier with the device
-                finish; (c) the fused chain's route mode on 2^22 events,
+                finish; (c) the fused chain's route mode on 2^21 events,
                 and the same pass under ``torch.profiler`` in a fresh
                 worker process (late in a long process the profiler
                 lost memcpy records): the ledger's
@@ -231,10 +231,10 @@ exit code at 0):
                 events, the events/s of the timed ``env.execute``; (b)
                 SESSION (gap 1 s) with APPROX_COUNT_DISTINCT on the
                 columnar plan (``VectorizedSessionWindows``), config
-                #4's 100,000 keys, 2^20 events over 30 s: the sessions
+                #4's 100,000 keys, 2^19 events over 30 s: the sessions
                 equal numpy's exactly, the estimates within the HLL
                 bound and, on 4,096 sessions, equal to numpy HLL; (c)
-                config #5 on 2^21 events with ``env.set_mesh`` on 8
+                config #5 on 2^20 events with ``env.set_mesh`` on 8
                 virtual shards (the mesh log tier) and (d) at
                 parallelism 2 (the split exchange and
                 ``partition_custom``), each equal to the meshless run;
@@ -242,14 +242,14 @@ exit code at 0):
                 size (2^21 rows a side, 100,000 keys, +-500 ms over
                 60 s): the pair count and 1,024 sampled left rows' pairs
                 equal a numpy sort-and-searchsorted join; (f) a keyed
-                process function on the GPU backend (2^18 events over
+                process function on the GPU backend (2^16 events over
                 4 s, 10,000 keys) keeping an AggregatingState of HLL 12
                 and emitting it at an event-time timer each second,
                 equal to the heap backend's on 500 sampled keys (through
                 a filter after the timestamps);
 21. ``sources`` sources with their guarantees: (a) BASELINE config #1
                 as the example writes it and users run it: a feeder
-                thread listens on 127.0.0.1 and writes 2^19 words of a
+                thread listens on 127.0.0.1 and writes 2^18 words of a
                 seeded uniform 50,000-word vocabulary in lines of 16;
                 ``socket_text_stream`` on its own thread -> ``flat_map``
                 -> ``key_by(word)`` -> processing-time ``time_window(5
@@ -261,7 +261,7 @@ exit code at 0):
                 sum over every fired window equals numpy's count
                 exactly; the example's ``reduce`` form on the heap
                 backend over 2^16 words likewise; (b) a blocking source
-                (``run()`` only) of 2^18 config #2 events (1M keys, 4 s)
+                (``run()`` only) of 2^17 config #2 events (1M keys, 4 s)
                 in RecordBatches, keeping its offset in operator list
                 state through ``initialize_state``, 1 s HLL p = 12 on
                 WindowOperator over the GPU backend into a
@@ -269,7 +269,7 @@ exit code at 0):
                 checkpoint taken at half the input completed:
                 the committed rows equal the uninterrupted run's bit for
                 bit, none twice, the source restored its offset; (c) an
-                ``InMemoryPartitionedLog`` of 4 partitions holding 2^18
+                ``InMemoryPartitionedLog`` of 4 partitions holding 2^17
                 config #2 events, ``ReplayableLogSource`` at
                 parallelism 4 -> 1 s HLL p = 12 on the device window
                 operator's log tier (device finish) -> a
@@ -277,9 +277,45 @@ exit code at 0):
                 past half the input: the committed output equals the
                 uninterrupted run's, and the source committed offsets
                 only on checkpoint completion and at the end of input
-                (events cut from the issue's 2^20 / 2^19 / 2^19 to fit
-                the path into ~60 s; key spaces and p kept);
-22. the launch counts of phases 4-21, each path counted on its own:
+                (events cut to fit the path into ~60 s and again to
+                make room for later paths; key spaces and p kept);
+22. ``datastream_api`` the rest of the DataStream API and typed state
+                through ``StreamExecutionEnvironment`` on the GPU
+                backend: (a) the broadcast state pattern: 2^18 config #2
+                events (1M users, 64 categories) keyed by user and
+                connected to 1,024 rule updates (category -> admitted)
+                that arrive first, a ``KeyedBroadcastProcessFunction``
+                at parallelism 4 adding each admitted event's item into
+                an HLL p = 12 per user and updating the user's profile
+                (a ``ValueState`` of a v1 ``RecordSchema`` record): every
+                instance's broadcast state equals the rule map, the
+                users holding state equal numpy's admitted users, 4,096
+                sampled users within the HLL tolerance of numpy HLL; (e)
+                that job's savepoint restored under the v2 schema (a
+                field added with a default): every user's HLL rows bit
+                for bit (``set_rows``), every profile migrated; (b)
+                ``as_queryable_state`` of HLL 12 fed by a thread-hosted
+                source, 4,096 sampled users queried from a client
+                thread while the loop ingests and then while it idles
+                (queries/s, p50 / p99 of each window), each answer one
+                gathered ``hll_estimate``, the answers after
+                the cancel bit-equal to ``get_batch`` and within the HLL
+                tolerance of numpy; (c) ``connect(...).key_by(ad, ad)``
+                of 2^16 impressions and 2^13 clicks over 100,000 ads
+                into a keyed co-process function with two device Count
+                states and a timer per ad at the window end: every ad's
+                counts equal numpy exactly; (d) ``ordered_wait`` and
+                ``unordered_wait`` of a 1 ms lookup over 2^14 events,
+                capacity 100, into a tumbling HLL window: the ordered
+                output in input order, the unordered one complete, the
+                windows equal and within the HLL tolerance of numpy, the
+                rate against the serial one; a checkpoint with requests
+                in flight, then a failure: every window's count exact;
+                (f) a Collatz loop (``iterate`` / ``close_with``) over
+                2^12 seeds split by parity (``split`` / ``select``) into
+                Sum windows, equal to numpy (events cut to fit the path
+                into ~60 s; key spaces kept);
+23. the launch counts of phases 4-22, each path counted on its own:
    every kernel the path runs must have launched there.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
@@ -295,6 +331,7 @@ import gc
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -1335,10 +1372,10 @@ def config2_events(rng, n_events=1 << 23, n_keys=1_000_000):
     return keys, ts, splitmix64_np(users)
 
 
-#: one hll_log_finish launch of the mesh path: a shard's window of its
-#: set_mesh HLL job (2^21 events over 8,000 keys in four 1 s windows, 8
-#: shards): 2^16 events over 1,000 keys (the mesh phase records the
-#: path's own launch shapes beside it)
+#: one hll_log_finish launch of the mesh path's set_mesh HLL job at 2^21
+#: events over 8,000 keys in four 1 s windows on 8 shards: a shard's
+#: window, 2^16 events over 1,000 keys (the path now runs 2^19 events;
+#: the mesh phase records its own launch shapes beside this entry)
 MESH_LOG_FINISH = (1 << 16, 1000)
 
 
@@ -1791,8 +1828,8 @@ def _job_phase(dev):
     from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
 
     rng = np.random.default_rng(5)
-    # HLL unique visitors: 2^21 events, 1M keys, tumbling 1 s over 4 s
-    n, n_keys, p = 1 << 21, 1_000_000, 12
+    # HLL unique visitors: 2^19 events, 1M keys, tumbling 1 s over 4 s
+    n, n_keys, p = 1 << 19, 1_000_000, 12
     keys = rng.integers(0, n_keys, n)
     users = rng.integers(0, 1 << 40, n)
     ts = np.sort(rng.integers(0, 4000, n))
@@ -1819,7 +1856,7 @@ def _job_phase(dev):
 
     # word count: SumAggregate over 50k words (strings: the fused intern
     # + sum engine), tumbling 5 s
-    n, n_words = 1 << 20, 50_000
+    n, n_words = 1 << 18, 50_000
     words = rng.integers(0, n_words, n)
     ts = np.sort(rng.integers(0, 10_000, n))
     events = list(zip([f"w{w}" for w in words.tolist()], [1.0] * n, ts.tolist()))
@@ -1865,7 +1902,7 @@ def keyed_job(dev, rng):
     backend."""
     import torch
     from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
-    n, n_keys = 1 << 13, 500
+    n, n_keys = 1 << 11, 500
     ts = np.sort(rng.integers(0, 8000, n))
     late = rng.choice(n, 100, replace=False)
     ts[late] = np.maximum(ts[late] - rng.integers(0, 1500, 100), 0)
@@ -1918,7 +1955,7 @@ def _run_window_job(agg, events, assigner, dev, heap=False):
     return sorted(out), time.perf_counter() - t0
 
 
-def sketch_jobs(dev, rng, n=1 << 14, key_of=int, tag=""):
+def sketch_jobs(dev, rng, n=1 << 12, key_of=int, tag=""):
     """A sliding-quantile job (3 s / 1 s, 2,000 keys) and a session
     Count-Min job (gap 300 ms, 1,000 keys) on the device window
     operator, each against the same job on the heap backend: integer
@@ -1976,7 +2013,7 @@ def sketch_jobs(dev, rng, n=1 << 14, key_of=int, tag=""):
     return out
 
 
-def scatter_jobs(dev, rng, n=1 << 13):
+def scatter_jobs(dev, rng, n=1 << 11):
     """The device window operator's scatter tier, against the heap
     backend: an integer-keyed tumbling Avg (it has no cell
     decomposition, so the operator leaves the log tier for
@@ -2041,10 +2078,10 @@ def _time_calls(obj, name, into) -> None:
     setattr(obj, name, timed)
 
 
-def keyed_phase(dev, n_events=1 << 22, n_keys=1_000_000, chunk=1 << 20):
+def keyed_phase(dev, n_events=1 << 20, n_keys=1_000_000, chunk=1 << 19):
     """OneInputStreamOperatorTestHarness(WindowOperator(tumbling 1 s,
     HLL p = 12), state_backend="gpu") fed RecordBatches of (key,
-    visitor) rows: 1M keys, 2^22 events in one window, a snapshot and a
+    visitor) rows: 1M keys, 2^20 events in one window, a snapshot and a
     restore into a fresh harness after half the events, one watermark
     firing the window through on_watermark_batch."""
     import torch
@@ -2161,7 +2198,7 @@ def _session_run(agg, events, backend, dev, **kw):
     return h.extract_output_values(), op.window_state, time.perf_counter() - t0
 
 
-def session_phase(dev, n=20_000, n_keys=2_000):
+def session_phase(dev, n=10_000, n_keys=2_000):
     """EventTimeSessionWindows (gap 300 ms) with HLL p = 12 and with
     Sum, on the gpu backend capped at 1024 device slots (below the live
     session count, so cold sessions spill to host RAM and come back),
@@ -2233,10 +2270,10 @@ def quantiles_of(hist: np.ndarray, agg, values: np.ndarray) -> np.ndarray:
     return np.array(out, np.float32)
 
 
-def sliding_phase(dev, n_events=1 << 22, n_keys=10_000_000, chunk=1 << 19,
+def sliding_phase(dev, n_events=1 << 21, n_keys=10_000_000, chunk=1 << 19,
                   n_sample=4096):
     """VectorizedSlidingWindows(QuantileSketchAggregate p50/p99, 10 s /
-    1 s) over a 10M-key space: 2^22 time-sorted events over 10 s of
+    1 s) over a 10M-key space: 2^21 time-sorted events over 10 s of
     event time, a watermark after each chunk, then the fire of every
     remaining window.  Live pane histograms and fired results of
     sampled (key, pane) and (key, window) pairs against numpy."""
@@ -2341,9 +2378,10 @@ def sliding_phase(dev, n_events=1 << 22, n_keys=10_000_000, chunk=1 << 19,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
         "sampled_pairs": n_sample, "boundary_explained": explained,
         "pane_rows_with_boundary_values": int((~exact_rows).sum()),
-        "reduced": "depth only: an unbounded stream cut to 2^22 events over "
-                   "10 s of event time; key space, window geometry and "
-                   "sketch widths unchanged"}}
+        "reduced": f"depth only: an unbounded stream cut to "
+                   f"2^{n_events.bit_length() - 1} events over 10 s of event "
+                   "time; key space, window geometry and sketch widths "
+                   "unchanged"}}
     check(out["sliding"]["max_memory_allocated"] >= 3e9,
           "sliding: >= 3 GB of device memory at peak")
     del eng
@@ -2366,11 +2404,11 @@ def countmin_np(vh: np.ndarray, depth: int, width: int) -> np.ndarray:
     return table
 
 
-def session_cm_phase(dev, n_events=1 << 21, n_keys=100_000, span=30_000,
+def session_cm_phase(dev, n_events=1 << 20, n_keys=100_000, span=30_000,
                      chunk=1 << 19, n_sample=4096):
     """VectorizedSessionWindows(CountMinSketchAggregate(), gap 1 s) at
     its default widths (d = 4, w = 2048): 100k keys, uniform user ids,
-    2^21 time-sorted events over 30 s, a watermark after each chunk.
+    2^20 time-sorted events over 30 s, a watermark after each chunk.
     Session totals exact against numpy sessions; sampled sessions'
     tables bit-equal to a numpy Count-Min."""
     import torch
@@ -2451,14 +2489,15 @@ def session_cm_phase(dev, n_events=1 << 21, n_keys=100_000, span=30_000,
         "events_per_s": n_events / (t2 - t0), "ingest_with_chunk_fires_s": t1 - t0,
         "final_fire_s": t2 - t1, "sampled_tables": len(sample),
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-        "reduced": "depth only: an unbounded stream cut to 2^21 events over "
-                   "30 s; keys, gap and sketch widths unchanged"}}
+        "reduced": f"depth only: an unbounded stream cut to "
+                   f"2^{n_events.bit_length() - 1} events over 30 s; keys, "
+                   "gap and sketch widths unchanged"}}
     del eng
     torch.cuda.empty_cache()
     emit(out)
 
 
-def heavy_hitter_phase(dev, n_events=1 << 21, n_keys=100_000, span=4_000,
+def heavy_hitter_phase(dev, n_events=1 << 20, n_keys=100_000, span=4_000,
                        chunk=1 << 19, phi=0.01):
     """WindowedHeavyHitters(1000 ms, phi = 0.01) over 100k keys, 60% of
     records from 8 heavy items and the rest from 10^5 tail items: no
@@ -2524,8 +2563,9 @@ def heavy_hitter_phase(dev, n_events=1 << 21, n_keys=100_000, span=4_000,
         "events_per_s": n_events / (t2 - t0), "ingest_with_chunk_fires_s": t1 - t0,
         "final_fire_s": t2 - t1,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-        "reduced": "depth only: an unbounded stream cut to 2^21 events over "
-                   "4 s; keys, item mix and sketch widths unchanged"}}
+        "reduced": f"depth only: an unbounded stream cut to "
+                   f"2^{n_events.bit_length() - 1} events over 4 s; keys, "
+                   "item mix and sketch widths unchanged"}}
     del hh
     torch.cuda.empty_cache()
     emit(out)
@@ -2728,7 +2768,7 @@ def _same_channels(a, b) -> bool:
 
 
 def chain_phase(dev, n_events=1 << 23, n_keys=1_000_000, batch=1 << 20,
-                n_window=1 << 20, window_keys=100_000, job_events=1 << 20,
+                n_window=1 << 18, window_keys=100_000, job_events=1 << 18,
                 job_keys=100_000):
     """The fused chain program (route, window and the job) against the
     per-operator path: (b) config #2's events through map -> filter ->
@@ -3170,7 +3210,9 @@ def _mesh_scatter(dev, mesh, rng, n_events, n_keys, region, step, chunk,
           and np.array_equal(fr, vr),
           "mesh scatter: every key's estimate bit-equal to the single-device "
           "engine's")
-    check(state_bytes >= 17.1e9 or n_events < (1 << 23),
+    # the regions' geometry sets the state, not the events (a rehearsal
+    # off the card passes smaller regions)
+    check(state_bytes >= 17.1e9 or region < (1 << 18),
           "mesh scatter: 17.2 GB of registers on the card")
     return {"events": n_events, "keys": n_keys, "shards": 8,
             "region_slots": region, "ring": 2, "register_bytes": state_bytes,
@@ -3328,7 +3370,7 @@ def _mesh_sliding(dev, mesh, rng, n_events, n_keys, region, step, chunk):
           "engine's")
     check(np.isfinite(got[1]).all() and len(np.unique(got[2])) == 19,
           "mesh sliding: finite results over 19 windows")
-    check(state_bytes >= 28.1e9 or n_events < (1 << 22),
+    check(state_bytes >= 28.1e9 or region < (1 << 18),
           "mesh sliding: 28.2 GB of sketch state on the card")
     return {"events": n_events, "key_space": n_keys, "window_ms": size,
             "slide_ms": slide, "region_slots": region, "ring": 16,
@@ -3337,7 +3379,8 @@ def _mesh_sliding(dev, mesh, rng, n_events, n_keys, region, step, chunk):
             "max_memory_allocated": peak,
             "reduced": "key space 10M -> 1M (a 10 s window's ~985k keys fit "
                        "a 2^18 region per shard at under half load; 10M would "
-                       "need 2^20 regions: 113 GB); depth: 2^22 events"}
+                       "need 2^20 regions: 113 GB); depth: "
+                       f"2^{n_events.bit_length() - 1} events"}
 
 
 def _mesh_jobs(dev, mesh, rng, n, n_keys, n_composite):
@@ -3470,12 +3513,12 @@ def _mesh_chain(dev, rng, n_events, n_keys, batch):
             "fused_events_per_s": n_events / secs}
 
 
-def mesh_phase(dev, n_events=1 << 23, n_keys=1_000_000, region=1 << 18,
+def mesh_phase(dev, n_events=1 << 22, n_keys=1_000_000, region=1 << 18,
                step=1 << 20, chunk=1 << 20, n_sample=256,
-               sliding_events=1 << 22, sliding_region=1 << 18,
-               sliding_chunk=1 << 19, job_events=1 << 21, job_keys=8000,
-               composite_events=1 << 19, chain_events=1 << 22,
-               chain_batch=1 << 20, snapshot_events=1 << 22):
+               sliding_events=1 << 21, sliding_region=1 << 18,
+               sliding_chunk=1 << 19, job_events=1 << 19, job_keys=8000,
+               composite_events=1 << 17, chain_events=1 << 21,
+               chain_batch=1 << 20, snapshot_events=1 << 21):
     """The mesh path on 8 virtual shards of the card: (a) config #2 on
     the sharded scatter tier, (b) on the mesh log tier, (c) config #3 on
     the sharded sliding engine, (d) DataStream jobs with set_mesh, (e)
@@ -4245,7 +4288,8 @@ def ml_kernel_entries(dev, hbm, entries, detail, shrink=1):
 
 def ml_phase(dev, shrink=1, n_sample_rows=4096, n_sample_queries=1024):
     """The ML library at public datasets' shapes, on synthetic data from a
-    seed: ALS at MovieLens-20M's (f = 10, lambda = 0.1, 10 iterations),
+    seed: ALS at MovieLens-20M's (f = 10, lambda = 0.1; 5 iterations,
+    cut from 10 to make room for later paths),
     KNN at MNIST's (60,000 x 784, 10,000 queries, k = 3), SVM at
     covtype-binary's (581,012 x 54, 300 iterations) and
     MultipleLinearRegression at YearPredictionMSD's training shape
@@ -4295,12 +4339,12 @@ def ml_phase(dev, shrink=1, n_sample_rows=4096, n_sample_queries=1024):
         out["als_setup_s"] = time.perf_counter() - t0
         fixed = []              # the other side's factors of each half-step
         undo = _recording(trec, "gram_accumulate", lambda a, _: fixed.append(a[0]))
-        als = run("als", lambda: tm.ALS(10, 0.1, 10, seed=0, device=dev).fit(ratings),
+        als = run("als", lambda: tm.ALS(10, 0.1, 5, seed=0, device=dev).fit(ratings),
                   "gram_accumulate")
         undo()
         fixed = [t.cpu().numpy() for t in fixed[-2:]]
         del ratings
-        check(runs["als"]["calls"] == 20, "als: gram_accumulate twice a sweep")
+        check(runs["als"]["calls"] == 10, "als: gram_accumulate twice a sweep")
         check(np.isfinite(als.user_factors).all() and np.isfinite(als.item_factors).all()
               and als.user_factors.shape == (n_users, 10)
               and als.item_factors.shape == (n_items, 10), "als: factors finite, shaped")
@@ -4490,9 +4534,9 @@ def _groups(*cols):
     return inv.reshape(-1), uniq
 
 
-def window_api_phase(dev, n_generic=1 << 21, n_keys=1_000_000,
-                     n_prefix=1 << 18, n_scalar=1 << 18, n_fns=1 << 16,
-                     n_triggers=1 << 15, n_hll=1 << 18, hll_keys=10_000):
+def window_api_phase(dev, n_generic=1 << 19, n_keys=1_000_000,
+                     n_prefix=1 << 16, n_scalar=1 << 16, n_fns=1 << 15,
+                     n_triggers=1 << 14, n_hll=1 << 16, hll_keys=10_000):
     """The window API of slice 16 on the card: (1) a lifted Python
     aggregate on the generic tier at config #2's key space, against a
     numpy fold and, on a prefix, WindowOperator; (2) a scalar-mode
@@ -5025,31 +5069,31 @@ def _recovery_leg(dev, name, items, key_of, make_agg, storage, log,
     return clean, row
 
 
-def recovery_phase(dev, n_events=1 << 19, n_keys=1_000_000, n_log=1 << 18,
-                   n_keyed=1 << 16, keyed_keys=100_000, n_proc=1 << 16,
-                   proc_keys=100_000, n_proc_job=1 << 17,
+def recovery_phase(dev, n_events=1 << 17, n_keys=1_000_000, n_log=1 << 17,
+                   n_keyed=1 << 15, keyed_keys=100_000, n_proc=1 << 15,
+                   proc_keys=100_000, n_proc_job=1 << 16,
                    proc_job_keys=10_000, n_sessions=1 << 14,
                    session_keys=400, n_sample=4096):
     """Checkpoints, restarts, savepoints and processing time on the card
     through StreamExecutionEnvironment, with FsCheckpointStorage in a
-    temporary directory: (1) HLL p = 12 at config #2's key space (2^19
+    temporary directory: (1) HLL p = 12 at config #2's key space (2^17
     events over 1M users, tumbling 1 s over 2 s of timestamps) on the
     device window operator's scatter tier (integer pair keys), failing
     once after a checkpoint taken at half the input, against the
-    uninterrupted run; (2) a job with string keys ("u%d", 2^18 events
+    uninterrupted run; (2) a job with string keys ("u%d", 2^17 events
     over the same users), which the operator interns onto the log tier
     (device finish); (3) HLL with allowed lateness 1 s on the GPU keyed
-    backend (2^16 events, 100k keys); (4) a savepoint of (1)'s job
+    backend (2^15 events, 100k keys); (4) a savepoint of (1)'s job
     through execute_async and stop_with_savepoint, restored into a fresh
     environment; (5) processing time on the GPU backend: tumbling
-    windows through the test harness's clock (2^16 events, 100k keys)
-    against numpy HLL, a ``processing`` job (2^17 events, 10k keys)
+    windows through the test harness's clock (2^15 events, 100k keys)
+    against numpy HLL, a ``processing`` job (2^16 events, 10k keys)
     flushed at the end of input against the heap backend, and
     processing-time sessions (2^14 events, 400 keys, gap 1 s) against
     the heap backend.  Each sub-part prints its events/s and seconds.
-    The event counts are cut from 2^21, 2^19, 2^20, 2^18 and 2^16 to
-    keep the whole script well inside its time limit; the key spaces
-    and the precision stay."""
+    The event counts are cut from 2^21, 2^19, 2^20, 2^18 and 2^16, and
+    again to 2^17, 2^17, 2^15, 2^15 and 2^16, to keep the whole script
+    well inside its time limit; the key spaces and the precision stay."""
     import shutil
     import tempfile
 
@@ -5492,14 +5536,14 @@ def _chain_profile_leg(dev, n_chain, n_keys, batch, profile, seed=43,
     return out
 
 
-def telemetry_phase(dev, n_scatter=1 << 19, n_log=1 << 19, n_chain=1 << 22,
+def telemetry_phase(dev, n_scatter=1 << 17, n_log=1 << 17, n_chain=1 << 21,
                     n_keys=1_000_000, batch=1 << 20, p=12):
     """The observability plane on the card: (a) config #2's events
-    (2^19, keys as (key, key >> 10) pairs, which take the scatter tier)
+    (2^17, keys as (key, key >> 10) pairs, which take the scatter tier)
     through the environment with the tracer and the telemetry off, then
-    on: bit-equal windows, the off run records nothing; (b) 2^19
+    on: bit-equal windows, the off run records nothing; (b) 2^17
     integer-key events on the log tier with the device finish; (c) the
-    fused chain's route mode on 2^22 events, traced by torch.profiler
+    fused chain's route mode on 2^21 events, traced by torch.profiler
     with the plane on: the ledger's chain.boundary D2H bytes are the
     profiler's DtoH bytes."""
     import torch
@@ -6019,9 +6063,9 @@ def _sql_process_function(dev, n, n_keys, span, n_sample, p, m):
 
 
 def sql_phase(dev, n_config5=1 << 22, config5_keys=500_000,
-              config5_chunk=1 << 19, n_session=1 << 20, session_keys=100_000,
-              n_mesh=1 << 21, n_join=1 << 21, join_keys=100_000,
-              n_process=1 << 18, process_keys=10_000, n_process_sample=500,
+              config5_chunk=1 << 19, n_session=1 << 19, session_keys=100_000,
+              n_mesh=1 << 20, n_join=1 << 21, join_keys=100_000,
+              n_process=1 << 16, process_keys=10_000, n_process_sample=500,
               n_sample=4096):
     """The Table API and SQL on the card: (a) BASELINE config #5 on the
     columnar plan at the reference's size; (b) SESSION with
@@ -6394,9 +6438,9 @@ def _log_job(dev, in_log, out_log, p, fail, parallelism):
     return result, time.perf_counter() - t0
 
 
-def sources_phase(dev, n_words=1 << 19, n_vocab=50_000, per_line=16,
-                  window_s=5, n_reduce=1 << 16, n_blocking=1 << 18,
-                  n_log=1 << 18, n_keys=1_000_000, span_ms=4000,
+def sources_phase(dev, n_words=1 << 18, n_vocab=50_000, per_line=16,
+                  window_s=5, n_reduce=1 << 16, n_blocking=1 << 17,
+                  n_log=1 << 17, n_keys=1_000_000, span_ms=4000,
                   parallelism=4, limit_s=120.0):
     """Sources with their guarantees on the card, through
     StreamExecutionEnvironment: (a) BASELINE config #1 as the example
@@ -6408,8 +6452,9 @@ def sources_phase(dev, n_words=1 << 19, n_vocab=50_000, per_line=16,
     into TransactionalCollectSink, failing once after a checkpoint; (c)
     the replayable log at parallelism 4, 1 s HLL on the device window
     operator's log tier into a TransactionalLogSink, failing once after
-    a checkpoint.  Events are cut to fit the path into ~60 s (2^19
-    words, 2^18 events in (b) and (c)); key spaces and p are the
+    a checkpoint.  Events are cut to fit the path into ~60 s and again
+    to make room for later paths (2^18 words, 2^17 events in (b) and
+    (c)); key spaces and p are the
     configs'."""
     from flink_tpu_torch import kernels as K
     from flink_tpu_torch.connectors import InMemoryPartitionedLog
@@ -6575,6 +6620,750 @@ def sources_phase(dev, n_words=1 << 19, n_vocab=50_000, per_line=16,
     emit({"sources": {"log": out["log"]}})
 
 
+# ---------------------------------------------------------------------
+# phase 22: the rest of the DataStream API and typed state
+# ---------------------------------------------------------------------
+
+_DS_CLASSES = {}
+
+
+class _Ds:
+    """Flags and records the datastream_api path's functions share
+    (class attributes: each subtask runs its own copy of a function)."""
+
+    lock = threading.Lock()
+
+    @classmethod
+    def reset(cls, need_rules=0):
+        cls.need_rules = need_rules      # broadcast updates the data waits for
+        cls.rules_seen = 0
+        cls.rules_released = False       # the rules source may end
+        cls.events_released = False      # the data source may end
+        cls.events_done = threading.Event()
+        cls.broadcast_states = {}        # subtask -> its rule map
+        cls.ops = []                     # the broadcast operators, by open
+        cls.failed = False
+        cls.completed = False            # a checkpoint past half completed
+        cls.snap_offsets = {}            # checkpoint id -> source offset
+        cls.ingested = 0                 # records the loop has taken
+
+
+def _ds_classes():
+    """The user functions of the datastream_api path, built once."""
+    if _DS_CLASSES:
+        return _DS_CLASSES
+    from flink_tpu_torch.core.functions import MapFunction
+    from flink_tpu_torch.core.records import RecordSchema, RecordSerializer
+    from flink_tpu_torch.core.state import (AggregatingStateDescriptor,
+                                            MapStateDescriptor,
+                                            ValueStateDescriptor)
+    from flink_tpu_torch.ops.device_agg import CountAggregate
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.elements import MAX_WATERMARK, RecordBatch
+    from flink_tpu_torch.streaming.operators import (AsyncFunction,
+                                                    KeyedBroadcastProcessFunction)
+    from flink_tpu_torch.streaming.sources import SourceFunction
+
+    rules_desc = MapStateDescriptor("rules")
+    v1 = RecordSchema([("user", "long"), ("events", "long"), ("last", "long")])
+    v2 = RecordSchema([("user", "long"), ("events", "long"), ("last", "long"),
+                       ("region", "string", "unknown")])
+
+    class ItemHll(HyperLogLogAggregate):
+        """HLL of a record's last field (the item, or the user)."""
+
+        def extract_value(self, value):
+            return value[-1]
+
+    class RulesSource(SourceFunction):
+        """The broadcast side: every rule update once (a flag in its
+        function state, so a restored job sends none again), then idle
+        until released."""
+
+        def __init__(self, rules):
+            self.rules = list(rules)
+            self.emitted = False
+
+        def run(self, ctx):
+            while self.emit_step(ctx, 1024):
+                pass
+
+        def emit_step(self, ctx, max_records):
+            if not self.emitted:
+                for r in self.rules:
+                    ctx.collect(r)
+                self.emitted = True
+            if not _Ds.rules_released:
+                time.sleep(0.0002)
+                return True
+            return False
+
+        def snapshot_function_state(self, checkpoint_id=None):
+            return {"emitted": self.emitted}
+
+        def restore_function_state(self, state):
+            self.emitted = state["emitted"]
+
+    class ColumnSource(SourceFunction):
+        """RecordBatches of ``batch`` rows over columns (the last the
+        timestamps) and one watermark, at the end (so requests of an
+        async operator stay in flight between barriers); waits for
+        ``_Ds.need_rules`` broadcast updates first; its offset in
+        operator list state; at the end idles until released when
+        ``hold``."""
+
+        def __init__(self, cols, batch=4096, hold=False, fail_half=False):
+            self.cols = cols
+            self.batch = batch
+            self.hold = hold
+            self.fail_half = fail_half
+            self._op = None
+
+        def initialize_state(self, op):
+            self._op = op
+
+        def run(self, ctx):
+            while self.emit_step(ctx, 1024):
+                pass
+
+        def emit_step(self, ctx, max_records):
+            if _Ds.rules_seen < _Ds.need_rules:
+                time.sleep(0.0002)
+                return True
+            state = self._op.operator_state_backend.get_list_state("offset")
+            offset = (state.get() or [0])[0]
+            ts = self.cols[-1]
+            n = len(ts)
+            if self.fail_half and not _Ds.completed and offset >= n // 2:
+                time.sleep(0.0002)         # hold at half for a checkpoint
+                return True
+            if offset < n:
+                end = min(n, offset + self.batch)
+                if self.fail_half and not _Ds.completed:
+                    end = min(end, n // 2)
+                sl = slice(offset, end)
+                ctx.collect_batch(RecordBatch(
+                    {f"f{i}": c[sl] for i, c in enumerate(self.cols[:-1])},
+                    ts=ts[sl]))
+                state.update([end])
+                return True
+            _Ds.events_done.set()
+            if self.hold and not _Ds.events_released:
+                time.sleep(0.0002)
+                return True
+            ctx.emit_watermark(MAX_WATERMARK)
+            return False
+
+        def snapshot_function_state(self, checkpoint_id=None):
+            if checkpoint_id is not None and self._op is not None:
+                _Ds.snap_offsets[checkpoint_id] = (
+                    self._op.operator_state_backend.get_list_state("offset")
+                    .get() or [0])[0]
+            return {}
+
+        def notify_checkpoint_complete(self, checkpoint_id):
+            n = len(self.cols[-1])
+            if self.fail_half and _Ds.snap_offsets.get(checkpoint_id, -1) >= n // 2:
+                _Ds.completed = True
+
+    def admit_class(schema, name):
+        profile_desc = ValueStateDescriptor(
+            "profile", serializer=RecordSerializer(schema))
+        hll_desc = AggregatingStateDescriptor("uv", ItemHll(12))
+
+        class Admit(KeyedBroadcastProcessFunction):
+            """Leg (a): each rule update writes the category's verdict
+            into broadcast state; each event of an admitted category
+            adds its item to the user's HLL and updates the user's
+            profile record.  Both states are bound at open, so a restore
+            lands on the device (``set_rows``) and migrates."""
+
+            def initialize_state(self, op):
+                backend = op.keyed_backend
+                self._hll = backend.get_partitioned_state((), hll_desc)
+                self._profile = backend.get_partitioned_state((), profile_desc)
+                self._seen_rules = False
+                with _Ds.lock:
+                    _Ds.ops.append((op, self._hll, self._profile))
+
+            def process_broadcast_element(self, value, ctx, out):
+                ctx.get_broadcast_state(rules_desc).put(value[0], value[1])
+                with _Ds.lock:
+                    _Ds.rules_seen += 1
+
+            def process_element(self, value, ctx, out):
+                rules = ctx.get_broadcast_state(rules_desc)
+                if not self._seen_rules:
+                    self._seen_rules = True
+                    _Ds.broadcast_states[ctx._op.subtask_index] = dict(
+                        rules.immutable_entries())
+                if rules.get(value[1]):
+                    self._hll.add(value)
+                    prev = self._profile.value()
+                    self._profile.update({
+                        "user": value[0],
+                        "events": 1 if prev is None else prev["events"] + 1,
+                        "last": value[2]})
+
+        Admit.__name__ = name
+        return Admit
+
+    class ImpressionsClicks:
+        """Leg (c): per ad, impressions and clicks in two device Count
+        states; at the window's end, one event-time timer per ad emits
+        (ad, impressions, clicks) and clears both."""
+
+        def __init__(self, window_end):
+            self.window_end = window_end
+            self.imps = AggregatingStateDescriptor("imps", CountAggregate())
+            self.clicks = AggregatingStateDescriptor("clicks", CountAggregate())
+            self._states = None
+
+        def _bind(self, ctx):
+            if self._states is None:
+                self._states = (ctx.get_state(self.imps),
+                                ctx.get_state(self.clicks))
+            return self._states
+
+        def process_element1(self, value, ctx, out):
+            self._bind(ctx)[0].add(value)
+            ctx.register_event_time_timer(self.window_end)
+
+        def process_element2(self, value, ctx, out):
+            self._bind(ctx)[1].add(value)
+            ctx.register_event_time_timer(self.window_end)
+
+        def on_timer(self, timestamp, ctx, out):
+            imps, clicks = self._bind(ctx)
+            out.collect((ctx.get_current_key(), imps.get() or 0,
+                         clicks.get() or 0))
+            imps.clear()
+            clicks.clear()
+
+    class Lookup(AsyncFunction):
+        """Leg (d): a lookup that takes 1 ms and answers the user's
+        category."""
+
+        def __init__(self, delay_s=0.001):
+            self.delay_s = delay_s
+
+        def async_invoke(self, value, result_future):
+            time.sleep(self.delay_s)
+            result_future.complete([(value[0] % 64, value[0])])
+
+    class FailOnce(MapFunction):
+        """Leg (d): once a checkpoint taken at half the input completed,
+        the next record fails, once."""
+
+        def map(self, value):
+            if _Ds.completed and not _Ds.failed:
+                _Ds.failed = True
+                raise RuntimeError("induced failure after a checkpoint")
+            return value
+
+    _DS_CLASSES.update(rules_desc=rules_desc, v1=v1, v2=v2, item_hll=ItemHll,
+                       rules=RulesSource, columns=ColumnSource,
+                       admit_v1=admit_class(v1, "AdmitV1"),
+                       admit_v2=admit_class(v2, "AdmitV2"),
+                       co=ImpressionsClicks, lookup=Lookup, fail_once=FailOnce)
+    return _DS_CLASSES
+
+
+def _ds_broadcast_job(dev, classes, events, rules, admit, parallelism,
+                      savepoint=None):
+    """Leg (a)'s job: the data stream keyed by user, connected to the
+    broadcast rules, on the GPU backend at ``parallelism``; started with
+    ``execute_async``."""
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_state_backend("gpu")
+    env.set_parallelism(parallelism)
+    env.enable_checkpointing(3_600_000)        # savepoints only
+    if savepoint is not None:
+        env.set_savepoint_restore(savepoint)
+    data = env.add_source(classes["columns"](events, hold=True),
+                          name="events").uid("events")
+    rule_stream = env.add_source(classes["rules"](rules), name="rules").uid("rules")
+    (data.key_by(lambda e: e[0])
+        .connect(rule_stream.broadcast(classes["rules_desc"]))
+        .process(admit()).uid("admit"))
+    return env.execute_async("chip-smoke-broadcast-state")
+
+
+def _ds_rows_equal(old, new):
+    """Every key's device rows of two DeviceAggregatingStates equal, bit
+    for bit (gathered on the card a block of keys at a time); the keys
+    compared."""
+    import torch
+    keys = [k for k, ns in old.slot_index if ns == ()]
+    if len(keys) != len(new.slot_index) or len(keys) != len(old.slot_index):
+        return False, len(keys)
+    for lo in range(0, len(keys), 1 << 16):
+        block = keys[lo:lo + (1 << 16)]
+        a = torch.tensor([old.slot_index[(k, ())] for k in block],
+                         dtype=torch.int64, device=old.device)
+        if any((k, ()) not in new.slot_index for k in block):
+            return False, len(keys)
+        b = torch.tensor([new.slot_index[(k, ())] for k in block],
+                         dtype=torch.int64, device=new.device)
+        for name, arr in old.device_state.items():
+            if not torch.equal(arr.index_select(0, a),
+                               new.device_state[name].index_select(0, b)):
+                return False, len(keys)
+    return True, len(keys)
+
+
+def _ds_owner(ops, key):
+    """(op, hll, profile) of the subtask whose key-group range holds key."""
+    from flink_tpu_torch.core.keygroups import assign_to_key_group
+    for entry in ops:
+        backend = entry[0].keyed_backend
+        if backend.key_group_range.contains(
+                assign_to_key_group(key, backend.max_parallelism)):
+            return entry
+    raise KeyError(key)
+
+
+def datastream_api_phase(dev, n_events=1 << 18, n_keys=1_000_000,
+                         n_categories=64, n_rules=1024, parallelism=4,
+                         n_query_events=1 << 18, n_queries=4096,
+                         query_s=1.0, n_imps=1 << 16, n_clicks=1 << 13,
+                         n_ads=100_000, n_async=1 << 14, n_serial=512,
+                         n_async_fail=1 << 14, n_seeds=1 << 12,
+                         n_sample=4096):
+    """The rest of the DataStream API on the card through
+    StreamExecutionEnvironment: (a) the broadcast state pattern, config
+    #2 events keyed by user connected to 1,024 broadcast rule updates at
+    parallelism 4, an HLL p = 12 per user on the GPU backend; (b)
+    queryable HLL state read by a client thread while its job runs; (c)
+    connect + a keyed co-process function with two device Count states
+    and a timer per ad; (d) async I/O, ordered and unordered, into an
+    HLL window, and a checkpoint with requests in flight; (e) (a)'s
+    savepoint restored under an evolved profile schema; (f) a Collatz
+    loop with iterate, split by parity into Sum windows.  Events are cut
+    to fit the path into ~60 s (per-record Python: 2^18 events in (a)
+    and (b), 2^16 impressions and 2^13 clicks in (c), 2^14 lookups in
+    (d), 2^12 seeds in (f)); key spaces (1M users, 100,000 ads) and p
+    are kept."""
+    import tempfile
+
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.core.state import AggregatingStateDescriptor
+    from flink_tpu_torch.ops.device_agg import CountAggregate, SumAggregate
+    from flink_tpu_torch.runtime.queryable import (DEFAULT_REGISTRY,
+                                                   QueryableStateClient)
+    from flink_tpu_torch.streaming.datastream import (AsyncDataStream,
+                                                      StreamExecutionEnvironment)
+    from flink_tpu_torch.streaming.operators import AsyncWaitOperator
+    from flink_tpu_torch.streaming.sources import CollectSink, SourceFunction
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    classes = _ds_classes()
+    rng = np.random.default_rng(22)
+    out = {}
+
+    # (a) the broadcast state pattern, with typed profile state
+    t0 = time.perf_counter()
+    users = rng.integers(0, n_keys, n_events)
+    cats = rng.integers(0, n_categories, n_events)
+    items = rng.integers(0, 1 << 40, n_events)
+    ts = np.sort(rng.integers(0, 4000, n_events))
+    rule_cats = rng.integers(0, n_categories, n_rules)
+    rule_ok = rng.random(n_rules) < 0.875
+    rules = list(zip(rule_cats.tolist(), rule_ok.tolist()))
+    rule_map = dict(rules)                      # the last update wins
+    _Ds.reset(need_rules=parallelism * n_rules)
+    before = dict(K.LAUNCHES)
+    client = _ds_broadcast_job(dev, classes, (users, cats, items, ts), rules,
+                               classes["admit_v1"], parallelism)
+    check(_Ds.events_done.wait(600), "datastream_api (a): the data source "
+          "emitted every event")
+    ingest_s = time.perf_counter() - t0
+    sp_dir = tempfile.mkdtemp(prefix="chip-smoke-ds-")
+    t1 = time.perf_counter()
+    savepoint = client.trigger_savepoint(sp_dir, timeout=600)
+    savepoint_s = time.perf_counter() - t1
+    client.cancel()
+    check(client.wait(120).cancelled, "datastream_api (a): the job cancelled")
+    torch_sync()
+    launches_a = _launch_delta(before)
+    ops_a = list(_Ds.ops)
+    check(len(ops_a) == parallelism and sorted(_Ds.broadcast_states) ==
+          list(range(parallelism)) and all(
+              s == rule_map for s in _Ds.broadcast_states.values()),
+          f"datastream_api (a): the broadcast state of all {parallelism} "
+          "instances equals the rule map when the first record arrives")
+    admitted = np.array([rule_map.get(c, False) for c in range(n_categories)])[cats]
+    live = int(np.unique(users[admitted]).size)
+    n_live = sum(len(hll.slot_index) for _, hll, _ in ops_a)
+    reg_bytes = n_live * 4096
+    check(n_live == live, f"datastream_api (a): {n_live} users hold an HLL, "
+          f"numpy's admitted distinct users {live}")
+    adm_users = np.unique(users[admitted])
+    sample = np.sort(rng.choice(adm_users, min(n_sample, len(adm_users)),
+                                replace=False))
+    sel = admitted & np.isin(users, sample)
+    want = hll_reference(np.searchsorted(sample, users[sel]),
+                         splitmix64_np(items[sel]), len(sample), 12)
+    got = np.zeros(len(sample))
+    by_owner = {}
+    for i, u in enumerate(sample.tolist()):
+        by_owner.setdefault(id(_ds_owner(ops_a, u)[0]), []).append((i, u))
+    for op, hll, _ in ops_a:
+        rows = by_owner.get(id(op), [])
+        if rows:
+            res, found, _ = op.keyed_backend.get_batch(
+                hll, [u for _, u in rows], ())
+            check(bool(found.all()), "datastream_api (a): every sampled user "
+                  "has HLL state")
+            got[[i for i, _ in rows]] = res
+    check(allclose(got, want, rtol=1e-5, atol=hll_atol(4096)),
+          f"datastream_api (a): {len(sample)} sampled users within rtol 1e-5 "
+          "(+ log slack) of numpy HLL on the admitted events")
+    out["broadcast"] = {
+        "events": n_events, "keys": n_keys, "categories": n_categories,
+        "rule_updates": n_rules, "parallelism": parallelism,
+        "admitted_events": int(admitted.sum()), "users_with_state": n_live,
+        "register_bytes": reg_bytes, "seconds": ingest_s,
+        "events_per_s": n_events / ingest_s, "savepoint_s": savepoint_s,
+        "savepoint_bytes": os.path.getsize(savepoint),
+        "launches": launches_a}
+    emit({"datastream_api": {"broadcast": out["broadcast"]}})
+
+    # (e) the savepoint restored under profile schema v2
+    t0 = time.perf_counter()
+    old_profiles = {}
+    for op, _, profile in ops_a:
+        for _ns, key, value in profile._table.entries():
+            old_profiles[key] = value
+    _Ds.reset(need_rules=0)
+    _Ds.rules_released = _Ds.events_released = True
+    before = dict(K.LAUNCHES)
+    client = _ds_broadcast_job(dev, classes, (users, cats, items, ts), rules,
+                               classes["admit_v2"], parallelism, savepoint)
+    result = client.wait(600)
+    torch_sync()
+    launches_e = _launch_delta(before)
+    restore_s = time.perf_counter() - t0
+    ops_e = list(_Ds.ops)
+    check(result.restarts == 0 and _Ds.rules_seen == 0 and len(ops_e) == parallelism,
+          "datastream_api (e): the restored job ran through, no rule sent again")
+    compared, equal = 0, True
+    for (op_a, hll_a, _), (op_e, hll_e, _) in zip(
+            sorted(ops_a, key=lambda e: e[0].subtask_index),
+            sorted(ops_e, key=lambda e: e[0].subtask_index)):
+        ok, n = _ds_rows_equal(hll_a, hll_e)
+        equal = equal and ok
+        compared += n
+    check(equal and compared == n_live, f"datastream_api (e): all {compared} "
+          "users' HLL rows came back bit for bit")
+    check(launches_e.get("set_rows", 0) > 0,
+          f"datastream_api (e): the restore uploaded through set_rows ({launches_e})")
+    new_profiles = {}
+    for op, _, profile in ops_e:
+        for _ns, key, value in profile._table.entries():
+            new_profiles[key] = value
+    check(len(new_profiles) == len(old_profiles) == live and all(
+        new_profiles.get(k) == dict(v, region="unknown")
+        for k, v in old_profiles.items()),
+        f"datastream_api (e): every one of {len(old_profiles)} profile "
+        "records migrated to v2 (the added field at its default)")
+    out["migration"] = {"users": len(new_profiles), "restore_s": restore_s,
+                        "launches": launches_e}
+    emit({"datastream_api": {"migration": out["migration"]}})
+    del ops_a, ops_e
+    _Ds.reset()
+    shutil.rmtree(sp_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) queryable HLL state read while its job runs
+    t0 = time.perf_counter()
+    qn = n_query_events
+    q_users, q_items = users[:qn], items[:qn]
+
+    class QuerySource(SourceFunction):
+        def __init__(self):
+            self._cancelled = False
+
+        def run(self, ctx):
+            from flink_tpu_torch.streaming.elements import RecordBatch
+            lock = ctx.get_checkpoint_lock()
+            for lo in range(0, qn, 4096):
+                with lock:
+                    ctx.collect_batch(RecordBatch(
+                        {"f0": q_users[lo:lo + 4096], "f1": q_items[lo:lo + 4096]}))
+            _Ds.events_done.set()
+            while not self._cancelled:
+                time.sleep(0.001)
+
+        def cancel(self):
+            self._cancelled = True
+
+    def ingest(e):
+        _Ds.ingested += 1
+        return e
+
+    DEFAULT_REGISTRY.unregister_all()
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_state_backend("gpu")
+    (env.add_source(QuerySource(), name="thread-source")
+        .map(ingest, name="ingested")
+        .key_by(lambda e: e[0])
+        .as_queryable_state("uv", AggregatingStateDescriptor(
+            "uv", classes["item_hll"](12))))
+    _Ds.reset()
+    client = env.execute_async("chip-smoke-queryable")
+    check(_Ds.events_done.wait(300), "datastream_api (b): the source thread "
+          "emitted every event")
+    q_sample = np.sort(rng.choice(np.unique(q_users), n_queries, replace=False))
+    qc = QueryableStateClient()
+    before = dict(K.LAUNCHES)
+    queries = {}
+
+    def query_until(done):
+        """Query the sample round robin until done(); the window's
+        queries, answers (adds still pending are invisible) and
+        latency."""
+        lat, answered = [], 0
+        t1 = time.perf_counter()
+        while not done():
+            u = int(q_sample[len(lat) % n_queries])
+            t2 = time.perf_counter()
+            v = qc.get_kv_state("uv", u)
+            lat.append(time.perf_counter() - t2)
+            answered += v is not None
+        secs = time.perf_counter() - t1
+        lat_ms = np.sort(np.asarray(lat)) * 1000.0
+        return {"queries": len(lat), "answered": answered, "seconds": secs,
+                "queries_per_s": len(lat) / secs,
+                "p50_ms": float(lat_ms[len(lat_ms) // 2]) if len(lat) else None,
+                "p99_ms": float(lat_ms[int(len(lat_ms) * 0.99)]) if len(lat)
+                else None}
+
+    # while the loop ingests (the client and the loop share the host),
+    # then with the loop idle on its quiet source
+    ingest_deadline = time.perf_counter() + 300
+    queries["during_ingest"] = query_until(
+        lambda: _Ds.ingested >= qn or time.perf_counter() > ingest_deadline)
+    check(_Ds.ingested == qn, f"datastream_api (b): the loop took every event "
+          f"({_Ds.ingested})")
+    idle_deadline = time.perf_counter() + query_s
+    queries["after_ingest"] = query_until(
+        lambda: time.perf_counter() > idle_deadline)
+    live_launches = _launch_delta(before)
+    answered = sum(w["answered"] for w in queries.values())
+    client.cancel()
+    check(client.wait(120).cancelled, "datastream_api (b): the job cancelled")
+    torch_sync()
+    check(live_launches.get("hll_estimate", 0) == answered and answered > 0,
+          f"datastream_api (b): each of {answered} answered queries was one "
+          f"gathered hll_estimate launch ({live_launches})")
+    final = np.array([qc.get_kv_state("uv", int(u)) for u in q_sample])
+    backend, _desc = DEFAULT_REGISTRY.locate("uv", int(q_sample[0]))
+    state = backend.get_or_create_keyed_state(_desc)
+    res, found, _ = backend.get_batch(state, q_sample.tolist(), ())
+    check(bool(found.all()) and np.array_equal(final.astype(np.float32),
+                                               np.asarray(res, np.float32)),
+          f"datastream_api (b): {n_queries} answers after the job bit-equal "
+          "to the backend's get_batch")
+    qsel = np.isin(q_users, q_sample)
+    want = hll_reference(np.searchsorted(q_sample, q_users[qsel]),
+                         splitmix64_np(q_items[qsel]), n_queries, 12)
+    check(allclose(final, want, rtol=1e-5, atol=hll_atol(4096)),
+          "datastream_api (b): the answers within rtol 1e-5 (+ log slack) of "
+          "numpy HLL")
+    out["queryable"] = {"events": qn, **queries,
+                        "wall_s": time.perf_counter() - t0,
+                        "launches": live_launches}
+    DEFAULT_REGISTRY.unregister_all()
+    del backend, state
+    emit({"datastream_api": {"queryable": out["queryable"]}})
+
+    # (c) connect + a keyed co-process function, two device Counts
+    t0 = time.perf_counter()
+    imp_ads = rng.integers(0, n_ads, n_imps)
+    imp_ts = np.sort(rng.integers(0, 10_000, n_imps))
+    click_ads = rng.integers(0, n_ads, n_clicks)
+    click_ts = np.sort(rng.integers(0, 10_000, n_clicks))
+    _Ds.reset()
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    env.set_state_backend("gpu")
+    co_out = []
+    imps = env.add_source(classes["columns"]((imp_ads, imp_ts)), name="impressions")
+    clicks = env.add_source(classes["columns"]((click_ads, click_ts)), name="clicks")
+    (imps.connect(clicks).key_by(lambda e: e[0], lambda e: e[0])
+        .process(classes["co"](9_999))
+        .add_sink(CollectSink(co_out)))
+    before = dict(K.LAUNCHES)
+    env.execute("chip-smoke-connect")
+    torch_sync()
+    secs = time.perf_counter() - t0
+    launches_c = _launch_delta(before)
+    want_i = np.bincount(imp_ads, minlength=n_ads)
+    want_c = np.bincount(click_ads, minlength=n_ads)
+    got_i = np.zeros(n_ads, np.int64)
+    got_c = np.zeros(n_ads, np.int64)
+    for ad, ci, cc in co_out:
+        got_i[ad] += int(ci)
+        got_c[ad] += int(cc)
+    present = (want_i + want_c) > 0
+    check(len(co_out) == int(present.sum()) and np.array_equal(got_i, want_i)
+          and np.array_equal(got_c, want_c),
+          f"datastream_api (c): every one of {len(co_out)} ads' impressions "
+          "and clicks equal numpy exactly")
+    for kname in ("scatter_combine", "clear_rows"):
+        check(launches_c.get(kname, 0) > 0,
+              f"datastream_api (c): {kname} launched ({launches_c})")
+    out["connect"] = {"impressions": n_imps, "clicks": n_clicks, "ads": n_ads,
+                      "timers": len(co_out), "seconds": secs,
+                      "events_per_s": (n_imps + n_clicks) / secs,
+                      "launches": launches_c}
+    emit({"datastream_api": {"connect": out["connect"]}})
+
+    # (d) async I/O into an HLL window
+    a_users = users[:n_async]
+    a_ts = np.sort(rng.integers(0, 4000, n_async))
+    a_events = list(zip(a_users.tolist(), a_ts.tolist()))
+    hll_user = classes["item_hll"](12)
+
+    def async_job(events, ordered, capacity, with_window=True, fail=False):
+        env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+        env.set_state_backend("gpu")
+        order, windows = [], []
+        if fail:
+            env.enable_checkpointing(20)
+            env.set_restart_strategy("fixed_delay", restart_attempts=2,
+                                     delay_ms=0)
+            src = env.add_source(classes["columns"](
+                (np.array([e[0] for e in events]), np.array([e[1] for e in events])),
+                batch=256, fail_half=True), name="events").uid("events")
+        else:
+            src = env.from_collection([(e, e[1]) for e in events],
+                                      timestamped=True)
+        wait = AsyncDataStream.ordered_wait if ordered else AsyncDataStream.unordered_wait
+        looked = wait(src, classes["lookup"](), capacity=capacity).uid("async")
+        if fail:
+            looked = looked.map(classes["fail_once"](), name="failer")
+        looked.add_sink(CollectSink(order))
+        if with_window:
+            agg = CountAggregate() if fail else hll_user
+            (looked.key_by(lambda e: e[0])
+                .window(TumblingEventTimeWindows.of(1000))
+                .aggregate(agg, window_function=lambda k, w, vals: [
+                    (k, w.start, float(vals[0]))])
+                .add_sink(CollectSink(windows)))
+        t1 = time.perf_counter()
+        result = env.execute("chip-smoke-async")
+        torch_sync()
+        return order, sorted(windows), time.perf_counter() - t1, result
+
+    t0 = time.perf_counter()
+    before = dict(K.LAUNCHES)
+    ord_out, ord_win, ord_s, _ = async_job(a_events, True, 100)
+    un_out, un_win, un_s, _ = async_job(a_events, False, 100)
+    _, _, serial_s, _ = async_job(a_events[:n_serial], True, 1, with_window=False)
+    launches_d = _launch_delta(before)
+    want_order = [(u % 64, u) for u in a_users.tolist()]
+    check(ord_out == want_order, "datastream_api (d): ordered output equals "
+          "input order")
+    check(sorted(un_out) == sorted(want_order), "datastream_api (d): unordered "
+          "output holds every event")
+    wins = sorted({(int(u % 64), int(t // 1000 * 1000)) for u, t in
+                   zip(a_users.tolist(), a_ts.tolist())})
+    check([w[:2] for w in ord_win] == wins and ord_win == un_win,
+          "datastream_api (d): the HLL windows behind both modes are equal, "
+          "with the (category, window) set exact")
+    gid = np.searchsorted(np.array([c * 10 + s // 1000 for c, s in wins]),
+                          (a_users % 64) * 10 + a_ts // 1000)
+    want_h = hll_reference(gid, splitmix64_np(a_users), len(wins), 12)
+    check(allclose([w[2] for w in ord_win], want_h, rtol=1e-5,
+                   atol=hll_atol(4096)),
+          "datastream_api (d): the window estimates within rtol 1e-5 (+ log "
+          "slack) of numpy HLL")
+    # a checkpoint with requests in flight, then a failure
+    fail_events = a_events[:n_async_fail]
+    snaps = []
+    orig = AsyncWaitOperator.snapshot_state
+
+    def counting_snapshot(op, checkpoint_id=None):
+        snaps.append(len(op._pending))
+        return orig(op, checkpoint_id)
+
+    AsyncWaitOperator.snapshot_state = counting_snapshot
+    _Ds.reset()
+    try:
+        f_out, f_win, f_s, f_result = async_job(fail_events, False, 100,
+                                                fail=True)
+    finally:
+        AsyncWaitOperator.snapshot_state = orig
+    f_users = a_users[:n_async_fail]
+    f_ts = np.array([e[1] for e in fail_events])
+    cnt = {}
+    for u, t in zip(f_users.tolist(), f_ts.tolist()):
+        cnt[(u % 64, t // 1000 * 1000)] = cnt.get((u % 64, t // 1000 * 1000), 0) + 1
+    check(_Ds.failed and f_result.restarts == 1 and max(snaps, default=0) > 0,
+          f"datastream_api (d): a checkpoint taken with requests in flight "
+          f"(at most {max(snaps, default=0)}) completed, then the job failed "
+          "once and restarted")
+    check(f_win == sorted((k, s, float(c)) for (k, s), c in cnt.items()),
+          "datastream_api (d): after the restart every window's count equals "
+          "numpy exactly (no request lost, none twice)")
+    out["async"] = {"events": n_async, "capacity": 100, "delay_ms": 1,
+                    "ordered_s": ord_s, "ordered_events_per_s": n_async / ord_s,
+                    "unordered_s": un_s, "unordered_events_per_s": n_async / un_s,
+                    "serial_events": n_serial,
+                    "serial_events_per_s": n_serial / serial_s,
+                    "in_flight_at_snapshots": max(snaps, default=0),
+                    "checkpointed_events": n_async_fail, "checkpointed_s": f_s,
+                    "wall_s": time.perf_counter() - t0, "launches": launches_d}
+    emit({"datastream_api": {"async": out["async"]}})
+
+    # (f) iterate + split/select: a Collatz loop into Sum windows
+    t0 = time.perf_counter()
+    seeds = np.arange(2, 2 + n_seeds)
+    env = StreamExecutionEnvironment.get_execution_environment(device=dev)
+    loop_out = []
+    src = env.from_collection([((int(s), int(s), 0), int(s)) for s in seeds],
+                              timestamped=True)
+    it = src.iterate()
+    step = it.map(lambda t: (t[0], t[1] // 2 if t[1] % 2 == 0 else 3 * t[1] + 1,
+                             t[2] + 1), name="collatz")
+    it.close_with(step.filter(lambda t: t[1] != 1, name="again"))
+    exits = step.filter(lambda t: t[1] == 1, name="exits").split(
+        lambda t: ["even" if t[0] % 2 == 0 else "odd"])
+    sum_steps = SumAggregate(np.float64)
+    sum_steps.extract_value = lambda t: t[2]
+    for parity in ("even", "odd"):
+        (exits.select(parity).key_by(lambda t: t[0] % 2)
+            .window(TumblingEventTimeWindows.of(1024))
+            .aggregate(sum_steps, window_function=lambda k, w, vals: [
+                (int(k), w.start, float(vals[0]))])
+            .add_sink(CollectSink(loop_out)))
+    env.execute("chip-smoke-iterate")
+    torch_sync()
+    secs = time.perf_counter() - t0
+    steps = np.zeros(len(seeds), np.int64)
+    cur = seeds.copy()
+    while (cur != 1).any():
+        live_ = cur != 1
+        cur[live_] = np.where(cur[live_] % 2 == 0, cur[live_] // 2,
+                              3 * cur[live_] + 1)
+        steps[live_] += 1
+    want_loop = {}
+    for s, k in zip(seeds.tolist(), steps.tolist()):
+        key = (s % 2, s // 1024 * 1024)
+        want_loop[key] = want_loop.get(key, 0) + k
+    check(sorted(loop_out) == sorted((p, w, float(v)) for (p, w), v
+                                     in want_loop.items()),
+          f"datastream_api (f): the Collatz loop over {n_seeds} seeds "
+          f"({int(steps.sum())} rounds) split by parity into Sum windows "
+          "equals numpy")
+    out["iterate"] = {"seeds": n_seeds, "rounds": int(steps.sum()),
+                      "seconds": secs, "rounds_per_s": int(steps.sum()) / secs}
+    emit({"datastream_api": {"iterate": out["iterate"]}})
+
+
 PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")),
          ("jobs", "job_phase", ("hll_update", "hll_estimate", "scatter_combine",
                                 "clear_rows", "merge_rows", "quantile_update",
@@ -6614,7 +7403,10 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                "merge_rows", "shard_pack", "clear_rows")),
          ("sources", "sources_phase", ("scatter_combine", "clear_rows",
                                        "hll_update", "hll_estimate",
-                                       "set_rows", "hll_log_finish")))
+                                       "set_rows", "hll_log_finish")),
+         ("datastream_api", "datastream_api_phase", ("hll_update", "hll_estimate",
+                                                     "scatter_combine",
+                                                     "clear_rows", "set_rows")))
 
 
 def main() -> int:

@@ -1,4 +1,4 @@
-"""User-function SPI (subset of ``flink_tpu/core/functions.py:25-340``).
+"""User-function SPI (port of ``flink_tpu/core/functions.py:25-372``).
 
 Plain callables are accepted wherever a single-method function is
 expected; the classes exist for the rich lifecycle (open/close) and
@@ -15,6 +15,8 @@ IN = TypeVar("IN")
 OUT = TypeVar("OUT")
 ACC = TypeVar("ACC")
 KEY = TypeVar("KEY")
+IN1 = TypeVar("IN1")
+IN2 = TypeVar("IN2")
 
 
 class Function:
@@ -178,6 +180,41 @@ class AggregateFunction(Function, Generic[IN, ACC, OUT], abc.ABC):
 class KeySelector(Function, Generic[IN, KEY], abc.ABC):
     @abc.abstractmethod
     def get_key(self, value: IN) -> KEY:
+        ...
+
+
+class CoMapFunction(Function, Generic[IN1, IN2, OUT], abc.ABC):
+    """``map1`` for the first input of connected streams, ``map2`` for
+    the second."""
+
+    @abc.abstractmethod
+    def map1(self, value: IN1) -> OUT:
+        ...
+
+    @abc.abstractmethod
+    def map2(self, value: IN2) -> OUT:
+        ...
+
+
+class CoFlatMapFunction(Function, Generic[IN1, IN2, OUT], abc.ABC):
+    @abc.abstractmethod
+    def flat_map1(self, value: IN1) -> Iterable[OUT]:
+        ...
+
+    @abc.abstractmethod
+    def flat_map2(self, value: IN2) -> Iterable[OUT]:
+        ...
+
+
+class JoinFunction(Function, Generic[IN1, IN2, OUT], abc.ABC):
+    @abc.abstractmethod
+    def join(self, first: IN1, second: IN2) -> OUT:
+        ...
+
+
+class CoGroupFunction(Function, Generic[IN1, IN2, OUT], abc.ABC):
+    @abc.abstractmethod
+    def co_group(self, first: Iterable[IN1], second: Iterable[IN2]) -> Iterable[OUT]:
         ...
 
 

@@ -53,6 +53,7 @@ KERNELS = ("hll_update", "hll_estimate", "scatter_combine", "clear_rows",
 
 #: kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_launches_lock = threading.Lock()
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -252,7 +253,9 @@ def launch(name: str, fn: str, *args) -> None:
         err = _tracing.LAUNCH_LEDGER.record(name, lambda: f(*args, stream))
     else:
         err = f(*args, current_stream())
-    LAUNCHES[name] += 1
+    # a queryable-state read launches from its client's thread
+    with _launches_lock:
+        LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            f"({fn})")

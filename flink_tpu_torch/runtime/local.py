@@ -1,6 +1,6 @@
 """Local executor: every vertex of a job at its parallelism, in this
 process, with checkpoints, restarts and savepoints (port of
-``flink_tpu/runtime/local.py:110-1160, 1226-1947``).
+``flink_tpu/runtime/local.py:110-1160, 1226-2003``).
 
 Each JobVertex runs as N subtasks.  A keyed operator of subtask i owns
 the key-group range ``compute_key_group_range_for_operator_index(
@@ -15,6 +15,16 @@ Elements flow by direct calls, cooperative and on one thread: sources
 with ``emit_step`` step in turn on one loop, a chain hands batches
 whole from operator to operator, and the chain-tail router splits a
 batch by key group (``split_batch``) into one sub-batch per channel.
+A two-input head takes each channel's elements as its input 1 or 2
+(``process_element1`` / ``2``, ``process_watermark1`` / ``2``; a batch
+record by record).  An iteration's back edge ends in a feedback
+channel, which queues: the first push while its subtask drains no
+feedback runs the subtask's feedback queues until they are empty, so a
+record goes round the loop until it leaves it before the call that
+sent it returns, at a bounded call depth.  A back edge carries records
+and watermarks but no barrier and no end of stream, takes no part in
+the watermark minimum (the head's own watermark comes round on it) or
+in an alignment, and a task ends when its other channels ended.
 
 A source without ``emit_step`` (a socket, a file, any blocking
 ``run()``) runs on a thread of its own.  Its context hands every
@@ -130,7 +140,8 @@ from flink_tpu_torch.streaming.elements import (END_OF_STREAM, MAX_WATERMARK,
                                                 CheckpointBarrier, EndOfStream,
                                                 LatencyMarker, Watermark)
 from flink_tpu_torch.streaming.graph import JobGraph, JobVertex
-from flink_tpu_torch.streaming.operators import Output, StreamOperator
+from flink_tpu_torch.streaming.operators import (Output, StreamOperator,
+                                                TwoInputStreamOperator)
 from flink_tpu_torch.streaming.sources import StreamSource
 from flink_tpu_torch.streaming.timers import (ProcessingTimeService,
                                               SystemProcessingTimeService,
@@ -174,6 +185,8 @@ class _InputChannel:
     __slots__ = ("subtask", "input_index", "channel_id", "blocked",
                  "held", "eos")
 
+    is_feedback = False
+
     def __init__(self, subtask: "SubtaskInstance", input_index: int,
                  channel_id: int):
         self.subtask = subtask
@@ -188,6 +201,36 @@ class _InputChannel:
             self.held.append(element)
             return
         self.subtask.receive(self, element)
+
+
+class _FeedbackChannel(_InputChannel):
+    """The end of an iteration's back edge.  It queues, and the first
+    push while its subtask drains no feedback runs the queues of all of
+    the subtask's feedback channels until they are empty: a record goes
+    round the loop until it leaves it, at a bounded call depth (a
+    direct call per round would recurse once per iteration).  It is
+    never blocked for an alignment and never ends."""
+
+    __slots__ = ()
+
+    is_feedback = True
+
+    def push(self, element) -> None:
+        self.held.append(element)
+        st = self.subtask
+        if st.draining_feedback:
+            return
+        st.draining_feedback = True
+        try:
+            moved = True
+            while moved:
+                moved = False
+                for ch in st.feedback_channels:
+                    while ch.held:
+                        st.receive(ch, ch.held.popleft())
+                        moved = True
+        finally:
+            st.draining_feedback = False
 
 
 class SourceCancelled(Exception):
@@ -315,6 +358,9 @@ class _RouterOutput(Output):
     def __init__(self):
         #: (partitioner, [_InputChannel], side tag)
         self.routes: List[Tuple[Any, List[_InputChannel], Any]] = []
+        #: indices of the routes that are iteration back edges: records
+        #: and watermarks go round, barriers and end of stream do not
+        self.feedback_routes: Set[int] = set()
         #: numRecordsOut, set by the task layer
         self.records_out_counter = None
         #: the backpressure plane's stamp of the last moment without
@@ -328,8 +374,11 @@ class _RouterOutput(Output):
     def has_queued_output(self) -> bool:
         return False
 
-    def add_route(self, partitioner, channels, side_tag=None) -> None:
+    def add_route(self, partitioner, channels, side_tag=None,
+                  feedback: bool = False) -> None:
         partitioner.setup(len(channels))
+        if feedback:
+            self.feedback_routes.add(len(self.routes))
         self.routes.append((partitioner, channels, side_tag))
 
     def collect(self, record):
@@ -391,11 +440,18 @@ class _RouterOutput(Output):
             if side_tag is None and channels:
                 channels[_rand.randrange(len(channels))].push(marker)
 
+    def _broadcast_forward(self, element):
+        """To every channel of every route but the back edges."""
+        for i, (_, channels, _) in enumerate(self.routes):
+            if i not in self.feedback_routes:
+                for ch in channels:
+                    ch.push(element)
+
     def broadcast_barrier(self, barrier: CheckpointBarrier):
-        self._broadcast(barrier)
+        self._broadcast_forward(barrier)
 
     def broadcast_end_of_stream(self):
-        self._broadcast(END_OF_STREAM)
+        self._broadcast_forward(END_OF_STREAM)
 
 
 class SubtaskInstance:
@@ -456,6 +512,9 @@ class SubtaskInstance:
             if metrics_group is not None:
                 op.register_standard_metrics(metrics_group.add_group(node.uid))
         self.input_channels: List[_InputChannel] = []
+        #: the ends of iteration back edges, and whether one drains now
+        self.feedback_channels: List[_FeedbackChannel] = []
+        self.draining_feedback = False
         #: input_index -> {channel_id: watermark}
         self._watermarks: Dict[int, Dict[int, int]] = {}
         self._current_wm: Dict[int, int] = {}
@@ -480,10 +539,20 @@ class SubtaskInstance:
     def is_source(self) -> bool:
         return isinstance(self.head, StreamSource)
 
-    def new_channel(self, input_index: int) -> _InputChannel:
-        ch = _InputChannel(self, input_index, len(self.input_channels))
+    def new_channel(self, input_index: int,
+                    feedback: bool = False) -> _InputChannel:
+        """A channel into logical input ``input_index``.  A back edge's
+        channel takes no part in the watermark minimum: the watermark
+        that comes round an iteration is the head's own, which the
+        minimum could then never pass."""
+        if feedback:
+            ch = _FeedbackChannel(self, input_index, len(self.input_channels))
+            self.feedback_channels.append(ch)
+        else:
+            ch = _InputChannel(self, input_index, len(self.input_channels))
+            self._watermarks.setdefault(input_index, {})[ch.channel_id] = \
+                MIN_TIMESTAMP
         self.input_channels.append(ch)
-        self._watermarks.setdefault(input_index, {})[ch.channel_id] = MIN_TIMESTAMP
         return ch
 
     # ---- lifecycle --------------------------------------------------
@@ -668,8 +737,9 @@ class SubtaskInstance:
                 else:
                     self.process_record(ch.input_index, element)
             elif element.is_watermark:
-                self.process_channel_watermark(ch.input_index, ch.channel_id,
-                                               element)
+                if not ch.is_feedback:
+                    self.process_channel_watermark(ch.input_index,
+                                                   ch.channel_id, element)
             elif element.is_barrier:
                 self._on_barrier(ch, element)
             elif isinstance(element, EndOfStream):
@@ -698,17 +768,39 @@ class SubtaskInstance:
         if self.io_metrics is not None:
             self.io_metrics.num_records_in.count += 1
         head = self.head
+        if isinstance(head, TwoInputStreamOperator):
+            self._process_two_input(head, input_index, record)
+            return
         head.set_key_context(record)
         head.process_element(record)
 
+    @staticmethod
+    def _process_two_input(head, input_index: int, record) -> None:
+        """A record of input 1 or 2 of a two-input head, each input
+        with its own key context."""
+        if input_index == 0:
+            head.set_key_context(record)
+            head.process_element1(record)
+        else:
+            set_key2 = getattr(head, "set_key_context2", None)
+            if set_key2 is not None:
+                set_key2(record)
+            head.process_element2(record)
+
     def process_batch_element(self, input_index: int, batch):
         """A RecordBatch through the head: its fused chain program when
-        it wants the batch, else the operator's ``process_batch``."""
+        it wants the batch, else the operator's ``process_batch``; a
+        two-input head takes it record by record (its inputs have their
+        own key contexts)."""
         if faults._active is not None:
             faults.fire("task.process")
         if self.io_metrics is not None:
             self.io_metrics.num_records_in.count += len(batch)
         head = self.head
+        if isinstance(head, TwoInputStreamOperator):
+            for record in batch.to_records():
+                self._process_two_input(head, input_index, record)
+            return
         fused = head._fused_chain
         if fused is not None and fused.wants(batch):
             fused.run(batch)
@@ -726,11 +818,19 @@ class SubtaskInstance:
         if new_min <= self._current_wm.get(input_index, MIN_TIMESTAMP):
             return
         self._current_wm[input_index] = new_min
-        self.head.process_watermark(Watermark(new_min))
+        head = self.head
+        if isinstance(head, TwoInputStreamOperator):
+            if input_index == 0:
+                head.process_watermark1(Watermark(new_min))
+            else:
+                head.process_watermark2(Watermark(new_min))
+        else:
+            head.process_watermark(Watermark(new_min))
 
     # ---- barriers ---------------------------------------------------
     def _live_channel_ids(self) -> Set[int]:
-        return {c.channel_id for c in self.input_channels if not c.eos}
+        return {c.channel_id for c in self.input_channels
+                if not c.eos and not c.is_feedback}
 
     def _on_barrier(self, ch: _InputChannel, barrier: CheckpointBarrier):
         cid = barrier.checkpoint_id
@@ -803,7 +903,8 @@ class SubtaskInstance:
     def _on_end_of_stream(self, ch: _InputChannel):
         ch.eos = True
         self._maybe_complete_alignment()
-        if not self.finished and all(c.eos for c in self.input_channels):
+        if not self.finished and all(c.eos for c in self.input_channels
+                                     if not c.is_feedback):
             self.finished = True
             self.router.broadcast_end_of_stream()
 
@@ -989,9 +1090,10 @@ class LocalExecutor:
                 targets = ([downs[t] for t in
                             pointwise_targets(i, len(ups), len(downs))]
                            if e.partitioner.is_pointwise else downs)
-                channels = [d.new_channel(e.type_number) for d in targets]
+                channels = [d.new_channel(e.type_number, e.is_feedback)
+                            for d in targets]
                 up.router.add_route(copy.copy(e.partitioner), channels,
-                                    e.side_output_tag)
+                                    e.side_output_tag, feedback=e.is_feedback)
         return subtasks
 
     # ---- public API -------------------------------------------------

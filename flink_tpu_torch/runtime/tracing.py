@@ -640,7 +640,13 @@ class LaunchLedger:
     every device event by the same amount.
 
     ``enabled`` is not stored here: the caller launches through the
-    ledger while the tracer or the device telemetry is on."""
+    ledger while the tracer or the device telemetry is on.
+
+    Threads may launch at once (a queryable-state read launches from
+    its client's thread while the job's loop launches): one lock covers
+    a launch's count, its event pair and the call between them, and
+    every read of the queue, so no count is lost, no pair is accounted
+    twice and no pair brackets another thread's launch."""
 
     #: queued event pairs before launches go untimed
     MAX_PENDING = 1 << 16
@@ -651,57 +657,59 @@ class LaunchLedger:
         self._stats: Dict[str, _LaunchStat] = {}
         #: device index -> (anchor event, perf_ns)
         self._anchors: Dict[int, tuple] = {}
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         #: the CUDA hooks (tests substitute host stand-ins)
         self.event_factory = _cuda_event
         self.current_device = _cuda_device
         self.synchronize = _cuda_synchronize
 
     def record(self, kernel: str, call: Callable[[], Any]) -> Any:
-        stat = self._stats.get(kernel)
-        if stat is None:
-            with self._lock:
-                stat = self._stats.setdefault(kernel, _LaunchStat())
-        stat.launches += 1
-        if len(self._pending) >= self.max_pending:
-            self._drain_completed()
-        if len(self._pending) >= self.max_pending:
-            stat.untimed += 1
-            return call()
-        ev = self.event_factory
-        dev = self.current_device()
-        if dev not in self._anchors:
-            anchor = ev()
-            anchor.record()
-            self._anchors[dev] = (anchor, _perf_ns())
-        start, end = ev(), ev()
-        start.record()
-        out = call()
-        end.record()
-        self._pending.append((kernel, start, end, dev))
-        return out
+        with self._lock:
+            stat = self._stats.get(kernel)
+            if stat is None:
+                stat = self._stats[kernel] = _LaunchStat()
+            stat.launches += 1
+            if len(self._pending) >= self.max_pending:
+                self._drain_completed()
+            if len(self._pending) >= self.max_pending:
+                stat.untimed += 1
+                return call()
+            ev = self.event_factory
+            dev = self.current_device()
+            if dev not in self._anchors:
+                anchor = ev()
+                anchor.record()
+                self._anchors[dev] = (anchor, _perf_ns())
+            start, end = ev(), ev()
+            start.record()
+            out = call()
+            end.record()
+            self._pending.append((kernel, start, end, dev))
+            return out
 
     def _drain_completed(self) -> None:
         """Resolve the oldest pairs whose end event the card has passed
         (``query()`` does not block)."""
-        done = 0
-        for item in self._pending:
-            if not item[2].query():
-                break
-            done += 1
-        if done:
-            items = self._pending[:done]
-            del self._pending[:done]
-            self._account(items)
+        with self._lock:
+            done = 0
+            for item in self._pending:
+                if not item[2].query():
+                    break
+                done += 1
+            if done:
+                items = self._pending[:done]
+                del self._pending[:done]
+                self._account(items)
 
     def resolve(self) -> None:
         """Synchronize once and account every queued pair."""
-        if not self._pending:
-            return
-        for dev in sorted({item[3] for item in self._pending}):
-            self.synchronize(dev)
-        items, self._pending = self._pending, []
-        self._account(items)
+        with self._lock:
+            if not self._pending:
+                return
+            for dev in sorted({item[3] for item in self._pending}):
+                self.synchronize(dev)
+            items, self._pending = self._pending, []
+            self._account(items)
 
     def _account(self, items) -> None:
         tracer = _tracer
@@ -735,7 +743,9 @@ class LaunchLedger:
         if resolve:
             self.resolve()
         out = {}
-        for kernel, st in sorted(self._stats.items()):
+        with self._lock:
+            stats = sorted(self._stats.items())
+        for kernel, st in stats:
             vals = sorted(st.reservoir.values)
             out["cuda." + kernel] = {
                 "launches": st.launches, "timed": st.timed,

@@ -14,8 +14,16 @@ namespace columns go through the wire codec's column encoding
 strings, tuples, numpy arrays and the codec's tuples), so a chunk
 written by either package restores in the other without importing it;
 ``snapshot_from_chunks`` wraps bytes and meta taken from the JAX
-package.  Queryable state, introspection, statistics and serializer
-migration are later slices.
+package.
+
+A snapshot's meta records each state's serializer configuration
+(``serializers``).  A restore remembers them and holds every bound
+descriptor's serializer against its state's: one that cannot read it
+raises ``StateMigrationException``; one whose configuration changed
+but can read it (an evolved record schema) migrates the restored
+values once, at the later of bind and restore.  Host tables migrate
+value by value (``migrate_table_values``); device aggregate rows never
+migrate, so they restore bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Any, Dict, Iterable, Optional
 import numpy as np
 
 from flink_tpu_torch.core.keygroups import KeyGroupRange
+from flink_tpu_torch.core.serialization import StateMigrationException
 from flink_tpu_torch.core.state import (AggregatingStateDescriptor,
                                         FoldingStateDescriptor,
                                         ListStateDescriptor,
@@ -93,14 +102,6 @@ def snapshot_from_chunks(key_group_bytes, meta: Optional[dict] = None
     return KeyedStateSnapshot(dict(key_group_bytes), meta)
 
 
-#: value serializers whose configuration the port honours: the chunk
-#: holds the values themselves, which these serializers store unchanged
-_PLAIN_SERIALIZERS = frozenset({
-    "PickleSerializer", "LongSerializer", "IntSerializer",
-    "DoubleSerializer", "FloatSerializer", "BooleanSerializer",
-    "StringSerializer", "BytesSerializer"})
-
-
 class KeyedStateBackend(abc.ABC):
     """The contract every keyed backend implements."""
 
@@ -112,6 +113,8 @@ class KeyedStateBackend(abc.ABC):
         self._states: Dict[str, Any] = {}
         #: name -> descriptor it was bound with
         self._descriptors: Dict[str, StateDescriptor] = {}
+        #: name -> serializer configuration a restore recorded
+        self._restored_serializer_cfgs: Dict[str, Any] = {}
         # the introspection plane's registry (a WeakSet: free, and
         # walked only while the plane is on)
         from flink_tpu_torch.state.introspect import INTROSPECTION
@@ -129,6 +132,7 @@ class KeyedStateBackend(abc.ABC):
     def get_or_create_keyed_state(self, descriptor: StateDescriptor):
         state = self._states.get(descriptor.name)
         if state is None:
+            self._check_serializer_against_restored(descriptor)
             state = self._create_state(descriptor)
             self._states[descriptor.name] = state
             self._descriptors[descriptor.name] = descriptor
@@ -286,27 +290,66 @@ class KeyedStateBackend(abc.ABC):
             INTROSPECTION.note_dispose(self)
         self._states.clear()
 
-    # ---- snapshot / restore -----------------------------------------
-    def _meta(self) -> dict:
-        # the port's descriptors carry no serializer, so it records none
-        return {"backend": self.name, "max_parallelism": self.max_parallelism,
-                "serializers": {}}
+    # ---- serializer compatibility and migration ---------------------
+    def serializer_config_snapshots(self) -> dict:
+        return {name: d.serializer.snapshot_configuration()
+                for name, d in self._descriptors.items()
+                if getattr(d, "serializer", None) is not None}
 
-    @staticmethod
-    def check_serializer_compatibility(snapshots) -> None:
-        """A snapshot may record a serializer configuration per state.
-        The port honours the plain value serializers, whose chunks hold
-        the values themselves; any other configuration would need the
-        serializer migration of a later slice, so it raises."""
+    def check_serializer_compatibility(self, snapshots) -> None:
+        """Remember every state's recorded configuration (a state bound
+        after the restore is checked at bind) and check the bound ones
+        now; their values migrate at the restore's end
+        (``_apply_restored_migrations``)."""
         for snap in snapshots:
             for name, cfg in (snap.meta or {}).get("serializers", {}).items():
-                if (getattr(cfg, "serializer_name", None) not in _PLAIN_SERIALIZERS
-                        or getattr(cfg, "details", None)):
-                    raise NotImplementedError(
-                        f"state {name!r} was written with serializer "
-                        f"configuration {cfg!r}; the port restores only "
-                        f"{sorted(_PLAIN_SERIALIZERS)} without details "
-                        "(serializer migration is not ported)")
+                self._restored_serializer_cfgs[name] = cfg
+                d = self._descriptors.get(name)
+                if d is not None:
+                    self._check_serializer_against_restored(d, migrate=False)
+
+    def _check_serializer_against_restored(self, descriptor: StateDescriptor,
+                                           migrate: bool = True) -> None:
+        cfg = self._restored_serializer_cfgs.get(descriptor.name)
+        ser = getattr(descriptor, "serializer", None)
+        if cfg is None or ser is None:
+            return
+        if not ser.ensure_compatibility(cfg):
+            raise StateMigrationException(
+                f"state '{descriptor.name}' was written with serializer "
+                f"{cfg.serializer_name!r}; the registered serializer "
+                f"{type(ser).__name__!r} cannot read it")
+        # a changed but readable configuration migrates the values once;
+        # the recorded configuration is then replaced, so a rebind never
+        # migrates twice (a second resolution would overwrite values
+        # with defaults)
+        if migrate and ser.snapshot_configuration() != cfg:
+            self._migrate_state_values(descriptor, ser, cfg)
+            self._restored_serializer_cfgs[descriptor.name] = \
+                ser.snapshot_configuration()
+
+    def _migrate_state_values(self, descriptor: StateDescriptor, serializer,
+                              restored_cfg) -> None:
+        """Rewrite the descriptor's restored values through
+        ``serializer.migrate_value``; backends with host tables
+        override."""
+
+    def _apply_restored_migrations(self) -> None:
+        """At a restore's end: migrate every state bound before it whose
+        recorded configuration differs from its serializer's."""
+        for name, d in self._descriptors.items():
+            cfg = self._restored_serializer_cfgs.get(name)
+            ser = getattr(d, "serializer", None)
+            if cfg is not None and ser is not None \
+                    and ser.snapshot_configuration() != cfg:
+                self._migrate_state_values(d, ser, cfg)
+                self._restored_serializer_cfgs[name] = \
+                    ser.snapshot_configuration()
+
+    # ---- snapshot / restore -----------------------------------------
+    def _meta(self) -> dict:
+        return {"backend": self.name, "max_parallelism": self.max_parallelism,
+                "serializers": self.serializer_config_snapshots()}
 
     @abc.abstractmethod
     def snapshot(self) -> KeyedStateSnapshot:
@@ -398,3 +441,23 @@ def decode_obj_column(col, n: int) -> list:
 def _state_name(state) -> str:
     d = getattr(state, "_descriptor", None)
     return getattr(d, "name", "?") if d is not None else "?"
+
+
+def migrate_table_values(table, descriptor, serializer, restored_cfg) -> None:
+    """Migrate every value of a host table: a list state stores a list
+    of elements and a map state a dict of entries, so the element
+    serializer's ``migrate_value`` maps over them; any other state
+    stores one value."""
+    kind = getattr(descriptor, "TYPE", "value")
+    if kind == "list":
+        def mig(v):
+            return [serializer.migrate_value(x, restored_cfg) for x in v]
+    elif kind == "map":
+        def mig(v):
+            return {k: serializer.migrate_value(x, restored_cfg)
+                    for k, x in v.items()}
+    else:
+        def mig(v):
+            return serializer.migrate_value(v, restored_cfg)
+    for namespace, key, value in list(table.entries()):
+        table.put(key, namespace, mig(value))

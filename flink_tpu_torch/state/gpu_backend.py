@@ -35,11 +35,13 @@ Flushes send exactly the pending rows: no padding to a power of two.
 The host-RAM spill tier keeps the reference's rule: with a device-slot
 budget (``max_device_slots``) the coldest quarter of slots moves to
 host RAM when no slot is free, and an access promotes a row back.
-Queryable state, telemetry and statistics are later slices.
+A queryable-state read (``query_by_key``) comes from another thread
+and takes the device lock (see there).
 """
 
 from __future__ import annotations
 
+import contextlib
 import pickle
 import threading
 import time
@@ -67,7 +69,8 @@ from flink_tpu_torch.ops.device_agg import (DeviceAggregateFunction,
 from flink_tpu_torch.state.backend import (VOID_NAMESPACE, KeyedStateBackend,
                                            KeyedStateSnapshot,
                                            decode_obj_column,
-                                           encode_obj_column)
+                                           encode_obj_column,
+                                           migrate_table_values)
 from flink_tpu_torch.state.heap_backend import (HeapAggregatingState,
                                                 HeapFoldingState,
                                                 HeapListState, HeapMapState,
@@ -131,7 +134,18 @@ class DeviceAggregatingState(AggregatingState):
         self._pending_hi: List[int] = []
         self._pending_lo: List[int] = []
         self._device_lock = threading.RLock()
+        #: the stream of the latest write under the lock (on the card):
+        #: a query on another stream waits for it
+        self._writer_stream = None
         register_device_state(self)
+
+    @contextlib.contextmanager
+    def _writing(self):
+        """The device lock around a write of ``device_state``."""
+        with self._device_lock:
+            yield
+            if self.device.type == "cuda":
+                self._writer_stream = torch.cuda.current_stream(self.device)
 
     def set_current_namespace(self, namespace) -> None:
         self._namespace = namespace
@@ -199,7 +213,7 @@ class DeviceAggregatingState(AggregatingState):
                                      for name in host_rows}
             del self.slot_index[entry]
             self.slot_meta[s] = None
-        with self._device_lock:
+        with self._writing():
             self.agg.clear_slots(self.device_state, idx)
             for s in victims:
                 self._slot_flushed[s] = 0
@@ -215,7 +229,7 @@ class DeviceAggregatingState(AggregatingState):
         slot = self._free.pop()
         row = self.host_tier[entry]
         idx = self._slots([slot])
-        with self._device_lock:
+        with self._writing():
             if TELEMETRY.enabled:
                 t0 = _perf_ns()
             for name, val in row.items():
@@ -240,7 +254,7 @@ class DeviceAggregatingState(AggregatingState):
         """Double the arena: new tensors, the old rows copied (old and
         new arenas are held at once during the copy)."""
         self._flush()
-        with self._device_lock:
+        with self._writing():
             self.device_state = self.agg.grow_state(self.device_state,
                                                     new_capacity)
         grown = new_capacity - self.capacity
@@ -312,7 +326,7 @@ class DeviceAggregatingState(AggregatingState):
         n = len(self._pending_slots)
         if n == 0:
             return
-        with self._device_lock:
+        with self._writing():
             self._flush_locked(n)
 
     def _flush_locked(self, n: int) -> None:
@@ -403,7 +417,8 @@ class DeviceAggregatingState(AggregatingState):
             res[spill_idx] = self._finalize_spilled(spill_rows)
         return res, found
 
-    def _finalize_spilled(self, rows: List[Dict[str, np.ndarray]]) -> np.ndarray:
+    def _finalize_spilled(self, rows: List[Dict[str, np.ndarray]],
+                          tag: str = "state.fire.spill") -> np.ndarray:
         """Results of host-tier rows: stack them into a temporary state
         on the device and finalize it with the same kernels."""
         host = {name: np.stack([r[name] for r in rows])
@@ -411,11 +426,37 @@ class DeviceAggregatingState(AggregatingState):
         if TELEMETRY.enabled:
             t0 = _perf_ns()
             TELEMETRY.record_transfer(
-                "h2d", sum(a.nbytes for a in host.values()), t0, t0,
-                "state.fire.spill")
+                "h2d", sum(a.nbytes for a in host.values()), t0, t0, tag)
         state = {name: self._to_device(a) for name, a in host.items()}
-        return self._result(state, self._slots(np.arange(len(rows))),
-                            "state.fire.spill")
+        return self._result(state, self._slots(np.arange(len(rows))), tag)
+
+    def query_by_key(self, key, namespace):
+        """A queryable-state read from another thread: the row's result,
+        or None.  Under the device lock: adds still pending are
+        invisible (a slot whose first adds did not flush reads as
+        absent), the gather is one result launch (``hll_estimate`` for
+        HLL) on this thread's stream after the last write's, and its
+        copy to the host ends before the lock is let go, so no later
+        write reaches it.  A spilled row is finalized with the same
+        kernels, without promotion.  The owner's current key, namespace
+        and access stamps are not touched."""
+        entry = (key, namespace)
+        with self._device_lock:
+            slot = self.slot_index.get(entry)
+            if slot is not None and self._slot_flushed[slot]:
+                writer = self._writer_stream
+                if writer is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    if writer != current:
+                        current.wait_stream(writer)
+                out = self._result(self.device_state, self._slots([slot]),
+                                   "state.query")[0]
+                return out.item() if np.ndim(out) == 0 else out
+            row = self.host_tier.get(entry)
+        if row is None:
+            return None
+        out = self._finalize_spilled([row], "state.query.spill")[0]
+        return out.item() if np.ndim(out) == 0 else out
 
     # ---- clear and merge --------------------------------------------
     def clear(self) -> None:
@@ -425,7 +466,7 @@ class DeviceAggregatingState(AggregatingState):
         if slot is None:
             return
         self._flush()
-        with self._device_lock:
+        with self._writing():
             self.agg.clear_slots(self.device_state, self._slots([slot]))
             self._slot_flushed[slot] = 0
         self.slot_meta[slot] = None
@@ -443,7 +484,7 @@ class DeviceAggregatingState(AggregatingState):
         if not slots:
             return
         self._flush()
-        with self._device_lock:
+        with self._writing():
             self.agg.clear_slots(self.device_state, self._slots(slots))
             for s in slots:
                 self._slot_flushed[s] = 0
@@ -483,7 +524,7 @@ class DeviceAggregatingState(AggregatingState):
         if not src_slots:
             return
         srcs = self._slots(src_slots)
-        with self._device_lock:
+        with self._writing():
             self.agg.merge_slots(self.device_state,
                                  self._slots([dst] * len(src_slots)), srcs)
             self.agg.clear_slots(self.device_state, srcs)
@@ -528,7 +569,7 @@ class DeviceAggregatingState(AggregatingState):
             return
         rounds = max(len(srcs) for _, srcs in plans)
         all_srcs: List[int] = []
-        with self._device_lock:
+        with self._writing():
             for r in range(rounds):
                 dsts = [dst for dst, srcs in plans if len(srcs) > r]
                 srcs = [srcs[r] for _, srcs in plans if len(srcs) > r]
@@ -607,7 +648,7 @@ class DeviceAggregatingState(AggregatingState):
         for i in range(n):
             slots[i] = self._slot_for(keys[i], namespaces[i])
         idx = self._slots(slots)
-        with self._device_lock:
+        with self._writing():
             for name, arr in comps.items():
                 set_rows(self.device_state[name], idx,
                          torch.from_numpy(np.ascontiguousarray(arr)))
@@ -624,14 +665,16 @@ class DeviceAggregatingState(AggregatingState):
 
     def reset(self) -> None:
         """Drop every entry and pending row (a restore supersedes
-        them); the arena keeps its capacity and is refilled in place."""
-        with self._device_lock:
+        them); the arena keeps its capacity and is refilled in place.
+        The index empties under the lock with the rows, so a query
+        never reads a cleared row as a live one."""
+        with self._writing():
             self.agg.clear_range(self.device_state, 0, self.capacity)
-        self.slot_index.clear()
+            self.slot_index.clear()
+            self._slot_flushed = bytearray(self.capacity)
+            self.host_tier.clear()
         self.slot_meta = [None] * self.capacity
         self._free = list(range(self.capacity - 1, -1, -1))
-        self._slot_flushed = bytearray(self.capacity)
-        self.host_tier.clear()
         self._pending_slots.clear()
         self._pending_values.clear()
         self._pending_hi.clear()
@@ -794,6 +837,18 @@ class GpuKeyedStateBackend(KeyedStateBackend):
                 table = self._table(name)
                 for key, namespace, row in entries:
                     table.put(key, namespace, row)
+        self._apply_restored_migrations()
+
+    def _migrate_state_values(self, descriptor, serializer,
+                              restored_cfg) -> None:
+        """Host-table values migrate as on the heap backend; device
+        aggregate rows are numeric accumulators no record serializer
+        applies to, so they restore bit for bit."""
+        name = descriptor.name
+        table = self._tables.get(name)
+        if table is None or name in self._device_states:
+            return
+        migrate_table_values(table, descriptor, serializer, restored_cfg)
 
     def flush_all(self) -> None:
         """Push every pending micro-batch to the device (before a

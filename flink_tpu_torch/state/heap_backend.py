@@ -35,7 +35,8 @@ from flink_tpu_torch.state import portable
 from flink_tpu_torch.state.backend import (VOID_NAMESPACE, KeyedStateBackend,
                                            KeyedStateSnapshot,
                                            decode_obj_column,
-                                           encode_obj_column)
+                                           encode_obj_column,
+                                           migrate_table_values)
 
 
 class StateTable:
@@ -717,6 +718,14 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                 for name, namespace, key, value in chunk["rows"]:
                     self._table(name).put(key, namespace, value)
                 self._restore_cols(chunk["cols"])
+        self._apply_restored_migrations()
+
+    def _migrate_state_values(self, descriptor, serializer,
+                              restored_cfg) -> None:
+        """Heap values are live objects: migrate them in their table."""
+        table = self._tables.get(descriptor.name)
+        if table is not None:
+            migrate_table_values(table, descriptor, serializer, restored_cfg)
 
 
 def load_chunk(blob: bytes) -> dict:

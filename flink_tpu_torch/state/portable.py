@@ -15,9 +15,9 @@ those JAX-package classes onto the port's copy and refuses every other
 class of the JAX package; it never imports that package.
 
 ``OperatorStateSnapshot`` is the port's own class
-(``state/operator_state.py``).  ``SerializerConfigSnapshot`` is kept
-here as data only: the JAX package writes it into every keyed
-snapshot, the port writes none (serializer migration is not ported).
+(``state/operator_state.py``), ``SerializerConfigSnapshot`` that of
+``core/serialization.py``: both packages record one per state in a
+keyed snapshot's meta.
 """
 
 from __future__ import annotations
@@ -26,29 +26,14 @@ import importlib
 import io
 import pickle
 import types
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 _REF = "flink_tpu"
 
 
-class SerializerConfigSnapshot:
-    """A state's serializer name and configuration, as the JAX
-    package records it in a keyed snapshot's meta."""
-
-    def __init__(self, serializer_name: str, details: Optional[dict] = None):
-        self.serializer_name = serializer_name
-        self.details = details or {}
-
-    def __eq__(self, other):
-        return (getattr(other, "serializer_name", None) == self.serializer_name
-                and getattr(other, "details", None) == self.details)
-
-    def __repr__(self):
-        return f"SerializerConfigSnapshot({self.serializer_name}, {self.details})"
-
-
 def _classes() -> Dict[Tuple[str, str], type]:
     """(JAX-package module, class name) -> the port's class."""
+    from flink_tpu_torch.core.serialization import SerializerConfigSnapshot
     from flink_tpu_torch.state.backend import KeyedStateSnapshot
     from flink_tpu_torch.state.operator_state import OperatorStateSnapshot
     from flink_tpu_torch.state.shared_registry import ChunkRef, SharedChunk

@@ -1,5 +1,4 @@
-"""DataStream API (port of ``flink_tpu/streaming/datastream.py:90-500,
-512-807, 863-1098``):
+"""DataStream API (port of ``flink_tpu/streaming/datastream.py``):
 
     env = StreamExecutionEnvironment.get_execution_environment()
     env.set_state_backend("gpu")
@@ -62,6 +61,21 @@ are such sources, ``write_as_text`` writes a line per element, and a
 sink that decodes retract pairs (``enable_retract_decoding``) is told
 so when it is added to a Table's ``to_retract_stream()``.
 
+``connect`` joins two streams into one two-input operator:
+``ConnectedStreams.map`` / ``flat_map`` / ``process`` (a
+``CoMapFunction``, ``CoFlatMapFunction`` or co-process function;
+``key_by(k1, k2)`` keys both inputs, with keyed state and timers), and
+with ``broadcast(*descriptors)`` the broadcast state pattern: a
+``(Keyed)BroadcastProcessFunction`` reads the broadcast state on the
+data side and writes it on the broadcast side, on every instance.  An
+operator of two inputs sees one watermark per input, its own the
+minimum.  ``split(selector)`` / ``select(*names)`` route by names,
+``iterate()`` / ``close_with(feedback)`` wire a loop (the back edge
+carries no barrier and no end of stream), ``AsyncDataStream.
+ordered_wait`` / ``unordered_wait`` run async I/O with a capacity and
+a timeout, and ``KeyedStream.as_queryable_state`` keeps a keyed state
+readable from other threads (``runtime/queryable.py``).
+
 ``enable_checkpointing`` turns on barrier checkpoints into the storage
 ``set_checkpoint_storage`` picks (``memory``, or ``filesystem`` with a
 directory); ``set_restart_strategy`` / ``set_failover_strategy``
@@ -73,7 +87,7 @@ execution from a savepoint, and ``execute_async`` returns a
 from __future__ import annotations
 
 import copy
-from typing import Any, Iterable, Optional
+from typing import Any, Iterable, List, Optional
 
 from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.functions import (AggregateFunction,
@@ -92,7 +106,12 @@ from flink_tpu_torch.streaming.generic_agg import (GenericWindowOperator,
                                                    is_generic_eligible)
 from flink_tpu_torch.streaming.graph import (StreamEdge, StreamGraph,
                                              StreamNode, create_job_graph)
-from flink_tpu_torch.streaming.operators import (KeyedProcessOperator,
+from flink_tpu_torch.state.backend import VOID_NAMESPACE
+from flink_tpu_torch.streaming.operators import (AsyncWaitOperator,
+                                                CoBroadcastOperator,
+                                                CoProcessOperator,
+                                                CoStreamFlatMap, CoStreamMap,
+                                                KeyedProcessOperator,
                                                 ProcessOperator,
                                                 StreamFilter, StreamFlatMap,
                                                 StreamGroupedReduce,
@@ -393,7 +412,11 @@ class DataStream:
 
     def _add_op(self, name: str, operator_factory, key_selector=None,
                 chaining: str = "always",
-                parallelism: Optional[int] = None) -> "DataStream":
+                parallelism: Optional[int] = None,
+                extra_inputs: Optional[List["DataStream"]] = None
+                ) -> "DataStream":
+        """A node fed by this stream (input 0) and by each of
+        ``extra_inputs`` (inputs 1, 2, ...)."""
         p = self.env.parallelism if parallelism is None else parallelism
         node = self.env.graph.add_node(StreamNode(
             self.env.graph.new_node_id(), name, operator_factory,
@@ -402,6 +425,10 @@ class DataStream:
         self.env.graph.add_edge(StreamEdge(
             self.node.id, node.id, self._edge_partitioner(p),
             side_output_tag=self._side_tag))
+        for i, other in enumerate(extra_inputs or [], start=1):
+            self.env.graph.add_edge(StreamEdge(
+                other.node.id, node.id, other._edge_partitioner(p), i,
+                side_output_tag=other._side_tag))
         return DataStream(self.env, node)
 
     def map(self, fn, name: str = "map") -> "DataStream":
@@ -446,10 +473,15 @@ class DataStream:
         return DataStream(self.env, self.node, ShufflePartitioner(),
                           self._side_tag)
 
-    def broadcast(self) -> "DataStream":
-        """Every record to every downstream subtask."""
-        return DataStream(self.env, self.node, BroadcastPartitioner(),
-                          self._side_tag)
+    def broadcast(self, *broadcast_state_descriptors):
+        """Every record to every downstream subtask.  With
+        ``MapStateDescriptor``s: a ``BroadcastStream`` for the broadcast
+        state pattern (``connect`` it to a data stream)."""
+        bs = DataStream(self.env, self.node, BroadcastPartitioner(),
+                        self._side_tag)
+        if broadcast_state_descriptors:
+            return BroadcastStream(bs, broadcast_state_descriptors)
+        return bs
 
     def global_(self) -> "DataStream":
         return DataStream(self.env, self.node, GlobalPartitioner(),
@@ -486,6 +518,33 @@ class DataStream:
         r.ts - l.ts in [lower, upper], stamped with the later time."""
         from flink_tpu_torch.streaming.joining import IntervalJoinedStreams
         return IntervalJoinedStreams(self, other)
+
+    def connect(self, other):
+        """Two streams into one two-input operator:
+        ``ConnectedStreams`` (co-map, co-flat-map, co-process), or with a
+        ``BroadcastStream`` a ``BroadcastConnectedStream``."""
+        if isinstance(other, BroadcastStream):
+            return BroadcastConnectedStream(self.env, self, other)
+        return ConnectedStreams(self.env, self, other)
+
+    def split(self, output_selector) -> "SplitStream":
+        """``output_selector(value)`` names each record's routes;
+        ``select(*names)`` keeps the records routed to any of them."""
+        return SplitStream(self.env, self.node, output_selector,
+                           partitioner=self._partitioner,
+                           side_tag=self._side_tag)
+
+    def iterate(self) -> "IterativeStream":
+        """The iteration head, an identity map of its own vertex; wire
+        the loop with ``close_with(feedback)``.  Records on the back
+        edge go round until they leave the loop; the back edge carries
+        no barrier and no end of stream (an iteration is outside the
+        exactly-once guarantee)."""
+        head = self._add_op("iteration_head",
+                            _op_factory(StreamMap,
+                                        lambda: as_map_function(lambda v: v)),
+                            chaining="never")
+        return IterativeStream(self.env, head.node)
 
     def union(self, *streams: "DataStream") -> "DataStream":
         """One stream of this one and ``streams``: a pass-through node
@@ -592,6 +651,49 @@ class KeyedStream(DataStream):
         """A ``ProcessFunction`` with keyed state and timers."""
         return self._add_keyed_op(
             name, _op_factory(KeyedProcessOperator, lambda: process_function))
+
+    def as_queryable_state(self, name: str, descriptor=None) -> DataStream:
+        """Keep the stream's latest value per key (or, with an
+        aggregating or reducing descriptor, its aggregate) queryable as
+        ``name`` while the job runs: ``runtime.queryable.
+        QueryableStateClient().get_kv_state(name, key)``.  Reads are
+        dirty, as the reference's.  On the GPU backend an aggregating
+        descriptor of a device aggregate is read on the card."""
+        from flink_tpu_torch.core.state import ValueStateDescriptor
+        from flink_tpu_torch.runtime.queryable import DEFAULT_REGISTRY
+
+        desc = descriptor or ValueStateDescriptor(name)
+        desc.set_queryable(name)
+
+        class _QueryableOp(KeyedProcessOperator):
+            def open(self):
+                super().open()
+                self._qstate = self.keyed_backend.get_or_create_keyed_state(desc)
+                DEFAULT_REGISTRY.register(
+                    name, self.keyed_backend.key_group_range,
+                    self.keyed_backend, desc)
+
+            def process_element(self, record):
+                self._qstate.set_current_namespace(VOID_NAMESPACE)
+                if hasattr(self._qstate, "update"):
+                    self._qstate.update(record.value)
+                else:
+                    self._qstate.add(record.value)
+
+            def close(self):
+                # device states micro-batch their adds: the final values
+                # become visible to queries when the task stops
+                flush_all = getattr(self.keyed_backend, "flush_all", None)
+                if flush_all is not None:
+                    flush_all()
+                super().close()
+
+        class _Noop:
+            def process_element(self, value, ctx, out):
+                pass
+
+        return self._add_keyed_op(f"queryable-{name}",
+                                  lambda: _QueryableOp(_Noop()))
 
     def reduce(self, fn, name: str = "reduce") -> DataStream:
         """The running reduction of each key, emitted per element."""
@@ -865,3 +967,132 @@ class AllWindowedStream(WindowedStream):
                                 single_value)
         stream.node.parallelism = 1
         return stream
+
+
+class ConnectedStreams:
+    """Two streams into one two-input operator; ``key_by(k1, k2)`` keys
+    both (the operator then has keyed state and timers, each input with
+    its own key selector)."""
+
+    def __init__(self, env, first: DataStream, second: DataStream):
+        self.env = env
+        self.first = first
+        self.second = second
+
+    def _add_two_input(self, name, factory) -> DataStream:
+        ks1 = getattr(self.first, "key_selector", None)
+        ks2 = getattr(self.second, "key_selector", None)
+
+        def wrapped_factory():
+            op = factory()
+            if hasattr(op, "key_selector2"):
+                op.key_selector2 = ks2
+            return op
+
+        return self.first._add_op(name, wrapped_factory, key_selector=ks1,
+                                  chaining="never",
+                                  extra_inputs=[self.second])
+
+    def map(self, co_map_function) -> DataStream:
+        return self._add_two_input("co_map",
+                                   lambda: CoStreamMap(co_map_function))
+
+    def flat_map(self, co_flat_map_function) -> DataStream:
+        return self._add_two_input(
+            "co_flat_map", lambda: CoStreamFlatMap(co_flat_map_function))
+
+    def process(self, co_process_function) -> DataStream:
+        return self._add_two_input(
+            "co_process", lambda: CoProcessOperator(co_process_function))
+
+    def key_by(self, key_selector1, key_selector2) -> "ConnectedStreams":
+        return ConnectedStreams(self.env, self.first.key_by(key_selector1),
+                                self.second.key_by(key_selector2))
+
+
+class SplitStream(DataStream):
+    """A stream whose records carry route names; ``select`` is a filter
+    on them."""
+
+    def __init__(self, env, node, output_selector, partitioner=None,
+                 side_tag=None):
+        super().__init__(env, node, partitioner, side_tag)
+        self._selector = output_selector
+
+    def select(self, *names: str) -> DataStream:
+        wanted = set(names)
+        selector = self._selector
+
+        def keep(value):
+            return any(r in wanted for r in (selector(value) or ()))
+
+        return self.filter(keep, name=f"select[{','.join(names)}]")
+
+
+class IterativeStream(DataStream):
+    """The iteration head: consumed like any stream, and
+    ``close_with(feedback)`` adds the back edge into it."""
+
+    def close_with(self, feedback: DataStream) -> DataStream:
+        partitioner = (ForwardPartitioner()
+                       if feedback.node.parallelism == self.node.parallelism
+                       else RebalancePartitioner())
+        edge = StreamEdge(feedback.node.id, self.node.id, partitioner, 0)
+        edge.is_feedback = True
+        self.env.graph.add_edge(edge)
+        return feedback
+
+
+class BroadcastStream:
+    """A broadcast-partitioned stream and the broadcast state
+    descriptors its records update."""
+
+    def __init__(self, stream: DataStream, descriptors):
+        self.stream = stream
+        self.descriptors = tuple(descriptors)
+
+
+class BroadcastConnectedStream:
+    """A data stream (input 1, keyed or not) connected to a broadcast
+    stream (input 2); ``process`` takes a (Keyed)BroadcastProcessFunction."""
+
+    def __init__(self, env, data_stream: DataStream,
+                 broadcast: BroadcastStream):
+        self.env = env
+        self.data = data_stream
+        self.broadcast = broadcast
+
+    def process(self, fn, name: str = "broadcast_process") -> DataStream:
+        ks = getattr(self.data, "key_selector", None)
+        return self.data._add_op(name, lambda: CoBroadcastOperator(fn),
+                                 key_selector=ks, chaining="never",
+                                 extra_inputs=[self.broadcast.stream])
+
+
+class AsyncDataStream:
+    """Async I/O: ``ordered_wait`` emits results in input order,
+    ``unordered_wait`` as they complete; at most ``capacity`` requests
+    in flight, each failing after ``timeout_ms`` (None: never)."""
+
+    @staticmethod
+    def ordered_wait(stream: DataStream, async_function,
+                     timeout_ms: Optional[int] = None,
+                     capacity: int = 100) -> DataStream:
+        return AsyncDataStream._wait(stream, async_function, timeout_ms,
+                                     capacity, ordered=True)
+
+    @staticmethod
+    def unordered_wait(stream: DataStream, async_function,
+                       timeout_ms: Optional[int] = None,
+                       capacity: int = 100) -> DataStream:
+        return AsyncDataStream._wait(stream, async_function, timeout_ms,
+                                     capacity, ordered=False)
+
+    @staticmethod
+    def _wait(stream, fn, timeout_ms, capacity, ordered):
+        mode = "ordered" if ordered else "unordered"
+        return stream._add_op(
+            f"async_wait_{mode}",
+            lambda: AsyncWaitOperator(fn, capacity=capacity,
+                                      timeout_ms=timeout_ms, ordered=ordered),
+            chaining="head")

@@ -40,6 +40,12 @@ class StreamRecord(StreamElement):
         self.value = value
         self.timestamp = timestamp
 
+    def replace(self, value, timestamp=None) -> "StreamRecord":
+        """A record of ``value`` with this one's timestamp, unless
+        ``timestamp`` is given."""
+        return StreamRecord(value, timestamp if timestamp is not None
+                            else self.timestamp)
+
     def __repr__(self):
         return f"Record({self.value!r} @ {self.timestamp})"
 

@@ -49,6 +49,10 @@ class StreamEdge:
         self.type_number = type_number
         #: set: the edge carries this side output, not the main stream
         self.side_output_tag = side_output_tag
+        #: an iteration's back edge (``IterativeStream.close_with``):
+        #: never chained, left out of the topological order, and
+        #: carrying neither barriers nor end of stream
+        self.is_feedback = False
 
     def __repr__(self):
         return (f"StreamEdge({self.source_id}->{self.target_id} "
@@ -111,7 +115,8 @@ class JobVertex:
 class JobEdge:
     def __init__(self, source_vertex_id: int, target_vertex_id: int,
                  partitioner: StreamPartitioner, type_number: int = 0,
-                 source_node_id: int = -1, side_output_tag=None):
+                 source_node_id: int = -1, side_output_tag=None,
+                 is_feedback: bool = False):
         self.source_vertex_id = source_vertex_id
         self.target_vertex_id = target_vertex_id
         self.partitioner = partitioner
@@ -119,6 +124,7 @@ class JobEdge:
         self.side_output_tag = side_output_tag
         #: which node inside the source chain emits this edge
         self.source_node_id = source_node_id
+        self.is_feedback = is_feedback
 
 
 class JobGraph:
@@ -147,7 +153,8 @@ class JobGraph:
                 return
             visited.add(vid)
             for e in self.in_edges(vid):
-                visit(e.source_vertex_id)
+                if not e.is_feedback:   # a back edge would cycle
+                    visit(e.source_vertex_id)
             order.append(self.vertices[vid])
 
         for vid in self.vertices:
@@ -162,6 +169,7 @@ def is_chainable(edge: StreamEdge, graph: StreamGraph) -> bool:
     down = graph.nodes[edge.target_id]
     return (isinstance(edge.partitioner, ForwardPartitioner)
             and edge.side_output_tag is None
+            and not edge.is_feedback
             and up.parallelism == down.parallelism
             and len(graph.in_edges(down.id)) == 1
             and down.chaining_strategy == "always"
@@ -209,5 +217,5 @@ def create_job_graph(stream_graph: StreamGraph) -> JobGraph:
             jg.edges.append(JobEdge(
                 node_to_vertex[e.source_id], node_to_vertex[e.target_id],
                 e.partitioner, e.type_number, source_node_id=e.source_id,
-                side_output_tag=e.side_output_tag))
+                side_output_tag=e.side_output_tag, is_feedback=e.is_feedback))
     return jg

@@ -1,5 +1,5 @@
 """Operator lifecycle and the operators the port runs (port of
-``flink_tpu/streaming/operators.py:68-460, 477-901``).
+``flink_tpu/streaming/operators.py``).
 
 setup → open → process* → finish → close.  ``setup`` takes the
 operator's keyed backend and processing-time service and builds its
@@ -27,6 +27,16 @@ service.  ``StreamGroupedReduce`` is the rolling keyed reduce.  A rich
 function's ``RuntimeContext`` reaches keyed state through a
 ``KeyedStateStore``.
 
+Two-input operators (``TwoInputStreamOperator``) take
+``process_element1`` / ``2`` and one watermark per input, their own the
+minimum: ``CoStreamMap``, ``CoStreamFlatMap``, ``CoProcessOperator``
+(keyed: the second input keys by ``key_selector2``) and
+``CoBroadcastOperator``, whose broadcast state lives on the operator
+state backend, read-only on the data side.  ``AsyncWaitOperator`` runs
+an ``AsyncFunction`` on a thread pool with at most ``capacity``
+requests in flight, ordered or unordered; a watermark, a snapshot and
+the end of input wait until the requests ahead of them are out.
+
 ``StreamMap`` and ``StreamFilter`` run a UDF that the liftability
 analyzer proves LIFTABLE on whole numpy columns of a RecordBatch; the
 first batch is probed against the scalar UDF on its edge rows, and any
@@ -41,6 +51,7 @@ from __future__ import annotations
 import abc
 import copy
 import logging
+import threading
 import time as _time
 from typing import List, Optional
 
@@ -774,3 +785,396 @@ class ProcessFunction(abc.ABC):
 
 #: the same shape; the keyed context comes at run time
 KeyedProcessFunction = ProcessFunction
+
+
+# ---------------------------------------------------------------------
+# two-input operators
+# ---------------------------------------------------------------------
+
+class TwoInputStreamOperator(StreamOperator):
+    """An operator of two inputs: ``process_element1`` / ``2`` per input,
+    and one watermark per input, the operator's own being their
+    minimum."""
+
+    @abc.abstractmethod
+    def process_element1(self, record: StreamRecord) -> None: ...
+
+    @abc.abstractmethod
+    def process_element2(self, record: StreamRecord) -> None: ...
+
+    def process_element(self, record):
+        raise RuntimeError("two-input operator: use process_element1/2")
+
+    def process_watermark1(self, watermark: Watermark) -> None:
+        self._wm1 = watermark.timestamp
+        self._combine_watermarks()
+
+    def process_watermark2(self, watermark: Watermark) -> None:
+        self._wm2 = watermark.timestamp
+        self._combine_watermarks()
+
+    def _combine_watermarks(self):
+        combined = min(getattr(self, "_wm1", MIN_TIMESTAMP),
+                       getattr(self, "_wm2", MIN_TIMESTAMP))
+        if combined > self.current_watermark:
+            self.process_watermark(Watermark(combined))
+
+
+class CoStreamMap(TwoInputStreamOperator, AbstractUdfStreamOperator):
+    """Hosts a ``CoMapFunction``."""
+
+    def __init__(self, fn):
+        AbstractUdfStreamOperator.__init__(self, fn)
+
+    def process_element1(self, record):
+        self.output.collect(record.replace(self.user_function.map1(record.value)))
+
+    def process_element2(self, record):
+        self.output.collect(record.replace(self.user_function.map2(record.value)))
+
+
+class CoStreamFlatMap(TwoInputStreamOperator, AbstractUdfStreamOperator):
+    """Hosts a ``CoFlatMapFunction``."""
+
+    def __init__(self, fn):
+        AbstractUdfStreamOperator.__init__(self, fn)
+
+    def process_element1(self, record):
+        out = self.user_function.flat_map1(record.value)
+        if out is not None:
+            for v in out:
+                self.output.collect(record.replace(v))
+
+    def process_element2(self, record):
+        out = self.user_function.flat_map2(record.value)
+        if out is not None:
+            for v in out:
+                self.output.collect(record.replace(v))
+
+
+class CoProcessOperator(TwoInputStreamOperator, AbstractUdfStreamOperator):
+    """Hosts a (keyed) co-process function: ``process_element1`` /
+    ``2`` with the keyed context, ``on_timer`` per timer.  Keyed, the
+    second input's records take their key from ``key_selector2``."""
+
+    def __init__(self, fn):
+        AbstractUdfStreamOperator.__init__(self, fn)
+        self.key_selector2: Optional[KeySelector] = None
+
+    def open(self):
+        AbstractUdfStreamOperator.open(self)
+        self._collector = TimestampedCollector(self.output)
+
+    def set_key_context2(self, record: StreamRecord) -> None:
+        if self.key_selector2 is not None and self.keyed_backend is not None:
+            self.keyed_backend.set_current_key(
+                self.key_selector2.get_key(record.value))
+
+    def process_element1(self, record):
+        self._collector.set_absolute_timestamp(record.timestamp)
+        ctx = KeyedProcessFunctionContext(record, self)
+        self.user_function.process_element1(record.value, ctx, self._collector)
+
+    def process_element2(self, record):
+        self._collector.set_absolute_timestamp(record.timestamp)
+        ctx = KeyedProcessFunctionContext(record, self)
+        self.user_function.process_element2(record.value, ctx, self._collector)
+
+    def on_event_time(self, timer):
+        self._collector.set_absolute_timestamp(timer.timestamp)
+        ctx = OnTimerContext(timer, self, "event")
+        if hasattr(self.user_function, "on_timer"):
+            self.user_function.on_timer(timer.timestamp, ctx, self._collector)
+
+    def on_processing_time(self, timer):
+        self._collector.set_absolute_timestamp(None)
+        ctx = OnTimerContext(timer, self, "processing")
+        if hasattr(self.user_function, "on_timer"):
+            self.user_function.on_timer(timer.timestamp, ctx, self._collector)
+
+
+# ---------------------------------------------------------------------
+# the broadcast state pattern
+# ---------------------------------------------------------------------
+
+class BroadcastProcessFunction(abc.ABC):
+    """``process_element`` per record of the data side (read-only
+    broadcast state) and ``process_broadcast_element`` per record of
+    the broadcast side (writable broadcast state); keyed, the data side
+    also has keyed state and timers."""
+
+    @abc.abstractmethod
+    def process_element(self, value, ctx, out) -> None: ...
+
+    @abc.abstractmethod
+    def process_broadcast_element(self, value, ctx, out) -> None: ...
+
+    def on_timer(self, timestamp: int, ctx, out) -> None:  # noqa: B027
+        pass
+
+
+KeyedBroadcastProcessFunction = BroadcastProcessFunction
+
+
+class _ReadOnlyBroadcastState:
+    """The data side's view of a broadcast state: reads only."""
+
+    def __init__(self, state):
+        self._s = state
+
+    def get(self, key):
+        return self._s.get(key)
+
+    def contains(self, key):
+        return self._s.contains(key)
+
+    def immutable_entries(self):
+        return self._s.immutable_entries()
+
+    def keys(self):
+        return self._s.keys()
+
+
+class _BroadcastBaseContext(ProcessFunctionContext):
+    def __init__(self, record, op, writable: bool):
+        super().__init__(record, op)
+        self._writable = writable
+
+    def get_broadcast_state(self, descriptor_or_name):
+        name = getattr(descriptor_or_name, "name", descriptor_or_name)
+        state = self._op.operator_state_backend.get_broadcast_state(name)
+        return state if self._writable else _ReadOnlyBroadcastState(state)
+
+
+class _BroadcastReadOnlyContext(_BroadcastBaseContext):
+    """The data side's context: read-only broadcast state, and on a
+    keyed data side the current key, keyed state and timers."""
+
+    def __init__(self, record, op):
+        super().__init__(record, op, writable=False)
+
+    def get_current_key(self):
+        return self._op.keyed_backend.current_key
+
+    def get_state(self, descriptor):
+        return self._op.keyed_backend.get_partitioned_state(
+            VOID_NAMESPACE, descriptor)
+
+    def register_event_time_timer(self, timestamp):
+        self._op.timer_service.register_event_time_timer(
+            VOID_NAMESPACE, timestamp)
+
+    def register_processing_time_timer(self, timestamp):
+        self._op.timer_service.register_processing_time_timer(
+            VOID_NAMESPACE, timestamp)
+
+
+class CoBroadcastOperator(TwoInputStreamOperator, AbstractUdfStreamOperator):
+    """Input 1 is the (possibly keyed) data stream, input 2 the
+    broadcast stream: the broadcast partitioner delivers each of its
+    records to every instance, so every instance's broadcast state (on
+    its ``OperatorStateBackend``) sees the same updates."""
+
+    def __init__(self, fn: BroadcastProcessFunction):
+        AbstractUdfStreamOperator.__init__(self, fn)
+
+    def open(self):
+        super().open()
+        self._collector = TimestampedCollector(self.output)
+
+    def process_element1(self, record):
+        self._collector.set_absolute_timestamp(record.timestamp)
+        ctx = _BroadcastReadOnlyContext(record, self)
+        self.user_function.process_element(record.value, ctx, self._collector)
+
+    def process_element2(self, record):
+        self._collector.set_absolute_timestamp(record.timestamp)
+        ctx = _BroadcastBaseContext(record, self, writable=True)
+        self.user_function.process_broadcast_element(record.value, ctx,
+                                                     self._collector)
+
+    def on_event_time(self, timer):
+        self._collector.set_absolute_timestamp(timer.timestamp)
+        ctx = OnTimerContext(timer, self, "event")
+        self.user_function.on_timer(timer.timestamp, ctx, self._collector)
+
+    def on_processing_time(self, timer):
+        self._collector.set_absolute_timestamp(None)
+        ctx = OnTimerContext(timer, self, "processing")
+        self.user_function.on_timer(timer.timestamp, ctx, self._collector)
+
+
+# ---------------------------------------------------------------------
+# async I/O
+# ---------------------------------------------------------------------
+
+class AsyncFunction(abc.ABC):
+    """``async_invoke(value, result_future)`` runs on a pool thread, so
+    a blocking client call inside it overlaps with other records'
+    calls; it completes the future with a list of results or an
+    error."""
+
+    @abc.abstractmethod
+    def async_invoke(self, value, result_future: "ResultFuture") -> None:
+        ...
+
+    def timeout(self, value, result_future: "ResultFuture") -> None:
+        result_future.complete_exceptionally(
+            TimeoutError(f"async I/O timed out for {value!r}"))
+
+
+class ResultFuture:
+    """One request's results; completing it sets its own event and the
+    operator's any-completion event."""
+
+    __slots__ = ("_results", "_error", "_done", "_notify")
+
+    def __init__(self, notify=None):
+        self._results = None
+        self._error = None
+        self._done = threading.Event()
+        self._notify = notify
+
+    def complete(self, results) -> None:
+        self._results = list(results)
+        self._done.set()
+        if self._notify is not None:
+            self._notify.set()
+
+    def complete_exceptionally(self, error: BaseException) -> None:
+        self._error = error
+        self._done.set()
+        if self._notify is not None:
+            self._notify.set()
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+
+class AsyncWaitOperator(AbstractUdfStreamOperator):
+    """At most ``capacity`` requests in flight, their results emitted
+    in input order (``ordered``) or as they complete.  A watermark
+    waits until every request ahead of it is out, in both modes; so do
+    a snapshot (upstream replays nothing it consumed before the
+    barrier, so no request may stay in flight across it) and the end of
+    input.  Waits block on the futures' events, never spin."""
+
+    def __init__(self, fn: AsyncFunction, capacity: int = 100,
+                 timeout_ms: Optional[int] = None, ordered: bool = True):
+        super().__init__(fn)
+        self.capacity = capacity
+        self.timeout_ms = timeout_ms
+        self.ordered = ordered
+        self._pending = None  # deque of (record, ResultFuture, deadline, value)
+        self._pool = None
+
+    def open(self):
+        super().open()
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+        self._pending = deque()
+        self._any_done = threading.Event()
+        self._pool = ThreadPoolExecutor(max_workers=min(self.capacity, 64),
+                                        thread_name_prefix="async-io")
+
+    def process_element(self, record):
+        while len(self._pending) >= self.capacity:
+            self._drain(block_one=True)
+        rf = ResultFuture(notify=self._any_done)
+        value = record.value
+        deadline = (None if self.timeout_ms is None
+                    else _time.monotonic() + self.timeout_ms / 1000.0)
+        self._pool.submit(self._invoke, value, rf)
+        self._pending.append((record, rf, deadline, value))
+        self._drain()
+
+    def _invoke(self, value, rf):
+        try:
+            self.user_function.async_invoke(value, rf)
+        except BaseException as e:
+            # the record's error, raised on the loop when it is emitted;
+            # an interrupt or exit also goes on up in this pool thread
+            rf.complete_exceptionally(e)
+            if not isinstance(e, Exception):
+                raise
+
+    def _drain(self, block_one: bool = False, block_all: bool = False):
+        """Emit what completed: in ordered mode from the head only, in
+        unordered mode any completed entry.  ``block_one`` waits until
+        at least one entry went out, ``block_all`` until none is left."""
+        block = block_one or block_all
+        while self._pending:
+            if self.ordered:
+                entry = self._pending[0]
+                if not self._entry_ready(entry, block):
+                    return
+                self._pending.popleft()
+                self._emit(entry)
+            else:
+                while True:
+                    # cleared before the scan: a completion after it
+                    # sets the event again, so the wait cannot miss it
+                    self._any_done.clear()
+                    ready = [e for e in self._pending
+                             if e[1].done or self._expired(e)]
+                    if ready or not block:
+                        break
+                    self._any_done.wait(self._wait_s())
+                if not ready:
+                    return
+                for entry in ready:
+                    self._pending.remove(entry)
+                    self._emit(entry)
+            if block_one and not block_all:
+                return
+
+    def _wait_s(self) -> Optional[float]:
+        """How long a blocked drain may wait: until the earliest
+        deadline, or without limit when no request has one."""
+        deadlines = [e[2] for e in self._pending if e[2] is not None]
+        if not deadlines:
+            return None
+        return max(0.0, min(deadlines) - _time.monotonic())
+
+    def _entry_ready(self, entry, block: bool) -> bool:
+        _, rf, deadline, _ = entry
+        if rf.done or self._expired(entry):
+            return True
+        if not block:
+            return False
+        rf._done.wait(None if deadline is None
+                      else max(0.0, deadline - _time.monotonic()))
+        return True
+
+    def _expired(self, entry) -> bool:
+        _, rf, deadline, _ = entry
+        return (deadline is not None and not rf.done
+                and _time.monotonic() > deadline)
+
+    def _emit(self, entry):
+        record, rf, _, value = entry
+        if not rf.done and self._expired(entry):
+            self.user_function.timeout(value, rf)
+            rf._done.wait(1.0)
+        if rf._error is not None:
+            raise rf._error
+        for v in rf._results or []:
+            self.output.collect(record.replace(v))
+
+    def process_watermark(self, watermark):
+        self._drain(block_all=True)
+        super().process_watermark(watermark)
+
+    def snapshot_state(self, checkpoint_id=None):
+        self._drain(block_all=True)
+        return super().snapshot_state(checkpoint_id)
+
+    def finish(self):
+        self._drain(block_all=True)
+        super().finish()
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+        super().close()

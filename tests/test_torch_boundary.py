@@ -9,7 +9,9 @@ tier), a checkpointed job that fails and restarts from its Fs
 checkpoint, and jobs restored from the JAX package's savepoint and
 checkpoint directory, a columnar and a row-path SQL job, a socket
 word count on a thread-hosted source fed by a local thread, and a
-replayable-log job into a transactional log sink, all with
+replayable-log job into a transactional log sink, a keyed broadcast
+job with typed state beside a loop, a split and an async lookup, and a
+queryable HLL state on the GPU backend read while its job runs, all with
 the tracer, the device telemetry and the state introspection on and a
 Chrome trace written at the end, then reads its own sys.modules and
 /proc/self/maps), and its entry points never fall back to the CPU on
@@ -328,6 +330,74 @@ env.enable_checkpointing(1)
 (env.add_source(ReplayableLogSource(in_log, bounded=True), parallelism=2)
     .add_sink(TransactionalLogSink(out_log)))
 env.execute()
+# the DataStream API of two inputs, loops, async I/O and typed state: a
+# keyed broadcast job, a loop with a split, an async lookup, and a
+# queryable HLL state on the gpu backend read while its job runs
+import time
+from flink_tpu_torch.core.records import RecordSchema, RecordSerializer
+from flink_tpu_torch.core.state import (AggregatingStateDescriptor,
+                                        MapStateDescriptor, ValueStateDescriptor)
+from flink_tpu_torch.runtime.queryable import QueryableStateClient
+from flink_tpu_torch.streaming.datastream import AsyncDataStream
+from flink_tpu_torch.streaming.operators import (AsyncFunction,
+                                                KeyedBroadcastProcessFunction)
+from flink_tpu_torch.streaming.sources import SourceFunction
+RULES = MapStateDescriptor("rules")
+PROFILE = ValueStateDescriptor("profile", serializer=RecordSerializer(
+    RecordSchema([("n", "long")])))
+class Rules(KeyedBroadcastProcessFunction):
+    def process_element(self, value, ctx, out):
+        st = ctx.get_state(PROFILE)
+        st.update({"n": (st.value() or {"n": 0})["n"] + 1})
+        out.collect((value, ctx.get_broadcast_state(RULES).get("r")))
+    def process_broadcast_element(self, value, ctx, out):
+        ctx.get_broadcast_state(RULES).put("r", value)
+class Lookup(AsyncFunction):
+    def async_invoke(self, value, result_future):
+        result_future.complete([value + 1])
+class Endless(SourceFunction):
+    def __init__(self):
+        self.running = True
+    def run(self, ctx):
+        i = 0
+        while self.running:
+            ctx.collect((i % 5, i))
+            i += 1
+            if i % 64 == 0:
+                time.sleep(0.001)
+    def cancel(self):
+        self.running = False
+api_out = []
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.set_parallelism(2)
+(env.from_collection(range(50)).key_by(lambda v: v % 3)
+    .connect(env.from_collection(["x"]).broadcast(RULES))
+    .process(Rules()).add_sink(CollectSink(api_out)))
+it = env.from_collection(range(1, 40)).iterate()
+step = it.map(lambda v: v // 2)
+it.close_with(step.split(lambda v: ["again" if v > 1 else "out"]).select("again"))
+AsyncDataStream.unordered_wait(step.filter(lambda v: v <= 1), Lookup()
+                               ).add_sink(CollectSink(api_out))
+env.execute()
+hll = HyperLogLogAggregate(8)
+hll.extract_value = lambda e: e[1]
+env = StreamExecutionEnvironment.get_execution_environment(device="cpu")
+env.set_state_backend("gpu")
+(env.add_source(Endless()).key_by(lambda e: e[0])
+    .as_queryable_state("uv", AggregatingStateDescriptor("uv", hll)))
+live = env.execute_async()
+query, queried = QueryableStateClient(), []
+deadline = time.time() + 60
+while time.time() < deadline and len(queried) < 50:
+    try:
+        v = query.get_kv_state("uv", 3)
+    except KeyError:
+        v = None
+    if v is not None:
+        queried.append(float(v))
+    time.sleep(0.002)
+live.cancel()
+live.wait(60)
 trace_path = tempfile.mktemp(suffix=".json")
 n_written = env.get_tracer().write_chrome_trace(trace_path)
 trace = json.load(open(trace_path))
@@ -365,6 +435,9 @@ print(json.dumps({"results": len(out), "keyed_results": len(keyed),
                   "socket_total": sum(float(v) for v in socket_words),
                   "source_threads_left": source_threads,
                   "log_records": len(out_log.all_values()),
+                  "api_results": len(api_out),
+                  "queried": len(queried),
+                  "queried_positive": all(v > 0 for v in queried),
                   "fused_batches": chain_fusion.FUSION_STATS.fused_batches,
                   "demotions": chain_fusion.FUSION_STATS.demotions,
                   "port_runtime_loaded": "flink_tpu_torch/native/_build/" in maps,
@@ -524,6 +597,9 @@ def test_job_loads_neither_jax_nor_flink_tpu(tmp_path):
     assert report["socket_total"] == 600
     assert report["source_threads_left"] == []
     assert report["log_records"] == 400
+    # 50 broadcast-enriched records and 39 loop exits; 50 live answers
+    assert report["api_results"] == 50 + 39
+    assert report["queried"] == 50 and report["queried_positive"]
     assert report["graph_ranks"] == 200 and report["graph_components"] >= 1
     assert report["als_users"] == 60 and report["knn_rows"] == 6
     # the log tier ran on the port's own host runtime, never the
@@ -575,7 +651,11 @@ def test_sources_import_neither_jax_nor_flink_tpu():
                    "connectors/__init__.py", "connectors/partitioned_log.py",
                    "connectors/log_connector.py",
                    "connectors/bucketing_sink.py", "connectors/upsert_sink.py",
-                   "streaming/two_phase.py", "state/operator_state.py"):
+                   "streaming/two_phase.py", "state/operator_state.py",
+                   "core/serialization.py", "core/types.py",
+                   "core/records.py", "core/formats.py", "core/colformat.py",
+                   "runtime/queryable.py", "connectors/sharded_stream.py",
+                   "connectors/jdbc.py"):
         assert ROOT / "flink_tpu_torch" / module in files
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flink_tpu")]

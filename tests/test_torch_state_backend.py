@@ -403,15 +403,23 @@ def test_chunks_name_no_class_of_the_other_package():
 
 
 def test_unhonoured_serializer_config_raises():
+    """A recorded configuration the registered serializer cannot read
+    fails the restore with StateMigrationException, in both packages."""
+    from flink_tpu.core.serialization import StateMigrationException as JaxSME
+    from flink_tpu_torch.core.serialization import StateMigrationException
+
     b, _, _ = _populate("torch", "gpu")
     snap = b.snapshot()
     ok = snapshot_from_chunks(dict(snap.blobs()),
                               {"serializers": {"s": SerializerConfigSnapshot("PickleSerializer")}})
     _restored("torch", "gpu", ok)  # the JAX default serializer restores
-    bad = snapshot_from_chunks(dict(snap.blobs()), {"serializers": {
-        "s": SerializerConfigSnapshot("TupleSerializer", {"fields": ["LongSerializer"]})}})
-    with pytest.raises(NotImplementedError, match="serializer"):
+    bad_meta = {"serializers": {
+        "s": SerializerConfigSnapshot("TupleSerializer", {"fields": ["LongSerializer"]})}}
+    bad = snapshot_from_chunks(dict(snap.blobs()), bad_meta)
+    with pytest.raises(StateMigrationException, match="'s'"):
         _restored("torch", "gpu", bad)
+    with pytest.raises(JaxSME, match="'s'"):
+        _restored("jax", "tpu", JaxSnapshot(dict(snap.blobs()), bad_meta))
 
 
 # ---------------------------------------------------------------------
