@@ -129,8 +129,9 @@ exit code at 0):
                 scale 18; checked against scipy and numpy (components,
                 Dijkstra, float64 power iterations, a fixed point, 4,096
                 sampled edges' common neighbours);
-15. ``ml``     ALS at MovieLens-20M's shape (20M ratings, f = 10, 5
-                sweeps: cut from 10 to make room for later paths), KNN at MNIST's (60,000 x 784, 10,000 queries,
+15. ``ml``     ALS at MovieLens-20M's shape (20M ratings, f = 10, 3
+                sweeps: cut from 10 to 5 and to 3 to make room for later
+                paths), KNN at MNIST's (60,000 x 784, 10,000 queries,
                 k = 3), SVM at covtype's (581,012 x 54) and linear
                 regression at YearPredictionMSD's (463,715 x 90), each
                 checked against numpy float64;
@@ -143,7 +144,7 @@ exit code at 0):
                 (c) config #3 on MeshSlidingWindows (1M-key space, ring
                 16 of 2^18 slots: 28.2 GB), every (key, window) result
                 equal to VectorizedSlidingWindows'; (d) HLL jobs with
-                ``env.set_mesh``: integer keys (2^19 events, the mesh
+                ``env.set_mesh``: integer keys (2^18 events, the mesh
                 log tier) and composite keys (2^17, the sharded scatter
                 tier), each equal to the job without a mesh; (e) the
                 chain's map -> filter -> 4-channel route (2^21 events)
@@ -155,7 +156,7 @@ exit code at 0):
                 what the uninterrupted run fires;
 17. ``window_api`` the window API through ``StreamExecutionEnvironment``:
                 (1) a Python aggregate (mean, count, max) on the generic
-                tier at config #2's key space (2^19 events, 1M keys,
+                tier at config #2's key space (2^18 events, 1M keys,
                 tumbling 1 s), lifted, exact against a numpy fold in
                 arrival order (mean within 1e-12), and on a 2^16-event
                 prefix equal to WindowOperator
@@ -170,9 +171,10 @@ exit code at 0):
                 ``count_window_all`` on 2^14 events, each exact against
                 numpy; (5) HLL p = 12 under
                 ``ContinuousEventTimeTrigger.of(250)`` on the GPU
-                backend (2^16 events, 10,000 keys) against the heap
+                backend (2^15 events, 10,000 keys) against the heap
                 backend on 500 sampled keys, and a ``count_window``
-                device Sum on the GPU backend;
+                device Sum on the GPU backend (events of (1) and (5)
+                halved to make room for later paths);
 18. ``recovery`` checkpoints, restarts, savepoints and processing time
                 through ``StreamExecutionEnvironment`` with
                 ``FsCheckpointStorage`` in a temporary directory: (1) HLL
@@ -315,8 +317,23 @@ exit code at 0):
                 2^12 seeds split by parity (``split`` / ``select``) into
                 Sum windows, equal to numpy (events cut to fit the path
                 into ~60 s; key spaces kept);
-23. the launch counts of phases 4-22, each path counted on its own:
-   every kernel the path runs must have launched there.
+23. ``analysis`` the pre-flight analysis: (a) config #2 (HLL p = 12,
+                2^20 events over 1M users in one 1 s window, pair keys
+                so the scatter tier takes them) from a bounded
+                ``from_collection`` under ``lint.types.mode`` warn and
+                off: pre-sized to 2^20 slots with no grow under warn,
+                grow-doubling from 2^14 under off, estimates bit-equal
+                and within the HLL tolerance of numpy, the lint and
+                typeflow gauges, events/s, peak device bytes and the
+                pre-flight's seconds of each; (b) the chain job's shape
+                (2^18 rows, map -> filter -> map -> key_by to 4 HLL
+                window subtasks, fused) under warn and off: 3 kernels
+                proven, equal results, ``chain_route`` launched; (c) a
+                ``lint.mode`` strict job refused before any launch or
+                allocation;
+24. the launch counts of phases 4-23, each path counted on its own:
+   every kernel the path runs must have launched there; the seconds
+   of every path and, summed per path, of its jobs' pre-flight.
 
 Output: one JSON object per phase, then the ``kernels`` line of the
 contract, then the card's name and power limit as nvidia-smi prints
@@ -3516,7 +3533,7 @@ def _mesh_chain(dev, rng, n_events, n_keys, batch):
 def mesh_phase(dev, n_events=1 << 22, n_keys=1_000_000, region=1 << 18,
                step=1 << 20, chunk=1 << 20, n_sample=256,
                sliding_events=1 << 21, sliding_region=1 << 18,
-               sliding_chunk=1 << 19, job_events=1 << 19, job_keys=8000,
+               sliding_chunk=1 << 19, job_events=1 << 18, job_keys=8000,
                composite_events=1 << 17, chain_events=1 << 21,
                chain_batch=1 << 20, snapshot_events=1 << 21):
     """The mesh path on 8 virtual shards of the card: (a) config #2 on
@@ -4288,8 +4305,8 @@ def ml_kernel_entries(dev, hbm, entries, detail, shrink=1):
 
 def ml_phase(dev, shrink=1, n_sample_rows=4096, n_sample_queries=1024):
     """The ML library at public datasets' shapes, on synthetic data from a
-    seed: ALS at MovieLens-20M's (f = 10, lambda = 0.1; 5 iterations,
-    cut from 10 to make room for later paths),
+    seed: ALS at MovieLens-20M's (f = 10, lambda = 0.1; 3 iterations,
+    cut from 10 to 5 and to 3 to make room for later paths),
     KNN at MNIST's (60,000 x 784, 10,000 queries, k = 3), SVM at
     covtype-binary's (581,012 x 54, 300 iterations) and
     MultipleLinearRegression at YearPredictionMSD's training shape
@@ -4339,12 +4356,12 @@ def ml_phase(dev, shrink=1, n_sample_rows=4096, n_sample_queries=1024):
         out["als_setup_s"] = time.perf_counter() - t0
         fixed = []              # the other side's factors of each half-step
         undo = _recording(trec, "gram_accumulate", lambda a, _: fixed.append(a[0]))
-        als = run("als", lambda: tm.ALS(10, 0.1, 5, seed=0, device=dev).fit(ratings),
+        als = run("als", lambda: tm.ALS(10, 0.1, 3, seed=0, device=dev).fit(ratings),
                   "gram_accumulate")
         undo()
         fixed = [t.cpu().numpy() for t in fixed[-2:]]
         del ratings
-        check(runs["als"]["calls"] == 10, "als: gram_accumulate twice a sweep")
+        check(runs["als"]["calls"] == 6, "als: gram_accumulate twice a sweep")
         check(np.isfinite(als.user_factors).all() and np.isfinite(als.item_factors).all()
               and als.user_factors.shape == (n_users, 10)
               and als.item_factors.shape == (n_items, 10), "als: factors finite, shaped")
@@ -4534,9 +4551,9 @@ def _groups(*cols):
     return inv.reshape(-1), uniq
 
 
-def window_api_phase(dev, n_generic=1 << 19, n_keys=1_000_000,
+def window_api_phase(dev, n_generic=1 << 18, n_keys=1_000_000,
                      n_prefix=1 << 16, n_scalar=1 << 16, n_fns=1 << 15,
-                     n_triggers=1 << 14, n_hll=1 << 16, hll_keys=10_000):
+                     n_triggers=1 << 14, n_hll=1 << 15, hll_keys=10_000):
     """The window API of slice 16 on the card: (1) a lifted Python
     aggregate on the generic tier at config #2's key space, against a
     numpy fold and, on a prefix, WindowOperator; (2) a scalar-mode
@@ -7364,6 +7381,334 @@ def datastream_api_phase(dev, n_events=1 << 18, n_keys=1_000_000,
     emit({"datastream_api": {"iterate": out["iterate"]}})
 
 
+# ---------------------------------------------------------------------
+# phase 23: the pre-flight analysis (graph linter, type-flow prover)
+# ---------------------------------------------------------------------
+
+_CHAIN_MAP2 = lambda t: (t[0], t[1] + 1)             # noqa: E731
+
+
+class _PresizeWatch:
+    """While installed: every ``grow_state`` call's new capacity, and per
+    DeviceWindowOperator the engine it built at its first flush (tier,
+    capacity, ``_predicted_slots``, ``initial_capacity``)."""
+
+    def __init__(self):
+        from flink_tpu_torch.ops.device_agg import DeviceAggregateFunction
+        from flink_tpu_torch.streaming.device_window_operator import \
+            DeviceWindowOperator
+        self.grows, self.engines = [], []
+        self._targets = ((DeviceAggregateFunction, "grow_state"),
+                         (DeviceWindowOperator, "_ensure_engine"))
+        self._saved = [getattr(c, n) for c, n in self._targets]
+
+    def __enter__(self):
+        real_grow, real_ensure = self._saved
+        grows, engines = self.grows, self.engines
+
+        def grow_state(agg, state, new_capacity):
+            grows.append(int(new_capacity))
+            return real_grow(agg, state, new_capacity)
+
+        def ensure_engine(op, keys_arr):
+            fresh = op.engine is None
+            real_ensure(op, keys_arr)
+            if fresh:
+                engines.append({
+                    "tier": type(op.engine).__name__,
+                    "capacity": getattr(op.engine, "capacity", None),
+                    "predicted_slots": getattr(op, "_predicted_slots", None),
+                    "initial_capacity": op.initial_capacity})
+
+        for (c, n), fn in zip(self._targets, (grow_state, ensure_engine)):
+            setattr(c, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (c, n), fn in zip(self._targets, self._saved):
+            setattr(c, n, fn)
+
+
+def _timed_preflight(env, into):
+    """Time ``env._preflight`` (the linter and, when armed, the prover
+    and apply_static) on its own."""
+    real = env._preflight
+
+    def preflight(job_name):
+        t0 = time.perf_counter()
+        try:
+            return real(job_name)
+        finally:
+            into.append(time.perf_counter() - t0)
+    env._preflight = preflight
+
+
+def _analysis_presize(dev, n_events, n_keys, p, n_sample):
+    """(a) config #2 on the scatter tier, the job run under
+    ``lint.types.mode`` warn and off."""
+    import torch
+    from flink_tpu_torch.core.config import Configuration
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.sources import CollectSink
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+
+    rng = np.random.default_rng(22)
+    users = rng.integers(0, n_keys, n_events)
+    visitors = rng.integers(0, 2 ** 62, n_events)
+    ts = np.sort(rng.integers(0, 1000, n_events))
+    t0 = time.perf_counter()
+    items = [((u >> 10, u & 1023, v), t) for u, v, t in
+             zip(users.tolist(), visitors.tolist(), ts.tolist())]
+    build_s = time.perf_counter() - t0
+    distinct = int(np.unique(users).size)
+    slot_bytes = 1 << p
+
+    def run(mode):
+        conf = Configuration().set("lint.types.mode", mode)
+        env = StreamExecutionEnvironment(conf, device=dev)
+        agg = HyperLogLogAggregate(p)
+        agg.extract_value = lambda e: e[2]
+        out = []
+        (env.from_collection(items, timestamped=True)
+            .key_by(lambda e: (e[0], e[1]))
+            .window(TumblingEventTimeWindows.of(1000))
+            .aggregate(agg, window_function=lambda k, w, v: [
+                ((int(k[0]) << 10) | int(k[1]), float(v[0]))])
+            .add_sink(CollectSink(out)))
+        preflight = []
+        _timed_preflight(env, preflight)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with _PresizeWatch() as watch:
+            t0 = time.perf_counter()
+            env.execute(f"analysis-presize-{mode}")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        dump = env.get_metric_registry().dump()
+        job = f"analysis-presize-{mode}"
+        row = {"mode": mode, "events": n_events, "seconds": secs,
+               "events_per_s": n_events / secs, "preflight_s": preflight[0],
+               "peak_bytes": int(peak), "grows": watch.grows,
+               "grow_count": len(watch.grows), "engines": watch.engines,
+               "lint_gauges": {k[len(job) + 1:]: v for k, v in dump.items()
+                               if k.startswith(f"{job}.lint.")},
+               "typeflow_gauges": {k[len(job) + 1:]: v for k, v in dump.items()
+                                   if k.startswith(f"{job}.typeflow.")}}
+        return dict(out), row, env
+
+    res_w, row_w, env_w = run("warn")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_o, row_o, env_o = run("off")
+    check(len(row_w["engines"]) == 1 and row_w["engines"][0]["tier"]
+          == "VectorizedTumblingWindows" and row_o["engines"][0]["tier"]
+          == "VectorizedTumblingWindows",
+          f"analysis (a): both runs on the scatter tier ({row_w['engines']}, "
+          f"{row_o['engines']})")
+    eng_w, eng_o = row_w["engines"][0], row_o["engines"][0]
+    check(eng_w["predicted_slots"] == distinct,
+          f"analysis (a): _predicted_slots {eng_w['predicted_slots']} equals "
+          f"np.unique of the keys ({distinct})")
+    check(eng_w["capacity"] == 1 << 20 and row_w["grow_count"] == 0,
+          f"analysis (a) warn: capacity {eng_w['capacity']} at the first flush "
+          f"(2^20) and no grow_state ({row_w['grows']})")
+    check(eng_o["predicted_slots"] is None and eng_o["capacity"] == 1 << 14
+          and row_o["grow_count"] >= 1,
+          f"analysis (a) off: capacity {eng_o['capacity']} at the first flush "
+          f"and {row_o['grow_count']} grows ({row_o['grows']})")
+    tf = env_w._last_typeflow
+    check(tf is not None and env_o._last_typeflow is None,
+          "analysis (a): the prover ran under warn only")
+    check(tf.summary()["predicted_state_bytes"] == distinct * slot_bytes,
+          f"analysis (a): typeflow.predicted_state_bytes "
+          f"{tf.summary()['predicted_state_bytes']} = {distinct} x {slot_bytes}")
+    check(row_w["typeflow_gauges"].get("typeflow.predicted_state_bytes")
+          == distinct * slot_bytes and "lint.errors" in row_w["lint_gauges"]
+          and "lint.errors" in row_o["lint_gauges"]
+          and not row_o["typeflow_gauges"],
+          "analysis (a): lint.* gauges in both jobs' registries, typeflow.* "
+          "in the warn job's")
+    check(len(res_w) == distinct and res_w == res_o,
+          f"analysis (a): {len(res_w)} per-key estimates bit-equal between "
+          f"warn and off")
+    uniq = np.unique(users)
+    sample = np.sort(rng.choice(uniq, n_sample, replace=False))
+    sel = np.isin(users, sample)
+    want = hll_reference(np.searchsorted(sample, users[sel]),
+                         splitmix64_np(visitors[sel]), len(sample), p)
+    got = np.array([res_w[int(u)] for u in sample])
+    check(allclose(got, want, rtol=1e-5, atol=hll_atol(1 << p)),
+          f"analysis (a): {n_sample} sampled keys within rtol 1e-5 (+ log "
+          f"slack) of numpy HLL")
+    del res_w, res_o, env_w, env_o, items
+    return {"events": n_events, "keys": n_keys, "distinct": distinct,
+            "p": p, "items_build_s": build_s, "warn": row_w, "off": row_o}
+
+
+def _analysis_fused(dev, n, n_keys):
+    """(b) the chain job's shape with a third stage, under warn and off."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.core.config import Configuration
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming import chain_fusion as cf
+    from flink_tpu_torch.streaming import operators as ops
+    from flink_tpu_torch.streaming.columnar import VectorizedCollectionSource
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.elements import RecordBatch
+    from flink_tpu_torch.streaming.sources import CollectSink
+    from flink_tpu_torch.streaming.windowing import Time
+    rng = np.random.default_rng(23)
+    keys = rng.integers(0, n_keys, n)
+    vals = rng.integers(0, 1 << 40, n)
+    ts = np.sort(rng.integers(0, 4000, n))
+    data = RecordBatch({"f0": keys, "f1": vals}, ts)
+
+    def run(mode):
+        conf = Configuration().set("lint.types.mode", mode)
+        env = StreamExecutionEnvironment(conf, device=dev)
+        agg = HyperLogLogAggregate(12)
+        agg.extract_value = lambda e: e[1]
+        sink = []
+        (env.add_source(VectorizedCollectionSource.from_batch(data, chunk=1 << 16))
+            .map(_CHAIN_MAP).filter(_CHAIN_FILTER).map(_CHAIN_MAP2)
+            .key_by(0).time_window(Time.milliseconds_of(1000))
+            .aggregate(agg, window_function=lambda k, w, v: [
+                (int(k), w.start, float(v[0]))])
+            .set_parallelism(4)
+            .add_sink(CollectSink(sink)))
+        # the last operator each node's factory built is the executor's
+        # (the linter builds one per node first)
+        built = {}
+        for nid, node in env.graph.nodes.items():
+            def record(_f=node.operator_factory, _nid=nid):
+                op = _f()
+                built[_nid] = op
+                return op
+            node.operator_factory = record
+        from flink_tpu_torch.analysis import typeflow as tfm
+        applied = {}
+        real_apply = tfm.apply_static
+
+        def apply_static(graph, report):
+            applied.update(real_apply(graph, report))
+            return applied
+        tfm.apply_static = apply_static
+        ops.KERNEL_STATS.reset()
+        cf.FUSION_STATS.reset()
+        preflight = []
+        _timed_preflight(env, preflight)
+        before = dict(K.LAUNCHES)
+        try:
+            t0 = time.perf_counter()
+            env.execute(f"analysis-chain-{mode}")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            tfm.apply_static = real_apply
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        by_op = {f"{env.graph.nodes[nid].name}#{nid}": op.columnar_decided_by
+                 for nid, op in sorted(built.items())
+                 if isinstance(op, (ops.StreamMap, ops.StreamFilter))}
+        return sorted(sink), {
+            "mode": mode, "seconds": secs, "events_per_s": n / secs,
+            "preflight_s": preflight[0], "apply_static": applied,
+            "kernel_stats": {"probes": ops.KERNEL_STATS.probes,
+                             "static_skips": ops.KERNEL_STATS.static_skips},
+            "decided_by": by_op,
+            "fused_batches": cf.FUSION_STATS.fused_batches,
+            "demotions": cf.FUSION_STATS.demotions,
+            "chain_route": launched["chain_route"],
+            "hll_log_finish": launched["hll_log_finish"]}
+
+    out_w, row_w = run("warn")
+    out_o, row_o = run("off")
+    check(row_w["apply_static"].get("kernels_proven") == 3,
+          f"analysis (b): apply_static proved 3 kernels ({row_w['apply_static']})")
+    check(out_w == out_o and len(out_w) > 0,
+          f"analysis (b): {len(out_w)} results equal under warn and off")
+    check(row_w["chain_route"] > 0 and row_o["chain_route"] > 0
+          and row_w["demotions"] == row_o["demotions"] == 0,
+          f"analysis (b): chain_route launched ({row_w['chain_route']}, "
+          f"{row_o['chain_route']}), no demotion")
+    return {"events": n, "keys": n_keys, "parallelism": 4,
+            "results": len(out_w), "warn": row_w, "off": row_o}
+
+
+def _analysis_strict(dev):
+    """(c) lint.mode strict refuses a job with an ERROR diagnostic before
+    anything reaches the card."""
+    import torch
+    from flink_tpu_torch import kernels as K
+    from flink_tpu_torch.analysis import JobValidationError
+    from flink_tpu_torch.core.config import Configuration
+    from flink_tpu_torch.ops.sketches import HyperLogLogAggregate
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.streaming.sources import CollectSink
+    from flink_tpu_torch.streaming.windowing import TumblingEventTimeWindows
+    env = StreamExecutionEnvironment(
+        Configuration().set("lint.mode", "strict"), device=dev)
+    agg = HyperLogLogAggregate(12)
+    agg.extract_value = lambda e: e[1]
+    (env.from_collection([((i % 97, i), i) for i in range(1 << 14)],
+                         timestamped=True)
+        .key_by(lambda e: [e[0]])                   # FT101: unhashable
+        .window(TumblingEventTimeWindows.of(1000))
+        .aggregate(agg)
+        .add_sink(CollectSink()))
+    torch.cuda.synchronize()
+    launches0, mem0 = dict(K.LAUNCHES), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        env.execute("analysis-strict")
+        refused, codes = False, []
+    except JobValidationError as e:
+        refused, codes = True, e.report.codes()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(refused and "FT101" in codes,
+          f"analysis (c): strict refused the job ({codes})")
+    check(dict(K.LAUNCHES) == launches0
+          and torch.cuda.memory_allocated() == mem0
+          and env._last_executor is None,
+          "analysis (c): no launch, no allocation, no executor")
+    return {"refused": refused, "codes": codes, "seconds": secs}
+
+
+def analysis_phase(dev, n_events=1 << 20, n_keys=1_000_000, p=12,
+                   n_sample=4096, n_chain=1 << 18, chain_keys=1_000_000):
+    """The pre-flight analysis on the card: (a) config #2 (HLL p = 12,
+    one 1 s tumbling window, 2^20 events over a 1M-key space, pair keys
+    (u >> 10, u & 1023) so the device window operator takes the scatter
+    tier; a 1-D string or integer key is interned onto the log tier) from
+    a bounded ``from_collection`` that the prover reads ahead of time,
+    run under ``lint.types.mode`` warn and off: under warn the engine
+    starts at 2^20 slots (the distinct keys, rounded up to a power of
+    two, at most ``_MAX_PRESIZE_SLOTS``) and never grows, under off it
+    starts at 2^14 and doubles; the estimates bit-equal between the two
+    and within the HLL tolerance of numpy on 4,096 keys; events/s, the
+    peak device bytes and the pre-flight's seconds of each; (b) the
+    chain job's shape (2^18 config #2 rows, map -> filter -> map ->
+    key_by(0) to 4 HLL window subtasks, fused) under warn and off:
+    three kernels proven, equal results, chain_route launched, the
+    probe counters and each kernel operator's ``decided_by``; (c)
+    ``lint.mode`` strict refusing an FT101 job with no launch and no
+    allocation.  2^20 rows is ``_MAX_AOT_ROWS``: above it the prover
+    reads no keys and pre-sizes nothing."""
+    out = {"presize": _analysis_presize(dev, n_events, n_keys, p, n_sample)}
+    emit({"analysis": {"presize": out["presize"]}})
+    out["fused"] = _analysis_fused(dev, n_chain, chain_keys)
+    emit({"analysis": {"fused": out["fused"]}})
+    out["strict"] = _analysis_strict(dev)
+    emit({"analysis": {"strict": out["strict"]}})
+    return out
+
+
 PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")),
          ("jobs", "job_phase", ("hll_update", "hll_estimate", "scatter_combine",
                                 "clear_rows", "merge_rows", "quantile_update",
@@ -7406,7 +7751,10 @@ PATHS = (("engine", "engine_phase", ("hll_update", "hll_estimate", "clear_rows")
                                        "set_rows", "hll_log_finish")),
          ("datastream_api", "datastream_api_phase", ("hll_update", "hll_estimate",
                                                      "scatter_combine",
-                                                     "clear_rows", "set_rows")))
+                                                     "clear_rows", "set_rows")),
+         ("analysis", "analysis_phase", ("hll_update", "hll_estimate",
+                                         "clear_rows", "chain_route",
+                                         "hll_log_finish")))
 
 
 def main() -> int:
@@ -7452,8 +7800,22 @@ def main() -> int:
     t0 = time.perf_counter()
     graph_references_start(dev)
     seconds["graph_references_start"] = time.perf_counter() - t0
+    # every job's pre-flight (execute's lint gates), summed per path
+    from flink_tpu_torch.streaming.datastream import StreamExecutionEnvironment
+    real_preflight = StreamExecutionEnvironment._preflight
+    preflight = {}
+
+    def timed_preflight(env, job_name):
+        t = time.perf_counter()
+        try:
+            return real_preflight(env, job_name)
+        finally:
+            preflight[current] = preflight.get(current, 0.0) + \
+                time.perf_counter() - t
+    StreamExecutionEnvironment._preflight = timed_preflight
     try:
         for path, phase, needs in PATHS:
+            current = path
             t0 = time.perf_counter()
             K.reset_launch_counts()             # each main-path run starts here
             globals()[phase](dev)
@@ -7462,9 +7824,11 @@ def main() -> int:
             for kname in needs:
                 check(per_path[path][kname] > 0, f"{kname} launched on the {path} path")
     finally:
+        StreamExecutionEnvironment._preflight = real_preflight
         graph_references_stop()
     emit({"launches": per_path})
     emit({"seconds": seconds})
+    emit({"preflight_seconds": preflight})
     launches = {k: sum(p[k] for p in per_path.values()) for k in K.KERNELS}
     for kname in K.KERNELS:
         check(launches[kname] > 0, f"{kname} launched on the main path")

@@ -16,8 +16,11 @@ program on that path a hand-written CUDA kernel for sm_90a
 Rules the package keeps: it imports ``torch`` and ``numpy``, never
 ``jax`` and no module of ``flink_tpu``; entry points run on the card
 unless the caller passes ``device="cpu"`` (see ``device.py``).
+``python -m flink_tpu_torch`` is its command line (``cli.py``).
 """
 
 from flink_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]

@@ -512,6 +512,36 @@ def register_faulttolerance_gauges(metrics: MetricRegistry, job_name: str,
                 lambda: coordinator.consecutive_failures)
 
 
+def register_lint_gauges(metrics: MetricRegistry, job_name: str,
+                         report) -> None:
+    """Publish ``<job>.lint.*`` from a pre-flight ``Diagnostics`` report:
+    the severity counts and one gauge per FT code (``codes.<code>``).
+    A repeated execute() re-registers and the fresh values win."""
+    g = metrics.job_group(job_name).add_group("lint")
+    counts = report.counts()
+    g.gauge("errors", lambda c=counts.get("error", 0): c)
+    g.gauge("warnings", lambda c=counts.get("warning", 0): c)
+    g.gauge("infos", lambda c=counts.get("info", 0): c)
+    codes = g.add_group("codes")
+    for code in report.codes():
+        codes.gauge(code, lambda n=len(report.by_code(code)): n)
+
+
+def register_typeflow_gauges(metrics: MetricRegistry, job_name: str,
+                             typeflow) -> None:
+    """Publish ``<job>.typeflow.*`` from a ``TypeflowReport``: conclusive
+    edges, proven (probe-free) kernels, pickle-tier exchange edges and
+    the predicted device-state bytes, fixed at submission (the report
+    is made ahead of time); the operators' ``columnar.decided_by`` and
+    ``columnar.probes`` gauges tell what the run did."""
+    summary = typeflow.summary()
+    g = metrics.job_group(job_name).add_group("typeflow")
+    for key in ("edges_total", "edges_conclusive", "kernels_total",
+                "kernels_proven", "pickle_edges",
+                "predicted_state_bytes"):
+        g.gauge(key, lambda v=summary[key]: v)
+
+
 def register_state_gauges(metrics: MetricRegistry) -> None:
     """Publish the `state.*` gauge surface for a process: batch-ingest
     vs row-fallback row counts from `state.stats.STATE_STATS`, device

@@ -19,7 +19,9 @@ operator of the run; the chain head's batch dispatch and
 ``wants`` it.
 
 What fuses: ``StreamMap`` / ``StreamFilter`` whose UDF the liftability
-analyzer proves LIFTABLE and that have not locked onto the boxed path;
+analyzer proves LIFTABLE (or that the type-flow prover stamped
+``_static_kernel``: the analysis is not run again) and that have not
+locked onto the boxed path;
 when the run ends the chain and its one data route is a
 ``KeyGroupStreamPartitioner`` on a positional field to more than one
 channel, the key-group exchange too (route mode); a tumbling or sliding
@@ -64,9 +66,9 @@ the pane starts and ``chain_route``'s class starts, so its bytes are
 every device-to-host byte of the run.  The reference pads to the
 bucket, so its bytes differ.
 
-Not ported: the type-flow prover's static skip, ``attach`` mode (the
-reference's ``_execute`` never produces it) and the consumers of
-``fusion_report``.
+Not ported: ``attach`` mode (the reference's ``_execute`` never
+produces it).  ``fusion_report`` feeds the linter's FT184
+(``analysis/columnar_eligibility.py``).
 """
 
 from __future__ import annotations
@@ -154,9 +156,10 @@ def _kernel_stage(op) -> Optional[Tuple[str, Callable]]:
         return None
     if op._batch_kernel is False:
         return None
-    ok, _reason = _udf_liftable(op.user_function, op._KERNEL_ATTR)
-    if not ok:
-        return None
+    if not op._static_kernel:
+        ok, _reason = _udf_liftable(op.user_function, op._KERNEL_ATTR)
+        if not ok:
+            return None
     return kind, _kernel_fn(op.user_function, op._KERNEL_ATTR)
 
 
@@ -176,9 +179,10 @@ def _blocker_reason(op) -> str:
         if op._batch_kernel is False:
             return (op.columnar_fallback_reason
                     or "operator locked onto the boxed path")
-        ok, reason = _udf_liftable(op.user_function, op._KERNEL_ATTR)
-        if not ok:
-            return reason
+        if not op._static_kernel:
+            ok, reason = _udf_liftable(op.user_function, op._KERNEL_ATTR)
+            if not ok:
+                return reason
         return "fusable"
     wreason = _window_stage_reason(op)
     if wreason != "not a window operator":

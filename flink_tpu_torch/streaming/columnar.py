@@ -121,6 +121,10 @@ class VectorizedCollectionSource(SourceFunction):
     ``from_batch`` builds the same source from a ready batch (columns
     made in bulk, not from Python values)."""
 
+    #: read by ``analysis.columnar_eligibility``: the source's elements
+    #: are batches
+    emits_batches = True
+
     def __init__(self, values: Sequence, timestamped: bool = False,
                  chunk: int = 16384):
         values = list(values)

@@ -76,6 +76,13 @@ ordered_wait`` / ``unordered_wait`` run async I/O with a capacity and
 a timeout, and ``KeyedStream.as_queryable_state`` keeps a keyed state
 readable from other threads (``runtime/queryable.py``).
 
+``execute`` / ``execute_async`` first run the pre-flight analysis
+(``flink_tpu_torch/analysis``) under ``lint.mode`` (default ``warn``)
+and ``lint.types.mode`` (default ``off``): ``validate()`` runs it
+alone, ``<job>.lint.*`` and ``<job>.typeflow.*`` gauges publish it,
+and a ``strict`` gate with a finding raises ``JobValidationError``
+before any executor exists.
+
 ``enable_checkpointing`` turns on barrier checkpoints into the storage
 ``set_checkpoint_storage`` picks (``memory``, or ``filesystem`` with a
 directory); ``set_restart_strategy`` / ``set_failover_strategy``
@@ -172,6 +179,10 @@ class StreamExecutionEnvironment:
         #: sources emit a LatencyMarker this often (None: never)
         self.latency_tracking_interval: Optional[int] = None
         self._last_executor = None
+        #: the last pre-flight report (validate() / execute()) and its
+        #: type-flow report (None unless lint.types.mode armed it)
+        self._last_validation = None
+        self._last_typeflow = None
 
     @staticmethod
     def get_execution_environment(configuration: Optional[Configuration] = None,
@@ -361,18 +372,89 @@ class StreamExecutionEnvironment:
             sample_interval_ms=self.config.get_integer(
                 MetricOptions.SAMPLE_INTERVAL_MS),
             metrics_history_size=self.config.get_integer(
-                MetricOptions.HISTORY_SIZE,
-                MetricOptions.HISTORY_SIZE_DEFAULT))
+                MetricOptions.HISTORY_SIZE))
         return self._last_executor
 
+    # ---- pre-flight validation --------------------------------------
+    def validate(self, strict: bool = False, types: bool = False):
+        """Run the pre-flight static analysis (graph linter, UDF
+        liftability and, with ``types=True``, the column type-flow
+        prover) over the current topology without executing it.
+        Returns an ``analysis.Diagnostics`` report (its ``typeflow``
+        attribute holds the type-flow report); with ``strict=True``
+        raises ``analysis.JobValidationError`` when it has an ERROR."""
+        from flink_tpu_torch.analysis import JobValidationError, lint_graph
+        report = lint_graph(self.graph, config=self.config, env=self,
+                            types=types)
+        self._last_validation = report
+        if strict and report.has_errors():
+            raise JobValidationError(report)
+        return report
+
+    def _preflight(self, job_name: str):
+        """The lint gates of execute(): ``lint.mode`` (``off`` skips,
+        ``warn``, the default, logs errors and warnings, ``strict``
+        raises on an ERROR) and ``lint.types.mode`` (default ``off``;
+        ``warn`` runs the type-flow prover, logs FT185-FT188 and feeds
+        its conclusive verdicts into the runtime: probe-free kernels,
+        edge codec tiers, pre-sized device window state; ``strict``
+        also raises on any FT185-FT188).  Runs before the executor is
+        made, so a refused job allocates and launches nothing."""
+        from flink_tpu_torch.core.config import LintOptions, lint_mode_of
+        mode = lint_mode_of(self.config, LintOptions.MODE)
+        tmode = lint_mode_of(self.config, LintOptions.TYPES_MODE)
+        if mode == "off" and tmode == "off":
+            return None
+        self.graph.job_name = job_name
+        report = self.validate(strict=(mode == "strict"),
+                               types=(tmode != "off"))
+        typeflow = getattr(report, "typeflow", None)
+        self._last_typeflow = typeflow
+        if typeflow is not None:
+            from flink_tpu_torch.analysis.typeflow import apply_static
+            apply_static(self.graph, typeflow)
+            if tmode == "strict" and any(
+                    d.code in ("FT185", "FT186", "FT187", "FT188")
+                    for d in report):
+                from flink_tpu_torch.analysis import JobValidationError
+                raise JobValidationError(report)
+        if len(report):
+            report.log()
+        return report
+
+    def _publish_lint_metrics(self, report) -> None:
+        """``<job>.lint.*`` and ``<job>.typeflow.*`` on the new
+        executor's registry (best effort: never blocks submission)."""
+        if report is None or self._last_executor is None:
+            return
+        registry = getattr(self._last_executor, "metrics", None)
+        if registry is None:
+            return
+        from flink_tpu_torch.runtime.metrics import (register_lint_gauges,
+                                                     register_typeflow_gauges)
+        try:
+            register_lint_gauges(registry, self.graph.job_name, report)
+            typeflow = getattr(report, "typeflow", None)
+            if typeflow is not None:
+                register_typeflow_gauges(registry, self.graph.job_name,
+                                         typeflow)
+        except Exception:  # noqa: BLE001
+            pass
+
     def execute(self, job_name: str = "job"):
-        return self._make_executor(job_name).execute(self.get_job_graph())
+        report = self._preflight(job_name)
+        executor = self._make_executor(job_name)
+        self._publish_lint_metrics(report)
+        return executor.execute(self.get_job_graph())
 
     def execute_async(self, job_name: str = "job"):
         """Run the job on a thread of its own; returns its
         ``JobClient``.  No torch work may run on the caller's thread
         until the job ends (see ``LocalExecutor.execute_async``)."""
-        return self._make_executor(job_name).execute_async(self.get_job_graph())
+        report = self._preflight(job_name)
+        executor = self._make_executor(job_name)
+        self._publish_lint_metrics(report)
+        return executor.execute_async(self.get_job_graph())
 
 
 def _source_factory(source_function: SourceFunction,

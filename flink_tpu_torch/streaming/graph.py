@@ -1,5 +1,5 @@
 """StreamGraph → JobGraph translation with operator chaining (port of
-``flink_tpu/streaming/graph.py:24-285``, without the chain reports).
+``flink_tpu/streaming/graph.py:24-285``).
 
 A StreamNode carries an operator factory (a zero-arg callable returning
 a fresh operator), so each subtask gets its own instance.  Chains grow
@@ -53,6 +53,10 @@ class StreamEdge:
         #: never chained, left out of the topological order, and
         #: carrying neither barriers nor end of stream
         self.is_feedback = False
+        #: wire-codec tier the type-flow prover predicted for this
+        #: edge's elements ("col" | "pickle"), or None when the schema
+        #: was inconclusive
+        self.predicted_codec_tier = None
 
     def __repr__(self):
         return (f"StreamEdge({self.source_id}->{self.target_id} "
@@ -125,6 +129,11 @@ class JobEdge:
         #: which node inside the source chain emits this edge
         self.source_node_id = source_node_id
         self.is_feedback = is_feedback
+        #: carried over from the StreamEdge by create_job_graph.  The
+        #: reference's network channel reads it to skip a doomed columnar
+        #: encode; the port's executor moves elements by direct calls,
+        #: so nothing reads it until the port has a network channel
+        self.predicted_codec_tier = None
 
 
 class JobGraph:
@@ -162,18 +171,42 @@ class JobGraph:
         return order
 
 
+def chain_rejection_reasons(edge: StreamEdge,
+                            graph: StreamGraph) -> List[str]:
+    """Why this edge cannot be chained; empty means chainable.  The
+    chaining gate (:func:`is_chainable`) and the linter's FT130 share
+    it."""
+    up = graph.nodes[edge.source_id]
+    down = graph.nodes[edge.target_id]
+    reasons: List[str] = []
+    if not isinstance(edge.partitioner, ForwardPartitioner):
+        reasons.append(
+            f"partitioner is {type(edge.partitioner).__name__}, "
+            "not forward")
+    if edge.is_feedback:
+        reasons.append("iteration feedback edge")
+    if up.parallelism != down.parallelism:
+        reasons.append(
+            f"parallelism mismatch ({up.parallelism} -> "
+            f"{down.parallelism})")
+    if len(graph.in_edges(down.id)) != 1:
+        reasons.append(
+            f"downstream has {len(graph.in_edges(down.id))} inputs")
+    if down.chaining_strategy != "always":
+        reasons.append(
+            f"downstream chaining strategy is "
+            f"'{down.chaining_strategy}'")
+    if up.chaining_strategy == "never":
+        reasons.append("upstream chaining strategy is 'never'")
+    if edge.side_output_tag is not None:
+        reasons.append("side-output edge")
+    return reasons
+
+
 def is_chainable(edge: StreamEdge, graph: StreamGraph) -> bool:
     """Forward partitioner, main stream, same parallelism, single
     input, chaining allowed on both ends."""
-    up = graph.nodes[edge.source_id]
-    down = graph.nodes[edge.target_id]
-    return (isinstance(edge.partitioner, ForwardPartitioner)
-            and edge.side_output_tag is None
-            and not edge.is_feedback
-            and up.parallelism == down.parallelism
-            and len(graph.in_edges(down.id)) == 1
-            and down.chaining_strategy == "always"
-            and up.chaining_strategy != "never")
+    return not chain_rejection_reasons(edge, graph)
 
 
 def create_job_graph(stream_graph: StreamGraph) -> JobGraph:
@@ -214,8 +247,10 @@ def create_job_graph(stream_graph: StreamGraph) -> JobGraph:
     chained = {id(e) for v in jg.vertices.values() for e in v.chain_edges}
     for e in stream_graph.edges:
         if id(e) not in chained:
-            jg.edges.append(JobEdge(
+            je = JobEdge(
                 node_to_vertex[e.source_id], node_to_vertex[e.target_id],
                 e.partitioner, e.type_number, source_node_id=e.source_id,
-                side_output_tag=e.side_output_tag, is_feedback=e.is_feedback))
+                side_output_tag=e.side_output_tag, is_feedback=e.is_feedback)
+            je.predicted_codec_tier = e.predicted_codec_tier
+            jg.edges.append(je)
     return jg

@@ -41,9 +41,12 @@ the end of input wait until the requests ahead of them are out.
 analyzer proves LIFTABLE on whole numpy columns of a RecordBatch; the
 first batch is probed against the scalar UDF on its edge rows, and any
 exception, wrong shape or probe mismatch locks the operator onto the
-boxed per-record path.  The type-flow prover's static skip
-(``_static_kernel``) is a later slice; the device window operator is
-its own keyed state.
+boxed per-record path.  When the type-flow prover proved the kernel's
+whole dtype flow ahead of time (``analysis/typeflow.py``'s
+``apply_static`` stamps ``_static_kernel``), the probe is skipped and
+``columnar_decided_by`` records ``"static"``; the emit-side shape check
+stays armed.  ``KERNEL_STATS`` counts probes and static skips.  The
+device window operator is its own keyed state.
 """
 
 from __future__ import annotations
@@ -71,6 +74,23 @@ from flink_tpu_torch.streaming.timers import (InternalTimerService,
 
 log = logging.getLogger(__name__)
 
+
+class _KernelStats:
+    """Process-wide first-batch probe accounting of the map/filter
+    column kernels (the per-operator path only: a fused chain program
+    verifies with its numpy twin, ``chain_fusion.FUSION_STATS``)."""
+
+    __slots__ = ("probes", "static_skips")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.probes = 0
+        self.static_skips = 0
+
+
+KERNEL_STATS = _KernelStats()
 
 #: (operator class name, reason prefix) pairs already warned about
 _FALLBACK_WARNED = set()
@@ -520,12 +540,19 @@ def _udf_liftable(user_function, attr: str):
 class _ColumnKernelMixin:
     """Decide / probe / fall back, shared by StreamMap and StreamFilter.
     ``_batch_kernel`` is None (undecided), True (riding columns, probe
-    passed) or False (locked onto the boxed path)."""
+    passed or statically proven) or False (locked onto the boxed path).
+    ``_static_kernel`` (stamped by ``typeflow.apply_static``) skips the
+    liftability decision and the probe; ``_typeflow_verdict`` names the
+    prover's verdict in the fallback warning."""
 
     _batch_kernel = None
     _KERNEL_ATTR = ""
+    _static_kernel = False
+    _typeflow_verdict = None
 
     def _decide_kernel(self) -> bool:
+        if self._static_kernel:
+            return True
         ok, reason = _udf_liftable(self.user_function, self._KERNEL_ATTR)
         if not ok:
             self._batch_kernel = False
@@ -539,8 +566,11 @@ class _ColumnKernelMixin:
         key = (type(self).__name__, reason.split(":")[0])
         if key not in _FALLBACK_WARNED:
             _FALLBACK_WARNED.add(key)
-            log.warning("%s '%s' falls back to the boxed path: %s",
-                        type(self).__name__, self.operator_id, reason)
+            verdict = self._typeflow_verdict
+            log.warning("%s '%s' falls back to the boxed path: %s%s",
+                        type(self).__name__, self.operator_id, reason,
+                        f" (typeflow verdict was: {verdict})" if verdict
+                        else "")
         StreamOperator.process_batch(self, batch)
 
     def process_batch(self, batch):
@@ -558,16 +588,24 @@ class _ColumnKernelMixin:
             self._kernel_fallback(batch, f"kernel raised {e!r}")
             return
         if decided is None:
-            # first surviving batch: the vectorized result against the
-            # scalar UDF on the edge rows (LIFTABLE UDFs are pure, so
-            # replaying rows is safe)
-            self.kernel_probes += 1
-            err = self._probe(batch, fn, out, n)
-            if err is not None:
-                self._kernel_fallback(batch, err)
-                return
-            self._batch_kernel = True
-            self.columnar_decided_by = "probe"
+            if self._static_kernel:
+                # the prover certified the dtype flow ahead of time: no
+                # probe (the emit-side shape check still demotes)
+                self._batch_kernel = True
+                self.columnar_decided_by = "static"
+                KERNEL_STATS.static_skips += 1
+            else:
+                # first surviving batch: the vectorized result against
+                # the scalar UDF on the edge rows (LIFTABLE UDFs are
+                # pure, so replaying rows is safe)
+                self.kernel_probes += 1
+                KERNEL_STATS.probes += 1
+                err = self._probe(batch, fn, out, n)
+                if err is not None:
+                    self._kernel_fallback(batch, err)
+                    return
+                self._batch_kernel = True
+                self.columnar_decided_by = "probe"
         self._emit_kernel_result(batch, out, n)
 
 
@@ -644,6 +682,16 @@ class StreamSink(AbstractUdfStreamOperator):
     def process_element(self, record):
         self.user_function.invoke(record.value,
                                   SinkContext(record.timestamp, self))
+
+    def process_batch(self, batch):
+        """A sink function with ``invoke_batch`` takes the whole batch
+        in one call; other sinks box per row."""
+        fn = self.user_function
+        if hasattr(fn, "invoke_batch"):
+            self._note_columnar(len(batch))
+            fn.invoke_batch(batch)
+        else:
+            StreamOperator.process_batch(self, batch)
 
 
 class SinkContext:

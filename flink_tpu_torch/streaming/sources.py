@@ -349,6 +349,10 @@ class CollectSink(SinkFunction):
     def invoke(self, value, context=None):
         self.values.append(value)
 
+    def invoke_batch(self, batch) -> None:
+        """A batch in one call: its row values, in order."""
+        self.values.extend(batch.row_values())
+
     def accumulators(self):
         return {self.accumulator_name: list(self.values)}
 
